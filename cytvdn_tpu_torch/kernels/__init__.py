@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
+version. Sources live in ``cytvdn_tpu_torch/csrc``; ``build.py`` compiles
+them on first use. Nothing here builds or imports CUDA code at import
+time."""
+
+from cytvdn_tpu_torch.kernels.fused import (
+    fused_iteration,
+    fused_iteration_reference,
+    fused_supported,
+)
+
+__all__ = ["fused_iteration", "fused_iteration_reference", "fused_supported"]

@@ -1,0 +1,120 @@
+"""Build-on-first-use for the package's CUDA kernels.
+
+``nvcc`` compiles ``cytvdn_tpu_torch/csrc/*.cu`` into one shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers: a
+build takes seconds, not minutes). The library lands in
+``cytvdn_tpu_torch/_build/`` and is rebuilt when the hash of the sources,
+the flags or the compiler changes (the scheme of
+``cytvdn_tpu/cpp/build.py``). A missing ``nvcc`` or a failed build raises:
+there is no fallback to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Optional
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+_LIB = os.path.join(BUILD_DIR, "libcytvdn_cuda.so")
+_STAMP = _LIB + ".hash"
+LOG = os.path.join(BUILD_DIR, "build.log")
+
+FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # no FMA contraction: the kernel is held bitwise against PyTorch's
+    # separate multiply and add kernels
+    "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_LOCK = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+#: wall seconds of the last nvcc run in this process (0.0 if cached)
+build_seconds = 0.0
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(_SRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(_SRC_DIR, "*.cuh")))
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin); "
+                       "the CUDA kernels cannot be built")
+
+
+def _hash(nvcc: str) -> str:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(FLAGS).encode())
+    h.update(subprocess.run([nvcc, "--version"], capture_output=True,
+                            text=True, check=True).stdout.encode())
+    return h.hexdigest()
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name in ("tv_fused_iteration_f32", "tv_fused_iteration_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * 15 + [i] + [ll] * 4 + [i] * 5 + [vp]
+        fn.restype = i
+    lib.tv_error_string.argtypes = [i]
+    lib.tv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """Build the library if its sources changed, load it, bind it."""
+    global _lib, build_seconds
+    with _LOCK:
+        if _lib is not None:
+            return _lib
+        nvcc = nvcc_path()
+        want = _hash(nvcc)
+        have = None
+        if os.path.exists(_LIB) and os.path.exists(_STAMP):
+            with open(_STAMP) as f:
+                have = f.read().strip()
+        if have != want:
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{_LIB}.{os.getpid()}.tmp"
+            cmd = [nvcc, *FLAGS, "-o", tmp, *_sources()]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_seconds = time.perf_counter() - t0
+            with open(LOG, "w") as f:
+                f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+            os.replace(tmp, _LIB)
+            with open(_STAMP, "w") as f:
+                f.write(want)
+        _lib = _bind(ctypes.CDLL(_LIB))
+        return _lib
+
+
+def check(err: int) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = load().tv_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel launch failed: error {err} ({msg})")
