@@ -2,8 +2,8 @@
 
 Counterpart of ``cytvdn_tpu/config.py``: ``BCMode`` keeps the reference's
 integer convention, ``SolverOptions`` the same keyword surface and the same
-``__post_init__`` rejections. The TPU-only knobs are gone or pinned off
-until their kernels are ported (ROADMAP.md, Queue 2).
+``__post_init__`` rejections. The TPU-only knobs whose kernels are
+not ported yet raise (ROADMAP.md, Queue 2).
 """
 
 from __future__ import annotations
@@ -74,8 +74,9 @@ class SolverOptions:
     fista_restart: bool = False
     # Temporal blocking (two or K iterations per memory pass) and the
     # whole-run resident kernel are throughput choices, bit-identical to
-    # one iteration per pass; their kernels are still to be ported.
-    temporal_pairs: bool = False
+    # one iteration per pass. Pairs are on by default, as in cytvdn_tpu;
+    # the K-step and resident kernels are still to be ported.
+    temporal_pairs: bool = True
     temporal_kstep: bool = False
     vmem_resident: bool = False
     # bfloat16 storage of the FISTA shadow duals (lossy, opt-in).
@@ -92,8 +93,6 @@ class SolverOptions:
             raise ValueError(f"ndim must be 3 or 4, got {self.ndim}")
         if self.ndim == 3 and (self.isotropic_R or self.isotropic_Q):
             raise ValueError("half-isotropic mode is 4D-only (as in reference)")
-        if self.temporal_pairs:
-            raise _not_ported("temporal_pairs", "Queue 2 item 2")
         if self.temporal_kstep:
             raise _not_ported("temporal_kstep", "Queue 2 item 3")
         if self.vmem_resident:

@@ -8,5 +8,17 @@ from cytvdn_tpu_torch.kernels.fused import (
     fused_iteration_reference,
     fused_supported,
 )
+from cytvdn_tpu_torch.kernels.temporal import (
+    fused_pair_iteration,
+    fused_pair_iteration_reference,
+    pair_supported,
+)
 
-__all__ = ["fused_iteration", "fused_iteration_reference", "fused_supported"]
+__all__ = [
+    "fused_iteration",
+    "fused_iteration_reference",
+    "fused_supported",
+    "fused_pair_iteration",
+    "fused_pair_iteration_reference",
+    "pair_supported",
+]

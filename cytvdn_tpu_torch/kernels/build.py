@@ -1,8 +1,9 @@
 """Build-on-first-use for the package's CUDA kernels.
 
-``nvcc`` compiles ``cytvdn_tpu_torch/csrc/*.cu`` into one shared library
-with a plain C interface, loaded with ``ctypes`` (no PyTorch headers: a
-build takes seconds, not minutes). The library lands in
+``nvcc`` compiles each ``cytvdn_tpu_torch/csrc/*.cu`` into an object, all
+sources at once in parallel processes, and links the objects into one
+shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers: a build takes seconds, not minutes). The library lands in
 ``cytvdn_tpu_torch/_build/`` and is rebuilt when the hash of the sources,
 the flags or the compiler changes (the scheme of
 ``cytvdn_tpu/cpp/build.py``). A missing ``nvcc`` or a failed build raises:
@@ -30,10 +31,10 @@ LOG = os.path.join(BUILD_DIR, "build.log")
 
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # no FMA contraction: the kernel is held bitwise against PyTorch's
+    # no FMA contraction: the kernels are held bitwise against PyTorch's
     # separate multiply and add kernels
     "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _LOCK = threading.Lock()
@@ -43,8 +44,7 @@ build_seconds = 0.0
 
 
 def _sources():
-    return sorted(glob.glob(os.path.join(_SRC_DIR, "*.cu"))
-                  + glob.glob(os.path.join(_SRC_DIR, "*.cuh")))
+    return sorted(glob.glob(os.path.join(_SRC_DIR, "*.cu")))
 
 
 def nvcc_path() -> str:
@@ -61,7 +61,8 @@ def nvcc_path() -> str:
 
 def _hash(nvcc: str) -> str:
     h = hashlib.sha256()
-    for src in _sources():
+    headers = glob.glob(os.path.join(_SRC_DIR, "*.cuh"))
+    for src in sorted(_sources() + headers):
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -77,6 +78,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [vp] * 15 + [i] + [ll] * 4 + [i] * 5 + [vp]
         fn.restype = i
+    lib.tv_pair_iteration_f32.argtypes = \
+        [vp] * 16 + [i] + [ll] * 4 + [i] * 2 + [vp]
+    lib.tv_pair_iteration_f32.restype = i
+    lib.tv_pair_max_blocks.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.tv_pair_max_blocks.restype = i
     lib.tv_error_string.argtypes = [i]
     lib.tv_error_string.restype = ctypes.c_char_p
     return lib
@@ -97,15 +103,39 @@ def load() -> ctypes.CDLL:
         if have != want:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{_LIB}.{os.getpid()}.tmp"
-            cmd = [nvcc, *FLAGS, "-o", tmp, *_sources()]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            # one nvcc per source, all started together, then one link
+            steps = []
+            for src in _sources():
+                obj = f"{tmp}.{os.path.basename(src)}.o"
+                cmd = [nvcc, *FLAGS, "-c", "-o", obj, src]
+                steps.append((cmd, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            log, failed = [], []
+            for cmd, _, proc in steps:
+                out = proc.communicate()[0]
+                log.append(" ".join(cmd) + "\n" + out)
+                if proc.returncode != 0:
+                    failed.append(f"{cmd[-1]} (rc {proc.returncode}):\n"
+                                  f"{out[-4000:]}")
+            if not failed:
+                cmd = [nvcc, *FLAGS[:2], "-shared", "-o", tmp,
+                       *(o for _, o, _ in steps)]
+                proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                log.append(" ".join(cmd) + "\n" + proc.stdout)
+                if proc.returncode != 0:
+                    failed.append(f"link (rc {proc.returncode}):\n"
+                                  f"{proc.stdout[-4000:]}")
+            for _, obj, _ in steps:
+                if os.path.exists(obj):
+                    os.remove(obj)
             build_seconds = time.perf_counter() - t0
             with open(LOG, "w") as f:
-                f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+                f.write("\n".join(log))
+            if failed:
+                raise RuntimeError("nvcc failed: " + "\n".join(failed))
             os.replace(tmp, _LIB)
             with open(_STAMP, "w") as f:
                 f.write(want)

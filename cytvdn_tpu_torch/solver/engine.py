@@ -14,12 +14,18 @@ Python loop with the same semantics:
 - hybrid runs run FISTA first, then always the unaccelerated phase, which
   shares the accumulators, with the stop latch reset between the phases.
 
+- fixed-schedule Jia-Zhao float32 runs advance two iterations per launch
+  through the pair kernel (``_run_phase_paired``), and the one-iteration
+  loop finishes each phase's odd remainder; the state and traces are those
+  of the one-iteration loop.
+
 State lives in place: ``recon``, the accumulators and the shadow duals are
 allocated once and updated by every iteration (the JAX engine gets the same
 effect from buffer donation).
 
-Not here yet: chunked execution (``state``/``i_stop``/``keep_state``), the
-paired, K-step and resident phases, and sharded runs (ROADMAP.md).
+Not here yet: chunked execution (``state``/``i_stop``/``keep_state``),
+stop-aware pairing and the pair kernel's in-kernel SSE, the K-step and
+resident phases, and sharded runs (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -31,8 +37,9 @@ import numpy as np
 import torch
 
 from cytvdn_tpu_torch import ops
-from cytvdn_tpu_torch.config import Backend, SolverOptions
+from cytvdn_tpu_torch.config import Backend, BCMode, SolverOptions
 from cytvdn_tpu_torch.kernels.fused import fused_iteration, fused_iteration_reference
+from cytvdn_tpu_torch.kernels.temporal import fused_pair_iteration, pair_supported
 
 Tensor = torch.Tensor
 
@@ -131,6 +138,58 @@ def _run_phase(
         st.i = i + 1
 
 
+def _resolve_temporal(opts: SolverOptions, shape, dtype) -> bool:
+    """Whether the phases may run in pairs through the pair kernel, as
+    ``cytvdn_tpu``'s ``_resolve_temporal`` (``engine.py:488-543``) decides
+    on one device: ``temporal_pairs`` on, a backend other than ``TORCH``
+    (the JAX gate needs the fused kernel), no ``fista_restart``, no iso
+    pairs, Jia-Zhao, and :func:`pair_supported`.
+
+    Unlike the JAX gate, runs with ``stopping_relative_change`` or
+    ``calculate_mse`` are refused: stop-aware pairing and the pair kernel's
+    in-kernel SSE are not ported yet (ROADMAP.md), so those runs stay on
+    the exact one-iteration loop. Pairing changes no result: the state is
+    bitwise that of two one-iteration steps. (What :func:`pair_supported`
+    admits, the fused kernel covers too.)"""
+    if not opts.temporal_pairs or opts.backend == Backend.TORCH:
+        return False
+    if opts.fista_restart or opts.isotropic_R or opts.isotropic_Q:
+        return False
+    if opts.bc_mode != BCMode.JIA_ZHAO:
+        return False
+    if opts.stopping_relative_change is not None or opts.calculate_mse:
+        return False
+    return pair_supported(shape, dtype, opts.bc_mode)
+
+
+def _run_phase_paired(
+    fista: bool,
+    i_bound: int,
+    st: _PhaseState,
+    orig: Tensor,
+    tk_ratios: Tensor,
+    lambda_inv: Tensor,
+    lam_mu: Tensor,
+) -> None:
+    """Advance ``st`` two iterations per pair-kernel launch, for
+    ``floor((i_bound - i) / 2)`` pairs, recording both iterations' trace
+    entries as the one-iteration loop would (``cytvdn_tpu``'s
+    ``_run_phase_paired``, ``engine.py:897-1146``, without its stop-aware
+    blocks). The caller's :func:`_run_phase` finishes an odd remainder.
+    Nothing here waits for the device."""
+    while st.i + 2 <= i_bound:
+        i = st.i
+        rho1, rho2 = (tk_ratios[i], tk_ratios[i + 1]) if fista else (None, None)
+        _, _, _, bn1, dn1, dd1, bn2, dn2, dd2 = fused_pair_iteration(
+            orig, st.recon, st.accs, st.ds if fista else None, rho1, rho2,
+            lambda_inv, lam_mu, fista=fista)
+        st.b_norm[i] = bn1
+        st.b_norm[i + 1] = bn2
+        st.delta[i] = dn1 / dd1
+        st.delta[i + 1] = dn2 / dd2
+        st.i = i + 2
+
+
 def run_solver(
     orig: Tensor,
     lambda_inv: Tensor,
@@ -144,7 +203,9 @@ def run_solver(
     When both phase lengths are nonzero, the FISTA phase runs first and
     the unaccelerated phase *always* follows (even if FISTA stopped early),
     sharing the accumulators; trace entries of skipped iterations stay zero
-    (reference cyTVDN.py:100-108, 127-128, 195-201).
+    (reference cyTVDN.py:100-108, 127-128, 195-201). Where
+    :func:`_resolve_temporal` allows, each phase runs in pairs first and
+    the one-iteration loop finishes it (``engine.py:1515-1580``).
 
     Returns a dict with ``recon``, ``b_norm``, ``delta`` [, ``mse``] as
     tensors on the device, and ``iterations_run`` (int) and
@@ -177,7 +238,11 @@ def run_solver(
         mse=mse,
         tk=torch.ones((), dtype=torch.float32, device=device),
     )
+    paired = _resolve_temporal(opts, tuple(orig.shape), dtype)
     if n_f:
+        if paired:
+            _run_phase_paired(True, n_f, st, orig, tk_ratios, lambda_inv,
+                              lam_mu)
         _run_phase(True, n_f, st, orig, tk_ratios, lambda_inv, lam_mu, opts,
                    reference_data)
         st.ds = None  # the unaccelerated phase carries no shadow duals
@@ -187,6 +252,9 @@ def run_solver(
             st.i = max(st.i, n_f)
             st.done = False
     if n_u:
+        if paired:
+            _run_phase_paired(False, n_total, st, orig, tk_ratios, lambda_inv,
+                              lam_mu)
         _run_phase(False, n_total, st, orig, tk_ratios, lambda_inv, lam_mu,
                    opts, reference_data)
 

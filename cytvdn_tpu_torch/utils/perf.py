@@ -33,12 +33,20 @@ def traversals_per_iteration(ndim: int, fista: bool, backend: str) -> float:
       (read recon, rw n accs [, rw n ds]) then a reconstruction pass that
       reads the accumulators again (read orig, n accs; rw recon)
       →  5n+4 / 3n+4.
+    - the pair kernel (``kernels/temporal.py``) lies in a band:
+      ``pair_upper``, when no row of its wavefront survives in L2 between
+      the sub-stages that touch it, is the two-pass traffic; ``pair_floor``,
+      when every iteration-1 row is re-read from L2, is one pass of the
+      fused traffic per two iterations →  (4n+3)/2 / (2n+3)/2 (9.5 in 4D
+      FISTA; ``cytvdn_tpu``'s ``pair`` adds its seam bands to this).
     """
     n = ndim
     if backend == "fused":
         return (4 * n + 3) if fista else (2 * n + 3)
-    if backend == "two_pass":
+    if backend in ("two_pass", "pair_upper"):
         return (5 * n + 4) if fista else (3 * n + 4)
+    if backend == "pair_floor":
+        return ((4 * n + 3) if fista else (2 * n + 3)) / 2
     raise ValueError(backend)
 
 

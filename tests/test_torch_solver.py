@@ -163,13 +163,16 @@ def test_solver_options_rejections_match_jax():
             JOptions(**kw)
         with pytest.raises(ValueError):
             TOptions(**kw)
-    for knob in ("temporal_pairs", "temporal_kstep", "vmem_resident"):
+    base = dict(ndim=4, iterations_fista=1, iterations_unacc=0)
+    # pairs are on by default, as in cytvdn_tpu, and may be switched off
+    assert TOptions(**base).temporal_pairs is True
+    assert JOptions(**base).temporal_pairs is True
+    assert TOptions(**base, temporal_pairs=False).temporal_pairs is False
+    for knob in ("temporal_kstep", "vmem_resident"):
         # off by default; the kernels behind them are still to be ported
-        assert getattr(TOptions(ndim=4, iterations_fista=1,
-                                iterations_unacc=0), knob) is False
+        assert getattr(TOptions(**base), knob) is False
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TOptions(ndim=4, iterations_fista=1, iterations_unacc=0,
-                     **{knob: True})
+            TOptions(**base, **{knob: True})
 
 
 def test_check_memory_and_traffic_model():
@@ -188,6 +191,11 @@ def test_check_memory_and_traffic_model():
             assert traversals_per_iteration(nd, fista, "fused") == \
                 j_trav(nd, fista, "fused")
     assert traversals_per_iteration(4, True, "two_pass") == 24
+    # the pair kernel's band: two passes down to half the one-pass traffic
+    assert traversals_per_iteration(4, True, "pair_upper") == 24
+    assert traversals_per_iteration(4, True, "pair_floor") == 9.5
+    assert traversals_per_iteration(3, False, "pair_floor") == \
+        j_trav(3, False, "pair") - 1
     assert peak_bandwidth("NVIDIA H100 80GB HBM3") == 3.35e12
     assert peak_bandwidth("NVIDIA A100") is None
     assert model_seconds((10, 10, 10, 10), True, "two_pass", 1e9) == \
