@@ -8,7 +8,8 @@ non-zero — nothing is caught):
 
 0. device: name, ``nvidia-smi`` name and power limit, TF32 off;
 1. build: the CUDA kernels from ``cytvdn_tpu_torch/csrc`` with nvcc, one
-   process per source;
+   process per source, with the build time and each kernel
+   instantiation's registers and spills from ptxas;
 2. kernels vs plain: 3 iterations of the fused-iteration kernel against its
    plain PyTorch version on the same inputs — state bitwise equal, the
    three sums within rtol 1e-5 — for every boundary condition, FISTA and
@@ -22,15 +23,29 @@ non-zero — nothing is caught):
    bitwise equal (compared off the card); then ms per pair of the pair
    kernel, of two fused-iteration launches and of the plain pair at
    (128,128,64,64), (256,256,2048) and (256,256,128,128), and each CUDA
-   kernel's device time from ``torch.profiler`` at the last;
+   kernel's device time from ``torch.profiler`` at the last; two launches
+   of the K-step kernel (K = 3, 4, 6, 8) against its plain version, K
+   fused-iteration launches and (K even) K/2 pair launches (state bitwise
+   equal, sums within rtol 1e-5) at N0 = 2K and 2K+1 in 3D and 4D and on
+   ragged shapes, at forced grids of 1, 7 and all blocks with a grid one
+   larger refused, and one launch of every K against its plain version at
+   (256,256,2048); ms per launch and per iteration of every K, the pair
+   kernel, the fused-iteration kernel and the plain iteration at
+   (64,64,512) unaccelerated, (256,256,2048), (128,128,64,64) and
+   (256,256,128,128) FISTA (the four BASELINE shapes);
+   the ``torch.profiler`` split of all three kernels at (256,256,2048);
 3. main path: ``denoise4D`` on a 256×256×128×128 float32 cube (the
    BASELINE config-4 size), 20 FISTA iterations (10 pair launches, no
    fused-iteration launch) and 21 (10 + 1), with the launch counts, the
    peak device memory, and the iteration rate with pairs on and off;
-4. 3D paths, and hybrid 4D runs (without and with an early stop in the
-   second phase) against the plain backend on the card;
-5. one JSON line on the kernels, the card's name and power limit, and the
-   ``{"ok": true, ...}`` line last.
+4. 3D paths: ``denoise3D`` at (64,64,512) unaccelerated with the default
+   7500 iterations (K-step launches, then pairs), ``run_solver`` there and
+   at (256,256,2048) FISTA with the K-step kernel on and off, a hybrid 3D
+   run through all three kernels and hybrid 4D runs (without and with an
+   early stop in the second phase) against the plain backend on the card;
+5. one JSON line on the kernels (launches on the main path, error, ms,
+   the plain version's ms and the least time the card could take), the
+   card's name and power limit, and the ``{"ok": true, ...}`` line last.
 
 Needs one CUDA device; exits non-zero without one. Inputs are made from
 fixed seeds.
@@ -39,6 +54,7 @@ fixed seeds.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -50,13 +66,28 @@ from cytvdn_tpu_torch import denoise3D, denoise4D
 from cytvdn_tpu_torch.config import SolverOptions
 from cytvdn_tpu_torch.kernels import build
 from cytvdn_tpu_torch.kernels.fused import fused_iteration, fused_iteration_reference
+from cytvdn_tpu_torch.kernels.kstep import (
+    KSTEP_CANDIDATES,
+    fused_kstep_iteration,
+    fused_kstep_iteration_reference,
+)
+from cytvdn_tpu_torch.kernels.kstep import cooperative_grid as kstep_grid
 from cytvdn_tpu_torch.kernels.temporal import (
     cooperative_grid,
     fused_pair_iteration,
     fused_pair_iteration_reference,
 )
-from cytvdn_tpu_torch.solver.engine import run_solver
-from cytvdn_tpu_torch.utils.perf import model_seconds, peak_bandwidth
+from cytvdn_tpu_torch.solver.engine import (
+    _resolve_kstep,
+    _resolve_temporal,
+    run_solver,
+)
+from cytvdn_tpu_torch.utils.perf import (
+    launch_bound_seconds,
+    model_seconds,
+    peak_bandwidth,
+    peak_f32,
+)
 
 SEED = 0
 CFG4 = (256, 256, 128, 128)   # BASELINE.json config 4
@@ -68,6 +99,7 @@ ODD = (37, 45, 19, 23)        # ragged tile edges on every axis
 SMALL_N0 = [(n0, 9, 10, 33) for n0 in (4, 5, 6, 7)] \
     + [(n0, 13, 70) for n0 in (4, 5, 6, 7)]
 RHO2 = 0.41                   # the second momentum ratio of a pair
+KS = tuple(sorted(KSTEP_CANDIDATES))
 
 
 def log(msg: str) -> None:
@@ -226,43 +258,225 @@ def compare_offcard(shape, fista):
     return err, rel
 
 
-def profile_kernels(shape, iters=3):
+def ptxas_summary(log: str) -> str:
+    """Registers and spill stores/loads of every kernel instantiation, from
+    the build log's ``ptxas -v`` lines, as ``name<template args> R regs,
+    S/L spill``."""
+    rows, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"([a-z]+_kernel)I(.+?)EEv", m.group(1))
+            args = [a or b for a, b in
+                    re.findall(r"([fd])(?=L|E|$)|L[ib](\d+)", k.group(2))]
+            name = f"{k.group(1)}<{','.join(args)}>"
+            spill = ""
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            rows.append(f"{name} {m.group(1)} regs, spill {spill}")
+    return "; ".join(rows)
+
+
+def kstep_fn(step, orig, state, li, lm, rhos, k, fista, **kw):
+    """One call of a K-step function of depth ``k`` on ``state``, returning
+    its 3k sums (sum|b|, sum|dR|, sum|R| per level)."""
+    ndim = orig.dim()
+    accs = state[1:1 + ndim]
+    ds = state[1 + ndim:] if fista else None
+    return lambda: torch.stack(step(orig, state[0], accs, ds, rhos, li, lm,
+                                    k=k, fista=fista, **kw)[3:], 1).reshape(-1)
+
+
+def k1_steps(orig, recon, accs, ds, rhos, li, lm, *, k, fista):
+    """K launches of the fused-iteration kernel, shaped as a K-step call."""
+    sums = [torch.stack(fused_iteration(orig, recon, accs, ds,
+                                        rhos[t] if fista else None, li, lm,
+                                        fista=fista)[3:]) for t in range(k)]
+    return (recon, accs, ds, *torch.stack(sums).unbind(1))
+
+
+def pair_steps(orig, recon, accs, ds, rhos, li, lm, *, k, fista):
+    """K/2 launches of the pair kernel, shaped as a K-step call."""
+    sums = []
+    for t in range(0, k, 2):
+        r1, r2 = (rhos[t], rhos[t + 1]) if fista else (None, None)
+        out = fused_pair_iteration(orig, recon, accs, ds, r1, r2, li, lm,
+                                   fista=fista)
+        sums += [torch.stack(out[3:6]), torch.stack(out[6:9])]
+    return (recon, accs, ds, *torch.stack(sums).unbind(1))
+
+
+def compare_kstep_case(shape, k, fista, grids=(None,), launches=2,
+                       plain_only=False):
+    """``launches`` launches of the K-step kernel of depth ``k`` (at each
+    forced grid of ``grids``; None is the full cooperative grid) against
+    its plain version and, unless ``plain_only``, K fused-iteration
+    launches and (K even) K/2 pair launches per launch, from the same
+    Jia-Zhao state with distinct momentum ratios: state bitwise equal, sums
+    within rtol 1e-5. Returns max |Δstate|."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    orig, state, li, lm, _ = random_state(shape, fista, torch.float32, gen,
+                                          jz=True)
+    rhos = torch.linspace(0.0, 0.6, launches * k, device="cuda")
+    steps = [lambda *a, g=g, **kw: fused_kstep_iteration(*a, grid=g, **kw)
+             for g in grids] + [fused_kstep_iteration_reference]
+    if not plain_only:
+        steps.append(k1_steps)
+        if k % 2 == 0:
+            steps.append(pair_steps)
+    results = []
+    for step in steps:
+        s = [x.clone() for x in state]
+        sums = torch.cat([kstep_fn(step, orig, s, li, lm, rhos[i:i + k], k,
+                                   fista)()
+                          for i in range(0, launches * k, k)]).double()
+        torch.cuda.synchronize()
+        results.append((s, sums.cpu()))
+        del s
+    del orig, state
+    ks, ksum = results[0]
+    err = 0.0
+    for ps, psum in results[1:]:
+        err = max(err, max((a - b).abs().max().item() for a, b in zip(ks, ps)))
+        require(all(torch.equal(a, b) for a, b in zip(ks, ps)),
+                f"K-step kernel state differs: shape {shape} K {k} fista "
+                f"{fista} grids {grids}: max |Δ| {err}")
+        rel = ((ksum - psum).abs() / psum.abs().clamp_min(1e-300)).max().item()
+        require(rel <= 1e-5, f"K-step sums differ by rtol {rel} at {shape} "
+                             f"K {k}")
+    del results
+    torch.cuda.empty_cache()
+    return err
+
+
+def refuses_oversized_grid(shape, k):
+    """A K-step launch one block above the cooperative grid raises."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    orig, state, li, lm, _ = random_state(shape, True, torch.float32, gen,
+                                          jz=True)
+    rhos = torch.full((k,), 0.37, device="cuda")
+    full = kstep_grid(torch.device("cuda"), len(shape), True, k)
+    try:
+        kstep_fn(fused_kstep_iteration, orig, state, li, lm, rhos, k, True,
+                 grid=full + 1)()
+    except RuntimeError as e:
+        require("launch failed" in str(e), f"unexpected error {e}")
+        return
+    raise AssertionError(f"a grid of {full + 1} blocks at K {k} was accepted")
+
+
+def time_kstep(shape, fista, n_kernel, n_plain):
+    """ms per launch of every K-step depth, of the pair kernel, of the
+    fused-iteration kernel and of one plain iteration, on one Jia-Zhao
+    state (momentum 0.37), in turns: plain, pair, K=1, every K up and down,
+    K=1, pair, plain. Returns {name: (ms per launch, iterations per
+    launch)} with the means of the two runs, and the raw runs."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    orig, state, li, lm, rho = random_state(shape, fista, torch.float32, gen,
+                                            jz=True)
+    ndim = len(shape)
+    accs = state[1:1 + ndim]
+    ds = state[1 + ndim:] if fista else None
+    rhos = torch.full((max(KS),), 0.37, device="cuda")
+    fns = {
+        "pair": (lambda: fused_pair_iteration(
+            orig, state[0], accs, ds, rho, rho, li, lm, fista=fista), 2),
+        "k1": (lambda: fused_iteration(
+            orig, state[0], accs, ds, rho, li, lm, fista=fista), 1),
+        "plain": (lambda: fused_iteration_reference(
+            orig, state[0], accs, ds, rho, li, lm, fista=fista), 1),
+    }
+    for k in KS:
+        fns[k] = (lambda k=k: fused_kstep_iteration(
+            orig, state[0], accs, ds, rhos[:k], li, lm, k=k, fista=fista), k)
+    order = ["plain", "pair", "k1", *KS, *reversed(KS), "k1", "pair", "plain"]
+    runs = []
+    for name in order:
+        fn, iters = fns[name]
+        n = n_plain if name == "plain" else max(1, round(n_kernel * 2 / iters))
+        runs.append((name, time_ms(fn, n)))
+    del orig, state, accs, ds, fns
+    torch.cuda.empty_cache()
+    per_iter = {"pair": 2, "k1": 1, "plain": 1, **{k: k for k in KS}}
+    mean = {name: (sum(t for n, t in runs if n == name) / 2, per_iter[name])
+            for name in per_iter}
+    return mean, [(str(n), round(t, 4)) for n, t in runs]
+
+
+def expected_launches(opts, shape):
+    """(K-step, pair, fused-iteration) launches ``run_solver`` makes for a
+    fixed schedule, from the engine's own gates: each phase runs
+    floor(n/K) K-step launches, then pairs, then the remainder."""
+    out = [0, 0, 0]
+    for n, fista in ((opts.iterations_fista, True),
+                     (opts.iterations_unacc, False)):
+        if not n:
+            continue
+        k = _resolve_kstep(opts, shape, torch.float32, fista)
+        nk = n // k if k else 0
+        rem = n - nk * k
+        pairs = rem // 2 if _resolve_temporal(opts, shape, torch.float32) else 0
+        out[0] += nk
+        out[1] += pairs
+        out[2] += rem - 2 * pairs
+    return tuple(out)
+
+
+def launch_counts():
+    return (fused_kstep_iteration.launches, fused_pair_iteration.launches,
+            fused_iteration.launches)
+
+
+def reset_counts():
+    fused_kstep_iteration.launches = 0
+    fused_pair_iteration.launches = 0
+    fused_iteration.launches = 0
+
+
+def profile_kernels(shape, iters=6, kstep=None):
     """Device ms per FISTA float32 iteration of each CUDA kernel, from
-    ``torch.profiler``'s ``key_averages()``, over ``iters`` pairs of
-    iterations run as two fused-iteration launches and then ``iters``
-    pair-kernel launches, and the bytes per second that the traffic
-    model's traversals imply: the dual pass 17 in 4D, the reconstruction
-    pass 7, the pair kernel the two-pass 24 per iteration (the top of its
-    band)."""
+    ``torch.profiler``'s ``key_averages()``, over ``iters`` iterations run
+    as fused-iteration launches, then as pair-kernel launches, then (with
+    ``kstep`` = K) as K-step launches, and the bytes per second that the
+    traffic model's traversals imply: the dual pass 4n+1 (17 in 4D), the
+    reconstruction pass n+3, the pair and K-step kernels the two-pass 5n+4
+    per iteration (the top of their bands)."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     orig, state, li, lm, rho = random_state(shape, True, torch.float32, gen,
                                             jz=True)
-    k1 = pair_fn(two_k1, orig, state, li, lm, rho, True)
-    pair = pair_fn(fused_pair_iteration, orig, state, li, lm, rho, True)
-    k1()
-    pair()
+    runs = [(pair_fn(two_k1, orig, state, li, lm, rho, True), iters // 2),
+            (pair_fn(fused_pair_iteration, orig, state, li, lm, rho, True),
+             iters // 2)]
+    if kstep:
+        rhos = torch.full((kstep,), 0.37, device="cuda")
+        runs.append((kstep_fn(fused_kstep_iteration, orig, state, li, lm,
+                              rhos, kstep, True), iters // kstep))
+    for fn, _ in runs:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            k1()
-        for _ in range(iters):
-            pair()
+        for fn, n in runs:
+            for _ in range(n):
+                fn()
         torch.cuda.synchronize()
-    del orig, state, k1, pair
+    del orig, state, runs
     torch.cuda.empty_cache()
     n = len(shape)
     nbytes = int(np.prod(shape)) * 4
     trav = {"dual_kernel": 4 * n + 1, "recon_kernel": n + 3,
-            "finalize_kernel": 0, "pair_kernel": 5 * n + 4}
+            "finalize_kernel": 0, "pair_kernel": 5 * n + 4,
+            "kstep_kernel": 5 * n + 4}
     rows = []
     for e in prof.key_averages():
         for key, t in trav.items():
             if key in e.key:
-                # per iteration: the K=1 kernels ran 2 * iters times, the
-                # pair kernel iters times for 2 * iters iterations
-                ms = e.device_time_total / 1e3 / (2 * iters)
+                # each kernel's launches covered ``iters`` iterations
+                ms = e.device_time_total / 1e3 / iters
                 rate = t * nbytes / (ms / 1e3) if t and ms > 0 else None
                 rows.append(f"{key} {ms:.3f} ms" + (
                     f" ({t} traversals, {rate / 1e12:.2f} TB/s)" if rate else ""))
@@ -362,10 +576,11 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()
     with open(build.LOG) as f:
-        regs = [ln.strip() for ln in f if "registers" in ln]
-    log(f"phase 1 build: nvcc {build.build_seconds:.2f} s, load "
-        f"{time.perf_counter() - t0:.2f} s; {len(regs)} kernels; "
-        f"ptxas: {' | '.join(regs)}")
+        ptxas = ptxas_summary(f.read())
+    log(f"phase 1 build: nvcc {build.build_seconds:.2f} s (one process per "
+        f"source, in parallel), load {time.perf_counter() - t0:.2f} s; "
+        f"{ptxas.count(';') + 1} kernel instantiations; ptxas "
+        f"(registers, spill stores/loads in bytes): {ptxas}")
 
     # phase 2: kernel vs plain on the card
     max_err = 0.0
@@ -433,6 +648,63 @@ def main() -> int:
     log(f"phase 2 torch.profiler device time per FISTA f32 iteration at "
         f"{CFG4}: {'; '.join(prof) or 'no device events seen'} [{smi}]")
 
+    # the K-step kernel: every depth against its plain version, K
+    # fused-iteration launches and K/2 pair launches, then at forced grids
+    t0 = time.perf_counter()
+    kstep_err = 0.0
+    n_kstep = 0
+    for k in KS:
+        for shape in ((2 * k, 9, 10, 33), (2 * k + 1, 9, 10, 33),
+                      (2 * k, 13, 70), (2 * k + 1, 13, 70), ODD):
+            for fista in (True, False):
+                kstep_err = max(kstep_err, compare_kstep_case(shape, k, fista))
+                n_kstep += 1
+    grids = {}
+    for k in KS:
+        for shape in (ODD, (2 * k + 1, 13, 70)):
+            full_k = kstep_grid(torch.device("cuda"), len(shape), True, k)
+            grids[(k, len(shape))] = full_k
+            kstep_err = max(kstep_err, compare_kstep_case(
+                shape, k, True, grids=(1, 7, full_k), plain_only=True))
+            refuses_oversized_grid(shape, k)
+    log(f"phase 2 K-step kernel vs plain, vs K fused-iteration launches and "
+        f"(K even) vs K/2 pair launches: {n_kstep} cases (K {KS}; N0 = 2K, "
+        f"2K+1 in 3D and 4D, {ODD}; FISTA and unaccelerated), 2 launches each, "
+        f"state bitwise equal (max |Δ| {kstep_err}), sums within rtol 1e-5; "
+        f"the same state at forced grids of 1, 7 and the full grid "
+        f"{ {f'K{k} {nd}D': g for (k, nd), g in grids.items()} } at {ODD} and "
+        f"(2K+1, 13, 70), a grid one block larger refused; "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for k in KS:
+        for fista in (True, False):
+            kstep_err = max(kstep_err, compare_kstep_case(
+                CFG2, k, fista, launches=1, plain_only=True))
+    log(f"phase 2 K-step kernel vs plain at {CFG2}: K {KS}, FISTA and "
+        f"unaccelerated, one launch each, state bitwise equal (max |Δ| "
+        f"{kstep_err}), sums within rtol 1e-5; {time.perf_counter() - t0:.1f} s")
+    ktimes = {}
+    for shape, fista, n_k, n_p in ((CFG1, False, 100, 20), (CFG2, True, 8, 2),
+                                   (CFG3, True, 8, 2), (CFG4, True, 2, 1)):
+        ktimes[shape], raw = time_kstep(shape, fista, n_k, n_p)
+        t = ktimes[shape]
+        per_launch = ", ".join(f"K={k} {t[k][0]:.4f} ms/launch "
+                               f"{t[k][0] / k:.4f} ms/it" for k in KS)
+        log(f"phase 2 K-step timing at {shape} "
+            f"{'FISTA' if fista else 'unaccelerated'} f32: {per_launch}; "
+            f"pair {t['pair'][0]:.4f} ms/launch {t['pair'][0] / 2:.4f} ms/it; "
+            f"fused-iteration {t['k1'][0]:.4f} ms/it; plain "
+            f"{t['plain'][0]:.4f} ms/it; so per K iterations "
+            + ", ".join(f"K={k}: K-step {t[k][0]:.4f}, K/2 pairs "
+                        f"{t['pair'][0] * k / 2:.4f}, K fused-iteration "
+                        f"{t['k1'][0] * k:.4f}, plain {t['plain'][0] * k:.4f} ms"
+                        for k in KS)
+            + f" (runs {raw}) [{smi}]")
+    kprof = profile_kernels(CFG2, iters=16, kstep=max(KS))
+    log(f"phase 2 torch.profiler device time per FISTA f32 iteration at "
+        f"{CFG2}, 16 iterations each as fused-iteration, pair and K={max(KS)} "
+        f"launches: {'; '.join(kprof) or 'no device events seen'} [{smi}]")
+
     # phase 3: the main path at full size
     rng = np.random.default_rng(SEED)
     cube, scan, det, gen_s = piecewise_4d(CFG4, rng)
@@ -442,19 +714,20 @@ def main() -> int:
     counts = {}
     for iters in (20, 21):
         torch.cuda.reset_peak_memory_stats()
-        fused_iteration.launches = 0
-        fused_pair_iteration.launches = 0
+        want = expected_launches(SolverOptions(
+            ndim=4, iterations_fista=iters, iterations_unacc=0), CFG4)
+        reset_counts()
         t0 = time.perf_counter()
         recon, b_norm, delta = denoise4D(cube, mu, iterations=iters,
                                          FISTA=True, quiet=True, device="cuda")
         wall = time.perf_counter() - t0
-        counts[iters] = (fused_pair_iteration.launches, fused_iteration.launches)
+        counts[iters] = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         iterations_run = int(np.count_nonzero(delta))
-        require(counts[iters] == (iters // 2, iters % 2)
-                and iterations_run == iters,
-                f"x{iters}: (pair, fused-iteration) launches {counts[iters]}, "
-                f"iterations_run {iterations_run}")
+        require(counts[iters] == want and iterations_run == iters,
+                f"x{iters}: (K-step, pair, fused-iteration) launches "
+                f"{counts[iters]}, expected {want}, iterations_run "
+                f"{iterations_run}")
         require(recon.shape == CFG4 and recon.dtype == np.float32, "recon shape")
         require(bool(np.isfinite(recon).all()), "recon not finite")
         require(bool((b_norm > 0).all() and (delta > 0).all()),
@@ -467,8 +740,9 @@ def main() -> int:
         require(err_out < err_in, f"recon error {err_out} !< input {err_in}")
         del recon
         log(f"phase 3 main path: denoise4D {CFG4} FISTA x{iters} wall "
-            f"{wall:.3f} s (host copies included); launches: pair kernel "
-            f"{counts[iters][0]}, fused iteration {counts[iters][1]}; "
+            f"{wall:.3f} s (host copies included); launches: K-step kernel "
+            f"{counts[iters][0]}, pair kernel {counts[iters][1]}, fused "
+            f"iteration {counts[iters][2]}; "
             f"iterations_run {iterations_run}; peak device memory "
             f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}; mean "
             f"|recon-clean| {err_out:.4f} < |noisy-clean| {err_in:.4f}")
@@ -536,18 +810,93 @@ def main() -> int:
 
     cube1 = (np.random.default_rng(SEED + 2).standard_normal(CFG1, dtype=np.float32)
              * np.float32(0.3) + np.float32(2.0))
-    fused_iteration.launches = 0
-    fused_pair_iteration.launches = 0
+    mu3 = np.full(3, 1.0, np.float32)
+    want1 = expected_launches(SolverOptions(
+        ndim=3, iterations_fista=0, iterations_unacc=7500), CFG1)
+    k1_depth = _resolve_kstep(SolverOptions(
+        ndim=3, iterations_fista=0, iterations_unacc=7500), CFG1,
+        torch.float32, False)
+    require(k1_depth >= 3 and want1[0] == 7500 // k1_depth,
+            f"config 1 must run through the K-step kernel: {want1}")
+    reset_counts()
     t0 = time.perf_counter()
-    r1, b1, d1 = denoise3D(cube1, np.full(3, 1.0, np.float32), quiet=True,
-                           device="cuda")
+    r1, b1, d1 = denoise3D(cube1, mu3, quiet=True, device="cuda")
     s1 = time.perf_counter() - t0
-    require((fused_pair_iteration.launches, fused_iteration.launches)
-            == (3750, 0), "3750 pair launches and no other expected")
+    counts1 = launch_counts()
+    require(counts1 == want1, f"config 1 (K-step, pair, fused-iteration) "
+                              f"launches {counts1}, expected {want1}")
     require(bool(np.isfinite(r1).all() and (d1 > 0).all()), "cfg1 result")
-    log(f"phase 4 denoise3D {CFG1} unaccelerated, default 7500 iterations "
-        f"(3750 pair launches): {s1:.3f} s wall = {int(np.prod(CFG1)) * 7500 / s1 / 1e9:.3f} G "
-        f"voxel-updates/s (host loop included) [{smi}]")
+    log(f"phase 4 main path (K-step): denoise3D {CFG1} unaccelerated, default "
+        f"7500 iterations, K={k1_depth}: launches K-step {counts1[0]}, pair "
+        f"{counts1[1]}, fused iteration {counts1[2]}; {s1:.3f} s wall = "
+        f"{int(np.prod(CFG1)) * 7500 / s1 / 1e9:.3f} G voxel-updates/s (host "
+        f"copies and loop included) [{smi}]")
+    # the same schedule through run_solver on the card, K-step on and off
+    orig1 = torch.from_numpy(cube1).cuda()
+    li3 = torch.full((3,), 16.0, device="cuda")
+    lm3 = torch.full((3,), 1 / 16, device="cuda")
+
+    def solve_s(orig, li, lm, **kw):
+        opts = SolverOptions(ndim=3, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run_solver(orig, li, lm, opts)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1
+
+    ks1 = {True: [], False: []}
+    for on in (True, False, False, True):
+        ks1[on].append(solve_s(orig1, li3, lm3, iterations_fista=0,
+                               iterations_unacc=7500, temporal_kstep=on))
+    on_s = sum(ks1[True]) / 2
+    floor_s = model_seconds(CFG1, False, "kstep_floor", bw, k=k1_depth) * 7500 \
+        if bw else float("nan")
+    log(f"phase 4 run_solver {CFG1} unaccelerated x7500 on the card: K-step "
+        f"on {on_s:.4f} s ({floor_s / on_s:.4f} of the K={k1_depth} traffic "
+        f"floor of {9 / k1_depth} traversals per iteration at {bw} B/s), off "
+        f"(pairs) {sum(ks1[False]) / 2:.4f} s (runs on "
+        f"{[round(x, 4) for x in ks1[True]]}, off "
+        f"{[round(x, 4) for x in ks1[False]]}) [{smi}]")
+    del orig1
+    # config 2 FISTA x24: the K-step kernel at K=8, forced, against pairs
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    orig2 = torch.randn(CFG2, generator=gen, device="cuda") * 0.5 + 2.0
+    ks2 = {True: [], False: []}
+    c2 = {}
+    for on in (True, False, False, True):
+        kw = dict(iterations_fista=24, iterations_unacc=0)
+        kw.update(temporal_k=max(KS)) if on else kw.update(temporal_kstep=False)
+        reset_counts()
+        ks2[on].append(solve_s(orig2, li3, lm3, **kw))
+        c2[on] = launch_counts()
+        require(c2[on] == expected_launches(SolverOptions(ndim=3, **kw), CFG2),
+                f"config 2 x24 launches {c2[on]}")
+    del orig2
+    torch.cuda.empty_cache()
+    n2 = int(np.prod(CFG2)) * 24
+    log(f"phase 4 run_solver {CFG2} FISTA x24 on the card: K-step K={max(KS)} "
+        f"(launches K-step/pair/fused {c2[True]}) {sum(ks2[True]) / 2:.4f} s = "
+        f"{n2 / (sum(ks2[True]) / 2) / 1e9:.3f} G voxel-updates/s; K-step off "
+        f"({c2[False]}) {sum(ks2[False]) / 2:.4f} s = "
+        f"{n2 / (sum(ks2[False]) / 2) / 1e9:.3f} G (runs on "
+        f"{[round(x, 4) for x in ks2[True]]}, off "
+        f"{[round(x, 4) for x in ks2[False]]}) [{smi}]")
+    # a hybrid 3D run through all three kernels against the plain backend
+    kw = dict(iterations=(9, 7), quiet=True, device="cuda")
+    want_h = expected_launches(SolverOptions(
+        ndim=3, iterations_fista=9, iterations_unacc=7), CFG1)
+    reset_counts()
+    got = denoise3D(cube1, mu3, **kw)
+    counts_h = launch_counts()
+    require(counts_h == want_h and min(counts_h) > 0,
+            f"hybrid 3D launches {counts_h}, expected {want_h}")
+    ref = denoise3D(cube1, mu3, backend="torch", **kw)
+    require(np.array_equal(got[0], ref[0]), "hybrid 3D recon not bitwise equal")
+    np.testing.assert_allclose(got[1], ref[1], rtol=1e-5)
+    np.testing.assert_allclose(got[2], ref[2], rtol=1e-5)
+    log(f"phase 4 hybrid (9,7) {CFG1} kernels vs backend='torch' on the card: "
+        f"recon bitwise equal, traces within rtol 1e-5; launches K-step "
+        f"{counts_h[0]}, pair {counts_h[1]}, fused iteration {counts_h[2]}")
 
     for shape, iters in ((CFG1, 2000), (CFG3, 30)):
         t = [solver_ms(shape, iters, None), solver_ms(shape, iters, 1e-30),
@@ -564,11 +913,16 @@ def main() -> int:
     def hybrid(stop):
         kw = dict(iterations=(10, 10), stopping_relative_change=stop,
                   quiet=True, device="cuda")
-        fused_pair_iteration.launches = 0
+        reset_counts()
         got = denoise4D(cube3, mu4, **kw)
-        # pairs without a stop; stop-aware runs stay on the K=1 loop
-        require(fused_pair_iteration.launches == (10 if stop is None else 0),
-                f"hybrid (stop {stop}): {fused_pair_iteration.launches} pairs")
+        # K-step launches and pairs as the gates say without a stop;
+        # stop-aware runs stay on the K=1 loop
+        want = expected_launches(SolverOptions(
+            ndim=4, iterations_fista=10, iterations_unacc=10), CFG3)[:2] \
+            if stop is None else (0, 0)
+        require(launch_counts()[:2] == want,
+                f"hybrid (stop {stop}): (K-step, pair) launches "
+                f"{launch_counts()[:2]}, expected {want}")
         want = denoise4D(cube3, mu4, backend="torch", **kw)
         require(np.array_equal(got[0], want[0]),
                 f"hybrid recon not bitwise equal (stop {stop})")
@@ -579,6 +933,7 @@ def main() -> int:
         return got[2]
 
     d = hybrid(None)
+    hyb4 = launch_counts()
     require(bool((d > 0).all()), "hybrid trace not positive over 20 entries")
     # a threshold no iteration before the 16th crosses: the second phase,
     # with the accumulators FISTA left, runs at least 6 iterations and stops.
@@ -599,31 +954,48 @@ def main() -> int:
     np.testing.assert_allclose(ds[:n_run], d[:n_run], rtol=1e-5)
     log(f"phase 4 hybrid (10,10) {CFG3} kernels vs backend='torch' on the "
         f"card: recon bitwise equal, traces within rtol 1e-5, without a stop "
-        f"(10 pair launches, 20 iterations, delta {d[0]:.3e} .. "
+        f"(launches K-step/pair/fused {hyb4}, 20 iterations, delta "
+        f"{d[0]:.3e} .. "
         f"{d[9]:.3e} | {d[10]:.3e} .. {d[19]:.3e}) and with stop {thr:.6e} (both stop after {n_run} "
         f"iterations, {n_run - 10} of them unaccelerated)")
 
     # launches: each kernel's count in the main-path run that reaches it
-    # (x21: the odd iteration; x20: the pairs); ms at 256^2 x 128^2
+    # (x21: the odd iteration; x20: the pairs; config 1: the K-step); ms at
+    # the shape of that run; bound_ms: the least time the card could take
+    # for one launch of the same work (utils/perf.py)
+    f32 = peak_f32(name)
+    kd = k1_depth
+
+    def bound(shape, fista, iters):
+        if not (bw and f32):
+            return None, None
+        t, by = launch_bound_seconds(shape, fista, iters, bw, f32)
+        return t * 1e3, by
+
+    rows = [
+        ("fused_iteration", "fused_iteration.cu", "fused.py:872", counts[21][2],
+         max_err, k4, p4, bound(CFG4, True, 1)),
+        ("fused_pair_iteration", "temporal_pair.cu", "temporal.py:947",
+         counts[20][1], pair_err, times[CFG4]["pair"], times[CFG4]["plain"],
+         bound(CFG4, True, 2)),
+        ("fused_kstep_iteration", "temporal_kstep.cu", "kstep.py:395",
+         counts1[0], kstep_err, ktimes[CFG1][kd][0],
+         ktimes[CFG1]["plain"][0] * kd, bound(CFG1, False, kd)),
+    ]
     kernels = [{
-        "name": "fused_iteration",
+        "name": kname,
         "route": "cuda",
-        "source": "cytvdn_tpu_torch/csrc/fused_iteration.cu",
-        "replaces": "cytvdn_tpu/kernels/fused.py:872",
-        "launches": counts[21][1],
-        "max_abs_err": max_err,
-        "ms": k4,
-        "plain_ms": p4,
-    }, {
-        "name": "fused_pair_iteration",
-        "route": "cuda",
-        "source": "cytvdn_tpu_torch/csrc/temporal_pair.cu",
-        "replaces": "cytvdn_tpu/kernels/temporal.py:947",
-        "launches": counts[20][0],
-        "max_abs_err": pair_err,
-        "ms": times[CFG4]["pair"],
-        "plain_ms": times[CFG4]["plain"],
-    }]
+        "source": f"cytvdn_tpu_torch/csrc/{src}",
+        "replaces": f"cytvdn_tpu/kernels/{tpu}",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        # no single PyTorch call computes a TV iteration
+        "library_ms": None,
+    } for kname, src, tpu, launches, err, ms, plain_ms, (b_ms, b_by) in rows]
     log(f"total {time.perf_counter() - total_t0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line())

@@ -74,10 +74,13 @@ class SolverOptions:
     fista_restart: bool = False
     # Temporal blocking (two or K iterations per memory pass) and the
     # whole-run resident kernel are throughput choices, bit-identical to
-    # one iteration per pass. Pairs are on by default, as in cytvdn_tpu;
-    # the K-step and resident kernels are still to be ported.
+    # one iteration per pass. Pairs and the K-step kernel are on by
+    # default, as in cytvdn_tpu; ``temporal_k`` pins the K-step depth
+    # (None: the H100 rule of kernels/kstep.py::best_kstep). The resident
+    # kernel is still to be ported.
     temporal_pairs: bool = True
-    temporal_kstep: bool = False
+    temporal_kstep: bool = True
+    temporal_k: Optional[int] = None
     vmem_resident: bool = False
     # bfloat16 storage of the FISTA shadow duals (lossy, opt-in).
     lossy_duals: bool = False
@@ -93,8 +96,6 @@ class SolverOptions:
             raise ValueError(f"ndim must be 3 or 4, got {self.ndim}")
         if self.ndim == 3 and (self.isotropic_R or self.isotropic_Q):
             raise ValueError("half-isotropic mode is 4D-only (as in reference)")
-        if self.temporal_kstep:
-            raise _not_ported("temporal_kstep", "Queue 2 item 3")
         if self.vmem_resident:
             raise _not_ported("vmem_resident", "Queue 2 item 4")
         if self.lossy_duals:

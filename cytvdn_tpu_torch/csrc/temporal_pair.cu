@@ -58,8 +58,9 @@
 //   as R_1. Every load of the state goes through L2 (ld.global.cg); only
 //   orig, which nothing writes, is read through the read-only path. The
 //   grid barrier orders each stage's stores before the next stage's loads.
-// Deeper levels (the K-step kernel) follow the same pattern: dual-l three
-// rows behind dual-(l-1), recon-l two rows behind dual-l.
+// Deeper levels (csrc/temporal_kstep.cu) follow the same pattern: dual-l
+// three rows behind dual-(l-1), recon-l two rows behind dual-l. The element
+// functions and the stage layout live in wavefront.cuh, shared by both.
 //
 // Sums: each thread keeps six double accumulators over all stages; after the
 // last stage each block reduces them in a fixed order into per-block
@@ -78,13 +79,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wavefront.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TX = 32;
-constexpr int TY = 8;
-constexpr int NT = TX * TY;
 constexpr int LEVELS = 2;        // iterations per launch
 constexpr int OPS = 2 * LEVELS;  // row-operations per stage
 constexpr int SUMS = 3 * LEVELS;
@@ -105,83 +105,6 @@ struct PairArgs {
   int64_t tiles_m;   // tiles of TY along axis ndim-2
   int64_t tiles_l;   // tiles of TX along axis ndim-1
 };
-
-// Loads of the state bypass L1 (see the header).
-__device__ __forceinline__ float ld(const float* p) { return __ldcg(p); }
-
-// Jia-Zhao backward neighbour: a_{i-1}, or the element itself at index 0.
-__device__ __forceinline__ int64_t bwd(int64_t idx, int64_t c, int64_t s) {
-  return c > 0 ? idx - s : idx;
-}
-
-// Jia-Zhao forward neighbour: b_{i+1}, or b_0 (kept zero) at the last index.
-__device__ __forceinline__ int64_t fwd(int64_t idx, int64_t c, int64_t n,
-                                       int64_t s) {
-  return c < n - 1 ? idx + s : idx - (n - 1) * s;
-}
-
-// The row of row-operation `op` in stage `st`: dual-(l+1) (op 2l) at
-// st - 3l, recon-(l+1) (op 2l+1) two rows behind it.
-__device__ __forceinline__ int64_t op_row(int64_t st, int op) {
-  return st - 3 * (op / 2) - 2 * (op % 2);
-}
-
-// Fixed-order tree sum over the block; every thread gets the total.
-__device__ __forceinline__ double block_sum(double v, double* red) {
-  const int t = threadIdx.y * TX + threadIdx.x;
-  red[t] = v;
-  __syncthreads();
-  for (int h = NT / 2; h > 0; h >>= 1) {
-    if (t < h) red[t] += red[t + h];
-    __syncthreads();
-  }
-  const double total = red[0];
-  __syncthreads();
-  return total;
-}
-
-// Dual update of one element at level `lev`, as fused_iteration.cu's
-// dual_kernel does it for an anisotropic axis; returns sum_k |b_k|.
-template <int ND, bool FISTA>
-__device__ __forceinline__ double dual_elem(const PairArgs& a, int64_t idx,
-                                            const int64_t* c, const float* lam,
-                                            float rho) {
-  const float x = ld(a.recon + idx);
-  double acc = 0.0;
-#pragma unroll (ND == 4 ? 4 : 1)
-  for (int k = 0; k < ND; ++k) {
-    const float diff = x - ld(a.recon + bwd(idx, c[k], a.s[k]));
-    const float dn = fminf(fmaxf(diff + ld(a.b[k] + idx), -lam[k]), lam[k]);
-    float bn = dn;
-    if (FISTA) {
-      bn = dn + rho * (dn - ld(a.d[k] + idx));
-      a.d[k][idx] = dn;
-    }
-    a.b[k][idx] = bn;
-    acc += static_cast<double>(fabsf(bn));
-  }
-  return acc;
-}
-
-// Reconstruction update of one element, as fused_iteration.cu's
-// recon_kernel does it; adds |R_new - R_old| and |R_old| to the sums.
-template <int ND>
-__device__ __forceinline__ void recon_elem(const PairArgs& a, int64_t idx,
-                                           const int64_t* c, const float* lm,
-                                           double& dnum, double& dden) {
-  float div = 0.0f;
-#pragma unroll
-  for (int k = 0; k < ND; ++k) {
-    const float bk = ld(a.b[k] + idx);
-    const float bf = ld(a.b[k] + fwd(idx, c[k], a.n[k], a.s[k]));
-    div = div + lm[k] * (bk - bf);
-  }
-  const float rn = __ldg(a.orig + idx) - div;
-  const float ro = ld(a.recon + idx);
-  dnum += static_cast<double>(fabsf(rn - ro));
-  dden += static_cast<double>(fabsf(ro));
-  a.recon[idx] = rn;
-}
 
 template <int ND, bool FISTA>
 __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {

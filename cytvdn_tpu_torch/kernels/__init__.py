@@ -8,6 +8,13 @@ from cytvdn_tpu_torch.kernels.fused import (
     fused_iteration_reference,
     fused_supported,
 )
+from cytvdn_tpu_torch.kernels.kstep import (
+    KSTEP_CANDIDATES,
+    best_kstep,
+    fused_kstep_iteration,
+    fused_kstep_iteration_reference,
+    kstep_supported,
+)
 from cytvdn_tpu_torch.kernels.temporal import (
     fused_pair_iteration,
     fused_pair_iteration_reference,
@@ -21,4 +28,9 @@ __all__ = [
     "fused_pair_iteration",
     "fused_pair_iteration_reference",
     "pair_supported",
+    "KSTEP_CANDIDATES",
+    "best_kstep",
+    "fused_kstep_iteration",
+    "fused_kstep_iteration_reference",
+    "kstep_supported",
 ]

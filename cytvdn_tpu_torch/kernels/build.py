@@ -83,6 +83,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tv_pair_iteration_f32.restype = i
     lib.tv_pair_max_blocks.argtypes = [i, i, ctypes.POINTER(i)]
     lib.tv_pair_max_blocks.restype = i
+    lib.tv_kstep_iteration_f32.argtypes = \
+        [vp] * 15 + [i] + [ll] * 4 + [i] * 3 + [vp]
+    lib.tv_kstep_iteration_f32.restype = i
+    lib.tv_kstep_max_blocks.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.tv_kstep_max_blocks.restype = i
     lib.tv_error_string.argtypes = [i]
     lib.tv_error_string.restype = ctypes.c_char_p
     return lib

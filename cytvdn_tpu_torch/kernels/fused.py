@@ -139,6 +139,42 @@ def _check(t: Tensor, like: Tensor, name: str) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_state(orig: Tensor, recon: Tensor, accs, ds, fista: bool) -> None:
+    """The state a kernel updates in place: one accumulator (and one shadow
+    dual under FISTA) per axis, each like ``orig``."""
+    ndim = orig.dim()
+    if len(accs) != ndim or (fista and (ds is None or len(ds) != ndim)):
+        raise ValueError("need one accumulator (and one shadow dual under "
+                         "FISTA) per axis")
+    _check(orig, orig, "orig")
+    _check(recon, orig, "recon")
+    for k in range(ndim):
+        _check(accs[k], orig, f"accs[{k}]")
+        if fista:
+            # a bfloat16 d (lossy duals, ROADMAP.md Queue 1 item 7) fails here
+            _check(ds[k], orig, f"ds[{k}]")
+
+
+def _launch_args(orig: Tensor, accs, ds, scalars):
+    """Checks a CUDA launch's scalars (``(name, tensor, count)``: contiguous,
+    of the data's dtype, on its device) and returns the per-axis state
+    pointers padded to four axes (``ds`` None: no shadow duals), the
+    extents padded with 1 and the current stream."""
+    for name, t, n in scalars:
+        if t is None or t.device != orig.device or t.dtype != orig.dtype \
+                or t.numel() != n or not t.is_contiguous():
+            raise ValueError(f"{name}: expected {n} contiguous {orig.dtype} "
+                             f"value(s) on {orig.device}")
+
+    def pad4(xs):
+        return list(xs) + [None] * (4 - len(xs))
+
+    bs = pad4([a.data_ptr() for a in accs])
+    dd = pad4([d.data_ptr() for d in ds] if ds is not None else [])
+    dims = list(orig.shape) + [1] * (4 - orig.dim())
+    return bs, dd, dims, torch.cuda.current_stream(orig.device).cuda_stream
+
+
 def fused_iteration(
     orig: Tensor,
     recon: Tensor,
@@ -165,8 +201,9 @@ def fused_iteration(
 
     Returns ``(recon, accs, ds, bnorm, delta_num, recon_norm)`` — the state
     objects passed in, and the three sums as 0-d tensors of the data type.
-    ``fused_iteration.launches`` counts the kernel launches; the CPU path
-    does not count.
+    ``fused_iteration.launches`` counts the kernel launches;
+    ``fused_iteration.calls`` counts every call that passed the checks, on
+    the CPU too.
     """
     if halos is not None:
         raise NotImplementedError(
@@ -177,17 +214,9 @@ def fused_iteration(
         raise ValueError(
             f"fused_iteration does not cover shape {tuple(orig.shape)}, "
             f"dtype {orig.dtype}, bc {int(bc)}, iso ({iso_r}, {iso_q})")
-    if len(accs) != ndim or (fista and (ds is None or len(ds) != ndim)):
-        raise ValueError("need one accumulator (and one shadow dual under "
-                         "FISTA) per axis")
-    _check(orig, orig, "orig")
-    _check(recon, orig, "recon")
-    for k in range(ndim):
-        _check(accs[k], orig, f"accs[{k}]")
-        if fista:
-            # a bfloat16 d (lossy duals, ROADMAP.md Queue 1 item 7) fails here
-            _check(ds[k], orig, f"ds[{k}]")
+    _check_state(orig, recon, accs, ds, fista)
     if orig.device.type == "cpu":
+        fused_iteration.calls += 1
         return fused_iteration_reference(
             orig, recon, accs, ds, rho, lambda_inv, lam_mu,
             fista=fista, bc=bc, iso_r=iso_r, iso_q=iso_q)
@@ -197,11 +226,8 @@ def fused_iteration(
     scalars = [("lambda_inv", lambda_inv, ndim), ("lam_mu", lam_mu, ndim)]
     if fista:
         scalars.append(("rho", rho, 1))
-    for name, t, n in scalars:
-        if t is None or t.device != orig.device or t.dtype != orig.dtype \
-                or t.numel() != n or not t.is_contiguous():
-            raise ValueError(f"{name}: expected {n} contiguous {orig.dtype} "
-                             f"value(s) on {orig.device}")
+    bs, dd, dims, stream = _launch_args(orig, accs, ds if fista else None,
+                                        scalars)
     lib = build.load()
     fn = (lib.tv_fused_iteration_f32 if orig.dtype == torch.float32
           else lib.tv_fused_iteration_f64)
@@ -212,21 +238,16 @@ def fused_iteration(
     nblocks = min(work, MAX_BLOCKS)
     partials = torch.empty(3 * nblocks, dtype=torch.float64, device=orig.device)
     out = torch.empty(3, dtype=orig.dtype, device=orig.device)
-    def pad4(xs):
-        return list(xs) + [None] * (4 - len(xs))
-
-    bs = pad4([a.data_ptr() for a in accs])
-    dd = pad4([d.data_ptr() for d in ds] if fista else [])
-    dims = list(orig.shape) + [1] * (4 - ndim)
-    stream = torch.cuda.current_stream(orig.device).cuda_stream
     err = fn(orig.data_ptr(), recon.data_ptr(), *bs, *dd,
              lambda_inv.data_ptr(), lam_mu.data_ptr(),
              rho.data_ptr() if fista else None,
              partials.data_ptr(), out.data_ptr(), ndim, *dims,
              int(fista), int(bc), int(iso_r), int(iso_q), nblocks, stream)
     build.check(err)
+    fused_iteration.calls += 1
     fused_iteration.launches += 1
     return recon, accs, ds, out[0], out[1], out[2]
 
 
 fused_iteration.launches = 0
+fused_iteration.calls = 0

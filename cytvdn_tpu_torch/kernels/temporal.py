@@ -36,7 +36,8 @@ import torch
 from cytvdn_tpu_torch.config import BCMode
 from cytvdn_tpu_torch.kernels import build
 from cytvdn_tpu_torch.kernels.fused import (
-    _check,
+    _check_state,
+    _launch_args,
     _work_items,
     fused_iteration_reference,
 )
@@ -134,15 +135,7 @@ def fused_pair_iteration(
         raise ValueError(
             f"fused_pair_iteration does not cover shape {tuple(orig.shape)}, "
             f"dtype {orig.dtype} (float32, 3D/4D, N0 >= 4)")
-    if len(accs) != ndim or (fista and (ds is None or len(ds) != ndim)):
-        raise ValueError("need one accumulator (and one shadow dual under "
-                         "FISTA) per axis")
-    _check(orig, orig, "orig")
-    _check(recon, orig, "recon")
-    for k in range(ndim):
-        _check(accs[k], orig, f"accs[{k}]")
-        if fista:
-            _check(ds[k], orig, f"ds[{k}]")
+    _check_state(orig, recon, accs, ds, fista)
     if orig.device.type == "cpu":
         fused_pair_iteration.calls += 1
         return fused_pair_iteration_reference(
@@ -153,11 +146,8 @@ def fused_pair_iteration(
     scalars = [("lambda_inv", lambda_inv, ndim), ("lam_mu", lam_mu, ndim)]
     if fista:
         scalars += [("rho1", rho1, 1), ("rho2", rho2, 1)]
-    for name, t, n in scalars:
-        if t is None or t.device != orig.device or t.dtype != orig.dtype \
-                or t.numel() != n or not t.is_contiguous():
-            raise ValueError(f"{name}: expected {n} contiguous {orig.dtype} "
-                             f"value(s) on {orig.device}")
+    bs, dd, dims, stream = _launch_args(orig, accs, ds if fista else None,
+                                        scalars)
     # a stage's work items: four row operations of one axis-0 slab each
     work = 4 * _work_items(tuple(orig.shape)) // orig.shape[0]
     if work >= 2**31:
@@ -169,14 +159,6 @@ def fused_pair_iteration(
         orig.device, ndim, fista)
     partials = torch.empty(6 * nblocks, dtype=torch.float64, device=orig.device)
     out = torch.empty(6, dtype=orig.dtype, device=orig.device)
-
-    def pad4(xs):
-        return list(xs) + [None] * (4 - len(xs))
-
-    bs = pad4([a.data_ptr() for a in accs])
-    dd = pad4([d.data_ptr() for d in ds] if fista else [])
-    dims = list(orig.shape) + [1] * (4 - ndim)
-    stream = torch.cuda.current_stream(orig.device).cuda_stream
     err = lib.tv_pair_iteration_f32(
         orig.data_ptr(), recon.data_ptr(), *bs, *dd,
         lambda_inv.data_ptr(), lam_mu.data_ptr(),

@@ -14,18 +14,20 @@ Python loop with the same semantics:
 - hybrid runs run FISTA first, then always the unaccelerated phase, which
   shares the accumulators, with the stop latch reset between the phases.
 
-- fixed-schedule Jia-Zhao float32 runs advance two iterations per launch
-  through the pair kernel (``_run_phase_paired``), and the one-iteration
-  loop finishes each phase's odd remainder; the state and traces are those
-  of the one-iteration loop.
+- fixed-schedule Jia-Zhao float32 runs advance K iterations per launch
+  through the K-step kernel where ``_resolve_kstep`` picks a depth
+  (``_run_phase_kstep``), then two per launch through the pair kernel
+  (``_run_phase_paired``), and the one-iteration loop finishes each
+  phase's odd remainder; the state and traces are those of the
+  one-iteration loop.
 
 State lives in place: ``recon``, the accumulators and the shadow duals are
 allocated once and updated by every iteration (the JAX engine gets the same
 effect from buffer donation).
 
 Not here yet: chunked execution (``state``/``i_stop``/``keep_state``),
-stop-aware pairing and the pair kernel's in-kernel SSE, the K-step and
-resident phases, and sharded runs (ROADMAP.md).
+stop-aware pairing and K-stepping, the pair kernel's in-kernel SSE, the
+resident phase, and sharded runs (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 from cytvdn_tpu_torch import ops
 from cytvdn_tpu_torch.config import Backend, BCMode, SolverOptions
 from cytvdn_tpu_torch.kernels.fused import fused_iteration, fused_iteration_reference
+from cytvdn_tpu_torch.kernels.kstep import best_kstep, fused_kstep_iteration
 from cytvdn_tpu_torch.kernels.temporal import fused_pair_iteration, pair_supported
 
 Tensor = torch.Tensor
@@ -190,6 +193,46 @@ def _run_phase_paired(
         st.i = i + 2
 
 
+def _resolve_kstep(opts: SolverOptions, shape, dtype, fista: bool) -> int:
+    """The K-step depth of a phase, or 0 to leave it to the pairs, as
+    ``cytvdn_tpu``'s ``_resolve_kstep`` (``engine.py:546-570``) decides on
+    one device: ``temporal_kstep`` on, the pair gate
+    (:func:`_resolve_temporal`, which also refuses stop and MSE runs in
+    the port), and :func:`best_kstep` with ``temporal_k``. It depends on
+    the shape, dtype and options only, never on the device."""
+    if not opts.temporal_kstep or not _resolve_temporal(opts, shape, dtype):
+        return 0
+    return best_kstep(shape, dtype, opts.bc_mode, fista,
+                      forced=opts.temporal_k)
+
+
+def _run_phase_kstep(
+    fista: bool,
+    i_bound: int,
+    st: _PhaseState,
+    orig: Tensor,
+    tk_ratios: Tensor,
+    lambda_inv: Tensor,
+    lam_mu: Tensor,
+    k: int,
+) -> None:
+    """Advance ``st`` K iterations per K-step launch, for
+    ``floor((i_bound - i) / k)`` launches, recording the K trace entries
+    as the one-iteration loop would (``cytvdn_tpu``'s
+    ``_run_phase_kstep``, ``engine.py:573-667``, without its stop-aware
+    blocks). The pairs and the one-iteration loop finish the remainder.
+    Nothing here waits for the device."""
+    while st.i + k <= i_bound:
+        i = st.i
+        _, _, _, bn, dnum, dden = fused_kstep_iteration(
+            orig, st.recon, st.accs, st.ds if fista else None,
+            tk_ratios[i:i + k] if fista else None, lambda_inv, lam_mu,
+            k=k, fista=fista)
+        st.b_norm[i:i + k] = bn
+        st.delta[i:i + k] = dnum / dden
+        st.i = i + k
+
+
 def run_solver(
     orig: Tensor,
     lambda_inv: Tensor,
@@ -204,8 +247,9 @@ def run_solver(
     the unaccelerated phase *always* follows (even if FISTA stopped early),
     sharing the accumulators; trace entries of skipped iterations stay zero
     (reference cyTVDN.py:100-108, 127-128, 195-201). Where
-    :func:`_resolve_temporal` allows, each phase runs in pairs first and
-    the one-iteration loop finishes it (``engine.py:1515-1580``).
+    :func:`_resolve_kstep` picks a depth, each phase runs K-step launches
+    first; where :func:`_resolve_temporal` allows, pairs follow, and the
+    one-iteration loop finishes it (``engine.py:1515-1580``).
 
     Returns a dict with ``recon``, ``b_norm``, ``delta`` [, ``mse``] as
     tensors on the device, and ``iterations_run`` (int) and
@@ -238,8 +282,13 @@ def run_solver(
         mse=mse,
         tk=torch.ones((), dtype=torch.float32, device=device),
     )
-    paired = _resolve_temporal(opts, tuple(orig.shape), dtype)
+    shape = tuple(orig.shape)
+    paired = _resolve_temporal(opts, shape, dtype)
     if n_f:
+        k_f = _resolve_kstep(opts, shape, dtype, True)
+        if k_f:
+            _run_phase_kstep(True, n_f, st, orig, tk_ratios, lambda_inv,
+                             lam_mu, k_f)
         if paired:
             _run_phase_paired(True, n_f, st, orig, tk_ratios, lambda_inv,
                               lam_mu)
@@ -252,6 +301,10 @@ def run_solver(
             st.i = max(st.i, n_f)
             st.done = False
     if n_u:
+        k_u = _resolve_kstep(opts, shape, dtype, False)
+        if k_u:
+            _run_phase_kstep(False, n_total, st, orig, tk_ratios, lambda_inv,
+                             lam_mu, k_u)
         if paired:
             _run_phase_paired(False, n_total, st, orig, tk_ratios, lambda_inv,
                               lam_mu)

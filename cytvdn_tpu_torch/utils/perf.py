@@ -15,16 +15,32 @@ PEAK_BW = {
     "H100 80GB HBM3": 3.35e12,   # H100 SXM
 }
 
+#: published peak float32 rate outside the tensor cores (operations/s), by
+#: the same names
+PEAK_F32 = {
+    "H100 80GB HBM3": 67e12,
+}
 
-def peak_bandwidth(device_name: str) -> Optional[float]:
-    """Published peak bytes/s of a card by name, or None if unknown."""
-    for key, bw in PEAK_BW.items():
+
+def _lookup(table, device_name: str) -> Optional[float]:
+    for key, value in table.items():
         if key in device_name:
-            return bw
+            return value
     return None
 
 
-def traversals_per_iteration(ndim: int, fista: bool, backend: str) -> float:
+def peak_bandwidth(device_name: str) -> Optional[float]:
+    """Published peak bytes/s of a card by name, or None if unknown."""
+    return _lookup(PEAK_BW, device_name)
+
+
+def peak_f32(device_name: str) -> Optional[float]:
+    """Published peak float32 operations/s of a card by name, or None."""
+    return _lookup(PEAK_F32, device_name)
+
+
+def traversals_per_iteration(ndim: int, fista: bool, backend: str,
+                             k: int = 2) -> float:
     """Cube-size array read+write traversals per full TV iteration.
 
     - ``fused`` (one pass): reads orig, recon, n accs [, n ds]; writes
@@ -39,22 +55,65 @@ def traversals_per_iteration(ndim: int, fista: bool, backend: str) -> float:
       when every iteration-1 row is re-read from L2, is one pass of the
       fused traffic per two iterations →  (4n+3)/2 / (2n+3)/2 (9.5 in 4D
       FISTA; ``cytvdn_tpu``'s ``pair`` adds its seam bands to this).
+    - the K-step kernel (``kernels/kstep.py``, depth ``k``) lies in the same
+      band made K deep: ``kstep_upper``, when no row survives in L2, is the
+      two-pass traffic; ``kstep_floor``, one fused pass per K iterations,
+      is (4n+3)/K / (2n+3)/K.
     """
     n = ndim
+    one_pass = (4 * n + 3) if fista else (2 * n + 3)
     if backend == "fused":
-        return (4 * n + 3) if fista else (2 * n + 3)
-    if backend in ("two_pass", "pair_upper"):
+        return one_pass
+    if backend in ("two_pass", "pair_upper", "kstep_upper"):
         return (5 * n + 4) if fista else (3 * n + 4)
     if backend == "pair_floor":
-        return ((4 * n + 3) if fista else (2 * n + 3)) / 2
+        return one_pass / 2
+    if backend == "kstep_floor":
+        return one_pass / k
     raise ValueError(backend)
 
 
-def model_seconds(shape, fista: bool, backend: str, bandwidth: float,
-                  itemsize: int = 4) -> float:
-    """Least time per iteration the traffic model allows at ``bandwidth``."""
+def _voxels(shape) -> int:
     n_vox = 1
     for e in shape:
         n_vox *= e
-    trav = traversals_per_iteration(len(shape), fista, backend)
-    return trav * n_vox * itemsize / bandwidth
+    return n_vox
+
+
+def model_seconds(shape, fista: bool, backend: str, bandwidth: float,
+                  itemsize: int = 4, k: int = 2) -> float:
+    """Least time per iteration the traffic model allows at ``bandwidth``."""
+    trav = traversals_per_iteration(len(shape), fista, backend, k)
+    return trav * _voxels(shape) * itemsize / bandwidth
+
+
+def launch_bytes(shape, fista: bool, itemsize: int = 4) -> int:
+    """Bytes one launch of any of the port's kernels (one, two or K
+    iterations) must move: each input read once (orig, recon, n
+    accumulators [, n shadow duals]) and each output written once (recon,
+    n accumulators [, n shadow duals]), i.e. 4n+3 (FISTA) or 2n+3 cube
+    traversals."""
+    return traversals_per_iteration(len(shape), fista, "fused") \
+        * _voxels(shape) * itemsize
+
+
+def launch_operations(shape, fista: bool, iterations: int) -> int:
+    """Arithmetic operations of ``iterations`` TV iterations: per voxel and
+    axis the dual update (difference, add, max, min, abs, sum; FISTA adds
+    subtract, multiply, add) and the divergence (subtract, multiply, add),
+    then per voxel the reconstruction (subtract) and its two sums (subtract,
+    two abs, two adds)."""
+    n = len(shape)
+    per_voxel = n * ((9 if fista else 6) + 3) + 6
+    return per_voxel * _voxels(shape) * iterations
+
+
+def launch_bound_seconds(shape, fista: bool, iterations: int,
+                         bandwidth: float, flops: float):
+    """The least time one launch could take on a card with ``bandwidth``
+    bytes/s and ``flops`` operations/s: the larger of :func:`launch_bytes`
+    over the bandwidth and :func:`launch_operations` over the rate, and
+    which of the two it is (``"bytes"`` or ``"operations"``)."""
+    t_bytes = launch_bytes(shape, fista) / bandwidth
+    t_ops = launch_operations(shape, fista, iterations) / flops
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -1,8 +1,10 @@
 """The CUDA kernels of ``cytvdn_tpu_torch.kernels`` against their plain
 PyTorch versions, on the card: state bitwise equal, the sums within
 rtol 1e-5 (their summation order differs). The pair kernel is also held
-bitwise against two launches of the one-iteration kernel, and against
-itself at forced grid sizes (the race check of its in-place schedule).
+bitwise against two launches of the one-iteration kernel, the K-step
+kernel against K launches of it and (K even) K/2 pair launches, and both
+against themselves at forced grid sizes (the race check of their in-place
+schedules).
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -16,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from cytvdn_tpu_torch.kernels import fused as tfused  # noqa: E402
+from cytvdn_tpu_torch.kernels import kstep as tkstep  # noqa: E402
 from cytvdn_tpu_torch.kernels import temporal as ttemporal  # noqa: E402
 
 CASES = [
@@ -193,6 +196,114 @@ def test_pair_kernel_repeats_exactly():
     args = _jz_state((37, 45, 19, 23), True, seed=2)
     a = _pairs(ttemporal.fused_pair_iteration, *args, True)
     b = _pairs(ttemporal.fused_pair_iteration, *args, True)
+    assert torch.equal(a[1], b[1])
+    for x, y in zip(a[0], b[0]):
+        assert torch.equal(x, y)
+
+
+# K-step kernel: N0 = 2K and 2K+1 (stages where only some of the 2K row
+# operations have a row), 3D and 4D, and ragged tile edges on every axis
+KS = (3, 4, 6, 8)
+KSTEP_SHAPES = [(n0, 9, 10, 33) for n0 in ("2K", "2K+1")] \
+    + [(n0, 13, 70) for n0 in ("2K", "2K+1")] + [(37, 45, 19, 23)]
+
+
+def _at(shape, k):
+    n0 = {"2K": 2 * k, "2K+1": 2 * k + 1}.get(shape[0], shape[0])
+    return (n0,) + shape[1:]
+
+
+def _ksteps(step, orig, state, li, lm, k, fista, **kw):
+    """Two launches of ``step`` (a K-step function of depth ``k``) on a
+    copy of ``state`` with 2k distinct momentum ratios; returns the state
+    and the 6k sums."""
+    ndim = orig.dim()
+    s = [x.clone() for x in state]
+    d = s[1 + ndim:] if fista else None
+    rhos = torch.linspace(0.0, 0.6, 2 * k, device="cuda")
+    sums = []
+    for i in (0, k):
+        out = step(orig, s[0], s[1:1 + ndim], d, rhos[i:i + k], li, lm, k=k,
+                   fista=fista, **kw)
+        sums += list(torch.stack(out[3:], 1).reshape(-1))
+    torch.cuda.synchronize()
+    return s, torch.stack(sums).double().cpu()
+
+
+def _k1_launches(orig, recon, accs, ds, rhos, li, lm, k, fista):
+    """K launches of the one-iteration kernel, shaped as a K-step call."""
+    sums = [torch.stack(tfused.fused_iteration(
+        orig, recon, accs, ds, rhos[t] if fista else None, li, lm,
+        fista=fista)[3:]) for t in range(k)]
+    return (recon, accs, ds, *torch.stack(sums).unbind(1))
+
+
+def _pair_launches(orig, recon, accs, ds, rhos, li, lm, k, fista):
+    """K/2 launches of the pair kernel, shaped as a K-step call."""
+    sums = []
+    for t in range(0, k, 2):
+        r1, r2 = (rhos[t], rhos[t + 1]) if fista else (None, None)
+        out = ttemporal.fused_pair_iteration(orig, recon, accs, ds, r1, r2,
+                                             li, lm, fista=fista)
+        sums += [torch.stack(out[3:6]), torch.stack(out[6:9])]
+    return (recon, accs, ds, *torch.stack(sums).unbind(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fista", [True, False])
+@pytest.mark.parametrize("shape", KSTEP_SHAPES, ids=str)
+@pytest.mark.parametrize("k", KS)
+def test_kstep_kernel_bitwise_equals_plain_k1_and_pairs(k, shape, fista):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    shape = _at(shape, k)
+    orig, state, li, lm, _ = _jz_state(shape, fista)
+    args = (orig, state, li, lm, k, fista)
+    before = tkstep.fused_kstep_iteration.launches
+    ks, ksum = _ksteps(tkstep.fused_kstep_iteration, *args)
+    assert tkstep.fused_kstep_iteration.launches - before == 2
+    others = [_ksteps(tkstep.fused_kstep_iteration_reference, *args),
+              _ksteps(_k1_launches, *args)]
+    if k % 2 == 0:
+        others.append(_ksteps(_pair_launches, *args))
+    for s, sums in others:
+        for a, b in zip(ks, s):
+            assert torch.equal(a, b), (a - b).abs().max().item()
+        torch.testing.assert_close(ksum, sums, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 45, 19, 23), ("2K+1", 13, 70)],
+                         ids=str)
+@pytest.mark.parametrize("k", KS)
+def test_kstep_kernel_state_independent_of_grid(k, shape):
+    """The in-place schedule is race-free at every depth: one block, 7
+    blocks and the full cooperative grid of that depth give the same state
+    bitwise; a grid one block larger is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    shape = _at(shape, k)
+    orig, state, li, lm, _ = _jz_state(shape, True, seed=1)
+    full = tkstep.cooperative_grid(torch.device("cuda"), len(shape), True, k)
+    runs = [_ksteps(tkstep.fused_kstep_iteration, orig, state, li, lm, k,
+                    True, grid=g) for g in (1, 7, full)]
+    for s, sums in runs[1:]:
+        for a, b in zip(runs[0][0], s):
+            assert torch.equal(a, b), (a - b).abs().max().item()
+        torch.testing.assert_close(sums, runs[0][1], rtol=1e-5, atol=0)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _ksteps(tkstep.fused_kstep_iteration, orig, state, li, lm, k, True,
+                grid=full + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", KS)
+def test_kstep_kernel_repeats_exactly(k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    orig, state, li, lm, _ = _jz_state((37, 45, 19, 23), True, seed=2)
+    a = _ksteps(tkstep.fused_kstep_iteration, orig, state, li, lm, k, True)
+    b = _ksteps(tkstep.fused_kstep_iteration, orig, state, li, lm, k, True)
     assert torch.equal(a[1], b[1])
     for x, y in zip(a[0], b[0]):
         assert torch.equal(x, y)

@@ -168,11 +168,16 @@ def test_solver_options_rejections_match_jax():
     assert TOptions(**base).temporal_pairs is True
     assert JOptions(**base).temporal_pairs is True
     assert TOptions(**base, temporal_pairs=False).temporal_pairs is False
-    for knob in ("temporal_kstep", "vmem_resident"):
-        # off by default; the kernels behind them are still to be ported
-        assert getattr(TOptions(**base), knob) is False
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TOptions(**base, **{knob: True})
+    # the K-step kernel is on by default, as in cytvdn_tpu, with the depth
+    # left to the rule unless pinned
+    for opts in (TOptions(**base), JOptions(**base)):
+        assert opts.temporal_kstep is True and opts.temporal_k is None
+    assert TOptions(**base, temporal_kstep=False).temporal_kstep is False
+    assert TOptions(**base, temporal_k=4).temporal_k == 4
+    # off by default; the resident kernel is still to be ported
+    assert TOptions(**base).vmem_resident is False
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TOptions(**base, vmem_resident=True)
 
 
 def test_check_memory_and_traffic_model():

@@ -153,14 +153,15 @@ def test_pair_resumes_jax_engine_state():
 @pytest.mark.parametrize("iters", [(4, 0), (5, 0), (0, 6), (3, 4), (5, 3)])
 def test_solver_pairs_match_jax_paired_solver(iters):
     """Whole schedules (odd counts, hybrid) through both engines with pairs
-    on; each phase runs floor(n/2) pairs, and its odd remainder as one K=1
-    step (the iterations the pairs do not account for)."""
+    on and the K-step kernel off; each phase runs floor(n/2) pairs, and its
+    odd remainder as one K=1 step (the iterations the pairs do not account
+    for)."""
     shape = (7, 12, 6, 16)
     cube, _, _, _, _, _ = _state(shape, False, seed=3)
     li = np.full(4, 32.0, np.float32)
     lm = np.full(4, 1 / 32.0, np.float32)
     base = dict(ndim=4, iterations_fista=iters[0], iterations_unacc=iters[1],
-                temporal_pairs=True)
+                temporal_pairs=True, temporal_kstep=False)
     want = jengine.run_solver(jnp.asarray(cube), jnp.asarray(li),
                               jnp.asarray(lm),
                               JOptions(**base, backend=JBackend.PALLAS))
