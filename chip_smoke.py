@@ -34,18 +34,33 @@ non-zero — nothing is caught):
    (64,64,512) unaccelerated, (256,256,2048), (128,128,64,64) and
    (256,256,128,128) FISTA (the four BASELINE shapes);
    the ``torch.profiler`` split of all three kernels at (256,256,2048);
+   the whole-run kernel (T = 16 and 64 iterations per launch) against its
+   plain version and T fused-iteration launches (state bitwise equal, sums
+   within rtol 1e-5) for every boundary condition, FISTA, unaccelerated and
+   hybrid momentum, with and without a reference cube, iso pairs, at forced
+   grids of 1, 7 and all blocks with a grid one larger refused, and at
+   (64,64,512) T = 16 against 16 fused-iteration launches; its size sweep:
+   ms per iteration of the whole-run kernel, the K-step (or pair) kernel
+   and the fused-iteration kernel, and of ``run_solver`` with the
+   whole-run kernel on and off, at 64×64×N unaccelerated (N = 128 .. 4096)
+   and at (64,64,512) FISTA and with a reference cube;
 3. main path: ``denoise4D`` on a 256×256×128×128 float32 cube (the
    BASELINE config-4 size), 20 FISTA iterations (10 pair launches, no
    fused-iteration launch) and 21 (10 + 1), with the launch counts, the
    peak device memory, and the iteration rate with pairs on and off;
 4. 3D paths: ``denoise3D`` at (64,64,512) unaccelerated with the default
-   7500 iterations (K-step launches, then pairs), ``run_solver`` there and
-   at (256,256,2048) FISTA with the K-step kernel on and off, a hybrid 3D
-   run through all three kernels and hybrid 4D runs (without and with an
-   early stop in the second phase) against the plain backend on the card;
-5. one JSON line on the kernels (launches on the main path, error, ms,
-   the plain version's ms and the least time the card could take), the
-   card's name and power limit, and the ``{"ok": true, ...}`` line last.
+   7500 iterations (one whole-run launch), ``run_solver`` there with the
+   whole-run kernel, with the K-step kernel (whole-run off) and with pairs,
+   one 7500-iteration whole-run launch timed on the device, a stop-aware
+   run there (whole-run chunks) against the K=1 loop and the plain
+   backend, ``run_solver`` at (256,256,2048) FISTA with the K-step kernel on
+   and off, a hybrid 3D run through the K-step, pair and fused-iteration
+   kernels and hybrid 4D runs (without and with an early stop in the
+   second phase) against the plain backend on the card;
+5. one JSON line on the kernels (launches on the path that reaches each,
+   error, ms, the plain version's ms and the least time the card could
+   take), the card's name and power limit, and the ``{"ok": true, ...}``
+   line last.
 
 Needs one CUDA device; exits non-zero without one. Inputs are made from
 fixed seeds.
@@ -62,16 +77,24 @@ import time
 import numpy as np
 import torch
 
-from cytvdn_tpu_torch import denoise3D, denoise4D
+from cytvdn_tpu_torch import denoise3D, denoise4D, ops
 from cytvdn_tpu_torch.config import SolverOptions
 from cytvdn_tpu_torch.kernels import build
+from cytvdn_tpu_torch.kernels import resident as resident_mod
 from cytvdn_tpu_torch.kernels.fused import fused_iteration, fused_iteration_reference
 from cytvdn_tpu_torch.kernels.kstep import (
     KSTEP_CANDIDATES,
+    best_kstep,
     fused_kstep_iteration,
     fused_kstep_iteration_reference,
 )
 from cytvdn_tpu_torch.kernels.kstep import cooperative_grid as kstep_grid
+from cytvdn_tpu_torch.kernels.resident import (
+    resident_solve,
+    resident_solve_reference,
+    resident_state_bytes,
+)
+from cytvdn_tpu_torch.kernels.resident import cooperative_grid as res_grid
 from cytvdn_tpu_torch.kernels.temporal import (
     cooperative_grid,
     fused_pair_iteration,
@@ -79,6 +102,7 @@ from cytvdn_tpu_torch.kernels.temporal import (
 )
 from cytvdn_tpu_torch.solver.engine import (
     _resolve_kstep,
+    _resolve_resident,
     _resolve_temporal,
     run_solver,
 )
@@ -100,6 +124,14 @@ SMALL_N0 = [(n0, 9, 10, 33) for n0 in (4, 5, 6, 7)] \
     + [(n0, 13, 70) for n0 in (4, 5, 6, 7)]
 RHO2 = 0.41                   # the second momentum ratio of a pair
 KS = tuple(sorted(KSTEP_CANDIDATES))
+SHAPE3 = (13, 45, 70)         # a ragged 3D shape
+# the whole-run kernel's size sweep: unaccelerated 64x64xN from 10.5 to
+# 335 MB of state, config 1 FISTA (67.1 MB) and with a reference cube
+# (50.3 MB), and 4D FISTA at 10.5 and 168 MB
+SWEEP = [((64, 64, n), "unacc", False)
+         for n in (128, 256, 512, 768, 1024, 2048, 4096)] \
+    + [(CFG1, "fista", False), (CFG1, "unacc", True),
+       ((16, 16, 32, 32), "fista", False), ((32, 32, 64, 64), "fista", False)]
 
 
 def log(msg: str) -> None:
@@ -407,10 +439,14 @@ def time_kstep(shape, fista, n_kernel, n_plain):
 
 
 def expected_launches(opts, shape):
-    """(K-step, pair, fused-iteration) launches ``run_solver`` makes for a
-    fixed schedule, from the engine's own gates: each phase runs
+    """(whole-run, K-step, pair, fused-iteration) launches ``run_solver``
+    makes for a fixed schedule, from the engine's own gates: one whole-run
+    launch where ``_resolve_resident`` allows; else each phase runs
     floor(n/K) K-step launches, then pairs, then the remainder."""
-    out = [0, 0, 0]
+    if opts.iterations_fista + opts.iterations_unacc and \
+            _resolve_resident(opts, shape, torch.float32):
+        return (1, 0, 0, 0)
+    out = [0, 0, 0, 0]
     for n, fista in ((opts.iterations_fista, True),
                      (opts.iterations_unacc, False)):
         if not n:
@@ -419,21 +455,218 @@ def expected_launches(opts, shape):
         nk = n // k if k else 0
         rem = n - nk * k
         pairs = rem // 2 if _resolve_temporal(opts, shape, torch.float32) else 0
-        out[0] += nk
-        out[1] += pairs
-        out[2] += rem - 2 * pairs
+        out[1] += nk
+        out[2] += pairs
+        out[3] += rem - 2 * pairs
     return tuple(out)
 
 
 def launch_counts():
-    return (fused_kstep_iteration.launches, fused_pair_iteration.launches,
-            fused_iteration.launches)
+    """(whole-run, K-step, pair, fused-iteration) launches since the last
+    ``reset_counts``."""
+    return (resident_solve.launches, fused_kstep_iteration.launches,
+            fused_pair_iteration.launches, fused_iteration.launches)
 
 
 def reset_counts():
+    resident_solve.launches = 0
     fused_kstep_iteration.launches = 0
     fused_pair_iteration.launches = 0
     fused_iteration.launches = 0
+
+
+def res_state(shape, schedule, with_ref, n_iters, gen):
+    """A random state on the card (``random_state``), the momentum ratios of
+    ``schedule`` (None for "unacc"; "hybrid": the second half 0) and, with
+    ``with_ref``, a reference cube."""
+    fista = schedule != "unacc"
+    orig, state, li, lm, _ = random_state(shape, fista, torch.float32, gen)
+    ref = (torch.randn(shape, generator=gen, device="cuda") * 0.5 + 2.0
+           if with_ref else None)
+    rhos = None
+    if fista:
+        rhos = torch.linspace(0.1, 0.6, n_iters, device="cuda")
+        if schedule == "hybrid":
+            rhos[n_iters // 2:] = 0.0
+    return orig, state, li, lm, rhos, ref
+
+
+def res_fn(step, orig, state, li, lm, rhos, ref, n_iters, bc, iso, **kw):
+    """One call of a whole-run function on ``state``, returning its (3 or
+    4, n_iters) sums."""
+    ndim = orig.dim()
+    accs = state[1:1 + ndim]
+    ds = state[1 + ndim:] if rhos is not None else None
+    return lambda: torch.stack(step(
+        orig, state[0], accs, ds, rhos, li, lm, n_iters=n_iters,
+        fista=rhos is not None, bc=bc, ref=ref, iso_r=iso[0], iso_q=iso[1],
+        **kw)[3:])
+
+
+def k1_res_steps(orig, recon, accs, ds, rhos, li, lm, *, n_iters, fista, bc,
+                 ref, iso_r, iso_q):
+    """``n_iters`` launches of the fused-iteration kernel (and the SSE after
+    each), shaped as a whole-run call."""
+    sums = []
+    for t in range(n_iters):
+        row = list(fused_iteration(orig, recon, accs, ds,
+                                   rhos[t] if fista else None, li, lm,
+                                   fista=fista, bc=bc, iso_r=iso_r,
+                                   iso_q=iso_q)[3:])
+        if ref is not None:
+            row.append(ops.sum_square_error(ref, recon))
+        sums.append(torch.stack(row))
+    return (recon, accs, ds, *torch.stack(sums).unbind(1))
+
+
+def compare_resident_case(shape, bc, schedule, with_ref, n_iters,
+                          iso=(False, False), grids=(None,), k1=True):
+    """One whole-run launch of ``n_iters`` iterations (at each forced grid
+    of ``grids``; None is the full cooperative grid) against its plain
+    version and, with ``k1``, ``n_iters`` fused-iteration launches, from
+    the same random state: state bitwise equal, sums within rtol 1e-5.
+    Returns max |Δstate|."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    orig, state, li, lm, rhos, ref = res_state(shape, schedule, with_ref,
+                                               n_iters, gen)
+    steps = [lambda *a, g=g, **kw: resident_solve(*a, grid=g, **kw)
+             for g in grids] + [resident_solve_reference]
+    if k1:
+        steps.append(k1_res_steps)
+    results = []
+    for step in steps:
+        s = [x.clone() for x in state]
+        sums = res_fn(step, orig, s, li, lm, rhos, ref, n_iters, bc, iso)()
+        torch.cuda.synchronize()
+        results.append((s, sums.double().cpu()))
+        del s
+    ks, ksum = results[0]
+    err = 0.0
+    for ps, psum in results[1:]:
+        err = max(err, max((a - b).abs().max().item() for a, b in zip(ks, ps)))
+        require(all(torch.equal(a, b) for a, b in zip(ks, ps)),
+                f"whole-run kernel state differs: shape {shape} bc {bc} "
+                f"{schedule} ref {with_ref} iso {iso} T {n_iters} grids "
+                f"{grids}: max |Δ| {err}")
+        rel = ((ksum - psum).abs() / psum.abs().clamp_min(1e-300)).max().item()
+        require(rel <= 1e-5, f"whole-run sums differ by rtol {rel} at {shape} "
+                             f"bc {bc} {schedule} T {n_iters}")
+    del results, orig, state
+    torch.cuda.empty_cache()
+    return err
+
+
+def resident_refuses_oversized_grid(shape, schedule, with_ref,
+                                    iso=(False, False)):
+    """A whole-run launch one block above its cooperative grid raises;
+    returns the full grid."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    orig, state, li, lm, rhos, ref = res_state(shape, schedule, with_ref, 4,
+                                               gen)
+    full = res_grid(torch.device("cuda"), len(shape), rhos is not None,
+                    any(iso), with_ref)
+    try:
+        res_fn(resident_solve, orig, state, li, lm, rhos, ref, 4, 2, iso,
+               grid=full + 1)()
+    except RuntimeError as e:
+        require("launch failed" in str(e), f"unexpected error {e}")
+        return full
+    raise AssertionError(f"a whole-run grid of {full + 1} blocks was accepted")
+
+
+def time_resident_grids(shape, grids, n_iters=200):
+    """ms per iteration of the whole-run kernel (unaccelerated, launches of
+    ``n_iters`` iterations) on one state at each forced grid of ``grids``
+    (None: the full cooperative grid), in turns up and down; the mean of
+    the two runs of each."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    orig, state, li, lm, _ = random_state(shape, False, torch.float32, gen)
+    runs = []
+    for g in list(grids) + list(reversed(grids)):
+        runs.append((g, time_ms(lambda: resident_solve(
+            orig, state[0], state[1:], None, None, li, lm, n_iters=n_iters,
+            fista=False, bc=2, grid=g), 2) / n_iters))
+    del orig, state
+    torch.cuda.empty_cache()
+    return {g: sum(t for h, t in runs if h == g) / 2 for g in grids}
+
+
+def time_resident(shape, schedule, with_ref, n_iters):
+    """ms per iteration, on one Jia-Zhao state (momentum 0.37 under
+    FISTA), of: the whole-run kernel (launches of 200 iterations), the
+    K-step kernel at the depth the rule picks (the pair kernel where it
+    picks none), and back-to-back fused-iteration launches (each followed by
+    the SSE with a reference cube, as the engine's loop does), in turns:
+    whole-run, K-step, K=1, K=1, K-step, whole-run; then ``run_solver`` for
+    ``n_iters`` iterations with the whole-run kernel on and off (host clock,
+    the size rule lifted, after a short warm-up run of each), in turns on,
+    off, off, on. Returns ({name: ms per
+    iteration}, the temporal kernel's label, the raw runs)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    fista = schedule == "fista"
+    orig, state, li, lm, rho = random_state(shape, fista, torch.float32, gen,
+                                            jz=True)
+    ref = (torch.randn(shape, generator=gen, device="cuda") * 0.5 + 2.0
+           if with_ref else None)
+    ndim = len(shape)
+    accs = state[1:1 + ndim]
+    ds = state[1 + ndim:] if fista else None
+    t_res = 200
+    rhos = torch.full((t_res,), 0.37, device="cuda")
+    k = best_kstep(shape, torch.float32, 2, fista)
+
+    def k1():
+        fused_iteration(orig, state[0], accs, ds, rho, li, lm, fista=fista)
+        if ref is not None:
+            ops.sum_square_error(ref, state[0])
+
+    fns = {
+        "resident": (lambda: resident_solve(
+            orig, state[0], accs, ds, rhos if fista else None, li, lm,
+            n_iters=t_res, fista=fista, bc=2, ref=ref), t_res),
+        "k1": (k1, 1),
+        "temporal": ((lambda: fused_kstep_iteration(
+            orig, state[0], accs, ds, rhos[:k], li, lm, k=k, fista=fista), k)
+            if k else (lambda: fused_pair_iteration(
+                orig, state[0], accs, ds, rho, rho, li, lm, fista=fista), 2)),
+    }
+    runs = []
+    for name in ("resident", "temporal", "k1", "k1", "temporal", "resident"):
+        fn, iters = fns[name]
+        runs.append((name, time_ms(fn, max(1, 400 // iters)) / iters))
+    del fns
+    # end to end: the engine's choice with the whole-run kernel on and off
+    saved = resident_mod.RESIDENT_BYTES
+    resident_mod.RESIDENT_BYTES = 1 << 62
+    try:
+        for on in (True, False):  # warm-up: the allocator's first blocks
+            run_solver(orig, li, lm, SolverOptions(
+                ndim=ndim, iterations_fista=16 if fista else 0,
+                iterations_unacc=0 if fista else 16, calculate_mse=with_ref,
+                vmem_resident=on), ref)
+        for on in (True, False, False, True):
+            opts = SolverOptions(ndim=ndim, iterations_fista=n_iters if fista
+                                 else 0, iterations_unacc=0 if fista
+                                 else n_iters, calculate_mse=with_ref,
+                                 vmem_resident=on)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_solver(orig, li, lm, opts, ref)
+            torch.cuda.synchronize()
+            runs.append((f"solver_{'on' if on else 'off'}",
+                         (time.perf_counter() - t0) * 1e3 / n_iters))
+            require(launch_counts() == expected_launches(opts, shape),
+                    f"sweep {shape}: launches {launch_counts()}")
+    finally:
+        resident_mod.RESIDENT_BYTES = saved
+    del orig, state, accs, ds, ref
+    torch.cuda.empty_cache()
+    mean = {name: sum(t for n, t in runs if n == name) / 2
+            for name in ("resident", "temporal", "k1", "solver_on",
+                         "solver_off")}
+    label = f"K-step K={k}" if k else "pair"
+    return mean, label, [(n, round(t, 5)) for n, t in runs]
 
 
 def profile_kernels(shape, iters=6, kstep=None):
@@ -528,9 +761,11 @@ def solver_ms(shape, iters, stop):
     div = 32.0 if ndim == 4 else 16.0
     li = torch.full((ndim,), div, device="cuda")
     lm = torch.full((ndim,), 1 / div, device="cuda")
-    # the one-iteration loop in both runs: the stop check's own cost
+    # the one-iteration loop in both runs (the whole-run kernel and the
+    # pairs off): the stop check's own cost
     opts = SolverOptions(ndim=ndim, iterations_fista=0, iterations_unacc=iters,
-                         stopping_relative_change=stop, temporal_pairs=False)
+                         stopping_relative_change=stop, temporal_pairs=False,
+                         vmem_resident=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = run_solver(orig, li, lm, opts)
@@ -705,6 +940,69 @@ def main() -> int:
         f"{CFG2}, 16 iterations each as fused-iteration, pair and K={max(KS)} "
         f"launches: {'; '.join(kprof) or 'no device events seen'} [{smi}]")
 
+    # the whole-run kernel: against its plain version and T fused-iteration
+    # launches (T = 16 and 64), every BC, FISTA / unaccelerated / hybrid,
+    # with and without a reference cube, iso pairs; then forced grids
+    t0 = time.perf_counter()
+    res_err = 0.0
+    n_res = 0
+    for shape in (ODD, SHAPE3, CFG1):
+        for bc in (0, 1, 2):
+            for j, schedule in enumerate(("fista", "unacc", "hybrid")):
+                for n_iters in (16, 64):
+                    res_err = max(res_err, compare_resident_case(
+                        shape, bc, schedule, (bc + j) % 2 == 1, n_iters))
+                    n_res += 1
+    for iso in ((True, False), (False, True), (True, True)):
+        for j, schedule in enumerate(("fista", "unacc", "hybrid")):
+            res_err = max(res_err, compare_resident_case(
+                ODD, 2, schedule, j == 1, 16, iso=iso))
+            n_res += 1
+    res_grids = {}
+    for shape, schedule, with_ref, iso in (
+            (ODD, "hybrid", True, (False, False)),
+            (ODD, "fista", False, (True, True)),
+            (SHAPE3, "unacc", True, (False, False)),
+            (SHAPE3, "fista", False, (False, False))):
+        full_r = resident_refuses_oversized_grid(shape, schedule, with_ref,
+                                                 iso)
+        res_grids[f"{len(shape)}D {schedule}{' ref' if with_ref else ''}"
+                  f"{' iso' if any(iso) else ''}"] = full_r
+        res_err = max(res_err, compare_resident_case(
+            shape, 2, schedule, with_ref, 16, iso=iso, grids=(1, 7, full_r),
+            k1=False))
+    log(f"phase 2 whole-run kernel vs plain and vs T fused-iteration "
+        f"launches: {n_res} cases (T 16 and 64; {ODD}, {SHAPE3}, {CFG1}; BC "
+        f"0/1/2; FISTA, unaccelerated and hybrid momentum; with and without "
+        f"a reference cube; iso pairs at {ODD}), state bitwise equal (max "
+        f"|Δ| {res_err}), sums within rtol 1e-5; the same state at forced "
+        f"grids of 1, 7 and the full grid {res_grids}, a grid one block "
+        f"larger refused; {time.perf_counter() - t0:.1f} s")
+    res_err = max(res_err, compare_resident_case(CFG1, 2, "unacc", False, 16))
+    log(f"phase 2 whole-run kernel at {CFG1} unaccelerated, T = 16, vs 16 "
+        f"fused-iteration launches and 16 plain iterations: state bitwise "
+        f"equal (max |Δ| {res_err}), sums within rtol 1e-5")
+    sweep = {}
+    for shape, schedule, with_ref in SWEEP:
+        mean, label, raw = time_resident(shape, schedule, with_ref, 400)
+        sweep[(shape, schedule, with_ref)] = mean
+        mb = resident_state_bytes(shape, schedule == "fista", with_ref) / 1e6
+        log(f"phase 2 whole-run sweep {shape} {schedule}"
+            f"{' with ref' if with_ref else ''} ({mb:.1f} MB of state): ms per "
+            f"iteration whole-run {mean['resident']:.5f}, {label} "
+            f"{mean['temporal']:.5f}, fused-iteration "
+            f"{mean['k1']:.5f}{' (+ SSE)' if with_ref else ''}; run_solver "
+            f"x400 whole-run on {mean['solver_on']:.5f}, off "
+            f"{mean['solver_off']:.5f} ms per iteration (runs {raw}) [{smi}]")
+    full1 = res_grid(torch.device("cuda"), 3, False, False, False)
+    scale = time_resident_grids(CFG1, (66, 132, 264, 396, full1))
+    floor = time_resident_grids((2, 8, 32), (full1,))
+    log(f"phase 2 whole-run kernel at {CFG1} unaccelerated by forced grid "
+        f"(blocks: ms per iteration): "
+        f"{ {g: round(t, 5) for g, t in scale.items()} }; at (2, 8, 32) "
+        f"(one work item per phase, the barriers and the sums alone) "
+        f"{floor[full1]:.5f} ms per iteration with {full1} blocks [{smi}]")
+
     # phase 3: the main path at full size
     rng = np.random.default_rng(SEED)
     cube, scan, det, gen_s = piecewise_4d(CFG4, rng)
@@ -725,7 +1023,7 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated()
         iterations_run = int(np.count_nonzero(delta))
         require(counts[iters] == want and iterations_run == iters,
-                f"x{iters}: (K-step, pair, fused-iteration) launches "
+                f"x{iters}: (whole-run, K-step, pair, fused-iteration) launches "
                 f"{counts[iters]}, expected {want}, iterations_run "
                 f"{iterations_run}")
         require(recon.shape == CFG4 and recon.dtype == np.float32, "recon shape")
@@ -740,9 +1038,9 @@ def main() -> int:
         require(err_out < err_in, f"recon error {err_out} !< input {err_in}")
         del recon
         log(f"phase 3 main path: denoise4D {CFG4} FISTA x{iters} wall "
-            f"{wall:.3f} s (host copies included); launches: K-step kernel "
-            f"{counts[iters][0]}, pair kernel {counts[iters][1]}, fused "
-            f"iteration {counts[iters][2]}; "
+            f"{wall:.3f} s (host copies included); launches: whole-run "
+            f"{counts[iters][0]}, K-step kernel {counts[iters][1]}, pair kernel "
+            f"{counts[iters][2]}, fused iteration {counts[iters][3]}; "
             f"iterations_run {iterations_run}; peak device memory "
             f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}; mean "
             f"|recon-clean| {err_out:.4f} < |noisy-clean| {err_in:.4f}")
@@ -811,27 +1109,28 @@ def main() -> int:
     cube1 = (np.random.default_rng(SEED + 2).standard_normal(CFG1, dtype=np.float32)
              * np.float32(0.3) + np.float32(2.0))
     mu3 = np.full(3, 1.0, np.float32)
-    want1 = expected_launches(SolverOptions(
-        ndim=3, iterations_fista=0, iterations_unacc=7500), CFG1)
-    k1_depth = _resolve_kstep(SolverOptions(
-        ndim=3, iterations_fista=0, iterations_unacc=7500), CFG1,
-        torch.float32, False)
-    require(k1_depth >= 3 and want1[0] == 7500 // k1_depth,
-            f"config 1 must run through the K-step kernel: {want1}")
+    cfg1 = dict(iterations_fista=0, iterations_unacc=7500)
+    want1 = expected_launches(SolverOptions(ndim=3, **cfg1), CFG1)
+    k1_depth = _resolve_kstep(SolverOptions(ndim=3, **cfg1), CFG1,
+                              torch.float32, False)
+    require(k1_depth >= 3, f"config 1 must have a K-step depth: {k1_depth}")
     reset_counts()
     t0 = time.perf_counter()
     r1, b1, d1 = denoise3D(cube1, mu3, quiet=True, device="cuda")
     s1 = time.perf_counter() - t0
     counts1 = launch_counts()
-    require(counts1 == want1, f"config 1 (K-step, pair, fused-iteration) "
-                              f"launches {counts1}, expected {want1}")
+    require(counts1 == want1, f"config 1 (whole-run, K-step, pair, "
+                              f"fused-iteration) launches {counts1}, expected "
+                              f"{want1}")
     require(bool(np.isfinite(r1).all() and (d1 > 0).all()), "cfg1 result")
-    log(f"phase 4 main path (K-step): denoise3D {CFG1} unaccelerated, default "
-        f"7500 iterations, K={k1_depth}: launches K-step {counts1[0]}, pair "
-        f"{counts1[1]}, fused iteration {counts1[2]}; {s1:.3f} s wall = "
+    log(f"phase 4 main path: denoise3D {CFG1} unaccelerated, default 7500 "
+        f"iterations: launches whole-run {counts1[0]}, K-step {counts1[1]}, "
+        f"pair {counts1[2]}, fused iteration {counts1[3]}; {s1:.3f} s wall = "
         f"{int(np.prod(CFG1)) * 7500 / s1 / 1e9:.3f} G voxel-updates/s (host "
-        f"copies and loop included) [{smi}]")
-    # the same schedule through run_solver on the card, K-step on and off
+        f"copies included) [{smi}]")
+    # the same schedule through run_solver on the card: the whole-run
+    # kernel, the K-step kernel (whole-run off) and the pairs (both off),
+    # in turns
     orig1 = torch.from_numpy(cube1).cuda()
     li3 = torch.full((3,), 16.0, device="cuda")
     lm3 = torch.full((3,), 1 / 16, device="cuda")
@@ -844,20 +1143,104 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t1
 
-    ks1 = {True: [], False: []}
-    for on in (True, False, False, True):
-        ks1[on].append(solve_s(orig1, li3, lm3, iterations_fista=0,
-                               iterations_unacc=7500, temporal_kstep=on))
-    on_s = sum(ks1[True]) / 2
+    paths1 = {"resident": dict(), "kstep": dict(vmem_resident=False),
+              "pairs": dict(vmem_resident=False, temporal_kstep=False)}
+    ks1 = {path: [] for path in paths1}
+    c1 = {}
+    for path in ("resident", "kstep", "pairs", "pairs", "kstep", "resident"):
+        reset_counts()
+        ks1[path].append(solve_s(orig1, li3, lm3, **cfg1, **paths1[path]))
+        c1[path] = launch_counts()
+        require(c1[path] == expected_launches(
+            SolverOptions(ndim=3, **cfg1, **paths1[path]), CFG1),
+            f"config 1 {path} launches {c1[path]}")
+    mean1 = {path: sum(v) / 2 for path, v in ks1.items()}
     floor_s = model_seconds(CFG1, False, "kstep_floor", bw, k=k1_depth) * 7500 \
         if bw else float("nan")
-    log(f"phase 4 run_solver {CFG1} unaccelerated x7500 on the card: K-step "
-        f"on {on_s:.4f} s ({floor_s / on_s:.4f} of the K={k1_depth} traffic "
-        f"floor of {9 / k1_depth} traversals per iteration at {bw} B/s), off "
-        f"(pairs) {sum(ks1[False]) / 2:.4f} s (runs on "
-        f"{[round(x, 4) for x in ks1[True]]}, off "
-        f"{[round(x, 4) for x in ks1[False]]}) [{smi}]")
-    del orig1
+    log(f"phase 4 run_solver {CFG1} unaccelerated x7500 on the card: "
+        f"whole-run {mean1['resident']:.4f} s (launches {c1['resident']}), "
+        f"K-step {mean1['kstep']:.4f} s ({floor_s / mean1['kstep']:.4f} of "
+        f"the K={k1_depth} traffic floor of {9 / k1_depth} traversals per "
+        f"iteration at {bw} B/s; launches {c1['kstep']}), pairs "
+        f"{mean1['pairs']:.4f} s (launches {c1['pairs']}) (runs "
+        f"{ {n: [round(x, 4) for x in v] for n, v in ks1.items()} }) [{smi}]")
+    # one 7500-iteration whole-run launch, timed on the device
+    res_ms = time_ms(lambda: resident_solve(
+        orig1, orig1.clone(), [torch.zeros_like(orig1) for _ in range(3)],
+        None, None, li3, lm3, n_iters=7500, fista=False, bc=2), 2)
+    log(f"phase 4 one whole-run launch {CFG1} unaccelerated x7500: "
+        f"{res_ms:.3f} ms = {res_ms / 7500 * 1e3:.3f} us per iteration "
+        f"[{smi}]")
+
+    # a stop-aware config 1 run: a K=1 prologue, whole-run chunks behind the
+    # guard, the K=1 loop's exact stop; against the plain backend on the
+    # card and against the K=1 loop (whole-run off)
+    probe = run_solver(orig1, li3, lm3, SolverOptions(
+        ndim=3, iterations_fista=0, iterations_unacc=800))
+    dp = probe["delta"].cpu().numpy()
+    thr = float(dp[:600].min()) * (1 - 1e-4)
+    below = np.nonzero(dp[600:] < thr)[0]
+    require(below.size > 0, f"no delta after iteration 600 below {thr}")
+    stop_at = 600 + int(below[0]) + 1
+    require(bool(np.all(np.abs(dp[:stop_at] / thr - 1) > 1e-5)),
+            f"a delta lies within rtol 1e-5 of the threshold {thr}")
+    stop_runs = {}
+    for path, kw in (("chunks", {}), ("k1", dict(vmem_resident=False)),
+                     ("torch", dict(backend="torch"))):
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = run_solver(orig1, li3, lm3, SolverOptions(
+            ndim=3, iterations_fista=0, iterations_unacc=800,
+            stopping_relative_change=thr, **kw))
+        torch.cuda.synchronize()
+        stop_runs[path] = (out, time.perf_counter() - t1, launch_counts())
+        require(out["iterations_run"] == stop_at and out["early_stopped"],
+                f"config 1 stop ({path}) after {out['iterations_run']}, "
+                f"expected {stop_at}")
+    chunks1 = stop_runs["chunks"][2]
+    require(chunks1[0] > 0 and chunks1[1:3] == (0, 0),
+            f"the stop run made no whole-run chunk: {chunks1}")
+    require(stop_runs["k1"][2][:3] == (0, 0, 0), "the K=1 stop run")
+    for path in ("k1", "torch"):
+        require(torch.equal(stop_runs["chunks"][0]["recon"],
+                            stop_runs[path][0]["recon"]),
+                f"config 1 stop run recon != {path}")
+    np.testing.assert_allclose(stop_runs["chunks"][0]["delta"].cpu().numpy(),
+                               stop_runs["torch"][0]["delta"].cpu().numpy(),
+                               rtol=1e-5)
+    log(f"phase 4 stop-aware {CFG1} unaccelerated, stop {thr:.6e}: "
+        f"all three stop after {stop_at} iterations, recon bitwise equal "
+        f"to the K=1 loop and to backend='torch', deltas within rtol 1e-5; "
+        f"whole-run chunks (launches whole-run/K-step/pair/fused {chunks1}) "
+        f"{stop_runs['chunks'][1]:.4f} s = "
+        f"{stop_runs['chunks'][1] / stop_at * 1e3:.4f} ms per iteration; "
+        f"K=1 loop {stop_runs['k1'][1]:.4f} s = "
+        f"{stop_runs['k1'][1] / stop_at * 1e3:.4f} ms per iteration; plain "
+        f"{stop_runs['torch'][1]:.4f} s [{smi}]")
+    del probe, stop_runs
+
+    # a hybrid 3D run through the K-step, pair and fused-iteration kernels
+    # (whole-run off) against the plain backend
+    hyb = dict(ndim=3, iterations_fista=9, iterations_unacc=7,
+               vmem_resident=False)
+    want_h = expected_launches(SolverOptions(**hyb), CFG1)
+    reset_counts()
+    got = run_solver(orig1, li3, lm3, SolverOptions(**hyb))
+    counts_h = launch_counts()
+    require(counts_h == want_h and counts_h[0] == 0 and min(counts_h[1:]) > 0,
+            f"hybrid 3D launches {counts_h}, expected {want_h}")
+    ref = run_solver(orig1, li3, lm3, SolverOptions(**hyb, backend="torch"))
+    require(torch.equal(got["recon"], ref["recon"]),
+            "hybrid 3D recon not bitwise equal")
+    for key in ("b_norm", "delta"):
+        np.testing.assert_allclose(got[key].cpu().numpy(),
+                                   ref[key].cpu().numpy(), rtol=1e-5)
+    log(f"phase 4 hybrid (9,7) {CFG1} kernels vs backend='torch' on the card: "
+        f"recon bitwise equal, traces within rtol 1e-5; launches whole-run "
+        f"{counts_h[0]}, K-step {counts_h[1]}, pair {counts_h[2]}, fused "
+        f"iteration {counts_h[3]}")
+    del orig1, got, ref
     # config 2 FISTA x24: the K-step kernel at K=8, forced, against pairs
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     orig2 = torch.randn(CFG2, generator=gen, device="cuda") * 0.5 + 2.0
@@ -875,29 +1258,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     n2 = int(np.prod(CFG2)) * 24
     log(f"phase 4 run_solver {CFG2} FISTA x24 on the card: K-step K={max(KS)} "
-        f"(launches K-step/pair/fused {c2[True]}) {sum(ks2[True]) / 2:.4f} s = "
+        f"(launches whole-run/K-step/pair/fused {c2[True]}) {sum(ks2[True]) / 2:.4f} s = "
         f"{n2 / (sum(ks2[True]) / 2) / 1e9:.3f} G voxel-updates/s; K-step off "
         f"({c2[False]}) {sum(ks2[False]) / 2:.4f} s = "
         f"{n2 / (sum(ks2[False]) / 2) / 1e9:.3f} G (runs on "
         f"{[round(x, 4) for x in ks2[True]]}, off "
         f"{[round(x, 4) for x in ks2[False]]}) [{smi}]")
-    # a hybrid 3D run through all three kernels against the plain backend
-    kw = dict(iterations=(9, 7), quiet=True, device="cuda")
-    want_h = expected_launches(SolverOptions(
-        ndim=3, iterations_fista=9, iterations_unacc=7), CFG1)
-    reset_counts()
-    got = denoise3D(cube1, mu3, **kw)
-    counts_h = launch_counts()
-    require(counts_h == want_h and min(counts_h) > 0,
-            f"hybrid 3D launches {counts_h}, expected {want_h}")
-    ref = denoise3D(cube1, mu3, backend="torch", **kw)
-    require(np.array_equal(got[0], ref[0]), "hybrid 3D recon not bitwise equal")
-    np.testing.assert_allclose(got[1], ref[1], rtol=1e-5)
-    np.testing.assert_allclose(got[2], ref[2], rtol=1e-5)
-    log(f"phase 4 hybrid (9,7) {CFG1} kernels vs backend='torch' on the card: "
-        f"recon bitwise equal, traces within rtol 1e-5; launches K-step "
-        f"{counts_h[0]}, pair {counts_h[1]}, fused iteration {counts_h[2]}")
-
     for shape, iters in ((CFG1, 2000), (CFG3, 30)):
         t = [solver_ms(shape, iters, None), solver_ms(shape, iters, 1e-30),
              solver_ms(shape, iters, 1e-30), solver_ms(shape, iters, None)]
@@ -918,11 +1284,11 @@ def main() -> int:
         # K-step launches and pairs as the gates say without a stop;
         # stop-aware runs stay on the K=1 loop
         want = expected_launches(SolverOptions(
-            ndim=4, iterations_fista=10, iterations_unacc=10), CFG3)[:2] \
-            if stop is None else (0, 0)
-        require(launch_counts()[:2] == want,
-                f"hybrid (stop {stop}): (K-step, pair) launches "
-                f"{launch_counts()[:2]}, expected {want}")
+            ndim=4, iterations_fista=10, iterations_unacc=10), CFG3)[:3] \
+            if stop is None else (0, 0, 0)
+        require(launch_counts()[:3] == want,
+                f"hybrid (stop {stop}): (whole-run, K-step, pair) launches "
+                f"{launch_counts()[:3]}, expected {want}")
         want = denoise4D(cube3, mu4, backend="torch", **kw)
         require(np.array_equal(got[0], want[0]),
                 f"hybrid recon not bitwise equal (stop {stop})")
@@ -954,15 +1320,18 @@ def main() -> int:
     np.testing.assert_allclose(ds[:n_run], d[:n_run], rtol=1e-5)
     log(f"phase 4 hybrid (10,10) {CFG3} kernels vs backend='torch' on the "
         f"card: recon bitwise equal, traces within rtol 1e-5, without a stop "
-        f"(launches K-step/pair/fused {hyb4}, 20 iterations, delta "
+        f"(launches whole-run/K-step/pair/fused {hyb4}, 20 iterations, delta "
         f"{d[0]:.3e} .. "
         f"{d[9]:.3e} | {d[10]:.3e} .. {d[19]:.3e}) and with stop {thr:.6e} (both stop after {n_run} "
         f"iterations, {n_run - 10} of them unaccelerated)")
 
-    # launches: each kernel's count in the main-path run that reaches it
-    # (x21: the odd iteration; x20: the pairs; config 1: the K-step); ms at
-    # the shape of that run; bound_ms: the least time the card could take
-    # for one launch of the same work (utils/perf.py)
+    # launches: each kernel's count in the run of the path that reaches it
+    # (x21: the odd iteration; x20: the pairs; config 1 through run_solver
+    # with the whole-run kernel off: the K-step; config 1 through denoise3D:
+    # the whole-run kernel); ms at the shape of that run (the whole-run
+    # kernel: one 7500-iteration launch; its plain_ms: the plain iteration's
+    # ms x 7500); bound_ms: the least time the card could take for one
+    # launch of the same work (utils/perf.py)
     f32 = peak_f32(name)
     kd = k1_depth
 
@@ -973,14 +1342,17 @@ def main() -> int:
         return t * 1e3, by
 
     rows = [
-        ("fused_iteration", "fused_iteration.cu", "fused.py:872", counts[21][2],
+        ("fused_iteration", "fused_iteration.cu", "fused.py:872", counts[21][3],
          max_err, k4, p4, bound(CFG4, True, 1)),
         ("fused_pair_iteration", "temporal_pair.cu", "temporal.py:947",
-         counts[20][1], pair_err, times[CFG4]["pair"], times[CFG4]["plain"],
+         counts[20][2], pair_err, times[CFG4]["pair"], times[CFG4]["plain"],
          bound(CFG4, True, 2)),
         ("fused_kstep_iteration", "temporal_kstep.cu", "kstep.py:395",
-         counts1[0], kstep_err, ktimes[CFG1][kd][0],
+         c1["kstep"][1], kstep_err, ktimes[CFG1][kd][0],
          ktimes[CFG1]["plain"][0] * kd, bound(CFG1, False, kd)),
+        ("resident_solve", "resident.cu", "resident.py:293", counts1[0],
+         res_err, res_ms, ktimes[CFG1]["plain"][0] * 7500,
+         bound(CFG1, False, 7500)),
     ]
     kernels = [{
         "name": kname,

@@ -2,8 +2,8 @@
 
 Counterpart of ``cytvdn_tpu/config.py``: ``BCMode`` keeps the reference's
 integer convention, ``SolverOptions`` the same keyword surface and the same
-``__post_init__`` rejections. The TPU-only knobs whose kernels are
-not ported yet raise (ROADMAP.md, Queue 2).
+``__post_init__`` rejections. The options whose parts are not ported yet
+raise (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -74,14 +74,14 @@ class SolverOptions:
     fista_restart: bool = False
     # Temporal blocking (two or K iterations per memory pass) and the
     # whole-run resident kernel are throughput choices, bit-identical to
-    # one iteration per pass. Pairs and the K-step kernel are on by
-    # default, as in cytvdn_tpu; ``temporal_k`` pins the K-step depth
-    # (None: the H100 rule of kernels/kstep.py::best_kstep). The resident
-    # kernel is still to be ported.
+    # one iteration per pass. All three are on by default, as in
+    # cytvdn_tpu; ``temporal_k`` pins the K-step depth (None: the H100
+    # rule of kernels/kstep.py::best_kstep); the resident kernel serves
+    # the states kernels/resident.py::resident_supported admits.
     temporal_pairs: bool = True
     temporal_kstep: bool = True
     temporal_k: Optional[int] = None
-    vmem_resident: bool = False
+    vmem_resident: bool = True
     # bfloat16 storage of the FISTA shadow duals (lossy, opt-in).
     lossy_duals: bool = False
 
@@ -96,8 +96,6 @@ class SolverOptions:
             raise ValueError(f"ndim must be 3 or 4, got {self.ndim}")
         if self.ndim == 3 and (self.isotropic_R or self.isotropic_Q):
             raise ValueError("half-isotropic mode is 4D-only (as in reference)")
-        if self.vmem_resident:
-            raise _not_ported("vmem_resident", "Queue 2 item 4")
         if self.lossy_duals:
             raise _not_ported("lossy_duals", "Queue 1 item 7")
 

@@ -40,114 +40,15 @@
 // - Scalars (lambda_inv, lam_mu, rho) are read through device pointers, so
 //   the host never waits for the momentum schedule or a restart.
 //
-// Layout: a block is 32 x 8 threads over a tile of the two trailing axes
-// (x along the contiguous last axis). Work items are (row, tile) pairs, the
-// tile index fastest, the leading axes (one in 3D, two in 4D) flattened into
-// rows; blocks stride over them, so blocks in flight together cover
-// neighbouring tiles of a row and stream through memory. Index arithmetic is
-// 32-bit (the wrapper keeps the work-item count below 2^31); element offsets
-// are 64-bit. The rank is a template parameter, so the per-axis scalars live
-// in registers.
+// Layout, boundary offsets and the element arithmetic live in tv_elem.cuh,
+// shared with the whole-run kernel (resident.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tv_elem.cuh"
+
 namespace {
-
-constexpr int TX = 32;
-constexpr int TY = 8;
-constexpr int NT = TX * TY;
-
-__device__ __forceinline__ float clip_(float x, float c) { return fminf(fmaxf(x, -c), c); }
-__device__ __forceinline__ double clip_(double x, double c) { return fmin(fmax(x, -c), c); }
-__device__ __forceinline__ float hypot_(float a, float b) { return hypotf(a, b); }
-__device__ __forceinline__ double hypot_(double a, double b) { return hypot(a, b); }
-__device__ __forceinline__ float abs_(float x) { return fabsf(x); }
-__device__ __forceinline__ double abs_(double x) { return fabs(x); }
-
-template <typename T>
-struct Args {
-  const T* orig;
-  T* recon;
-  T* b[4];
-  T* d[4];
-  const T* lambda_inv;
-  const T* lam_mu;
-  const T* rho;
-  double* partials;  // [3][gridDim.x]
-  T* out;            // [3]: sum|b|, sum|recon_new - recon|, sum|recon|
-  int64_t n[4];      // extents of the ndim axes
-  int64_t s[4];      // element strides of the ndim axes
-  int64_t rows;      // product of the leading ndim-2 extents
-  int64_t tiles_m;   // tiles of TY along axis ndim-2
-  int64_t tiles_l;   // tiles of TX along axis ndim-1
-  int bc;            // 0 periodic, 1 mirror, 2 Jia-Zhao
-  int iso_r;         // joint projection of axes (0, 1)
-  int iso_q;         // joint projection of axes (2, 3)
-};
-
-// Offset of s_i = a_{i-1} along one axis.
-__device__ __forceinline__ int64_t bwd(int64_t idx, int64_t c, int64_t n,
-                                       int64_t s, int bc) {
-  if (c > 0) return idx - s;
-  if (bc == 0) return idx + (n - 1) * s;  // periodic: a_{N-1}
-  if (bc == 1) return idx + s;            // mirror: a_1
-  return idx;                             // Jia-Zhao: own element
-}
-
-// Offset of s_i = b_{i+1} along one axis.
-__device__ __forceinline__ int64_t fwd(int64_t idx, int64_t c, int64_t n,
-                                       int64_t s, int bc) {
-  if (c < n - 1) return idx + s;
-  if (bc == 1) return idx;                // mirror: own b_{N-1}
-  return idx - (n - 1) * s;               // periodic and Jia-Zhao: b_0
-}
-
-// Fixed-order tree sum over the block; thread 0 gets the total.
-__device__ __forceinline__ double block_sum(double v, double* red) {
-  const int t = threadIdx.y * TX + threadIdx.x;
-  red[t] = v;
-  __syncthreads();
-  for (int h = NT / 2; h > 0; h >>= 1) {
-    if (t < h) red[t] += red[t + h];
-    __syncthreads();
-  }
-  const double total = red[0];
-  __syncthreads();
-  return total;
-}
-
-// Walk this block's (row, tile) work items and call body(idx, c) with each
-// element's offset and coordinates. Threads past the ragged edge of a tile
-// skip it.
-template <int ND, typename T, typename F>
-__device__ __forceinline__ void for_each_element(const Args<T>& a, F body) {
-  const uint32_t tiles = static_cast<uint32_t>(a.tiles_m * a.tiles_l);
-  const uint32_t tl_n = static_cast<uint32_t>(a.tiles_l);
-  const uint32_t work = static_cast<uint32_t>(a.rows) * tiles;
-  const int64_t M = a.n[ND - 2];
-  const int64_t L = a.n[ND - 1];
-  const uint32_t n1 = static_cast<uint32_t>(a.n[1]);
-  for (uint32_t w = blockIdx.x; w < work; w += gridDim.x) {
-    const uint32_t r = w / tiles;
-    const uint32_t t = w - r * tiles;
-    const uint32_t tm = t / tl_n;
-    const int64_t m = int64_t(tm) * TY + threadIdx.y;
-    const int64_t l = int64_t(t - tm * tl_n) * TX + threadIdx.x;
-    if (m >= M || l >= L) continue;
-    int64_t c[ND];
-    if (ND == 4) {
-      const uint32_t c0 = r / n1;
-      c[0] = c0;
-      c[1] = r - c0 * n1;
-    } else {
-      c[0] = r;
-    }
-    c[ND - 2] = m;
-    c[ND - 1] = l;
-    body((int64_t(r) * M + m) * L + l, c);
-  }
-}
 
 template <typename T, int ND, bool FISTA>
 __global__ void __launch_bounds__(NT) dual_kernel(Args<T> a) {
@@ -160,46 +61,7 @@ __global__ void __launch_bounds__(NT) dual_kernel(Args<T> a) {
   const bool iso_q = ND == 4 && a.iso_q;
   double acc = 0.0;
   for_each_element<ND>(a, [&](int64_t idx, const int64_t* c) {
-    const T x = a.recon[idx];
-    // Unrolled in 4D only: unrolled in 3D, this loop measured 3x slower on
-    // an H100 at 256x256x2048 FISTA (13.1 vs 4.3 ms, rolled), in 4D 12%
-    // faster at 256^2 x 128^2 (48.7 vs 55.6 ms).
-#pragma unroll (ND == 4 ? 4 : 1)
-    for (int k = 0; k < ND; ++k) {
-      if ((k == 1 && iso_r) || (k == 3 && iso_q)) continue;  // done with k-1
-      if ((k == 0 && iso_r) || (k == 2 && iso_q)) {
-        // the pair shares axis k's clip radius (reference cyTVDN.py:160-162)
-        const T e1 = x - a.recon[bwd(idx, c[k], a.n[k], a.s[k], a.bc)] + a.b[k][idx];
-        const T e2 = x - a.recon[bwd(idx, c[k + 1], a.n[k + 1], a.s[k + 1], a.bc)]
-                     + a.b[k + 1][idx];
-        const T cl = lam[k];
-        const T mag = hypot_(e1, e2);
-        const T scale = mag > cl ? cl / (mag > T(0) ? mag : T(1)) : T(1);
-        const T d1 = e1 * scale;
-        const T d2 = e2 * scale;
-        T b1 = d1, b2 = d2;
-        if (FISTA) {
-          b1 = d1 + rho * (d1 - a.d[k][idx]);
-          b2 = d2 + rho * (d2 - a.d[k + 1][idx]);
-          a.d[k][idx] = d1;
-          a.d[k + 1][idx] = d2;
-        }
-        a.b[k][idx] = b1;
-        a.b[k + 1][idx] = b2;
-        acc += static_cast<double>(abs_(b1));
-        acc += static_cast<double>(abs_(b2));
-      } else {
-        const T diff = x - a.recon[bwd(idx, c[k], a.n[k], a.s[k], a.bc)];
-        const T dn = clip_(diff + a.b[k][idx], lam[k]);
-        T bn = dn;
-        if (FISTA) {
-          bn = dn + rho * (dn - a.d[k][idx]);
-          a.d[k][idx] = dn;
-        }
-        a.b[k][idx] = bn;
-        acc += static_cast<double>(abs_(bn));
-      }
-    }
+    dual_elem<T, ND, FISTA, false>(a, idx, c, lam, rho, iso_r, iso_q, acc);
   });
   const double total = block_sum(acc, red);
   if (threadIdx.x == 0 && threadIdx.y == 0) a.partials[blockIdx.x] = total;
@@ -213,18 +75,7 @@ __global__ void __launch_bounds__(NT) recon_kernel(Args<T> a) {
   for (int k = 0; k < ND; ++k) lm[k] = a.lam_mu[k];
   double dnum = 0.0, dden = 0.0;
   for_each_element<ND>(a, [&](int64_t idx, const int64_t* c) {
-    T div = T(0);
-#pragma unroll
-    for (int k = 0; k < ND; ++k) {
-      const T bk = a.b[k][idx];
-      const T bf = a.b[k][fwd(idx, c[k], a.n[k], a.s[k], a.bc)];
-      div = div + lm[k] * (bk - bf);
-    }
-    const T rn = a.orig[idx] - div;
-    const T ro = a.recon[idx];
-    dnum += static_cast<double>(abs_(rn - ro));
-    dden += static_cast<double>(abs_(ro));
-    a.recon[idx] = rn;
+    recon_elem<T, ND, false>(a, idx, c, lm, dnum, dden);
   });
   const double t1 = block_sum(dnum, red);
   const double t2 = block_sum(dden, red);
@@ -260,23 +111,13 @@ int launch(const void* orig, void* recon, void* const b[4], void* const d[4],
   for (int k = 0; k < 4; ++k) {
     a.b[k] = static_cast<T*>(b[k]);
     a.d[k] = static_cast<T*>(d[k]);
-    a.n[k] = k < ndim ? n[k] : 1;
   }
-  int64_t stride = 1;
-  for (int k = ndim - 1; k >= 0; --k) {
-    a.s[k] = stride;
-    stride *= a.n[k];
-  }
-  for (int k = ndim; k < 4; ++k) a.s[k] = 0;
+  set_shape(a, ndim, n);
   a.lambda_inv = static_cast<const T*>(lambda_inv);
   a.lam_mu = static_cast<const T*>(lam_mu);
   a.rho = static_cast<const T*>(rho);
   a.partials = static_cast<double*>(partials);
   a.out = static_cast<T*>(out);
-  a.rows = 1;
-  for (int k = 0; k < ndim - 2; ++k) a.rows *= a.n[k];
-  a.tiles_m = (a.n[ndim - 2] + TY - 1) / TY;
-  a.tiles_l = (a.n[ndim - 1] + TX - 1) / TX;
   a.bc = bc;
   a.iso_r = iso_r;
   a.iso_q = iso_q;

@@ -15,6 +15,12 @@ from cytvdn_tpu_torch.kernels.kstep import (
     fused_kstep_iteration_reference,
     kstep_supported,
 )
+from cytvdn_tpu_torch.kernels.resident import (
+    RESIDENT_BYTES,
+    resident_solve,
+    resident_solve_reference,
+    resident_supported,
+)
 from cytvdn_tpu_torch.kernels.temporal import (
     fused_pair_iteration,
     fused_pair_iteration_reference,
@@ -33,4 +39,8 @@ __all__ = [
     "fused_kstep_iteration",
     "fused_kstep_iteration_reference",
     "kstep_supported",
+    "RESIDENT_BYTES",
+    "resident_solve",
+    "resident_solve_reference",
+    "resident_supported",
 ]

@@ -88,6 +88,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tv_kstep_iteration_f32.restype = i
     lib.tv_kstep_max_blocks.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.tv_kstep_max_blocks.restype = i
+    lib.tv_resident_solve_f32.argtypes = \
+        [vp] * 16 + [i] + [ll] * 4 + [i] * 6 + [vp]
+    lib.tv_resident_solve_f32.restype = i
+    lib.tv_resident_max_blocks.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.tv_resident_max_blocks.restype = i
     lib.tv_error_string.argtypes = [i]
     lib.tv_error_string.restype = ctypes.c_char_p
     return lib

@@ -14,6 +14,12 @@ Python loop with the same semantics:
 - hybrid runs run FISTA first, then always the unaccelerated phase, which
   shares the accumulators, with the stop latch reset between the phases.
 
+- float32 runs whose whole state is small (``_resolve_resident``) run the
+  whole schedule in one launch of the whole-run kernel; with
+  ``stopping_relative_change`` (``_resolve_resident_chunks``) each phase
+  runs a few one-iteration steps, then ``_RESIDENT_CHUNK`` iterations per
+  launch behind a predictive guard (``_run_phase_resident``), and the
+  one-iteration loop makes the exact stop;
 - fixed-schedule Jia-Zhao float32 runs advance K iterations per launch
   through the K-step kernel where ``_resolve_kstep`` picks a depth
   (``_run_phase_kstep``), then two per launch through the pair kernel
@@ -26,8 +32,8 @@ allocated once and updated by every iteration (the JAX engine gets the same
 effect from buffer donation).
 
 Not here yet: chunked execution (``state``/``i_stop``/``keep_state``),
-stop-aware pairing and K-stepping, the pair kernel's in-kernel SSE, the
-resident phase, and sharded runs (ROADMAP.md).
+stop-aware pairing and K-stepping, the pair kernel's in-kernel SSE, and
+sharded runs (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from cytvdn_tpu_torch import ops
 from cytvdn_tpu_torch.config import Backend, BCMode, SolverOptions
 from cytvdn_tpu_torch.kernels.fused import fused_iteration, fused_iteration_reference
 from cytvdn_tpu_torch.kernels.kstep import best_kstep, fused_kstep_iteration
+from cytvdn_tpu_torch.kernels.resident import resident_solve, resident_supported
 from cytvdn_tpu_torch.kernels.temporal import fused_pair_iteration, pair_supported
 
 Tensor = torch.Tensor
@@ -233,6 +240,192 @@ def _run_phase_kstep(
         st.i = i + k
 
 
+def _resident_gates(opts: SolverOptions, shape, dtype) -> bool:
+    """The gate ladder the whole-run kernel's two serving modes (whole run
+    and stop-aware chunks) share, as ``cytvdn_tpu``'s ``_resident_gates``
+    (``engine.py:703-739``) decides on one device: ``vmem_resident`` on,
+    exact duals, a backend other than ``TORCH``, no ``fista_restart``, and
+    :func:`resident_supported`, whose size rule is the H100's own. It
+    depends on the shape, dtype and options only, never on the device."""
+    if not opts.vmem_resident or opts.lossy_duals:
+        return False
+    if opts.backend == Backend.TORCH or opts.fista_restart:
+        return False
+    return resident_supported(shape, dtype, opts.bc_mode,
+                              fista=opts.iterations_fista > 0,
+                              isotropic_R=opts.isotropic_R,
+                              isotropic_Q=opts.isotropic_Q,
+                              with_mse=opts.calculate_mse)
+
+
+def _resolve_resident(opts: SolverOptions, shape, dtype) -> bool:
+    """Whether the whole schedule runs as one whole-run launch
+    (``engine.py:742-754``): runs without ``stopping_relative_change``
+    that pass :func:`_resident_gates`."""
+    if opts.stopping_relative_change is not None:
+        return False
+    return _resident_gates(opts, shape, dtype)
+
+
+#: iterations per whole-run launch in stop-aware runs (``engine.py:760``):
+#: enough to amortize the launch and the host sync, few enough that the
+#: guard's look-ahead stays sharp
+_RESIDENT_CHUNK = 16
+
+
+def _resolve_resident_chunks(opts: SolverOptions, shape, dtype) -> bool:
+    """Whether the phases may advance ``_RESIDENT_CHUNK`` iterations per
+    whole-run launch (``engine.py:769-789``): a schedule of at least one
+    chunk and :func:`_resident_gates`. The port runs chunks in stop-aware
+    runs only (capped and resumed runs are not ported)."""
+    if opts.total_iterations < _RESIDENT_CHUNK:
+        return False
+    return _resident_gates(opts, shape, dtype)
+
+
+def _history_bound(st: _PhaseState, i_bound: int) -> int:
+    """Where the one-iteration prologue of a stop-aware phase ends
+    (``_paired_history_stop``, ``engine.py:1288-1299``): at ``st.i`` when
+    the two deltas before it are recorded and positive, else two
+    iterations later, so the guard never decides blind."""
+    i = st.i
+    hist = i >= 2 and all(d > 0 for d in st.delta[i - 2:i].tolist())
+    return min(i_bound, i if hist else i + 2)
+
+
+def _guard_allows(d1: float, d2: float, stopping: float) -> bool:
+    """The predictive guard of a chunk (``engine.py:834-848``), in float32
+    as there: the last two deltas are positive and ``d1·r^(2T)`` with
+    ``r = clip(d1/d2, 0, 1)`` stays at or above the threshold, so the
+    threshold is not expected to be crossed within the next chunk."""
+    d1, d2 = np.float32(d1), np.float32(d2)
+    if not (d1 > 0 and d2 > 0):
+        return False
+    r = np.float32(min(max(d1 / d2, np.float32(0)), np.float32(1)))
+    # r ** (2T) by repeated squaring, as lax.integer_pow computes it
+    p, n = None, 2 * _RESIDENT_CHUNK
+    while n:
+        if n & 1:
+            p = r if p is None else np.float32(p * r)
+        n >>= 1
+        if n:
+            r = np.float32(r * r)
+    return bool(np.float32(d1 * p) >= np.float32(stopping))
+
+
+def _run_phase_resident(
+    fista: bool,
+    i_bound: int,
+    st: _PhaseState,
+    orig: Tensor,
+    tk_ratios: Tensor,
+    lambda_inv: Tensor,
+    lam_mu: Tensor,
+    opts: SolverOptions,
+    reference_data: Optional[Tensor],
+) -> None:
+    """Advance a stop-aware phase ``_RESIDENT_CHUNK`` iterations per
+    whole-run launch (``cytvdn_tpu``'s ``_run_phase_resident``,
+    ``engine.py:792-894``) where :func:`_guard_allows` says the threshold
+    is not crossed within the chunk, until fewer than a chunk's iterations
+    are left; the one-iteration loop after it makes the exact stop.
+
+    Where the guard refuses, one exact one-iteration step runs and the
+    guard is asked again. (The JAX engine hands such runs over to its
+    stop-aware pairs at the first refusal; the port has none, and the fast
+    early decay of a run would otherwise end the chunks before its slow
+    tail, where they pay.)
+
+    Before each chunk, recon, the accumulators [and shadow duals] are
+    copied into buffers allocated once per phase (the gate keeps the state
+    small), and the chunk's traces stay in its own outputs. If a delta of
+    the chunk crosses the threshold anyway (the guard beaten), the state is
+    restored from the copy, the traces and ``st.i`` are left as they were
+    and the phase ends here, so the one-iteration loop redoes those
+    iterations: the result is bitwise that of the one-iteration loop in
+    every case. One host sync per chunk (its deltas)."""
+    T = _RESIDENT_CHUNK
+    stopping = opts.stopping_relative_change
+    if st.done or st.i < 2 or st.i + T > i_bound:
+        return
+    d2, d1 = st.delta[st.i - 2:st.i].tolist()
+    state = [st.recon, *st.accs] + (list(st.ds) if fista else [])
+    snapshot = [torch.empty_like(x) for x in state]
+    ref = reference_data if opts.calculate_mse else None
+    while st.i + T <= i_bound and not st.done:
+        i = st.i
+        if not _guard_allows(d1, d2, stopping):
+            _run_phase(fista, i + 1, st, orig, tk_ratios, lambda_inv, lam_mu,
+                       opts, reference_data)
+            d2, d1 = d1, st.delta[i].item()
+            continue
+        for s, x in zip(snapshot, state):
+            s.copy_(x)
+        out = resident_solve(
+            orig, st.recon, st.accs, st.ds if fista else None,
+            tk_ratios[i:i + T] if fista else None, lambda_inv, lam_mu,
+            n_iters=T, fista=fista, bc=int(opts.bc_mode), ref=ref,
+            iso_r=opts.isotropic_R, iso_q=opts.isotropic_Q)
+        deltas = out[4] / out[5]
+        host = deltas.cpu()  # the chunk's one host sync
+        if bool((host < stopping).any()):
+            for s, x in zip(snapshot, state):
+                x.copy_(s)
+            return
+        st.b_norm[i:i + T] = out[3]
+        st.delta[i:i + T] = deltas
+        if ref is not None:
+            st.mse[i + 1:i + T + 1] = out[6]
+        st.i = i + T
+        d2, d1 = host[-2:].tolist()
+
+
+def _run_phases(
+    st: _PhaseState,
+    orig: Tensor,
+    tk_ratios: Tensor,
+    lambda_inv: Tensor,
+    lam_mu: Tensor,
+    opts: SolverOptions,
+    reference_data: Optional[Tensor],
+) -> None:
+    """The FISTA phase, then the unaccelerated one, each as: the
+    one-iteration prologue and the whole-run chunks of a stop-aware run,
+    K-step launches, pairs, and the one-iteration loop for the rest
+    (``engine.py:1498-1580``)."""
+    n_f, n_u = opts.iterations_fista, opts.iterations_unacc
+    n_total = n_f + n_u
+    shape, dtype = tuple(orig.shape), orig.dtype
+    paired = _resolve_temporal(opts, shape, dtype)
+    chunks = opts.stopping_relative_change is not None and \
+        _resolve_resident_chunks(opts, shape, dtype)
+    for fista, i_bound, n in ((True, n_f, n_f), (False, n_total, n_u)):
+        if not n:
+            continue
+        if chunks:
+            _run_phase(fista, _history_bound(st, i_bound), st, orig,
+                       tk_ratios, lambda_inv, lam_mu, opts, reference_data)
+            _run_phase_resident(fista, i_bound, st, orig, tk_ratios,
+                                lambda_inv, lam_mu, opts, reference_data)
+        k = _resolve_kstep(opts, shape, dtype, fista)
+        if k:
+            _run_phase_kstep(fista, i_bound, st, orig, tk_ratios, lambda_inv,
+                             lam_mu, k)
+        if paired:
+            _run_phase_paired(fista, i_bound, st, orig, tk_ratios, lambda_inv,
+                              lam_mu)
+        _run_phase(fista, i_bound, st, orig, tk_ratios, lambda_inv, lam_mu,
+                   opts, reference_data)
+        if fista:
+            st.ds = None  # the unaccelerated phase carries no shadow duals
+            if n_u:
+                # the second phase starts at its own first index and
+                # ignores the first phase's stop (reference
+                # cyTVDN.py:195-201)
+                st.i = max(st.i, n_f)
+                st.done = False
+
+
 def run_solver(
     orig: Tensor,
     lambda_inv: Tensor,
@@ -247,9 +440,8 @@ def run_solver(
     the unaccelerated phase *always* follows (even if FISTA stopped early),
     sharing the accumulators; trace entries of skipped iterations stay zero
     (reference cyTVDN.py:100-108, 127-128, 195-201). Where
-    :func:`_resolve_kstep` picks a depth, each phase runs K-step launches
-    first; where :func:`_resolve_temporal` allows, pairs follow, and the
-    one-iteration loop finishes it (``engine.py:1515-1580``).
+    :func:`_resolve_resident` allows, the whole schedule is one launch of
+    the whole-run kernel; otherwise :func:`_run_phases` runs each phase.
 
     Returns a dict with ``recon``, ``b_norm``, ``delta`` [, ``mse``] as
     tensors on the device, and ``iterations_run`` (int) and
@@ -283,33 +475,25 @@ def run_solver(
         tk=torch.ones((), dtype=torch.float32, device=device),
     )
     shape = tuple(orig.shape)
-    paired = _resolve_temporal(opts, shape, dtype)
-    if n_f:
-        k_f = _resolve_kstep(opts, shape, dtype, True)
-        if k_f:
-            _run_phase_kstep(True, n_f, st, orig, tk_ratios, lambda_inv,
-                             lam_mu, k_f)
-        if paired:
-            _run_phase_paired(True, n_f, st, orig, tk_ratios, lambda_inv,
-                              lam_mu)
-        _run_phase(True, n_f, st, orig, tk_ratios, lambda_inv, lam_mu, opts,
-                   reference_data)
-        st.ds = None  # the unaccelerated phase carries no shadow duals
-        if n_u:
-            # the second phase starts at its own first index and ignores
-            # the first phase's stop (reference cyTVDN.py:195-201)
-            st.i = max(st.i, n_f)
-            st.done = False
-    if n_u:
-        k_u = _resolve_kstep(opts, shape, dtype, False)
-        if k_u:
-            _run_phase_kstep(False, n_total, st, orig, tk_ratios, lambda_inv,
-                             lam_mu, k_u)
-        if paired:
-            _run_phase_paired(False, n_total, st, orig, tk_ratios, lambda_inv,
-                              lam_mu)
-        _run_phase(False, n_total, st, orig, tk_ratios, lambda_inv, lam_mu,
-                   opts, reference_data)
+    if n_total and _resolve_resident(opts, shape, dtype):
+        # the whole schedule in one launch; a hybrid run's unaccelerated
+        # iterations are FISTA iterations with momentum 0
+        # (``engine.py:1411-1454``). Nothing waits for the device.
+        rhos = torch.zeros(n_total, dtype=dtype, device=device)
+        rhos[:n_f] = tk_ratios[:n_f]
+        out = resident_solve(
+            orig, st.recon, st.accs, st.ds, rhos, lambda_inv, lam_mu,
+            n_iters=n_total, fista=bool(n_f), bc=int(opts.bc_mode),
+            ref=reference_data if opts.calculate_mse else None,
+            iso_r=opts.isotropic_R, iso_q=opts.isotropic_Q)
+        st.b_norm = out[3]
+        st.delta = out[4] / out[5]
+        if opts.calculate_mse:
+            st.mse[1:] = out[6]
+        st.i = n_total
+    else:
+        _run_phases(st, orig, tk_ratios, lambda_inv, lam_mu, opts,
+                    reference_data)
 
     out = {
         "recon": st.recon,

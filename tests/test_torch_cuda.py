@@ -4,7 +4,9 @@ rtol 1e-5 (their summation order differs). The pair kernel is also held
 bitwise against two launches of the one-iteration kernel, the K-step
 kernel against K launches of it and (K even) K/2 pair launches, and both
 against themselves at forced grid sizes (the race check of their in-place
-schedules).
+schedules). The whole-run kernel is held bitwise against its plain
+version and against T launches of the one-iteration kernel, at forced grid
+sizes too.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -19,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 from cytvdn_tpu_torch.kernels import fused as tfused  # noqa: E402
 from cytvdn_tpu_torch.kernels import kstep as tkstep  # noqa: E402
+from cytvdn_tpu_torch.kernels import resident as tres  # noqa: E402
 from cytvdn_tpu_torch.kernels import temporal as ttemporal  # noqa: E402
 
 CASES = [
@@ -304,6 +307,134 @@ def test_kstep_kernel_repeats_exactly(k):
     orig, state, li, lm, _ = _jz_state((37, 45, 19, 23), True, seed=2)
     a = _ksteps(tkstep.fused_kstep_iteration, orig, state, li, lm, k, True)
     b = _ksteps(tkstep.fused_kstep_iteration, orig, state, li, lm, k, True)
+    assert torch.equal(a[1], b[1])
+    for x, y in zip(a[0], b[0]):
+        assert torch.equal(x, y)
+
+
+# whole-run kernel: (shape, bc, iso_r, iso_q, momentum schedule, with ref),
+# every BC, iso pairs, FISTA / unaccelerated / hybrid (FISTA with trailing
+# zero momenta), the SSE trace, ragged tile edges and N0 = 2
+RES_T = 6
+RES_CASES = [
+    ((37, 45, 19, 23), 0, False, False, "fista", False),
+    ((37, 45, 19, 23), 1, False, False, "unacc", True),
+    ((37, 45, 19, 23), 2, False, False, "hybrid", True),
+    ((37, 45, 19, 23), 2, True, True, "fista", False),
+    ((9, 10, 11, 12), 2, True, False, "unacc", True),
+    ((9, 10, 11, 12), 2, False, True, "hybrid", False),
+    ((13, 17, 70), 0, False, False, "hybrid", True),
+    ((13, 17, 70), 1, False, False, "fista", False),
+    ((13, 17, 70), 2, False, False, "unacc", False),
+    ((2, 17, 70), 2, False, False, "fista", True),
+]
+
+
+def _res_state(shape, schedule, with_ref, seed=0):
+    """Random float32 state on the card, the momentum ratios of the
+    schedule (None unaccelerated) and, with ``with_ref``, a reference
+    cube."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ndim = len(shape)
+    fista = schedule != "unacc"
+
+    def rnd(scale):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    orig = rnd(0.5) + 2.0
+    state = [orig + rnd(0.05)] + [rnd(0.2) for _ in range(ndim)]
+    if fista:
+        state += [rnd(0.2) for _ in range(ndim)]
+    ref = rnd(0.5) + 2.0 if with_ref else None
+    li = torch.linspace(0.2, 0.35, ndim, device="cuda")
+    lm = torch.linspace(1 / 32, 1 / 48, ndim, device="cuda")
+    rhos = None
+    if fista:
+        rhos = torch.linspace(0.1, 0.6, RES_T, device="cuda")
+        if schedule == "hybrid":
+            rhos[RES_T // 2:] = 0.0
+    return orig, state, li, lm, rhos, ref
+
+
+def _res_run(step, orig, state, li, lm, rhos, ref, bc, iso_r, iso_q, **kw):
+    """``step`` (a whole-run function) for RES_T iterations on a copy of
+    ``state``; returns the state and the (3 or 4, RES_T) sums."""
+    ndim = orig.dim()
+    s = [x.clone() for x in state]
+    d = s[1 + ndim:] if rhos is not None else None
+    out = step(orig, s[0], s[1:1 + ndim], d, rhos, li, lm, n_iters=RES_T,
+               fista=rhos is not None, bc=bc, ref=ref, iso_r=iso_r,
+               iso_q=iso_q, **kw)
+    torch.cuda.synchronize()
+    return s, torch.stack(out[3:]).double().cpu()
+
+
+def _res_k1_launches(orig, recon, accs, ds, rhos, li, lm, *, n_iters, fista,
+                     bc, ref, iso_r, iso_q):
+    """``n_iters`` launches of the one-iteration kernel (and the SSE after
+    each), shaped as a whole-run call."""
+    sums = []
+    for t in range(n_iters):
+        row = list(tfused.fused_iteration(
+            orig, recon, accs, ds, rhos[t] if fista else None, li, lm,
+            fista=fista, bc=bc, iso_r=iso_r, iso_q=iso_q)[3:])
+        if ref is not None:
+            row.append(((ref - recon) ** 2).sum())
+        sums.append(torch.stack(row))
+    return (recon, accs, ds, *torch.stack(sums).unbind(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RES_CASES, ids=str)
+def test_resident_kernel_bitwise_equals_plain_and_k1_launches(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    shape, bc, iso_r, iso_q, schedule, with_ref = case
+    orig, state, li, lm, rhos, ref = _res_state(shape, schedule, with_ref)
+    args = (orig, state, li, lm, rhos, ref, bc, iso_r, iso_q)
+    before = tres.resident_solve.launches
+    ks, ksum = _res_run(tres.resident_solve, *args)
+    assert tres.resident_solve.launches - before == 1
+    assert ksum.shape == (4 if with_ref else 3, RES_T)
+    for step in (tres.resident_solve_reference, _res_k1_launches):
+        s, sums = _res_run(step, *args)
+        for a, b in zip(ks, s):
+            assert torch.equal(a, b), (a - b).abs().max().item()
+        torch.testing.assert_close(ksum, sums, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [RES_CASES[2], RES_CASES[3], RES_CASES[6]],
+                         ids=str)
+def test_resident_kernel_state_independent_of_grid(case):
+    """The grid-stride schedule with its grid barriers is race-free: one
+    block, 7 blocks and the full cooperative grid give the same state
+    bitwise; a grid one block larger is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    shape, bc, iso_r, iso_q, schedule, with_ref = case
+    args = _res_state(shape, schedule, with_ref, seed=1)
+    args = (*args, bc, iso_r, iso_q)
+    full = tres.cooperative_grid(torch.device("cuda"), len(shape),
+                                 schedule != "unacc", iso_r or iso_q,
+                                 with_ref)
+    runs = [_res_run(tres.resident_solve, *args, grid=g) for g in (1, 7, full)]
+    for s, sums in runs[1:]:
+        for a, b in zip(runs[0][0], s):
+            assert torch.equal(a, b), (a - b).abs().max().item()
+        torch.testing.assert_close(sums, runs[0][1], rtol=1e-5, atol=0)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _res_run(tres.resident_solve, *args, grid=full + 1)
+
+
+@pytest.mark.cuda
+def test_resident_kernel_repeats_exactly():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    shape, bc, iso_r, iso_q, schedule, with_ref = RES_CASES[2]
+    args = (*_res_state(shape, schedule, with_ref, seed=2), bc, iso_r, iso_q)
+    a = _res_run(tres.resident_solve, *args)
+    b = _res_run(tres.resident_solve, *args)
     assert torch.equal(a[1], b[1])
     for x, y in zip(a[0], b[0]):
         assert torch.equal(x, y)

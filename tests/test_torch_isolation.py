@@ -16,6 +16,7 @@ PROBE = """
 import sys
 import cytvdn_tpu_torch
 import cytvdn_tpu_torch.kernels, cytvdn_tpu_torch.kernels.build
+import cytvdn_tpu_torch.kernels.resident
 import cytvdn_tpu_torch.solver, cytvdn_tpu_torch.utils.state
 import cytvdn_tpu_torch.utils.perf
 leaked = {'jax', 'jaxlib', 'cytvdn_tpu'} & {m.split('.')[0] for m in sys.modules}

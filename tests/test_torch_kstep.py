@@ -176,8 +176,11 @@ def test_solver_kstep_matches_jax_kstep_solver(iters, tk, split):
     counters = (tkstep.fused_kstep_iteration, ttemporal.fused_pair_iteration,
                 tfused.fused_iteration)
     before = [c.calls for c in counters]
+    # the whole-run kernel would take these small cubes: off, so the
+    # K-step phase runs
     got = tengine.run_solver(torch.from_numpy(cube), torch.from_numpy(li),
-                             torch.from_numpy(lm), TOptions(**base))
+                             torch.from_numpy(lm),
+                             TOptions(**base, vmem_resident=False))
     assert tuple(c.calls - b for c, b in zip(counters, before)) == split
     assert got["iterations_run"] == sum(iters)
     _close(got["recon"].numpy(), want["recon"])
@@ -225,7 +228,7 @@ def test_kstep_gate_matches_jax(ndim, jkw, tkw):
                 assert got == want, (shape, tdt, fista)
 
 
-def test_kstep_gate_port_rules():
+def test_kstep_gate_port_rules(monkeypatch):
     """What the port decides on its own: stop runs stay on the exact K=1
     loop in this slice (the JAX engine K-steps them), a forced depth with
     no compiled kernel raises, and config 1 (64x64x512) gets a depth."""
@@ -255,8 +258,11 @@ def test_kstep_gate_port_rules():
                              forced=8) == 0
     assert tkstep.best_kstep((16, 6, 64), torch.float32, 2, True,
                              forced=2) == 0
-    # stop runs through denoise3D make no K-step call
+    # stop runs through denoise3D make no K-step call (with the whole-run
+    # kernel off, which would take this small cube)
     from cytvdn_tpu_torch import denoise3D
+
+    monkeypatch.setattr(tengine, "_resolve_resident", lambda *a: False)
 
     calls = tkstep.fused_kstep_iteration.calls
     cube = _state(shape, False, seed=6)[0]

@@ -174,10 +174,11 @@ def test_solver_options_rejections_match_jax():
         assert opts.temporal_kstep is True and opts.temporal_k is None
     assert TOptions(**base, temporal_kstep=False).temporal_kstep is False
     assert TOptions(**base, temporal_k=4).temporal_k == 4
-    # off by default; the resident kernel is still to be ported
-    assert TOptions(**base).vmem_resident is False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TOptions(**base, vmem_resident=True)
+    # the whole-run kernel is on by default, as in cytvdn_tpu, and may be
+    # switched off
+    for opts in (TOptions(**base), JOptions(**base)):
+        assert opts.vmem_resident is True
+    assert TOptions(**base, vmem_resident=False).vmem_resident is False
 
 
 def test_check_memory_and_traffic_model():

@@ -166,8 +166,11 @@ def test_solver_pairs_match_jax_paired_solver(iters):
                               jnp.asarray(lm),
                               JOptions(**base, backend=JBackend.PALLAS))
     pairs = ttemporal.fused_pair_iteration.calls
+    # the whole-run kernel would take these small cubes: off, so the pairs
+    # run
     got = tengine.run_solver(torch.from_numpy(cube), torch.from_numpy(li),
-                             torch.from_numpy(lm), TOptions(**base))
+                             torch.from_numpy(lm),
+                             TOptions(**base, vmem_resident=False))
     pairs = ttemporal.fused_pair_iteration.calls - pairs
     assert pairs == iters[0] // 2 + iters[1] // 2
     assert got["iterations_run"] - 2 * pairs == iters[0] % 2 + iters[1] % 2
@@ -207,7 +210,7 @@ def test_gate_matches_jax(ndim, jkw, tkw):
             assert got == want, (shape, tdt)
 
 
-def test_gate_refuses_stop_and_mse_in_this_slice():
+def test_gate_refuses_stop_and_mse_in_this_slice(monkeypatch):
     """The JAX engine pairs stop-aware and MSE runs; the port sends them to
     the exact one-iteration loop until stop-aware pairing and the in-kernel
     SSE are ported."""
@@ -222,6 +225,8 @@ def test_gate_refuses_stop_and_mse_in_this_slice():
                                              torch.float32)
     from cytvdn_tpu_torch import denoise4D
 
+    # the whole-run kernel off, which would take this small cube
+    monkeypatch.setattr(tengine, "_resolve_resident", lambda *a: False)
     pairs = ttemporal.fused_pair_iteration.calls
     cube, _, _, _, _, _ = _state(shape, False, seed=5)
     denoise4D(cube, np.full(4, 1.0, np.float32), iterations=4, quiet=True,
