@@ -38,8 +38,10 @@ non-zero — nothing is caught):
    plain version and T fused-iteration launches (state bitwise equal, sums
    within rtol 1e-5) for every boundary condition, FISTA, unaccelerated and
    hybrid momentum, with and without a reference cube, iso pairs, at forced
-   grids of 1, 7 and all blocks with a grid one larger refused, and at
-   (64,64,512) T = 16 against 16 fused-iteration launches; its size sweep:
+   grids of 1, 7 and all blocks with a grid one larger refused, at its tile
+   edges (last extents 1 to 129, ND-2 extents 1, 7 and 9) at the full grid
+   and at 1 and 7 blocks, and at (64,64,512) T = 16 against 16
+   fused-iteration launches; its size sweep:
    ms per iteration of the whole-run kernel, the K-step (or pair) kernel
    and the fused-iteration kernel, and of ``run_solver`` with the
    whole-run kernel on and off, at 64×64×N unaccelerated (N = 128 .. 4096)
@@ -125,6 +127,33 @@ SMALL_N0 = [(n0, 9, 10, 33) for n0 in (4, 5, 6, 7)] \
 RHO2 = 0.41                   # the second momentum ratio of a pair
 KS = tuple(sorted(KSTEP_CANDIDATES))
 SHAPE3 = (13, 45, 70)         # a ragged 3D shape
+
+
+def ragged_cases():
+    """The whole-run kernel's tile edges as (shape, bc, iso, schedule,
+    ref): last extents around its four-element groups and 32-lane
+    segments, ND-2 extents around its tile rows, every BC (mirror where
+    every extent is >= 2), schedule and iso pair, with and without a
+    reference cube (the cases of tests/test_torch_cuda.py)."""
+    cases = []
+    schedules = ("fista", "unacc", "hybrid")
+    for i, last in enumerate((1, 3, 5, 31, 33, 127, 129)):
+        for j, m in enumerate((1, 7, 9)):
+            bc = (i + j) % 3
+            if bc == 1 and min(m, last) < 2:
+                bc = 2 * (i % 2)
+            cases.append(((3, m, last), bc, (False, False),
+                          schedules[(i + 2 * j) % 3], (i + j) % 2 == 0))
+    for i, (m, last) in enumerate(((1, 3), (7, 33), (9, 129), (7, 5),
+                                   (9, 31), (1, 127))):
+        iso = ((True, False), (False, True), (True, True))[i % 3]
+        cases.append(((2, 3, m, last), 2, iso, schedules[i % 3], i % 2 == 1))
+    cases.append(((3, 2, 9, 33), 0, (False, False), "fista", True))
+    cases.append(((3, 2, 7, 5), 1, (False, False), "unacc", False))
+    return cases
+
+
+RAGGED = ragged_cases()
 # the whole-run kernel's size sweep: unaccelerated 64x64xN from 10.5 to
 # 335 MB of state, config 1 FISTA (67.1 MB) and with a reference cube
 # (50.3 MB), and 4D FISTA at 10.5 and 168 MB
@@ -958,6 +987,10 @@ def main() -> int:
             res_err = max(res_err, compare_resident_case(
                 ODD, 2, schedule, j == 1, 16, iso=iso))
             n_res += 1
+    for shape, bc, iso, schedule, with_ref in RAGGED:
+        res_err = max(res_err, compare_resident_case(
+            shape, bc, schedule, with_ref, 16, iso=iso, grids=(None, 1, 7)))
+        n_res += 1
     res_grids = {}
     for shape, schedule, with_ref, iso in (
             (ODD, "hybrid", True, (False, False)),
@@ -974,7 +1007,9 @@ def main() -> int:
     log(f"phase 2 whole-run kernel vs plain and vs T fused-iteration "
         f"launches: {n_res} cases (T 16 and 64; {ODD}, {SHAPE3}, {CFG1}; BC "
         f"0/1/2; FISTA, unaccelerated and hybrid momentum; with and without "
-        f"a reference cube; iso pairs at {ODD}), state bitwise equal (max "
+        f"a reference cube; iso pairs at {ODD}; {len(RAGGED)} tile-edge "
+        f"shapes, last extents 1..129 and ND-2 extents 1, 7, 9, each also at "
+        f"forced grids of 1 and 7 blocks), state bitwise equal (max "
         f"|Δ| {res_err}), sums within rtol 1e-5; the same state at forced "
         f"grids of 1, 7 and the full grid {res_grids}, a grid one block "
         f"larger refused; {time.perf_counter() - t0:.1f} s")
@@ -995,7 +1030,8 @@ def main() -> int:
             f"x400 whole-run on {mean['solver_on']:.5f}, off "
             f"{mean['solver_off']:.5f} ms per iteration (runs {raw}) [{smi}]")
     full1 = res_grid(torch.device("cuda"), 3, False, False, False)
-    scale = time_resident_grids(CFG1, (66, 132, 264, 396, full1))
+    scale = time_resident_grids(CFG1, sorted(
+        {g for g in (66, 132, 264, 396, 528) if g < full1} | {full1}))
     floor = time_resident_grids((2, 8, 32), (full1,))
     log(f"phase 2 whole-run kernel at {CFG1} unaccelerated by forced grid "
         f"(blocks: ms per iteration): "

@@ -1,17 +1,18 @@
-// Element code of one TV iteration, shared by the one-iteration kernels of
-// fused_iteration.cu and the whole-run kernel of resident.cu: the argument
-// struct, the boundary offsets of all three boundary conditions, the
-// (row, tile) walk over a block's work items, and one element's dual update
-// and reconstruction update. Both kernels therefore do the same arithmetic
-// in the same order (built with --fmad=false), so the whole-run kernel's
-// state is bitwise equal to the same number of one-iteration launches.
+// Element code of one TV iteration for the one-iteration kernels of
+// fused_iteration.cu: the argument struct, the boundary offsets of all
+// three boundary conditions, the (row, tile) walk over a block's work
+// items, and one element's dual update and reconstruction update. The
+// whole-run kernel of resident.cu shares the struct, the shape, the
+// boundary offsets and the arithmetic helpers, and does each element's
+// arithmetic in the order of dual_elem and recon_elem (built with
+// --fmad=false), so its state is bitwise equal to the same number of
+// one-iteration launches; its walk and loads are its own.
 //
-// CG selects how the state is loaded. The one-iteration kernels load it
-// plainly: a launch boundary separates each write from every read of
-// another block. The whole-run kernel loads it through L2 (ld.global.cg):
-// it rewrites the state between grid barriers, and L1 is not coherent
-// across SMs. orig, which nothing writes, is read plainly by the one and
-// through the read-only path by the other.
+// CG selects how the state is loaded: plainly (false, the one-iteration
+// kernels: a launch boundary separates each write from every read of
+// another block) or through L2 (true, ld.global.cg, for a kernel that
+// rewrites the state between grid barriers, since L1 is not coherent
+// across SMs).
 //
 // Layout: a block is 32 x 8 threads over a tile of the two trailing axes
 // (x along the contiguous last axis). Work items are (row, tile) pairs, the

@@ -9,11 +9,16 @@ block lives for all T iterations, each iteration is a dual phase and a
 reconstruction phase with a grid barrier after each (the one-iteration
 kernel's two launches, with barriers in place of launch boundaries), and the
 state stays in device memory, where the L2 can hold it between iterations
-when it is small. The element code is ``csrc/fused_iteration.cu``'s (shared
-through ``csrc/tv_elem.cuh``), so the state is bitwise equal to T
-one-iteration launches; the per-iteration sums (sum|b|, sum|recon_new -
-recon|, sum|recon| and, with a reference cube, the SSE) are per-block
-partials combined in a fixed order, within rtol 1e-5 of T launches' sums.
+when it is small. A thread owns four consecutive elements of the last axis
+(128-bit loads where the last extent is a multiple of 4), issues every load
+of a work item before its first store, and takes its neighbours along the
+last axis from the neighbouring lane and along axis ndim-2 from the tile's
+neighbouring row in shared memory (:func:`resident_work_items`). Each
+element's arithmetic is ``csrc/fused_iteration.cu``'s, in its order, so the
+state is bitwise equal to T one-iteration launches; the per-iteration sums
+(sum|b|, sum|recon_new - recon|, sum|recon| and, with a reference cube, the
+SSE) are per-block partials combined in a fixed order, within rtol 1e-5 of
+T launches' sums.
 
 Scope, as the TPU kernel's on one device: float32, 3D and 4D with N0 ≥ 2,
 all three boundary conditions (mirror needs every extent ≥ 2), iso pairs in
@@ -23,10 +28,6 @@ or unaccelerated, an optional reference cube. The state is updated in place,
 so a fresh run is the caller's allocation (recon a copy of orig, zero
 accumulators and shadow duals) and a resumed run is the state it hands in.
 :func:`resident_supported` adds the H100 size rule (:data:`RESIDENT_BYTES`).
-On the H100 the kernel moves about 1.8-2.2 TB/s of cube traversals at every
-state size measured, from 10.5 MB (inside the L2) to 335.5 MB: the grid
-barriers and the latency of its loads, not the L2's capacity, set its pace
-(PERF.md).
 :func:`resident_solve` launches the kernel for CUDA tensors and runs
 :func:`resident_solve_reference` for CPU tensors; there is no fallback.
 """
@@ -45,7 +46,6 @@ from cytvdn_tpu_torch.kernels.fused import (
     _check,
     _check_state,
     _launch_args,
-    _work_items,
     fused_iteration_reference,
 )
 
@@ -56,13 +56,18 @@ Tensor = torch.Tensor
 #: set by measurement (``chip_smoke.py``'s size sweep, PERF.md; NVIDIA H100
 #: 80GB HBM3 at 700 W): ``run_solver`` was faster with the whole-run kernel
 #: than on its other path (K-step, pairs, or the one-iteration loop with
-#: MSE) at every state of the sweep, 10.5 to 335.5 MB, so the budget is
-#: the sweep's largest state; larger ones are not measured
+#: MSE) at every state of the sweep, 10.5 to 335.5 MB (1.3-4.9x), and the
+#: kernel alone faster than back-to-back one-iteration launches there too
+#: (1.2-8.4x), so the budget is the sweep's largest state; larger ones are
+#: not measured
 RESIDENT_BYTES = 336_000_000
 
 #: the full cooperative grid per (device, ndim, fista, iso, ref): each
 #: instantiation has its own registers, so its own occupancy
 _GRID: Dict[Tuple[int, int, bool, bool, bool], int] = {}
+
+#: threads of a block, and elements of a thread along the last axis
+_NT, _VW = 256, 4
 
 
 def resident_state_bytes(shape, fista: bool, with_mse: bool) -> int:
@@ -74,6 +79,27 @@ def resident_state_bytes(shape, fista: bool, with_mse: bool) -> int:
     for e in shape:
         vox *= e
     return 4 * vox * (2 + n + (n if fista else 0) + (1 if with_mse else 0))
+
+
+def _lanes(last: int) -> int:
+    """Lanes of a row segment for a last extent of ``last``: the least power
+    of two, at most 32, whose lanes' four elements each cover it."""
+    lw = 1
+    while lw < 32 and _VW * lw < last:
+        lw *= 2
+    return lw
+
+
+def resident_work_items(shape) -> int:
+    """The whole-run kernel's (row, tile) work items: the leading axes
+    flattened into rows, times its tiles of the two trailing axes, each
+    256 / lw rows of axis ndim-2 by 4 lw elements of axis ndim-1
+    (``csrc/resident.cu``)."""
+    rows = 1
+    for n in shape[:-2]:
+        rows *= n
+    lw = _lanes(shape[-1])
+    return rows * -(-shape[-2] // (_NT // lw)) * -(-shape[-1] // (_VW * lw))
 
 
 def _covers(shape, dtype, bc, iso_r: bool, iso_q: bool) -> bool:
@@ -208,7 +234,7 @@ def resident_solve(
         scalars.append(("rhos", rhos, n_iters))
     bs, dd, dims, stream = _launch_args(orig, accs, ds if fista else None,
                                         scalars)
-    work = _work_items(shape)
+    work = resident_work_items(shape)
     if work >= 2**31:
         raise ValueError(f"shape {shape}: {work} work items; the kernel's "
                          "32-bit index arithmetic takes < 2**31")

@@ -427,6 +427,75 @@ def test_resident_kernel_state_independent_of_grid(case):
         _res_run(tres.resident_solve, *args, grid=full + 1)
 
 
+def _ragged_cases():
+    """The whole-run kernel's tile edges: last-axis lengths around its
+    four-element groups and 32-lane segments, ND-2 lengths around its tile
+    rows, every BC (mirror where every extent is >= 2), every momentum
+    schedule, with and without a reference cube, iso pairs in 4D."""
+    cases = []
+    schedules = ("fista", "unacc", "hybrid")
+    for i, last in enumerate((1, 3, 5, 31, 33, 127, 129)):
+        for j, m in enumerate((1, 7, 9)):
+            bc = (i + j) % 3
+            if bc == 1 and min(m, last) < 2:
+                bc = 2 * (i % 2)
+            cases.append(((3, m, last), bc, False, False,
+                          schedules[(i + 2 * j) % 3], (i + j) % 2 == 0))
+    for i, (m, last) in enumerate(((1, 3), (7, 33), (9, 129), (7, 5),
+                                   (9, 31), (1, 127))):
+        iso = ((True, False), (False, True), (True, True))[i % 3]
+        cases.append(((2, 3, m, last), 2, *iso, schedules[i % 3], i % 2 == 1))
+    cases.append(((3, 2, 9, 33), 0, False, False, "fista", True))
+    cases.append(((3, 2, 7, 5), 1, False, False, "unacc", False))
+    return cases
+
+
+RAGGED_CASES = _ragged_cases()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RAGGED_CASES, ids=str)
+def test_resident_kernel_ragged_edges(case):
+    """At the tiles' ragged edges: the full grid, 1 block and 7 blocks give
+    the plain version's state and T one-iteration launches' bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    shape, bc, iso_r, iso_q, schedule, with_ref = case
+    args = (*_res_state(shape, schedule, with_ref, seed=3), bc, iso_r, iso_q)
+    ks, ksum = _res_run(tres.resident_solve, *args)
+    runs = [_res_run(tres.resident_solve, *args, grid=g) for g in (1, 7)]
+    runs += [_res_run(step, *args) for step in (tres.resident_solve_reference,
+                                                 _res_k1_launches)]
+    for s, sums in runs:
+        for a, b in zip(ks, s):
+            assert torch.equal(a, b), (a - b).abs().max().item()
+        torch.testing.assert_close(ksum, sums, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_resident_kernel_unaligned_state():
+    """An array that starts off a 16-byte boundary (here orig and ref) sends
+    the kernel to its scalar loads even where the last extent is a multiple
+    of 4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    orig, state, li, lm, rhos, ref = _res_state((3, 9, 32), "fista", True,
+                                                seed=4)
+
+    def shifted(x):
+        return torch.empty(x.numel() + 1, device="cuda")[1:].view(
+            x.shape).copy_(x)
+
+    orig, ref = shifted(orig), shifted(ref)
+    assert orig.data_ptr() % 16 and ref.data_ptr() % 16
+    args = (orig, state, li, lm, rhos, ref, 1, False, False)
+    ks, ksum = _res_run(tres.resident_solve, *args)
+    s, sums = _res_run(tres.resident_solve_reference, *args)
+    for a, b in zip(ks, s):
+        assert torch.equal(a, b), (a - b).abs().max().item()
+    torch.testing.assert_close(ksum, sums, rtol=1e-5, atol=0)
+
+
 @pytest.mark.cuda
 def test_resident_kernel_repeats_exactly():
     if not torch.cuda.is_available():

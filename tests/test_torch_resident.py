@@ -361,6 +361,23 @@ def test_resident_size_rule():
     assert [c.calls - b for c, b in zip(COUNTERS, before)] == [1, 0, 0, 0]
 
 
+@pytest.mark.parametrize("shape,want", [
+    # lanes per row segment: the least power of two (at most 32) whose four
+    # elements each cover the last axis; tiles of 256 / lanes rows
+    ((64, 64, 512), 64 * 8 * 4),        # config 1: 32 lanes, 8 x 128 tiles
+    ((256, 256, 128, 128), 256 * 256 * 16),
+    ((13, 17, 70), 13 * 3),             # 32 lanes, 70 of 128 columns
+    ((3, 9, 129), 3 * 2 * 2),           # one column past a 128 tile
+    ((37, 45, 19, 23), 37 * 45),        # 8 lanes: one 32 x 32 tile
+    ((2, 3, 7, 5), 6),                  # 2 lanes: one 128 x 8 tile
+    ((3, 1, 1), 3),                     # 1 lane: one 256 x 4 tile
+])
+def test_resident_work_items(shape, want):
+    """The whole-run kernel's own (row, tile) count, which the wrapper
+    holds below 2**31 for its 32-bit index arithmetic."""
+    assert tres.resident_work_items(shape) == want
+
+
 def test_resident_wrapper_rejects_what_the_kernel_does_not_take():
     t = torch.from_numpy
     orig, li, lm = _cube((4, 5, 6), seed=4)
