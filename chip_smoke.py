@@ -15,15 +15,24 @@ non-zero — nothing is caught):
    three sums within rtol 1e-5 — for every boundary condition, FISTA and
    unaccelerated, half-isotropic pairs, float32 and float64, also at the
    main path's shapes (256,256,2048); two pairs of the pair kernel against
-   its plain version and against four launches of the fused-iteration
-   kernel (state bitwise equal, sums within rtol 1e-5) at N0 = 4..7, on
-   ragged shapes and at the main path's shapes, and at forced grids of 1,
-   7 and all blocks (the race check); at (256,256,128,128) two iterations
-   of the fused-iteration kernel, one pair and two plain iterations, all
-   bitwise equal (compared off the card); then ms per pair of the pair
-   kernel, of two fused-iteration launches and of the plain pair at
-   (128,128,64,64), (256,256,2048) and (256,256,128,128), and each CUDA
-   kernel's device time from ``torch.profiler`` at the last; two launches
+   its plain version, and four launches of the fused-iteration kernel
+   against it too (state bitwise equal, sums within rtol 1e-5), at N0 =
+   4..7 and on ragged shapes at axis-1 strip widths 1, 2, 3, N1 and the
+   default (whole rows), at the main path's shapes at whole rows and W = 32,
+   at forced grids
+   of 1, 7 and all blocks with a grid one larger refused (the race check),
+   and at strips that do not divide N1 or start off the tile grid; at
+   (256,256,128,128) two iterations of the fused-iteration kernel, one
+   pair and two plain iterations, all bitwise equal (compared off the
+   card); then ms per pair of the pair kernel, of two fused-iteration
+   launches and of the plain pair at (128,128,64,64), (256,256,2048) and
+   (256,256,128,128), and each CUDA kernel's device time from
+   ``torch.profiler`` at the last; the pair kernel's strip sweep: ms per
+   pair at W = 4, 8, 12, 16, 32, 64 and N1 (the whole-row schedule, the
+   default), in turns with two fused-iteration launches, at rows of 2 to 16
+   MB (STRIP_SWEEP), and ``run_solver`` x48 there and at (N0,64,2048) for
+   N0 = 128, 192, 1024 along the engine's pick, K=8, pairs and the K=1
+   loop (the whole-run kernel off); two launches
    of the K-step kernel (K = 3, 4, 6, 8) against its plain version, K
    fused-iteration launches and (K even) K/2 pair launches (state bitwise
    equal, sums within rtol 1e-5) at N0 = 2K and 2K+1 in 3D and 4D and on
@@ -44,7 +53,8 @@ non-zero — nothing is caught):
    fused-iteration launches; its size sweep:
    ms per iteration of the whole-run kernel, the K-step (or pair) kernel
    and the fused-iteration kernel, and of ``run_solver`` with the
-   whole-run kernel on and off, at 64×64×N unaccelerated (N = 128 .. 4096)
+   whole-run kernel on and off and on the K=1 loop, at 64×64×N
+   unaccelerated (N = 128 .. 4096)
    and at (64,64,512) FISTA and with a reference cube;
 3. main path: ``denoise4D`` on a 256×256×128×128 float32 cube (the
    BASELINE config-4 size), 20 FISTA iterations (10 pair launches, no
@@ -52,13 +62,15 @@ non-zero — nothing is caught):
    peak device memory, and the iteration rate with pairs on and off;
 4. 3D paths: ``denoise3D`` at (64,64,512) unaccelerated with the default
    7500 iterations (one whole-run launch), ``run_solver`` there with the
-   whole-run kernel, with the K-step kernel (whole-run off) and with pairs,
-   one 7500-iteration whole-run launch timed on the device, a stop-aware
-   run there (whole-run chunks) against the K=1 loop and the plain
-   backend, ``run_solver`` at (256,256,2048) FISTA with the K-step kernel on
-   and off, a hybrid 3D run through the K-step, pair and fused-iteration
-   kernels and hybrid 4D runs (without and with an early stop in the
-   second phase) against the plain backend on the card;
+   whole-run kernel, with the K-step kernel (whole-run off) and with pairs
+   (the engine's row-size rule for pairs lifted), one 7500-iteration
+   whole-run launch timed on the device, a stop-aware run there (whole-run
+   chunks) against the K=1 loop and the plain backend, ``run_solver`` at
+   (256,256,2048) FISTA with the K-step kernel forced and off, a hybrid 3D
+   run through the K-step, pair (rule lifted) and fused-iteration kernels
+   and hybrid 4D runs (pairs, rule lifted, without an early stop; the K=1
+   loop with one in the second phase) against the plain backend on the
+   card;
 5. one JSON line on the kernels (launches on the path that reaches each,
    error, ms, the plain version's ms and the least time the card could
    take), the card's name and power limit, and the ``{"ok": true, ...}``
@@ -70,6 +82,7 @@ fixed seeds.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -102,7 +115,9 @@ from cytvdn_tpu_torch.kernels.temporal import (
     fused_pair_iteration,
     fused_pair_iteration_reference,
 )
+from cytvdn_tpu_torch.solver import engine
 from cytvdn_tpu_torch.solver.engine import (
+    _pairs_pay,
     _resolve_kstep,
     _resolve_resident,
     _resolve_temporal,
@@ -125,6 +140,24 @@ ODD = (37, 45, 19, 23)        # ragged tile edges on every axis
 SMALL_N0 = [(n0, 9, 10, 33) for n0 in (4, 5, 6, 7)] \
     + [(n0, 13, 70) for n0 in (4, 5, 6, 7)]
 RHO2 = 0.41                   # the second momentum ratio of a pair
+# the pair kernel's forced axis-1 strip widths (None: the wrapper's default,
+# whole rows; "N1": one strip, forced); strips that do not divide N1,
+# and 3D strips wider than the 8-row tile, whose tiles start off its grid
+PAIR_STRIPS = (None, 1, 2, 3, "N1")
+RAGGED_STRIPS = [((5, 10, 9, 33), 3), ((6, 13, 70), 5), ((6, 45, 70), 11),
+                 ((5, 45, 19, 23), 20), ((6, 45, 70), 20)]
+# the strip sweep: rows of 16 MB (config 4), 8 MB, 2 MB (configs 3 and 2,
+# 64^2 x 8192) and 4 MB (64^2 x 16384; the last two are 3D unaccelerated
+# states above the whole-run kernel's 336 MB: 671 MB and 1.34 GB); all but
+# config 4 also through run_solver, the gate's pick against K=8 and the
+# K=1 loop
+STRIP_SWEEP = [(CFG4, True), ((64, 128, 128, 128), True), (CFG3, True),
+               (CFG2, True), ((64, 64, 8192), False), ((64, 64, 16384), False)]
+STRIP_WIDTHS = (4, 8, 12, 16, 32, 64)
+# 3D unaccelerated states of 336 MB, 503 MB and 2.7 GB whose K=8 stage fits
+# the L2 (512 KB rows), so that the K-step gate decides: run_solver only
+SOLVER_ONLY = [((128, 64, 2048), False), ((192, 64, 2048), False),
+               ((1024, 64, 2048), False)]
 KS = tuple(sorted(KSTEP_CANDIDATES))
 SHAPE3 = (13, 45, 70)         # a ragged 3D shape
 
@@ -252,33 +285,59 @@ def compare_case(shape, bc, fista, dtype, iso_r=False, iso_q=False, iters=3):
     return err
 
 
-def compare_pair_case(shape, fista, grids=(None,)):
-    """Two pairs of the pair kernel (at each forced grid of ``grids``;
-    None is the full cooperative grid) against its plain version and four
-    fused-iteration launches from the same Jia-Zhao state; returns max
-    |Δstate|."""
+def compare_pair_case(shape, fista, grids=(None,), strips=(None,)):
+    """Two pairs of the pair kernel at each forced grid of ``grids`` and
+    each forced axis-1 strip width of ``strips`` (None: the full
+    cooperative grid, the wrapper's default strip, whole rows; "N1": the
+    whole-row schedule, forced) against its plain version, and four fused-iteration launches
+    against the plain version too, from the same Jia-Zhao state; returns
+    max |Δstate|."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     orig, state, li, lm, rho = random_state(shape, fista, torch.float32, gen,
                                             jz=True)
-    steps = [lambda *a, g=g, **k: fused_pair_iteration(*a, grid=g, **k)
-             for g in grids] + [fused_pair_iteration_reference, two_k1]
-    results = []
-    for step in steps:
+
+    def run(step):
         s = [x.clone() for x in state]
         fn = pair_fn(step, orig, s, li, lm, rho, fista)
         sums = [torch.stack(fn()).double() for _ in range(2)]
         torch.cuda.synchronize()
-        results.append((s, torch.stack(sums).cpu()))
-    (ks, ksum) = results[0]
+        return s, torch.stack(sums).cpu()
+
+    ps, psum = run(fused_pair_iteration_reference)
+    steps = [("4 fused-iteration launches", two_k1)] + [
+        (f"grid {g} strip {w}",
+         lambda *a, g=g, w=w, **k: fused_pair_iteration(
+             *a, grid=g, strip=shape[1] if w == "N1" else w, **k))
+        for g in grids for w in strips]
     err = 0.0
-    for ps, psum in results[1:]:
+    for label, step in steps:
+        ks, ksum = run(step)
         err = max(err, max((a - b).abs().max().item() for a, b in zip(ks, ps)))
         require(all(torch.equal(a, b) for a, b in zip(ks, ps)),
-                f"pair kernel state differs: shape {shape} fista {fista} "
-                f"grids {grids}: max |Δ| {err}")
+                f"{label} state differs from the plain pair: shape {shape} "
+                f"fista {fista}: max |Δ| {err}")
         rel = ((ksum - psum).abs() / psum.abs().clamp_min(1e-300)).max().item()
-        require(rel <= 1e-5, f"pair sums differ by rtol {rel} at {shape}")
+        require(rel <= 1e-5, f"{label} sums differ by rtol {rel} at {shape}")
+        del ks
+    del ps, state, orig
+    torch.cuda.empty_cache()
     return err
+
+
+def pair_refuses_oversized_grid(shape, strip):
+    """A pair launch one block above the cooperative grid raises; returns
+    the full grid."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    orig, state, li, lm, rho = random_state(shape, True, torch.float32, gen,
+                                            jz=True)
+    full = cooperative_grid(torch.device("cuda"), len(shape), True)
+    try:
+        pair_fn(fused_pair_iteration, orig, state, li, lm, rho, True,
+                grid=full + 1, strip=strip)()
+    except RuntimeError as e:
+        require("launch failed" in str(e), f"unexpected error {e}")
+        return full
+    raise AssertionError(f"a pair grid of {full + 1} blocks was accepted")
 
 
 def compare_offcard(shape, fista):
@@ -467,11 +526,24 @@ def time_kstep(shape, fista, n_kernel, n_plain):
     return mean, [(str(n), round(t, 4)) for n, t in runs]
 
 
+@contextlib.contextmanager
+def pairs_at_any_row():
+    """Lift the engine's row-size rule for pairs (``_pairs_pay``), so that
+    a small cube runs its phases in pairs."""
+    saved = engine.PAIR_MIN_ROW_BYTES
+    engine.PAIR_MIN_ROW_BYTES = 0
+    try:
+        yield
+    finally:
+        engine.PAIR_MIN_ROW_BYTES = saved
+
+
 def expected_launches(opts, shape):
     """(whole-run, K-step, pair, fused-iteration) launches ``run_solver``
     makes for a fixed schedule, from the engine's own gates: one whole-run
     launch where ``_resolve_resident`` allows; else each phase runs
-    floor(n/K) K-step launches, then pairs, then the remainder."""
+    floor(n/K) K-step launches, then pairs where ``_pairs_pay``, then the
+    remainder."""
     if opts.iterations_fista + opts.iterations_unacc and \
             _resolve_resident(opts, shape, torch.float32):
         return (1, 0, 0, 0)
@@ -483,7 +555,8 @@ def expected_launches(opts, shape):
         k = _resolve_kstep(opts, shape, torch.float32, fista)
         nk = n // k if k else 0
         rem = n - nk * k
-        pairs = rem // 2 if _resolve_temporal(opts, shape, torch.float32) else 0
+        pairs = rem // 2 if _resolve_temporal(opts, shape, torch.float32) \
+            and _pairs_pay(shape, torch.float32) else 0
         out[1] += nk
         out[2] += pairs
         out[3] += rem - 2 * pairs
@@ -627,10 +700,11 @@ def time_resident(shape, schedule, with_ref, n_iters):
     picks none), and back-to-back fused-iteration launches (each followed by
     the SSE with a reference cube, as the engine's loop does), in turns:
     whole-run, K-step, K=1, K=1, K-step, whole-run; then ``run_solver`` for
-    ``n_iters`` iterations with the whole-run kernel on and off (host clock,
-    the size rule lifted, after a short warm-up run of each), in turns on,
-    off, off, on. Returns ({name: ms per
-    iteration}, the temporal kernel's label, the raw runs)."""
+    ``n_iters`` iterations with the whole-run kernel on, off (the engine's
+    next pick), and on the K=1 loop (host clock, the size rule lifted,
+    after a short warm-up run of each), in turns on, off, K=1, K=1, off, on.
+    Returns ({name: ms per iteration}, the temporal kernel's label, the raw
+    runs)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     fista = schedule == "fista"
     orig, state, li, lm, rho = random_state(shape, fista, torch.float32, gen,
@@ -664,26 +738,30 @@ def time_resident(shape, schedule, with_ref, n_iters):
         fn, iters = fns[name]
         runs.append((name, time_ms(fn, max(1, 400 // iters)) / iters))
     del fns
-    # end to end: the engine's choice with the whole-run kernel on and off
+    # end to end: the engine's choice with the whole-run kernel on and off,
+    # and the K=1 loop
+    paths = {"on": dict(), "off": dict(vmem_resident=False),
+             "k1": dict(vmem_resident=False, temporal_kstep=False,
+                        temporal_pairs=False)}
     saved = resident_mod.RESIDENT_BYTES
     resident_mod.RESIDENT_BYTES = 1 << 62
     try:
-        for on in (True, False):  # warm-up: the allocator's first blocks
+        for kw in paths.values():  # warm-up: the allocator's first blocks
             run_solver(orig, li, lm, SolverOptions(
                 ndim=ndim, iterations_fista=16 if fista else 0,
                 iterations_unacc=0 if fista else 16, calculate_mse=with_ref,
-                vmem_resident=on), ref)
-        for on in (True, False, False, True):
+                **kw), ref)
+        for path in ("on", "off", "k1", "k1", "off", "on"):
             opts = SolverOptions(ndim=ndim, iterations_fista=n_iters if fista
                                  else 0, iterations_unacc=0 if fista
                                  else n_iters, calculate_mse=with_ref,
-                                 vmem_resident=on)
+                                 **paths[path])
             reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             run_solver(orig, li, lm, opts, ref)
             torch.cuda.synchronize()
-            runs.append((f"solver_{'on' if on else 'off'}",
+            runs.append((f"solver_{path}",
                          (time.perf_counter() - t0) * 1e3 / n_iters))
             require(launch_counts() == expected_launches(opts, shape),
                     f"sweep {shape}: launches {launch_counts()}")
@@ -693,7 +771,7 @@ def time_resident(shape, schedule, with_ref, n_iters):
     torch.cuda.empty_cache()
     mean = {name: sum(t for n, t in runs if n == name) / 2
             for name in ("resident", "temporal", "k1", "solver_on",
-                         "solver_off")}
+                         "solver_off", "solver_k1")}
     label = f"K-step K={k}" if k else "pair"
     return mean, label, [(n, round(t, 5)) for n, t in runs]
 
@@ -777,6 +855,67 @@ def time_all(shape, n_kernel, n_plain):
     mean = {name: sum(t for n, t in runs if n == name) / 2
             for name in ("pair", "k1x2", "plain")}
     return mean, [(n, round(t, 3)) for n, t in runs]
+
+
+def time_strips(shape, fista, n_kernel):
+    """ms per pair on one Jia-Zhao state (momentum 0.37, then RHO2) of the
+    pair kernel at each strip width of STRIP_WIDTHS below N1 and at N1 (the
+    whole-row schedule, the wrapper's default), and of two fused-iteration
+    launches, in turns: K=1, every width up, every width down, K=1. Returns
+    ({width or "k1x2": mean ms}, the raw runs)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    orig, state, li, lm, rho = random_state(shape, fista, torch.float32, gen,
+                                            jz=True)
+    widths = sorted({w for w in STRIP_WIDTHS if w < shape[1]} | {shape[1]})
+    fns = {w: pair_fn(fused_pair_iteration, orig, state, li, lm, rho, fista,
+                      strip=w) for w in widths}
+    fns["k1x2"] = pair_fn(two_k1, orig, state, li, lm, rho, fista)
+    runs = [(name, time_ms(fns[name], n_kernel))
+            for name in ["k1x2", *widths, *reversed(widths), "k1x2"]]
+    del orig, state, fns
+    torch.cuda.empty_cache()
+    mean = {name: sum(t for n, t in runs if n == name) / 2
+            for name in ["k1x2", *widths]}
+    return mean, [(n, round(t, 4)) for n, t in runs]
+
+
+def time_solver_paths(shape, fista, iters):
+    """Host-clock ms per iteration of ``run_solver`` (a fixed schedule of
+    ``iters`` iterations on a random cube on the card, the whole-run kernel
+    off) along the engine's own pick, with the K-step kernel forced to K=8,
+    in pairs (K-step off, the row-size rule lifted), and on the K=1 loop
+    (pairs and K-step off), in turns up and down, after a warm-up run of
+    each; with the launches of each. Returns ({path: mean ms}, {path:
+    launches}, the raw runs)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    orig = torch.randn(shape, generator=gen, device="cuda") * 0.5 + 2.0
+    ndim = len(shape)
+    li = torch.full((ndim,), 16.0, device="cuda")
+    lm = torch.full((ndim,), 1 / 16, device="cuda")
+    base = dict(ndim=ndim, iterations_fista=iters if fista else 0,
+                iterations_unacc=0 if fista else iters, vmem_resident=False)
+    paths = {"gate": dict(), "k8": dict(temporal_k=8),
+             "pairs": dict(temporal_kstep=False),
+             "k1": dict(temporal_pairs=False)}
+    launches, runs = {}, []
+    for name in [*paths, *reversed(paths)]:
+        opts = SolverOptions(**base, **paths[name])
+        with pairs_at_any_row() if name == "pairs" else contextlib.nullcontext():
+            if name not in launches:
+                run_solver(orig, li, lm, opts)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_solver(orig, li, lm, opts)
+            torch.cuda.synchronize()
+            runs.append((name, (time.perf_counter() - t0) * 1e3 / iters))
+            launches[name] = launch_counts()
+            require(launches[name] == expected_launches(opts, shape),
+                    f"{shape} {name}: launches {launches[name]}")
+    del orig
+    torch.cuda.empty_cache()
+    mean = {name: sum(t for n, t in runs if n == name) / 2 for name in paths}
+    return mean, launches, [(n, round(t, 4)) for n, t in runs]
 
 
 def solver_ms(shape, iters, stop):
@@ -871,22 +1010,36 @@ def main() -> int:
         n_cases += 1
     log(f"phase 2 kernel vs plain: {n_cases} cases, 3 iterations each, state "
         f"bitwise equal (max |Δ| {max_err}), sums within rtol 1e-5")
+    t0 = time.perf_counter()
     pair_err = 0.0
     n_pair = 0
     for shape in SMALL_N0 + [ODD, CFG3, CFG1, CFG2]:
+        strips = PAIR_STRIPS if shape[0] < 64 else (None, 32)
         for fista in (True, False):
-            pair_err = max(pair_err, compare_pair_case(shape, fista))
-            n_pair += 1
+            pair_err = max(pair_err, compare_pair_case(shape, fista,
+                                                       strips=strips))
+            n_pair += len(strips)
     full = {nd: cooperative_grid(torch.device("cuda"), nd, True) for nd in (3, 4)}
     for shape in (ODD, SMALL_N0[-1]):
         pair_err = max(pair_err, compare_pair_case(
-            shape, True, grids=(1, 7, full[len(shape)])))
-    log(f"phase 2 pair kernel vs plain pair and vs 4 fused-iteration "
-        f"launches: {n_pair} cases (N0 4..7 in 3D and 4D, {ODD}, {CFG3}, "
-        f"{CFG1}, {CFG2}; FISTA and unaccelerated), 2 pairs each, state "
-        f"bitwise equal (max |Δ| {pair_err}), sums within rtol 1e-5; the "
-        f"same state at forced grids of 1, 7 and {full[4]} (4D) / {full[3]} "
-        f"(3D) blocks at {ODD} and {SMALL_N0[-1]}")
+            shape, True, grids=(1, 7, full[len(shape)]), strips=PAIR_STRIPS))
+        for w in PAIR_STRIPS:
+            pair_refuses_oversized_grid(shape, shape[1] if w == "N1" else w)
+    for shape, w in RAGGED_STRIPS:
+        for fista in (True, False):
+            pair_err = max(pair_err, compare_pair_case(
+                shape, fista, grids=(None, 1, 7), strips=(w,)))
+    log(f"phase 2 pair kernel vs plain pair, and 4 fused-iteration launches "
+        f"vs plain pair: {n_pair} cases (N0 4..7 in 3D and 4D and {ODD} at "
+        f"strips {PAIR_STRIPS} (None: the default, whole rows); {CFG3}, "
+        f"{CFG1}, {CFG2} at whole rows and W=32; FISTA and unaccelerated), 2 "
+        f"pairs each, "
+        f"state bitwise equal (max |Δ| {pair_err}), sums within rtol 1e-5; "
+        f"the same state at every one of those strips at forced grids of 1, "
+        f"7 and {full[4]} (4D) / {full[3]} (3D) blocks at {ODD} and "
+        f"{SMALL_N0[-1]}, a grid one block larger refused; ragged strips "
+        f"{RAGGED_STRIPS} at the full grid and 1 and 7 blocks; "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     err4, rel4 = compare_offcard(CFG4, True)
     max_err = max(max_err, err4)
@@ -911,6 +1064,45 @@ def main() -> int:
     prof = profile_kernels(CFG4)
     log(f"phase 2 torch.profiler device time per FISTA f32 iteration at "
         f"{CFG4}: {'; '.join(prof) or 'no device events seen'} [{smi}]")
+    # the pair kernel's strip sweep (the whole-row schedule is W = N1)
+    t0 = time.perf_counter()
+    strip_ms = {}
+    for shape, fista in STRIP_SWEEP:
+        n_k = 2 if np.prod(shape) > 2**29 else 8
+        strip_ms[shape], raw = time_strips(shape, fista, n_k)
+        t = strip_ms[shape]
+        row_mb = int(np.prod(shape[1:])) * 4 / 2**20
+        log(f"phase 2 pair strip sweep at {shape} "
+            f"{'FISTA' if fista else 'unaccelerated'} f32 ({row_mb:g} MiB "
+            f"rows), ms per pair by strip width W: "
+            + ", ".join(f"W={w}{' (N1, whole rows)' if w == shape[1] else ''}"
+                        f" {v:.4f}" for w, v in t.items() if w != "k1x2")
+            + f"; 2 fused-iteration launches {t['k1x2']:.4f} (runs {raw}) "
+            f"[{smi}]")
+    b4 = launch_bound_seconds(CFG4, True, 2, peak_bandwidth(name),
+                              peak_f32(name))[0] * 1e3 \
+        if peak_bandwidth(name) and peak_f32(name) else float("nan")
+    t4 = strip_ms[CFG4]
+    w4 = CFG4[1]
+    best = min((w for w in t4 if w != "k1x2"), key=t4.get)
+    log(f"phase 2 pair kernel at {CFG4} FISTA f32: {t4[w4]:.3f} ms per pair "
+        f"at whole rows, the default W={w4} ({b4 / t4[w4]:.3f} of the "
+        f"{b4:.2f} ms bound; "
+        f"91.36 ms, 0.27, in PERF.md for the parent's whole-row kernel); "
+        f"W=8 (a 512 KB row-tile) {t4[8]:.3f} ms ({b4 / t4[8]:.3f}); the "
+        f"fastest width W={best} {t4[best]:.3f} ms; 2 fused-iteration "
+        f"launches {t4['k1x2']:.3f} ms; sweep {time.perf_counter() - t0:.1f}"
+        f" s [{smi}]")
+    for shape, fista in STRIP_SWEEP[1:] + SOLVER_ONLY:  # config 4: phase 3
+        mean, launches, raw = time_solver_paths(shape, fista, 48)
+        mb = resident_state_bytes(shape, fista, False) / 1e6
+        log(f"phase 2 run_solver {shape} {'FISTA' if fista else 'unaccelerated'}"
+            f" ({mb:.1f} MB of state) x48 on the card, whole-run off, ms per "
+            f"iteration: the gate's pick {mean['gate']:.4f} (launches "
+            f"whole-run/K-step/pair/fused {launches['gate']}), K=8 forced "
+            f"{mean['k8']:.4f} ({launches['k8']}), pairs {mean['pairs']:.4f} "
+            f"({launches['pairs']}), K=1 loop {mean['k1']:.4f} "
+            f"({launches['k1']}) (runs {raw}) [{smi}]")
 
     # the K-step kernel: every depth against its plain version, K
     # fused-iteration launches and K/2 pair launches, then at forced grids
@@ -1028,7 +1220,8 @@ def main() -> int:
             f"{mean['temporal']:.5f}, fused-iteration "
             f"{mean['k1']:.5f}{' (+ SSE)' if with_ref else ''}; run_solver "
             f"x400 whole-run on {mean['solver_on']:.5f}, off "
-            f"{mean['solver_off']:.5f} ms per iteration (runs {raw}) [{smi}]")
+            f"{mean['solver_off']:.5f}, K=1 loop {mean['solver_k1']:.5f} ms "
+            f"per iteration (runs {raw}) [{smi}]")
     full1 = res_grid(torch.device("cuda"), 3, False, False, False)
     scale = time_resident_grids(CFG1, sorted(
         {g for g in (66, 132, 264, 396, 528) if g < full1} | {full1}))
@@ -1184,12 +1377,14 @@ def main() -> int:
     ks1 = {path: [] for path in paths1}
     c1 = {}
     for path in ("resident", "kstep", "pairs", "pairs", "kstep", "resident"):
-        reset_counts()
-        ks1[path].append(solve_s(orig1, li3, lm3, **cfg1, **paths1[path]))
-        c1[path] = launch_counts()
-        require(c1[path] == expected_launches(
-            SolverOptions(ndim=3, **cfg1, **paths1[path]), CFG1),
-            f"config 1 {path} launches {c1[path]}")
+        # pairs with the row-size rule lifted (config 1's rows are 128 KB)
+        with pairs_at_any_row() if path == "pairs" else contextlib.nullcontext():
+            reset_counts()
+            ks1[path].append(solve_s(orig1, li3, lm3, **cfg1, **paths1[path]))
+            c1[path] = launch_counts()
+            require(c1[path] == expected_launches(
+                SolverOptions(ndim=3, **cfg1, **paths1[path]), CFG1),
+                f"config 1 {path} launches {c1[path]}")
     mean1 = {path: sum(v) / 2 for path, v in ks1.items()}
     floor_s = model_seconds(CFG1, False, "kstep_floor", bw, k=k1_depth) * 7500 \
         if bw else float("nan")
@@ -1257,13 +1452,14 @@ def main() -> int:
     del probe, stop_runs
 
     # a hybrid 3D run through the K-step, pair and fused-iteration kernels
-    # (whole-run off) against the plain backend
+    # (whole-run off, pairs at any row size) against the plain backend
     hyb = dict(ndim=3, iterations_fista=9, iterations_unacc=7,
                vmem_resident=False)
-    want_h = expected_launches(SolverOptions(**hyb), CFG1)
-    reset_counts()
-    got = run_solver(orig1, li3, lm3, SolverOptions(**hyb))
-    counts_h = launch_counts()
+    with pairs_at_any_row():
+        want_h = expected_launches(SolverOptions(**hyb), CFG1)
+        reset_counts()
+        got = run_solver(orig1, li3, lm3, SolverOptions(**hyb))
+        counts_h = launch_counts()
     require(counts_h == want_h and counts_h[0] == 0 and min(counts_h[1:]) > 0,
             f"hybrid 3D launches {counts_h}, expected {want_h}")
     ref = run_solver(orig1, li3, lm3, SolverOptions(**hyb, backend="torch"))
@@ -1315,16 +1511,19 @@ def main() -> int:
     def hybrid(stop):
         kw = dict(iterations=(10, 10), stopping_relative_change=stop,
                   quiet=True, device="cuda")
-        reset_counts()
-        got = denoise4D(cube3, mu4, **kw)
-        # K-step launches and pairs as the gates say without a stop;
+        # pairs at any row size (config 3's rows are 2 MiB), so that the
+        # run without a stop switches from FISTA to unaccelerated pairs;
         # stop-aware runs stay on the K=1 loop
-        want = expected_launches(SolverOptions(
-            ndim=4, iterations_fista=10, iterations_unacc=10), CFG3)[:3] \
-            if stop is None else (0, 0, 0)
-        require(launch_counts()[:3] == want,
+        with pairs_at_any_row():
+            reset_counts()
+            got = denoise4D(cube3, mu4, **kw)
+            want = expected_launches(SolverOptions(
+                ndim=4, iterations_fista=10, iterations_unacc=10), CFG3)[:3] \
+                if stop is None else (0, 0, 0)
+        counts = launch_counts()[:3]
+        require(counts == want and (stop is not None or counts[2] > 0),
                 f"hybrid (stop {stop}): (whole-run, K-step, pair) launches "
-                f"{launch_counts()[:3]}, expected {want}")
+                f"{counts}, expected {want} with pairs")
         want = denoise4D(cube3, mu4, backend="torch", **kw)
         require(np.array_equal(got[0], want[0]),
                 f"hybrid recon not bitwise equal (stop {stop})")
@@ -1351,8 +1550,8 @@ def main() -> int:
     n_run = int(np.count_nonzero(ds))
     require(n_run == stop_at and bool(np.all(ds[n_run:] == 0)),
             f"hybrid stop after {n_run} iterations, expected {stop_at}")
-    # the full run's traces come from the pair kernel, the stopped run's
-    # from the fused-iteration kernel: their sums differ in the last bits
+    # the two runs' traces may come from different kernels (the full run's
+    # from pairs where the engine pairs): their sums differ in the last bits
     np.testing.assert_allclose(ds[:n_run], d[:n_run], rtol=1e-5)
     log(f"phase 4 hybrid (10,10) {CFG3} kernels vs backend='torch' on the "
         f"card: recon bitwise equal, traces within rtol 1e-5, without a stop "

@@ -52,6 +52,15 @@ KSTEP_CANDIDATES = (8, 6, 4, 3)
 #: the H100's L2 cache, 50 MB (NVIDIA's Hopper white paper)
 L2_BYTES = 50_000_000
 
+#: the largest state (:func:`state_bytes`) the automatic choice sends to
+#: the K-step kernel (``best_kstep``), set by measurement (``chip_smoke.py``,
+#: ``run_solver`` with the whole-run kernel off, K=8 against the
+#: one-iteration loop; PERF.md §6, NVIDIA H100 80GB HBM3 at 700 W): K=8 was
+#: faster up to 67.1 MB (2.1-5.2x at 10.5 MB, 2% at 41.9 MB, 12% at
+#: 64x64x512 FISTA) and slower from 83.9 MB (25% there, 35% at 336 MB,
+#: 5-39% from 503 MB to 5.4 GB)
+KSTEP_MAX_STATE_BYTES = 70_000_000
+
 #: the full cooperative grid per (device, ndim, fista, k): each depth is its
 #: own instantiation with its own registers and shared memory, so its own
 #: occupancy
@@ -81,20 +90,34 @@ def stage_bytes(shape, k: int, fista: bool) -> int:
     return k * row * ((4 * n + 3) if fista else (2 * n + 3))
 
 
+def state_bytes(shape, fista: bool) -> int:
+    """Bytes of a run's state: orig, recon, one accumulator per axis [, one
+    shadow dual per axis under FISTA], float32."""
+    n = len(shape)
+    vox = 1
+    for e in shape:
+        vox *= e
+    return 4 * vox * (2 + n + (n if fista else 0))
+
+
 def best_kstep(shape, dtype, bc, fista: bool,
                forced: Optional[int] = None) -> int:
-    """The staircase depth for this run, or 0 to stay on the pairs.
+    """The staircase depth for this run, or 0 to leave it to the pairs or
+    the one-iteration loop (the engine's choice).
 
     A forced depth of 3 or more is checked with :func:`kstep_supported`
     only, and one with no compiled kernel raises; a forced depth below 3
     gives 0. The automatic choice is the H100 rule: the deepest candidate
     with N0 ≥ 2K, on shapes where one stage at that depth fits the 50 MB
-    L2 (:func:`stage_bytes`); elsewhere 0. At the four BASELINE shapes
-    (PERF.md, NVIDIA H100 80GB HBM3 at 700 W) K=8 ran 1.71× faster per
-    iteration than the pairs where its stage fits (64²×512, 9.4 MB), and
-    between 3.6% slower and 3.5% faster where it does not (252 MB to
-    2.55 GB). The choice is purely a throughput decision: the result is
-    bitwise the same.
+    L2 (:func:`stage_bytes`) and the state (:func:`state_bytes`) is at
+    most :data:`KSTEP_MAX_STATE_BYTES`; elsewhere 0. On small states the
+    one-iteration loop is bound by its launches and K=8 wins; from ~84 MB
+    K=8 is the slower one (``run_solver`` with
+    the whole-run kernel off: K=8 0.0976 against 0.1000 ms per iteration
+    at config 1, 41.9 MB; 0.162 against 0.129 at 83.9 MB; PERF.md §6, the
+    dispatch sweep). Default paths reach it only where the whole-run
+    kernel does not take the run. The choice is purely a throughput
+    decision: the result is bitwise the same.
     """
     if forced:
         if forced < 3:
@@ -104,6 +127,8 @@ def best_kstep(shape, dtype, bc, fista: bool,
                              f"compiled for K in {sorted(KSTEP_CANDIDATES)}")
         return forced if kstep_supported(shape, dtype, bc, forced, fista) \
             else 0
+    if state_bytes(shape, fista) > KSTEP_MAX_STATE_BYTES:
+        return 0
     for k in KSTEP_CANDIDATES:
         if kstep_supported(shape, dtype, bc, k, fista):
             return k if stage_bytes(shape, k, fista) <= L2_BYTES else 0

@@ -3,21 +3,29 @@ PyTorch version.
 
 Replaces the TPU kernel ``cytvdn_tpu/kernels/temporal.py::
 fused_pair_iteration`` (two iterations per Pallas pass, bit-identical to
-two passes of the one-iteration kernel). The TPU kernel keeps iteration-1
-rows in VMEM carries; on the H100 the kernel (``csrc/temporal_pair.cu``)
-is one cooperative launch that walks a wavefront of row operations along
-axis 0 — dual-1, recon-1, dual-2, recon-2, each a few rows behind the
-last — with a grid-wide barrier between stages, so the state is updated in
-place without races and without a second copy (the schedule and why it is
-race-free are in the source's header). Its element arithmetic is that of
-``csrc/fused_iteration.cu``, so the state is bitwise equal to two K=1
-launches; the six sums are per-block partials combined in a fixed order,
-within rtol 1e-5 of two K=1 launches' sums.
+two passes of the one-iteration kernel). The TPU kernel walks axis-1
+strips outer and rows inner, and keeps iteration-1 rows in VMEM carries; on
+the H100 the kernel (``csrc/temporal_pair.cu``) is one cooperative launch
+that runs axis-1 strips of W indices one after another, and in each strip
+walks a wavefront of row operations along axis 0 — dual-1, recon-1,
+dual-2, recon-2, each a few rows behind the last and shifted a few axis-1
+indices to the left (:data:`LAGS`) — with a grid-wide barrier between
+stages, so the state is updated in place without races and without a
+second copy (the schedule and why it is race-free are in the source's
+header; :func:`pair_stages` lists the same schedule). Its element
+arithmetic is that of ``csrc/fused_iteration.cu``, so the state is bitwise
+equal to two K=1 launches at every strip width; the six sums are per-block
+partials combined in a fixed order, within rtol 1e-5 of two K=1 launches'
+sums.
 
-What bounds it is HBM bytes: between two K=1 passes (5n+4 traversals per
+Its HBM traffic lies between two K=1 passes (5n+4 traversals per
 iteration, when a stage's rows do not stay in the 50 MB L2) and the
 one-pass floor (4n+3)/2 per iteration (``utils/perf.py``, ``pair_upper``
-and ``pair_floor``).
+and ``pair_floor``); narrow strips keep the rows in the L2. But on the H100
+the kernel is bound by its L2 requests, not by HBM: whole rows were the
+fastest or within 4% at every row size swept, 2 to 16 MiB (PERF.md §6, the
+strip sweep; NVIDIA H100 80GB HBM3, 700 W), so the wrapper walks whole rows
+(W = N1, one strip) unless a strip is forced.
 
 Scope, as the TPU kernel's on one device without reference data: float32,
 Jia-Zhao boundaries, anisotropic duals, 3D and 4D, FISTA and unaccelerated,
@@ -36,6 +44,7 @@ import torch
 from cytvdn_tpu_torch.config import BCMode
 from cytvdn_tpu_torch.kernels import build
 from cytvdn_tpu_torch.kernels.fused import (
+    _TY,
     _check_state,
     _launch_args,
     _work_items,
@@ -59,6 +68,58 @@ def pair_supported(shape, dtype, bc, isotropic_R=False, isotropic_Q=False) -> bo
     if BCMode(bc) != BCMode.JIA_ZHAO or isotropic_R or isotropic_Q:
         return False
     return shape[0] >= 4  # the TPU kernel's row pipeline depth
+
+
+#: the axis-1 lag of each row operation of a stage: dual-1, recon-1,
+#: dual-2, recon-2 (``csrc/temporal_pair.cu``, ``op_range``)
+LAGS = (0, 1, 1, 2)
+
+
+def strip_ranges(n1: int, strip: int):
+    """For each strip of ``strip`` axis-1 indices out of ``n1``, the range
+    ``(lo, hi)`` of each row operation: ``[jW - lag, (j+1)W - lag)``
+    clipped at 0 (empty where it would end before it starts), the last
+    strip's running up to ``n1``."""
+    strips = -(-n1 // strip)
+    out = []
+    for j in range(strips):
+        ranges = []
+        for lag in LAGS:
+            lo = max(0, j * strip - lag)
+            hi = n1 if j == strips - 1 else max(lo, (j + 1) * strip - lag)
+            ranges.append((lo, hi))
+        out.append(ranges)
+    return out
+
+
+def pair_stages(shape, strip: int):
+    """The kernel's schedule for ``shape`` at strip width ``strip``: yields
+    ``(stage, op, row, lo, hi)`` for every row operation that has work, in
+    launch order. ``op`` 0..3 is dual-1, recon-1, dual-2, recon-2; stages
+    count on across strips (N0 + 5 per strip), with a grid barrier after
+    each; ``[lo, hi)`` is the op's axis-1 range. Within a stage the ops
+    touch disjoint rows, so they may run in any order."""
+    n0 = shape[0]
+    per_strip = n0 + 5
+    for j, ranges in enumerate(strip_ranges(shape[1], strip)):
+        for st in range(per_strip):
+            for op, (lo, hi) in enumerate(ranges):
+                row = st - 3 * (op // 2) - 2 * (op % 2)
+                if 0 <= row < n0 and lo < hi:
+                    yield j * per_strip + st, op, row, lo, hi
+
+
+def _stage_work(shape, strip: int) -> int:
+    """The most work items one stage of the kernel has: four row
+    operations, each over its axis-1 range times the tiles of the other
+    in-row axes (in 3D, tiles of axis 1 itself)."""
+    if len(shape) == 4:
+        per1 = _work_items((1, 1) + tuple(shape[2:]))
+        return max(sum(hi - lo for lo, hi in r) for r in
+                   strip_ranges(shape[1], strip)) * per1
+    per1 = _work_items((1, 1, shape[2]))
+    return max(sum(-(-(hi - lo) // _TY) for lo, hi in r) for r in
+               strip_ranges(shape[1], strip)) * per1
 
 
 def fused_pair_iteration_reference(
@@ -111,6 +172,7 @@ def fused_pair_iteration(
     *,
     fista: bool,
     grid: Optional[int] = None,
+    strip: Optional[int] = None,
 ):
     """Two full Jia-Zhao TV iterations, updating ``recon``, ``accs`` and
     ``ds`` in place.
@@ -122,7 +184,9 @@ def fused_pair_iteration(
     at zero, as every Jia-Zhao run does (the kernel's axis-0 wrap reads it).
     ``grid`` forces the number of blocks (the race tests); by default the
     launch takes the full cooperative grid. A grid above the cooperative
-    limit raises.
+    limit raises. ``strip`` forces the strip width W along axis 1 (the race
+    tests and the sweep); by default, and at W ≥ N1, the launch walks whole
+    rows. Neither changes the state.
 
     Returns ``(recon, accs, ds, bnorm1, dnum1, dden1, bnorm2, dnum2,
     dden2)`` — the state objects passed in and both iterations' sums as 0-d
@@ -136,6 +200,9 @@ def fused_pair_iteration(
             f"fused_pair_iteration does not cover shape {tuple(orig.shape)}, "
             f"dtype {orig.dtype} (float32, 3D/4D, N0 >= 4)")
     _check_state(orig, recon, accs, ds, fista)
+    if strip is not None and int(strip) < 1:
+        raise ValueError(f"strip must be >= 1, got {strip}")
+    strip = orig.shape[1] if strip is None else min(int(strip), orig.shape[1])
     if orig.device.type == "cpu":
         fused_pair_iteration.calls += 1
         return fused_pair_iteration_reference(
@@ -148,8 +215,7 @@ def fused_pair_iteration(
         scalars += [("rho1", rho1, 1), ("rho2", rho2, 1)]
     bs, dd, dims, stream = _launch_args(orig, accs, ds if fista else None,
                                         scalars)
-    # a stage's work items: four row operations of one axis-0 slab each
-    work = 4 * _work_items(tuple(orig.shape)) // orig.shape[0]
+    work = _stage_work(tuple(orig.shape), strip)
     if work >= 2**31:
         raise ValueError(f"shape {tuple(orig.shape)}: {work} work items per "
                          "stage; the kernel's 32-bit index arithmetic takes "
@@ -163,8 +229,8 @@ def fused_pair_iteration(
         orig.data_ptr(), recon.data_ptr(), *bs, *dd,
         lambda_inv.data_ptr(), lam_mu.data_ptr(),
         rho1.data_ptr() if fista else None, rho2.data_ptr() if fista else None,
-        partials.data_ptr(), out.data_ptr(), ndim, *dims, int(fista), nblocks,
-        stream)
+        partials.data_ptr(), out.data_ptr(), ndim, *dims, strip, int(fista),
+        nblocks, stream)
     build.check(err)
     fused_pair_iteration.calls += 1
     fused_pair_iteration.launches += 1

@@ -23,9 +23,9 @@ Python loop with the same semantics:
 - fixed-schedule Jia-Zhao float32 runs advance K iterations per launch
   through the K-step kernel where ``_resolve_kstep`` picks a depth
   (``_run_phase_kstep``), then two per launch through the pair kernel
-  (``_run_phase_paired``), and the one-iteration loop finishes each
-  phase's odd remainder; the state and traces are those of the
-  one-iteration loop.
+  (``_run_phase_paired``) where its rows are large enough to pay
+  (``_pairs_pay``), and the one-iteration loop finishes each phase; the
+  state and traces are those of the one-iteration loop.
 
 State lives in place: ``recon``, the accumulators and the shadow duals are
 allocated once and updated by every iteration (the JAX engine gets the same
@@ -170,6 +170,28 @@ def _resolve_temporal(opts: SolverOptions, shape, dtype) -> bool:
     if opts.stopping_relative_change is not None or opts.calculate_mse:
         return False
     return pair_supported(shape, dtype, opts.bc_mode)
+
+
+#: the least bytes of one array's axis-0 slab (a row of the pair kernel's
+#: wavefront) at which the phases run in pairs: the measured crossing. On
+#: the H100 (PERF.md §6, the strip and dispatch sweeps; NVIDIA H100 80GB
+#: HBM3, 700 W) ``run_solver`` in pairs took 9% less time than the
+#: one-iteration loop at 16 MiB rows (config 4), tied with it at 8 MiB
+#: (from 1.2% less to 0.3% more in three calls, the spread between calls),
+#: and
+#: took 0.3-12% more at 2 and 4 MiB rows.
+PAIR_MIN_ROW_BYTES = 8 * 2**20
+
+
+def _pairs_pay(shape, dtype) -> bool:
+    """Whether pairs beat the one-iteration loop on this shape: one array's
+    axis-0 slab is at least :data:`PAIR_MIN_ROW_BYTES`. A throughput rule of
+    the H100 port, kept apart from :func:`_resolve_temporal`, which is the
+    JAX gate; the result is bitwise the same either way."""
+    row = dtype.itemsize
+    for e in shape[1:]:
+        row *= e
+    return row >= PAIR_MIN_ROW_BYTES
 
 
 def _run_phase_paired(
@@ -391,12 +413,12 @@ def _run_phases(
 ) -> None:
     """The FISTA phase, then the unaccelerated one, each as: the
     one-iteration prologue and the whole-run chunks of a stop-aware run,
-    K-step launches, pairs, and the one-iteration loop for the rest
-    (``engine.py:1498-1580``)."""
+    K-step launches, pairs (where :func:`_pairs_pay`), and the
+    one-iteration loop for the rest (``engine.py:1498-1580``)."""
     n_f, n_u = opts.iterations_fista, opts.iterations_unacc
     n_total = n_f + n_u
     shape, dtype = tuple(orig.shape), orig.dtype
-    paired = _resolve_temporal(opts, shape, dtype)
+    paired = _resolve_temporal(opts, shape, dtype) and _pairs_pay(shape, dtype)
     chunks = opts.stopping_relative_change is not None and \
         _resolve_resident_chunks(opts, shape, dtype)
     for fista, i_bound, n in ((True, n_f, n_f), (False, n_total, n_u)):

@@ -4,9 +4,9 @@ rtol 1e-5 (their summation order differs). The pair kernel is also held
 bitwise against two launches of the one-iteration kernel, the K-step
 kernel against K launches of it and (K even) K/2 pair launches, and both
 against themselves at forced grid sizes (the race check of their in-place
-schedules). The whole-run kernel is held bitwise against its plain
-version and against T launches of the one-iteration kernel, at forced grid
-sizes too.
+schedules), the pair kernel also at forced axis-1 strip widths. The
+whole-run kernel is held bitwise against its plain version and against T
+launches of the one-iteration kernel, at forced grid sizes too.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -106,7 +106,14 @@ def test_kernel_counts_launches_and_repeats_exactly():
 # row), 3D and 4D, and ragged tile edges on every axis
 PAIR_SHAPES = [(n0, 9, 10, 33) for n0 in (4, 5, 6, 7)] \
     + [(n0, 13, 70) for n0 in (4, 5, 6, 7)] + [(37, 45, 19, 23)]
+# forced axis-1 strip widths: one index, two, three, and N1 (the
+# whole-row schedule); None is the wrapper's default, whole rows too
+PAIR_STRIPS = (None, 1, 2, 3, "N1")
 RHOS = (0.0, 0.28, 0.43, 0.52)
+
+
+def _strip(strip, shape):
+    return shape[1] if strip == "N1" else strip
 
 
 def _jz_state(shape, fista, seed=0):
@@ -155,14 +162,17 @@ def _two_k1_launches(orig, recon, accs, ds, rho1, rho2, li, lm, fista):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("strip", PAIR_STRIPS, ids=str)
 @pytest.mark.parametrize("fista", [True, False])
 @pytest.mark.parametrize("shape", PAIR_SHAPES, ids=str)
-def test_pair_kernel_bitwise_equals_plain_and_two_k1_launches(shape, fista):
+def test_pair_kernel_bitwise_equals_plain_and_two_k1_launches(shape, fista,
+                                                              strip):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     args = _jz_state(shape, fista)
     before = ttemporal.fused_pair_iteration.launches
-    ks, ksum = _pairs(ttemporal.fused_pair_iteration, *args, fista)
+    ks, ksum = _pairs(ttemporal.fused_pair_iteration, *args, fista,
+                      strip=_strip(strip, shape))
     assert ttemporal.fused_pair_iteration.launches - before == 2
     ps, psum = _pairs(ttemporal.fused_pair_iteration_reference, *args, fista)
     k1s, k1sum = _pairs(_two_k1_launches, *args, fista)
@@ -174,22 +184,54 @@ def test_pair_kernel_bitwise_equals_plain_and_two_k1_launches(shape, fista):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("strip", PAIR_STRIPS, ids=str)
 @pytest.mark.parametrize("shape", [(37, 45, 19, 23), (7, 13, 70)], ids=str)
-def test_pair_kernel_state_independent_of_grid(shape):
-    """The in-place schedule is race-free: one block, 7 blocks and the full
-    cooperative grid give the same state bitwise."""
+def test_pair_kernel_state_independent_of_grid(shape, strip):
+    """The in-place schedule is race-free at every strip width: one block,
+    7 blocks and the full cooperative grid give the plain pair's state
+    bitwise; a grid one block larger is refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     args = _jz_state(shape, True, seed=1)
+    strip = _strip(strip, shape)
     full = ttemporal.cooperative_grid(torch.device("cuda"), len(shape), True)
-    runs = [_pairs(ttemporal.fused_pair_iteration, *args, True, grid=g)
-            for g in (1, 7, full)]
-    for s, sums in runs[1:]:
-        for a, b in zip(runs[0][0], s):
+    want = _pairs(ttemporal.fused_pair_iteration_reference, *args, True)
+    runs = [_pairs(ttemporal.fused_pair_iteration, *args, True, grid=g,
+                   strip=strip) for g in (1, 7, full)]
+    for s, sums in runs:
+        for a, b in zip(want[0], s):
             assert torch.equal(a, b), (a - b).abs().max().item()
-        torch.testing.assert_close(sums, runs[0][1], rtol=1e-5, atol=0)
+        torch.testing.assert_close(sums, want[1], rtol=1e-5, atol=0)
     with pytest.raises(RuntimeError, match="launch failed"):
-        _pairs(ttemporal.fused_pair_iteration, *args, True, grid=full + 1)
+        _pairs(ttemporal.fused_pair_iteration, *args, True, grid=full + 1,
+               strip=strip)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,strip", [
+    ((5, 10, 9, 33), 3),     # 4D, W does not divide N1
+    ((6, 13, 70), 5),        # 3D, W does not divide N1
+    ((6, 45, 70), 11),       # 3D, strips wider than the 8-row tile: each
+    ((5, 45, 19, 23), 20),   # op's tiles start at jW - lag, off the 8-grid
+    ((6, 45, 70), 20),
+], ids=str)
+@pytest.mark.parametrize("fista", [True, False])
+def test_pair_kernel_ragged_strips(shape, strip, fista):
+    """Strips that do not divide axis 1, and 3D strips wider than a tile
+    whose tiles start off the tile grid, at the full grid and at 1 and 7
+    blocks: the plain pair's and two K=1 launches' state bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    args = _jz_state(shape, fista, seed=3)
+    want = _pairs(ttemporal.fused_pair_iteration_reference, *args, fista)
+    k1s = _pairs(_two_k1_launches, *args, fista)
+    for g in (None, 1, 7):
+        ks, ksum = _pairs(ttemporal.fused_pair_iteration, *args, fista,
+                          grid=g, strip=strip)
+        for other in (want, k1s):
+            for a, b in zip(ks, other[0]):
+                assert torch.equal(a, b), (g, (a - b).abs().max().item())
+            torch.testing.assert_close(ksum, other[1], rtol=1e-5, atol=0)
 
 
 @pytest.mark.cuda

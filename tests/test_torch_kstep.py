@@ -163,7 +163,10 @@ SCHEDULES = [
 
 
 @pytest.mark.parametrize("iters,tk,split", SCHEDULES, ids=str)
-def test_solver_kstep_matches_jax_kstep_solver(iters, tk, split):
+def test_solver_kstep_matches_jax_kstep_solver(monkeypatch, iters, tk, split):
+    # pairs take the remainders as in the JAX engine: the port's row-size
+    # rule, which keeps rows this small off the pairs, is lifted
+    monkeypatch.setattr(tengine, "PAIR_MIN_ROW_BYTES", 0)
     shape = (16, 6, 64)
     cube = _state(shape, False, seed=3)[0]
     li = np.full(3, 16.0, np.float32)
@@ -258,6 +261,18 @@ def test_kstep_gate_port_rules(monkeypatch):
                              forced=8) == 0
     assert tkstep.best_kstep((16, 6, 64), torch.float32, 2, True,
                              forced=2) == 0
+    # above 70 MB of state the one-iteration loop is faster than K=8, even
+    # where a stage fits the L2; forced depths run
+    assert tkstep.stage_bytes((1024, 64, 2048), 8, False) <= tkstep.L2_BYTES
+    assert tkstep.best_kstep((1024, 64, 2048), torch.float32, 2, False) == 0
+    assert tkstep.best_kstep((1024, 64, 2048), torch.float32, 2, False,
+                             forced=8) == 8
+    assert tkstep.best_kstep((128, 64, 2048), torch.float32, 2, False) == 0
+    assert tkstep.best_kstep((32, 64, 2048), torch.float32, 2, False) == 0
+    assert tkstep.state_bytes((24, 64, 2048), False) == 62_914_560
+    assert tkstep.best_kstep((24, 64, 2048), torch.float32, 2, False) == 8
+    assert tkstep.state_bytes((64, 64, 512), True) == 67_108_864
+    assert tkstep.best_kstep((64, 64, 512), torch.float32, 2, True) == 8
     # stop runs through denoise3D make no K-step call (with the whole-run
     # kernel off, which would take this small cube)
     from cytvdn_tpu_torch import denoise3D

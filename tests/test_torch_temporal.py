@@ -21,6 +21,7 @@ import cytvdn_tpu.kernels.temporal as T  # noqa: E402
 from cytvdn_tpu.config import Backend as JBackend  # noqa: E402
 from cytvdn_tpu.config import SolverOptions as JOptions  # noqa: E402
 from cytvdn_tpu.solver import engine as jengine  # noqa: E402
+from cytvdn_tpu_torch import ops as tops  # noqa: E402
 from cytvdn_tpu_torch.config import SolverOptions as TOptions  # noqa: E402
 from cytvdn_tpu_torch.kernels import temporal as ttemporal  # noqa: E402
 from cytvdn_tpu_torch.solver import engine as tengine  # noqa: E402
@@ -151,11 +152,13 @@ def test_pair_resumes_jax_engine_state():
 
 
 @pytest.mark.parametrize("iters", [(4, 0), (5, 0), (0, 6), (3, 4), (5, 3)])
-def test_solver_pairs_match_jax_paired_solver(iters):
+def test_solver_pairs_match_jax_paired_solver(monkeypatch, iters):
     """Whole schedules (odd counts, hybrid) through both engines with pairs
     on and the K-step kernel off; each phase runs floor(n/2) pairs, and its
     odd remainder as one K=1 step (the iterations the pairs do not account
-    for)."""
+    for). The port's row-size rule, which keeps rows this small off the
+    pairs, is lifted."""
+    monkeypatch.setattr(tengine, "PAIR_MIN_ROW_BYTES", 0)
     shape = (7, 12, 6, 16)
     cube, _, _, _, _, _ = _state(shape, False, seed=3)
     li = np.full(4, 32.0, np.float32)
@@ -263,3 +266,190 @@ def test_pair_wrapper_rejects_what_the_kernel_does_not_take():
     assert not ttemporal.pair_supported((6, 5, 6, 7), torch.float32, 2,
                                         isotropic_R=True)
     assert ttemporal.pair_supported((4, 5, 6), torch.float32, 2)
+
+
+def _replay_pairs(orig, recon, accs, ds, rhos, li, lm, fista, strip, order):
+    """Two iterations, in place on CPU tensors, by the CUDA kernel's
+    schedule (:func:`pair_stages`): each row operation computes the plain
+    full-array update from the state it reads and commits only its row and
+    axis-1 range. Within a stage the operations run in launch order
+    ("forward"), in reverse, or all reading the stage's start state
+    ("snapshot"). Returns the six sums in float64."""
+    ndim = orig.dim()
+    stages = {}
+    for stage, op, row, lo, hi in ttemporal.pair_stages(tuple(orig.shape),
+                                                        strip):
+        stages.setdefault(stage, []).append((op, row, lo, hi))
+    sums = [0.0] * 6
+    for stage in sorted(stages):
+        items = stages[stage][::-1] if order == "reverse" else stages[stage]
+        src = (recon, accs, ds)
+        if order == "snapshot":
+            src = (recon.clone(), [a.clone() for a in accs],
+                   [d.clone() for d in ds] if fista else None)
+        for op, row, lo, hi in items:
+            r, a, d = src
+            at = (row, slice(lo, hi))
+            lev = op // 2
+            if op % 2 == 0:
+                for k in range(ndim):
+                    if fista:
+                        b_new, d_new, _ = tops.accumulator_update_fista(
+                            r, a[k], d[k], rhos[lev], k, li[k])
+                        ds[k][at] = d_new[at]
+                    else:
+                        b_new, _ = tops.accumulator_update(r, a[k], k, li[k])
+                    accs[k][at] = b_new[at]
+                    sums[3 * lev] += float(b_new[at].double().abs().sum())
+            else:
+                r_new, _, _ = tops.datacube_update(orig, r, a, lm)
+                sums[3 * lev + 1] += float(
+                    (r_new[at] - r[at]).double().abs().sum())
+                sums[3 * lev + 2] += float(r[at].double().abs().sum())
+                recon[at] = r_new[at]
+    return sums
+
+
+# N0 = 4..7, 3D and 4D, ragged in-row extents; strips 1, 2, 3, N1-1, N1
+REPLAY_SHAPES = [(4, 7, 5), (6, 9, 4), (5, 6, 3, 4), (7, 5, 2, 3)]
+REPLAY_CASES = [(shape, fista, strip) for shape in REPLAY_SHAPES
+                for fista in (True, False)
+                for strip in sorted({1, 2, 3, shape[1] - 1, shape[1]})]
+
+
+@pytest.mark.parametrize("shape,fista,strip", REPLAY_CASES, ids=str)
+def test_pair_stage_plan_replays_two_plain_iterations(shape, fista, strip):
+    """The kernel's strip-and-wavefront schedule, replayed in place with the
+    plain element updates in each of three orders within a stage, equals
+    two plain iterations bitwise: every element is computed once, and no
+    operation reads a value another has already moved on."""
+    orig, recon, accs, ds, li, lm = _state(shape, fista, seed=sum(shape))
+    t = torch.from_numpy
+    rhos = [torch.tensor(RHOS[1]), torch.tensor(RHOS[2])]
+    want = ttemporal.fused_pair_iteration_reference(
+        t(orig), t(recon.copy()), [t(x.copy()) for x in accs],
+        [t(x.copy()) for x in ds] if fista else None, *rhos, t(li), t(lm),
+        fista=fista)
+    want_sums = [float(x) for x in want[3:]]
+    for order in ("forward", "reverse", "snapshot"):
+        r = t(recon.copy())
+        a = [t(x.copy()) for x in accs]
+        d = [t(x.copy()) for x in ds] if fista else None
+        got_sums = _replay_pairs(t(orig), r, a, d, rhos, t(li), t(lm), fista,
+                                 strip, order)
+        assert torch.equal(r, want[0]), order
+        for k in range(len(shape)):
+            assert torch.equal(a[k], want[1][k]), (order, k)
+            if fista:
+                assert torch.equal(d[k], want[2][k]), (order, k)
+        _close(got_sums, want_sums, rtol=SUM_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("shape", REPLAY_SHAPES, ids=str)
+def test_pair_stage_plan_covers_each_element_once(shape):
+    """Each row operation covers every (row, axis-1 index) exactly once, at
+    every strip width, and the stages per strip are N0 + 5."""
+    n0, n1 = shape[:2]
+    for strip in range(1, n1 + 2):
+        seen = np.zeros((4, n0, n1), int)
+        stages = set()
+        for stage, op, row, lo, hi in ttemporal.pair_stages(shape, strip):
+            seen[op, row, lo:hi] += 1
+            stages.add(stage)
+        assert (seen == 1).all(), strip
+        assert max(stages) < -(-n1 // strip) * (n0 + 5)
+
+
+# (shape, strip): the BASELINE shapes at whole rows (the wrapper's default)
+# and at strips the sweep times, and ragged strips in 3D and 4D
+STAGE_WORK = [
+    ((256, 256, 128, 128), 256),   # config 4: 4 ops x 256 x 64 tiles
+    ((256, 256, 128, 128), 8),
+    ((256, 256, 2048), 64),        # config 2
+    ((128, 128, 64, 64), 32),      # config 3
+    ((6, 45, 70), 11),             # 3D tiles that start off the 8-row grid
+    ((7, 10, 9, 33), 3),           # W does not divide N1
+]
+
+
+@pytest.mark.parametrize("shape,strip", STAGE_WORK, ids=str)
+def test_pair_stage_work(shape, strip):
+    """The wrapper's 2**31 check counts the busiest stage's work items as
+    the kernel numbers them: each active row operation's axis-1 range (in
+    3D in tiles of 8 rows from its lo) times the tiles of the other in-row
+    axes. With N0 >= 6 some stage runs all four operations."""
+    ty, tx = 8, 32
+    if len(shape) == 4:
+        per1 = -(-shape[2] // ty) * -(-shape[3] // tx)
+    else:
+        per1 = -(-shape[2] // tx)
+    stages = {}
+    for stage, _, _, lo, hi in ttemporal.pair_stages(shape, strip):
+        n1 = hi - lo if len(shape) == 4 else -(-(hi - lo) // ty)
+        stages[stage] = stages.get(stage, 0) + n1 * per1
+    assert ttemporal._stage_work(shape, strip) == max(stages.values())
+    if shape == (256, 256, 128, 128) and strip == 256:
+        assert max(stages.values()) == 4 * 256 * 16 * 4
+
+
+def test_pair_wrapper_takes_a_strip_on_the_cpu():
+    """A forced strip runs the plain version on the CPU (the result does
+    not depend on it); a strip below 1 is refused."""
+    t = torch.from_numpy
+    orig, recon, accs, ds, li, lm = _state((5, 6, 3, 4), True, seed=9)
+    rho = torch.tensor(0.5)
+    outs = []
+    for strip in (None, 2, 100):
+        r = t(recon.copy())
+        a = [t(x.copy()) for x in accs]
+        d = [t(x.copy()) for x in ds]
+        out = ttemporal.fused_pair_iteration(t(orig), r, a, d, rho, rho,
+                                             t(li), t(lm), fista=True,
+                                             strip=strip)
+        outs.append((r, a, d, out[3:]))
+    for r, a, d, sums in outs[1:]:
+        assert torch.equal(r, outs[0][0])
+        assert all(torch.equal(x, y) for x, y in zip(a + d,
+                                                     outs[0][1] + outs[0][2]))
+        assert all(torch.equal(x, y) for x, y in zip(sums, outs[0][3]))
+    calls = ttemporal.fused_pair_iteration.calls
+    with pytest.raises(ValueError, match="strip"):
+        ttemporal.fused_pair_iteration(
+            t(orig), t(recon.copy()), [t(x.copy()) for x in accs],
+            [t(x.copy()) for x in ds], rho, rho, t(li), t(lm), fista=True,
+            strip=0)
+    assert ttemporal.fused_pair_iteration.calls == calls
+
+
+@pytest.mark.parametrize("shape,pays", [
+    ((256, 256, 128, 128), True),   # 16 MiB rows: config 4
+    ((64, 128, 128, 128), True),    # 8 MiB rows
+    ((64, 64, 16384), False),       # 4 MiB rows
+    ((128, 128, 64, 64), False),    # 2 MiB rows: config 3
+    ((256, 256, 2048), False),      # 2 MiB rows: config 2
+    ((6, 6, 8, 16), False),
+], ids=str)
+def test_pair_row_rule(shape, pays):
+    """The port's own rule on top of the JAX gate: pairs where one array's
+    axis-0 slab is at least 8 MiB (the crossing the H100 measured)."""
+    assert tengine._pairs_pay(shape, torch.float32) is pays
+    assert tengine._resolve_temporal(
+        TOptions(ndim=len(shape), iterations_fista=4, iterations_unacc=0),
+        shape, torch.float32)
+
+
+def test_solver_skips_pairs_below_the_row_rule(monkeypatch):
+    """A fixed schedule on a small cube runs the one-iteration loop, not
+    pairs, and the same state as with the rule lifted."""
+    shape = (7, 12, 6, 16)
+    cube, _, _, _, _, _ = _state(shape, False, seed=11)
+    li, lm = torch.full((4,), 32.0), torch.full((4,), 1 / 32.0)
+    opts = TOptions(ndim=4, iterations_fista=4, iterations_unacc=2,
+                    temporal_kstep=False, vmem_resident=False)
+    pairs = ttemporal.fused_pair_iteration.calls
+    got = tengine.run_solver(torch.from_numpy(cube), li, lm, opts)
+    assert ttemporal.fused_pair_iteration.calls == pairs
+    monkeypatch.setattr(tengine, "PAIR_MIN_ROW_BYTES", 0)
+    want = tengine.run_solver(torch.from_numpy(cube), li, lm, opts)
+    assert ttemporal.fused_pair_iteration.calls == pairs + 3
+    assert torch.equal(got["recon"], want["recon"])
