@@ -25,12 +25,11 @@
 // fused_pair_iteration) walks whole rows, W = N1 (one strip), unless a
 // strip is forced.
 //
-// The dual element sends every load before its first store
-// (dual_elem_loads_first, below). A store of d_k sent while the load of
-// its old value by the same thread was still in flight made the kernel
-// 2.6x slower in 4D, and 6x in 3D where the compiler scheduled
-// wavefront.cuh's dual_elem that way; storing b_k first, whose value needs
-// that load, removes it.
+// The dual element (wavefront.cuh's dual_elem) sends every load before its
+// first store. A store of d_k sent while the load of its old value by the
+// same thread was still in flight made the kernel 2.6x slower in 4D, and
+// 6x in 3D where the compiler scheduled an element with per-axis loads
+// that way; storing b_k first, whose value needs that load, removes it.
 //
 // In-place schedule. The state (recon, b_k, d_k) is updated in place: a
 // second copy of it does not fit (10 x 4.29 GB at 256^2 x 128^2 FISTA). One
@@ -94,10 +93,8 @@
 //   grid barrier orders each stage's stores before the next stage's loads.
 // Deeper levels (csrc/temporal_kstep.cu) follow the same pattern along
 // axis 0 with whole rows: dual-l three rows behind dual-(l-1), recon-l two
-// rows behind dual-l. The stage layout and recon_elem live in
-// wavefront.cuh, shared by both; the dual element here is
-// dual_elem_loads_first (below), wavefront.cuh's dual_elem with its loads
-// moved ahead of its stores.
+// rows behind dual-l. The stage layout (op_row) lives in wavefront.cuh,
+// with the scalar elements dual_elem and recon_elem that this kernel uses.
 //
 // Sums: each thread keeps six double accumulators over all stages; after the
 // last stage each block reduces them in a fixed order into per-block
@@ -156,41 +153,6 @@ __device__ __forceinline__ void op_range(int op, int64_t j, int64_t strips,
   lo = j * w - lag > 0 ? j * w - lag : 0;
   hi = j == strips - 1 ? n1 : (j + 1) * w - lag;
   if (hi < lo) hi = lo;
-}
-
-// wavefront.cuh's dual_elem with every load of the element sent before
-// its first store: recon at the element and its backward neighbours, then
-// each axis's b and d. The element waits one L2 round trip instead of one
-// per axis (a store to b_k or d_k could alias the next axis's loads, so the
-// compiler keeps them in program order). Race-free as dual_elem: the
-// element's own b, d are read and written by this thread only, and recon,
-// which a dual reads around the element, no dual writes. The arithmetic and
-// its order are dual_elem's.
-template <int ND, bool FISTA>
-__device__ __forceinline__ double dual_elem_loads_first(
-    const PairArgs& a, int64_t idx, const int64_t* c, const float* lam,
-    float rho) {
-  const float x = ld(a.recon + idx);
-  float xb[ND], bo[ND], dold[ND];
-#pragma unroll
-  for (int k = 0; k < ND; ++k) {
-    xb[k] = ld(a.recon + bwd(idx, c[k], a.s[k]));
-    bo[k] = ld(a.b[k] + idx);
-    if (FISTA) dold[k] = ld(a.d[k] + idx);
-  }
-  double acc = 0.0;
-#pragma unroll
-  for (int k = 0; k < ND; ++k) {
-    const float diff = x - xb[k];
-    const float dn = fminf(fmaxf(diff + bo[k], -lam[k]), lam[k]);
-    const float bn = FISTA ? dn + rho * (dn - dold[k]) : dn;
-    // b before d: the store of d then waits for bn, so for the load of
-    // d's old value, and never goes out while that load is in flight
-    a.b[k][idx] = bn;
-    if (FISTA) a.d[k][idx] = dn;
-    acc += static_cast<double>(fabsf(bn));
-  }
-  return acc;
 }
 
 template <int ND, bool FISTA>
@@ -281,8 +243,7 @@ __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {
         const int64_t idx = ((row * a.rows1 + r1) * M + m) * L + l;
         const int lev = op / 2;
         if (op % 2 == 0) {
-          const double v =
-              dual_elem_loads_first<ND, FISTA>(a, idx, c, lam, rho[lev]);
+          const double v = dual_elem<ND, FISTA>(a, idx, c, lam, rho[lev]);
           if (lev == 0) acc[0] += v; else acc[3] += v;
         } else if (lev == 0) {
           recon_elem<ND>(a, idx, c, lm, acc[1], acc[2]);

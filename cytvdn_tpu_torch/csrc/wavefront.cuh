@@ -55,23 +55,38 @@ __device__ __forceinline__ double block_sum(double v, double* red) {
 }
 
 // Dual update of one element at one level, as fused_iteration.cu's
-// dual_kernel does it for an anisotropic axis; returns sum_k |b_k|.
+// dual_kernel does it for an anisotropic axis; returns sum_k |b_k|. Every
+// load of the element is sent before its first store: recon at the element
+// and its backward neighbours, then each axis's b and d. The element waits
+// one L2 round trip instead of one per axis (a store to b_k or d_k could
+// alias the next axis's loads, so the compiler keeps them in program
+// order). Race-free: the element's own b, d are read and written by this
+// thread only, and recon, which a dual reads around the element, no dual
+// writes. The arithmetic and its order are dual_kernel's.
 template <int ND, bool FISTA, class Args>
 __device__ __forceinline__ double dual_elem(const Args& a, int64_t idx,
                                             const int64_t* c, const float* lam,
                                             float rho) {
   const float x = ld(a.recon + idx);
-  double acc = 0.0;
-#pragma unroll (ND == 4 ? 4 : 1)
+  float xb[ND], bo[ND], dold[ND];
+#pragma unroll
   for (int k = 0; k < ND; ++k) {
-    const float diff = x - ld(a.recon + bwd(idx, c[k], a.s[k]));
-    const float dn = fminf(fmaxf(diff + ld(a.b[k] + idx), -lam[k]), lam[k]);
-    float bn = dn;
-    if (FISTA) {
-      bn = dn + rho * (dn - ld(a.d[k] + idx));
-      a.d[k][idx] = dn;
-    }
+    xb[k] = ld(a.recon + bwd(idx, c[k], a.s[k]));
+    bo[k] = ld(a.b[k] + idx);
+    if (FISTA) dold[k] = ld(a.d[k] + idx);
+  }
+  double acc = 0.0;
+#pragma unroll
+  for (int k = 0; k < ND; ++k) {
+    const float diff = x - xb[k];
+    const float dn = fminf(fmaxf(diff + bo[k], -lam[k]), lam[k]);
+    const float bn = FISTA ? dn + rho * (dn - dold[k]) : dn;
+    // b before d: the store of d then waits for bn, so for the load of
+    // d's old value, and never goes out while that load is in flight (a d
+    // store sent with that load in flight made the pair kernel 2.6-6x
+    // slower, PERF.md section 6, PR 8)
     a.b[k][idx] = bn;
+    if (FISTA) a.d[k][idx] = dn;
     acc += static_cast<double>(fabsf(bn));
   }
   return acc;
