@@ -30,18 +30,25 @@ non-zero — nothing is caught):
    ``torch.profiler`` at the last; the pair kernel's strip sweep: ms per
    pair at W = 4, 8, 12, 16, 32, 64 and N1 (the whole-row schedule, the
    default), in turns with two fused-iteration launches, at rows of 2 to 16
-   MB (STRIP_SWEEP), and ``run_solver`` x48 there and at (N0,64,2048) for
-   N0 = 128, 192, 1024 along the engine's pick, K=8, pairs and the K=1
-   loop (the whole-run kernel off); two launches
+   MB (STRIP_SWEEP), and ``run_solver`` x48 there (x16 at config 4) and at
+   (N0,64,2048) for N0 = 128, 192, 1024 along the engine's pick, K=8,
+   pairs and the K=1 loop (the whole-run kernel off); two launches
    of the K-step kernel (K = 3, 4, 6, 8) against its plain version, K
    fused-iteration launches and (K even) K/2 pair launches (state bitwise
    equal, sums within rtol 1e-5) at N0 = 2K and 2K+1 in 3D and 4D and on
    ragged shapes, at forced grids of 1, 7 and all blocks with a grid one
-   larger refused, and one launch of every K against its plain version at
-   (256,256,2048); ms per launch and per iteration of every K, the pair
+   larger refused, at last extents that are a multiple of 4 (its 128-bit
+   walk) and at its tile edges (last extents 1 to 129, ND-2 extents 1, 7
+   and 9) at the full grid and at 1 and 7 blocks, at 2 and 3 axis-0 rows
+   per stage, and one launch of every K against its plain version at
+   (256,256,2048), with each instantiation's blocks per SM; ms per launch
+   of K=8 by rows per stage (1, 2, 4, 8, 16) at (64,64,512) unaccelerated
+   and FISTA, (1024,64,2048) and (256,256,2048); ms per launch and per
+   iteration of every K, the pair
    kernel, the fused-iteration kernel and the plain iteration at
    (64,64,512) unaccelerated, (256,256,2048), (128,128,64,64) and
-   (256,256,128,128) FISTA (the four BASELINE shapes);
+   (256,256,128,128) FISTA (the four BASELINE shapes) and (1024,64,2048)
+   unaccelerated;
    the ``torch.profiler`` split of all three kernels at (256,256,2048);
    the whole-run kernel (T = 16 and 64 iterations per launch) against its
    plain version and T fused-iteration launches (state bitwise equal, sums
@@ -53,7 +60,8 @@ non-zero — nothing is caught):
    fused-iteration launches; its size sweep:
    ms per iteration of the whole-run kernel, the K-step (or pair) kernel
    and the fused-iteration kernel, and of ``run_solver`` with the
-   whole-run kernel on and off and on the K=1 loop, at 64×64×N
+   whole-run kernel on and off, off with K=8 forced, and on the K=1 loop,
+   at 64×64×N
    unaccelerated (N = 128 .. 4096)
    and at (64,64,512) FISTA and with a reference cube;
 3. main path: ``denoise4D`` on a 256×256×128×128 float32 cube (the
@@ -156,9 +164,38 @@ STRIP_SWEEP = [(CFG4, True), ((64, 128, 128, 128), True), (CFG3, True),
 STRIP_WIDTHS = (4, 8, 12, 16, 32, 64)
 # 3D unaccelerated states of 336 MB, 503 MB and 2.7 GB whose K=8 stage fits
 # the L2 (512 KB rows), so that the K-step gate decides: run_solver only
+BIG3 = (1024, 64, 2048)
 SOLVER_ONLY = [((128, 64, 2048), False), ((192, 64, 2048), False),
-               ((1024, 64, 2048), False)]
+               (BIG3, False)]
 KS = tuple(sorted(KSTEP_CANDIDATES))
+# axis-0 rows per stage of the K-step kernel's sweep (1: one row a stage)
+KSTEP_ROWS = (1, 2, 4, 8, 16)
+# the K-step kernel's cases at depth K: ragged edges (its element-by-element
+# walk) and last extents that are a multiple of 4 (its 128-bit walk, VEC)
+KSTEP_SHAPES = [(2, 9, 10, 33), (3, 9, 10, 33), (2, 13, 70), (3, 13, 70),
+                (2, 9, 10, 32), (3, 13, 64), (2, 16, 512)]
+
+
+def kstep_shape(shape, k):
+    """A KSTEP_SHAPES entry at depth k: its leading 2 is N0 = 2K, 3 is
+    2K + 1."""
+    return (2 * k + shape[0] - 2,) + shape[1:]
+
+
+def kstep_edge_cases():
+    """The K-step kernel's tile edges as (shape, K, fista), the cases of
+    tests/test_torch_cuda.py: last extents 1, 4, 5, 128, 129 and ND-2
+    extents 1, 7, 9, every depth, N0 = 2K and 2K + 1, 3D and 4D."""
+    cases = []
+    for i, last in enumerate((1, 4, 5, 128, 129)):
+        for j, m in enumerate((1, 7, 9)):
+            k = KS[(i + j) % len(KS)]
+            cases.append(((2 * k + (i + j) % 2, m, last), k,
+                          (i + 2 * j) % 2 == 0))
+    for i, (m, last) in enumerate(((1, 4), (7, 129), (9, 5), (7, 128))):
+        cases.append(((2 * KS[i] + i % 2, 3, m, last), KS[i], i % 2 == 1))
+    return cases
+
 SHAPE3 = (13, 45, 70)         # a ragged 3D shape
 
 
@@ -430,9 +467,10 @@ def pair_steps(orig, recon, accs, ds, rhos, li, lm, *, k, fista):
 
 
 def compare_kstep_case(shape, k, fista, grids=(None,), launches=2,
-                       plain_only=False):
+                       plain_only=False, rows=None):
     """``launches`` launches of the K-step kernel of depth ``k`` (at each
-    forced grid of ``grids``; None is the full cooperative grid) against
+    forced grid of ``grids``, None the full cooperative grid; at ``rows``
+    axis-0 rows per stage, None the wrapper's default) against
     its plain version and, unless ``plain_only``, K fused-iteration
     launches and (K even) K/2 pair launches per launch, from the same
     Jia-Zhao state with distinct momentum ratios: state bitwise equal, sums
@@ -441,7 +479,8 @@ def compare_kstep_case(shape, k, fista, grids=(None,), launches=2,
     orig, state, li, lm, _ = random_state(shape, fista, torch.float32, gen,
                                           jz=True)
     rhos = torch.linspace(0.0, 0.6, launches * k, device="cuda")
-    steps = [lambda *a, g=g, **kw: fused_kstep_iteration(*a, grid=g, **kw)
+    steps = [lambda *a, g=g, **kw: fused_kstep_iteration(
+        *a, grid=g, rows_per_stage=rows, **kw)
              for g in grids] + [fused_kstep_iteration_reference]
     if not plain_only:
         steps.append(k1_steps)
@@ -524,6 +563,24 @@ def time_kstep(shape, fista, n_kernel, n_plain):
     mean = {name: (sum(t for n, t in runs if n == name) / 2, per_iter[name])
             for name in per_iter}
     return mean, [(str(n), round(t, 4)) for n, t in runs]
+
+
+def time_kstep_rows(shape, fista, k, n_kernel):
+    """ms per launch of the K-step kernel of depth ``k`` at each R of
+    KSTEP_ROWS axis-0 rows per stage, on one Jia-Zhao state (momentum
+    0.37), in turns up and down. Returns ({R: mean ms}, the raw runs)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    orig, state, li, lm, _ = random_state(shape, fista, torch.float32, gen,
+                                          jz=True)
+    rhos = torch.full((k,), 0.37, device="cuda")
+    fns = {rr: kstep_fn(fused_kstep_iteration, orig, state, li, lm, rhos, k,
+                        fista, rows_per_stage=rr) for rr in KSTEP_ROWS}
+    runs = [(rr, time_ms(fns[rr], n_kernel))
+            for rr in [*KSTEP_ROWS, *reversed(KSTEP_ROWS)]]
+    del orig, state, fns
+    torch.cuda.empty_cache()
+    mean = {rr: sum(t for r, t in runs if r == rr) / 2 for rr in KSTEP_ROWS}
+    return mean, [(r, round(t, 4)) for r, t in runs]
 
 
 @contextlib.contextmanager
@@ -701,8 +758,9 @@ def time_resident(shape, schedule, with_ref, n_iters):
     the SSE with a reference cube, as the engine's loop does), in turns:
     whole-run, K-step, K=1, K=1, K-step, whole-run; then ``run_solver`` for
     ``n_iters`` iterations with the whole-run kernel on, off (the engine's
-    next pick), and on the K=1 loop (host clock, the size rule lifted,
-    after a short warm-up run of each), in turns on, off, K=1, K=1, off, on.
+    next pick), off with the K-step kernel forced to K=8, and on the K=1
+    loop (host clock, the size rule lifted, after a short warm-up run of
+    each), in turns on, off, K=8, K=1, K=1, K=8, off, on.
     Returns ({name: ms per iteration}, the temporal kernel's label, the raw
     runs)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -739,8 +797,9 @@ def time_resident(shape, schedule, with_ref, n_iters):
         runs.append((name, time_ms(fn, max(1, 400 // iters)) / iters))
     del fns
     # end to end: the engine's choice with the whole-run kernel on and off,
-    # and the K=1 loop
+    # K=8 forced, and the K=1 loop
     paths = {"on": dict(), "off": dict(vmem_resident=False),
+             "k8": dict(vmem_resident=False, temporal_k=8),
              "k1": dict(vmem_resident=False, temporal_kstep=False,
                         temporal_pairs=False)}
     saved = resident_mod.RESIDENT_BYTES
@@ -751,7 +810,7 @@ def time_resident(shape, schedule, with_ref, n_iters):
                 ndim=ndim, iterations_fista=16 if fista else 0,
                 iterations_unacc=0 if fista else 16, calculate_mse=with_ref,
                 **kw), ref)
-        for path in ("on", "off", "k1", "k1", "off", "on"):
+        for path in ("on", "off", "k8", "k1", "k1", "k8", "off", "on"):
             opts = SolverOptions(ndim=ndim, iterations_fista=n_iters if fista
                                  else 0, iterations_unacc=0 if fista
                                  else n_iters, calculate_mse=with_ref,
@@ -771,7 +830,7 @@ def time_resident(shape, schedule, with_ref, n_iters):
     torch.cuda.empty_cache()
     mean = {name: sum(t for n, t in runs if n == name) / 2
             for name in ("resident", "temporal", "k1", "solver_on",
-                         "solver_off", "solver_k1")}
+                         "solver_off", "solver_k8", "solver_k1")}
     label = f"K-step K={k}" if k else "pair"
     return mean, label, [(n, round(t, 5)) for n, t in runs]
 
@@ -1093,11 +1152,12 @@ def main() -> int:
         f"fastest width W={best} {t4[best]:.3f} ms; 2 fused-iteration "
         f"launches {t4['k1x2']:.3f} ms; sweep {time.perf_counter() - t0:.1f}"
         f" s [{smi}]")
-    for shape, fista in STRIP_SWEEP[1:] + SOLVER_ONLY:  # config 4: phase 3
-        mean, launches, raw = time_solver_paths(shape, fista, 48)
+    for shape, fista in STRIP_SWEEP + SOLVER_ONLY:
+        n_it = 16 if shape == CFG4 else 48
+        mean, launches, raw = time_solver_paths(shape, fista, n_it)
         mb = resident_state_bytes(shape, fista, False) / 1e6
         log(f"phase 2 run_solver {shape} {'FISTA' if fista else 'unaccelerated'}"
-            f" ({mb:.1f} MB of state) x48 on the card, whole-run off, ms per "
+            f" ({mb:.1f} MB of state) x{n_it} on the card, whole-run off, ms per "
             f"iteration: the gate's pick {mean['gate']:.4f} (launches "
             f"whole-run/K-step/pair/fused {launches['gate']}), K=8 forced "
             f"{mean['k8']:.4f} ({launches['k8']}), pairs {mean['pairs']:.4f} "
@@ -1110,11 +1170,20 @@ def main() -> int:
     kstep_err = 0.0
     n_kstep = 0
     for k in KS:
-        for shape in ((2 * k, 9, 10, 33), (2 * k + 1, 9, 10, 33),
-                      (2 * k, 13, 70), (2 * k + 1, 13, 70), ODD):
+        for shape in [kstep_shape(s, k) for s in KSTEP_SHAPES] + [ODD]:
             for fista in (True, False):
                 kstep_err = max(kstep_err, compare_kstep_case(shape, k, fista))
                 n_kstep += 1
+    edges = kstep_edge_cases()
+    for shape, k, fista in edges:
+        kstep_err = max(kstep_err, compare_kstep_case(shape, k, fista,
+                                                      grids=(None, 1, 7)))
+    for k in KS:
+        for rr in (2, 3):
+            n0 = 2 * k + 1 if (2 * k + 1) % rr else 2 * k + 2
+            for shape, fista in (((n0, 9, 10, 33), True), ((n0, 13, 64), False)):
+                kstep_err = max(kstep_err, compare_kstep_case(
+                    shape, k, fista, grids=(None, 1, 7), rows=rr))
     grids = {}
     for k in KS:
         for shape in (ODD, (2 * k + 1, 13, 70)):
@@ -1123,13 +1192,24 @@ def main() -> int:
             kstep_err = max(kstep_err, compare_kstep_case(
                 shape, k, True, grids=(1, 7, full_k), plain_only=True))
             refuses_oversized_grid(shape, k)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = {f"{nd}D {'FISTA' if f else 'unacc'} K={k}":
+              kstep_grid(torch.device("cuda"), nd, f, k) / sms
+              for nd in (3, 4) for f in (True, False) for k in KS}
     log(f"phase 2 K-step kernel vs plain, vs K fused-iteration launches and "
         f"(K even) vs K/2 pair launches: {n_kstep} cases (K {KS}; N0 = 2K, "
-        f"2K+1 in 3D and 4D, {ODD}; FISTA and unaccelerated), 2 launches each, "
+        f"2K+1 in 3D and 4D at {KSTEP_SHAPES[:4]} (ragged) and "
+        f"{KSTEP_SHAPES[4:]} (last extent a multiple of 4: 128-bit loads), "
+        f"{ODD}; FISTA and unaccelerated), 2 launches each, and {len(edges)} "
+        f"tile-edge cases (last extents 1, 4, 5, 128, 129; ND-2 extents 1, "
+        f"7, 9) each at the full grid and at 1 and 7 blocks, and at 2 and "
+        f"3 rows per stage (N0 not a multiple) at (N0, 9, 10, 33) FISTA and "
+        f"(N0, 13, 64) unaccelerated at those grids, "
         f"state bitwise equal (max |Δ| {kstep_err}), sums within rtol 1e-5; "
         f"the same state at forced grids of 1, 7 and the full grid "
         f"{ {f'K{k} {nd}D': g for (k, nd), g in grids.items()} } at {ODD} and "
-        f"(2K+1, 13, 70), a grid one block larger refused; "
+        f"(2K+1, 13, 70), a grid one block larger refused; blocks per SM "
+        f"(cooperative occupancy, {sms} SMs): {per_sm}; "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for k in KS:
@@ -1141,7 +1221,8 @@ def main() -> int:
         f"{kstep_err}), sums within rtol 1e-5; {time.perf_counter() - t0:.1f} s")
     ktimes = {}
     for shape, fista, n_k, n_p in ((CFG1, False, 100, 20), (CFG2, True, 8, 2),
-                                   (CFG3, True, 8, 2), (CFG4, True, 2, 1)):
+                                   (CFG3, True, 8, 2), (CFG4, True, 2, 1),
+                                   (BIG3, False, 8, 1)):
         ktimes[shape], raw = time_kstep(shape, fista, n_k, n_p)
         t = ktimes[shape]
         per_launch = ", ".join(f"K={k} {t[k][0]:.4f} ms/launch "
@@ -1155,6 +1236,14 @@ def main() -> int:
                         f"{t['pair'][0] * k / 2:.4f}, K fused-iteration "
                         f"{t['k1'][0] * k:.4f}, plain {t['plain'][0] * k:.4f} ms"
                         for k in KS)
+            + f" (runs {raw}) [{smi}]")
+    for shape, fista, n_k in ((CFG1, False, 40), (CFG1, True, 40),
+                              (BIG3, False, 3), (CFG2, True, 3)):
+        rows_ms, raw = time_kstep_rows(shape, fista, max(KS), n_k)
+        log(f"phase 2 K-step rows per stage at {shape} "
+            f"{'FISTA' if fista else 'unaccelerated'} f32, K={max(KS)}, ms per "
+            f"launch by R: "
+            + ", ".join(f"R={rr} {t:.4f}" for rr, t in rows_ms.items())
             + f" (runs {raw}) [{smi}]")
     kprof = profile_kernels(CFG2, iters=16, kstep=max(KS))
     log(f"phase 2 torch.profiler device time per FISTA f32 iteration at "
@@ -1220,7 +1309,8 @@ def main() -> int:
             f"{mean['temporal']:.5f}, fused-iteration "
             f"{mean['k1']:.5f}{' (+ SSE)' if with_ref else ''}; run_solver "
             f"x400 whole-run on {mean['solver_on']:.5f}, off "
-            f"{mean['solver_off']:.5f}, K=1 loop {mean['solver_k1']:.5f} ms "
+            f"{mean['solver_off']:.5f}, off with K=8 forced "
+            f"{mean['solver_k8']:.5f}, K=1 loop {mean['solver_k1']:.5f} ms "
             f"per iteration (runs {raw}) [{smi}]")
     full1 = res_grid(torch.device("cuda"), 3, False, False, False)
     scale = time_resident_grids(CFG1, sorted(

@@ -73,7 +73,7 @@ def _resolve_progress(progress: Optional[bool]) -> None:
     if progress:
         raise NotImplementedError(
             "progress=True needs chunked execution, which is not ported to "
-            "cytvdn_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
+            "cytvdn_tpu_torch yet (ROADMAP.md Queue 1 item 5)")
 
 
 def _bc_note(bc_mode: int) -> None:

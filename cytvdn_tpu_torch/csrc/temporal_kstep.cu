@@ -7,19 +7,21 @@
 // kstep.py:182, pallas_call kstep.py:499). The TPU kernel keeps levels
 // 1..K-1 in VMEM ring carries and walks its grid in order; here the pair
 // kernel's wavefront (temporal_pair.cu) is made K levels deep. Each
-// element's arithmetic is that of fused_iteration.cu (wavefront.cuh, built
+// element's arithmetic is that of fused_iteration.cu (vec_walk.cuh, built
 // with --fmad=false), so the state after one launch is bitwise equal to K
 // K=1 launches, to K/2 pair launches (K even) and to K plain iterations. It
 // returns every level's sums: sum|b|, sum|recon_new - recon|, sum|recon|.
 //
-// What bounds it on the H100: grid barriers at small rows, HBM bytes at
-// large ones. A launch has N0 + 3K - 1 stages for K iterations, so
-// (N0 + 3K - 1) / K barriers per iteration against (N0 + 5) / 2 for the pair
-// kernel: at N0 = 64, K = 8, 10.9 against 34.5. Where a stage's 2K rows
-// stay in the 50 MB L2 (small cubes) the traffic falls toward one pass per
-// K iterations, (4n+3)/K traversals per iteration; where they do not (rows
-// of MBs), each level's rows are re-read from HBM and the traffic stays near
-// K two-pass iterations (5n+4 each), as for the pair kernel.
+// What bounds it on the H100: a launch has N0 + 3K - 1 stages for K
+// iterations, each closed by a grid barrier (~2.4 us), so (N0 + 3K - 1) / K
+// barriers per iteration against (N0 + 5) / 2 for the pair kernel: at N0 =
+// 64, K = 8, 10.9 against 34.5. Within a stage, the latency and then the
+// throughput of the walk's L2 requests, as for the whole-run kernel, whose
+// walk (vec_walk.cuh) it shares. Where a stage's 2K rows stay in the 50 MB
+// L2 the HBM traffic falls toward one pass per K iterations, (4n+3)/K
+// traversals per iteration; where they do not (rows of MBs), each level's
+// rows are re-read from HBM and the traffic stays near K two-pass
+// iterations (5n+4 each), as for the pair kernel.
 //
 // In-place schedule. One cooperative launch walks a wavefront along axis 0
 // in stages s = 0 .. N0 + 3K - 2 with a grid-wide barrier between stages.
@@ -61,27 +63,63 @@
 //   the same; that invariant is why this kernel (like the TPU one) is
 //   Jia-Zhao only, and why its test states zero each accumulator's leading
 //   slab along its own axis.
-// - Stale L1: every load of the state goes through L2 (wavefront.cuh); the
+// - Stale L1: every load of the state goes through L2 (vec_walk.cuh); the
 //   grid barrier orders each stage's stores before the next stage's loads.
 //
-// Sums: 3K per launch. A work item's op is the same for the whole block, so
-// each thread adds into its own slot of a shared double[3K][NT] array (48 KB
-// at K = 8) instead of 3K registers indexed by a runtime level; after the
-// last stage each block reduces the slots in a fixed tree into per-block
-// partials, and block 0 reduces those in a fixed order after one more grid
-// barrier. The grid is fixed by the wrapper (the occupancy of this exact
-// (ndim, FISTA, K) instantiation), so the traces repeat exactly from run to
-// run; they may differ from K K=1 launches in the last bit after the cast.
+// Rows per stage. The wrapper may take R consecutive axis-0 rows as one
+// super-row (kernels/kstep.py::kstep_stages mirrors the schedule): every
+// row above is then a super-row, op_row counts in super-rows, an op covers
+// the R rows of its super-row (fewer in the last), and a launch has
+// ceil(N0 / R) + 3K - 1 stages, so ceil(N0 / R) + 3K - 1 barriers for K
+// iterations. The argument carries over unchanged. Neighbours along axis
+// 0 are +-1 row, so a value an op reads across rows lies in its own
+// super-row or in the one before (a dual's R at r-1) or after (a recon's b
+// at r+1), exactly where R = 1 puts a row's neighbours: a row of the op's
+// own super-row holds the value an earlier stage wrote, as the op's own row
+// does at R = 1 (no op writes what it reads across rows: a dual writes b,
+// d and reads R; a recon writes R and reads b). Within a stage the ops
+// still write disjoint super-rows. R = 1 is the schedule above, item for
+// item.
 //
-// Layout and index arithmetic as in temporal_pair.cu: 32 x 8 threads over a
-// tile of the two trailing axes, work items numbered op-major, tile fastest,
-// 32-bit indices (the wrapper keeps a stage's 2K x rows work items below
-// 2^31), 64-bit element offsets.
+// The walk (vec_walk.cuh, the whole-run kernel's): a work item is one tile
+// of NT / lw rows of axis ND-2 by 4 lw elements of axis ND-1 of one row
+// operation's row, four elements per thread with 128-bit loads where VEC,
+// every load of the item before its first store and b stored before d,
+// last-axis neighbours from lanes and axis ND-2 neighbours from the tile's
+// neighbouring row in shared memory. The axis-0 neighbours (rows r-1 for a
+// dual, r+1 for a recon) and in 4D the axis-1 ones stay loads. The schedule
+// above stays race-free with it:
+// - Each stage's ops still write disjoint rows, and every value an item
+//   loads (directly, from a lane or from shared memory) lies in its own row
+//   or in row r-1 (dual) or r+1 (recon), which no op of the stage writes,
+//   except the item's own elements of what it updates (b, d of a dual; R of
+//   a recon), read and written by the same thread, which loads them first.
+//   So an item may issue every load before its first store.
+// - An item's shared-memory row exchange is block-local: every thread of
+//   the block takes part in every item (an op is the same for the whole
+//   block), and the two buffers used in turns keep item i's reads apart
+//   from item i+2's writes by item i+1's block barrier.
+//
+// Sums: 3K per launch. A work item's op is the same for the whole block,
+// so each thread adds its item's sums into its own slot of a shared
+// double[3K][NT] array instead of 3K registers indexed by a runtime level
+// (one slot per warp, each item's sums reduced over the warp first, was
+// no faster, PERF.md section 6, PR 9); after the last stage each block
+// reduces its slots in a fixed order into
+// per-block partials, and block 0 reduces those in a fixed order after one
+// more grid barrier. The grid is fixed by the wrapper (the occupancy of
+// this exact (ndim, FISTA, K) instantiation), so the traces repeat exactly
+// from run to run; they may differ from K K=1 launches in the last bit
+// after the cast.
+//
+// Index arithmetic is 32-bit (the wrapper keeps a stage's 2K x rows work
+// items below 2^31 and the rows below 2^32); element offsets are 64-bit.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vec_walk.cuh"
 #include "wavefront.cuh"
 
 namespace cg = cooperative_groups;
@@ -89,35 +127,87 @@ namespace cg = cooperative_groups;
 namespace {
 
 struct KstepArgs {
-  const float* orig;
-  float* recon;
-  float* b[4];
-  float* d[4];
-  const float* lambda_inv;
-  const float* lam_mu;
   const float* rhos;  // [K] momentum ratios (FISTA)
   double* partials;   // [3K][gridDim.x]
   float* out;         // [3K]: per level sum|b|, sum|dR|, sum|R|
-  int64_t n[4];       // extents of the ndim axes
-  int64_t s[4];       // element strides of the ndim axes
-  int64_t rows1;      // product of the axes between 0 and the tiled pair
-  int64_t tiles_m;    // tiles of TY along axis ndim-2
-  int64_t tiles_l;    // tiles of TX along axis ndim-1
+  uint32_t rows1;     // product of the axes between 0 and the tiled pair
+  uint32_t rps;       // R: axis-0 rows per super-row, 1 .. N0
+  VecTiles v;         // the walk's tiling (vec_walk.cuh)
 };
 
-// Dynamic shared memory of the K-level kernel: the 3K x NT double sum
-// slots, then the K momentum ratios.
+// Dynamic shared memory of the K-level kernel: its sum slots, one double
+// per thread and sum, [3K][NT] (48 KB at K = 8).
 constexpr size_t smem_bytes(int k) {
-  return size_t(3 * k) * NT * sizeof(double) + size_t(k) * sizeof(float);
+  return size_t(3 * k) * NT * sizeof(double);
+}
+
+// The ceil(N0 / R) + 3K - 1 stages of the wavefront, with a grid barrier
+// after each.
+template <int ND, bool FISTA, int K, bool VEC>
+__device__ __forceinline__ void walk(const Args<float>& a, const KstepArgs& r,
+                                     const float* lam, const float* lm,
+                                     const float* rho, double* slots,
+                                     float4 (*buf)[NT]) {
+  constexpr int OPS = 2 * K;  // row-operations per stage
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.y * TX + threadIdx.x;
+  const int lw = r.v.lw;
+  const int xl = tid & (lw - 1);
+  const int y = tid >> r.v.lw_log;
+  const int last_y = (NT >> r.v.lw_log) - 1;
+  const int64_t N0 = a.n[0];
+  const int64_t supers = (N0 + r.rps - 1) / r.rps;
+  const uint32_t tiles = r.v.tiles_m * r.v.tiles_l;
+  const uint32_t per_row = r.rows1 * tiles;
+  const uint32_t per_op = r.rps * per_row;
+  const int64_t last_stage = supers + 3 * K - 2;
+  int parity = 0;
+  for (int64_t st = 0; st <= last_stage; ++st) {
+    int first = 0;
+    while (first < OPS && op_row(st, first) >= supers) ++first;
+    int nact = 0;
+    while (first + nact < OPS && op_row(st, first + nact) >= 0) ++nact;
+    const uint32_t work = static_cast<uint32_t>(nact) * per_op;
+    for (uint32_t w = blockIdx.x; w < work; w += gridDim.x) {
+      // items numbered op-major, then the row of the super-row, then the
+      // axis-1 row (4D), tile fastest; the same op and row for the block
+      const uint32_t j = w / per_op;
+      uint32_t rem = w - j * per_op;
+      const uint32_t q = rem / per_row;
+      rem -= q * per_row;
+      const uint32_t r1 = rem / tiles;
+      const int op = first + static_cast<int>(j);
+      const int64_t row0 = op_row(st, op) * r.rps + q;
+      if (row0 >= N0) continue;  // past the end of the last super-row
+      const uint32_t row = static_cast<uint32_t>(row0) * r.rows1 + r1;
+      const Item<ND> it = item_at<ND>(a, r.v, row, rem - r1 * tiles, y, xl);
+      const int lev = op / 2;
+      if (op % 2 == 0) {
+        double acc = 0.0;
+        dual_item<ND, FISTA, VEC>(a, it, lw, xl, y, tid, lam, rho[lev], false,
+                                  false, buf, parity, acc);
+        slots[3 * lev * NT + tid] += acc;
+      } else {
+        double s[4] = {0.0, 0.0, 0.0, 0.0};
+        recon_item<ND, false, VEC>(a, it, lw, xl, y, last_y, tid, lm,
+                                   nullptr, buf, parity, s);
+        slots[(3 * lev + 1) * NT + tid] += s[1];
+        slots[(3 * lev + 2) * NT + tid] += s[2];
+      }
+    }
+    grid.sync();
+  }
 }
 
 template <int ND, bool FISTA, int K>
-__global__ void __launch_bounds__(NT) kstep_kernel(KstepArgs a) {
-  constexpr int OPS = 2 * K;   // row-operations per stage
+__global__ void __launch_bounds__(NT) kstep_kernel(Args<float> a,
+                                                   KstepArgs r, int vec) {
   constexpr int SUMS = 3 * K;
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ double acc[];  // [SUMS][NT], then float rho[K]
-  float* rho = reinterpret_cast<float*>(acc + SUMS * NT);
+  extern __shared__ double slots[];  // [SUMS][NT]
+  __shared__ float4 buf[2][NT];
+  __shared__ double red[NT];
+  __shared__ float rho[K];
   const int t = threadIdx.y * TX + threadIdx.x;
   float lam[ND], lm[ND];
 #pragma unroll
@@ -125,72 +215,35 @@ __global__ void __launch_bounds__(NT) kstep_kernel(KstepArgs a) {
     lam[k] = a.lambda_inv[k];
     lm[k] = a.lam_mu[k];
   }
-  if (t < K) rho[t] = FISTA ? a.rhos[t] : 0.0f;
+  if (t < K) rho[t] = FISTA ? r.rhos[t] : 0.0f;
 #pragma unroll
-  for (int j = 0; j < SUMS; ++j) acc[j * NT + t] = 0.0;
+  for (int j = 0; j < SUMS; ++j) slots[j * NT + t] = 0.0;
   __syncthreads();
-
-  const int64_t N0 = a.n[0];
-  const int64_t M = a.n[ND - 2];
-  const int64_t L = a.n[ND - 1];
-  const uint32_t tiles = static_cast<uint32_t>(a.tiles_m * a.tiles_l);
-  const uint32_t tl_n = static_cast<uint32_t>(a.tiles_l);
-  const uint32_t per_row = static_cast<uint32_t>(a.rows1) * tiles;
-  const int64_t last_stage = N0 + 3 * K - 2;
-
-  for (int64_t st = 0; st <= last_stage; ++st) {
-    int first = 0;
-    while (first < OPS && op_row(st, first) >= N0) ++first;
-    int nact = 0;
-    while (first + nact < OPS && op_row(st, first + nact) >= 0) ++nact;
-    const uint32_t work = static_cast<uint32_t>(nact) * per_row;
-    for (uint32_t w = blockIdx.x; w < work; w += gridDim.x) {
-      const uint32_t j = w / per_row;  // the same for the whole block
-      const uint32_t rem = w - j * per_row;
-      const uint32_t r1 = rem / tiles;
-      const uint32_t tt = rem - r1 * tiles;
-      const uint32_t tm = tt / tl_n;
-      const int64_t m = int64_t(tm) * TY + threadIdx.y;
-      const int64_t l = int64_t(tt - tm * tl_n) * TX + threadIdx.x;
-      if (m >= M || l >= L) continue;
-      const int op = first + static_cast<int>(j);
-      const int64_t row = op_row(st, op);
-      int64_t c[ND];
-      c[0] = row;
-      if (ND == 4) c[1] = r1;
-      c[ND - 2] = m;
-      c[ND - 1] = l;
-      const int64_t idx = ((row * a.rows1 + r1) * M + m) * L + l;
-      const int lev = op / 2;
-      double* slot = acc + 3 * lev * NT + t;
-      if (op % 2 == 0) {
-        slot[0] += dual_elem<ND, FISTA>(a, idx, c, lam, rho[lev]);
-      } else {
-        recon_elem<ND>(a, idx, c, lm, slot[NT], slot[2 * NT]);
-      }
-    }
-    grid.sync();
+  if (vec) {
+    walk<ND, FISTA, K, true>(a, r, lam, lm, rho, slots, buf);
+  } else {
+    walk<ND, FISTA, K, false>(a, r, lam, lm, rho, slots, buf);
   }
 
   // fixed-tree reduction of every slot row over the block
   for (int h = NT / 2; h > 0; h >>= 1) {
     if (t < h) {
-      for (int j = 0; j < SUMS; ++j) acc[j * NT + t] += acc[j * NT + t + h];
+      for (int j = 0; j < SUMS; ++j) slots[j * NT + t] += slots[j * NT + t + h];
     }
     __syncthreads();
   }
   if (t == 0) {
     for (int j = 0; j < SUMS; ++j)
-      a.partials[int64_t(j) * gridDim.x + blockIdx.x] = acc[j * NT];
+      r.partials[int64_t(j) * gridDim.x + blockIdx.x] = slots[j * NT];
   }
   grid.sync();
   if (blockIdx.x == 0) {
     for (int j = 0; j < SUMS; ++j) {
       double v = 0.0;
       for (int i = t; i < static_cast<int>(gridDim.x); i += NT)
-        v += __ldcg(a.partials + int64_t(j) * gridDim.x + i);
-      const double total = block_sum(v, acc);
-      if (t == 0) a.out[j] = static_cast<float>(total);
+        v += __ldcg(r.partials + int64_t(j) * gridDim.x + i);
+      const double total = block_sum(v, red);
+      if (t == 0) r.out[j] = static_cast<float>(total);
     }
   }
 }
@@ -214,7 +267,7 @@ const void* kernel_for(int ndim, int fista, int k) {
 }
 
 // Allows the instantiation its dynamic shared memory (above the 48 KB
-// default at K = 8).
+// default with [3K][NT] slots at K = 8).
 cudaError_t prepare(const void* fn, int k) {
   if (fn == nullptr) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -251,38 +304,44 @@ extern "C" int tv_kstep_iteration_f32(
     void* d0, void* d1, void* d2, void* d3, const void* lambda_inv,
     const void* lam_mu, const void* rhos, void* partials, void* out,
     int ndim, long long n0, long long n1, long long n2, long long n3,
-    int fista, int k, int nblocks, void* stream) {
+    int fista, int k, int rows_per_stage, int nblocks, void* stream) {
   const void* fn = kernel_for(ndim, fista, k);
   cudaError_t err = prepare(fn, k);
   if (err != cudaSuccess) return static_cast<int>(err);
-  KstepArgs a;
+  Args<float> a{};
   a.orig = static_cast<const float*>(orig);
   a.recon = static_cast<float*>(recon);
   void* const bs[4] = {b0, b1, b2, b3};
   void* const dd[4] = {d0, d1, d2, d3};
-  const long long n[4] = {n0, n1, n2, n3};
+  int vec = aligned16(orig) && aligned16(recon);
   for (int q = 0; q < 4; ++q) {
     a.b[q] = static_cast<float*>(bs[q]);
     a.d[q] = static_cast<float*>(dd[q]);
-    a.n[q] = q < ndim ? n[q] : 1;
+    vec = vec && aligned16(bs[q]) && aligned16(dd[q]);
   }
-  int64_t stride = 1;
-  for (int q = ndim - 1; q >= 0; --q) {
-    a.s[q] = stride;
-    stride *= a.n[q];
-  }
-  for (int q = ndim; q < 4; ++q) a.s[q] = 0;
+  const long long n[4] = {n0, n1, n2, n3};
+  set_shape(a, ndim, n);
   a.lambda_inv = static_cast<const float*>(lambda_inv);
   a.lam_mu = static_cast<const float*>(lam_mu);
-  a.rhos = static_cast<const float*>(rhos);
-  a.partials = static_cast<double*>(partials);
-  a.out = static_cast<float*>(out);
-  a.rows1 = 1;
-  for (int q = 1; q < ndim - 2; ++q) a.rows1 *= a.n[q];
-  a.tiles_m = (a.n[ndim - 2] + TY - 1) / TY;
-  a.tiles_l = (a.n[ndim - 1] + TX - 1) / TX;
+  a.bc = 2;  // Jia-Zhao
+  KstepArgs r;
+  r.rhos = static_cast<const float*>(rhos);
+  r.partials = static_cast<double*>(partials);
+  r.out = static_cast<float*>(out);
+  long long rows1 = 1;
+  for (int q = 1; q < ndim - 2; ++q) rows1 *= n[q];
+  const long long tiles = set_tiles(r.v, n[ndim - 2], n[ndim - 1]);
+  // the wrapper keeps R in 1 .. N0 and refuses a stage of 2^31 work items
+  // or more, and 2^32 rows
+  if (rows_per_stage < 1 || rows_per_stage > n0 ||
+      2LL * k * rows_per_stage * rows1 * tiles >= (1LL << 31) ||
+      n0 * rows1 >= (1LL << 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  r.rows1 = static_cast<uint32_t>(rows1);
+  r.rps = static_cast<uint32_t>(rows_per_stage);
+  vec = vec && n[ndim - 1] % VW == 0;
 
-  void* args[] = {&a};
+  void* args[] = {&a, &r, &vec};
   // a grid above the cooperative limit is refused here, not shrunk
   err = cudaLaunchCooperativeKernel(fn, dim3(nblocks), dim3(TX, TY), args,
                                     smem_bytes(k),

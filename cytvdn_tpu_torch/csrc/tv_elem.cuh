@@ -2,11 +2,12 @@
 // fused_iteration.cu: the argument struct, the boundary offsets of all
 // three boundary conditions, the (row, tile) walk over a block's work
 // items, and one element's dual update and reconstruction update. The
-// whole-run kernel of resident.cu shares the struct, the shape, the
-// boundary offsets and the arithmetic helpers, and does each element's
-// arithmetic in the order of dual_elem and recon_elem (built with
-// --fmad=false), so its state is bitwise equal to the same number of
-// one-iteration launches; its walk and loads are its own.
+// vector walk of the whole-run and K-step kernels (vec_walk.cuh) shares
+// the struct, the shape, the boundary offsets and the arithmetic helpers,
+// and does each element's arithmetic in the order of dual_elem and
+// recon_elem (built with --fmad=false), so their state is bitwise equal to
+// the same number of one-iteration launches; its walk and loads are its
+// own. The block's layout (TX, TY, NT) is block.cuh's.
 //
 // CG selects how the state is loaded: plainly (false, the one-iteration
 // kernels: a launch boundary separates each write from every read of
@@ -28,11 +29,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "block.cuh"
 
-constexpr int TX = 32;
-constexpr int TY = 8;
-constexpr int NT = TX * TY;
+namespace {
 
 __device__ __forceinline__ float clip_(float x, float c) { return fminf(fmaxf(x, -c), c); }
 __device__ __forceinline__ double clip_(double x, double c) { return fmin(fmax(x, -c), c); }
@@ -102,20 +101,6 @@ __device__ __forceinline__ int64_t fwd(int64_t idx, int64_t c, int64_t n,
   if (c < n - 1) return idx + s;
   if (bc == 1) return idx;                // mirror: own b_{N-1}
   return idx - (n - 1) * s;               // periodic and Jia-Zhao: b_0
-}
-
-// Fixed-order tree sum over the block; thread 0 gets the total.
-__device__ __forceinline__ double block_sum(double v, double* red) {
-  const int t = threadIdx.y * TX + threadIdx.x;
-  red[t] = v;
-  __syncthreads();
-  for (int h = NT / 2; h > 0; h >>= 1) {
-    if (t < h) red[t] += red[t + h];
-    __syncthreads();
-  }
-  const double total = red[0];
-  __syncthreads();
-  return total;
 }
 
 // Walk this block's (row, tile) work items and call body(idx, c) with each

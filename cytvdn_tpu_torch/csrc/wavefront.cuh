@@ -1,9 +1,10 @@
-// Element functions shared by the cooperative wavefront kernels
-// (temporal_pair.cu, temporal_kstep.cu): one Jia-Zhao anisotropic dual
-// update and one reconstruction update of a single element, with the
-// arithmetic of fused_iteration.cu (the same clip form, the same order of
-// operations; built with --fmad=false), so every wavefront kernel's state is
-// bitwise equal to the same number of K=1 launches.
+// The stage layout of the cooperative wavefront kernels (op_row, shared by
+// temporal_pair.cu and temporal_kstep.cu), and the pair kernel's scalar
+// elements: one Jia-Zhao anisotropic dual update and one reconstruction
+// update of a single element, with the arithmetic of fused_iteration.cu
+// (the same clip form, the same order of operations; built with
+// --fmad=false), so the pair kernel's state is bitwise equal to two K=1
+// launches. (The K-step kernel walks four elements per thread, vec_walk.cuh.)
 //
 // `Args` is a kernel's argument struct; these functions read its members
 // recon, orig, b[k], d[k], n[k] and s[k]. Loads of the state bypass L1
@@ -15,11 +16,9 @@
 
 #include <stdint.h>
 
-namespace {
+#include "block.cuh"
 
-constexpr int TX = 32;
-constexpr int TY = 8;
-constexpr int NT = TX * TY;
+namespace {
 
 __device__ __forceinline__ float ld(const float* p) { return __ldcg(p); }
 
@@ -38,20 +37,6 @@ __device__ __forceinline__ int64_t fwd(int64_t idx, int64_t c, int64_t n,
 // st - 3l, recon-(l+1) (op 2l+1) two rows behind it.
 __device__ __forceinline__ int64_t op_row(int64_t st, int op) {
   return st - 3 * (op / 2) - 2 * (op % 2);
-}
-
-// Fixed-order tree sum over the block; every thread gets the total.
-__device__ __forceinline__ double block_sum(double v, double* red) {
-  const int t = threadIdx.y * TX + threadIdx.x;
-  red[t] = v;
-  __syncthreads();
-  for (int h = NT / 2; h > 0; h >>= 1) {
-    if (t < h) red[t] += red[t + h];
-    __syncthreads();
-  }
-  const double total = red[0];
-  __syncthreads();
-  return total;
 }
 
 // Dual update of one element at one level, as fused_iteration.cu's

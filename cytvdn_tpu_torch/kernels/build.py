@@ -84,7 +84,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tv_pair_max_blocks.argtypes = [i, i, ctypes.POINTER(i)]
     lib.tv_pair_max_blocks.restype = i
     lib.tv_kstep_iteration_f32.argtypes = \
-        [vp] * 15 + [i] + [ll] * 4 + [i] * 3 + [vp]
+        [vp] * 15 + [i] + [ll] * 4 + [i] * 4 + [vp]
     lib.tv_kstep_iteration_f32.restype = i
     lib.tv_kstep_max_blocks.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.tv_kstep_max_blocks.restype = i

@@ -151,7 +151,7 @@ def _check_state(orig: Tensor, recon: Tensor, accs, ds, fista: bool) -> None:
     for k in range(ndim):
         _check(accs[k], orig, f"accs[{k}]")
         if fista:
-            # a bfloat16 d (lossy duals, ROADMAP.md Queue 1 item 7) fails here
+            # a bfloat16 d (lossy duals, ROADMAP.md Queue 1 item 4) fails here
             _check(ds[k], orig, f"ds[{k}]")
 
 
@@ -208,7 +208,7 @@ def fused_iteration(
     if halos is not None:
         raise NotImplementedError(
             "operand halos (sharded and out-of-core runs) are not ported "
-            "yet (ROADMAP.md Queue 1 item 10)")
+            "yet (ROADMAP.md Queue 1 items 7-8)")
     ndim = orig.dim()
     if not fused_supported(tuple(orig.shape), orig.dtype, bc, iso_r, iso_q):
         raise ValueError(

@@ -9,7 +9,11 @@ the pair kernel's wavefront made K levels deep: one cooperative launch
 walks dual-1, recon-1, ..., dual-K, recon-K along axis 0, each op a few
 rows behind the last, with a grid-wide barrier between stages, so the state
 is updated in place without races and without a second copy (the schedule
-and why it is race-free are in the source's header). Its element arithmetic
+and why it is race-free are in the source's header). Each row operation
+walks its row with the whole-run kernel's vector walk
+(``csrc/vec_walk.cuh``): four elements per thread with 128-bit loads, every
+load of a work item before its first store, neighbours along the last axis
+from lanes and along axis ndim-2 from shared memory. Its element arithmetic
 is that of ``csrc/fused_iteration.cu``, so the state is bitwise equal to K
 K=1 launches and to K/2 pair launches; the 3K sums are per-block partials
 combined in a fixed order, within rtol 1e-5 of K K=1 launches' sums.
@@ -39,9 +43,9 @@ from cytvdn_tpu_torch.kernels import build
 from cytvdn_tpu_torch.kernels.fused import (
     _check_state,
     _launch_args,
-    _work_items,
     fused_iteration_reference,
 )
+from cytvdn_tpu_torch.kernels.resident import resident_work_items
 
 Tensor = torch.Tensor
 
@@ -60,6 +64,12 @@ L2_BYTES = 50_000_000
 #: 64x64x512 FISTA) and slower from 83.9 MB (25% there, 35% at 336 MB,
 #: 5-39% from 503 MB to 5.4 GB)
 KSTEP_MAX_STATE_BYTES = 70_000_000
+
+#: R, the consecutive axis-0 rows the wavefront takes as one super-row by
+#: default (``fused_kstep_iteration(rows_per_stage=...)``, clipped to N0):
+#: a launch has ceil(N0 / R) + 3K - 1 grid barriers instead of N0 + 3K - 1,
+#: and each stage R times the work items
+KSTEP_ROWS_PER_STAGE = 8
 
 #: the full cooperative grid per (device, ndim, fista, k): each depth is its
 #: own instantiation with its own registers and shared memory, so its own
@@ -135,6 +145,25 @@ def best_kstep(shape, dtype, bc, fista: bool,
     return 0
 
 
+def kstep_stages(shape, k: int, rows_per_stage: int = 1):
+    """The kernel's schedule for ``shape`` at depth ``k``, with R =
+    ``rows_per_stage`` consecutive axis-0 rows taken as one super-row:
+    yields ``(stage, op, lo, hi)`` for every row operation that has rows,
+    in launch order. ``op`` 2l is dual-(l+1) and 2l+1 recon-(l+1); in stage
+    ``st`` an op's super-row is ``st - 3(op // 2) - 2(op % 2)`` and its
+    rows are ``[lo, hi)``, R of them (fewer in the last super-row). There
+    are ceil(N0 / R) + 3k - 1 stages, with a grid barrier after each;
+    within a stage the ops touch disjoint rows, so they may run in any
+    order. R = 1 is one row per stage."""
+    n0, rr = shape[0], rows_per_stage
+    supers = -(-n0 // rr)
+    for st in range(supers + 3 * k - 1):
+        for op in range(2 * k):
+            s = st - 3 * (op // 2) - 2 * (op % 2)
+            if 0 <= s < supers:
+                yield st, op, s * rr, min((s + 1) * rr, n0)
+
+
 def fused_kstep_iteration_reference(
     orig: Tensor,
     recon: Tensor,
@@ -187,6 +216,7 @@ def fused_kstep_iteration(
     k: int,
     fista: bool,
     grid: Optional[int] = None,
+    rows_per_stage: Optional[int] = None,
 ):
     """``k`` full Jia-Zhao TV iterations, updating ``recon``, ``accs`` and
     ``ds`` in place.
@@ -198,7 +228,10 @@ def fused_kstep_iteration(
     Jia-Zhao run does (the kernel's axis-0 wrap reads it). ``grid`` forces
     the number of blocks (the race tests); by default the launch takes the
     full cooperative grid of this depth. A grid above the cooperative limit
-    raises.
+    raises. ``rows_per_stage`` forces R, the consecutive axis-0 rows the
+    wavefront takes as one super-row (:func:`kstep_stages`; at least 1,
+    clipped to N0); by default :data:`KSTEP_ROWS_PER_STAGE`. The result
+    does not depend on it.
 
     Returns ``(recon, accs, ds, bn, dnum, dden)`` — the state objects
     passed in and the per-iteration sums as (k,) tensors.
@@ -214,6 +247,11 @@ def fused_kstep_iteration(
             f"dtype {orig.dtype} at K={k} (float32, 3D/4D, K in "
             f"{sorted(KSTEP_CANDIDATES)}, N0 >= 2K)")
     _check_state(orig, recon, accs, ds, fista)
+    rr = KSTEP_ROWS_PER_STAGE if rows_per_stage is None \
+        else int(rows_per_stage)
+    if rr < 1:
+        raise ValueError(f"rows_per_stage={rows_per_stage}: at least 1")
+    rr = min(rr, orig.shape[0])
     if orig.device.type == "cpu":
         fused_kstep_iteration.calls += 1
         return fused_kstep_iteration_reference(
@@ -226,12 +264,15 @@ def fused_kstep_iteration(
         scalars.append(("rhos", rhos, k))
     bs, dd, dims, stream = _launch_args(orig, accs, ds if fista else None,
                                         scalars)
-    # a stage's work items: 2k row operations of one axis-0 slab each
-    work = 2 * k * _work_items(tuple(orig.shape)) // orig.shape[0]
-    if work >= 2**31:
+    # a stage's work items: 2k row operations of R axis-0 slabs each, in
+    # the whole-run kernel's tiles (the walk of csrc/vec_walk.cuh)
+    work = 2 * k * rr * resident_work_items(tuple(orig.shape)) \
+        // orig.shape[0]
+    rows = orig.numel() // (orig.shape[-2] * orig.shape[-1])
+    if work >= 2**31 or rows >= 2**32:
         raise ValueError(f"shape {tuple(orig.shape)}: {work} work items per "
-                         "stage; the kernel's 32-bit index arithmetic takes "
-                         "< 2**31")
+                         f"stage, {rows} rows; the kernel's 32-bit index "
+                         "arithmetic takes < 2**31 and < 2**32")
     lib = build.load()
     nblocks = grid if grid is not None else cooperative_grid(
         orig.device, ndim, fista, k)
@@ -242,7 +283,7 @@ def fused_kstep_iteration(
         orig.data_ptr(), recon.data_ptr(), *bs, *dd,
         lambda_inv.data_ptr(), lam_mu.data_ptr(),
         rhos.data_ptr() if fista else None,
-        partials.data_ptr(), out.data_ptr(), ndim, *dims, int(fista), k,
+        partials.data_ptr(), out.data_ptr(), ndim, *dims, int(fista), k, rr,
         nblocks, stream)
     build.check(err)
     fused_kstep_iteration.calls += 1

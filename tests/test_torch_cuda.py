@@ -4,7 +4,8 @@ rtol 1e-5 (their summation order differs). The pair kernel is also held
 bitwise against two launches of the one-iteration kernel, the K-step
 kernel against K launches of it and (K even) K/2 pair launches, and both
 against themselves at forced grid sizes (the race check of their in-place
-schedules), the pair kernel also at forced axis-1 strip widths. The
+schedules), the pair kernel also at forced axis-1 strip widths, the K-step
+kernel also at its tile edges. The
 whole-run kernel is held bitwise against its plain version and against T
 launches of the one-iteration kernel, at forced grid sizes too.
 
@@ -247,10 +248,13 @@ def test_pair_kernel_repeats_exactly():
 
 
 # K-step kernel: N0 = 2K and 2K+1 (stages where only some of the 2K row
-# operations have a row), 3D and 4D, and ragged tile edges on every axis
+# operations have a row), 3D and 4D, ragged tile edges on every axis (the
+# element-by-element walk) and last extents that are a multiple of 4 (the
+# 128-bit walk, VEC)
 KS = (3, 4, 6, 8)
 KSTEP_SHAPES = [(n0, 9, 10, 33) for n0 in ("2K", "2K+1")] \
-    + [(n0, 13, 70) for n0 in ("2K", "2K+1")] + [(37, 45, 19, 23)]
+    + [(n0, 13, 70) for n0 in ("2K", "2K+1")] + [(37, 45, 19, 23)] \
+    + [("2K", 9, 10, 32), ("2K+1", 13, 64), ("2K", 16, 512)]
 
 
 def _at(shape, k):
@@ -339,6 +343,90 @@ def test_kstep_kernel_state_independent_of_grid(k, shape):
     with pytest.raises(RuntimeError, match="launch failed"):
         _ksteps(tkstep.fused_kstep_iteration, orig, state, li, lm, k, True,
                 grid=full + 1)
+
+
+def _kstep_edge_cases():
+    """The K-step kernel's tile edges as (shape, K, fista): last extents
+    around its four-element groups and 32-lane segments (1, 4, 5, 128, 129),
+    ND-2 extents around its tile rows (1, 7, 9), every depth, N0 = 2K and
+    2K+1, FISTA and unaccelerated, 3D and 4D."""
+    cases = []
+    for i, last in enumerate((1, 4, 5, 128, 129)):
+        for j, m in enumerate((1, 7, 9)):
+            k = KS[(i + j) % len(KS)]
+            cases.append(((2 * k + (i + j) % 2, m, last), k, (i + 2 * j) % 2 == 0))
+    for i, (m, last) in enumerate(((1, 4), (7, 129), (9, 5), (7, 128))):
+        k = KS[i]
+        cases.append(((2 * k + i % 2, 3, m, last), k, i % 2 == 1))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,fista", _kstep_edge_cases(), ids=str)
+def test_kstep_kernel_tile_edges(shape, k, fista):
+    """At the vector walk's tile edges: the full grid, 1 block and 7 blocks
+    give the plain version's state, K one-iteration launches' and (K even)
+    K/2 pair launches', bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    orig, state, li, lm, _ = _jz_state(shape, fista, seed=3)
+    args = (orig, state, li, lm, k, fista)
+    ks, ksum = _ksteps(tkstep.fused_kstep_iteration, *args)
+    runs = [_ksteps(tkstep.fused_kstep_iteration, *args, grid=g)
+            for g in (1, 7)]
+    runs += [_ksteps(tkstep.fused_kstep_iteration_reference, *args),
+             _ksteps(_k1_launches, *args)]
+    if k % 2 == 0:
+        runs.append(_ksteps(_pair_launches, *args))
+    for s, sums in runs:
+        for a, b in zip(ks, s):
+            assert torch.equal(a, b), (a - b).abs().max().item()
+        torch.testing.assert_close(ksum, sums, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [("N0", 9, 10, 33), ("N0", 13, 64)],
+                         ids=str)
+@pytest.mark.parametrize("rr", (1, 2, 3))
+@pytest.mark.parametrize("k", KS)
+def test_kstep_kernel_rows_per_stage(k, rr, shape):
+    """R axis-0 rows per stage, N0 not a multiple of R (4D FISTA ragged, 3D
+    unaccelerated 128-bit), at the full grid and at 1 and 7 blocks: the
+    plain version's state and K one-iteration launches', bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    n0 = 2 * k + 1 if (2 * k + 1) % rr or rr == 1 else 2 * k + 2
+    shape = (n0,) + shape[1:]
+    fista = len(shape) == 4
+    orig, state, li, lm, _ = _jz_state(shape, fista, seed=5)
+    args = (orig, state, li, lm, k, fista)
+    runs = [_ksteps(tkstep.fused_kstep_iteration, *args, grid=g,
+                    rows_per_stage=rr) for g in (None, 1, 7)]
+    runs += [_ksteps(tkstep.fused_kstep_iteration_reference, *args),
+             _ksteps(_k1_launches, *args)]
+    for s, sums in runs[1:]:
+        for a, b in zip(runs[0][0], s):
+            assert torch.equal(a, b), (a - b).abs().max().item()
+        torch.testing.assert_close(runs[0][1], sums, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_kstep_kernel_unaligned_state():
+    """An array that starts off a 16-byte boundary (here orig) sends the
+    kernel to its element-by-element walk even where the last extent is a
+    multiple of 4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    orig, state, li, lm, _ = _jz_state((9, 9, 32), True, seed=4)
+    orig = torch.empty(orig.numel() + 1, device="cuda")[1:].view(
+        orig.shape).copy_(orig)
+    assert orig.data_ptr() % 16
+    args = (orig, state, li, lm, 4, True)
+    ks, ksum = _ksteps(tkstep.fused_kstep_iteration, *args)
+    s, sums = _ksteps(tkstep.fused_kstep_iteration_reference, *args)
+    for a, b in zip(ks, s):
+        assert torch.equal(a, b), (a - b).abs().max().item()
+    torch.testing.assert_close(ksum, sums, rtol=1e-5, atol=0)
 
 
 @pytest.mark.cuda

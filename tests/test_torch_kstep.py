@@ -23,6 +23,7 @@ import cytvdn_tpu.kernels.kstep as KS  # noqa: E402
 from cytvdn_tpu.config import Backend as JBackend  # noqa: E402
 from cytvdn_tpu.config import SolverOptions as JOptions  # noqa: E402
 from cytvdn_tpu.solver import engine as jengine  # noqa: E402
+from cytvdn_tpu_torch import ops as tops  # noqa: E402
 from cytvdn_tpu_torch.config import SolverOptions as TOptions  # noqa: E402
 from cytvdn_tpu_torch.kernels import fused as tfused  # noqa: E402
 from cytvdn_tpu_torch.kernels import kstep as tkstep  # noqa: E402
@@ -314,6 +315,141 @@ def test_kstep_wrapper_rejects_what_the_kernel_does_not_take():
     assert tkstep.kstep_supported((8, 5, 6), torch.float32, 2, 4, True)
     assert not tkstep.kstep_supported((8, 5, 6), torch.float32, 0, 4, True)
     assert not tkstep.kstep_supported((8, 5, 6), torch.float32, 2, 2, True)
+
+
+def _replay_ksteps(orig, recon, accs, ds, rhos, li, lm, k, fista,
+                   rows_per_stage, order):
+    """``k`` iterations, in place on CPU tensors, by the CUDA kernel's
+    schedule (:func:`kstep_stages`): each row operation computes the plain
+    full-array update from the state it reads and commits only its rows.
+    Within a stage the operations run in launch order ("forward"), in
+    reverse, or all reading the stage's start state ("snapshot"). Returns
+    the 3k sums in float64."""
+    ndim = orig.dim()
+    stages = {}
+    for st, op, lo, hi in tkstep.kstep_stages(tuple(orig.shape), k,
+                                              rows_per_stage):
+        stages.setdefault(st, []).append((op, lo, hi))
+    sums = [0.0] * (3 * k)
+    for st in sorted(stages):
+        items = stages[st][::-1] if order == "reverse" else stages[st]
+        src = (recon, accs, ds)
+        if order == "snapshot":
+            src = (recon.clone(), [a.clone() for a in accs],
+                   [d.clone() for d in ds] if fista else None)
+        for op, lo, hi in items:
+            r, a, d = src
+            lev = op // 2
+            if op % 2 == 0:
+                for q in range(ndim):
+                    if fista:
+                        b_new, d_new, _ = tops.accumulator_update_fista(
+                            r, a[q], d[q], rhos[lev], q, li[q])
+                        ds[q][lo:hi] = d_new[lo:hi]
+                    else:
+                        b_new, _ = tops.accumulator_update(r, a[q], q, li[q])
+                    accs[q][lo:hi] = b_new[lo:hi]
+                    sums[3 * lev] += float(b_new[lo:hi].double().abs().sum())
+            else:
+                r_new, _, _ = tops.datacube_update(orig, r, a, lm)
+                sums[3 * lev + 1] += float(
+                    (r_new[lo:hi] - r[lo:hi]).double().abs().sum())
+                sums[3 * lev + 2] += float(r[lo:hi].double().abs().sum())
+                recon[lo:hi] = r_new[lo:hi]
+    return sums
+
+
+def _replay_cases():
+    """(shape, K, fista, R): every depth at 1, 2 and 3 rows per stage, with
+    N0 >= 2K not a multiple of R, in 3D and 4D, FISTA and unaccelerated."""
+    cases = []
+    for i, k in enumerate((3, 4, 6, 8)):
+        for rr in (1, 2, 3):
+            n0 = 2 * k + 1 if (2 * k + 1) % rr or rr == 1 else 2 * k + 2
+            for j, (tail, fista) in enumerate((((5, 6), True),
+                                               ((3, 4, 5), False))):
+                fista = fista if (i + rr) % 2 else not fista
+                cases.append(((n0, *tail), k, fista, rr))
+    return cases
+
+
+@pytest.mark.parametrize("shape,k,fista,rr", _replay_cases(), ids=str)
+def test_kstep_stage_plan_replays_k_plain_iterations(shape, k, fista, rr):
+    """The kernel's wavefront schedule at R rows per stage, replayed in
+    place with the plain element updates in each of three orders within a
+    stage, equals k plain iterations bitwise: every element is computed
+    once at every level, and no operation reads a value another has already
+    moved on."""
+    orig, recon, accs, ds, li, lm = _state(shape, fista, seed=sum(shape) + rr)
+    t = torch.from_numpy
+    rhos = torch.linspace(0.0, 0.6, k)
+    want = tkstep.fused_kstep_iteration_reference(
+        t(orig), t(recon.copy()), [t(x.copy()) for x in accs],
+        [t(x.copy()) for x in ds] if fista else None, rhos, t(li), t(lm),
+        k=k, fista=fista)
+    want_sums = torch.stack(want[3:], 1).reshape(-1).tolist()
+    for order in ("forward", "reverse", "snapshot"):
+        r = t(recon.copy())
+        a = [t(x.copy()) for x in accs]
+        d = [t(x.copy()) for x in ds] if fista else None
+        got_sums = _replay_ksteps(t(orig), r, a, d, rhos, t(li), t(lm), k,
+                                  fista, rr, order)
+        assert torch.equal(r, want[0]), order
+        for q in range(len(shape)):
+            assert torch.equal(a[q], want[1][q]), (order, q)
+            if fista:
+                assert torch.equal(d[q], want[2][q]), (order, q)
+        _close(got_sums, want_sums, rtol=SUM_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("n0,k", [(6, 3), (7, 3), (16, 8), (17, 8), (11, 4)])
+def test_kstep_stage_plan_covers_each_row_once(n0, k):
+    """At every R from 1 to N0 + 1, each row operation covers every row
+    exactly once, in ceil(N0 / R) + 3K - 1 stages, and in each stage the
+    ops that write recon and those that write b and d hold disjoint rows
+    from those the others read across rows."""
+    for rr in range(1, n0 + 2):
+        seen = np.zeros((2 * k, n0), int)
+        stages = {}
+        for st, op, lo, hi in tkstep.kstep_stages((n0, 4, 4), k, rr):
+            seen[op, lo:hi] += 1
+            stages.setdefault(st, []).append((op, lo, hi))
+        assert (seen == 1).all(), rr
+        assert max(stages) == -(-n0 // rr) + 3 * k - 2
+        for ops in stages.values():
+            # rows written: recon by recon ops, b/d by dual ops; rows read
+            # across rows: recon at lo-1 by duals, b at hi by recons
+            w_r = {x for op, lo, hi in ops if op % 2 for x in range(lo, hi)}
+            w_b = {x for op, lo, hi in ops if not op % 2
+                   for x in range(lo, hi)}
+            r_r = {x for op, lo, hi in ops if not op % 2
+                   for x in range(lo - 1, hi)}
+            r_b = {x for op, lo, hi in ops if op % 2
+                   for x in range(lo, hi + 1)}
+            assert not w_r & r_r and not w_b & r_b, (rr, ops)
+
+
+def test_kstep_wrapper_takes_rows_per_stage_on_the_cpu():
+    """A forced R runs the plain version on the CPU (the result does not
+    depend on it); R below 1 is refused."""
+    t = torch.from_numpy
+    orig, recon, accs, ds, li, lm = _state((7, 5, 6), True, seed=9)
+    rhos = torch.linspace(0.1, 0.5, 3)
+    outs = []
+    for rr in (None, 1, 2, 3, 50):
+        r, a, d = t(recon.copy()), [t(x.copy()) for x in accs], \
+            [t(x.copy()) for x in ds]
+        out = tkstep.fused_kstep_iteration(t(orig), r, a, d, rhos, t(li),
+                                           t(lm), k=3, fista=True,
+                                           rows_per_stage=rr)
+        outs.append((r, torch.stack(out[3:])))
+    for r, s in outs[1:]:
+        assert torch.equal(r, outs[0][0]) and torch.equal(s, outs[0][1])
+    for rr in (0, -1):
+        with pytest.raises(ValueError, match="rows_per_stage"):
+            tkstep.fused_kstep_iteration(t(orig), t(recon), [t(x) for x in accs],
+                                         [t(x) for x in ds], rhos, t(li), t(lm),
+                                         k=3, fista=True, rows_per_stage=rr)
 
 
 def test_kstep_traffic_band_and_launch_bound():
