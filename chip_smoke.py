@@ -43,7 +43,7 @@ non-zero — nothing is caught):
    per stage, and one launch of every K against its plain version at
    (256,256,2048), with each instantiation's blocks per SM; ms per launch
    of K=8 by rows per stage (1, 2, 4, 8, 16) at (64,64,512) unaccelerated
-   and FISTA, (1024,64,2048) and (256,256,2048); ms per launch and per
+   and FISTA, (1024,64,2048) and the FISTA configs 2-4; ms per launch and per
    iteration of every K, the pair
    kernel, the fused-iteration kernel and the plain iteration at
    (64,64,512) unaccelerated, (256,256,2048), (128,128,64,64) and
@@ -65,9 +65,10 @@ non-zero — nothing is caught):
    unaccelerated (N = 128 .. 4096)
    and at (64,64,512) FISTA and with a reference cube;
 3. main path: ``denoise4D`` on a 256×256×128×128 float32 cube (the
-   BASELINE config-4 size), 20 FISTA iterations (10 pair launches, no
-   fused-iteration launch) and 21 (10 + 1), with the launch counts, the
-   peak device memory, and the iteration rate with pairs on and off;
+   BASELINE config-4 size), 20 FISTA iterations (2 K=8 launches and 2 pair
+   launches, no fused-iteration launch) and 21 (2 + 2 + 1), with the launch
+   counts, the peak device memory, and the iteration rate of the engine's
+   pick, of pairs alone and of the K=1 loop;
 4. 3D paths: ``denoise3D`` at (64,64,512) unaccelerated with the default
    7500 iterations (one whole-run launch), ``run_solver`` there with the
    whole-run kernel, with the K-step kernel (whole-run off) and with pairs
@@ -760,7 +761,8 @@ def time_resident(shape, schedule, with_ref, n_iters):
     ``n_iters`` iterations with the whole-run kernel on, off (the engine's
     next pick), off with the K-step kernel forced to K=8, and on the K=1
     loop (host clock, the size rule lifted, after a short warm-up run of
-    each), in turns on, off, K=8, K=1, K=1, K=8, off, on.
+    each), in turns on, off, K=8, K=1, K=1, K=8, off, on; every path's
+    recon must equal the K=1 loop's bitwise.
     Returns ({name: ms per iteration}, the temporal kernel's label, the raw
     runs)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -804,6 +806,7 @@ def time_resident(shape, schedule, with_ref, n_iters):
                         temporal_pairs=False)}
     saved = resident_mod.RESIDENT_BYTES
     resident_mod.RESIDENT_BYTES = 1 << 62
+    recon = {}
     try:
         for kw in paths.values():  # warm-up: the allocator's first blocks
             run_solver(orig, li, lm, SolverOptions(
@@ -818,14 +821,20 @@ def time_resident(shape, schedule, with_ref, n_iters):
             reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            run_solver(orig, li, lm, opts, ref)
+            out = run_solver(orig, li, lm, opts, ref)
             torch.cuda.synchronize()
             runs.append((f"solver_{path}",
                          (time.perf_counter() - t0) * 1e3 / n_iters))
             require(launch_counts() == expected_launches(opts, shape),
                     f"sweep {shape}: launches {launch_counts()}")
+            recon.setdefault(path, out["recon"])
+            del out
     finally:
         resident_mod.RESIDENT_BYTES = saved
+    # dispatch changes no result: every path's recon is the K=1 loop's
+    require(all(torch.equal(r, recon["k1"]) for r in recon.values()),
+            f"sweep {shape}: run_solver recon differs between paths")
+    del recon
     del orig, state, accs, ds, ref
     torch.cuda.empty_cache()
     mean = {name: sum(t for n, t in runs if n == name) / 2
@@ -944,8 +953,8 @@ def time_solver_paths(shape, fista, iters):
     off) along the engine's own pick, with the K-step kernel forced to K=8,
     in pairs (K-step off, the row-size rule lifted), and on the K=1 loop
     (pairs and K-step off), in turns up and down, after a warm-up run of
-    each; with the launches of each. Returns ({path: mean ms}, {path:
-    launches}, the raw runs)."""
+    each, whose recon must equal the K=1 loop's bitwise; with the launches
+    of each. Returns ({path: mean ms}, {path: launches}, the raw runs)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     orig = torch.randn(shape, generator=gen, device="cuda") * 0.5 + 2.0
     ndim = len(shape)
@@ -956,12 +965,12 @@ def time_solver_paths(shape, fista, iters):
     paths = {"gate": dict(), "k8": dict(temporal_k=8),
              "pairs": dict(temporal_kstep=False),
              "k1": dict(temporal_pairs=False)}
-    launches, runs = {}, []
+    launches, runs, recon = {}, [], {}
     for name in [*paths, *reversed(paths)]:
         opts = SolverOptions(**base, **paths[name])
         with pairs_at_any_row() if name == "pairs" else contextlib.nullcontext():
             if name not in launches:
-                run_solver(orig, li, lm, opts)
+                recon[name] = run_solver(orig, li, lm, opts)["recon"]
             reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -971,7 +980,10 @@ def time_solver_paths(shape, fista, iters):
             launches[name] = launch_counts()
             require(launches[name] == expected_launches(opts, shape),
                     f"{shape} {name}: launches {launches[name]}")
-    del orig
+    # dispatch changes no result: every path's recon is the K=1 loop's
+    require(all(torch.equal(r, recon["k1"]) for r in recon.values()),
+            f"{shape}: run_solver recon differs between paths")
+    del orig, recon
     torch.cuda.empty_cache()
     mean = {name: sum(t for n, t in runs if n == name) / 2 for name in paths}
     return mean, launches, [(n, round(t, 4)) for n, t in runs]
@@ -1162,7 +1174,8 @@ def main() -> int:
             f"whole-run/K-step/pair/fused {launches['gate']}), K=8 forced "
             f"{mean['k8']:.4f} ({launches['k8']}), pairs {mean['pairs']:.4f} "
             f"({launches['pairs']}), K=1 loop {mean['k1']:.4f} "
-            f"({launches['k1']}) (runs {raw}) [{smi}]")
+            f"({launches['k1']}); recon bitwise equal on every path (runs "
+            f"{raw}) [{smi}]")
 
     # the K-step kernel: every depth against its plain version, K
     # fused-iteration launches and K/2 pair launches, then at forced grids
@@ -1238,7 +1251,8 @@ def main() -> int:
                         for k in KS)
             + f" (runs {raw}) [{smi}]")
     for shape, fista, n_k in ((CFG1, False, 40), (CFG1, True, 40),
-                              (BIG3, False, 3), (CFG2, True, 3)):
+                              (BIG3, False, 3), (CFG2, True, 3),
+                              (CFG3, True, 3), (CFG4, True, 1)):
         rows_ms, raw = time_kstep_rows(shape, fista, max(KS), n_k)
         log(f"phase 2 K-step rows per stage at {shape} "
             f"{'FISTA' if fista else 'unaccelerated'} f32, K={max(KS)}, ms per "
@@ -1311,7 +1325,8 @@ def main() -> int:
             f"x400 whole-run on {mean['solver_on']:.5f}, off "
             f"{mean['solver_off']:.5f}, off with K=8 forced "
             f"{mean['solver_k8']:.5f}, K=1 loop {mean['solver_k1']:.5f} ms "
-            f"per iteration (runs {raw}) [{smi}]")
+            f"per iteration, recon bitwise equal on every path (runs {raw}) "
+            f"[{smi}]")
     full1 = res_grid(torch.device("cuda"), 3, False, False, False)
     scale = time_resident_grids(CFG1, sorted(
         {g for g in (66, 132, 264, 396, 528) if g < full1} | {full1}))
@@ -1363,32 +1378,38 @@ def main() -> int:
             f"iterations_run {iterations_run}; peak device memory "
             f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}; mean "
             f"|recon-clean| {err_out:.4f} < |noisy-clean| {err_in:.4f}")
-    # iteration rate on the device alone (no host↔device copies), pairs on
-    # and off in turns
+    # iteration rate on the device alone (no host↔device copies), in turns:
+    # the engine's pick (K=8 launches, pairs for the remainder), pairs alone
+    # (the K-step kernel off), the K=1 loop (both off)
     orig = torch.from_numpy(cube).cuda()
     li = torch.full((4,), 32.0, device="cuda")
     lm = torch.full((4,), 1 / 32, device="cuda")
-    solve = {True: [], False: []}
-    for pairs in (True, False, False, True):
+    paths3 = {"engine": dict(), "pairs": dict(temporal_kstep=False),
+              "K=1 loop": dict(temporal_pairs=False)}
+    solve, c3 = {path: [] for path in paths3}, {}
+    for path in [*paths3, *reversed(paths3)]:
         opts = SolverOptions(ndim=4, iterations_fista=20, iterations_unacc=0,
-                             temporal_pairs=pairs)
+                             **paths3[path])
+        reset_counts()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         run_solver(orig, li, lm, opts)
         torch.cuda.synchronize()
-        solve[pairs].append(time.perf_counter() - t1)
+        solve[path].append(time.perf_counter() - t1)
+        c3[path] = launch_counts()
     del orig
     torch.cuda.empty_cache()
     n_vox = int(np.prod(CFG4))
     bw = peak_bandwidth(name)
-    for pairs, label in ((True, "pairs on"), (False, "pairs off")):
-        solve_s = sum(solve[pairs]) / 2
+    for path, runs3 in solve.items():
+        solve_s = sum(runs3) / 2
         rate = n_vox * 20 / solve_s
         shares = {m: (model_seconds(CFG4, True, m, bw) * 20 / solve_s
                       if bw else float("nan"))
                   for m in ("pair_floor", "two_pass")}
-        log(f"phase 3 rate, {label}: run_solver 20 iterations on the card "
-            f"{solve_s:.4f} s (runs {[round(x, 4) for x in solve[pairs]]}) = "
+        log(f"phase 3 rate, {path} (launches whole-run/K-step/pair/fused "
+            f"{c3[path]}): run_solver 20 iterations on the card "
+            f"{solve_s:.4f} s (runs {[round(x, 4) for x in runs3]}) = "
             f"{rate / 1e9:.3f} G voxel-updates/s; of the traffic model at the "
             f"{bw} B/s published peak: {shares['two_pass']:.3f} of the "
             f"two-pass 24 traversals, {shares['pair_floor']:.3f} of the pair "

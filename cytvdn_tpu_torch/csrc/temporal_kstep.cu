@@ -199,9 +199,11 @@ __device__ __forceinline__ void walk(const Args<float>& a, const KstepArgs& r,
   }
 }
 
+// One launch: the walk, then the 3K sums. kstep_kernel and kstepcap_kernel
+// are its entry points.
 template <int ND, bool FISTA, int K>
-__global__ void __launch_bounds__(NT) kstep_kernel(Args<float> a,
-                                                   KstepArgs r, int vec) {
+__device__ __forceinline__ void kstep_body(const Args<float>& a,
+                                           const KstepArgs& r, int vec) {
   constexpr int SUMS = 3 * K;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ double slots[];  // [SUMS][NT]
@@ -248,13 +250,40 @@ __global__ void __launch_bounds__(NT) kstep_kernel(Args<float> a,
   }
 }
 
+template <int ND, bool FISTA, int K>
+__global__ void __launch_bounds__(NT) kstep_kernel(Args<float> a,
+                                                   KstepArgs r, int vec) {
+  kstep_body<ND, FISTA, K>(a, r, vec);
+}
+
+// The 4D FISTA launch, capped at 128 registers, 2 blocks per SM. Uncapped
+// it takes 235 registers, one block per SM, and was 5-6% slower at
+// 128^2 x 64^2 and 256^2 x 128^2 (PERF.md section 6, PR 9). The other
+// instantiations keep __launch_bounds__(NT): given (NT, 1) they took more
+// registers and lost 2-5% at 64 x 64 x 512.
+template <int K>
+__global__ void __launch_bounds__(NT, 2) kstepcap_kernel(Args<float> a,
+                                                         KstepArgs r,
+                                                         int vec) {
+  kstep_body<4, true, K>(a, r, vec);
+}
+
+template <int ND, bool FISTA, int K>
+const void* entry() {
+  if constexpr (ND == 4 && FISTA) {
+    return reinterpret_cast<const void*>(kstepcap_kernel<K>);
+  } else {
+    return reinterpret_cast<const void*>(kstep_kernel<ND, FISTA, K>);
+  }
+}
+
 template <int ND, bool FISTA>
 const void* kernel_for_k(int k) {
   switch (k) {
-    case 3: return reinterpret_cast<const void*>(kstep_kernel<ND, FISTA, 3>);
-    case 4: return reinterpret_cast<const void*>(kstep_kernel<ND, FISTA, 4>);
-    case 6: return reinterpret_cast<const void*>(kstep_kernel<ND, FISTA, 6>);
-    case 8: return reinterpret_cast<const void*>(kstep_kernel<ND, FISTA, 8>);
+    case 3: return entry<ND, FISTA, 3>();
+    case 4: return entry<ND, FISTA, 4>();
+    case 6: return entry<ND, FISTA, 6>();
+    case 8: return entry<ND, FISTA, 8>();
     default: return nullptr;
   }
 }

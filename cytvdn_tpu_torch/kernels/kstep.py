@@ -18,11 +18,12 @@ is that of ``csrc/fused_iteration.cu``, so the state is bitwise equal to K
 K=1 launches and to K/2 pair launches; the 3K sums are per-block partials
 combined in a fixed order, within rtol 1e-5 of K K=1 launches' sums.
 
-A launch has N0 + 3K − 1 stages for K iterations. At small rows, where the
-grid barriers set the pace, that is what the kernel saves over the pairs'
-N0 + 5 per two iterations; its HBM traffic lies between K two-pass
-iterations and one fused pass per K iterations (``utils/perf.py``,
-``kstep_upper`` and ``kstep_floor``).
+A launch has ceil(N0 / R) + 3K − 1 stages for K iterations, R axis-0 rows
+to a stage (:func:`kstep_rows`). At small rows, where the grid barriers set
+the pace, that is what the kernel saves over the pairs' N0 + 5 per two
+iterations; its HBM traffic lies between K two-pass iterations and one
+fused pass per K iterations (``utils/perf.py``, ``kstep_upper`` and
+``kstep_floor``).
 
 Scope, as the TPU kernel's on one device: float32, Jia-Zhao boundaries,
 anisotropic duals, 3D and 4D, FISTA and unaccelerated, N0 ≥ 2K.
@@ -53,23 +54,11 @@ Tensor = torch.Tensor
 #: one the shape admits)
 KSTEP_CANDIDATES = (8, 6, 4, 3)
 
-#: the H100's L2 cache, 50 MB (NVIDIA's Hopper white paper)
-L2_BYTES = 50_000_000
-
-#: the largest state (:func:`state_bytes`) the automatic choice sends to
-#: the K-step kernel (``best_kstep``), set by measurement (``chip_smoke.py``,
-#: ``run_solver`` with the whole-run kernel off, K=8 against the
-#: one-iteration loop; PERF.md §6, NVIDIA H100 80GB HBM3 at 700 W): K=8 was
-#: faster up to 67.1 MB (2.1-5.2x at 10.5 MB, 2% at 41.9 MB, 12% at
-#: 64x64x512 FISTA) and slower from 83.9 MB (25% there, 35% at 336 MB,
-#: 5-39% from 503 MB to 5.4 GB)
-KSTEP_MAX_STATE_BYTES = 70_000_000
-
-#: R, the consecutive axis-0 rows the wavefront takes as one super-row by
-#: default (``fused_kstep_iteration(rows_per_stage=...)``, clipped to N0):
-#: a launch has ceil(N0 / R) + 3K - 1 grid barriers instead of N0 + 3K - 1,
-#: and each stage R times the work items
-KSTEP_ROWS_PER_STAGE = 8
+#: the most consecutive axis-0 rows the wavefront takes as one super-row
+#: by default, and the bytes of one array's super-row it aims at
+#: (:func:`kstep_rows`)
+MAX_ROWS_PER_STAGE = 16
+SUPER_ROW_BYTES = 32 * 2**20
 
 #: the full cooperative grid per (device, ndim, fista, k): each depth is its
 #: own instantiation with its own registers and shared memory, so its own
@@ -89,25 +78,21 @@ def kstep_supported(shape, dtype, bc, k: int, fista: bool) -> bool:
     return shape[0] >= 2 * k
 
 
-def stage_bytes(shape, k: int, fista: bool) -> int:
-    """Bytes one stage of the depth-``k`` wavefront touches: ``k`` levels,
-    each the rows of one fused pass (4n+3 arrays under FISTA, 2n+3
-    without) of one axis-0 slab."""
-    n = len(shape)
+def kstep_rows(shape) -> int:
+    """R, the consecutive axis-0 rows the wavefront takes as one super-row
+    by default: as many as make one array's super-row
+    :data:`SUPER_ROW_BYTES` (32 MiB), from 1 to :data:`MAX_ROWS_PER_STAGE`
+    and at most N0. A launch then has ceil(N0 / R) + 3K - 1 grid barriers
+    instead of N0 + 3K - 1, and each stage R times the work items. Set by
+    measurement (``chip_smoke.py``'s sweep of R at K=8, PERF.md §6, NVIDIA
+    H100 80GB HBM3 at 700 W): at rows of 128 KB to 2 MiB R = 16 was the
+    fastest or within 0.7% of it (1.45x over R = 1 at 64x64x512); at 16
+    MiB rows (256x256x128x128) R = 1 was the fastest and R = 2 within
+    0.6%. The result does not depend on R."""
     row = 4
     for e in shape[1:]:
         row *= e
-    return k * row * ((4 * n + 3) if fista else (2 * n + 3))
-
-
-def state_bytes(shape, fista: bool) -> int:
-    """Bytes of a run's state: orig, recon, one accumulator per axis [, one
-    shadow dual per axis under FISTA], float32."""
-    n = len(shape)
-    vox = 1
-    for e in shape:
-        vox *= e
-    return 4 * vox * (2 + n + (n if fista else 0))
+    return max(1, min(MAX_ROWS_PER_STAGE, SUPER_ROW_BYTES // row, shape[0]))
 
 
 def best_kstep(shape, dtype, bc, fista: bool,
@@ -117,17 +102,15 @@ def best_kstep(shape, dtype, bc, fista: bool,
 
     A forced depth of 3 or more is checked with :func:`kstep_supported`
     only, and one with no compiled kernel raises; a forced depth below 3
-    gives 0. The automatic choice is the H100 rule: the deepest candidate
-    with N0 ≥ 2K, on shapes where one stage at that depth fits the 50 MB
-    L2 (:func:`stage_bytes`) and the state (:func:`state_bytes`) is at
-    most :data:`KSTEP_MAX_STATE_BYTES`; elsewhere 0. On small states the
-    one-iteration loop is bound by its launches and K=8 wins; from ~84 MB
-    K=8 is the slower one (``run_solver`` with
-    the whole-run kernel off: K=8 0.0976 against 0.1000 ms per iteration
-    at config 1, 41.9 MB; 0.162 against 0.129 at 83.9 MB; PERF.md §6, the
-    dispatch sweep). Default paths reach it only where the whole-run
-    kernel does not take the run. The choice is purely a throughput
-    decision: the result is bitwise the same.
+    gives 0. The automatic choice is the deepest candidate with N0 ≥ 2K,
+    wherever the kernel covers the run: ``run_solver`` with the whole-run
+    kernel off ran faster with K=8 than on the one-iteration loop, and than
+    in pairs, at every state measured, from 10.5 MB to 42.9 GB, 3D and
+    4D, FISTA and unaccelerated, rows of 128 KB to 16 MiB (1.015-8.8x;
+    PERF.md §6, PR 9's dispatch and size sweeps, NVIDIA H100 80GB HBM3 at
+    700 W). Default paths reach it where the whole-run kernel does not
+    take the run. The choice is purely a throughput decision: the result
+    is bitwise the same.
     """
     if forced:
         if forced < 3:
@@ -137,11 +120,9 @@ def best_kstep(shape, dtype, bc, fista: bool,
                              f"compiled for K in {sorted(KSTEP_CANDIDATES)}")
         return forced if kstep_supported(shape, dtype, bc, forced, fista) \
             else 0
-    if state_bytes(shape, fista) > KSTEP_MAX_STATE_BYTES:
-        return 0
     for k in KSTEP_CANDIDATES:
         if kstep_supported(shape, dtype, bc, k, fista):
-            return k if stage_bytes(shape, k, fista) <= L2_BYTES else 0
+            return k
     return 0
 
 
@@ -230,8 +211,8 @@ def fused_kstep_iteration(
     full cooperative grid of this depth. A grid above the cooperative limit
     raises. ``rows_per_stage`` forces R, the consecutive axis-0 rows the
     wavefront takes as one super-row (:func:`kstep_stages`; at least 1,
-    clipped to N0); by default :data:`KSTEP_ROWS_PER_STAGE`. The result
-    does not depend on it.
+    clipped to N0); by default :func:`kstep_rows`. The result does not
+    depend on it.
 
     Returns ``(recon, accs, ds, bn, dnum, dden)`` — the state objects
     passed in and the per-iteration sums as (k,) tensors.
@@ -247,7 +228,7 @@ def fused_kstep_iteration(
             f"dtype {orig.dtype} at K={k} (float32, 3D/4D, K in "
             f"{sorted(KSTEP_CANDIDATES)}, N0 >= 2K)")
     _check_state(orig, recon, accs, ds, fista)
-    rr = KSTEP_ROWS_PER_STAGE if rows_per_stage is None \
+    rr = kstep_rows(orig.shape) if rows_per_stage is None \
         else int(rows_per_stage)
     if rr < 1:
         raise ValueError(f"rows_per_stage={rows_per_stage}: at least 1")

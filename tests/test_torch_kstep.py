@@ -252,28 +252,21 @@ def test_kstep_gate_port_rules(monkeypatch):
     assert tengine._resolve_kstep(TOptions(**cfg1), (64, 64, 512),
                                   torch.float32, False) == 8
     assert tkstep.best_kstep((64, 64, 512), torch.float32, 2, False) == 8
-    # rows of MBs stay on the pairs (the H100 rule); a forced depth does not
+    # the H100 rule: the deepest depth the shape admits, at every size and
+    # row (the BASELINE shapes, 1024x64x2048, rows of 16 MiB)
     for shp, fista in (((256, 256, 2048), True), ((128, 128, 64, 64), True),
-                       ((256, 256, 128, 128), True)):
-        assert tkstep.best_kstep(shp, torch.float32, 2, fista) == 0
+                       ((256, 256, 128, 128), True), ((64, 64, 512), True),
+                       ((1024, 64, 2048), False), ((128, 64, 2048), False)):
+        assert tkstep.best_kstep(shp, torch.float32, 2, fista) == 8
         assert tkstep.best_kstep(shp, torch.float32, 2, fista, forced=6) == 6
     assert tkstep.best_kstep((11, 6, 64), torch.float32, 2, True) == 4
     assert tkstep.best_kstep((11, 6, 64), torch.float32, 2, True,
                              forced=8) == 0
     assert tkstep.best_kstep((16, 6, 64), torch.float32, 2, True,
                              forced=2) == 0
-    # above 70 MB of state the one-iteration loop is faster than K=8, even
-    # where a stage fits the L2; forced depths run
-    assert tkstep.stage_bytes((1024, 64, 2048), 8, False) <= tkstep.L2_BYTES
-    assert tkstep.best_kstep((1024, 64, 2048), torch.float32, 2, False) == 0
-    assert tkstep.best_kstep((1024, 64, 2048), torch.float32, 2, False,
-                             forced=8) == 8
-    assert tkstep.best_kstep((128, 64, 2048), torch.float32, 2, False) == 0
-    assert tkstep.best_kstep((32, 64, 2048), torch.float32, 2, False) == 0
-    assert tkstep.state_bytes((24, 64, 2048), False) == 62_914_560
-    assert tkstep.best_kstep((24, 64, 2048), torch.float32, 2, False) == 8
-    assert tkstep.state_bytes((64, 64, 512), True) == 67_108_864
-    assert tkstep.best_kstep((64, 64, 512), torch.float32, 2, True) == 8
+    assert tkstep.best_kstep((5, 6, 64), torch.float32, 2, True) == 0
+    assert tkstep.best_kstep((16, 6, 64), torch.float64, 2, True) == 0
+    assert tkstep.best_kstep((16, 6, 64), torch.float32, 0, True) == 0
     # stop runs through denoise3D make no K-step call (with the whole-run
     # kernel off, which would take this small cube)
     from cytvdn_tpu_torch import denoise3D
@@ -427,6 +420,22 @@ def test_kstep_stage_plan_covers_each_row_once(n0, k):
             r_b = {x for op, lo, hi in ops if op % 2
                    for x in range(lo, hi + 1)}
             assert not w_r & r_r and not w_b & r_b, (rr, ops)
+
+
+@pytest.mark.parametrize("shape,rr", [
+    ((64, 64, 512), 16),            # config 1: 128 KB rows
+    ((1024, 64, 2048), 16),         # 512 KB rows
+    ((256, 256, 2048), 16),         # config 2: 2 MiB rows
+    ((128, 128, 64, 64), 16),       # config 3: 2 MiB rows
+    ((64, 128, 128, 128), 4),       # 8 MiB rows
+    ((256, 256, 128, 128), 2),      # config 4: 16 MiB rows
+    ((8, 64, 512), 8),              # at most N0
+    ((6, 1024, 16384), 1),          # 64 MiB rows: at least 1
+])
+def test_kstep_rows_rule(shape, rr):
+    """R by the bytes of one array's axis-0 row: a 32 MiB super-row, from 1
+    to 16 rows and at most N0."""
+    assert tkstep.kstep_rows(shape) == rr
 
 
 def test_kstep_wrapper_takes_rows_per_stage_on_the_cpu():

@@ -42,7 +42,7 @@ if not torch.cuda.is_available():
 quick = sys.argv[1] == "1"
 build.load()
 ptx = [p for p in cs.ptxas_summary(open(build.LOG).read()).split("; ")
-       if p.startswith("kstep_kernel")]
+       if p.startswith("kstep")]
 ks = sorted(KSTEP_CANDIDATES)
 sms = torch.cuda.get_device_properties(0).multi_processor_count
 per_sm = {f"{nd}D {'FISTA' if f else 'unacc'} K={k}":
