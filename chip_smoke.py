@@ -30,9 +30,11 @@ non-zero — nothing is caught):
    ``torch.profiler`` at the last; the pair kernel's strip sweep: ms per
    pair at W = 4, 8, 12, 16, 32, 64 and N1 (the whole-row schedule, the
    default), in turns with two fused-iteration launches, at rows of 2 to 16
-   MB (STRIP_SWEEP), and ``run_solver`` x48 there (x16 at config 4) and at
-   (N0,64,2048) for N0 = 128, 192, 1024 along the engine's pick, K=8,
-   pairs and the K=1 loop (the whole-run kernel off); two launches
+   MB (STRIP_SWEEP), and ``run_solver`` x48 there (x16 at config 4), at
+   (N0,64,2048) for N0 = 128, 192, 1024, at (128,128,64,64) unaccelerated
+   and at N0 = 2K with large rows, (16,512,128,128) FISTA and
+   (12,1024,2048) unaccelerated, along the engine's pick, K=8, pairs and
+   the K=1 loop (the whole-run kernel off); two launches
    of the K-step kernel (K = 3, 4, 6, 8) against its plain version, K
    fused-iteration launches and (K even) K/2 pair launches (state bitwise
    equal, sums within rtol 1e-5) at N0 = 2K and 2K+1 in 3D and 4D and on
@@ -41,10 +43,12 @@ non-zero — nothing is caught):
    walk) and at its tile edges (last extents 1 to 129, ND-2 extents 1, 7
    and 9) at the full grid and at 1 and 7 blocks, at 2 and 3 axis-0 rows
    per stage, and one launch of every K against its plain version at
-   (256,256,2048), with each instantiation's blocks per SM; ms per launch
-   of K=8 by rows per stage (1, 2, 4, 8, 16) at (64,64,512) unaccelerated
-   and FISTA, (1024,64,2048) and the FISTA configs 2-4; ms per launch and per
-   iteration of every K, the pair
+   (64,64,512), (256,256,2048) and (128,128,64,64) at the default rows per
+   stage, with each instantiation's blocks per SM; at (256,256,128,128)
+   FISTA one K=8 launch at the defaults and 8 plain iterations, all 9
+   arrays bitwise equal and the 24 sums within rtol 1e-5 (compared off the
+   card); ms per launch and per iteration of every K (default rows per
+   stage), the pair
    kernel, the fused-iteration kernel and the plain iteration at
    (64,64,512) unaccelerated, (256,256,2048), (128,128,64,64) and
    (256,256,128,128) FISTA (the four BASELINE shapes) and (1024,64,2048)
@@ -111,6 +115,7 @@ from cytvdn_tpu_torch.kernels.kstep import (
     best_kstep,
     fused_kstep_iteration,
     fused_kstep_iteration_reference,
+    kstep_rows,
 )
 from cytvdn_tpu_torch.kernels.kstep import cooperative_grid as kstep_grid
 from cytvdn_tpu_torch.kernels.resident import (
@@ -163,14 +168,16 @@ RAGGED_STRIPS = [((5, 10, 9, 33), 3), ((6, 13, 70), 5), ((6, 45, 70), 11),
 STRIP_SWEEP = [(CFG4, True), ((64, 128, 128, 128), True), (CFG3, True),
                (CFG2, True), ((64, 64, 8192), False), ((64, 64, 16384), False)]
 STRIP_WIDTHS = (4, 8, 12, 16, 32, 64)
-# 3D unaccelerated states of 336 MB, 503 MB and 2.7 GB whose K=8 stage fits
-# the L2 (512 KB rows), so that the K-step gate decides: run_solver only
+# run_solver only: 3D unaccelerated states of 336 MB, 503 MB and 2.7 GB
+# with 512 KB rows; 4D unaccelerated (config 3's shape, 1.6 GB); N0 = 2K of
+# the depth the gate picks with large rows, where most of a launch's stages
+# fill or drain the staircase: 32 MiB rows at K=8 (4D FISTA, 5.4 GB) and
+# 8 MiB rows at K=6 (3D unaccelerated, 503 MB)
 BIG3 = (1024, 64, 2048)
 SOLVER_ONLY = [((128, 64, 2048), False), ((192, 64, 2048), False),
-               (BIG3, False)]
+               (BIG3, False), (CFG3, False), ((16, 512, 128, 128), True),
+               ((12, 1024, 2048), False)]
 KS = tuple(sorted(KSTEP_CANDIDATES))
-# axis-0 rows per stage of the K-step kernel's sweep (1: one row a stage)
-KSTEP_ROWS = (1, 2, 4, 8, 16)
 # the K-step kernel's cases at depth K: ragged edges (its element-by-element
 # walk) and last extents that are a multiple of 4 (its 128-bit walk, VEC)
 KSTEP_SHAPES = [(2, 9, 10, 33), (3, 9, 10, 33), (2, 13, 70), (3, 13, 70),
@@ -184,9 +191,11 @@ def kstep_shape(shape, k):
 
 
 def kstep_edge_cases():
-    """The K-step kernel's tile edges as (shape, K, fista), the cases of
-    tests/test_torch_cuda.py: last extents 1, 4, 5, 128, 129 and ND-2
-    extents 1, 7, 9, every depth, N0 = 2K and 2K + 1, 3D and 4D."""
+    """The K-step kernel's tile edges as (shape, K, fista), also the cases
+    of tests/test_torch_cuda.py: last extents around its four-element
+    groups and 32-lane segments (1, 4, 5, 128, 129), ND-2 extents around its
+    tile rows (1, 7, 9), every depth, N0 = 2K and 2K + 1, FISTA and
+    unaccelerated, 3D and 4D."""
     cases = []
     for i, last in enumerate((1, 4, 5, 128, 129)):
         for j, m in enumerate((1, 7, 9)):
@@ -378,28 +387,29 @@ def pair_refuses_oversized_grid(shape, strip):
     raise AssertionError(f"a pair grid of {full + 1} blocks was accepted")
 
 
-def compare_offcard(shape, fista):
+def offcard_equal(shape, fista, runs):
     """At a state too large to hold twice on the card (Jia-Zhao, float32):
-    two fused-iteration launches, whose result is kept on the host; then,
-    each from the same state rebuilt from the seed, one pair-kernel launch
-    and two plain iterations, each array brought back alone and compared
-    bitwise with the host copy. Returns max |Δstate| and the sums' largest
-    relative difference."""
-    def run(step):
+    ``runs`` is a list of (name, fn), fn(orig, state, li, lm, rho) updating
+    ``state`` in place and returning its sums. The first run's state is kept
+    on the host; each later run starts from the same state rebuilt from the
+    seed, and each of its arrays is brought back alone and compared bitwise
+    with the host copy, its sums within rtol 1e-5. Returns max |Δstate| and
+    the sums' largest relative difference."""
+    def run(fn):
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         orig, state, li, lm, rho = random_state(shape, fista, torch.float32,
                                                 gen, jz=True)
-        sums = torch.stack(pair_fn(step, orig, state, li, lm, rho, fista)())
+        sums = fn(orig, state, li, lm, rho)
         return state, sums.double().cpu()
 
-    state, want_sums = run(two_k1)
+    (first, fn), *rest = runs
+    state, want_sums = run(fn)
     host = [x.cpu() for x in state]
     del state
     torch.cuda.empty_cache()
     err, rel = 0.0, 0.0
-    for name, step in (("pair kernel", fused_pair_iteration),
-                       ("plain", fused_pair_iteration_reference)):
-        state, sums = run(step)
+    for name, fn in rest:
+        state, sums = run(fn)
         bitwise = True
         for i, p in enumerate(state):
             k = host[i].cuda()
@@ -408,12 +418,43 @@ def compare_offcard(shape, fista):
             del k
         del state
         torch.cuda.empty_cache()
-        require(bitwise, f"{name} != two fused-iteration launches at {shape} "
-                         f"fista {fista}: max |Δ| {err}")
+        require(bitwise, f"{name} != {first} at {shape} fista {fista}: "
+                         f"max |Δ| {err}")
         rel = max(rel, ((sums - want_sums).abs()
                         / want_sums.abs().clamp_min(1e-300)).max().item())
         require(rel <= 1e-5, f"{name} sums differ by rtol {rel} at {shape}")
     return err, rel
+
+
+def compare_offcard(shape, fista):
+    """Two fused-iteration launches, one pair-kernel launch and two plain
+    iterations from the same state, compared off the card
+    (``offcard_equal``)."""
+    def pair(step):
+        return lambda orig, state, li, lm, rho: torch.stack(
+            pair_fn(step, orig, state, li, lm, rho, fista)())
+
+    return offcard_equal(shape, fista, [
+        ("two fused-iteration launches", pair(two_k1)),
+        ("pair kernel", pair(fused_pair_iteration)),
+        ("plain", pair(fused_pair_iteration_reference))])
+
+
+def compare_kstep_offcard(shape, fista, k):
+    """One K-step launch of depth ``k`` at the wrapper's defaults (the full
+    cooperative grid, ``kstep_rows`` rows per stage) and ``k`` plain
+    iterations from the same state, with distinct momentum ratios, compared
+    off the card (``offcard_equal``): every array bitwise, the 3k sums
+    within rtol 1e-5."""
+    rhos = torch.linspace(0.0, 0.6, k, device="cuda")
+
+    def kstep(step):
+        return lambda orig, state, li, lm, _: kstep_fn(
+            step, orig, state, li, lm, rhos, k, fista)()
+
+    return offcard_equal(shape, fista, [
+        ("K-step kernel", kstep(fused_kstep_iteration)),
+        ("plain", kstep(fused_kstep_iteration_reference))])
 
 
 def ptxas_summary(log: str) -> str:
@@ -564,24 +605,6 @@ def time_kstep(shape, fista, n_kernel, n_plain):
     mean = {name: (sum(t for n, t in runs if n == name) / 2, per_iter[name])
             for name in per_iter}
     return mean, [(str(n), round(t, 4)) for n, t in runs]
-
-
-def time_kstep_rows(shape, fista, k, n_kernel):
-    """ms per launch of the K-step kernel of depth ``k`` at each R of
-    KSTEP_ROWS axis-0 rows per stage, on one Jia-Zhao state (momentum
-    0.37), in turns up and down. Returns ({R: mean ms}, the raw runs)."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    orig, state, li, lm, _ = random_state(shape, fista, torch.float32, gen,
-                                          jz=True)
-    rhos = torch.full((k,), 0.37, device="cuda")
-    fns = {rr: kstep_fn(fused_kstep_iteration, orig, state, li, lm, rhos, k,
-                        fista, rows_per_stage=rr) for rr in KSTEP_ROWS}
-    runs = [(rr, time_ms(fns[rr], n_kernel))
-            for rr in [*KSTEP_ROWS, *reversed(KSTEP_ROWS)]]
-    del orig, state, fns
-    torch.cuda.empty_cache()
-    mean = {rr: sum(t for r, t in runs if r == rr) / 2 for rr in KSTEP_ROWS}
-    return mean, [(r, round(t, 4)) for r, t in runs]
 
 
 @contextlib.contextmanager
@@ -1224,14 +1247,31 @@ def main() -> int:
         f"(2K+1, 13, 70), a grid one block larger refused; blocks per SM "
         f"(cooperative occupancy, {sms} SMs): {per_sm}; "
         f"{time.perf_counter() - t0:.1f} s")
+    # the BASELINE shapes at the wrapper's default rows per stage (several
+    # super-rows each), then config 4's K=8 launch of the main path off the
+    # card
     t0 = time.perf_counter()
-    for k in KS:
-        for fista in (True, False):
-            kstep_err = max(kstep_err, compare_kstep_case(
-                CFG2, k, fista, launches=1, plain_only=True))
-    log(f"phase 2 K-step kernel vs plain at {CFG2}: K {KS}, FISTA and "
+    for shape in (CFG1, CFG2, CFG3):
+        for k in KS:
+            for fista in (True, False):
+                kstep_err = max(kstep_err, compare_kstep_case(
+                    shape, k, fista, launches=1, plain_only=True))
+    log(f"phase 2 K-step kernel vs plain at {CFG1}, {CFG2} and {CFG3} (R = "
+        f"{kstep_rows(CFG1)}, {kstep_rows(CFG2)} and {kstep_rows(CFG3)} rows "
+        f"per stage, the default; {-(-CFG1[0] // kstep_rows(CFG1))}, "
+        f"{-(-CFG2[0] // kstep_rows(CFG2))} and "
+        f"{-(-CFG3[0] // kstep_rows(CFG3))} super-rows): K {KS}, FISTA and "
         f"unaccelerated, one launch each, state bitwise equal (max |Δ| "
         f"{kstep_err}), sums within rtol 1e-5; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    err4k, rel4k = compare_kstep_offcard(CFG4, True, max(KS))
+    kstep_err = max(kstep_err, err4k)
+    log(f"phase 2 K-step kernel at the main path's {CFG4}, FISTA f32 (state "
+        f"held on the host): one K={max(KS)} launch at the defaults (the full "
+        f"grid of its capped 4D FISTA entry, R = {kstep_rows(CFG4)} rows per "
+        f"stage) = {max(KS)} plain iterations, 9 arrays bitwise equal (max "
+        f"|Δ| {err4k}), {3 * max(KS)} sums within rtol {rel4k:.2e}; "
+        f"{time.perf_counter() - t0:.1f} s")
     ktimes = {}
     for shape, fista, n_k, n_p in ((CFG1, False, 100, 20), (CFG2, True, 8, 2),
                                    (CFG3, True, 8, 2), (CFG4, True, 2, 1),
@@ -1249,15 +1289,6 @@ def main() -> int:
                         f"{t['pair'][0] * k / 2:.4f}, K fused-iteration "
                         f"{t['k1'][0] * k:.4f}, plain {t['plain'][0] * k:.4f} ms"
                         for k in KS)
-            + f" (runs {raw}) [{smi}]")
-    for shape, fista, n_k in ((CFG1, False, 40), (CFG1, True, 40),
-                              (BIG3, False, 3), (CFG2, True, 3),
-                              (CFG3, True, 3), (CFG4, True, 1)):
-        rows_ms, raw = time_kstep_rows(shape, fista, max(KS), n_k)
-        log(f"phase 2 K-step rows per stage at {shape} "
-            f"{'FISTA' if fista else 'unaccelerated'} f32, K={max(KS)}, ms per "
-            f"launch by R: "
-            + ", ".join(f"R={rr} {t:.4f}" for rr, t in rows_ms.items())
             + f" (runs {raw}) [{smi}]")
     kprof = profile_kernels(CFG2, iters=16, kstep=max(KS))
     log(f"phase 2 torch.profiler device time per FISTA f32 iteration at "

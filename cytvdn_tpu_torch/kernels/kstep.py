@@ -84,11 +84,12 @@ def kstep_rows(shape) -> int:
     :data:`SUPER_ROW_BYTES` (32 MiB), from 1 to :data:`MAX_ROWS_PER_STAGE`
     and at most N0. A launch then has ceil(N0 / R) + 3K - 1 grid barriers
     instead of N0 + 3K - 1, and each stage R times the work items. Set by
-    measurement (``chip_smoke.py``'s sweep of R at K=8, PERF.md §6, NVIDIA
-    H100 80GB HBM3 at 700 W): at rows of 128 KB to 2 MiB R = 16 was the
-    fastest or within 0.7% of it (1.45x over R = 1 at 64x64x512); at 16
-    MiB rows (256x256x128x128) R = 1 was the fastest and R = 2 within
-    0.6%. The result does not depend on R."""
+    measurement (``tools/torch_kstep_ab.py --rows``, K=8 at R = 1 to 16,
+    PERF.md §6, NVIDIA H100 80GB HBM3 at 700 W): at rows of 128 KB to
+    16 MiB the rule's R was within 1.4% of the fastest R (1.46x over R = 1
+    at 64x64x512; R = 4 at 8 MiB rows, R = 2 at 16 MiB rows, where R = 1
+    was the fastest). Rows above 16 MiB take R = 1, untimed against other
+    R. The result does not depend on R."""
     row = 4
     for e in shape[1:]:
         row *= e
@@ -103,14 +104,17 @@ def best_kstep(shape, dtype, bc, fista: bool,
     A forced depth of 3 or more is checked with :func:`kstep_supported`
     only, and one with no compiled kernel raises; a forced depth below 3
     gives 0. The automatic choice is the deepest candidate with N0 ≥ 2K,
-    wherever the kernel covers the run: ``run_solver`` with the whole-run
-    kernel off ran faster with K=8 than on the one-iteration loop, and than
-    in pairs, at every state measured, from 10.5 MB to 42.9 GB, 3D and
-    4D, FISTA and unaccelerated, rows of 128 KB to 16 MiB (1.015-8.8x;
-    PERF.md §6, PR 9's dispatch and size sweeps, NVIDIA H100 80GB HBM3 at
-    700 W). Default paths reach it where the whole-run kernel does not
-    take the run. The choice is purely a throughput decision: the result
-    is bitwise the same.
+    wherever the kernel covers the run. Measured (``chip_smoke.py``'s
+    dispatch and size sweeps, PERF.md §6, NVIDIA H100 80GB HBM3 at 700 W):
+    ``run_solver`` with the whole-run kernel off ran faster at this depth
+    than on the one-iteration loop and than in pairs at every state of the
+    dispatch sweep, 336 MB to 42.9 GB: 3D and 4D, FISTA and unaccelerated,
+    rows of 512 KB to 32 MiB, N0 from 2K (K = 6 and 8) to 1024 (1.005-1.37x
+    over the loop, host clock). From 10.5 to 336 MB (3D unaccelerated and
+    FISTA, 4D FISTA) a K=8 launch took less device time per iteration than
+    the one-iteration kernel (1.17-4.6x). Default paths reach it where the
+    whole-run kernel does not take the run. The choice is purely a
+    throughput decision: the result is bitwise the same.
     """
     if forced:
         if forced < 3:

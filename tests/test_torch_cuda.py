@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+# the K-step kernel's tile-edge cases, shared with the card smoke run
+from chip_smoke import kstep_edge_cases  # noqa: E402
 from cytvdn_tpu_torch.kernels import fused as tfused  # noqa: E402
 from cytvdn_tpu_torch.kernels import kstep as tkstep  # noqa: E402
 from cytvdn_tpu_torch.kernels import resident as tres  # noqa: E402
@@ -345,24 +347,8 @@ def test_kstep_kernel_state_independent_of_grid(k, shape):
                 grid=full + 1)
 
 
-def _kstep_edge_cases():
-    """The K-step kernel's tile edges as (shape, K, fista): last extents
-    around its four-element groups and 32-lane segments (1, 4, 5, 128, 129),
-    ND-2 extents around its tile rows (1, 7, 9), every depth, N0 = 2K and
-    2K+1, FISTA and unaccelerated, 3D and 4D."""
-    cases = []
-    for i, last in enumerate((1, 4, 5, 128, 129)):
-        for j, m in enumerate((1, 7, 9)):
-            k = KS[(i + j) % len(KS)]
-            cases.append(((2 * k + (i + j) % 2, m, last), k, (i + 2 * j) % 2 == 0))
-    for i, (m, last) in enumerate(((1, 4), (7, 129), (9, 5), (7, 128))):
-        k = KS[i]
-        cases.append(((2 * k + i % 2, 3, m, last), k, i % 2 == 1))
-    return cases
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,k,fista", _kstep_edge_cases(), ids=str)
+@pytest.mark.parametrize("shape,k,fista", kstep_edge_cases(), ids=str)
 def test_kstep_kernel_tile_edges(shape, k, fista):
     """At the vector walk's tile edges: the full grid, 1 block and 7 blocks
     give the plain version's state, K one-iteration launches' and (K even)
