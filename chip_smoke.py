@@ -9,7 +9,8 @@ non-zero — nothing is caught):
 0. device: name, ``nvidia-smi`` name and power limit, TF32 off;
 1. build: the CUDA kernels from ``cytvdn_tpu_torch/csrc`` with nvcc, one
    process per source, with the build time and each kernel
-   instantiation's registers and spills from ptxas;
+   instantiation's registers and spills from ptxas, the pair kernel's with
+   and without its reference-cube SSE (REF) and their cooperative grids;
 2. kernels vs plain: 3 iterations of the fused-iteration kernel against its
    plain PyTorch version on the same inputs — state bitwise equal, the
    three sums within rtol 1e-5 — for every boundary condition, FISTA and
@@ -24,7 +25,14 @@ non-zero — nothing is caught):
    and at strips that do not divide N1 or start off the tile grid; at
    (256,256,128,128) two iterations of the fused-iteration kernel, one
    pair and two plain iterations, all bitwise equal (compared off the
-   card); then ms per pair of the pair kernel, of two fused-iteration
+   card); the pair kernel with a reference cube against two plain
+   iterations with their ``ops.sum_square_error`` (state bitwise equal,
+   the eight sums within rtol 1e-5) at N0 = 4..7 and ragged shapes, FISTA
+   and unaccelerated, at the full grid and at forced grids of 1, 7 and all
+   blocks, at (128,128,64,64) and (256,256,2048), and at
+   (256,256,128,128) compared off the card; ms per pair there with and
+   without the reference cube and of the plain pair with it;
+   then ms per pair of the pair kernel, of two fused-iteration
    launches and of the plain pair at (128,128,64,64), (256,256,2048) and
    (256,256,128,128), and each CUDA kernel's device time from
    ``torch.profiler`` at the last; the pair kernel's strip sweep: ms per
@@ -81,10 +89,21 @@ non-zero — nothing is caught):
    chunks) against the K=1 loop and the plain backend, ``run_solver`` at
    (256,256,2048) FISTA with the K-step kernel forced and off, a hybrid 3D
    run through the K-step, pair (rule lifted) and fused-iteration kernels
-   and hybrid 4D runs (pairs, rule lifted, without an early stop; the K=1
-   loop with one in the second phase) against the plain backend on the
-   card;
-5. one JSON line on the kernels (launches on the path that reaches each,
+   and hybrid 4D runs (pairs, rule lifted, without an early stop; K-steps
+   and pairs behind the guard with one in the second phase) against the
+   plain backend on the card;
+5. stop and MSE paths: stop-aware ``run_solver`` at (256,256,2048) FISTA
+   with the stop near iteration 100 and at (256,256,128,128) FISTA near 48
+   (thresholds from a fixed run's delta trace), the engine's pick (K=8
+   launches and pairs behind the guard, one checkpoint per block) against
+   the K=1 loop and, at (256,256,2048), the plain backend: the same stop,
+   recon bitwise, traces within rtol 1e-5, launches, seconds and (at
+   config 4) the peak device memory; a forced guard beat (a recorded
+   plateau) at (256,256,2048) for one K=8 launch and one pair, discarded
+   bitwise; and a config-4 MSE run (the clean cube as reference), pairs
+   with the reference cube against the K=1 loop with
+   ``ops.sum_square_error``: recon bitwise, MSE trace within rtol 1e-5;
+6. one JSON line on the kernels (launches on the path that reaches each,
    error, ms, the plain version's ms and the least time the card could
    take), the card's name and power limit, and the ``{"ok": true, ...}``
    line last.
@@ -438,6 +457,93 @@ def compare_offcard(shape, fista):
         ("two fused-iteration launches", pair(two_k1)),
         ("pair kernel", pair(fused_pair_iteration)),
         ("plain", pair(fused_pair_iteration_reference))])
+
+
+def ref_cube(shape, seed=SEED + 1):
+    """A reference cube on the card for the pair kernel's SSE."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=gen, device="cuda") * 0.5 + 2.0
+
+
+def compare_pair_ref_case(shape, fista, grids=(None,)):
+    """Two pairs of the pair kernel with a reference cube (its REF
+    instantiation) at each forced grid of ``grids`` (None: the full
+    cooperative grid) against its plain version (two plain iterations, each
+    followed by ``ops.sum_square_error``) from the same Jia-Zhao state:
+    state bitwise equal, the eight sums per pair within rtol 1e-5. Returns
+    max |Δstate| and the two SSEs' largest relative difference."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    orig, state, li, lm, rho = random_state(shape, fista, torch.float32, gen,
+                                            jz=True)
+    ref = ref_cube(shape)
+
+    def run(step):
+        s = [x.clone() for x in state]
+        fn = pair_fn(step, orig, s, li, lm, rho, fista, ref=ref)
+        sums = [torch.stack(fn()).double() for _ in range(2)]
+        torch.cuda.synchronize()
+        return s, torch.stack(sums).cpu()
+
+    ps, psum = run(fused_pair_iteration_reference)
+    require(psum.shape == (2, 8), f"plain pair with ref sums {psum.shape}")
+    err, rel_sse = 0.0, 0.0
+    for g in grids:
+        ks, ksum = run(lambda *a, g=g, **k: fused_pair_iteration(*a, grid=g,
+                                                                 **k))
+        err = max(err, max((a - b).abs().max().item() for a, b in zip(ks, ps)))
+        require(all(torch.equal(a, b) for a, b in zip(ks, ps)),
+                f"pair kernel with ref, grid {g}: state differs from the "
+                f"plain pair at {shape} fista {fista}: max |Δ| {err}")
+        rel = (ksum - psum).abs() / psum.abs().clamp_min(1e-300)
+        require(rel.max().item() <= 1e-5,
+                f"pair kernel with ref, grid {g}: sums differ by rtol "
+                f"{rel.max().item()} at {shape}")
+        rel_sse = max(rel_sse, rel[:, 6:].max().item())
+    del orig, state, ref
+    torch.cuda.empty_cache()
+    return err, rel_sse
+
+
+def compare_offcard_ref(shape):
+    """One pair-kernel launch with a reference cube and two plain
+    iterations with their ``ops.sum_square_error``, FISTA, from the same
+    state, compared off the card (``offcard_equal``)."""
+    def pair(step):
+        def fn(orig, state, li, lm, rho):
+            ref = ref_cube(shape)
+            return torch.stack(pair_fn(step, orig, state, li, lm, rho, True,
+                                       ref=ref)())
+        return fn
+
+    return offcard_equal(shape, True, [
+        ("pair kernel with ref", pair(fused_pair_iteration)),
+        ("plain with ref", pair(fused_pair_iteration_reference))])
+
+
+def time_pair_ref(shape, n_kernel, n_plain):
+    """ms per pair of FISTA float32 iterations on one Jia-Zhao state, in
+    turns: the pair kernel without and with a reference cube (its REF
+    instantiation) and the plain pair with it. Returns the means
+    {"pair", "pair_ref", "plain_ref"} and the runs."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    orig, state, li, lm, rho = random_state(shape, True, torch.float32, gen,
+                                            jz=True)
+    ref = ref_cube(shape)
+    fns = {"pair": pair_fn(fused_pair_iteration, orig, state, li, lm, rho,
+                           True),
+           "pair_ref": pair_fn(fused_pair_iteration, orig, state, li, lm, rho,
+                               True, ref=ref),
+           "plain_ref": pair_fn(fused_pair_iteration_reference, orig, state,
+                                li, lm, rho, True, ref=ref)}
+    order = ("plain_ref", "pair", "pair_ref", "pair_ref", "pair", "plain_ref")
+    runs = [(name, time_ms(fns[name],
+                           n_plain if name == "plain_ref" else n_kernel))
+            for name in order]
+    del orig, state, ref, fns
+    torch.cuda.empty_cache()
+    mean = {name: sum(t for n, t in runs if n == name) / 2
+            for name in ("pair", "pair_ref", "plain_ref")}
+    return mean, [(n, round(t, 3)) for n, t in runs]
 
 
 def compare_kstep_offcard(shape, fista, k):
@@ -1037,6 +1143,243 @@ def solver_ms(shape, iters, stop):
     return ms
 
 
+def stop_threshold(delta, target):
+    """A stop threshold from a fixed run's delta trace that stops a run as
+    near ``target`` iterations as the trace allows: a delta below every
+    earlier one ends the run, with the threshold the geometric mean of it
+    and the least delta before it, more than rtol 1e-5 from every delta up
+    to the stop (so that traces from different kernels, their sums in
+    another order, stop at the same iteration). Returns the threshold and
+    the iterations the stop-aware run makes."""
+    dp = delta.cpu().numpy().astype(np.float64)
+    best = None
+    for j in range(2, dp.size):
+        low = dp[:j].min()
+        if not 0 < dp[j] < low:
+            continue
+        thr = float(np.sqrt(dp[j] * low))
+        if not np.all(np.abs(dp[:j + 1] / thr - 1) > 1e-5):
+            continue
+        if best is None or abs(j + 1 - target) < abs(best[1] - target):
+            best = (thr, j + 1)
+    require(best is not None, f"no delta of {dp.size} below all earlier "
+                              f"ones with a margin of rtol 1e-5")
+    return best
+
+
+def counted_run(orig, li, lm, opts, ref=None):
+    """One ``run_solver`` run with the launch counts set to 0 just before
+    it and read just after, and its peak device memory: returns (its
+    outputs with the tensors brought to the host, seconds, launches, peak
+    bytes)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_solver(orig, li, lm, opts, reference_data=ref)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    host = {k: v.cpu() if torch.is_tensor(v) else v for k, v in out.items()}
+    del out
+    torch.cuda.empty_cache()
+    return host, secs, launches, peak
+
+
+def forced_guard_beat(orig, li, lm, phase):
+    """A stop-aware K=8 (``phase`` "kstep") or pair phase on a
+    ``_PhaseState`` whose recorded deltas plateau at 1 (the guard predicts
+    1 >= 0.5 and lets the launch run) while the real ones fall far below
+    0.5: the launch's first delta beats the guard, and the block must be
+    discarded, leaving state, traces, index and latch bitwise as before.
+    Returns the launches made."""
+    n, ndim = 64, orig.dim()
+    delta = torch.zeros(n, device="cuda")
+    delta[:2] = 1.0
+    st = engine._PhaseState(
+        i=2, done=False, recon=orig.clone(),
+        accs=[torch.zeros_like(orig) for _ in range(ndim)],
+        ds=[torch.zeros_like(orig) for _ in range(ndim)],
+        b_norm=torch.zeros(n, device="cuda"), delta=delta, mse=None,
+        tk=torch.ones((), device="cuda"))
+    arrays = [st.recon, *st.accs, *st.ds, st.b_norm, st.delta]
+    before = [x.clone() for x in arrays]
+    opts = SolverOptions(ndim=ndim, iterations_fista=n, iterations_unacc=0,
+                         stopping_relative_change=0.5)
+    rhos = torch.as_tensor(engine.fista_tk_ratios(n),
+                           dtype=torch.float32).cuda()
+    reset_counts()
+    if phase == "kstep":
+        engine._run_phase_kstep(True, n, st, orig, rhos, li, lm, opts, None,
+                                max(KS))
+    else:
+        engine._run_phase_paired(True, n, st, orig, rhos, li, lm, opts, None)
+    launches = launch_counts()
+    require(launches == ((0, 1, 0, 0) if phase == "kstep" else (0, 0, 1, 0)),
+            f"forced guard beat ({phase}): launches {launches}")
+    require(st.i == 2 and not st.done,
+            f"forced guard beat ({phase}): i {st.i}, done {st.done}")
+    require(all(torch.equal(a, b) for a, b in zip(arrays, before)),
+            f"forced guard beat ({phase}): the block was not discarded "
+            f"bitwise")
+    del st, arrays, before
+    torch.cuda.empty_cache()
+    return launches
+
+
+def same_result(runs, want, what, keys=("b_norm", "delta")):
+    """Each of ``runs`` (``counted_run`` results) stops as ``want`` does,
+    with its recon bitwise equal and its ``keys`` traces within rtol
+    1e-5."""
+    for out, _, _, _ in runs:
+        require(out["iterations_run"] == want["iterations_run"]
+                and out["early_stopped"] == want["early_stopped"],
+                f"{what}: {out['iterations_run']} iterations, expected "
+                f"{want['iterations_run']}")
+        require(torch.equal(out["recon"], want["recon"]),
+                f"{what}: recon not bitwise equal")
+        for key in keys:
+            np.testing.assert_allclose(out[key].numpy(), want[key].numpy(),
+                                       rtol=1e-5, err_msg=f"{what} {key}")
+
+
+def stop_phase(smi, cube, scan, det):
+    """Phase 5: stop-aware runs through the K-step and pair kernels and
+    MSE runs through the pair kernel's SSE, against the K=1 loop (and at
+    config 2 the plain backend). Returns the MSE pair launches of the
+    config-4 MSE run and the stop runs' launches."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    orig2 = torch.randn(CFG2, generator=gen, device="cuda") * 0.5 + 2.0
+    li3 = torch.full((3,), 16.0, device="cuda")
+    lm3 = torch.full((3,), 1 / 16, device="cuda")
+    n2 = 130
+    fixed = run_solver(orig2, li3, lm3, SolverOptions(
+        ndim=3, iterations_fista=n2, iterations_unacc=0, temporal_pairs=False))
+    thr2, stop2 = stop_threshold(fixed["delta"], 100)
+    del fixed
+    base2 = dict(ndim=3, iterations_fista=n2, iterations_unacc=0,
+                 stopping_relative_change=thr2)
+    paths2 = {"pick": {}, "k1": dict(temporal_pairs=False),
+              "torch": dict(backend="torch")}
+    runs2 = {path: [] for path in paths2}
+    for path in ("pick", "k1", "torch", "k1", "pick"):
+        runs2[path].append(counted_run(orig2, li3, lm3, SolverOptions(
+            **base2, **paths2[path])))
+    want2 = runs2["k1"][0][0]
+    require(want2["iterations_run"] == stop2 and want2["early_stopped"],
+            f"config 2 stop after {want2['iterations_run']}, expected {stop2}")
+    for path, runs in runs2.items():
+        same_result(runs, want2, f"config 2 stop ({path})")
+    l2 = {path: runs[0][2] for path, runs in runs2.items()}
+    require(l2["pick"][0] == 0 and l2["pick"][1] > 0,
+            f"config 2 stop: the engine's pick made no K-step launch: "
+            f"{l2['pick']}")
+    require(l2["k1"][:3] == (0, 0, 0) and l2["torch"] == (0, 0, 0, 0),
+            f"config 2 stop: K=1 loop {l2['k1']}, plain {l2['torch']}")
+    s2 = {path: [round(r[1], 4) for r in runs] for path, runs in runs2.items()}
+    m2 = {path: sum(v) / len(v) for path, v in s2.items()}
+    log(f"phase 5 stop-aware {CFG2} FISTA x{n2}, stop {thr2:.6e}: all paths "
+        f"stop after {stop2} iterations, recon "
+        f"bitwise equal to the K=1 loop's, traces within rtol 1e-5; launches "
+        f"whole-run/K-step/pair/fused: the engine's pick {l2['pick']}, K=1 "
+        f"loop {l2['k1']}; seconds: pick {m2['pick']:.4f} "
+        f"({m2['pick'] / stop2 * 1e3:.4f} ms per iteration), K=1 loop "
+        f"{m2['k1']:.4f} ({m2['k1'] / stop2 * 1e3:.4f}), plain "
+        f"{m2['torch']:.4f} (runs {s2}) [{smi}]")
+    del runs2
+    beats = {phase: forced_guard_beat(orig2, li3, lm3, phase)
+             for phase in ("kstep", "pair")}
+    log(f"phase 5 forced guard beat at {CFG2} FISTA (recorded deltas 1, 1; "
+        f"stop 0.5): one K={max(KS)} launch {beats['kstep']} and one pair "
+        f"{beats['pair']} ran and were discarded, recon, accumulators, "
+        f"shadow duals, traces, index and latch bitwise as before")
+    del orig2
+    torch.cuda.empty_cache()
+
+    # config 4, the stop near iteration 48
+    orig4 = torch.from_numpy(cube).cuda()
+    li4 = torch.full((4,), 32.0, device="cuda")
+    lm4 = torch.full((4,), 1 / 32, device="cuda")
+    n4 = 64
+    fixed = run_solver(orig4, li4, lm4, SolverOptions(
+        ndim=4, iterations_fista=n4, iterations_unacc=0))
+    thr4, stop4 = stop_threshold(fixed["delta"], 48)
+    trace4 = [float(f"{x:.4g}") for x in fixed["delta"].tolist()]
+    del fixed
+    torch.cuda.empty_cache()
+    base4 = dict(ndim=4, iterations_fista=n4, iterations_unacc=0,
+                 stopping_relative_change=thr4)
+    need4 = engine.stop_ckpt_bytes(SolverOptions(**base4), CFG4,
+                                   torch.float32)
+    fits4 = need4 <= engine.STOP_CKPT_MAX_BYTES
+    runs4 = {path: counted_run(orig4, li4, lm4, SolverOptions(**base4, **kw))
+             for path, kw in (("pick", {}), ("k1", dict(temporal_pairs=False)))}
+    want4 = runs4["k1"][0]
+    require(want4["iterations_run"] == stop4 and want4["early_stopped"],
+            f"config 4 stop after {want4['iterations_run']}, expected {stop4}")
+    same_result([runs4["pick"]], want4, "config 4 stop")
+    l4 = {path: r[2] for path, r in runs4.items()}
+    require((l4["pick"][1] > 0) == fits4 and l4["k1"][:3] == (0, 0, 0),
+            f"config 4 stop launches {l4} (byte rule admits it: {fits4})")
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"phase 5 stop-aware {CFG4} FISTA x{n4}, stop {thr4:.6e}: both stop "
+        f"after {stop4} iterations, recon bitwise equal, traces within rtol "
+        f"1e-5; state + checkpoint {need4 / 2**30:.2f} GiB "
+        f"({'within' if fits4 else 'above'} STOP_CKPT_MAX_BYTES "
+        f"{engine.STOP_CKPT_MAX_BYTES / 2**30:.2f} GiB); launches "
+        f"whole-run/K-step/pair/fused: the engine's pick {l4['pick']}, K=1 "
+        f"loop {l4['k1']}; seconds: pick {runs4['pick'][1]:.4f} "
+        f"({runs4['pick'][1] / stop4 * 1e3:.3f} ms per iteration), K=1 loop "
+        f"{runs4['k1'][1]:.4f} ({runs4['k1'][1] / stop4 * 1e3:.3f}); peak "
+        f"device memory: pick {runs4['pick'][3] / 2**30:.3f} GiB, K=1 loop "
+        f"{runs4['k1'][3] / 2**30:.3f} GiB of {total / 2**30:.3f}; the fixed "
+        f"run's delta trace {trace4} [{smi}]")
+    del runs4, want4
+
+    # config 4 with a reference cube (the clean signal): the MSE run in
+    # pairs (the K-step gate refuses MSE) against the K=1 loop
+    ref4 = (torch.from_numpy(scan).cuda()[:, :, None, None]
+            + torch.from_numpy(det).cuda()[None, None]).contiguous()
+    base_m = dict(ndim=4, iterations_fista=20, iterations_unacc=0,
+                  calculate_mse=True)
+    runs_m = {"pairs": [], "k1": []}
+    for path in ("pairs", "k1", "k1", "pairs"):
+        kw = {} if path == "pairs" else dict(temporal_pairs=False)
+        runs_m[path].append(counted_run(orig4, li4, lm4,
+                                        SolverOptions(**base_m, **kw),
+                                        ref=ref4))
+    want_m = runs_m["k1"][0][0]
+    require(want_m["iterations_run"] == 20, "config 4 MSE run length")
+    for path, runs in runs_m.items():
+        same_result(runs, want_m, f"config 4 MSE ({path})",
+                    keys=("b_norm", "delta", "mse"))
+    lm_ = {path: runs[0][2] for path, runs in runs_m.items()}
+    require(lm_["pairs"] == (0, 0, 10, 0) and lm_["k1"] == (0, 0, 0, 20),
+            f"config 4 MSE launches {lm_}")
+    mse = want_m["mse"].numpy()
+    require(bool(np.all(mse > 0)) and mse[-1] < mse[0],
+            f"config 4 MSE did not fall: {mse[0]} -> {mse[-1]}")
+    sm = {path: [round(r[1], 4) for r in runs] for path, runs in runs_m.items()}
+    mm = {path: sum(v) / len(v) for path, v in sm.items()}
+    log(f"phase 5 MSE {CFG4} FISTA x20 with the clean cube as reference: "
+        f"pairs with the reference cube (launches {lm_['pairs']}) and the K=1 "
+        f"loop with ops.sum_square_error ({lm_['k1']}): recon bitwise equal, "
+        f"MSE trace within rtol 1e-5 (SSE {mse[0]:.4e} -> {mse[-1]:.4e}); "
+        f"seconds: pairs {mm['pairs']:.4f} ({mm['pairs'] / 20 * 1e3:.3f} ms "
+        f"per iteration), K=1 loop {mm['k1']:.4f} "
+        f"({mm['k1'] / 20 * 1e3:.3f}); peak device memory pairs "
+        f"{runs_m['pairs'][0][3] / 2**30:.3f} GiB, K=1 loop "
+        f"{runs_m['k1'][0][3] / 2**30:.3f} GiB (runs {sm}); phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+    del orig4, ref4, runs_m
+    torch.cuda.empty_cache()
+    return {"mse_pairs": lm_["pairs"][2], "stop2": l2["pick"],
+            "stop4": l4["pick"]}
+
+
 def piecewise_4d(shape, rng):
     """Noisy piecewise-constant 4D cube, generated directly in float32:
     a checkerboard of 64×64 scan tiles plus a bright disk on the detector."""
@@ -1078,6 +1421,14 @@ def main() -> int:
         f"source, in parallel), load {time.perf_counter() - t0:.2f} s; "
         f"{ptxas.count(';') + 1} kernel instantiations; ptxas "
         f"(registers, spill stores/loads in bytes): {ptxas}")
+    pair_ptx = [row for row in ptxas.split("; ") if row.startswith("pair_kernel")]
+    ref_grid = {f"{nd}D {'FISTA' if f else 'unacc'}":
+                (cooperative_grid(torch.device("cuda"), nd, f),
+                 cooperative_grid(torch.device("cuda"), nd, f, True))
+                for nd in (3, 4) for f in (True, False)}
+    log(f"phase 1 pair kernel instantiations <ND,FISTA,REF> (REF: the "
+        f"reference-cube SSE): {'; '.join(pair_ptx)}; full cooperative grid "
+        f"without / with REF: {ref_grid}")
 
     # phase 2: kernel vs plain on the card
     max_err = 0.0
@@ -1134,6 +1485,34 @@ def main() -> int:
         f"{SMALL_N0[-1]}, a grid one block larger refused; ragged strips "
         f"{RAGGED_STRIPS} at the full grid and 1 and 7 blocks; "
         f"{time.perf_counter() - t0:.1f} s")
+    # the pair kernel with a reference cube (its REF instantiation)
+    t0 = time.perf_counter()
+    ref_err, ref_rel = 0.0, 0.0
+    for shape in SMALL_N0 + [ODD]:
+        for fista in (True, False):
+            full_r = cooperative_grid(torch.device("cuda"), len(shape), fista,
+                                      True)
+            e, r = compare_pair_ref_case(shape, fista, grids=(None, 1, 7,
+                                                              full_r))
+            ref_err, ref_rel = max(ref_err, e), max(ref_rel, r)
+    for shape in (CFG3, CFG2):
+        e, r = compare_pair_ref_case(shape, True)
+        ref_err, ref_rel = max(ref_err, e), max(ref_rel, r)
+    log(f"phase 2 pair kernel with a reference cube vs the plain pair (two "
+        f"plain iterations, each with ops.sum_square_error): N0 4..7 in 3D "
+        f"and 4D and {ODD}, FISTA and unaccelerated, at the full grid and "
+        f"at forced grids of 1, 7 and all blocks, and {CFG3}, {CFG2} FISTA, "
+        f"2 pairs each: state bitwise equal (max |Δ| {ref_err}), the eight "
+        f"sums within rtol 1e-5 (the SSEs within {ref_rel:.2e}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    err4r, rel4r = compare_offcard_ref(CFG4)
+    ref_err = max(ref_err, err4r)
+    log(f"phase 2 at the main path's {CFG4}, FISTA f32, with a reference "
+        f"cube (state held on the host): 1 pair-kernel launch = 2 plain "
+        f"iterations with their SSE, 9 arrays bitwise equal (max |Δ| "
+        f"{err4r}), the eight sums within rtol {rel4r:.2e}; "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     err4, rel4 = compare_offcard(CFG4, True)
     max_err = max(max_err, err4)
@@ -1150,6 +1529,15 @@ def main() -> int:
             f"kernel {t['pair']:.3f} ms, 2 fused-iteration launches "
             f"{t['k1x2']:.3f} ms, plain pair {t['plain']:.3f} ms (runs {raw}) "
             f"[{smi}]")
+    tref, raw = time_pair_ref(CFG4, 3, 1)
+    b4r = launch_bound_seconds(CFG4, True, 2, peak_bandwidth(name),
+                               peak_f32(name), ref=True)[0] * 1e3 \
+        if peak_bandwidth(name) and peak_f32(name) else float("nan")
+    log(f"phase 2 time per pair of FISTA f32 iterations at {CFG4} with and "
+        f"without a reference cube: pair kernel {tref['pair']:.3f} ms, with "
+        f"ref {tref['pair_ref']:.3f} ms ({b4r / tref['pair_ref']:.3f} of its "
+        f"{b4r:.2f} ms bound, one more traversal), plain pair with ref "
+        f"{tref['plain_ref']:.3f} ms (runs {raw}) [{smi}]")
     k4, p4 = times[CFG4]["k1x2"] / 2, times[CFG4]["plain"] / 2
     log(f"phase 2 time per FISTA f32 iteration at {CFG4}: fused-iteration "
         f"kernel {k4:.3f} ms, plain {p4:.3f} ms; at {CFG3}: "
@@ -1558,7 +1946,8 @@ def main() -> int:
     require(bool(np.all(np.abs(dp[:stop_at] / thr - 1) > 1e-5)),
             f"a delta lies within rtol 1e-5 of the threshold {thr}")
     stop_runs = {}
-    for path, kw in (("chunks", {}), ("k1", dict(vmem_resident=False)),
+    for path, kw in (("chunks", {}),
+                     ("k1", dict(vmem_resident=False, temporal_pairs=False)),
                      ("torch", dict(backend="torch"))):
         reset_counts()
         torch.cuda.synchronize()
@@ -1572,7 +1961,9 @@ def main() -> int:
                 f"config 1 stop ({path}) after {out['iterations_run']}, "
                 f"expected {stop_at}")
     chunks1 = stop_runs["chunks"][2]
-    require(chunks1[0] > 0 and chunks1[1:3] == (0, 0),
+    # whole-run chunks, then (after a beaten chunk guard) the stop-aware
+    # K-steps may take the rest; config 1's rows take no pairs
+    require(chunks1[0] > 0 and chunks1[2] == 0,
             f"the stop run made no whole-run chunk: {chunks1}")
     require(stop_runs["k1"][2][:3] == (0, 0, 0), "the K=1 stop run")
     for path in ("k1", "torch"):
@@ -1655,15 +2046,16 @@ def main() -> int:
                   quiet=True, device="cuda")
         # pairs at any row size (config 3's rows are 2 MiB), so that the
         # run without a stop switches from FISTA to unaccelerated pairs;
-        # stop-aware runs stay on the K=1 loop
+        # stop-aware runs take K-steps and pairs behind the guard, as many
+        # as the deltas allow
         with pairs_at_any_row():
             reset_counts()
             got = denoise4D(cube3, mu4, **kw)
             want = expected_launches(SolverOptions(
-                ndim=4, iterations_fista=10, iterations_unacc=10), CFG3)[:3] \
-                if stop is None else (0, 0, 0)
+                ndim=4, iterations_fista=10, iterations_unacc=10), CFG3)[:3]
         counts = launch_counts()[:3]
-        require(counts == want and (stop is not None or counts[2] > 0),
+        require(counts[0] == 0 and (stop is not None or (
+            counts == want and counts[2] > 0)),
                 f"hybrid (stop {stop}): (whole-run, K-step, pair) launches "
                 f"{counts}, expected {want} with pairs")
         want = denoise4D(cube3, mu4, backend="torch", **kw)
@@ -1677,6 +2069,8 @@ def main() -> int:
 
     d = hybrid(None)
     hyb4 = launch_counts()
+    # each of the hybrid runs ends with a plain-backend run, which launches
+    # nothing: the counts read here are those of the kernels' run
     require(bool((d > 0).all()), "hybrid trace not positive over 20 entries")
     # a threshold no iteration before the 16th crosses: the second phase,
     # with the accumulators FISTA left, runs at least 6 iterations and stops.
@@ -1689,6 +2083,7 @@ def main() -> int:
     require(below.size > 0, f"no delta after iteration 15 below {thr}: {d}")
     stop_at = 15 + int(below[0]) + 1
     ds = hybrid(thr)
+    hyb4s = launch_counts()
     n_run = int(np.count_nonzero(ds))
     require(n_run == stop_at and bool(np.all(ds[n_run:] == 0)),
             f"hybrid stop after {n_run} iterations, expected {stop_at}")
@@ -1700,7 +2095,10 @@ def main() -> int:
         f"(launches whole-run/K-step/pair/fused {hyb4}, 20 iterations, delta "
         f"{d[0]:.3e} .. "
         f"{d[9]:.3e} | {d[10]:.3e} .. {d[19]:.3e}) and with stop {thr:.6e} (both stop after {n_run} "
-        f"iterations, {n_run - 10} of them unaccelerated)")
+        f"iterations, {n_run - 10} of them unaccelerated; launches {hyb4s})")
+
+    # phase 5: stop-aware K-steps and pairs, MSE pairs
+    stop5 = stop_phase(smi, cube, scan, det)
 
     # launches: each kernel's count in the run of the path that reaches it
     # (x21: the odd iteration; x20: the pairs; config 1 through run_solver
@@ -1712,10 +2110,10 @@ def main() -> int:
     f32 = peak_f32(name)
     kd = k1_depth
 
-    def bound(shape, fista, iters):
+    def bound(shape, fista, iters, ref=False):
         if not (bw and f32):
             return None, None
-        t, by = launch_bound_seconds(shape, fista, iters, bw, f32)
+        t, by = launch_bound_seconds(shape, fista, iters, bw, f32, ref=ref)
         return t * 1e3, by
 
     rows = [
@@ -1724,6 +2122,11 @@ def main() -> int:
         ("fused_pair_iteration", "temporal_pair.cu", "temporal.py:947",
          counts[20][2], pair_err, times[CFG4]["pair"], times[CFG4]["plain"],
          bound(CFG4, True, 2)),
+        # the MSE pair launch (the REF instantiation) on the config-4 MSE
+        # path of phase 5
+        ("fused_pair_iteration_ref", "temporal_pair.cu", "temporal.py:947",
+         stop5["mse_pairs"], ref_err, tref["pair_ref"], tref["plain_ref"],
+         bound(CFG4, True, 2, ref=True)),
         ("fused_kstep_iteration", "temporal_kstep.cu", "kstep.py:395",
          c1["kstep"][1], kstep_err, ktimes[CFG1][kd][0],
          ktimes[CFG1]["plain"][0] * kd, bound(CFG1, False, kd)),

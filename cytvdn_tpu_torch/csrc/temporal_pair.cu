@@ -7,7 +7,12 @@
 // is that of csrc/fused_iteration.cu (the same clip form, the same order of
 // operations, no FMA contraction), so the state after one launch is bitwise
 // equal to two K=1 launches and to two plain iterations. It returns both
-// iterations' sums: sum|b|, sum|recon_new - recon|, sum|recon|.
+// iterations' sums: sum|b|, sum|recon_new - recon|, sum|recon| and, with a
+// reference cube (REF, the TPU kernel's `ref` operand, SSE at
+// temporal.py:890-897), each iteration's sum (recon - ref)^2. Both squared
+// errors come from the recon-2 element, which holds iteration 1's recon
+// (for the delta sum) and iteration 2's at its own element: one extra load
+// per element and pair.
 //
 // What bounds it on the H100. A "row" here is one axis-0 slab (all other
 // axes). Walking whole rows, a stage keeps about 50 row-tiles alive across
@@ -86,23 +91,25 @@
 //   invariant is why this kernel (like the TPU one) is Jia-Zhao only, and
 //   why its test states zero each accumulator's leading slab along its own
 //   axis.
+// - The reference cube is never written.
 // - L1 is not coherent across SMs, and a block that read a row of R_0 in
 //   dual-1 could later read its stale L1 copy after another block rewrote it
 //   as R_1. Every load of the state goes through L2 (ld.global.cg); only
-//   orig, which nothing writes, is read through the read-only path. The
-//   grid barrier orders each stage's stores before the next stage's loads.
+//   orig and ref, which nothing writes, are read through the read-only
+//   path. The grid barrier orders each stage's stores before the next
+//   stage's loads.
 // Deeper levels (csrc/temporal_kstep.cu) follow the same pattern along
 // axis 0 with whole rows: dual-l three rows behind dual-(l-1), recon-l two
 // rows behind dual-l. The stage layout (op_row) lives in wavefront.cuh,
 // with the scalar elements dual_elem and recon_elem that this kernel uses.
 //
-// Sums: each thread keeps six double accumulators over all stages; after the
-// last stage each block reduces them in a fixed order into per-block
-// partials, and block 0 reduces those in a fixed order after one more grid
-// barrier. The grid and the strip are fixed by the wrapper (the device's
-// cooperative occupancy, the shape), so the traces repeat exactly from run
-// to run; they may differ from two K=1 launches in the last bit after the
-// cast.
+// Sums: each thread keeps six (REF: eight) double accumulators over all
+// stages; after the last stage each block reduces them in a fixed order
+// into per-block partials, and block 0 reduces those in a fixed order after
+// one more grid barrier. The grid and the strip are fixed by the wrapper
+// (the device's cooperative occupancy, the shape), so the traces repeat
+// exactly from run to run; they may differ from two K=1 launches in the
+// last bit after the cast.
 //
 // Layout: a block is 32 x 8 threads over a tile of the two trailing axes.
 // In each stage the active sub-stages' (row-op, axis-1 index, tile) work
@@ -123,7 +130,7 @@ namespace {
 
 constexpr int LEVELS = 2;        // iterations per launch
 constexpr int OPS = 2 * LEVELS;  // row-operations per stage
-constexpr int SUMS = 3 * LEVELS;
+constexpr int MAX_SUMS = 3 * LEVELS + 2;
 
 struct PairArgs {
   const float* orig;
@@ -133,8 +140,10 @@ struct PairArgs {
   const float* lambda_inv;
   const float* lam_mu;
   const float* rho[LEVELS];
+  const float* ref;  // reference cube for the SSE (REF)
   double* partials;  // [SUMS][gridDim.x]
-  float* out;        // [SUMS]: per level sum|b|, sum|dR|, sum|R|
+  float* out;        // [SUMS]: per level sum|b|, sum|dR|, sum|R|; (REF)
+                     // per level sum (R - ref)^2
   int64_t n[4];      // extents of the ndim axes
   int64_t s[4];      // element strides of the ndim axes
   int64_t rows1;     // product of the axes between 0 and the tiled pair
@@ -155,8 +164,9 @@ __device__ __forceinline__ void op_range(int op, int64_t j, int64_t strips,
   if (hi < lo) hi = lo;
 }
 
-template <int ND, bool FISTA>
+template <int ND, bool FISTA, bool REF>
 __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {
+  constexpr int SUMS = REF ? MAX_SUMS : 3 * LEVELS;
   cg::grid_group grid = cg::this_grid();
   __shared__ double red[NT];
   float lam[ND], lm[ND], rho[LEVELS];
@@ -167,9 +177,9 @@ __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {
   }
 #pragma unroll
   for (int l = 0; l < LEVELS; ++l) rho[l] = FISTA ? *a.rho[l] : 0.0f;
-  double acc[SUMS];
+  double acc[MAX_SUMS];
 #pragma unroll
-  for (int j = 0; j < SUMS; ++j) acc[j] = 0.0;
+  for (int j = 0; j < MAX_SUMS; ++j) acc[j] = 0.0;
 
   const int64_t N0 = a.n[0];
   const int64_t N1 = a.n[1];
@@ -246,9 +256,10 @@ __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {
           const double v = dual_elem<ND, FISTA>(a, idx, c, lam, rho[lev]);
           if (lev == 0) acc[0] += v; else acc[3] += v;
         } else if (lev == 0) {
-          recon_elem<ND>(a, idx, c, lm, acc[1], acc[2]);
+          recon_elem<ND, false>(a, idx, c, lm, acc[1], acc[2], acc[6],
+                                acc[7]);
         } else {
-          recon_elem<ND>(a, idx, c, lm, acc[4], acc[5]);
+          recon_elem<ND, REF>(a, idx, c, lm, acc[4], acc[5], acc[6], acc[7]);
         }
       }
       grid.sync();
@@ -273,20 +284,28 @@ __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {
   }
 }
 
-const void* kernel_for(int ndim, int fista) {
+template <int ND, bool FISTA>
+const void* kernel_for_ref(int ref) {
+  return ref ? reinterpret_cast<const void*>(pair_kernel<ND, FISTA, true>)
+             : reinterpret_cast<const void*>(pair_kernel<ND, FISTA, false>);
+}
+
+// The instantiation for (ndim, fista, ref).
+const void* kernel_for(int ndim, int fista, int ref) {
   if (ndim == 4) {
-    return fista ? reinterpret_cast<const void*>(pair_kernel<4, true>)
-                 : reinterpret_cast<const void*>(pair_kernel<4, false>);
+    return fista ? kernel_for_ref<4, true>(ref)
+                 : kernel_for_ref<4, false>(ref);
   }
-  return fista ? reinterpret_cast<const void*>(pair_kernel<3, true>)
-               : reinterpret_cast<const void*>(pair_kernel<3, false>);
+  return fista ? kernel_for_ref<3, true>(ref)
+               : kernel_for_ref<3, false>(ref);
 }
 
 }  // namespace
 
-// The largest grid a cooperative launch of the (ndim, fista) kernel may
-// have on the current device: resident blocks per SM times SMs.
-extern "C" int tv_pair_max_blocks(int ndim, int fista, int* blocks) {
+// The largest grid a cooperative launch of the (ndim, fista, ref) kernel
+// may have on the current device: resident blocks per SM times SMs.
+extern "C" int tv_pair_max_blocks(int ndim, int fista, int ref,
+                                  int* blocks) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -297,7 +316,7 @@ extern "C" int tv_pair_max_blocks(int ndim, int fista, int* blocks) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel_for(ndim, fista), NT, 0);
+      &per_sm, kernel_for(ndim, fista, ref), NT, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   *blocks = per_sm * sms;
   return 0;
@@ -306,9 +325,10 @@ extern "C" int tv_pair_max_blocks(int ndim, int fista, int* blocks) {
 extern "C" int tv_pair_iteration_f32(
     const void* orig, void* recon, void* b0, void* b1, void* b2, void* b3,
     void* d0, void* d1, void* d2, void* d3, const void* lambda_inv,
-    const void* lam_mu, const void* rho1, const void* rho2, void* partials,
-    void* out, int ndim, long long n0, long long n1, long long n2,
-    long long n3, long long strip, int fista, int nblocks, void* stream) {
+    const void* lam_mu, const void* rho1, const void* rho2, const void* ref,
+    void* partials, void* out, int ndim, long long n0, long long n1,
+    long long n2, long long n3, long long strip, int fista, int nblocks,
+    void* stream) {
   PairArgs a;
   a.orig = static_cast<const float*>(orig);
   a.recon = static_cast<float*>(recon);
@@ -330,6 +350,7 @@ extern "C" int tv_pair_iteration_f32(
   a.lam_mu = static_cast<const float*>(lam_mu);
   a.rho[0] = static_cast<const float*>(rho1);
   a.rho[1] = static_cast<const float*>(rho2);
+  a.ref = static_cast<const float*>(ref);
   a.partials = static_cast<double*>(partials);
   a.out = static_cast<float*>(out);
   a.rows1 = 1;
@@ -341,8 +362,8 @@ extern "C" int tv_pair_iteration_f32(
   void* args[] = {&a};
   // a grid above the cooperative limit is refused here, not shrunk
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      kernel_for(ndim, fista), dim3(nblocks), dim3(TX, TY), args, 0,
-      static_cast<cudaStream_t>(stream));
+      kernel_for(ndim, fista, ref != nullptr), dim3(nblocks), dim3(TX, TY),
+      args, 0, static_cast<cudaStream_t>(stream));
   // reading the last error also clears it, so a refused launch does not
   // surface again at the next launch's check
   const cudaError_t last = cudaGetLastError();

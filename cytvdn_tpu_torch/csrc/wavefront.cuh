@@ -1,7 +1,8 @@
 // The stage layout of the cooperative wavefront kernels (op_row, shared by
 // temporal_pair.cu and temporal_kstep.cu), and the pair kernel's scalar
 // elements: one Jia-Zhao anisotropic dual update and one reconstruction
-// update of a single element, with the arithmetic of fused_iteration.cu
+// update (with the reference cube's squared errors, optionally) of a
+// single element, with the arithmetic of fused_iteration.cu
 // (the same clip form, the same order of operations; built with
 // --fmad=false), so the pair kernel's state is bitwise equal to two K=1
 // launches. (The K-step kernel walks four elements per thread, vec_walk.cuh.)
@@ -10,7 +11,8 @@
 // recon, orig, b[k], d[k], n[k] and s[k]. Loads of the state bypass L1
 // (ld.global.cg): L1 is not coherent across SMs, and a wavefront kernel
 // rewrites rows that other blocks read before the previous grid barrier.
-// Only orig, which nothing writes, takes the read-only path.
+// Only orig and the reference cube, which nothing writes, take the
+// read-only path.
 
 #pragma once
 
@@ -78,11 +80,17 @@ __device__ __forceinline__ double dual_elem(const Args& a, int64_t idx,
 }
 
 // Reconstruction update of one element, as fused_iteration.cu's
-// recon_kernel does it; adds |R_new - R_old| and |R_old| to the sums.
-template <int ND, class Args>
+// recon_kernel does it; adds |R_new - R_old| and |R_old| to the sums. With
+// a reference cube (REF; `Args` then has a member `ref`) it also adds
+// (R_old - ref)^2 and (R_new - ref)^2 to sse_old and sse_new, from one load
+// of ref: the pair kernel's recon-2 element holds both iterations' recon
+// there (R_old is iteration 1's). ref, which nothing writes, takes the
+// read-only path, and its load is sent with orig's, before the store.
+template <int ND, bool REF, class Args>
 __device__ __forceinline__ void recon_elem(const Args& a, int64_t idx,
                                            const int64_t* c, const float* lm,
-                                           double& dnum, double& dden) {
+                                           double& dnum, double& dden,
+                                           double& sse_old, double& sse_new) {
   float div = 0.0f;
 #pragma unroll
   for (int k = 0; k < ND; ++k) {
@@ -90,10 +98,18 @@ __device__ __forceinline__ void recon_elem(const Args& a, int64_t idx,
     const float bf = ld(a.b[k] + fwd(idx, c[k], a.n[k], a.s[k]));
     div = div + lm[k] * (bk - bf);
   }
-  const float rn = __ldg(a.orig + idx) - div;
+  const float og = __ldg(a.orig + idx);
+  const float rv = REF ? __ldg(a.ref + idx) : 0.0f;
+  const float rn = og - div;
   const float ro = ld(a.recon + idx);
   dnum += static_cast<double>(fabsf(rn - ro));
   dden += static_cast<double>(fabsf(ro));
+  if (REF) {
+    const float e_old = ro - rv;
+    const float e_new = rn - rv;
+    sse_old += static_cast<double>(e_old * e_old);
+    sse_new += static_cast<double>(e_new * e_new);
+  }
   a.recon[idx] = rn;
 }
 

@@ -79,9 +79,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [vp] * 15 + [i] + [ll] * 4 + [i] * 5 + [vp]
         fn.restype = i
     lib.tv_pair_iteration_f32.argtypes = \
-        [vp] * 16 + [i] + [ll] * 5 + [i] * 2 + [vp]
+        [vp] * 17 + [i] + [ll] * 5 + [i] * 2 + [vp]
     lib.tv_pair_iteration_f32.restype = i
-    lib.tv_pair_max_blocks.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.tv_pair_max_blocks.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.tv_pair_max_blocks.restype = i
     lib.tv_kstep_iteration_f32.argtypes = \
         [vp] * 15 + [i] + [ll] * 4 + [i] * 4 + [vp]

@@ -16,7 +16,10 @@ header; :func:`pair_stages` lists the same schedule). Its element
 arithmetic is that of ``csrc/fused_iteration.cu``, so the state is bitwise
 equal to two K=1 launches at every strip width; the six sums are per-block
 partials combined in a fixed order, within rtol 1e-5 of two K=1 launches'
-sums.
+sums. With a reference cube (``ref``, per-iteration MSE runs) the kernel's
+``REF`` instantiation also returns each iteration's sum of squared errors
+against it, read at the second reconstruction's element, where both
+iterations' recon meet (the TPU kernel reduces them at the same place).
 
 Its HBM traffic lies between two K=1 passes (5n+4 traversals per
 iteration, when a stage's rows do not stay in the 50 MB L2) and the
@@ -27,11 +30,11 @@ fastest or within 4% at every row size swept, 2 to 16 MiB (PERF.md §6, the
 strip sweep; NVIDIA H100 80GB HBM3, 700 W), so the wrapper walks whole rows
 (W = N1, one strip) unless a strip is forced.
 
-Scope, as the TPU kernel's on one device without reference data: float32,
-Jia-Zhao boundaries, anisotropic duals, 3D and 4D, FISTA and unaccelerated,
-N0 ≥ 4. :func:`fused_pair_iteration` launches the kernel for CUDA tensors
-and runs :func:`fused_pair_iteration_reference` for CPU tensors; there is
-no fallback.
+Scope, as the TPU kernel's on one device: float32, Jia-Zhao boundaries,
+anisotropic duals, 3D and 4D, FISTA and unaccelerated, N0 ≥ 4, with or
+without a reference cube. :func:`fused_pair_iteration` launches the kernel
+for CUDA tensors and runs :func:`fused_pair_iteration_reference` for CPU
+tensors; there is no fallback.
 """
 
 from __future__ import annotations
@@ -41,10 +44,12 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from cytvdn_tpu_torch import ops
 from cytvdn_tpu_torch.config import BCMode
 from cytvdn_tpu_torch.kernels import build
 from cytvdn_tpu_torch.kernels.fused import (
     _TY,
+    _check,
     _check_state,
     _launch_args,
     _work_items,
@@ -53,16 +58,18 @@ from cytvdn_tpu_torch.kernels.fused import (
 
 Tensor = torch.Tensor
 
-#: the full cooperative grid per (device, ndim, fista), read once from the
-#: device's occupancy, so the order of the partial sums depends only on the
-#: shape and the device
-_GRID: Dict[Tuple[int, int, bool], int] = {}
+#: the full cooperative grid per (device, ndim, fista, ref), read once from
+#: the device's occupancy (the ``REF`` instantiation has its own registers),
+#: so the order of the partial sums depends only on the shape and the device
+_GRID: Dict[Tuple[int, int, bool, bool], int] = {}
 
 
-def pair_supported(shape, dtype, bc, isotropic_R=False, isotropic_Q=False) -> bool:
+def pair_supported(shape, dtype, bc, isotropic_R=False, isotropic_Q=False,
+                   with_mse=False) -> bool:
     """Whether the pair kernel covers this configuration: the JAX gate
     (``cytvdn_tpu/kernels/temporal.py::pair_supported``) without its VMEM
-    block plan."""
+    block plan, which is where ``with_mse`` (one more operand) counts
+    there; here the reference cube changes nothing the kernel covers."""
     if dtype != torch.float32 or len(shape) not in (3, 4) or min(shape) < 1:
         return False
     if BCMode(bc) != BCMode.JIA_ZHAO or isotropic_R or isotropic_Q:
@@ -133,28 +140,34 @@ def fused_pair_iteration_reference(
     lam_mu: Tensor,
     *,
     fista: bool,
+    ref: Optional[Tensor] = None,
 ):
     """The plain version of :func:`fused_pair_iteration`: two Jia-Zhao
     iterations of :func:`fused_iteration_reference`, in place, returning
-    ``(recon, accs, ds, bnorm1, dnum1, dden1, bnorm2, dnum2, dden2)``."""
-    sums = []
+    ``(recon, accs, ds, bnorm1, dnum1, dden1, bnorm2, dnum2, dden2)`` and,
+    with ``ref``, ``(sse1, sse2)``: ``ops.sum_square_error`` after each
+    iteration."""
+    sums, sse = [], []
     for rho in (rho1, rho2):
         sums += fused_iteration_reference(
             orig, recon, accs, ds, rho, lambda_inv, lam_mu, fista=fista,
             bc=BCMode.JIA_ZHAO)[3:]
-    return (recon, accs, ds, *sums)
+        if ref is not None:
+            sse.append(ops.sum_square_error(recon, ref))
+    return (recon, accs, ds, *sums, *sse)
 
 
-def cooperative_grid(device: torch.device, ndim: int, fista: bool) -> int:
-    """Blocks of the full cooperative grid of the (ndim, fista) kernel on
-    ``device``: resident blocks per SM times SMs."""
+def cooperative_grid(device: torch.device, ndim: int, fista: bool,
+                     ref: bool = False) -> int:
+    """Blocks of the full cooperative grid of the (ndim, fista, ref) kernel
+    on ``device``: resident blocks per SM times SMs."""
     key = (device.index if device.index is not None
-           else torch.cuda.current_device(), ndim, fista)
+           else torch.cuda.current_device(), ndim, fista, ref)
     if key not in _GRID:
         lib = build.load()
         blocks = ctypes.c_int(0)
         with torch.cuda.device(key[0]):
-            build.check(lib.tv_pair_max_blocks(ndim, int(fista),
+            build.check(lib.tv_pair_max_blocks(ndim, int(fista), int(ref),
                                                ctypes.byref(blocks)))
         _GRID[key] = blocks.value
     return _GRID[key]
@@ -173,6 +186,7 @@ def fused_pair_iteration(
     fista: bool,
     grid: Optional[int] = None,
     strip: Optional[int] = None,
+    ref: Optional[Tensor] = None,
 ):
     """Two full Jia-Zhao TV iterations, updating ``recon``, ``accs`` and
     ``ds`` in place.
@@ -186,11 +200,14 @@ def fused_pair_iteration(
     launch takes the full cooperative grid. A grid above the cooperative
     limit raises. ``strip`` forces the strip width W along axis 1 (the race
     tests and the sweep); by default, and at W ≥ N1, the launch walks whole
-    rows. Neither changes the state.
+    rows. Neither changes the state. ``ref``, a reference cube like
+    ``orig``, runs the kernel's ``REF`` instantiation.
 
     Returns ``(recon, accs, ds, bnorm1, dnum1, dden1, bnorm2, dnum2,
     dden2)`` — the state objects passed in and both iterations' sums as 0-d
-    tensors. ``fused_pair_iteration.launches`` counts kernel launches;
+    tensors — and, with ``ref``, ``(sse1, sse2)``, the sum of squared
+    errors of each iteration's recon against ``ref``.
+    ``fused_pair_iteration.launches`` counts kernel launches;
     ``fused_pair_iteration.calls`` counts every call that passed the checks,
     on the CPU too.
     """
@@ -200,13 +217,16 @@ def fused_pair_iteration(
             f"fused_pair_iteration does not cover shape {tuple(orig.shape)}, "
             f"dtype {orig.dtype} (float32, 3D/4D, N0 >= 4)")
     _check_state(orig, recon, accs, ds, fista)
+    if ref is not None:
+        _check(ref, orig, "ref")
     if strip is not None and int(strip) < 1:
         raise ValueError(f"strip must be >= 1, got {strip}")
     strip = orig.shape[1] if strip is None else min(int(strip), orig.shape[1])
     if orig.device.type == "cpu":
         fused_pair_iteration.calls += 1
         return fused_pair_iteration_reference(
-            orig, recon, accs, ds, rho1, rho2, lambda_inv, lam_mu, fista=fista)
+            orig, recon, accs, ds, rho1, rho2, lambda_inv, lam_mu, fista=fista,
+            ref=ref)
     if orig.device.type != "cuda":
         raise ValueError(f"fused_pair_iteration runs on CUDA or CPU tensors, "
                          f"not {orig.device}")
@@ -222,13 +242,16 @@ def fused_pair_iteration(
                          "< 2**31")
     lib = build.load()
     nblocks = grid if grid is not None else cooperative_grid(
-        orig.device, ndim, fista)
-    partials = torch.empty(6 * nblocks, dtype=torch.float64, device=orig.device)
-    out = torch.empty(6, dtype=orig.dtype, device=orig.device)
+        orig.device, ndim, fista, ref is not None)
+    n_out = 6 if ref is None else 8
+    partials = torch.empty(n_out * nblocks, dtype=torch.float64,
+                           device=orig.device)
+    out = torch.empty(n_out, dtype=orig.dtype, device=orig.device)
     err = lib.tv_pair_iteration_f32(
         orig.data_ptr(), recon.data_ptr(), *bs, *dd,
         lambda_inv.data_ptr(), lam_mu.data_ptr(),
         rho1.data_ptr() if fista else None, rho2.data_ptr() if fista else None,
+        ref.data_ptr() if ref is not None else None,
         partials.data_ptr(), out.data_ptr(), ndim, *dims, strip, int(fista),
         nblocks, stream)
     build.check(err)

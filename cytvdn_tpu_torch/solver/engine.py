@@ -20,19 +20,26 @@ Python loop with the same semantics:
   runs a few one-iteration steps, then ``_RESIDENT_CHUNK`` iterations per
   launch behind a predictive guard (``_run_phase_resident``), and the
   one-iteration loop makes the exact stop;
-- fixed-schedule Jia-Zhao float32 runs advance K iterations per launch
-  through the K-step kernel where ``_resolve_kstep`` picks a depth
-  (``_run_phase_kstep``), then two per launch through the pair kernel
-  (``_run_phase_paired``) where its rows are large enough to pay
-  (``_pairs_pay``), and the one-iteration loop finishes each phase; the
-  state and traces are those of the one-iteration loop.
+- Jia-Zhao float32 runs advance K iterations per launch through the
+  K-step kernel where ``_resolve_kstep`` picks a depth (``_run_phase_kstep``;
+  not with ``calculate_mse``), then two per launch through the pair kernel
+  (``_run_phase_paired``; with ``calculate_mse`` its in-kernel SSE) where
+  its rows are large enough to pay (``_pairs_pay``), and the one-iteration
+  loop finishes each phase; the state and traces are those of the
+  one-iteration loop;
+- with ``stopping_relative_change``, those phases follow a one-iteration
+  prologue and run behind a predictive guard in blocks of
+  ``2 * _STOP_CKPT_PAIRS`` iterations, with one checkpoint of the state per
+  block and one host sync per launch; a guard beaten inside a block
+  discards it (``_run_blocks``), and the one-iteration loop makes the exact
+  stop. Runs whose state and checkpoint exceed ``STOP_CKPT_MAX_BYTES``
+  stay on the one-iteration loop.
 
 State lives in place: ``recon``, the accumulators and the shadow duals are
 allocated once and updated by every iteration (the JAX engine gets the same
 effect from buffer donation).
 
-Not here yet: chunked execution (``state``/``i_stop``/``keep_state``),
-stop-aware pairing and K-stepping, the pair kernel's in-kernel SSE, and
+Not here yet: chunked execution (``state``/``i_stop``/``keep_state``) and
 sharded runs (ROADMAP.md).
 """
 
@@ -153,12 +160,9 @@ def _resolve_temporal(opts: SolverOptions, shape, dtype) -> bool:
     ``cytvdn_tpu``'s ``_resolve_temporal`` (``engine.py:488-543``) decides
     on one device: ``temporal_pairs`` on, a backend other than ``TORCH``
     (the JAX gate needs the fused kernel), no ``fista_restart``, no iso
-    pairs, Jia-Zhao, and :func:`pair_supported`.
-
-    Unlike the JAX gate, runs with ``stopping_relative_change`` or
-    ``calculate_mse`` are refused: stop-aware pairing and the pair kernel's
-    in-kernel SSE are not ported yet (ROADMAP.md), so those runs stay on
-    the exact one-iteration loop. Pairing changes no result: the state is
+    pairs, Jia-Zhao, and :func:`pair_supported` (with ``calculate_mse``,
+    the kernel's reference-cube SSE). Stop-aware runs pair too, behind the
+    guard (:func:`_run_blocks`). Pairing changes no result: the state is
     bitwise that of two one-iteration steps. (What :func:`pair_supported`
     admits, the fused kernel covers too.)"""
     if not opts.temporal_pairs or opts.backend == Backend.TORCH:
@@ -167,9 +171,8 @@ def _resolve_temporal(opts: SolverOptions, shape, dtype) -> bool:
         return False
     if opts.bc_mode != BCMode.JIA_ZHAO:
         return False
-    if opts.stopping_relative_change is not None or opts.calculate_mse:
-        return False
-    return pair_supported(shape, dtype, opts.bc_mode)
+    return pair_supported(shape, dtype, opts.bc_mode,
+                          with_mse=opts.calculate_mse)
 
 
 #: the least bytes of one array's axis-0 slab (a row of the pair kernel's
@@ -202,34 +205,56 @@ def _run_phase_paired(
     tk_ratios: Tensor,
     lambda_inv: Tensor,
     lam_mu: Tensor,
+    opts: SolverOptions,
+    reference_data: Optional[Tensor],
 ) -> None:
     """Advance ``st`` two iterations per pair-kernel launch, for
     ``floor((i_bound - i) / 2)`` pairs, recording both iterations' trace
     entries as the one-iteration loop would (``cytvdn_tpu``'s
-    ``_run_phase_paired``, ``engine.py:897-1146``, without its stop-aware
-    blocks). The caller's :func:`_run_phase` finishes an odd remainder.
-    Nothing here waits for the device."""
-    while st.i + 2 <= i_bound:
-        i = st.i
-        rho1, rho2 = (tk_ratios[i], tk_ratios[i + 1]) if fista else (None, None)
-        _, _, _, bn1, dn1, dd1, bn2, dn2, dd2 = fused_pair_iteration(
+    ``_run_phase_paired``, ``engine.py:897-1183``); with ``calculate_mse``
+    the launch takes the reference cube and records both iterations' SSE.
+    The caller's :func:`_run_phase` finishes an odd remainder. Without
+    ``stopping_relative_change`` nothing here waits for the device; with
+    it the pairs run behind a guard of horizon 4 in checkpointed blocks
+    (:func:`_run_blocks`)."""
+    ref = reference_data if opts.calculate_mse else None
+
+    def launch(i):
+        rho1, rho2 = (tk_ratios[i], tk_ratios[i + 1]) if fista \
+            else (None, None)
+        out = fused_pair_iteration(
             orig, st.recon, st.accs, st.ds if fista else None, rho1, rho2,
-            lambda_inv, lam_mu, fista=fista)
-        st.b_norm[i] = bn1
-        st.b_norm[i + 1] = bn2
-        st.delta[i] = dn1 / dd1
-        st.delta[i + 1] = dn2 / dd2
-        st.i = i + 2
+            lambda_inv, lam_mu, fista=fista, ref=ref)
+        st.b_norm[i] = out[3]
+        st.b_norm[i + 1] = out[6]
+        deltas = torch.stack((out[4] / out[5], out[7] / out[8]))
+        st.delta[i:i + 2] = deltas
+        if ref is not None:
+            # the one-iteration loop records the SSE after iteration i at
+            # i + 1
+            st.mse[i + 1] = out[9]
+            st.mse[i + 2] = out[10]
+        return deltas
+
+    if opts.stopping_relative_change is not None:
+        _run_blocks(fista, i_bound, st, orig, tk_ratios, lambda_inv, lam_mu,
+                    opts, reference_data, 2, 4, launch)
+        return
+    while st.i + 2 <= i_bound:
+        launch(st.i)
+        st.i += 2
 
 
 def _resolve_kstep(opts: SolverOptions, shape, dtype, fista: bool) -> int:
     """The K-step depth of a phase, or 0 to leave it to the pairs, as
     ``cytvdn_tpu``'s ``_resolve_kstep`` (``engine.py:546-570``) decides on
     one device: ``temporal_kstep`` on, the pair gate
-    (:func:`_resolve_temporal`, which also refuses stop and MSE runs in
-    the port), and :func:`best_kstep` with ``temporal_k``. It depends on
+    (:func:`_resolve_temporal`), no ``calculate_mse`` (the K-step kernel
+    has no SSE), and :func:`best_kstep` with ``temporal_k``. It depends on
     the shape, dtype and options only, never on the device."""
-    if not opts.temporal_kstep or not _resolve_temporal(opts, shape, dtype):
+    if not opts.temporal_kstep or opts.calculate_mse:
+        return 0
+    if not _resolve_temporal(opts, shape, dtype):
         return 0
     return best_kstep(shape, dtype, opts.bc_mode, fista,
                       forced=opts.temporal_k)
@@ -243,23 +268,35 @@ def _run_phase_kstep(
     tk_ratios: Tensor,
     lambda_inv: Tensor,
     lam_mu: Tensor,
+    opts: SolverOptions,
+    reference_data: Optional[Tensor],
     k: int,
 ) -> None:
     """Advance ``st`` K iterations per K-step launch, for
     ``floor((i_bound - i) / k)`` launches, recording the K trace entries
     as the one-iteration loop would (``cytvdn_tpu``'s
-    ``_run_phase_kstep``, ``engine.py:573-667``, without its stop-aware
-    blocks). The pairs and the one-iteration loop finish the remainder.
-    Nothing here waits for the device."""
-    while st.i + k <= i_bound:
-        i = st.i
+    ``_run_phase_kstep``, ``engine.py:573-700``). The pairs and the
+    one-iteration loop finish the remainder. Without
+    ``stopping_relative_change`` nothing here waits for the device; with
+    it the launches run behind a guard of horizon 2K in checkpointed
+    blocks (:func:`_run_blocks`)."""
+    def launch(i):
         _, _, _, bn, dnum, dden = fused_kstep_iteration(
             orig, st.recon, st.accs, st.ds if fista else None,
             tk_ratios[i:i + k] if fista else None, lambda_inv, lam_mu,
             k=k, fista=fista)
+        deltas = dnum / dden
         st.b_norm[i:i + k] = bn
-        st.delta[i:i + k] = dnum / dden
-        st.i = i + k
+        st.delta[i:i + k] = deltas
+        return deltas
+
+    if opts.stopping_relative_change is not None:
+        _run_blocks(fista, i_bound, st, orig, tk_ratios, lambda_inv, lam_mu,
+                    opts, reference_data, k, 2 * k, launch)
+        return
+    while st.i + k <= i_bound:
+        launch(st.i)
+        st.i += k
 
 
 def _resident_gates(opts: SolverOptions, shape, dtype) -> bool:
@@ -315,17 +352,22 @@ def _history_bound(st: _PhaseState, i_bound: int) -> int:
     return min(i_bound, i if hist else i + 2)
 
 
-def _guard_allows(d1: float, d2: float, stopping: float) -> bool:
-    """The predictive guard of a chunk (``engine.py:834-848``), in float32
-    as there: the last two deltas are positive and ``d1·r^(2T)`` with
-    ``r = clip(d1/d2, 0, 1)`` stays at or above the threshold, so the
-    threshold is not expected to be crossed within the next chunk."""
+def _guard_allows(d1: float, d2: float, stopping: float,
+                  horizon: int) -> bool:
+    """The predictive guard of a launch (``engine.py:834-848`` for a
+    whole-run chunk, ``:617-625`` for a K-step launch, ``:959-975`` for a
+    pair), in float32 as there: the last two deltas are positive and
+    ``d1·r^horizon`` with ``r = clip(d1/d2, 0, 1)`` stays at or above the
+    threshold, so the threshold is not expected to be crossed within the
+    next launch. The horizon is twice the launch's iterations (the decay
+    rate doubling in log terms): 2T for a chunk, 2K for a K-step launch, 4
+    for a pair."""
     d1, d2 = np.float32(d1), np.float32(d2)
     if not (d1 > 0 and d2 > 0):
         return False
     r = np.float32(min(max(d1 / d2, np.float32(0)), np.float32(1)))
-    # r ** (2T) by repeated squaring, as lax.integer_pow computes it
-    p, n = None, 2 * _RESIDENT_CHUNK
+    # r ** horizon by repeated squaring, as lax.integer_pow computes it
+    p, n = None, horizon
     while n:
         if n & 1:
             p = r if p is None else np.float32(p * r)
@@ -333,6 +375,70 @@ def _guard_allows(d1: float, d2: float, stopping: float) -> bool:
         if n:
             r = np.float32(r * r)
     return bool(np.float32(d1 * p) >= np.float32(stopping))
+
+
+#: pairs per block of a stop-aware phase (``engine.py:766``): the state is
+#: checkpointed once per block of ``2 * _STOP_CKPT_PAIRS`` iterations, and
+#: a beaten guard sends at most that many iterations back to the next
+#: phases
+_STOP_CKPT_PAIRS = 16
+
+
+def _run_blocks(fista, i_bound, st, orig, tk_ratios, lambda_inv, lam_mu,
+                opts, reference_data, k, horizon, launch) -> None:
+    """The stop-aware loop of the whole-run chunk (``k`` = T), K-step
+    (``k`` = K) and pair (``k`` = 2) phases, as ``cytvdn_tpu``'s
+    ``_run_phase_kstep`` and ``_run_phase_paired`` run it
+    (``engine.py:588-700, 920-949, 1148-1183``): ``launch(i)`` advances the
+    state ``k`` iterations from ``i``, records their traces and returns
+    their deltas on the device.
+
+    Launches run where :func:`_guard_allows` (horizon ``horizon``) says the
+    threshold is not crossed within the launch, in blocks of
+    ``2 * _STOP_CKPT_PAIRS`` iterations: before a block's first launch,
+    recon, the accumulators [, the shadow duals] and the traces are copied
+    into buffers allocated once per phase. After each launch one host read
+    of its deltas: a crossing at the last latches ``done``, so the run ends
+    at the converging iteration; a crossing at an earlier one (the guard
+    beaten) restores the block's checkpoint, leaves ``st.i`` where the
+    block began and ends the phase, so the next phases (at the last, the
+    one-iteration loop) redo those iterations with their exact stop.
+
+    Where the guard refuses, one exact one-iteration step runs (and closes
+    the block) and the guard is asked again, until fewer than ``k``
+    iterations are left: the fast early decay of a run would otherwise end
+    the launches before its slow tail, where they pay. (The JAX engine
+    hands over to the next phase at the first refusal.) The state and
+    traces are bitwise those of the one-iteration loop in every case."""
+    stopping = opts.stopping_relative_change
+    if st.done or st.i < 2 or st.i + k > i_bound:
+        return
+    d2, d1 = st.delta[st.i - 2:st.i].tolist()
+    live = [st.recon, *st.accs] + (list(st.ds) if fista else []) \
+        + [st.b_norm, st.delta] + ([st.mse] if st.mse is not None else [])
+    ckpt = [torch.empty_like(x) for x in live]
+    start = limit = st.i
+    while st.i + k <= i_bound and not st.done:
+        i = st.i
+        if not _guard_allows(d1, d2, stopping, horizon):
+            _run_phase(fista, i + 1, st, orig, tk_ratios, lambda_inv, lam_mu,
+                       opts, reference_data)
+            d2, d1 = d1, st.delta[i].item()
+            limit = st.i
+            continue
+        if i >= limit:
+            for c, x in zip(ckpt, live):
+                c.copy_(x)
+            start, limit = i, i + 2 * _STOP_CKPT_PAIRS
+        host = launch(i).cpu()  # the launch's one host sync
+        if bool((host[:k - 1] < stopping).any()):
+            for c, x in zip(ckpt, live):
+                x.copy_(c)
+            st.i = start
+            return
+        st.i = i + k
+        st.done = bool(host[k - 1] < stopping)
+        d2, d1 = host[-2:].tolist()
 
 
 def _run_phase_resident(
@@ -348,58 +454,53 @@ def _run_phase_resident(
 ) -> None:
     """Advance a stop-aware phase ``_RESIDENT_CHUNK`` iterations per
     whole-run launch (``cytvdn_tpu``'s ``_run_phase_resident``,
-    ``engine.py:792-894``) where :func:`_guard_allows` says the threshold
-    is not crossed within the chunk, until fewer than a chunk's iterations
-    are left; the one-iteration loop after it makes the exact stop.
-
-    Where the guard refuses, one exact one-iteration step runs and the
-    guard is asked again. (The JAX engine hands such runs over to its
-    stop-aware pairs at the first refusal; the port has none, and the fast
-    early decay of a run would otherwise end the chunks before its slow
-    tail, where they pay.)
-
-    Before each chunk, recon, the accumulators [and shadow duals] are
-    copied into buffers allocated once per phase (the gate keeps the state
-    small), and the chunk's traces stay in its own outputs. If a delta of
-    the chunk crosses the threshold anyway (the guard beaten), the state is
-    restored from the copy, the traces and ``st.i`` are left as they were
-    and the phase ends here, so the one-iteration loop redoes those
-    iterations: the result is bitwise that of the one-iteration loop in
-    every case. One host sync per chunk (its deltas)."""
+    ``engine.py:792-894``) behind the guard of horizon 2T, in the
+    checkpointed blocks of :func:`_run_blocks`; the gate keeps the state,
+    and so its checkpoint, small. (The JAX engine also discards a chunk
+    whose last delta crosses; here that latches the stop, as the K-step and
+    pair phases do. The result is bitwise the same.)"""
     T = _RESIDENT_CHUNK
-    stopping = opts.stopping_relative_change
-    if st.done or st.i < 2 or st.i + T > i_bound:
-        return
-    d2, d1 = st.delta[st.i - 2:st.i].tolist()
-    state = [st.recon, *st.accs] + (list(st.ds) if fista else [])
-    snapshot = [torch.empty_like(x) for x in state]
     ref = reference_data if opts.calculate_mse else None
-    while st.i + T <= i_bound and not st.done:
-        i = st.i
-        if not _guard_allows(d1, d2, stopping):
-            _run_phase(fista, i + 1, st, orig, tk_ratios, lambda_inv, lam_mu,
-                       opts, reference_data)
-            d2, d1 = d1, st.delta[i].item()
-            continue
-        for s, x in zip(snapshot, state):
-            s.copy_(x)
+
+    def launch(i):
         out = resident_solve(
             orig, st.recon, st.accs, st.ds if fista else None,
             tk_ratios[i:i + T] if fista else None, lambda_inv, lam_mu,
             n_iters=T, fista=fista, bc=int(opts.bc_mode), ref=ref,
             iso_r=opts.isotropic_R, iso_q=opts.isotropic_Q)
         deltas = out[4] / out[5]
-        host = deltas.cpu()  # the chunk's one host sync
-        if bool((host < stopping).any()):
-            for s, x in zip(snapshot, state):
-                x.copy_(s)
-            return
         st.b_norm[i:i + T] = out[3]
         st.delta[i:i + T] = deltas
         if ref is not None:
             st.mse[i + 1:i + T + 1] = out[6]
-        st.i = i + T
-        d2, d1 = host[-2:].tolist()
+        return deltas
+
+    _run_blocks(fista, i_bound, st, orig, tk_ratios, lambda_inv, lam_mu,
+                opts, reference_data, T, 2 * T, launch)
+
+
+#: the most bytes a stop-aware run's state, block checkpoint and reference
+#: cube (:func:`stop_ckpt_bytes`) may take for its K-step and pair phases;
+#: above it the run stays on the one-iteration loop. Config 4 (256²×128²
+#: FISTA) takes 19 cubes of 4 GiB, 76 GiB: its stop run peaked at 76.008
+#: GiB (``torch.cuda.max_memory_allocated``) of the card's 79.179 GiB
+#: (``chip_smoke.py`` phase 5; NVIDIA H100 80GB HBM3, 700 W). A reference
+#: cube more (80 GiB) does not fit.
+STOP_CKPT_MAX_BYTES = 76 * 2**30
+
+
+def stop_ckpt_bytes(opts: SolverOptions, shape, dtype) -> int:
+    """Device bytes of a stop-aware temporal run: the state (orig, recon,
+    n accumulators [, n shadow duals]), its block checkpoint (recon, n
+    accumulators [, n shadow duals]) [, the reference cube]. It depends on
+    the shape, dtype and options only."""
+    n = len(shape)
+    per_state = 1 + n + (n if opts.iterations_fista else 0)
+    cubes = 1 + 2 * per_state + int(opts.calculate_mse)
+    vox = 1
+    for e in shape:
+        vox *= e
+    return cubes * vox * dtype.itemsize
 
 
 def _run_phases(
@@ -412,30 +513,38 @@ def _run_phases(
     reference_data: Optional[Tensor],
 ) -> None:
     """The FISTA phase, then the unaccelerated one, each as: the
-    one-iteration prologue and the whole-run chunks of a stop-aware run,
-    K-step launches, pairs (where :func:`_pairs_pay`), and the
-    one-iteration loop for the rest (``engine.py:1498-1580``)."""
+    one-iteration prologue of a stop-aware run (where it has whole-run
+    chunks or temporal phases), the whole-run chunks, K-step launches,
+    pairs (where :func:`_pairs_pay`), and the one-iteration loop for the
+    rest (``engine.py:1498-1580``). A stop-aware run takes the K-step and
+    pair phases only where :func:`stop_ckpt_bytes` is within
+    :data:`STOP_CKPT_MAX_BYTES`."""
     n_f, n_u = opts.iterations_fista, opts.iterations_unacc
     n_total = n_f + n_u
     shape, dtype = tuple(orig.shape), orig.dtype
-    paired = _resolve_temporal(opts, shape, dtype) and _pairs_pay(shape, dtype)
-    chunks = opts.stopping_relative_change is not None and \
+    stopping = opts.stopping_relative_change
+    temporal = _resolve_temporal(opts, shape, dtype) and (
+        stopping is None
+        or stop_ckpt_bytes(opts, shape, dtype) <= STOP_CKPT_MAX_BYTES)
+    paired = temporal and _pairs_pay(shape, dtype)
+    chunks = stopping is not None and \
         _resolve_resident_chunks(opts, shape, dtype)
     for fista, i_bound, n in ((True, n_f, n_f), (False, n_total, n_u)):
         if not n:
             continue
-        if chunks:
+        if stopping is not None and (temporal or chunks):
             _run_phase(fista, _history_bound(st, i_bound), st, orig,
                        tk_ratios, lambda_inv, lam_mu, opts, reference_data)
+        if chunks:
             _run_phase_resident(fista, i_bound, st, orig, tk_ratios,
                                 lambda_inv, lam_mu, opts, reference_data)
-        k = _resolve_kstep(opts, shape, dtype, fista)
+        k = _resolve_kstep(opts, shape, dtype, fista) if temporal else 0
         if k:
             _run_phase_kstep(fista, i_bound, st, orig, tk_ratios, lambda_inv,
-                             lam_mu, k)
+                             lam_mu, opts, reference_data, k)
         if paired:
             _run_phase_paired(fista, i_bound, st, orig, tk_ratios, lambda_inv,
-                              lam_mu)
+                              lam_mu, opts, reference_data)
         _run_phase(fista, i_bound, st, orig, tk_ratios, lambda_inv, lam_mu,
                    opts, reference_data)
         if fista:

@@ -87,33 +87,38 @@ def model_seconds(shape, fista: bool, backend: str, bandwidth: float,
     return trav * _voxels(shape) * itemsize / bandwidth
 
 
-def launch_bytes(shape, fista: bool, itemsize: int = 4) -> int:
+def launch_bytes(shape, fista: bool, itemsize: int = 4,
+                 ref: bool = False) -> int:
     """Bytes one launch of any of the port's kernels (one, two or K
     iterations) must move: each input read once (orig, recon, n
-    accumulators [, n shadow duals]) and each output written once (recon,
-    n accumulators [, n shadow duals]), i.e. 4n+3 (FISTA) or 2n+3 cube
-    traversals."""
-    return traversals_per_iteration(len(shape), fista, "fused") \
-        * _voxels(shape) * itemsize
+    accumulators [, n shadow duals] [, the reference cube]) and each output
+    written once (recon, n accumulators [, n shadow duals]), i.e. 4n+3
+    (FISTA) or 2n+3 cube traversals, one more with a reference cube."""
+    trav = traversals_per_iteration(len(shape), fista, "fused") + int(ref)
+    return trav * _voxels(shape) * itemsize
 
 
-def launch_operations(shape, fista: bool, iterations: int) -> int:
+def launch_operations(shape, fista: bool, iterations: int,
+                      ref: bool = False) -> int:
     """Arithmetic operations of ``iterations`` TV iterations: per voxel and
     axis the dual update (difference, add, max, min, abs, sum; FISTA adds
     subtract, multiply, add) and the divergence (subtract, multiply, add),
     then per voxel the reconstruction (subtract) and its two sums (subtract,
-    two abs, two adds)."""
+    two abs, two adds) [, and against a reference cube its squared error
+    (subtract, multiply, add)]."""
     n = len(shape)
-    per_voxel = n * ((9 if fista else 6) + 3) + 6
+    per_voxel = n * ((9 if fista else 6) + 3) + 6 + (3 if ref else 0)
     return per_voxel * _voxels(shape) * iterations
 
 
 def launch_bound_seconds(shape, fista: bool, iterations: int,
-                         bandwidth: float, flops: float):
+                         bandwidth: float, flops: float, ref: bool = False):
     """The least time one launch could take on a card with ``bandwidth``
     bytes/s and ``flops`` operations/s: the larger of :func:`launch_bytes`
     over the bandwidth and :func:`launch_operations` over the rate, and
-    which of the two it is (``"bytes"`` or ``"operations"``)."""
-    t_bytes = launch_bytes(shape, fista) / bandwidth
-    t_ops = launch_operations(shape, fista, iterations) / flops
+    which of the two it is (``"bytes"`` or ``"operations"``). ``ref``: the
+    launch also reads a reference cube and sums each iteration's squared
+    error against it (the pair kernel's MSE launch)."""
+    t_bytes = launch_bytes(shape, fista, ref=ref) / bandwidth
+    t_ops = launch_operations(shape, fista, iterations, ref=ref) / flops
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -5,7 +5,9 @@ bitwise against two launches of the one-iteration kernel, the K-step
 kernel against K launches of it and (K even) K/2 pair launches, and both
 against themselves at forced grid sizes (the race check of their in-place
 schedules), the pair kernel also at forced axis-1 strip widths, the K-step
-kernel also at its tile edges. The
+kernel also at its tile edges, the pair kernel also with a reference
+cube (its SSE). Stop-aware runs through the K-step and pair kernels equal
+the one-iteration loop. The
 whole-run kernel is held bitwise against its plain version and against T
 launches of the one-iteration kernel, at forced grid sizes too.
 
@@ -247,6 +249,89 @@ def test_pair_kernel_repeats_exactly():
     assert torch.equal(a[1], b[1])
     for x, y in zip(a[0], b[0]):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fista", [True, False])
+@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=str)
+def test_pair_kernel_with_ref_bitwise_equals_plain(shape, fista):
+    """With a reference cube (the REF instantiation): the plain pair's
+    state bitwise and its eight sums per pair (both SSEs among them) within
+    rtol 1e-5, at the full grid and at forced grids of 1 and 7 blocks. The
+    launch without a reference cube gives the same state and six sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    args = _jz_state(shape, fista, seed=4)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ref = torch.randn(shape, generator=gen, device="cuda") * 0.5 + 2.0
+    want = _pairs(ttemporal.fused_pair_iteration_reference, *args, fista,
+                  ref=ref)
+    assert want[1].numel() == 16
+    full = ttemporal.cooperative_grid(torch.device("cuda"), len(shape), fista,
+                                      True)
+    for g in (None, 1, 7, full):
+        ks, ksum = _pairs(ttemporal.fused_pair_iteration, *args, fista,
+                          grid=g, ref=ref)
+        for a, b in zip(ks, want[0]):
+            assert torch.equal(a, b), (g, (a - b).abs().max().item())
+        torch.testing.assert_close(ksum, want[1], rtol=1e-5, atol=0)
+    plain, psum = _pairs(ttemporal.fused_pair_iteration, *args, fista)
+    for a, b in zip(plain, want[0]):
+        assert torch.equal(a, b)
+    keep = [j for j in range(16) if j % 8 < 6]
+    torch.testing.assert_close(psum, want[1][keep], rtol=1e-5, atol=0)
+
+
+def _stop_threshold(delta, stop_at):
+    """A threshold between the deltas of iterations ``stop_at - 1`` and
+    ``stop_at`` of a fixed run's trace."""
+    d = delta.double().cpu()
+    assert 0 < d[stop_at] < d[stop_at - 1]
+    return float((d[stop_at] * min(d[stop_at - 1], d[stop_at] * 4)).sqrt())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guard", ["real", "always"])
+@pytest.mark.parametrize("mse", [False, True])
+def test_stop_aware_run_solver_equals_k1_loop(monkeypatch, guard, mse):
+    """A stop-aware hybrid run on the card through K=8 launches and pairs
+    (with ``calculate_mse``: pairs with the reference cube) equals the
+    one-iteration loop bitwise in recon and stop, the traces within rtol
+    1e-5; with a guard that always allows, blocks are discarded and
+    redone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from cytvdn_tpu_torch.config import SolverOptions
+    from cytvdn_tpu_torch.solver import engine
+
+    monkeypatch.setattr(engine, "PAIR_MIN_ROW_BYTES", 0)
+    shape = (16, 9, 10, 64)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    orig = torch.randn(shape, generator=gen, device="cuda") * 0.5 + 2.0
+    ref = torch.randn(shape, generator=gen, device="cuda") * 0.1 + 2.0 \
+        if mse else None
+    li = torch.full((4,), 32.0, device="cuda")
+    lm = torch.full((4,), 1 / 32, device="cuda")
+    base = dict(ndim=4, iterations_fista=12, iterations_unacc=40,
+                calculate_mse=mse, vmem_resident=False)
+    probe = engine.run_solver(orig, li, lm, SolverOptions(
+        **base, temporal_pairs=False), reference_data=ref)
+    stop = dict(stopping_relative_change=_stop_threshold(probe["delta"], 40))
+    want = engine.run_solver(orig, li, lm, SolverOptions(
+        **base, **stop, temporal_pairs=False), reference_data=ref)
+    if guard == "always":
+        monkeypatch.setattr(engine, "_guard_allows", lambda *a: True)
+    counters = (tkstep.fused_kstep_iteration, ttemporal.fused_pair_iteration)
+    before = [c.launches for c in counters]
+    got = engine.run_solver(orig, li, lm, SolverOptions(**base, **stop),
+                            reference_data=ref)
+    ks, pairs = (c.launches - b for c, b in zip(counters, before))
+    assert ks + pairs > 0 and (ks == 0) == mse
+    assert got["iterations_run"] == want["iterations_run"] == 41
+    assert got["early_stopped"] and want["early_stopped"]
+    assert torch.equal(got["recon"], want["recon"])
+    for key in ("b_norm", "delta") + (("mse",) if mse else ()):
+        torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=0)
 
 
 # K-step kernel: N0 = 2K and 2K+1 (stages where only some of the 2K row

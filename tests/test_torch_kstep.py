@@ -192,6 +192,65 @@ def test_solver_kstep_matches_jax_kstep_solver(monkeypatch, iters, tk, split):
     _close(got["delta"].numpy(), want["delta"], rtol=1e-4, atol=0)
 
 
+def _stopping(cube, li, lm, iters, stop_at):
+    """A threshold between the deltas of iterations ``stop_at - 1`` and
+    ``stop_at`` of the JAX engine's one-iteration run (the rule of
+    tests/test_temporal.py::_stop_case), so the stop lands mid-run."""
+    probe = jengine.run_solver(
+        jnp.asarray(cube), jnp.asarray(li), jnp.asarray(lm),
+        JOptions(ndim=cube.ndim, iterations_fista=iters[0],
+                 iterations_unacc=iters[1], backend=JBackend.PALLAS,
+                 vmem_resident=False, temporal_pairs=False))
+    d = np.asarray(probe["delta"])
+    assert d[stop_at] > 0 and d[stop_at] < d[stop_at - 1], d
+    return float(np.sqrt(d[stop_at] * min(d[stop_at - 1], d[stop_at] * 4)))
+
+
+@pytest.mark.parametrize("iters,stop_at,tk", [
+    ((48, 0), 40, 3),      # stop mid-FISTA, forced K=3
+    ((0, 48), 40, 4),      # unaccelerated, forced K=4
+    ((48, 0), 40, None),   # the default depth, K=8
+    ((10, 40), 41, None),  # hybrid, the stop in the second phase
+], ids=str)
+def test_stop_aware_kstep_matches_jax(monkeypatch, iters, stop_at, tk):
+    """Stop-aware runs through the K-step kernel against the JAX engine's
+    stop-aware K-step run (tests/test_kstep.py::
+    test_stop_aware_kstep_matches_unblocked): the same stop, recon and
+    traces. The launches split as a two-step prologue per phase, K-steps
+    behind the 2K-horizon guard, one-iteration steps where it refuses, and
+    the exact stop; every launch's iterations are kept (no guard beat).
+    (The stops lie late enough in the run for the guard to let K-steps
+    run.)"""
+    # pairs take what the K-steps leave, as in the JAX engine: the port's
+    # row-size rule is lifted
+    monkeypatch.setattr(tengine, "PAIR_MIN_ROW_BYTES", 0)
+    shape = (16, 6, 64)
+    cube = _state(shape, False, seed=3)[0]
+    li = np.full(3, 16.0, np.float32)
+    lm = np.full(3, 1 / 16.0, np.float32)
+    stopping = _stopping(cube, li, lm, iters, stop_at)
+    base = dict(ndim=3, iterations_fista=iters[0], iterations_unacc=iters[1],
+                stopping_relative_change=stopping, temporal_k=tk,
+                vmem_resident=False)
+    want = jengine.run_solver(jnp.asarray(cube), jnp.asarray(li),
+                              jnp.asarray(lm),
+                              JOptions(**base, backend=JBackend.PALLAS))
+    counters = (tkstep.fused_kstep_iteration, ttemporal.fused_pair_iteration,
+                tfused.fused_iteration)
+    before = [c.calls for c in counters]
+    got = tengine.run_solver(torch.from_numpy(cube), torch.from_numpy(li),
+                             torch.from_numpy(lm), TOptions(**base))
+    ks, pairs, k1 = (c.calls - b for c, b in zip(counters, before))
+    k = tk or 8
+    assert ks > 0
+    assert got["iterations_run"] == int(want["iterations_run"]) == stop_at + 1
+    assert got["iterations_run"] == k * ks + 2 * pairs + k1
+    assert got["early_stopped"] == bool(want["early_stopped"]) is True
+    _close(got["recon"].numpy(), want["recon"])
+    _close(got["b_norm"].numpy(), want["b_norm"], rtol=1e-5, atol=0)
+    _close(got["delta"].numpy(), want["delta"], rtol=1e-4, atol=0)
+
+
 def _gate_variants():
     """(ndim, jax options, port options) for the K-step gate: the knob
     off, a forced K=2, MSE, each non-Jia-Zhao BC, iso pairs, adaptive
@@ -233,17 +292,18 @@ def test_kstep_gate_matches_jax(ndim, jkw, tkw):
 
 
 def test_kstep_gate_port_rules(monkeypatch):
-    """What the port decides on its own: stop runs stay on the exact K=1
-    loop in this slice (the JAX engine K-steps them), a forced depth with
-    no compiled kernel raises, and config 1 (64x64x512) gets a depth."""
+    """What the port decides on its own: stop runs get the JAX engine's
+    depth (their K-steps run behind the guard), a forced depth with no
+    compiled kernel raises, and config 1 (64x64x512) gets a depth."""
     shape = (16, 6, 64)
     base = dict(ndim=3, iterations_fista=8, iterations_unacc=0)
     stop = dict(stopping_relative_change=1e-6)
-    assert jengine._resolve_kstep(
+    want = jengine._resolve_kstep(
         JOptions(**base, backend=JBackend.PALLAS, **stop), shape,
-        jnp.float32, None, True) >= 3
+        jnp.float32, None, True)
+    assert want >= 3
     assert tengine._resolve_kstep(TOptions(**base, **stop), shape,
-                                  torch.float32, True) == 0
+                                  torch.float32, True) == want
     for k in (5, 7, 9, 16):
         with pytest.raises(ValueError, match="compiled for K"):
             tengine._resolve_kstep(TOptions(**base, temporal_k=k), shape,
@@ -267,17 +327,21 @@ def test_kstep_gate_port_rules(monkeypatch):
     assert tkstep.best_kstep((5, 6, 64), torch.float32, 2, True) == 0
     assert tkstep.best_kstep((16, 6, 64), torch.float64, 2, True) == 0
     assert tkstep.best_kstep((16, 6, 64), torch.float32, 0, True) == 0
-    # stop runs through denoise3D make no K-step call (with the whole-run
-    # kernel off, which would take this small cube)
+    # stop runs through denoise3D K-step after their two-step prologue
+    # (with the whole-run kernel off, which would take this small cube): 8
+    # iterations leave 6, fewer than K, and 10 leave one launch
     from cytvdn_tpu_torch import denoise3D
 
     monkeypatch.setattr(tengine, "_resolve_resident", lambda *a: False)
 
     calls = tkstep.fused_kstep_iteration.calls
     cube = _state(shape, False, seed=6)[0]
-    denoise3D(cube, np.full(3, 1.0, np.float32), iterations=8, FISTA=True,
-              stopping_relative_change=1e-9, quiet=True, device="cpu")
-    assert tkstep.fused_kstep_iteration.calls == calls
+    for n, launches in ((8, 0), (10, 1)):
+        denoise3D(cube, np.full(3, 1.0, np.float32), iterations=n,
+                  FISTA=True, stopping_relative_change=1e-9, quiet=True,
+                  device="cpu")
+        assert tkstep.fused_kstep_iteration.calls == calls + launches
+        calls += launches
     denoise3D(cube, np.full(3, 1.0, np.float32), iterations=8, FISTA=True,
               quiet=True, device="cpu")
     assert tkstep.fused_kstep_iteration.calls == calls + 1

@@ -274,16 +274,32 @@ def test_resident_chunk_bails_exactly_on_guard_beat():
 
 
 def test_guard_matches_jax_prediction():
-    """The host guard in float32 against the JAX predicate's arithmetic."""
+    """The host guard in float32 against the JAX predicates' arithmetic at
+    the engine's horizons: 2T = 32 for a whole-run chunk, 2K = 16 for a
+    K=8 launch (``d1 * r ** h``, repeated squaring) and 4 for a pair, where
+    the JAX paired loop multiplies ``d1 * r * r * r * r`` in turn."""
     T = tengine._RESIDENT_CHUNK
-    for d1, d2, thr in ((0.5, 0.5, 0.4), (1e-3, 2e-3, 1e-12),
-                        (1e-3, 2e-3, 1e-9), (0.9, 0.91, 0.6), (0.0, 0.1, 0.0),
-                        (0.1, 0.0, 0.0), (2e-3, 1e-3, 1e-3)):
-        r = jnp.clip(jnp.float32(d1) / jnp.float32(d2 if d2 > 0 else 1.0),
-                     0.0, 1.0)
-        want = bool(d1 > 0 and d2 > 0 and
-                    jnp.float32(d1) * r ** (2 * T) >= jnp.float32(thr))
-        assert tengine._guard_allows(d1, d2, thr) == want, (d1, d2, thr)
+    cases = ((0.5, 0.5, 0.4), (1e-3, 2e-3, 1e-12), (1e-3, 2e-3, 1e-9),
+             (0.9, 0.91, 0.6), (0.0, 0.1, 0.0), (0.1, 0.0, 0.0),
+             (2e-3, 1e-3, 1e-3), (0.02, 0.021, 0.0163), (0.02, 0.021, 0.0165),
+             (0.02, 0.021, 0.009), (0.3, 0.5, 0.04), (0.3, 0.5, 0.0002))
+    allowed = {}
+    for horizon in (4, 16, 2 * T):
+        for d1, d2, thr in cases:
+            r = jnp.clip(jnp.float32(d1) / jnp.float32(d2 if d2 > 0 else 1.0),
+                         0.0, 1.0)
+            want = bool(d1 > 0 and d2 > 0 and
+                        jnp.float32(d1) * r ** horizon >= jnp.float32(thr))
+            if horizon == 4:
+                pair = bool(d1 > 0 and d2 > 0 and
+                            jnp.float32(d1) * r * r * r * r
+                            >= jnp.float32(thr))
+                assert pair == want, (d1, d2, thr)
+            got = tengine._guard_allows(d1, d2, thr, horizon)
+            assert got == want, (d1, d2, thr, horizon)
+            allowed[horizon] = allowed.get(horizon, 0) + got
+    # a longer horizon never allows more, and these cases tell them apart
+    assert allowed[4] > allowed[16] > allowed[2 * T] > 0
 
 
 def _gate_variants():

@@ -113,6 +113,54 @@ def test_pair_matches_pallas_pair(monkeypatch, shape, fista, budget, cap):
     _close(got_sums, want_sums, rtol=SUM_RTOL, atol=0)
 
 
+# (shape, fista): 3D and 4D, FISTA and unaccelerated, for the reference
+# cube's SSE
+REF_CASES = [((6, 4, 6, 16), True), ((6, 4, 6, 16), False),
+             ((8, 6, 64), True), ((8, 6, 64), False)]
+
+
+@pytest.mark.parametrize("shape,fista", REF_CASES, ids=str)
+def test_pair_with_ref_matches_pallas_pair(shape, fista):
+    """With a reference cube, two pairs of the port (its plain version on
+    the CPU) against the JAX pair kernel with ``ref`` in interpret mode:
+    the state, the six sums and both iterations' SSE of each pair."""
+    orig, recon, accs, ds, li, lm = _state(shape, fista, seed=sum(shape) + 1)
+    ref = (np.random.default_rng(31).standard_normal(shape) * 0.5
+           + 2.0).astype(np.float32)
+
+    r, a = jnp.asarray(recon), tuple(jnp.asarray(x) for x in accs)
+    d = tuple(jnp.asarray(x) for x in ds) if fista else None
+    want_sums = []
+    for i in (0, 2):
+        out = T.fused_pair_iteration(
+            jnp.asarray(orig), r, a, d, jnp.float32(RHOS[i]),
+            jnp.float32(RHOS[i + 1]), jnp.asarray(li), jnp.asarray(lm),
+            fista=fista, interpret=True, ref=jnp.asarray(ref))
+        assert len(out) == 11
+        r, a, d = out[:3]
+        want_sums += [float(x) for x in out[3:]]
+
+    t = torch.from_numpy
+    o, tr = t(orig), t(recon.copy())
+    ta = [t(x.copy()) for x in accs]
+    td = [t(x.copy()) for x in ds] if fista else None
+    got_sums = []
+    for i in (0, 2):
+        out = ttemporal.fused_pair_iteration(
+            o, tr, ta, td, torch.tensor(RHOS[i]), torch.tensor(RHOS[i + 1]),
+            t(li), t(lm), fista=fista, ref=t(ref))
+        assert len(out) == 11
+        got_sums += [float(x) for x in out[3:]]
+
+    _close(tr.numpy(), r)
+    for k in range(len(shape)):
+        _close(ta[k].numpy(), a[k])
+        if fista:
+            _close(td[k].numpy(), d[k])
+    assert all(x > 0 for x in got_sums[6:8] + got_sums[14:16])
+    _close(got_sums, want_sums, rtol=SUM_RTOL, atol=0)
+
+
 def test_pair_resumes_jax_engine_state():
     """A JAX paired FISTA run stopped after 4 iterations (keep_state) and
     resumed for two pairs in the port equals the 8-iteration JAX run."""
@@ -181,6 +229,89 @@ def test_solver_pairs_match_jax_paired_solver(monkeypatch, iters):
         _close(got[key].numpy(), want[key])
 
 
+@pytest.mark.parametrize("iters", [(8, 0), (0, 8), (5, 4)])
+def test_solver_mse_pairs_match_jax_paired_mse(monkeypatch, iters):
+    """Per-iteration MSE runs in pairs with the reference cube (the K-step
+    phase refuses them), against the JAX engine's paired MSE run
+    (tests/test_temporal.py::test_pair_mse_matches_k1): every pair launch
+    takes ``ref``, and recon, the traces and the MSE trace agree."""
+    monkeypatch.setattr(tengine, "PAIR_MIN_ROW_BYTES", 0)
+    shape = (8, 6, 4, 16)
+    cube, _, _, _, _, _ = _state(shape, True, seed=11)
+    ref = np.random.default_rng(12).standard_normal(shape).astype(np.float32)
+    li = np.full(4, 32.0, np.float32)
+    lm = np.full(4, 1 / 32.0, np.float32)
+    base = dict(ndim=4, iterations_fista=iters[0], iterations_unacc=iters[1],
+                calculate_mse=True, vmem_resident=False)
+    want = jengine.run_solver(jnp.asarray(cube), jnp.asarray(li),
+                              jnp.asarray(lm),
+                              JOptions(**base, backend=JBackend.PALLAS),
+                              reference_data=jnp.asarray(ref))
+    real = ttemporal.fused_pair_iteration
+    refs = []
+
+    def spy(*a, **kw):
+        refs.append(kw.get("ref") is not None)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tengine, "fused_pair_iteration", spy)
+    got = tengine.run_solver(torch.from_numpy(cube), torch.from_numpy(li),
+                             torch.from_numpy(lm), TOptions(**base),
+                             reference_data=torch.from_numpy(ref))
+    assert refs == [True] * (iters[0] // 2 + iters[1] // 2)
+    assert got["iterations_run"] == sum(iters)
+    _close(got["recon"].numpy(), want["recon"])
+    _close(got["b_norm"].numpy(), want["b_norm"], rtol=1e-5, atol=0)
+    _close(got["delta"].numpy(), want["delta"], rtol=1e-4, atol=0)
+    assert got["mse"].shape == (sum(iters) + 1,)
+    assert bool((got["mse"] > 0).all())
+    _close(got["mse"].numpy(), want["mse"], rtol=1e-5, atol=0)
+
+
+def _stopping(cube, li, lm, iters, stop_at):
+    """A threshold between the deltas of iterations ``stop_at - 1`` and
+    ``stop_at`` of the JAX engine's one-iteration run (the rule of
+    tests/test_temporal.py::_stop_case), so the stop lands mid-run."""
+    probe = jengine.run_solver(
+        jnp.asarray(cube), jnp.asarray(li), jnp.asarray(lm),
+        JOptions(ndim=cube.ndim, iterations_fista=iters[0],
+                 iterations_unacc=iters[1], backend=JBackend.PALLAS,
+                 vmem_resident=False, temporal_pairs=False))
+    d = np.asarray(probe["delta"])
+    assert d[stop_at] > 0 and d[stop_at] < d[stop_at - 1], d
+    return float(np.sqrt(d[stop_at] * min(d[stop_at - 1], d[stop_at] * 4)))
+
+
+@pytest.mark.parametrize("iters,stop_at", [((16, 0), 9), ((0, 16), 10),
+                                           ((6, 12), 13)])
+def test_stop_aware_pairs_match_jax(monkeypatch, iters, stop_at):
+    """Stop-aware runs in pairs (the K-step kernel off) against the JAX
+    engine's stop-aware paired run (tests/test_temporal.py::
+    test_stop_aware_pairs_match_unpaired): the same stop, recon and
+    traces; the pairs ran."""
+    monkeypatch.setattr(tengine, "PAIR_MIN_ROW_BYTES", 0)
+    shape = (7, 12, 6, 16)
+    cube, _, _, _, _, _ = _state(shape, True, seed=3)
+    li = np.full(4, 32.0, np.float32)
+    lm = np.full(4, 1 / 32.0, np.float32)
+    stopping = _stopping(cube, li, lm, iters, stop_at)
+    base = dict(ndim=4, iterations_fista=iters[0], iterations_unacc=iters[1],
+                stopping_relative_change=stopping, temporal_kstep=False,
+                vmem_resident=False)
+    want = jengine.run_solver(jnp.asarray(cube), jnp.asarray(li),
+                              jnp.asarray(lm),
+                              JOptions(**base, backend=JBackend.PALLAS))
+    pairs = ttemporal.fused_pair_iteration.calls
+    got = tengine.run_solver(torch.from_numpy(cube), torch.from_numpy(li),
+                             torch.from_numpy(lm), TOptions(**base))
+    assert ttemporal.fused_pair_iteration.calls > pairs
+    assert got["iterations_run"] == int(want["iterations_run"]) == stop_at + 1
+    assert got["early_stopped"] == bool(want["early_stopped"]) is True
+    _close(got["recon"].numpy(), want["recon"])
+    _close(got["b_norm"].numpy(), want["b_norm"], rtol=1e-5, atol=0)
+    _close(got["delta"].numpy(), want["delta"], rtol=1e-4, atol=0)
+
+
 def _gate_variants():
     """(jax options, port options) pairs for the gate: BCs, iso, restart,
     the knob off, and the plain backends."""
@@ -214,29 +345,50 @@ def test_gate_matches_jax(ndim, jkw, tkw):
 
 
 def test_gate_refuses_stop_and_mse_in_this_slice(monkeypatch):
-    """The JAX engine pairs stop-aware and MSE runs; the port sends them to
-    the exact one-iteration loop until stop-aware pairing and the in-kernel
-    SSE are ported."""
+    """The gates on stop and MSE options, against the JAX engine's on one
+    device: both pair stop-aware and MSE runs (``_resolve_temporal``), and
+    the K-step gate refuses MSE runs only (``_resolve_kstep``; the K-step
+    kernel has no SSE). Through ``denoise4D`` a stop run and an MSE run now
+    pair, the MSE run with its reference cube."""
     shape = (6, 6, 8, 16)
     base = dict(ndim=4, iterations_fista=4, iterations_unacc=0)
-    assert tengine._resolve_temporal(TOptions(**base), shape, torch.float32)
-    for kw in (dict(stopping_relative_change=0.01), dict(calculate_mse=True)):
-        assert jengine._resolve_temporal(
-            JOptions(**base, backend=JBackend.PALLAS, **kw), shape,
-            jnp.float32, None)
-        assert not tengine._resolve_temporal(TOptions(**base, **kw), shape,
-                                             torch.float32)
+    for kw in (dict(), dict(stopping_relative_change=0.01),
+               dict(calculate_mse=True),
+               dict(stopping_relative_change=0.01, calculate_mse=True)):
+        jopts = JOptions(**base, backend=JBackend.PALLAS, **kw)
+        topts = TOptions(**base, **kw)
+        want = jengine._resolve_temporal(jopts, shape, jnp.float32, None)
+        assert want
+        assert tengine._resolve_temporal(topts, shape, torch.float32) == want
+        for fista in (True, False):
+            want_k = jengine._resolve_kstep(jopts, shape, jnp.float32, None,
+                                            fista)
+            assert (want_k == 0) == ("calculate_mse" in kw), kw
+            assert tengine._resolve_kstep(topts, shape, torch.float32,
+                                          fista) == want_k, kw
     from cytvdn_tpu_torch import denoise4D
 
-    # the whole-run kernel off, which would take this small cube
+    # the whole-run kernel off, which would take this small cube, and the
+    # port's row-size rule lifted, which keeps these rows off the pairs
     monkeypatch.setattr(tengine, "_resolve_resident", lambda *a: False)
-    pairs = ttemporal.fused_pair_iteration.calls
+    monkeypatch.setattr(tengine, "PAIR_MIN_ROW_BYTES", 0)
+    real = ttemporal.fused_pair_iteration
+    refs = []
+
+    def spy(*a, **kw):
+        refs.append(kw.get("ref") is not None)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tengine, "fused_pair_iteration", spy)
     cube, _, _, _, _, _ = _state(shape, False, seed=5)
-    denoise4D(cube, np.full(4, 1.0, np.float32), iterations=4, quiet=True,
+    # 10 iterations: a two-step prologue, two K=3 launches, then one pair
+    denoise4D(cube, np.full(4, 1.0, np.float32), iterations=10, quiet=True,
               stopping_relative_change=1e-9, device="cpu")
+    assert refs == [False]
+    refs.clear()
     denoise4D(cube, np.full(4, 1.0, np.float32), iterations=4, quiet=True,
               reference_data=cube, device="cpu")
-    assert ttemporal.fused_pair_iteration.calls == pairs
+    assert refs == [True, True]
 
 
 def test_pair_wrapper_rejects_what_the_kernel_does_not_take():
