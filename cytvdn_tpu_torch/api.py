@@ -21,7 +21,14 @@ from cytvdn_tpu_torch.config import (
     SolverOptions,
     normalize_iterations,
 )
-from cytvdn_tpu_torch.solver.engine import run_solver
+from cytvdn_tpu_torch.solver.engine import (
+    _resolve_resident,
+    _resolve_resident_chunks,
+    holds_block_checkpoint,
+    run_solver,
+    vmem_fallback,
+)
+from cytvdn_tpu_torch.utils.state import to_numpy
 
 __all__ = ["denoise3D", "denoise4D", "denoise"]
 
@@ -34,12 +41,41 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def _run(datacube, lambda_inv, lam_mu, opts: SolverOptions, reference_data,
-         device):
+         device, progress: bool = False):
+    """The solve on ``device``, inside the device-memory fallback ladder
+    (:func:`vmem_fallback`), as ``cytvdn_tpu.api._run`` runs it.
+
+    ``progress`` routes the run through chunked execution so a live
+    per-iteration bar can be shown (the reference's tqdm operator
+    experience, cyTVDN.py:147-152). The state is bitwise that of the
+    unchunked run; the b_norm/delta traces can differ in the last ulp
+    where a chunk boundary changes which kernel sums an iteration. The
+    plain run's inputs go to the device once; a retry starts from them
+    untouched.
+    """
     device = torch.device(device)
+    if progress:
+        from cytvdn_tpu_torch.utils.checkpoint import (
+            progress_chunk_size,
+            run_chunked,
+        )
+        from cytvdn_tpu_torch.utils.log import make_progress
+
+        n_total = opts.total_iterations
+        cb = make_progress("TV denoising")
+        try:
+            return vmem_fallback(opts, lambda o: run_chunked(
+                datacube, lambda_inv, lam_mu, o,
+                checkpoint_path=None,
+                checkpoint_every=progress_chunk_size(n_total),
+                reference_data=reference_data, progress=cb, device=device))
+        finally:
+            cb.close()
+    orig = _to_device(datacube, device)
+    li = _to_device(lambda_inv, device)
+    lm = _to_device(lam_mu, device)
     ref = _to_device(reference_data, device) if opts.calculate_mse else None
-    return run_solver(_to_device(datacube, device),
-                      _to_device(lambda_inv, device),
-                      _to_device(lam_mu, device), opts, ref)
+    return vmem_fallback(opts, lambda o: run_solver(orig, li, lm, o, ref))
 
 
 def _validate_and_derive(datacube, mu, lam, ndim, default_lam_div):
@@ -67,13 +103,23 @@ def _validate_and_derive(datacube, mu, lam, ndim, default_lam_div):
     return datacube, mu, lam, lambda_inv, lam_mu
 
 
-def _resolve_progress(progress: Optional[bool]) -> None:
-    """The live progress bar rides chunked execution, which is not ported
-    yet: an explicit ``progress=True`` raises, the default is no bar."""
-    if progress:
-        raise NotImplementedError(
-            "progress=True needs chunked execution, which is not ported to "
-            "cytvdn_tpu_torch yet (ROADMAP.md Queue 1 item 5)")
+def _resolve_progress(progress: Optional[bool], quiet: bool,
+                      opts: SolverOptions, datacube) -> bool:
+    """Default: live progress for long, non-quiet runs (the reference's
+    always-on tqdm, without a host sync per iteration), as
+    ``cytvdn_tpu.api._resolve_progress`` decides: off when quiet, below
+    500 iterations, or where the whole-run kernel serves the run (one
+    launch, or its chunks), since such a run ends in well under a second
+    and chunking would only add launches. An explicit ``progress`` wins."""
+    if progress is not None:
+        return bool(progress)
+    if quiet or opts.total_iterations < 500:
+        return False
+    shape = datacube.shape
+    dtype = torch.from_numpy(np.empty(0, datacube.dtype)).dtype
+    if _resolve_resident(opts, shape, dtype):
+        return False
+    return not _resolve_resident_chunks(opts, shape, dtype)
 
 
 def _bc_note(bc_mode: int) -> None:
@@ -90,14 +136,23 @@ def _bc_note(bc_mode: int) -> None:
         )
 
 
-def _memory_note(datacube, fista, ndim, quiet):
+def _memory_note(datacube, opts: SolverOptions, quiet):
+    """The device memory the run holds: orig, recon, the accumulators [,
+    the shadow duals], and a stop run's block checkpoint of recon, the
+    accumulators [and shadow duals] where its phases keep one
+    (``holds_block_checkpoint``)."""
     if quiet:
         return
-    n_arrays = 2 + (2 * ndim if fista else ndim)  # orig+recon+accs(+ds)
+    fista, ndim = opts.iterations_fista > 0, opts.ndim
+    state = 1 + (2 * ndim if fista else ndim)  # recon+accs(+ds)
+    dtype = torch.from_numpy(np.empty(0, datacube.dtype)).dtype
+    ckpt = holds_block_checkpoint(opts, datacube.shape, dtype)
+    n_arrays = 1 + state + (state if ckpt else 0)
     gib = datacube.nbytes * n_arrays / 2**30
     label = "FISTA accelerated" if fista else "Unaccelerated"
+    extra = " (a stop run's block checkpoint included)" if ckpt else ""
     print(
-        f"{label} TV denoising holds {n_arrays} cube-size arrays "
+        f"{label} TV denoising holds {n_arrays} cube-size arrays{extra} "
         f"≈ {gib:.2f} GiB of device memory"
     )
 
@@ -105,11 +160,11 @@ def _memory_note(datacube, fista, ndim, quiet):
 def _finish(result, calculate_mse):
     """Device→host transfer and the reference's return contract
     (reference cyTVDN.py:244-247)."""
-    recon = result["recon"].cpu().numpy()
-    b_norm = result["b_norm"].cpu().numpy()
-    delta = result["delta"].cpu().numpy()
+    recon = to_numpy(result["recon"])
+    b_norm = to_numpy(result["b_norm"])
+    delta = to_numpy(result["delta"])
     if calculate_mse:
-        return recon, b_norm, delta, result["mse"].cpu().numpy()
+        return recon, b_norm, delta, to_numpy(result["mse"])
     return recon, b_norm, delta
 
 
@@ -137,8 +192,14 @@ def denoise4D(
     Signature, defaults and return contract match the reference
     (reference cyTVDN/cyTVDN.py:19-247): returns
     ``(recon, b_norm, delta_recon[, MSE])``. ``device`` selects where the
-    run happens. ``progress=True`` and ``lossy_duals=True`` are not ported
-    yet and raise ``NotImplementedError``.
+    run happens.
+
+    ``progress``: live per-iteration progress (tqdm when available, log
+    lines otherwise) via chunked execution (state bitwise that of the
+    unchunked run; traces to the last ulp); defaults to on for long
+    non-quiet runs that the whole-run kernel does not serve.
+    ``lossy_duals=True`` is not ported yet and raises
+    ``NotImplementedError``.
     """
     datacube, mu, lam, lambda_inv, lam_mu = _validate_and_derive(
         datacube, mu, lam, 4, 32.0
@@ -170,10 +231,10 @@ def denoise4D(
         fista_restart=fista_restart,
         lossy_duals=lossy_duals,
     )
-    _resolve_progress(progress)
-    _memory_note(datacube, n_f > 0, 4, quiet)
+    _memory_note(datacube, opts, quiet)
 
-    result = _run(datacube, lambda_inv, lam_mu, opts, reference_data, device)
+    result = _run(datacube, lambda_inv, lam_mu, opts, reference_data, device,
+                  _resolve_progress(progress, quiet, opts, datacube))
     return _finish(result, calculate_mse)
 
 
@@ -198,7 +259,8 @@ def denoise3D(
 
     Signature, defaults (``iterations=7500``, ``FISTA=False``) and return
     contract match the reference (reference cyTVDN/cyTVDN.py:250-435).
-    ``device`` selects where the run happens.
+    ``device`` selects where the run happens; ``progress`` as in
+    :func:`denoise4D`.
     """
     datacube, mu, lam, lambda_inv, lam_mu = _validate_and_derive(
         datacube, mu, lam, 3, 16.0
@@ -225,10 +287,10 @@ def denoise3D(
         fista_restart=fista_restart,
         lossy_duals=lossy_duals,
     )
-    _resolve_progress(progress)
-    _memory_note(datacube, n_f > 0, 3, quiet)
+    _memory_note(datacube, opts, quiet)
 
-    result = _run(datacube, lambda_inv, lam_mu, opts, reference_data, device)
+    result = _run(datacube, lambda_inv, lam_mu, opts, reference_data, device,
+                  _resolve_progress(progress, quiet, opts, datacube))
     return _finish(result, calculate_mse)
 
 

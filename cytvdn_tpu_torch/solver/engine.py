@@ -1,16 +1,17 @@
 """The iteration engine on one device: a host loop over fused iterations.
 
 Counterpart of ``cytvdn_tpu/solver/engine.py`` on its main path
-(``run_solver``, ``_run_phase``, ``iteration_step``, ``fista_tk_ratios``).
-The JAX engine runs each phase as a ``lax.while_loop`` with the stop check
-in its predicate; PyTorch has no device-side loop, so each phase here is a
-Python loop with the same semantics:
+(``run_solver``, ``_run_phase``, ``iteration_step``, ``fista_tk_ratios``,
+``vmem_fallback``). The JAX engine runs each phase as a
+``lax.while_loop`` with the stop check in its predicate; PyTorch has no
+device-side loop, so each phase here is a Python loop with the same
+semantics:
 
 - the traces are recorded before the stop check, so the converging
   iteration is included (reference cyTVDN/cyTVDN.py:182-194);
 - without ``stopping_relative_change`` the loop never waits for the device;
   with it, each iteration makes one ``.item()`` host sync to read the stop
-  flag (a device-side flag is ROADMAP.md Queue 1 item 3's open part);
+  flag (a device-side flag is ROADMAP.md Queue 1 S3);
 - hybrid runs run FISTA first, then always the unaccelerated phase, which
   shares the accumulators, with the stop latch reset between the phases.
 
@@ -19,7 +20,8 @@ Python loop with the same semantics:
   ``stopping_relative_change`` (``_resolve_resident_chunks``) each phase
   runs a few one-iteration steps, then ``_RESIDENT_CHUNK`` iterations per
   launch behind a predictive guard (``_run_phase_resident``), and the
-  one-iteration loop makes the exact stop;
+  one-iteration loop makes the exact stop; capped or resumed runs without
+  a stop take one whole-run launch per phase and chunk;
 - Jia-Zhao float32 runs advance K iterations per launch through the
   K-step kernel where ``_resolve_kstep`` picks a depth (``_run_phase_kstep``;
   not with ``calculate_mse``), then two per launch through the pair kernel
@@ -36,17 +38,21 @@ Python loop with the same semantics:
   stay on the one-iteration loop.
 
 State lives in place: ``recon``, the accumulators and the shadow duals are
-allocated once and updated by every iteration (the JAX engine gets the same
-effect from buffer donation).
+allocated once (or handed in with ``state=``) and updated by every
+iteration (the JAX engine gets the same effect from buffer donation).
+``i_stop`` caps a call's global iteration index, so a run can go in
+chunks (``utils/checkpoint.py``). :func:`vmem_fallback` retries a run that
+exhausts device memory with the multi-iteration kernels turned off in turn.
 
-Not here yet: chunked execution (``state``/``i_stop``/``keep_state``) and
-sharded runs (ROADMAP.md).
+Not here yet: sharded runs (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+import gc
+import warnings
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -333,10 +339,12 @@ _RESIDENT_CHUNK = 16
 
 
 def _resolve_resident_chunks(opts: SolverOptions, shape, dtype) -> bool:
-    """Whether the phases may advance ``_RESIDENT_CHUNK`` iterations per
-    whole-run launch (``engine.py:769-789``): a schedule of at least one
-    chunk and :func:`_resident_gates`. The port runs chunks in stop-aware
-    runs only (capped and resumed runs are not ported)."""
+    """Whether the phases may advance through whole-run launches with the
+    state handed in (``engine.py:769-789``): a schedule of at least
+    ``_RESIDENT_CHUNK`` iterations and :func:`_resident_gates`. They serve
+    (a) stop-aware runs, ``_RESIDENT_CHUNK`` iterations per launch behind
+    the guard, and (b) capped or resumed runs (``i_stop``, ``state``),
+    one launch per phase and call."""
     if opts.total_iterations < _RESIDENT_CHUNK:
         return False
     return _resident_gates(opts, shape, dtype)
@@ -452,29 +460,39 @@ def _run_phase_resident(
     opts: SolverOptions,
     reference_data: Optional[Tensor],
 ) -> None:
-    """Advance a stop-aware phase ``_RESIDENT_CHUNK`` iterations per
-    whole-run launch (``cytvdn_tpu``'s ``_run_phase_resident``,
-    ``engine.py:792-894``) behind the guard of horizon 2T, in the
-    checkpointed blocks of :func:`_run_blocks`; the gate keeps the state,
-    and so its checkpoint, small. (The JAX engine also discards a chunk
-    whose last delta crosses; here that latches the stop, as the K-step and
-    pair phases do. The result is bitwise the same.)"""
-    T = _RESIDENT_CHUNK
+    """Advance a phase through whole-run launches on the state in place
+    (``cytvdn_tpu``'s ``_run_phase_resident``, ``engine.py:792-894``).
+
+    A stop-aware phase goes ``_RESIDENT_CHUNK`` iterations per launch
+    behind the guard of horizon 2T, in the checkpointed blocks of
+    :func:`_run_blocks`; the gate keeps the state, and so its checkpoint,
+    small. (The JAX engine also discards a chunk whose last delta crosses;
+    here that latches the stop, as the K-step and pair phases do. The
+    result is bitwise the same.) A capped run without a stop makes one
+    launch up to ``i_bound``: the kernel takes any iteration count, where
+    the JAX engine's jit needs fixed 16-iteration launches and finishes
+    the remainder in pairs and single steps."""
     ref = reference_data if opts.calculate_mse else None
 
-    def launch(i):
+    def launch(i, n=_RESIDENT_CHUNK):
         out = resident_solve(
             orig, st.recon, st.accs, st.ds if fista else None,
-            tk_ratios[i:i + T] if fista else None, lambda_inv, lam_mu,
-            n_iters=T, fista=fista, bc=int(opts.bc_mode), ref=ref,
+            tk_ratios[i:i + n] if fista else None, lambda_inv, lam_mu,
+            n_iters=n, fista=fista, bc=int(opts.bc_mode), ref=ref,
             iso_r=opts.isotropic_R, iso_q=opts.isotropic_Q)
         deltas = out[4] / out[5]
-        st.b_norm[i:i + T] = out[3]
-        st.delta[i:i + T] = deltas
+        st.b_norm[i:i + n] = out[3]
+        st.delta[i:i + n] = deltas
         if ref is not None:
-            st.mse[i + 1:i + T + 1] = out[6]
+            st.mse[i + 1:i + n + 1] = out[6]
         return deltas
 
+    if opts.stopping_relative_change is None:
+        if st.i < i_bound:
+            launch(st.i, i_bound - st.i)
+            st.i = i_bound
+        return
+    T = _RESIDENT_CHUNK
     _run_blocks(fista, i_bound, st, orig, tk_ratios, lambda_inv, lam_mu,
                 opts, reference_data, T, 2 * T, launch)
 
@@ -503,6 +521,34 @@ def stop_ckpt_bytes(opts: SolverOptions, shape, dtype) -> int:
     return cubes * vox * dtype.itemsize
 
 
+def _plan(opts: SolverOptions, shape, dtype):
+    """The phases' kernels: ``(temporal, paired, chunks)``. ``temporal``:
+    the K-step and pair phases may run (:func:`_resolve_temporal`; a
+    stop-aware run only where :func:`stop_ckpt_bytes` is within
+    :data:`STOP_CKPT_MAX_BYTES`); ``paired``: the pairs pay
+    (:func:`_pairs_pay`); ``chunks``: whole-run launches on the state
+    (:func:`_resolve_resident_chunks`). Shape, dtype and options only."""
+    temporal = _resolve_temporal(opts, shape, dtype) and (
+        opts.stopping_relative_change is None
+        or stop_ckpt_bytes(opts, shape, dtype) <= STOP_CKPT_MAX_BYTES)
+    paired = temporal and _pairs_pay(shape, dtype)
+    chunks = _resolve_resident_chunks(opts, shape, dtype)
+    return temporal, paired, chunks
+
+
+def holds_block_checkpoint(opts: SolverOptions, shape, dtype) -> bool:
+    """Whether a run keeps a block checkpoint of its state (recon, the
+    accumulators [, the shadow duals]) beside it: a stop-aware run whose
+    phases go through :func:`_run_blocks`."""
+    if opts.stopping_relative_change is None:
+        return False
+    temporal, paired, chunks = _plan(opts, shape, dtype)
+    return chunks or paired or temporal and any(
+        _resolve_kstep(opts, shape, dtype, f)
+        for f, n in ((True, opts.iterations_fista),
+                     (False, opts.iterations_unacc)) if n)
+
+
 def _run_phases(
     st: _PhaseState,
     orig: Tensor,
@@ -511,50 +557,56 @@ def _run_phases(
     lam_mu: Tensor,
     opts: SolverOptions,
     reference_data: Optional[Tensor],
+    i_stop: int,
+    keep_state: bool,
 ) -> None:
-    """The FISTA phase, then the unaccelerated one, each as: the
-    one-iteration prologue of a stop-aware run (where it has whole-run
-    chunks or temporal phases), the whole-run chunks, K-step launches,
-    pairs (where :func:`_pairs_pay`), and the one-iteration loop for the
-    rest (``engine.py:1498-1580``). A stop-aware run takes the K-step and
-    pair phases only where :func:`stop_ckpt_bytes` is within
-    :data:`STOP_CKPT_MAX_BYTES`."""
+    """The FISTA phase, then the unaccelerated one, each up to ``i_stop``
+    as: the one-iteration prologue of a stop-aware run (where it has
+    whole-run chunks or temporal phases), whole-run launches (stop-aware
+    chunks, or one per phase in a capped run), K-step launches, pairs
+    (where :func:`_pairs_pay`), and the one-iteration loop for the rest
+    (``engine.py:1498-1596``); no launch crosses the cap. A FISTA phase
+    cut short by the cap (not by the stop) keeps its index, and the
+    unaccelerated phase waits for the next call. With ``keep_state`` the
+    shadow duals stay in ``st``, frozen through the unaccelerated phase,
+    as the JAX engine returns them."""
     n_f, n_u = opts.iterations_fista, opts.iterations_unacc
     n_total = n_f + n_u
     shape, dtype = tuple(orig.shape), orig.dtype
     stopping = opts.stopping_relative_change
-    temporal = _resolve_temporal(opts, shape, dtype) and (
-        stopping is None
-        or stop_ckpt_bytes(opts, shape, dtype) <= STOP_CKPT_MAX_BYTES)
-    paired = temporal and _pairs_pay(shape, dtype)
-    chunks = stopping is not None and \
-        _resolve_resident_chunks(opts, shape, dtype)
+    temporal, paired, chunks = _plan(opts, shape, dtype)
+    ds = st.ds
     for fista, i_bound, n in ((True, n_f, n_f), (False, n_total, n_u)):
         if not n:
             continue
+        bound = min(i_bound, i_stop)
         if stopping is not None and (temporal or chunks):
-            _run_phase(fista, _history_bound(st, i_bound), st, orig,
+            _run_phase(fista, _history_bound(st, bound), st, orig,
                        tk_ratios, lambda_inv, lam_mu, opts, reference_data)
         if chunks:
-            _run_phase_resident(fista, i_bound, st, orig, tk_ratios,
+            _run_phase_resident(fista, bound, st, orig, tk_ratios,
                                 lambda_inv, lam_mu, opts, reference_data)
         k = _resolve_kstep(opts, shape, dtype, fista) if temporal else 0
         if k:
-            _run_phase_kstep(fista, i_bound, st, orig, tk_ratios, lambda_inv,
+            _run_phase_kstep(fista, bound, st, orig, tk_ratios, lambda_inv,
                              lam_mu, opts, reference_data, k)
         if paired:
-            _run_phase_paired(fista, i_bound, st, orig, tk_ratios, lambda_inv,
+            _run_phase_paired(fista, bound, st, orig, tk_ratios, lambda_inv,
                               lam_mu, opts, reference_data)
-        _run_phase(fista, i_bound, st, orig, tk_ratios, lambda_inv, lam_mu,
+        _run_phase(fista, bound, st, orig, tk_ratios, lambda_inv, lam_mu,
                    opts, reference_data)
         if fista:
             st.ds = None  # the unaccelerated phase carries no shadow duals
+            if not st.done and st.i < n_f:
+                break  # capped mid-FISTA: the next call resumes it
             if n_u:
                 # the second phase starts at its own first index and
                 # ignores the first phase's stop (reference
                 # cyTVDN.py:195-201)
                 st.i = max(st.i, n_f)
                 st.done = False
+    if keep_state:
+        st.ds = ds
 
 
 def run_solver(
@@ -563,6 +615,9 @@ def run_solver(
     lam_mu: Tensor,
     opts: SolverOptions,
     reference_data: Optional[Tensor] = None,
+    state: Optional[Dict[str, Any]] = None,
+    i_stop: Optional[int] = None,
+    keep_state: bool = False,
 ) -> Dict[str, object]:
     """Run the full (possibly hybrid) TV-denoising schedule on ``orig``'s
     device.
@@ -571,12 +626,24 @@ def run_solver(
     the unaccelerated phase *always* follows (even if FISTA stopped early),
     sharing the accumulators; trace entries of skipped iterations stay zero
     (reference cyTVDN.py:100-108, 127-128, 195-201). Where
-    :func:`_resolve_resident` allows, the whole schedule is one launch of
+    :func:`_resolve_resident` allows, a fresh uncapped run is one launch of
     the whole-run kernel; otherwise :func:`_run_phases` runs each phase.
 
+    ``state``/``i_stop``/``keep_state`` run a schedule in chunks
+    (``cytvdn_tpu``'s ``run_solver``, ``engine.py:1302-1327``): ``state``
+    is the dict ``keep_state=True`` returns (``recon``, ``accs``, ``ds``,
+    ``b_norm``, ``delta``, ``mse``, ``i``, ``tk``; tensors on ``orig``'s
+    device, e.g. from ``utils/state.py``), and ``i_stop`` caps the global
+    iteration index. Unlike the JAX engine's functional result, the
+    handed-in tensors are adopted and updated in place: the returned
+    ``recon``, ``accs``, ``ds`` and traces are the objects passed in, and
+    no second copy of the state is made.
+
     Returns a dict with ``recon``, ``b_norm``, ``delta`` [, ``mse``] as
-    tensors on the device, and ``iterations_run`` (int) and
-    ``early_stopped`` (bool).
+    tensors on the device, ``iterations_run`` (int) and ``early_stopped``
+    (bool) [, with ``keep_state``: ``accs``, ``ds`` (empty without a
+    FISTA phase, and after a whole-run hybrid launch), ``i`` (int) and
+    ``tk``].
     """
     if opts.backend == Backend.CUDA and orig.device.type != "cuda":
         raise ValueError(f"backend='cuda' needs CUDA tensors, got {orig.device}")
@@ -585,31 +652,39 @@ def run_solver(
         reference_data = reference_data.to(dtype)
     n_f, n_u = opts.iterations_fista, opts.iterations_unacc
     n_total = n_f + n_u
+    i_stop = n_total if i_stop is None else min(int(i_stop), n_total)
     # schedule computed on the host in float64, stored at the data dtype
     # (reference cyTVDN.py:153-156 passes a Python float into a
     # ``_float``-typed kernel argument)
     tk_ratios = torch.as_tensor(fista_tk_ratios(n_f), dtype=dtype).to(device)
 
-    mse = None
-    if opts.calculate_mse:
-        mse = torch.zeros(n_total + 1, dtype=dtype, device=device)
-        mse[0] = ops.sum_square_error(orig, reference_data)
-    st = _PhaseState(
-        i=0,
-        done=False,
-        recon=orig.clone(),
-        accs=[torch.zeros_like(orig) for _ in range(opts.ndim)],
-        ds=[torch.zeros_like(orig) for _ in range(opts.ndim)] if n_f else None,
-        b_norm=torch.zeros(n_total, dtype=dtype, device=device),
-        delta=torch.zeros(n_total, dtype=dtype, device=device),
-        mse=mse,
-        tk=torch.ones((), dtype=torch.float32, device=device),
-    )
+    if state is not None:
+        st = _adopt(state, orig, opts)
+    else:
+        mse = None
+        if opts.calculate_mse:
+            mse = torch.zeros(n_total + 1, dtype=dtype, device=device)
+            mse[0] = ops.sum_square_error(orig, reference_data)
+        st = _PhaseState(
+            i=0,
+            done=False,
+            recon=orig.clone(),
+            accs=[torch.zeros_like(orig) for _ in range(opts.ndim)],
+            ds=[torch.zeros_like(orig) for _ in range(opts.ndim)]
+            if n_f else None,
+            b_norm=torch.zeros(n_total, dtype=dtype, device=device),
+            delta=torch.zeros(n_total, dtype=dtype, device=device),
+            mse=mse,
+            tk=torch.ones((), dtype=torch.float32, device=device),
+        )
     shape = tuple(orig.shape)
-    if n_total and _resolve_resident(opts, shape, dtype):
+    if (state is None and i_stop >= n_total and n_total
+            and not (keep_state and n_f and n_u)
+            and _resolve_resident(opts, shape, dtype)):
         # the whole schedule in one launch; a hybrid run's unaccelerated
         # iterations are FISTA iterations with momentum 0
-        # (``engine.py:1411-1454``). Nothing waits for the device.
+        # (``engine.py:1411-1454``), so its shadow duals move on and are
+        # not returned. Nothing waits for the device.
         rhos = torch.zeros(n_total, dtype=dtype, device=device)
         rhos[:n_f] = tk_ratios[:n_f]
         out = resident_solve(
@@ -622,9 +697,11 @@ def run_solver(
         if opts.calculate_mse:
             st.mse[1:] = out[6]
         st.i = n_total
+        if n_u:
+            st.ds = None
     else:
         _run_phases(st, orig, tk_ratios, lambda_inv, lam_mu, opts,
-                    reference_data)
+                    reference_data, i_stop, keep_state)
 
     out = {
         "recon": st.recon,
@@ -635,4 +712,86 @@ def run_solver(
     }
     if opts.calculate_mse:
         out["mse"] = st.mse
+    if keep_state:
+        out["accs"] = st.accs
+        out["ds"] = st.ds if st.ds is not None else []
+        out["i"] = st.i
+        out["tk"] = st.tk
     return out
+
+
+def _adopt(state: Dict[str, Any], orig: Tensor,
+           opts: SolverOptions) -> _PhaseState:
+    """A handed-in state as the phases' ``_PhaseState``, its tensors
+    adopted as they are (``engine.py:1458-1467``): the shadow duals only
+    with a FISTA phase, the MSE trace only with ``calculate_mse``."""
+    accs = list(state["accs"])
+    ds = list(state.get("ds") or ()) if opts.iterations_fista else None
+    arrays = [state["recon"], *accs, *(ds or ())]
+    if len(accs) != opts.ndim or (ds is not None and len(ds) != opts.ndim):
+        raise ValueError(f"state holds {len(accs)} accumulators and "
+                         f"{len(ds or ())} shadow duals; a {opts.ndim}D "
+                         f"run needs {opts.ndim} of each it uses")
+    for a in arrays:
+        if a.shape != orig.shape or a.dtype != orig.dtype \
+                or a.device != orig.device:
+            raise ValueError(
+                f"state array {tuple(a.shape)} {a.dtype} on {a.device} does "
+                f"not match orig {tuple(orig.shape)} {orig.dtype} on "
+                f"{orig.device}")
+    return _PhaseState(
+        i=int(state["i"]),
+        done=False,
+        recon=state["recon"],
+        accs=accs,
+        ds=ds,
+        b_norm=state["b_norm"],
+        delta=state["delta"],
+        mse=state["mse"] if opts.calculate_mse else None,
+        tk=torch.as_tensor(state.get("tk", 1.0), dtype=torch.float32,
+                           device=orig.device),
+    )
+
+
+#: the options :func:`vmem_fallback` turns off, in order: each drops a
+#: multi-iteration kernel, and with it the memory its path holds beside the
+#: state (a stop run's block checkpoint)
+_FALLBACK_KNOBS = ("vmem_resident", "temporal_kstep", "temporal_pairs")
+
+
+def vmem_fallback(opts: SolverOptions, call):
+    """Run ``call(opts)``; where it exhausts device memory
+    (``torch.OutOfMemoryError``), turn the next option of
+    :data:`_FALLBACK_KNOBS` that is on off and retry (``cytvdn_tpu``'s ``vmem_fallback``,
+    ``engine.py:1193-1285``, without its pair-strip rung, which is
+    TPU-only). The multi-iteration kernels are throughput choices with
+    results bitwise those of the one-iteration loop, so the worst case is
+    that loop, not a crash: on the H100 a stop run's block checkpoint
+    (:func:`stop_ckpt_bytes`) may not fit beside memory held elsewhere on
+    the card, where the one-iteration loop's state alone does. When no
+    knob is left the error is raised again. Nothing else is caught: a
+    launch error, an illegal address or a build failure propagates.
+
+    The retry starts after the failed attempt's frames, and the state they
+    held, are gone: the ``except`` block has ended, ``gc.collect()`` has run
+    and the allocator's cache is emptied. ``call`` must start from inputs
+    the attempt left untouched (``run_solver`` on a fresh state does)."""
+    attempt = opts
+    while True:
+        try:
+            return call(attempt)
+        except torch.OutOfMemoryError as e:
+            kind = type(e).__name__
+            knob = next((k for k in _FALLBACK_KNOBS if getattr(attempt, k)),
+                        None)
+            if knob is None:
+                raise
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        warnings.warn(
+            f"device memory exhausted while running the solver ({kind}); "
+            f"retrying with {knob}=False (a path that holds less device "
+            f"memory — results are identical, throughput lower)",
+            stacklevel=2)
+        attempt = dataclasses.replace(attempt, **{knob: False})

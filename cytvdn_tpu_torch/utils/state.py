@@ -36,11 +36,15 @@ def state_from_numpy(d: Dict[str, Any], device) -> Dict[str, Any]:
     }
 
 
+def to_numpy(x) -> np.ndarray:
+    """A tensor on any device (or an array-like) as a numpy array on the
+    host."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
 def state_to_numpy(s: Dict[str, Any]) -> Dict[str, Any]:
     """torch state dict → numpy arrays on the host (the JAX layout)."""
-    def n(t):
-        return t.detach().cpu().numpy()
-
+    n = to_numpy
     return {
         "recon": n(s["recon"]),
         "accs": tuple(n(a) for a in s["accs"]),

@@ -708,3 +708,142 @@ def test_resident_kernel_repeats_exactly():
     assert torch.equal(a[1], b[1])
     for x, y in zip(a[0], b[0]):
         assert torch.equal(x, y)
+
+
+# chunked runs on the card (``run_chunked``, ``run_solver``'s ``state`` and
+# ``i_stop``): (name, shape, (n_fista, n_unacc), options, MSE, stop
+# iteration or None, the kernel the path launches, the least chunk that
+# holds a launch of it)
+CHUNK_PATHS = [
+    ("whole-run", (8, 6, 64), (0, 40), {}, False, None, "resident", 1),
+    ("whole-run-mse-hybrid", (6, 4, 6, 16), (12, 9), {}, True, None,
+     "resident", 1),
+    ("kstep", (16, 9, 10, 64), (30, 0), dict(vmem_resident=False), False,
+     None, "kstep", 8),
+    ("pair", (7, 12, 6, 16), (30, 0),
+     dict(vmem_resident=False, temporal_kstep=False), False, None, "pair", 2),
+    ("k1", (16, 9, 10, 64), (12, 9),
+     dict(vmem_resident=False, temporal_pairs=False), False, None, "fused", 1),
+    ("hybrid", (16, 9, 10, 64), (12, 9), dict(vmem_resident=False), False,
+     None, "kstep", 8),
+    ("mse", (16, 9, 10, 64), (20, 7), dict(vmem_resident=False), True, None,
+     "pair", 2),
+    ("stop", (16, 9, 10, 64), (12, 40), dict(vmem_resident=False), False, 40,
+     "kstep", 8),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("every", [1, 3, 7, 25])
+@pytest.mark.parametrize("name,shape,iters,kw,mse,stop_at,kernel,least",
+                         CHUNK_PATHS, ids=[p[0] for p in CHUNK_PATHS])
+def test_chunked_run_solver_equals_unchunked(monkeypatch, name, shape, iters,
+                                             kw, mse, stop_at, kernel, least,
+                                             every):
+    """Each engine path in chunks of 1, 3, 7 and 25 iterations on the card:
+    recon bitwise the unchunked run's and the same stop; the traces within
+    rtol 1e-5 (delta 1e-4), since a chunk boundary may change which kernel
+    sums an iteration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+
+    from cytvdn_tpu_torch.config import SolverOptions
+    from cytvdn_tpu_torch.solver import engine
+    from cytvdn_tpu_torch.utils.checkpoint import run_chunked
+
+    monkeypatch.setattr(engine, "PAIR_MIN_ROW_BYTES", 0)
+    ndim = len(shape)
+    rng = np.random.default_rng(sum(shape))
+    orig = (rng.standard_normal(shape) * 0.5 + 2.0).astype(np.float32)
+    ref = (rng.standard_normal(shape) * 0.1 + 2.0).astype(np.float32) \
+        if mse else None
+    div = 16.0 if ndim == 3 else 32.0
+    li = np.full(ndim, div, np.float32)
+    lm = np.full(ndim, 1 / div, np.float32)
+    to = [torch.from_numpy(x).cuda() for x in (orig, li, lm)]
+    tref = torch.from_numpy(ref).cuda() if mse else None
+    base = dict(ndim=ndim, iterations_fista=iters[0],
+                iterations_unacc=iters[1], calculate_mse=mse, **kw)
+    if stop_at is not None:
+        probe = engine.run_solver(*to, SolverOptions(
+            **base, temporal_pairs=False), reference_data=tref)
+        base["stopping_relative_change"] = _stop_threshold(probe["delta"],
+                                                           stop_at)
+    opts = SolverOptions(**base)
+    want = engine.run_solver(*to, opts, reference_data=tref)
+    counters = {"resident": tres.resident_solve,
+                "kstep": tkstep.fused_kstep_iteration,
+                "pair": ttemporal.fused_pair_iteration,
+                "fused": tfused.fused_iteration}
+    before = counters[kernel].launches
+    got = run_chunked(orig, li, lm, opts, None, every, reference_data=ref,
+                      device="cuda")
+    assert got["iterations_run"] == want["iterations_run"]
+    if stop_at is not None:
+        assert want["iterations_run"] == stop_at + 1
+    assert np.array_equal(got["recon"], want["recon"].cpu().numpy())
+    for key, rtol in (("b_norm", 1e-5), ("delta", 1e-4)) \
+            + ((("mse", 1e-5),) if mse else ()):
+        np.testing.assert_allclose(got[key], want[key].cpu().numpy(),
+                                   rtol=rtol, atol=0, err_msg=key)
+    if every >= least:
+        assert counters[kernel].launches > before
+
+
+@pytest.mark.cuda
+def test_ladder_forced_oom_on_the_card():
+    """A stop run on a card filled so that its state fits and its block
+    checkpoint does not: the K-step phase's checkpoint raises
+    ``torch.OutOfMemoryError``, the ladder turns ``vmem_resident`` and then
+    ``temporal_kstep`` off (2 MiB rows take no pairs), each retry starts at
+    the memory the first attempt started from, and the one-iteration loop
+    stops where the unfilled K=1 run does, with its recon bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import warnings
+
+    from cytvdn_tpu_torch.config import SolverOptions
+    from cytvdn_tpu_torch.solver import engine
+
+    shape = (64, 256, 2048)  # 128 MiB per cube
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    orig = torch.randn(shape, generator=gen, device="cuda") * 0.5 + 2.0
+    li = torch.full((3,), 16.0, device="cuda")
+    lm = torch.full((3,), 1 / 16, device="cuda")
+    base = dict(ndim=3, iterations_fista=0, iterations_unacc=60)
+    probe = engine.run_solver(orig, li, lm, SolverOptions(
+        **base, temporal_pairs=False))
+    opts = SolverOptions(**base, stopping_relative_change=_stop_threshold(
+        probe["delta"], 45))
+    want = engine.run_solver(orig, li, lm, SolverOptions(
+        **base, stopping_relative_change=opts.stopping_relative_change,
+        temporal_pairs=False))
+    want = {k: v.cpu() if torch.is_tensor(v) else v for k, v in want.items()}
+    del probe
+    torch.cuda.empty_cache()
+    cube = orig.numel() * 4
+    free, _ = torch.cuda.mem_get_info()
+    # the state besides orig (recon, 3 accumulators) fits with 256 MiB to
+    # spare; its checkpoint (4 cubes more) does not
+    filler = torch.empty(free - 4 * cube - 256 * 2**20, dtype=torch.uint8,
+                         device="cuda")
+    starts = []
+
+    def call(o):
+        starts.append(torch.cuda.memory_allocated())
+        return engine.run_solver(orig, li, lm, o)
+
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            got = engine.vmem_fallback(opts, call)
+        rungs = [str(w.message).split("retrying with ")[1].split("=")[0]
+                 for w in rec if "device memory exhausted" in str(w.message)]
+        assert rungs == ["vmem_resident", "temporal_kstep"]
+        assert len(starts) == 3 and len(set(starts)) == 1, starts
+        assert got["iterations_run"] == want["iterations_run"] == 46
+        assert torch.equal(got["recon"].cpu(), want["recon"])
+    finally:
+        del filler
+        torch.cuda.empty_cache()

@@ -19,6 +19,8 @@ import cytvdn_tpu_torch.kernels, cytvdn_tpu_torch.kernels.build
 import cytvdn_tpu_torch.kernels.resident
 import cytvdn_tpu_torch.solver, cytvdn_tpu_torch.utils.state
 import cytvdn_tpu_torch.utils.perf
+import cytvdn_tpu_torch.api, cytvdn_tpu_torch.solver.engine
+import cytvdn_tpu_torch.utils.checkpoint, cytvdn_tpu_torch.utils.log
 leaked = {'jax', 'jaxlib', 'cytvdn_tpu'} & {m.split('.')[0] for m in sys.modules}
 assert not leaked, leaked
 """

@@ -145,8 +145,7 @@ def test_validation_errors_match_jax():
         ttv.denoise(np.zeros((3, 3), np.float32), 1.0, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(lossy_duals=True), dict(progress=True),
-                                dict(backend="cpp")])
+@pytest.mark.parametrize("kw", [dict(lossy_duals=True), dict(backend="cpp")])
 def test_not_ported_options_raise(kw):
     cube = _cube((4, 5, 6, 7), 12)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -2,9 +2,9 @@
 ``cytvdn_tpu_torch.solver.engine``): a beaten guard discards the block, the
 block length does not change the result, and the checkpoint's byte rule.
 
-These cases are the port's own: its ``run_solver`` takes no ``state=``, so
-the guard is beaten from a fabricated ``_PhaseState`` (a recorded plateau
-that the real deltas fall far below) or by a guard that always allows.
+These cases are the port's own: the guard is beaten from a fabricated
+``_PhaseState`` (a recorded plateau that the real deltas fall far below)
+or by a guard that always allows.
 Every run is held bitwise against the one-iteration loop: on the CPU the
 kernels' wrappers run their plain versions, which are that loop's
 iterations. JAX is not needed.
