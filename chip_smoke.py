@@ -117,7 +117,16 @@ non-zero — nothing is caught):
    checkpoint cannot be allocated, down its three rungs to the K=1 loop
    (the same stop and recon as phase 5's K=1 loop). Outside this last
    run, a ladder warning is an error;
-7. one JSON line on the kernels (launches on the path that reaches each,
+7. the command line ``cytv-torch`` on the card: config 4 from a .npy
+   file with ``--preset stem4d`` through ``cli.main`` in this process
+   (launches, and the wall time split into load, solve and EMD write),
+   and config 1, a synthetic low-dose EELS cube, from a .dm4 file with
+   ``--preset eels3d`` through ``python -m cytvdn_tpu_torch.cli`` (the
+   stop iteration and launches from its log); each recon bitwise the
+   ``denoise4D``/``denoise3D`` run with the same arguments; ``--shard``
+   and ``--out-of-core`` exit 2 naming their ROADMAP items. Where h5py
+   is missing, the command's load-and-solve step stands in for it;
+8. one JSON line on the kernels (launches on the path that reaches each,
    error, ms, the plain version's ms and the least time the card could
    take), the card's name and power limit, and the ``{"ok": true, ...}``
    line last.
@@ -1666,6 +1675,196 @@ def chunk_phase(smi, cube, cube1, r1, cube3, stop5):
         f"{time.perf_counter() - t_e:.1f} s [{smi}]")
 
 
+def eels_3d(shape, seed, dose=0.5):
+    """A synthetic low-dose EELS spectrum image: Poisson counts of a
+    power-law background with an edge halfway along the energy axis, its
+    amplitude a checkerboard of 16×16 scan tiles (0.29 counts per voxel at
+    the default dose)."""
+    e = np.arange(shape[2], dtype=np.float64)
+    spec = 64.0 / (e + 32.0)
+    half = shape[2] // 2
+    spec[half:] += 0.5 * np.exp(-(e[half:] - half) / 128.0)
+    tiles = ((np.arange(shape[0]) // 16)[:, None]
+             + (np.arange(shape[1]) // 16)[None, :]) % 2
+    lam = dose * (1.0 + 0.5 * tiles)[:, :, None] * spec[None, None, :]
+    return np.random.default_rng(seed).poisson(lam).astype(np.float32)
+
+
+def cli_log_value(pattern, text, what):
+    m = re.search(pattern, text)
+    require(m is not None, f"the command's log has no {what}: {text[-2000:]}")
+    return m.groups()
+
+
+def cli_phase(smi, cube):
+    """Phase 7: the command line ``cytv-torch`` on the card. (a) config 4
+    from a .npy file, ``--preset stem4d``, in this process; (b) config 1,
+    a synthetic EELS cube, from a .dm4 file, ``--preset eels3d``, as a
+    separate process; each recon bitwise the API's run with the same
+    arguments. (c) ``--shard`` and ``--out-of-core`` exit 2, naming their
+    ROADMAP items."""
+    from cytvdn_tpu_torch import cli
+    from cytvdn_tpu_torch.io.dm import write_dm
+
+    try:
+        import h5py  # noqa: F401
+        has_h5py = True
+    except ImportError:
+        has_h5py = False
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cytv_cli_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"phase 7 the command line: h5py "
+            f"{'imports' if has_h5py else 'is missing, so the EMD output cannot be written here: the command load-and-solve step (cli.load_and_solve) runs in place of cli.main'}; "
+            f"{free / 1e9:.1f} GB free in the temporary directory")
+        if has_h5py:
+            from cytvdn_tpu_torch.io.emd import read_emd
+
+        # (a) config 4, in this process
+        npy = os.path.join(tmp, "config4.npy")
+        out = os.path.join(tmp, "config4.emd")
+        t0 = time.perf_counter()
+        np.save(npy, cube)
+        s_save = time.perf_counter() - t0
+        argv = ["-i", npy, "-o", out, "-m", "1.0", "--preset", "stem4d",
+                "-v", "0"]
+        seconds = {}
+        reset_counts()
+        t0 = time.perf_counter()
+        if has_h5py:
+            rc = cli.main(argv, seconds=seconds)
+            wall = time.perf_counter() - t0
+            la = launch_counts()
+            require(rc == 0, f"cytv-torch (config 4) returned {rc}")
+        else:
+            run = cli.load_and_solve(argv)
+            wall = time.perf_counter() - t0
+            la = launch_counts()
+            seconds, got = run.seconds, run.recon
+            del run
+        os.remove(npy)
+        s_read = 0.0
+        if has_h5py:
+            t0 = time.perf_counter()
+            got = read_emd(out)
+            s_read = time.perf_counter() - t0
+            os.remove(out)
+        want4 = expected_launches(SolverOptions(
+            ndim=4, iterations_fista=10, iterations_unacc=0), CFG4)
+        require(la == want4, f"cytv-torch config 4 launches {la}, "
+                             f"expected {want4}")
+        t0 = time.perf_counter()
+        want = denoise4D(cube, np.full(4, 1.0, np.float32), iterations=10,
+                         FISTA=True, BC_mode=2, quiet=True, device="cuda")[0]
+        s_api = time.perf_counter() - t0
+        require(got.shape == CFG4 and got.dtype == np.float32,
+                f"config 4 output {got.shape} {got.dtype}")
+        require(np.array_equal(got, want),
+                "cytv-torch config 4 recon not bitwise denoise4D's")
+        del got, want
+        split = ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
+        log(f"phase 7 (a) cytv-torch --preset stem4d on {CFG4} float32 "
+            f"from .npy ({cube.nbytes / 1e9:.3f} GB), in process: rc 0, "
+            f"recon bitwise denoise4D's with the same arguments; wall "
+            f"{wall:.3f} s = {split} (load maps the file; solve reads it "
+            f"from the page cache and includes the copies to and from the "
+            f"card); denoise4D on the cube in memory {s_api:.3f} s; "
+            f"launches whole-run/K-step/pair/fused {la}; set-up np.save "
+            f"{s_save:.3f} s, EMD read-back {s_read:.3f} s [{smi}]")
+
+        # (b) config 1 from a .dm4 file, as its own process
+        cube_e = eels_3d(CFG1, SEED + 4)
+        dm4 = os.path.join(tmp, "config1.dm4")
+        out1 = os.path.join(tmp, "config1.emd")
+        write_dm(dm4, cube_e, version=4)
+        argv1 = ["-i", dm4, "-o", out1, "-m", "1.0", "--preset", "eels3d",
+                 "-v", "1"]
+        if has_h5py:
+            cmd = [sys.executable, "-m", "cytvdn_tpu_torch.cli", *argv1]
+        else:
+            out1 = os.path.join(tmp, "config1.npy")
+            cmd = [sys.executable, "-c",
+                   "import sys, numpy as np; from cytvdn_tpu_torch import cli; "
+                   "r = cli.load_and_solve(sys.argv[2:]); "
+                   "np.save(sys.argv[1], r.recon)", out1, *argv1]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (root, env.get("PYTHONPATH")) if p)
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                              text=True, timeout=300)
+        s_proc = time.perf_counter() - t0
+        require(proc.returncode == 0,
+                f"cytv-torch (config 1) rc {proc.returncode}: "
+                f"{proc.stderr[-3000:]}")
+        got1 = read_emd(out1) if has_h5py else np.load(out1)
+        n_cli, = cli_log_value(r"; (\d+) iterations; final delta",
+                               proc.stdout, "iteration count")
+        l_cli = tuple(int(x) for x in cli_log_value(
+            r"kernel launches: whole-run (\d+), K-step (\d+), pair (\d+), "
+            r"K=1 (\d+)", proc.stdout, "launch counts"))
+        s_load, = cli_log_value(r"loaded .* in ([0-9.]+)s", proc.stdout,
+                                "load time")
+        s_solve, = cli_log_value(r"denoising took ([0-9.]+)s", proc.stdout,
+                                 "solve time")
+        s_write = (cli_log_value(r"wrote .* in ([0-9.]+)s", proc.stdout,
+                                 "write time")[0] + " s") if has_h5py \
+            else "not run"
+        reset_counts()
+        t0 = time.perf_counter()
+        r1, _, d1 = denoise3D(cube_e, np.full(3, 1.0, np.float32),
+                              iterations=7500, FISTA=False, BC_mode=2,
+                              stopping_relative_change=0.05, quiet=True,
+                              device="cuda")
+        l_api = launch_counts()
+        s_api = time.perf_counter() - t0
+        n_api = int(np.count_nonzero(d1))
+        require(np.array_equal(got1, r1),
+                "cytv-torch config 1 recon not bitwise denoise3D's")
+        require(int(n_cli) == n_api and n_api < 7500,
+                f"config 1 stop: the command ran {n_cli} iterations, "
+                f"denoise3D {n_api}")
+        require(l_cli == l_api, f"config 1 launches: the command {l_cli}, "
+                                f"denoise3D {l_api}")
+        how = "python -m cytvdn_tpu_torch.cli" if has_h5py \
+            else "cli.load_and_solve (no EMD written)"
+        log(f"phase 7 (b) {how} --preset eels3d on {CFG1} float32 "
+            f"(synthetic EELS counts, mean {cube_e.mean():.3f}) from .dm4, "
+            f"its own process: rc "
+            f"0, stop after {n_cli} iterations as denoise3D, recon bitwise "
+            f"denoise3D's; launches whole-run/K-step/pair/fused {l_cli}; "
+            f"the process {s_proc:.3f} s, of which load {s_load} s, solve "
+            f"{s_solve} s, write {s_write}; denoise3D in this process "
+            f"{s_api:.3f} s [{smi}]")
+
+        # (c) the command itself: its help, and what the port cannot run
+        # yet, refused before the input is read
+        for flags, rc_want, item in (
+                (["--help"], 0, None),
+                (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2", "--shard",
+                  "2"], 2, "Queue 1 item 5"),
+                (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2",
+                  "--out-of-core", "2"], 2, "Queue 1 item 4")):
+            proc = subprocess.run(
+                [sys.executable, "-m", "cytvdn_tpu_torch.cli", *flags],
+                cwd=root, env=env, capture_output=True, text=True,
+                timeout=120)
+            said = proc.stderr.strip() if item else proc.stdout.split("\n")[0]
+            require(proc.returncode == rc_want and (
+                f"(ROADMAP.md {item})" in said if item
+                else said.startswith("usage: cytv-torch")),
+                f"{flags}: rc {proc.returncode}, {proc.stdout!r} "
+                f"{proc.stderr!r}")
+            log(f"phase 7 (c) python -m cytvdn_tpu_torch.cli "
+                f"{' '.join(flags[-2:]) if item else flags[0]}: rc "
+                f"{proc.returncode}, {said}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 7 {time.perf_counter() - t_phase:.1f} s")
+
+
 def piecewise_4d(shape, seed):
     """Noisy piecewise-constant 4D cube in float32 on the host: a
     checkerboard of 64×64 scan tiles plus a bright disk on the detector,
@@ -2397,6 +2596,9 @@ def main() -> int:
     t6 = time.perf_counter()
     chunk_phase(smi, cube, cube1, r1, cube3, stop5)
     log(f"phase 6 {time.perf_counter() - t6:.1f} s")
+
+    # phase 7: the command line on the card
+    cli_phase(smi, cube)
 
     # launches: each kernel's count in the run of the path that reaches it
     # (x21: the odd iteration; x20: the pairs; config 1 through run_solver

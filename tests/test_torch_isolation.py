@@ -21,6 +21,9 @@ import cytvdn_tpu_torch.solver, cytvdn_tpu_torch.utils.state
 import cytvdn_tpu_torch.utils.perf
 import cytvdn_tpu_torch.api, cytvdn_tpu_torch.solver.engine
 import cytvdn_tpu_torch.utils.checkpoint, cytvdn_tpu_torch.utils.log
+import cytvdn_tpu_torch.cli, cytvdn_tpu_torch.presets
+import cytvdn_tpu_torch.io, cytvdn_tpu_torch.io.dm, cytvdn_tpu_torch.io.emd
+import cytvdn_tpu_torch.io.loaders
 leaked = {'jax', 'jaxlib', 'cytvdn_tpu'} & {m.split('.')[0] for m in sys.modules}
 assert not leaked, leaked
 """
@@ -32,3 +35,43 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# ``python -m cytvdn_tpu_torch.cli ARGS`` in this interpreter, then the probe
+CLI_PROBE = """
+import runpy, sys
+sys.argv = ["cytv-torch"] + sys.argv[1:]
+try:
+    runpy.run_module("cytvdn_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+leaked = {'jax', 'jaxlib', 'cytvdn_tpu'} & {m.split('.')[0] for m in sys.modules}
+assert not leaked, leaked
+"""
+
+
+@pytest.mark.parametrize("run", ["help", "solve"])
+def test_cli_imports_no_jax(tmp_path, run):
+    """The command, asked for its help or run end to end (on the CPU, a
+    .dm4 input, an EMD output), loads neither JAX nor the JAX package."""
+    import numpy as np
+
+    from cytvdn_tpu_torch.io.dm import write_dm
+
+    if run == "help":
+        args = ["--help"]
+    else:
+        inp = str(tmp_path / "in.dm4")
+        write_dm(inp, np.ones((4, 5, 6), np.float32))
+        args = ["-i", inp, "-o", str(tmp_path / "out.emd"), "-m", "1.0",
+                "-n", "3", "-f", "1", "--device", "cpu"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", CLI_PROBE, *args],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    if run == "help":
+        assert proc.stdout.startswith("usage: cytv-torch")
+    else:
+        assert os.path.exists(str(tmp_path / "out.emd"))
