@@ -124,9 +124,34 @@ non-zero — nothing is caught):
    ``--preset eels3d`` through ``python -m cytvdn_tpu_torch.cli`` (the
    stop iteration and launches from its log); each recon bitwise the
    ``denoise4D``/``denoise3D`` run with the same arguments; ``--shard``
-   and ``--out-of-core`` exit 2 naming their ROADMAP items. Where h5py
-   is missing, the command's load-and-solve step stands in for it;
-8. one JSON line on the kernels (launches on the path that reaches each,
+   and ``--out-of-core`` with ``--lossy-duals`` exit 2 naming their
+   ROADMAP items. Where h5py is missing, the command's load-and-solve
+   step stands in for it;
+8. out-of-core runs (``solver/outofcore.py``): (a) the K=1 kernel with
+   operand halos against its plain version with the same halos, 3
+   launches each (state bitwise, sums within rtol 1e-5), FISTA and
+   unaccelerated, 3D and 4D, float32 and float64, ragged shapes, the
+   first, an interior and the last of three slabs with nonzero halo
+   values, and the interior slabs the main path launches with halos
+   (configs 4 and 2 in 4 slabs: (64,256,128,128) and (64,256,2048),
+   float32); configs 2 and 3 cut into 1, 3 and 4 slabs with halos against
+   one in-core launch (bitwise); ms of the halo launch at config 4's slab
+   (64,256,128,128) FISTA, of the same launch without halos and of the
+   plain version; (b) config 4 through ``denoise_outofcore``, 4 slabs,
+   stream mode x4 and temporal K=8 x16, against ``denoise4D`` on the same
+   cube (recon bitwise, traces within rtol 1e-5, at the sweep ends in
+   temporal mode), with seconds per iteration, bytes and rates each way,
+   the shares of two bounds taken from the fastest of 6 pinned copies of
+   one slab array each way, measured here (one copy stream: the two
+   directions one after the other; the PCIe link: both at once), peak
+   device memory, launches, and the host memory
+   pinned and its seconds; (c) config 2 in stream mode with stop 0.05
+   and a reference cube against the K=1 loop (the same stop, recon
+   bitwise, MSE within rtol 1e-5); (d) config 3 temporal K=4 killed after
+   a checkpoint save and resumed (bitwise the uninterrupted run); (e)
+   config 3 through ``cli.load_and_solve --out-of-core 3 --temporal 4``
+   from a ``.npy`` (bitwise the API run);
+9. one JSON line on the kernels (launches on the path that reaches each,
    error, ms, the plain version's ms and the least time the card could
    take), the card's name and power limit, and the ``{"ok": true, ...}``
    line last.
@@ -140,6 +165,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -176,7 +202,7 @@ from cytvdn_tpu_torch.kernels.temporal import (
     fused_pair_iteration,
     fused_pair_iteration_reference,
 )
-from cytvdn_tpu_torch.solver import engine
+from cytvdn_tpu_torch.solver import engine, outofcore
 from cytvdn_tpu_torch.solver.engine import (
     _pairs_pay,
     _resolve_kstep,
@@ -792,6 +818,7 @@ def reset_counts():
     fused_kstep_iteration.launches = 0
     fused_pair_iteration.launches = 0
     fused_iteration.launches = 0
+    fused_iteration.halo_launches = 0
 
 
 def res_state(shape, schedule, with_ref, n_iters, gen):
@@ -1286,6 +1313,20 @@ def cfg2_cube():
     return torch.randn(CFG2, generator=gen, device="cuda") * 0.5 + 2.0
 
 
+def cfg2_eels():
+    """Config 2 as a clean piecewise-constant 3D cube and its noisy copy
+    on the host, from the fixed seed: the relative change stays above 0.05
+    for the first few iterations (σ = 2 against steps of 0.5 and 1)."""
+    rng = np.random.default_rng(SEED + 1)
+    tiles = ((np.arange(CFG2[0]) // 64)[:, None]
+             + (np.arange(CFG2[1]) // 64)[None, :]) % 2
+    clean = np.empty(CFG2, np.float32)
+    clean[...] = (1.0 + 0.5 * tiles)[:, :, None]
+    clean[:, :, CFG2[2] // 2:] += 1.0   # a step along the energy axis
+    noisy = clean + rng.standard_normal(CFG2, dtype=np.float32) * np.float32(2.0)
+    return clean, noisy
+
+
 def stop_phase(smi, cube, scan, det):
     """Phase 5: stop-aware runs through the K-step and pair kernels and
     MSE runs through the pair kernel's SSE, against the K=1 loop (and at
@@ -1701,8 +1742,8 @@ def cli_phase(smi, cube):
     from a .npy file, ``--preset stem4d``, in this process; (b) config 1,
     a synthetic EELS cube, from a .dm4 file, ``--preset eels3d``, as a
     separate process; each recon bitwise the API's run with the same
-    arguments. (c) ``--shard`` and ``--out-of-core`` exit 2, naming their
-    ROADMAP items."""
+    arguments. (c) ``--shard`` and ``--out-of-core`` with
+    ``--lossy-duals`` exit 2, naming their ROADMAP items."""
     from cytvdn_tpu_torch import cli
     from cytvdn_tpu_torch.io.dm import write_dm
 
@@ -1846,7 +1887,8 @@ def cli_phase(smi, cube):
                 (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2", "--shard",
                   "2"], 2, "Queue 1 item 5"),
                 (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2",
-                  "--out-of-core", "2"], 2, "Queue 1 item 4")):
+                  "--out-of-core", "2", "-f", "1", "--lossy-duals"], 2,
+                 "Queue 1 item 6")):
             proc = subprocess.run(
                 [sys.executable, "-m", "cytvdn_tpu_torch.cli", *flags],
                 cwd=root, env=env, capture_output=True, text=True,
@@ -1858,11 +1900,381 @@ def cli_phase(smi, cube):
                 f"{flags}: rc {proc.returncode}, {proc.stdout!r} "
                 f"{proc.stderr!r}")
             log(f"phase 7 (c) python -m cytvdn_tpu_torch.cli "
-                f"{' '.join(flags[-2:]) if item else flags[0]}: rc "
+                f"{' '.join(flags[8:]) if item else flags[0]}: rc "
                 f"{proc.returncode}, {said}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 7 {time.perf_counter() - t_phase:.1f} s")
+
+
+# phase 8: the K=1 kernel's halos on ragged slabs (3D and 4D), the
+# configurations cut into slabs, and the config-4 slab of a 4-slab run
+HALO_SHAPES = [(15, 45, 19, 23), (12, 13, 70), (9, 9, 10, 33), (7, 5, 3, 129)]
+SLAB4 = (CFG4[0] // 4,) + CFG4[1:]
+
+
+class Killed(Exception):
+    """Raised by phase 8's checkpoint hook: the run is killed there."""
+
+
+def seams(state, ndim, a0, a1, fista):
+    """Slab [a0, a1)'s seam operands from a cube's state ([recon, accs...,
+    ds...]) as the stream mode gives them: axis 0 from the neighbours (the
+    own edge rows at the cube's edges, zero acc/d past the last), axis 1
+    the Jia-Zhao edge values."""
+    n0 = state[0].shape[0]
+    r, acc0 = state[0], state[1]
+    own = r[a0:a1]
+    zc = torch.zeros_like(own[:, 0:1])
+    last = a1 == n0
+    h = {"prev0": r[a0 - 1:a0] if a0 > 0 else own[0:1],
+         "prev1": own[:, 0:1], "next1_recon": own[:, -1:], "next1_acc": zc,
+         "next0_recon": own[-1:] if last else r[a1:a1 + 1],
+         "next0_acc": torch.zeros_like(own[-1:]) if last
+         else acc0[a1:a1 + 1]}
+    if fista:
+        d0 = state[1 + ndim]
+        h["next0_d"] = torch.zeros_like(own[-1:]) if last else d0[a1:a1 + 1]
+        h["next1_d"] = zc
+    return {k: v.contiguous() for k, v in h.items()}
+
+
+def compare_halo_case(shape, fista, dtype, where, iters=3):
+    """``iters`` launches with halos against the plain version with the same
+    halos, on the first, an interior or the last of three slabs of a random
+    state of ``shape``, or (``where="slab"``) on the interior slab of
+    ``shape`` itself, cut from a state one row longer on each side (nonzero
+    halo values): state bitwise, sums within rtol 1e-5. Returns the largest
+    |difference| of the state."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    n = shape[0]
+    if where == "slab":
+        shape = (n + 2,) + tuple(shape[1:])
+        a0, a1 = 1, n + 1
+    else:
+        n //= 3
+        a0, a1 = {"first": (0, n), "interior": (n, 2 * n),
+                  "last": (2 * n, shape[0])}[where]
+    orig, state, li, lm, rho = random_state(shape, fista, dtype, gen)
+    ndim = len(shape)
+    h = seams(state, ndim, a0, a1, fista)
+    o = orig[a0:a1].contiguous()
+    runs = []
+    for step in (fused_iteration, fused_iteration_reference):
+        st = [x[a0:a1].clone() for x in state]
+        fn = step_fn(step, o, st, li, lm, rho, fista, halos=h)
+        sums = [torch.stack(fn()[3:]).double().cpu() for _ in range(iters)]
+        torch.cuda.synchronize()
+        runs.append((st, torch.stack(sums)))
+    (ks, ksum), (ps, psum) = runs
+    err = max((a - b).abs().max().item() for a, b in zip(ks, ps))
+    require(all(torch.equal(a, b) for a, b in zip(ks, ps)),
+            f"halo kernel {shape} {where} fista={fista} {dtype}: state "
+            f"differs from the plain version (max |Δ| {err})")
+    torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+    del runs, ks, ps, st, fn, state, orig, h, o
+    torch.cuda.empty_cache()
+    return err
+
+
+def slabs_equal_one_launch(shape, fista, n_slabs):
+    """A Jia-Zhao state cut into ``n_slabs`` axis-0 slabs, each launched
+    with halos from the pre-update state and put back: bitwise one
+    in-core launch."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    orig, state, li, lm, rho = random_state(shape, fista, torch.float32, gen,
+                                            jz=True)
+    ndim = len(shape)
+    whole = [x.clone() for x in state]
+    step_fn(fused_iteration, orig, whole, li, lm, rho, fista)()
+    cut = [x.clone() for x in state]
+    for a0, a1 in outofcore._slab_bounds(shape[0], n_slabs):
+        st = [x[a0:a1].clone() for x in state]
+        step_fn(fused_iteration, orig[a0:a1].contiguous(), st, li, lm, rho,
+                fista, halos=seams(state, ndim, a0, a1, fista))()
+        for dst, src in zip(cut, st):
+            dst[a0:a1] = src
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(cut, whole)),
+            f"{shape} fista={fista} in {n_slabs} slabs with halos != one "
+            f"launch")
+    del whole, cut, state, orig
+    torch.cuda.empty_cache()
+
+
+def time_halo(shape, n_kernel, n_plain):
+    """ms per launch at the slab ``shape`` FISTA f32 of the kernel with
+    halos (an interior slab), without halos, and of the plain version with
+    halos, in turns (plain, halo, no halo, no halo, halo, plain)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    orig, state, li, lm, rho = random_state(shape, True, torch.float32, gen)
+    ndim = len(shape)
+    # an interior slab's seams: rows and columns of nonzero values
+    r, acc0, d0 = state[0], state[1], state[1 + ndim]
+    h = {k: v.contiguous().clone() for k, v in (
+        ("prev0", r[-1:]), ("prev1", r[:, -1:]),
+        ("next0_recon", r[:1]), ("next0_acc", acc0[-1:]),
+        ("next0_d", d0[-1:]), ("next1_recon", r[:, :1]),
+        ("next1_acc", acc0[:, -1:]), ("next1_d", d0[:, -1:]))}
+    fns = {"halo": step_fn(fused_iteration, orig, state, li, lm, rho, True,
+                           halos=h),
+           "k1": step_fn(fused_iteration, orig, state, li, lm, rho, True),
+           "plain": step_fn(fused_iteration_reference, orig, state, li, lm,
+                            rho, True, halos=h)}
+    raw = {k: [] for k in fns}
+    for name in ("plain", "halo", "k1", "k1", "halo", "plain"):
+        raw[name].append(time_ms(fns[name],
+                                 n_plain if name == "plain" else n_kernel))
+    del state, orig, h, fns
+    torch.cuda.empty_cache()
+    return {k: sum(v) / len(v) for k, v in raw.items()}, raw
+
+
+def link_rates(numel, n=6):
+    """GB/s of the fastest of ``n`` pinned copies of ``numel`` floats (one
+    slab array) to the card and back, each timed alone after one warm-up:
+    the link's rate that the out-of-core runs' bound is taken from."""
+    h = torch.empty(numel, pin_memory=True)
+    d = torch.empty(numel, device="cuda")
+    rates = {}
+    for kind, fn in (("h2d", lambda: d.copy_(h, non_blocking=True)),
+                     ("d2h", lambda: h.copy_(d, non_blocking=True))):
+        rates[kind] = max(numel * 4 / (time_ms(fn, 1) / 1e3) / 1e9
+                          for _ in range(n))
+    del h, d
+    return rates
+
+
+def ooc_run(fn):
+    """``fn()`` (an out-of-core run) with the launch counts set to 0 just
+    before it; returns (its result, launches incl. halo launches, the
+    run's ``last_run`` record, peak device memory)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, launch_counts() + (fused_iteration.halo_launches,),
+            dict(outofcore.last_run), torch.cuda.max_memory_allocated())
+
+
+def outofcore_phase(smi, name, cube, cube3):
+    """Phase 8: out-of-core runs on the card. (a) the K=1 kernel's halos
+    against the plain version, and configs 2 and 3 cut into slabs against
+    one launch, and the halo launch timed at config 4's slab; (b) config 4
+    through ``denoise_outofcore`` in stream mode (×4) and temporal K=8
+    (×16), 4 slabs, against ``denoise4D``; (c) config 2 in stream mode
+    with a stop and a reference cube against the K=1 loop; (d) config 3
+    temporal K=4 killed after a checkpoint save and resumed; (e) config 3
+    through ``cli.load_and_solve --out-of-core 3 --temporal 4``. Returns
+    the numbers of the kernels line's halo row."""
+    from cytvdn_tpu_torch import cli
+
+    t_phase = time.perf_counter()
+    with open("/proc/meminfo") as f:
+        mem = {ln.split(":")[0]: int(ln.split()[1]) * 1024 for ln in f
+               if ln.startswith(("MemTotal", "MemAvailable"))}
+    log(f"phase 8 out-of-core: host memory {mem['MemTotal'] / 2**30:.1f} GiB, "
+        f"{mem['MemAvailable'] / 2**30:.1f} GiB available")
+
+    # (a) the halo kernel against its plain version
+    t0 = time.perf_counter()
+    err, n_cases = 0.0, 0
+    for shape in HALO_SHAPES:
+        for fista in (True, False):
+            for where in ("first", "interior", "last"):
+                for dtype in (torch.float32, torch.float64):
+                    err = max(err, compare_halo_case(shape, fista, dtype,
+                                                     where))
+                    n_cases += 1
+    # the slabs the main path launches with halos: config 4's and config
+    # 2's interior slab of a 4-slab stream run
+    slab2 = (CFG2[0] // 4,) + CFG2[1:]
+    for shape in (SLAB4, slab2):
+        for fista in (True, False):
+            err = max(err, compare_halo_case(shape, fista, torch.float32,
+                                             "slab"))
+            n_cases += 1
+    for shape in (CFG2, CFG3):
+        for fista in (True, False):
+            for n_slabs in (1, 3, 4):
+                slabs_equal_one_launch(shape, fista, n_slabs)
+    t_halo, raw = time_halo(SLAB4, 5, 1)
+    bw, f32 = peak_bandwidth(name), peak_f32(name)
+    b_ms, b_by = (launch_bound_seconds(SLAB4, True, 1, bw, f32)
+                  if bw and f32 else (float("nan"), None))
+    b_ms *= 1e3
+    log(f"phase 8 (a) K=1 kernel with halos vs plain: {n_cases} cases "
+        f"({HALO_SHAPES}: FISTA and unaccelerated, first, interior and last "
+        f"of three slabs, f32 and f64; the interior slabs {SLAB4} and "
+        f"{slab2} of 4-slab runs of configs 4 and 2, FISTA and "
+        f"unaccelerated, f32), 3 launches each, state bitwise equal "
+        f"(max |Δ| {err}), sums within rtol 1e-5; {CFG2} and {CFG3}, FISTA "
+        f"and unaccelerated, in 1, 3 and 4 slabs with halos = one launch, "
+        f"bitwise; at config 4's slab {SLAB4} FISTA f32 (an interior slab): "
+        f"halo launch {t_halo['halo']:.3f} ms ({b_ms / t_halo['halo']:.3f} of "
+        f"its {b_ms:.2f} ms bound, {b_by}), the same launch without halos "
+        f"{t_halo['k1']:.3f} ms, plain with halos {t_halo['plain']:.3f} ms "
+        f"(runs {raw}); {time.perf_counter() - t0:.1f} s [{smi}]")
+
+    # (b) config 4 out of core against in core
+    rates = link_rates(math.prod(SLAB4))
+    log(f"phase 8 (b) link: the fastest of 6 pinned copies of one config-4 "
+        f"slab array ({math.prod(SLAB4) * 4 / 1e9:.3f} GB) "
+        f"{rates['h2d']:.2f} GB/s to the card, {rates['d2h']:.2f} GB/s back "
+        f"[{smi}]")
+    mu = np.full(4, 1.0, np.float32)
+    halo_launches = None
+    for mode, k, iters in (("stream", 1, 4), ("temporal", 8, 16)):
+        t0 = time.perf_counter()
+        want = denoise4D(cube, mu, iterations=iters, FISTA=True, quiet=True,
+                         device="cuda")
+        s_in = time.perf_counter() - t0
+        (got, la, run, peak) = ooc_run(lambda: outofcore.denoise_outofcore(
+            cube, mu, iterations=iters, FISTA=True, n_slabs=4, temporal_k=k,
+            device="cuda"))
+        require(np.array_equal(got[0], want[0]),
+                f"config 4 out of core ({mode}) recon != denoise4D's")
+        idx = np.arange(iters) if k == 1 else np.arange(k - 1, iters, k)
+        for g, w in zip(got[1:], want[1:]):
+            np.testing.assert_allclose(g[idx], w[idx], rtol=1e-5)
+            require(not np.delete(g, idx).any(), "temporal traces between "
+                                                 "sweeps not zero")
+        n_pairs, n_k1 = (0, 0) if k == 1 else (
+            iters // k * 4 * ((k - 1) // 2), iters // k * 4 * (k - 2 * ((k - 1) // 2)))
+        want_la = (0, 0, 0, 4 * iters, 4 * iters) if k == 1 else             (0, 0, n_pairs, n_k1, 0)
+        require(la == want_la, f"config 4 {mode}: launches (whole-run, "
+                               f"K-step, pair, K=1, K=1 with halos) {la}, "
+                               f"expected {want_la}")
+        if k == 1:
+            halo_launches = la[4]
+        secs = run["sweep_seconds"] / iters
+        link_s = (run["h2d_bytes"] / (rates["h2d"] * 1e9)
+                  + run["d2h_bytes"] / (rates["d2h"] * 1e9))
+        duplex_s = max(run["h2d_bytes"] / (rates["h2d"] * 1e9),
+                       run["d2h_bytes"] / (rates["d2h"] * 1e9))
+        log(f"phase 8 (b) config 4 {CFG4} FISTA x{iters} out of core, "
+            f"{mode}{f' K={k}' if k > 1 else ''}, 4 slabs: recon bitwise "
+            f"denoise4D's, traces within rtol 1e-5"
+            f"{' at the sweep ends' if k > 1 else ''}; {secs:.4f} s per "
+            f"iteration ({run['sweep_seconds']:.3f} s of sweeps; in core "
+            f"{s_in / iters:.4f} s per iteration with host copies); "
+            f"{run['h2d_bytes'] / 1e9 / iters:.2f} GB in and "
+            f"{run['d2h_bytes'] / 1e9 / iters:.2f} GB out per iteration at "
+            f"{run['h2d_bytes'] / run['h2d_seconds'] / 1e9:.2f} and "
+            f"{run['d2h_bytes'] / run['d2h_seconds'] / 1e9:.2f} GB/s (copy "
+            f"stream busy {run['h2d_seconds'] + run['d2h_seconds']:.3f} s); "
+            f"{link_s / run['sweep_seconds']:.3f} of the one-copy-stream "
+            f"bound (bytes each way at the link's rates, one direction at "
+            f"a time: {link_s / iters:.4f} s per iteration), "
+            f"{duplex_s / run['sweep_seconds']:.3f} of the PCIe bound "
+            f"(both directions at once: {duplex_s / iters:.4f} s); peak "
+            f"device memory "
+            f"{peak / 2**30:.3f} GiB; launches (whole-run, K-step, pair, "
+            f"K=1, K=1 with halos) {la}; host memory pinned "
+            f"{run['pinned_bytes'] / 2**30:.2f} GiB in "
+            f"{run['pin_seconds']:.3f} s [{smi}]")
+        del got, want
+    # (c) config 2 stream mode, stop 0.05 and a reference cube, against the
+    # K=1 loop on the card
+    t0 = time.perf_counter()
+    clean2, noisy2 = cfg2_eels()
+    mu3 = np.full(3, 1.0, np.float32)
+    o2, r2 = torch.from_numpy(noisy2).cuda(), torch.from_numpy(clean2).cuda()
+    li3 = torch.full((3,), 16.0, device="cuda")
+    lm3 = torch.full((3,), 1 / 16, device="cuda")
+    k1 = run_solver(o2, li3, lm3, SolverOptions(
+        ndim=3, iterations_fista=500, iterations_unacc=0,
+        stopping_relative_change=0.05, calculate_mse=True,
+        vmem_resident=False, temporal_kstep=False, temporal_pairs=False),
+        reference_data=r2)
+    k1 = {key: v.cpu().numpy() if torch.is_tensor(v) else v
+          for key, v in k1.items()}
+    del o2, r2
+    (got, la, run, _) = ooc_run(lambda: outofcore.denoise_outofcore(
+        noisy2, mu3, iterations=500, FISTA=True,
+        stopping_relative_change=0.05, n_slabs=4, reference_data=clean2,
+        device="cuda"))
+    n2 = int(np.count_nonzero(got[2]))
+    require(n2 == k1["iterations_run"] < 500,
+            f"config 2 stream stop after {n2}, the K=1 loop after "
+            f"{k1['iterations_run']}")
+    require(np.array_equal(got[0], k1["recon"]),
+            "config 2 stream stop: recon != the K=1 loop's")
+    np.testing.assert_allclose(got[3][:n2 + 1], k1["mse"][:n2 + 1], rtol=1e-5)
+    np.testing.assert_allclose(got[2], k1["delta"], rtol=1e-5)
+    log(f"phase 8 (c) config 2 {CFG2} FISTA stream mode, 4 slabs, stop 0.05 "
+        f"with the clean cube as reference: stops after {n2} iterations as "
+        f"the K=1 loop on the card, recon bitwise, MSE {got[3][0]:.1f} -> "
+        f"{got[3][n2]:.1f} within rtol 1e-5; launches {la}; "
+        f"{run['sweep_seconds'] / n2:.4f} s per iteration (host SSE "
+        f"included); {time.perf_counter() - t0:.1f} s [{smi}]")
+    del got, k1, clean2, noisy2
+
+    # (d) config 3 temporal K=4, a checkpoint every 8 iterations, killed
+    # after the first save and resumed
+    t0 = time.perf_counter()
+    mu4 = np.full(4, 1.0, np.float32)
+    kw = dict(iterations=(8, 4), n_slabs=4, temporal_k=4, device="cuda")
+    want3 = denoise4D(cube3, mu4, iterations=(8, 4), quiet=True,
+                      device="cuda")
+    plain3 = outofcore.denoise_outofcore(cube3, mu4, **kw)
+    require(np.array_equal(plain3[0], want3[0]),
+            "config 3 temporal K=4 recon != denoise4D's")
+    tmp = tempfile.mkdtemp(prefix="cytv_ooc_")
+    saves = []
+    try:
+        ck = os.path.join(tmp, "ooc.npz")
+
+        def kill(it_run):
+            saves.append((it_run, time.perf_counter()))
+            raise Killed
+
+        outofcore._POST_CKPT_HOOK = kill
+        t_kill = time.perf_counter()
+        try:
+            outofcore.denoise_outofcore(cube3, mu4, checkpoint_path=ck,
+                                        checkpoint_every=8, **kw)
+            require(False, "the checkpoint hook did not kill the run")
+        except Killed:
+            pass
+        finally:
+            outofcore._POST_CKPT_HOOK = None
+        size = os.path.getsize(ck)
+        got = outofcore.denoise_outofcore(cube3, mu4, checkpoint_path=ck,
+                                          checkpoint_every=8, resume=True,
+                                          **kw)
+        for g, w in zip(got, plain3):
+            require(np.array_equal(g, w), "config 3 resumed run != the "
+                                          "uninterrupted run")
+        # (e) the command line, from a .npy file
+        npy = os.path.join(tmp, "config3.npy")
+        np.save(npy, cube3)
+        run_cli = cli.load_and_solve(
+            ["-i", npy, "-o", os.path.join(tmp, "o.emd"), "-m", "1.0", "-n",
+             "8", "4", "--out-of-core", "3", "--temporal", "4", "-v", "0"])
+        api = outofcore.denoise_outofcore(cube3, mu4, iterations=(8, 4),
+                                          n_slabs=3, temporal_k=4,
+                                          device="cuda")
+        for g, w in zip((run_cli.recon, run_cli.b_norm, run_cli.delta), api):
+            require(np.array_equal(g, w), "cytv-torch --out-of-core 3 "
+                                          "--temporal 4 != the API run")
+        require(np.array_equal(api[0], want3[0]), "config 3 in 3 slabs != "
+                                                  "denoise4D")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 8 (d) config 3 {CFG3} hybrid (8, 4) temporal K=4, 4 slabs, a "
+        f"checkpoint every 8 iterations ({size / 1e9:.3f} GB): killed after "
+        f"the save at iteration {saves[0][0]} "
+        f"({saves[0][1] - t_kill:.2f} s into the run) and resumed, all "
+        f"outputs bitwise the uninterrupted run's, its recon bitwise "
+        f"denoise4D's; (e) cli.load_and_solve --out-of-core 3 --temporal 4 "
+        f"from a .npy: bitwise the API run's (solve "
+        f"{run_cli.seconds['solve']:.3f} s); "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"phase 8 {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": halo_launches, "err": err, "ms": t_halo["halo"],
+            "plain_ms": t_halo["plain"], "bound": (b_ms, b_by)}
 
 
 def piecewise_4d(shape, seed):
@@ -2327,16 +2739,7 @@ def main() -> int:
             f"floor 9.5 [{smi}]")
 
     # phase 4: 3D paths and a hybrid run against the plain backend
-    rng = np.random.default_rng(SEED + 1)
-    tiles = ((np.arange(CFG2[0]) // 64)[:, None]
-             + (np.arange(CFG2[1]) // 64)[None, :]) % 2
-    clean3 = np.empty(CFG2, np.float32)
-    clean3[...] = (1.0 + 0.5 * tiles)[:, :, None]
-    clean3[:, :, CFG2[2] // 2:] += 1.0   # a step along the energy axis
-    # low-dose noise (σ = 2 against steps of 0.5 and 1): the relative change
-    # stays above 0.05 for the first few iterations, so the stop check runs
-    # on several iterations before it triggers
-    noisy3 = clean3 + rng.standard_normal(CFG2, dtype=np.float32) * np.float32(2.0)
+    clean3, noisy3 = cfg2_eels()
     t0 = time.perf_counter()
     _, _, d3, mse3 = denoise3D(noisy3, np.full(3, 1.0, np.float32),
                                iterations=500, FISTA=True,
@@ -2600,6 +3003,9 @@ def main() -> int:
     # phase 7: the command line on the card
     cli_phase(smi, cube)
 
+    # phase 8: out-of-core runs
+    halo8 = outofcore_phase(smi, name, cube, cube3)
+
     # launches: each kernel's count in the run of the path that reaches it
     # (x21: the odd iteration; x20: the pairs; config 1 through run_solver
     # with the whole-run kernel off: the K-step; config 1 through denoise3D:
@@ -2633,6 +3039,11 @@ def main() -> int:
         ("resident_solve", "resident.cu", "resident.py:293", counts1[0],
          res_err, res_ms, ktimes[CFG1]["plain"][0] * 7500,
          bound(CFG1, False, 7500)),
+        # the K=1 kernel's HALO instantiation: its launches on the config-4
+        # stream-mode run of phase 8 (b), its time at that run's slab
+        ("fused_iteration_halo", "fused_iteration.cu", "fused.py:872",
+         halo8["launches"], halo8["err"], halo8["ms"], halo8["plain_ms"],
+         halo8["bound"]),
     ]
     kernels = [{
         "name": kname,

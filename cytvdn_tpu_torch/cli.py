@@ -14,13 +14,21 @@ differences: ``--backend`` takes the port's backends (``auto``, ``torch``,
 as the API's ``device`` keyword does; the command never picks the CPU by
 itself.
 
+``--out-of-core N [--temporal K]`` runs ``denoise_outofcore``
+(``solver/outofcore.py``): the state stays in host memory and streams
+through the card in N slabs, K iterations per slab residency; the flags it
+cannot honour (``--bc-mode``, ``--iso-r/--iso-q``, ``--backend``,
+``--dtype``) exit 2 with ``cytv``'s message.
+
 What the port cannot run yet is refused with exit code 2 before the input
-is read, naming its ROADMAP.md item: ``--out-of-core`` (Queue 1 item 4),
-``--shard`` and multi-process launches (``WORLD_SIZE`` > 1; item 5),
-``--lossy-duals`` (item 6) and ``--backend cpp`` (item 7).
+is read, naming its ROADMAP.md item: ``--shard`` and multi-process
+launches (``WORLD_SIZE`` > 1; Queue 1 item 5, also with
+``--out-of-core``), ``--lossy-duals`` (item 6) and ``--backend cpp``
+(item 7).
 
     cytv-torch -i cube.dm4 -o out.emd -m 1.0 --preset eels3d
     python -m cytvdn_tpu_torch.cli -i cube.npy -o out.emd -m 1.0 -n 20 -f 1
+    cytv-torch -i cube.npy -o out.emd -m 1.0 -n 20 -f 1 --out-of-core 4 --temporal 8
 """
 
 from __future__ import annotations
@@ -113,10 +121,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "card into LOGDIR/trace.json")
     p.add_argument("--out-of-core", type=int, default=0, metavar="N_SLABS",
                    help="stream the cube through the device in N slabs with "
-                        "host-resident state (not ported yet)")
+                        "host-resident state (for states larger than the "
+                        "card's memory)")
     p.add_argument("--temporal", type=int, default=1, metavar="K",
                    help="with --out-of-core: K iterations per slab "
-                        "residency (not ported yet)")
+                        "residency (temporal blocking; cuts host-device "
+                        "traffic K-fold)")
     p.add_argument("--lossy-duals", action="store_true",
                    help="LOSSY opt-in: store the FISTA shadow duals as "
                         "bfloat16 (not ported yet)")
@@ -188,8 +198,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         raise _not_ported("--shard", 5)
     if args.temporal != 1 and not args.out_of_core:
         raise CliError("--temporal requires --out-of-core")
-    if args.out_of_core:
-        raise _not_ported("--out-of-core", 4)
     if args.lossy_duals:
         if args.bc_mode != 2 or args.iso_r or args.iso_q \
                 or args.dtype != "float32" or not args.fista:
@@ -197,6 +205,20 @@ def parse_args(argv=None) -> argparse.Namespace:
             raise CliError("--lossy-duals covers float32 Jia-Zhao "
                            "anisotropic FISTA runs only")
         raise _not_ported("--lossy-duals", 6)
+    if args.out_of_core:
+        # the flags out-of-core runs would silently ignore (cytv's check)
+        bad = []
+        if args.bc_mode != 2:
+            bad.append("--bc-mode")
+        if args.iso_r or args.iso_q:
+            bad.append("--iso-r/--iso-q")
+        if args.backend != "auto":
+            bad.append("--backend")
+        if args.dtype != "float32":
+            bad.append("--dtype")
+        if bad:
+            raise CliError(f"--out-of-core does not support {', '.join(bad)} "
+                           "(Jia-Zhao anisotropic float32)")
     if args.backend == "cpp":
         raise _not_ported("--backend cpp", 7)
 
@@ -246,6 +268,7 @@ def load_and_solve(argv=None) -> Solved:
         fused_pair_iteration,
         resident_solve,
     )
+    from cytvdn_tpu_torch.solver.outofcore import denoise_outofcore
     from cytvdn_tpu_torch.utils.checkpoint import run_with_checkpointing
     from cytvdn_tpu_torch.utils.log import profile_trace
 
@@ -293,7 +316,15 @@ def load_and_solve(argv=None) -> Solved:
     before = [k.launches for _, k in kernels]
     t0 = time.perf_counter()
     with profile_trace(args.profile):
-        if args.checkpoint and args.checkpoint_every:
+        if args.out_of_core:
+            recon, b_norm, delta = denoise_outofcore(
+                data, mu, lam=lam, iterations=iterations,
+                FISTA=bool(args.fista), stopping_relative_change=args.stop,
+                n_slabs=args.out_of_core, temporal_k=args.temporal,
+                quiet=not args.verbose, checkpoint_path=args.checkpoint,
+                checkpoint_every=args.checkpoint_every, resume=args.resume,
+                device=args.device)
+        elif args.checkpoint and args.checkpoint_every:
             result = run_with_checkpointing(
                 data, checkpoint_path=args.checkpoint,
                 checkpoint_every=args.checkpoint_every, resume=args.resume,

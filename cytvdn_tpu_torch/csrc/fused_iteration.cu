@@ -39,6 +39,17 @@
 // - 64-bit element offsets (the 256^2 x 128^2 cube has 1.07e9 elements).
 // - Scalars (lambda_inv, lam_mu, rho) are read through device pointers, so
 //   the host never waits for the momentum schedule or a restart.
+// - Seams (the HALO instantiations, out-of-core slabs; Jia-Zhao,
+//   anisotropic): the TPU kernel recomputes the +1 neighbour's first
+//   updated b slab at a trailing edge from halo operands. Here the dual
+//   pass reads only the old recon, so the threads on the slab's last row
+//   (axis 0) and last column (axis 1) also compute that slab and store it
+//   into a one-row / one-column scratch buffer (tv_elem.cuh Halos::bhat);
+//   the recon pass reads it in place of the Jia-Zhao b_0 wrap, which is
+//   only right while b_0 is zero, as it is not in an interior slab. The
+//   leading edges read the halo's prev slab in the dual pass. The sums
+//   cover the slab's own elements. HALO is a template flag, so the
+//   no-halo instantiations are the code they were.
 //
 // Layout, boundary offsets and the element arithmetic live in tv_elem.cuh,
 // shared with the whole-run kernel (resident.cu).
@@ -50,8 +61,8 @@
 
 namespace {
 
-template <typename T, int ND, bool FISTA>
-__global__ void __launch_bounds__(NT) dual_kernel(Args<T> a) {
+template <typename T, int ND, bool FISTA, bool HALO>
+__global__ void __launch_bounds__(NT) dual_kernel(Args<T> a, Halos<T> h) {
   __shared__ double red[NT];
   T lam[ND];
 #pragma unroll
@@ -61,21 +72,21 @@ __global__ void __launch_bounds__(NT) dual_kernel(Args<T> a) {
   const bool iso_q = ND == 4 && a.iso_q;
   double acc = 0.0;
   for_each_element<ND>(a, [&](int64_t idx, const int64_t* c) {
-    dual_elem<T, ND, FISTA, false>(a, idx, c, lam, rho, iso_r, iso_q, acc);
+    dual_elem<T, ND, FISTA, HALO>(a, h, idx, c, lam, rho, iso_r, iso_q, acc);
   });
   const double total = block_sum(acc, red);
   if (threadIdx.x == 0 && threadIdx.y == 0) a.partials[blockIdx.x] = total;
 }
 
-template <typename T, int ND>
-__global__ void __launch_bounds__(NT) recon_kernel(Args<T> a) {
+template <typename T, int ND, bool HALO>
+__global__ void __launch_bounds__(NT) recon_kernel(Args<T> a, Halos<T> h) {
   __shared__ double red[NT];
   T lm[ND];
 #pragma unroll
   for (int k = 0; k < ND; ++k) lm[k] = a.lam_mu[k];
   double dnum = 0.0, dden = 0.0;
   for_each_element<ND>(a, [&](int64_t idx, const int64_t* c) {
-    recon_elem<T, ND, false>(a, idx, c, lm, dnum, dden);
+    recon_elem<T, ND, HALO>(a, h, idx, c, lm, dnum, dden);
   });
   const double t1 = block_sum(dnum, red);
   const double t2 = block_sum(dden, red);
@@ -99,12 +110,38 @@ __global__ void __launch_bounds__(NT) finalize_kernel(const double* partials,
   }
 }
 
+// The dual and recon passes of one instantiation of the seams.
+template <typename T, bool HALO>
+cudaError_t launch_passes(const Args<T>& a, const Halos<T>& h, int ndim,
+                          int fista, dim3 grid, dim3 block,
+                          cudaStream_t stream) {
+  if (ndim == 4 && fista) {
+    dual_kernel<T, 4, true, HALO><<<grid, block, 0, stream>>>(a, h);
+  } else if (ndim == 4) {
+    dual_kernel<T, 4, false, HALO><<<grid, block, 0, stream>>>(a, h);
+  } else if (fista) {
+    dual_kernel<T, 3, true, HALO><<<grid, block, 0, stream>>>(a, h);
+  } else {
+    dual_kernel<T, 3, false, HALO><<<grid, block, 0, stream>>>(a, h);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (ndim == 4) {
+    recon_kernel<T, 4, HALO><<<grid, block, 0, stream>>>(a, h);
+  } else {
+    recon_kernel<T, 3, HALO><<<grid, block, 0, stream>>>(a, h);
+  }
+  return cudaGetLastError();
+}
+
+// halo: null for a whole cube, else the ten seam pointers of Halos in the
+// order prev, next_recon, next_acc, next_d, bhat, each for axes 0 and 1.
 template <typename T>
 int launch(const void* orig, void* recon, void* const b[4], void* const d[4],
            const void* lambda_inv, const void* lam_mu, const void* rho,
-           void* partials, void* out, int ndim, const long long n[4],
-           int fista, int bc, int iso_r, int iso_q, int nblocks,
-           cudaStream_t stream) {
+           void* partials, void* out, void* const halo[10], int ndim,
+           const long long n[4], int fista, int bc, int iso_r, int iso_q,
+           int nblocks, cudaStream_t stream) {
   Args<T> a;
   a.orig = static_cast<const T*>(orig);
   a.recon = static_cast<T*>(recon);
@@ -121,26 +158,23 @@ int launch(const void* orig, void* recon, void* const b[4], void* const d[4],
   a.bc = bc;
   a.iso_r = iso_r;
   a.iso_q = iso_q;
+  Halos<T> h{};
+  const bool with_halo = halo != nullptr && halo[0] != nullptr;
+  if (with_halo) {
+    for (int A = 0; A < 2; ++A) {
+      h.prev[A] = static_cast<const T*>(halo[A]);
+      h.next_recon[A] = static_cast<const T*>(halo[2 + A]);
+      h.next_acc[A] = static_cast<const T*>(halo[4 + A]);
+      h.next_d[A] = static_cast<const T*>(halo[6 + A]);
+      h.bhat[A] = static_cast<T*>(halo[8 + A]);
+    }
+  }
 
   const dim3 block(TX, TY);
   const dim3 grid(nblocks);
-  if (ndim == 4 && fista) {
-    dual_kernel<T, 4, true><<<grid, block, 0, stream>>>(a);
-  } else if (ndim == 4) {
-    dual_kernel<T, 4, false><<<grid, block, 0, stream>>>(a);
-  } else if (fista) {
-    dual_kernel<T, 3, true><<<grid, block, 0, stream>>>(a);
-  } else {
-    dual_kernel<T, 3, false><<<grid, block, 0, stream>>>(a);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (ndim == 4) {
-    recon_kernel<T, 4><<<grid, block, 0, stream>>>(a);
-  } else {
-    recon_kernel<T, 3><<<grid, block, 0, stream>>>(a);
-  }
-  err = cudaGetLastError();
+  const cudaError_t err =
+      with_halo ? launch_passes<T, true>(a, h, ndim, fista, grid, block, stream)
+                : launch_passes<T, false>(a, h, ndim, fista, grid, block, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   finalize_kernel<T><<<1, block, 0, stream>>>(a.partials, nblocks, a.out);
   return static_cast<int>(cudaGetLastError());
@@ -152,15 +186,21 @@ int launch(const void* orig, void* recon, void* const b[4], void* const d[4],
   extern "C" int NAME(const void* orig, void* recon, void* b0, void* b1,     \
                       void* b2, void* b3, void* d0, void* d1, void* d2,      \
                       void* d3, const void* lambda_inv, const void* lam_mu,  \
-                      const void* rho, void* partials, void* out, int ndim,  \
-                      long long n0, long long n1, long long n2, long long n3, \
-                      int fista, int bc, int iso_r, int iso_q, int nblocks,  \
-                      void* stream) {                                        \
+                      const void* rho, void* partials, void* out,            \
+                      void* prev0, void* prev1, void* next_recon0,           \
+                      void* next_recon1, void* next_acc0, void* next_acc1,   \
+                      void* next_d0, void* next_d1, void* bhat0,             \
+                      void* bhat1, int ndim, long long n0, long long n1,     \
+                      long long n2, long long n3, int fista, int bc,         \
+                      int iso_r, int iso_q, int nblocks, void* stream) {     \
     void* const b[4] = {b0, b1, b2, b3};                                     \
     void* const d[4] = {d0, d1, d2, d3};                                     \
+    void* const halo[10] = {prev0, prev1, next_recon0, next_recon1,          \
+                            next_acc0, next_acc1, next_d0, next_d1,          \
+                            bhat0, bhat1};                                   \
     const long long n[4] = {n0, n1, n2, n3};                                 \
     return launch<T>(orig, recon, b, d, lambda_inv, lam_mu, rho, partials,   \
-                     out, ndim, n, fista, bc, iso_r, iso_q, nblocks,         \
+                     out, halo, ndim, n, fista, bc, iso_r, iso_q, nblocks,   \
                      static_cast<cudaStream_t>(stream));                     \
   }
 

@@ -9,11 +9,20 @@
 // the same number of one-iteration launches; its walk and loads are its
 // own. The block's layout (TX, TY, NT) is block.cuh's.
 //
-// CG selects how the state is loaded: plainly (false, the one-iteration
-// kernels: a launch boundary separates each write from every read of
-// another block) or through L2 (true, ld.global.cg, for a kernel that
-// rewrites the state between grid barriers, since L1 is not coherent
-// across SMs).
+// The one-iteration kernels load the state plainly: a launch boundary
+// separates each write from every read of another block.
+//
+// HALO makes the cube one axis-0 slab of a larger one (out-of-core runs):
+// seam operands (Halos) stand in for the Jia-Zhao edges of axes 0 and 1,
+// as the TPU kernel's with-halo operands do (cytvdn_tpu/kernels/fused.py
+// :316-328). The backward difference at a leading edge reads the -1
+// neighbour's pre-update slab; the forward difference at a trailing edge
+// reads the +1 neighbour's first updated accumulator slab, which the dual
+// update recomputes from that neighbour's pre-update slabs with the
+// neighbour's own arithmetic and leaves in a scratch slab (bhat) for the
+// reconstruction update. A caller realizes a global edge by the halo's
+// values: its own edge slab as prev, its own last slab with zero acc and d
+// as next, so that bhat is exactly the Jia-Zhao zero.
 //
 // Layout: a block is 32 x 8 threads over a tile of the two trailing axes
 // (x along the contiguous last axis). Work items are (row, tile) pairs, the
@@ -40,15 +49,6 @@ __device__ __forceinline__ double hypot_(double a, double b) { return hypot(a, b
 __device__ __forceinline__ float abs_(float x) { return fabsf(x); }
 __device__ __forceinline__ double abs_(double x) { return fabs(x); }
 
-template <bool CG, typename T>
-__device__ __forceinline__ T load_(const T* p) {
-  if constexpr (CG) {
-    return __ldcg(p);
-  } else {
-    return *p;
-  }
-}
-
 template <typename T>
 struct Args {
   const T* orig;
@@ -68,6 +68,17 @@ struct Args {
   int bc;            // 0 periodic, 1 mirror, 2 Jia-Zhao
   int iso_r;         // joint projection of axes (0, 1)
   int iso_q;         // joint projection of axes (2, 3)
+};
+
+// Seam operands of a HALO launch, for axes 0 and 1. Each has the cube's
+// layout with that axis collapsed to 1.
+template <typename T>
+struct Halos {
+  const T* prev[2];        // the -1 neighbour's pre-update last slab of recon
+  const T* next_recon[2];  // the +1 neighbour's pre-update first slab of recon,
+  const T* next_acc[2];    //   of its accumulator along the axis
+  const T* next_d[2];      //   and of its shadow dual (FISTA)
+  T* bhat[2];              // scratch: the +1 neighbour's updated first b slab
 };
 
 // Fills the extents, strides, rows and tiles of `a` for an ndim-axis cube.
@@ -101,6 +112,15 @@ __device__ __forceinline__ int64_t fwd(int64_t idx, int64_t c, int64_t n,
   if (c < n - 1) return idx + s;
   if (bc == 1) return idx;                // mirror: own b_{N-1}
   return idx - (n - 1) * s;               // periodic and Jia-Zhao: b_0
+}
+
+// Offset of an element's image in a slab with axis A (0 or 1) collapsed
+// to 1: the element's offset without its axis-A coordinate.
+__device__ __forceinline__ int64_t seam_offset(int A, int64_t idx,
+                                               const int64_t* c,
+                                               const int64_t* s) {
+  const int64_t rest = idx - c[0] * s[0];
+  return A == 0 ? rest : c[0] * s[1] + (rest - c[1] * s[1]);
 }
 
 // Walk this block's (row, tile) work items and call body(idx, c) with each
@@ -137,13 +157,16 @@ __device__ __forceinline__ void for_each_element(const Args<T>& a, F body) {
 
 // Dual update of one element: every axis's b (and under FISTA d), reading
 // recon at the element and its backward neighbours and b, d at the element;
-// adds each new |b_k| to acc in axis order.
-template <typename T, int ND, bool FISTA, bool CG>
-__device__ __forceinline__ void dual_elem(const Args<T>& a, int64_t idx,
-                                          const int64_t* c, const T* lam,
-                                          T rho, bool iso_r, bool iso_q,
-                                          double& acc) {
-  const T x = load_<CG>(a.recon + idx);
+// adds each new |b_k| to acc in axis order. With HALO, along axes 0 and 1
+// the backward neighbour of a leading-edge element is h.prev, and a
+// trailing-edge element also writes the +1 neighbour's recomputed b into
+// h.bhat (not counted in acc).
+template <typename T, int ND, bool FISTA, bool HALO>
+__device__ __forceinline__ void dual_elem(const Args<T>& a, const Halos<T>& h,
+                                          int64_t idx, const int64_t* c,
+                                          const T* lam, T rho, bool iso_r,
+                                          bool iso_q, double& acc) {
+  const T x = a.recon[idx];
   // Unrolled in 4D only: unrolled in 3D, this loop measured 3x slower on
   // an H100 at 256x256x2048 FISTA (13.1 vs 4.3 ms, rolled), in 4D 12%
   // faster at 256^2 x 128^2 (48.7 vs 55.6 ms).
@@ -152,11 +175,11 @@ __device__ __forceinline__ void dual_elem(const Args<T>& a, int64_t idx,
     if ((k == 1 && iso_r) || (k == 3 && iso_q)) continue;  // done with k-1
     if ((k == 0 && iso_r) || (k == 2 && iso_q)) {
       // the pair shares axis k's clip radius (reference cyTVDN.py:160-162)
-      const T e1 = x - load_<CG>(a.recon + bwd(idx, c[k], a.n[k], a.s[k], a.bc))
-                   + load_<CG>(a.b[k] + idx);
-      const T e2 = x - load_<CG>(a.recon + bwd(idx, c[k + 1], a.n[k + 1],
-                                                a.s[k + 1], a.bc))
-                   + load_<CG>(a.b[k + 1] + idx);
+      const T e1 = x - a.recon[bwd(idx, c[k], a.n[k], a.s[k], a.bc)]
+                   + a.b[k][idx];
+      const T e2 = x - a.recon[bwd(idx, c[k + 1], a.n[k + 1], a.s[k + 1],
+                                   a.bc)]
+                   + a.b[k + 1][idx];
       const T cl = lam[k];
       const T mag = hypot_(e1, e2);
       const T scale = mag > cl ? cl / (mag > T(0) ? mag : T(1)) : T(1);
@@ -164,8 +187,8 @@ __device__ __forceinline__ void dual_elem(const Args<T>& a, int64_t idx,
       const T d2 = e2 * scale;
       T b1 = d1, b2 = d2;
       if (FISTA) {
-        b1 = d1 + rho * (d1 - load_<CG>(a.d[k] + idx));
-        b2 = d2 + rho * (d2 - load_<CG>(a.d[k + 1] + idx));
+        b1 = d1 + rho * (d1 - a.d[k][idx]);
+        b2 = d2 + rho * (d2 - a.d[k + 1][idx]);
         a.d[k][idx] = d1;
         a.d[k + 1][idx] = d2;
       }
@@ -174,35 +197,52 @@ __device__ __forceinline__ void dual_elem(const Args<T>& a, int64_t idx,
       acc += static_cast<double>(abs_(b1));
       acc += static_cast<double>(abs_(b2));
     } else {
-      const T diff = x - load_<CG>(a.recon + bwd(idx, c[k], a.n[k], a.s[k], a.bc));
-      const T dn = clip_(diff + load_<CG>(a.b[k] + idx), lam[k]);
+      const bool seam = HALO && k < 2;
+      const T prev = seam && c[k] == 0
+                         ? h.prev[k][seam_offset(k, idx, c, a.s)]
+                         : a.recon[bwd(idx, c[k], a.n[k], a.s[k], a.bc)];
+      const T diff = x - prev;
+      const T dn = clip_(diff + a.b[k][idx], lam[k]);
       T bn = dn;
       if (FISTA) {
-        bn = dn + rho * (dn - load_<CG>(a.d[k] + idx));
+        bn = dn + rho * (dn - a.d[k][idx]);
         a.d[k][idx] = dn;
       }
       a.b[k][idx] = bn;
       acc += static_cast<double>(abs_(bn));
+      if (seam && c[k] == a.n[k] - 1) {
+        // the +1 neighbour's first slab, in its own order of operations
+        const int64_t o = seam_offset(k, idx, c, a.s);
+        const T dh = clip_((h.next_recon[k][o] - x) + h.next_acc[k][o],
+                           lam[k]);
+        T bh = dh;
+        if (FISTA) bh = dh + rho * (dh - h.next_d[k][o]);
+        h.bhat[k][o] = bh;
+      }
     }
   }
 }
 
 // Reconstruction update of one element, reading every b at the element and
-// its forward neighbours; adds |R_new - R_old| and |R_old| to the sums and
-// returns R_new.
-template <typename T, int ND, bool CG>
-__device__ __forceinline__ T recon_elem(const Args<T>& a, int64_t idx,
-                                        const int64_t* c, const T* lm,
-                                        double& dnum, double& dden) {
+// its forward neighbours (with HALO, along axes 0 and 1 h.bhat at a
+// trailing edge); adds |R_new - R_old| and |R_old| to the sums and returns
+// R_new.
+template <typename T, int ND, bool HALO>
+__device__ __forceinline__ T recon_elem(const Args<T>& a, const Halos<T>& h,
+                                        int64_t idx, const int64_t* c,
+                                        const T* lm, double& dnum,
+                                        double& dden) {
   T div = T(0);
 #pragma unroll
   for (int k = 0; k < ND; ++k) {
-    const T bk = load_<CG>(a.b[k] + idx);
-    const T bf = load_<CG>(a.b[k] + fwd(idx, c[k], a.n[k], a.s[k], a.bc));
+    const T bk = a.b[k][idx];
+    const T bf = HALO && k < 2 && c[k] == a.n[k] - 1
+                     ? h.bhat[k][seam_offset(k, idx, c, a.s)]
+                     : a.b[k][fwd(idx, c[k], a.n[k], a.s[k], a.bc)];
     div = div + lm[k] * (bk - bf);
   }
-  const T rn = (CG ? __ldg(a.orig + idx) : a.orig[idx]) - div;
-  const T ro = load_<CG>(a.recon + idx);
+  const T rn = a.orig[idx] - div;
+  const T ro = a.recon[idx];
   dnum += static_cast<double>(abs_(rn - ro));
   dden += static_cast<double>(abs_(ro));
   a.recon[idx] = rn;

@@ -20,7 +20,10 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from typing import Optional
+
+import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -76,7 +79,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name in ("tv_fused_iteration_f32", "tv_fused_iteration_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * 15 + [i] + [ll] * 4 + [i] * 5 + [vp]
+        # the state and scalars, then the ten seam pointers (null: no halos)
+        fn.argtypes = [vp] * 25 + [i] + [ll] * 4 + [i] * 5 + [vp]
         fn.restype = i
     lib.tv_pair_iteration_f32.argtypes = \
         [vp] * 17 + [i] + [ll] * 5 + [i] * 2 + [vp]
@@ -93,6 +97,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tv_resident_solve_f32.restype = i
     lib.tv_resident_max_blocks.argtypes = [i, i, i, i, ctypes.POINTER(i)]
     lib.tv_resident_max_blocks.restype = i
+    lib.tv_host_alloc.argtypes = [ctypes.c_size_t, ctypes.POINTER(vp)]
+    lib.tv_host_alloc.restype = i
+    lib.tv_host_free.argtypes = [vp]
+    lib.tv_host_free.restype = i
     lib.tv_error_string.argtypes = [i]
     lib.tv_error_string.restype = ctypes.c_char_p
     return lib
@@ -151,6 +159,18 @@ def load() -> ctypes.CDLL:
                 f.write(want)
         _lib = _bind(ctypes.CDLL(_LIB))
         return _lib
+
+
+def host_empty(shape, dtype=np.float32) -> np.ndarray:
+    """An uninitialised numpy array in page-locked host memory
+    (``cudaHostAlloc``, exactly sized), freed when its last view goes."""
+    lib = load()
+    nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+    ptr = ctypes.c_void_p()
+    check(lib.tv_host_alloc(max(nbytes, 1), ctypes.byref(ptr)))
+    buf = (ctypes.c_char * max(nbytes, 1)).from_address(ptr.value)
+    weakref.finalize(buf, lib.tv_host_free, ptr.value).atexit = False
+    return np.frombuffer(buf, dtype, count=int(np.prod(shape))).reshape(shape)
 
 
 def check(err: int) -> None:

@@ -14,6 +14,19 @@ of 4n+3 (``utils/perf.py``); fusing the passes is later work. The three
 sums are per-block partials combined in a fixed order on the device, so
 traces repeat exactly from run to run.
 
+With ``halos`` the cube is one axis-0 slab of a larger cube, as in an
+out-of-core run (``solver/outofcore.py``): seam operands stand in for the
+Jia-Zhao edges of axes 0 and 1, with the TPU kernel's operand set and
+meaning (``cytvdn_tpu/kernels/fused.py:316-328, :890-897``). A cube cut
+into slabs, each run with halos taken from the pre-update state and put
+back together, is bitwise one iteration of the whole cube; its sums add up
+in slab order. The kernel's ``HALO`` instantiation computes the +1
+neighbour's first updated accumulator slab in the dual pass and leaves it
+in a scratch slab for the reconstruction pass. The halo variants only a
+sharded run needs (in-block and folded-axis halos, iso seams and corners,
+periodic and mirror halos) are refused; the JAX kernel's ``edge_next``
+(sharded mirror runs) is not taken.
+
 :func:`fused_iteration` launches the kernel for CUDA tensors and runs
 :func:`fused_iteration_reference` — built from ``ops/stencil.py`` in the
 order the JAX engine uses — for CPU tensors. There is no fallback: a CUDA
@@ -27,7 +40,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from cytvdn_tpu_torch import ops
-from cytvdn_tpu_torch.config import BCMode
+from cytvdn_tpu_torch.config import BCMode, _not_ported
 from cytvdn_tpu_torch.kernels import build
 
 Tensor = torch.Tensor
@@ -64,6 +77,59 @@ def _work_items(shape: Tuple[int, ...]) -> int:
     return rows * (-(-shape[-2] // _TY)) * (-(-shape[-1] // _TX))
 
 
+#: the seam operands of a slab cut along axis 0 (and, at the JZ edge
+#: values, axis 1): the TPU kernel's with-halo set; the ``_d`` slabs under
+#: FISTA only
+HALO_KEYS = ("prev0", "prev1", "next0_recon", "next0_acc", "next0_d",
+             "next1_recon", "next1_acc", "next1_d")
+
+
+def _check_halos(halos, orig: Tensor, fista: bool, bc: int, iso_r: bool,
+                 iso_q: bool) -> None:
+    """Refuse the halo variants of sharded runs; check the seam operands:
+    each like ``orig`` with its axis collapsed to 1."""
+    extra = sorted(k for k in halos if k not in HALO_KEYS)
+    if extra or BCMode(bc) != BCMode.JIA_ZHAO or iso_r or iso_q:
+        what = (f"halo operands {extra}" if extra else
+                "operand halos with periodic or mirror boundaries" if
+                BCMode(bc) != BCMode.JIA_ZHAO else
+                "operand halos with half-isotropic pairs")
+        raise _not_ported(f"{what} (the sharded-only variants of the fused "
+                          f"iteration's halos)", "Queue 1 item 5")
+    for key in HALO_KEYS:
+        if key.endswith("_d") and not fista:
+            continue
+        t = halos.get(key)
+        if t is None:
+            raise ValueError(f"halos[{key!r}] is missing")
+        ax = int(key[4])  # prevA / nextA_*
+        shape = list(orig.shape)
+        shape[ax] = 1
+        if t.device != orig.device or t.dtype != orig.dtype \
+                or list(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"halos[{key!r}]: expected a contiguous "
+                             f"{orig.dtype} tensor of shape {tuple(shape)} "
+                             f"on {orig.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _seam_b(halos, recon: Tensor, rho, lambda_inv: Tensor, ax: int,
+            fista: bool) -> Tensor:
+    """The +1 neighbour's first updated accumulator slab along ``ax``,
+    recomputed from its pre-update slabs with its own arithmetic: the
+    accumulator update of that one slab, whose backward neighbour is this
+    cube's last slab."""
+    bc = BCMode.JIA_ZHAO
+    own_last = recon.narrow(ax, recon.shape[ax] - 1, 1)
+    nr, na = halos[f"next{ax}_recon"], halos[f"next{ax}_acc"]
+    if fista:
+        return ops.accumulator_update_fista(
+            nr, na, halos[f"next{ax}_d"], rho, ax, lambda_inv[ax], bc,
+            halo_prev=own_last)[0]
+    return ops.accumulator_update(nr, na, ax, lambda_inv[ax], bc,
+                                  halo_prev=own_last)[0]
+
+
 def fused_iteration_reference(
     orig: Tensor,
     recon: Tensor,
@@ -77,6 +143,7 @@ def fused_iteration_reference(
     bc: int = 2,
     iso_r: bool = False,
     iso_q: bool = False,
+    halos=None,
 ):
     """The plain version of :func:`fused_iteration`, on any device.
 
@@ -85,19 +152,29 @@ def fused_iteration_reference(
     reconstruction update. Each axis's new ``b``/``d`` is copied into the
     caller's tensors as soon as it is computed (it reads only ``recon`` and
     its own axis), and ``recon`` after the reconstruction update: the same
-    in-place contract as the kernel.
+    in-place contract as the kernel. With ``halos``, the backward
+    differences of axes 0 and 1 take the ``prev`` slabs at their leading
+    edges, and the forward differences there the +1 neighbour's first
+    updated accumulator slab (:func:`_seam_b`), computed before ``recon``
+    changes.
     """
     bc = BCMode(bc)
     ndim = orig.dim()
+    if halos is not None:
+        _check_halos(halos, orig, fista, bc, iso_r, iso_q)
+    prev = [halos["prev0"], halos["prev1"]] if halos is not None else []
+    prev += [None] * (ndim - len(prev))
     bnorm = torch.zeros((), dtype=orig.dtype, device=orig.device)
 
     def aniso(ax):
         if fista:
             b, d, n = ops.accumulator_update_fista(
-                recon, accs[ax], ds[ax], rho, ax, lambda_inv[ax], bc)
+                recon, accs[ax], ds[ax], rho, ax, lambda_inv[ax], bc,
+                halo_prev=prev[ax])
             ds[ax].copy_(d)
         else:
-            b, n = ops.accumulator_update(recon, accs[ax], ax, lambda_inv[ax], bc)
+            b, n = ops.accumulator_update(recon, accs[ax], ax, lambda_inv[ax],
+                                          bc, halo_prev=prev[ax])
         accs[ax].copy_(b)
         return n
 
@@ -123,7 +200,11 @@ def fused_iteration_reference(
         norms = [aniso(ax) for ax in range(3)]
     for n in norms:
         bnorm = bnorm + n
-    recon_new, dnum, dden = ops.datacube_update(orig, recon, accs, lam_mu, bc)
+    nxt = ([_seam_b(halos, recon, rho, lambda_inv, ax, fista) for ax in (0, 1)]
+           if halos is not None else [])
+    nxt += [None] * (ndim - len(nxt))
+    recon_new, dnum, dden = ops.datacube_update(orig, recon, accs, lam_mu, bc,
+                                                halos_next=nxt)
     recon.copy_(recon_new)
     return recon, accs, ds, bnorm, dnum, dden
 
@@ -151,7 +232,7 @@ def _check_state(orig: Tensor, recon: Tensor, accs, ds, fista: bool) -> None:
     for k in range(ndim):
         _check(accs[k], orig, f"accs[{k}]")
         if fista:
-            # a bfloat16 d (lossy duals, ROADMAP.md Queue 1 item 4) fails here
+            # a bfloat16 d (lossy duals, ROADMAP.md Queue 1 item 6) fails here
             _check(ds[k], orig, f"ds[{k}]")
 
 
@@ -197,29 +278,37 @@ def fused_iteration(
     device (ignored when ``fista`` is false); ``lambda_inv`` and ``lam_mu``
     are per-axis tensors there too. ``bc``: 0 periodic, 1 mirror,
     2 Jia-Zhao; ``iso_r``/``iso_q`` jointly project the (0,1)/(2,3) pairs
-    (4D, Jia-Zhao only).
+    (4D, Jia-Zhao only). ``halos``, a dict of :data:`HALO_KEYS` (Jia-Zhao,
+    anisotropic), makes the cube one axis-0 slab of a larger one: ``prev0``
+    (1,N1,…) and ``prev1`` (N0,1,…) are the -1 neighbours' pre-update last
+    slabs of recon; ``next0_recon``/``next0_acc``[/``next0_d``] (1,N1,…)
+    and ``next1_*`` (N0,1,…) the +1 neighbours' pre-update first slabs. A
+    global edge is given by values: the own edge slab as ``prev``, the own
+    last slab with zero ``acc``/``d`` as ``next``. Other halo operands,
+    other boundaries and iso pairs (sharded runs) raise
+    ``NotImplementedError``; the JAX kernel's ``edge_next`` (sharded mirror
+    runs) is not taken.
 
     Returns ``(recon, accs, ds, bnorm, delta_num, recon_norm)`` — the state
     objects passed in, and the three sums as 0-d tensors of the data type.
-    ``fused_iteration.launches`` counts the kernel launches;
+    ``fused_iteration.launches`` counts the kernel launches,
+    ``fused_iteration.halo_launches`` those of them with halos;
     ``fused_iteration.calls`` counts every call that passed the checks, on
     the CPU too.
     """
-    if halos is not None:
-        raise NotImplementedError(
-            "operand halos (sharded and out-of-core runs) are not ported "
-            "yet (ROADMAP.md Queue 1 items 7-8)")
     ndim = orig.dim()
     if not fused_supported(tuple(orig.shape), orig.dtype, bc, iso_r, iso_q):
         raise ValueError(
             f"fused_iteration does not cover shape {tuple(orig.shape)}, "
             f"dtype {orig.dtype}, bc {int(bc)}, iso ({iso_r}, {iso_q})")
     _check_state(orig, recon, accs, ds, fista)
+    if halos is not None:
+        _check_halos(halos, orig, fista, bc, iso_r, iso_q)
     if orig.device.type == "cpu":
         fused_iteration.calls += 1
         return fused_iteration_reference(
             orig, recon, accs, ds, rho, lambda_inv, lam_mu,
-            fista=fista, bc=bc, iso_r=iso_r, iso_q=iso_q)
+            fista=fista, bc=bc, iso_r=iso_r, iso_q=iso_q, halos=halos)
     if orig.device.type != "cuda":
         raise ValueError(f"fused_iteration runs on CUDA or CPU tensors, "
                          f"not {orig.device}")
@@ -238,16 +327,28 @@ def fused_iteration(
     nblocks = min(work, MAX_BLOCKS)
     partials = torch.empty(3 * nblocks, dtype=torch.float64, device=orig.device)
     out = torch.empty(3, dtype=orig.dtype, device=orig.device)
+    seams = [None] * 10
+    if halos is not None:
+        # scratch for the +1 neighbours' recomputed first b slabs
+        bhat = [torch.empty_like(halos[f"next{ax}_recon"]) for ax in (0, 1)]
+        seams = [t.data_ptr() if t is not None else None for t in (
+            halos["prev0"], halos["prev1"],
+            halos["next0_recon"], halos["next1_recon"],
+            halos["next0_acc"], halos["next1_acc"],
+            halos["next0_d"] if fista else None,
+            halos["next1_d"] if fista else None, *bhat)]
     err = fn(orig.data_ptr(), recon.data_ptr(), *bs, *dd,
              lambda_inv.data_ptr(), lam_mu.data_ptr(),
              rho.data_ptr() if fista else None,
-             partials.data_ptr(), out.data_ptr(), ndim, *dims,
+             partials.data_ptr(), out.data_ptr(), *seams, ndim, *dims,
              int(fista), int(bc), int(iso_r), int(iso_q), nblocks, stream)
     build.check(err)
     fused_iteration.calls += 1
     fused_iteration.launches += 1
+    fused_iteration.halo_launches += halos is not None
     return recon, accs, ds, out[0], out[1], out[2]
 
 
 fused_iteration.launches = 0
+fused_iteration.halo_launches = 0
 fused_iteration.calls = 0

@@ -342,6 +342,15 @@ EXIT2 = {
                   "--iso-q", "1"],
     "lossy-float64": ["-m", "1.0", "-n", "2", "-f", "1", "--lossy-duals",
                       "--dtype", "float64"],
+    # cytv's out-of-core flag-combination check
+    "ooc-bc": ["-m", "1.0", "-n", "2", "--out-of-core", "2", "--bc-mode", "0"],
+    "ooc-iso": ["-m", "1.0", "-n", "2", "--out-of-core", "2", "--iso-r", "1"],
+    "ooc-backend": ["-m", "1.0", "-n", "2", "--out-of-core", "2", "--backend",
+                    "cpp"],
+    "ooc-float64": ["-m", "1.0", "-n", "2", "--out-of-core", "2", "--dtype",
+                    "float64"],
+    "ooc-temporal-bc": ["-m", "1.0", "-n", "2", "--out-of-core", "2",
+                        "--temporal", "2", "--bc-mode", "1"],
 }
 
 
@@ -357,9 +366,11 @@ def test_exit_2_as_jax(tmp_path, capsys, case):
 
 
 REFUSED = {
-    "out-of-core": (["--out-of-core", "2"], "Queue 1 item 4"),
-    "out-of-core-temporal": (["--out-of-core", "2", "--temporal", "2"],
-                             "Queue 1 item 4"),
+    # out-of-core runs are ported; sharded out-of-core slabs and lossy
+    # duals are not
+    "out-of-core": (["--out-of-core", "2", "--shard", "2"], "Queue 1 item 5"),
+    "out-of-core-temporal": (["--out-of-core", "2", "--temporal", "2", "-f",
+                              "1", "--lossy-duals"], "Queue 1 item 6"),
     "shard": (["--shard", "2,1,1"], "Queue 1 item 5"),
     "shard-auto": (["--shard", "auto"], "Queue 1 item 5"),
     "lossy-duals": (["-f", "1", "--lossy-duals"], "Queue 1 item 6"),
@@ -381,6 +392,85 @@ def test_refused_flags_name_roadmap_item(tmp_path, capsys, case):
     assert not os.path.exists(out)
 
 
+OOC = {
+    "stream-fista": (S4, ["-n", "5", "-f", "1", "--out-of-core", "2"]),
+    "stream-3d-hybrid": (S3, ["-n", "4", "3", "--out-of-core", "3"]),
+    "temporal-fista": (S4, ["-n", "5", "-f", "1", "--out-of-core", "2",
+                            "--temporal", "2"]),
+    "temporal-3d-stop": (S3, ["-n", "40", "--out-of-core", "2", "--temporal",
+                              "3", "--stop", "0.05"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OOC))
+def test_out_of_core_matches_jax_cli(tmp_path, case):
+    """``cytv-torch --device cpu --out-of-core N [--temporal K]`` against
+    the JAX ``cytv --out-of-core`` on the same file, and bitwise the port's
+    ``denoise_outofcore`` with the same arguments."""
+    from cytvdn_tpu_torch.solver.outofcore import denoise_outofcore
+
+    shape, flags = OOC[case]
+    data = _cube(shape, 16)
+    inp = _npy(tmp_path, data)
+    tout, jout = str(tmp_path / "t.emd"), str(tmp_path / "j.emd")
+    assert _jax(inp, jout, "-m", "1.0", *flags) == 0
+    assert _port(inp, tout, "-m", "1.0", *flags) == 0
+    np.testing.assert_allclose(tread(tout), jread(jout), **TOL[np.float32])
+    run = tcli.load_and_solve(["-i", inp, "-o", tout, "-m", "1.0", "-v", "0",
+                               "--device", "cpu", *flags])
+    args = run.args
+    want = denoise_outofcore(
+        data, np.full(len(shape), 1.0, np.float32),
+        iterations=(args.niterations[0] if len(args.niterations) == 1
+                    else tuple(args.niterations)),
+        FISTA=bool(args.fista), stopping_relative_change=args.stop,
+        n_slabs=args.out_of_core, temporal_k=args.temporal, device="cpu")
+    for got, w in zip((run.recon, run.b_norm, run.delta), want):
+        np.testing.assert_array_equal(got, w)
+
+
+@pytest.mark.parametrize("temporal", ["1", "2"])
+def test_out_of_core_checkpoint_and_resume(tmp_path, monkeypatch, temporal):
+    """``--out-of-core`` with ``--checkpoint``: the run is bitwise the run
+    without one and leaves the finished state in the file; a JAX
+    ``cytv --out-of-core`` run killed after its first save resumes in the
+    port's command (``--resume 1``) and matches the JAX command's
+    uninterrupted run."""
+    from cytvdn_tpu.solver import outofcore as jooc
+
+    inp = _npy(tmp_path, _cube(S3, 17))
+    flags = ["-m", "0.8", "-n", "4", "3", "--out-of-core", "2",
+             "--temporal", temporal]
+    ck = str(tmp_path / "ooc.ckpt.npz")
+    assert _port(inp, str(tmp_path / "a.emd"), *flags) == 0
+    assert _port(inp, str(tmp_path / "b.emd"), *flags, "--checkpoint", ck,
+                 "--checkpoint-every", "2") == 0
+    np.testing.assert_array_equal(tread(str(tmp_path / "a.emd")),
+                                  tread(str(tmp_path / "b.emd")))
+    with np.load(ck) as z:
+        assert int(z["i"]) == 7
+    os.remove(ck)
+    real = jooc._ckpt_save
+
+    def save_then_kill(*a, **k):
+        real(*a, **k)
+        raise _Killed
+
+    monkeypatch.setattr(jooc, "_ckpt_save", save_then_kill)
+    with pytest.raises(_Killed):
+        _jax(inp, str(tmp_path / "killed.emd"), *flags, "--checkpoint", ck,
+             "--checkpoint-every", "2")
+    monkeypatch.setattr(jooc, "_ckpt_save", real)
+    with np.load(ck) as z:
+        assert int(z["i"]) == 2
+    assert _port(inp, str(tmp_path / "t.emd"), *flags, "--checkpoint", ck,
+                 "--checkpoint-every", "2", "--resume", "1") == 0
+    assert _jax(inp, str(tmp_path / "j.emd"), *flags) == 0
+    np.testing.assert_allclose(tread(str(tmp_path / "t.emd")),
+                               jread(str(tmp_path / "j.emd")),
+                               **TOL[np.float32])
+
+
 def test_multi_process_launch_refused(tmp_path, capsys, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     out = str(tmp_path / "t.emd")
@@ -389,6 +479,10 @@ def test_multi_process_launch_refused(tmp_path, capsys, monkeypatch):
     err = capsys.readouterr().err
     assert "WORLD_SIZE=2" in err and "(ROADMAP.md Queue 1 item 5)" in err
     assert not os.path.exists(out)
+    # multi-process out-of-core runs are item 5 as well
+    assert _port(str(tmp_path / "missing.npy"), out, "-m", "1.0", "-n", "2",
+                 "--out-of-core", "2") == 2
+    assert "(ROADMAP.md Queue 1 item 5)" in capsys.readouterr().err
     monkeypatch.setenv("WORLD_SIZE", "1")
     inp = _npy(tmp_path, _cube(S3, 14))
     assert _port(inp, out, "-m", "1.0", "-n", "2") == 0

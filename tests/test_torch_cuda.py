@@ -9,7 +9,11 @@ kernel also at its tile edges, the pair kernel also with a reference
 cube (its SSE). Stop-aware runs through the K-step and pair kernels equal
 the one-iteration loop. The
 whole-run kernel is held bitwise against its plain version and against T
-launches of the one-iteration kernel, at forced grid sizes too.
+launches of the one-iteration kernel, at forced grid sizes too. The
+one-iteration kernel with operand halos (out-of-core slabs) is held
+bitwise against its plain version with the same halos, slabs launched
+with halos and reassembled against one launch of the whole cube, and
+``denoise_outofcore`` on the card against ``denoise4D`` there.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -847,3 +851,143 @@ def test_ladder_forced_oom_on_the_card():
     finally:
         del filler
         torch.cuda.empty_cache()
+
+
+# -- the K=1 kernel's operand halos and out-of-core runs ---------------------
+
+HALO_SHAPES = [(15, 45, 19, 23), (12, 13, 70), (9, 9, 10, 33)]
+
+
+def _halo_state(shape, fista, dtype, seed=0):
+    """A random state on the card and, for the slab [a0, a1) of each of
+    three slabs, its seam operands from that state (nonzero values)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ndim = len(shape)
+
+    def rnd(scale, s=shape):
+        return torch.randn(s, generator=gen, device="cuda",
+                           dtype=dtype) * scale
+
+    orig = rnd(0.5) + 2.0
+    state = [orig + rnd(0.05)] + [rnd(0.2) for _ in range(ndim)]
+    if fista:
+        state += [rnd(0.2) for _ in range(ndim)]
+    return orig, state
+
+
+def _seams(state, ndim, a0, a1, fista):
+    n0 = state[0].shape[0]
+    r, acc0 = state[0], state[1]
+    d0 = state[1 + ndim] if fista else None
+    own = r[a0:a1]
+    z = torch.zeros_like(own[:, 0:1])
+    h = {"prev0": r[a0 - 1:a0] if a0 > 0 else own[0:1],
+         "prev1": own[:, 0:1], "next1_recon": own[:, -1:], "next1_acc": z}
+    last = a1 == n0
+    h["next0_recon"] = own[-1:] if last else r[a1:a1 + 1]
+    h["next0_acc"] = torch.zeros_like(own[-1:]) if last else acc0[a1:a1 + 1]
+    if fista:
+        h["next0_d"] = torch.zeros_like(own[-1:]) if last else d0[a1:a1 + 1]
+        h["next1_d"] = z
+    return {k: v.contiguous() for k, v in h.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("where", ["first", "interior", "last"])
+@pytest.mark.parametrize("fista", [True, False])
+@pytest.mark.parametrize("shape", HALO_SHAPES, ids=str)
+def test_halo_kernel_bitwise_equals_plain(shape, fista, where, dtype):
+    """The kernel's HALO instantiation against the plain version with the
+    same halos, three iterations on the first, an interior and the last
+    of three slabs: state bitwise equal, sums within rtol 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    ndim = len(shape)
+    orig, state = _halo_state(shape, fista, dtype)
+    n = shape[0] // 3
+    a0, a1 = {"first": (0, n), "interior": (n, 2 * n),
+              "last": (2 * n, shape[0])}[where]
+    h = _seams(state, ndim, a0, a1, fista)
+    li = torch.linspace(0.2, 0.35, ndim, device="cuda", dtype=dtype)
+    lm = torch.linspace(1 / 32, 1 / 48, ndim, device="cuda", dtype=dtype)
+    rho = torch.tensor(0.37, device="cuda", dtype=dtype)
+    runs = []
+    for step in (tfused.fused_iteration, tfused.fused_iteration_reference):
+        s = [x[a0:a1].clone() for x in state]
+        sums = []
+        for _ in range(3):
+            out = step(orig[a0:a1].contiguous(), s[0], s[1:1 + ndim],
+                       s[1 + ndim:] if fista else None, rho, li, lm,
+                       fista=fista, halos=h)
+            sums.append(torch.stack(out[3:]).double().cpu())
+        torch.cuda.synchronize()
+        runs.append((s, torch.stack(sums)))
+    (ks, ksum), (ps, psum) = runs
+    for a, b in zip(ks, ps):
+        assert torch.equal(a, b), (a - b).abs().max().item()
+    torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slabs", [1, 3, 4])
+@pytest.mark.parametrize("fista", [True, False])
+@pytest.mark.parametrize("shape", HALO_SHAPES, ids=str)
+def test_halo_slabs_reassemble_to_one_launch(shape, fista, n_slabs):
+    """A cube cut into ragged slabs, each launched with halos from the
+    pre-update state, reassembled: bitwise one in-core K=1 launch (the
+    Jia-Zhao invariant held, as in a run)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from cytvdn_tpu_torch.solver.outofcore import _slab_bounds
+
+    ndim = len(shape)
+    orig, state = _halo_state(shape, fista, torch.float32, seed=1)
+    for k in range(ndim):
+        for x in (state[1 + k], state[1 + ndim + k] if fista else None):
+            if x is not None:
+                x.narrow(k, 0, 1).zero_()
+    li = torch.linspace(0.2, 0.35, ndim, device="cuda")
+    lm = torch.linspace(1 / 32, 1 / 48, ndim, device="cuda")
+    rho = torch.tensor(0.37, device="cuda")
+    whole = [x.clone() for x in state]
+    tfused.fused_iteration(orig, whole[0], whole[1:1 + ndim],
+                           whole[1 + ndim:] if fista else None, rho, li, lm,
+                           fista=fista)
+    cut = [x.clone() for x in state]
+    for a0, a1 in _slab_bounds(shape[0], n_slabs):
+        h = _seams(state, ndim, a0, a1, fista)
+        s = [x[a0:a1].clone() for x in state]
+        tfused.fused_iteration(orig[a0:a1].contiguous(), s[0],
+                               s[1:1 + ndim], s[1 + ndim:] if fista else None,
+                               rho, li, lm, fista=fista, halos=h)
+        for dst, src in zip(cut, s):
+            dst[a0:a1] = src
+    torch.cuda.synchronize()
+    for a, b in zip(cut, whole):
+        assert torch.equal(a, b), (a - b).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temporal_k", [1, 3])
+def test_outofcore_on_the_card_bitwise_incore(temporal_k):
+    """``denoise_outofcore`` on the card (pinned host state, the copy
+    stream, halo launches or margins with pairs) against ``denoise4D`` on
+    the card: recon bitwise, hybrid schedule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+
+    from cytvdn_tpu_torch import denoise4D
+    from cytvdn_tpu_torch.solver.outofcore import denoise_outofcore
+
+    cube = (np.random.default_rng(3).standard_normal((22, 9, 10, 33)) * 0.5
+            + 2.0).astype(np.float32)
+    mu = np.full(4, 1.0, np.float32)
+    before = tfused.fused_iteration.launches
+    got = denoise_outofcore(cube, mu, iterations=(5, 4), n_slabs=3,
+                            temporal_k=temporal_k, device="cuda")
+    assert tfused.fused_iteration.launches > before
+    want = denoise4D(cube, mu, iterations=(5, 4), quiet=True, device="cuda")
+    np.testing.assert_array_equal(got[0], want[0])

@@ -24,6 +24,7 @@ import cytvdn_tpu_torch.utils.checkpoint, cytvdn_tpu_torch.utils.log
 import cytvdn_tpu_torch.cli, cytvdn_tpu_torch.presets
 import cytvdn_tpu_torch.io, cytvdn_tpu_torch.io.dm, cytvdn_tpu_torch.io.emd
 import cytvdn_tpu_torch.io.loaders
+import cytvdn_tpu_torch.solver.outofcore
 leaked = {'jax', 'jaxlib', 'cytvdn_tpu'} & {m.split('.')[0] for m in sys.modules}
 assert not leaked, leaked
 """
