@@ -151,18 +151,44 @@ non-zero — nothing is caught):
    a checkpoint save and resumed (bitwise the uninterrupted run); (e)
    config 3 through ``cli.load_and_solve --out-of-core 3 --temporal 4``
    from a ``.npy`` (bitwise the API run);
-9. one JSON line on the kernels (launches on the path that reaches each,
+9. sharded runs (``cytvdn_tpu_torch.parallel``): (a) the pair kernel with
+   axis-0 bands (``HALO0``) against the plain pair with the same bands
+   (state bitwise, sums within rtol 1e-5) on the first, an interior and
+   the last 4-row slab of small cubes, FISTA and unaccelerated, with and
+   without a reference cube, at forced grids and strips; the small cubes
+   in 1-3 slabs with bands against one pair launch (bitwise); at config 4's
+   2-rank shard (128,256,128,128) FISTA as the second rank (nonzero own row
+   0, the cube's last row), the first rank with a reference cube, and an
+   interior shard; ms per HALO0 pair there, of the pair without bands and
+   of the plain pair; the K=1 kernel with halos against its plain version
+   at the shards (c) and (e) launch it on, (128,128,128,128) with
+   neighbours on axes 0 and 1 and (128,256,2048) with neighbours on axis 0
+   (state bitwise); (b) config 4 x20 on a (2,1,1,1) mesh of 2 processes
+   of this script (``--sharded-worker``, torchrun's environment,
+   ``init_distributed``, gloo) sharing the card, through
+   ``denoise_sharded`` from a ``.npy``: each block and the gathered recon
+   bitwise ``denoise4D``'s (sha256 digests), traces within rtol 1e-5, 10
+   HALO0 pairs per rank; (d) at half of config 4's rows on (2,1,1,1) a
+   stop run and an MSE x20 run, each stopping and ending as on one device,
+   bitwise; (e) config 2 FISTA with stop 0.05 on (2,1,1), blocks read
+   lazily, K=1 halo steps, bitwise; (c) config 4 x4 on a (2,2,1,1) mesh of
+   4 processes, K=1 halo launches along both axes, bitwise; (f) per rank
+   the seconds per iteration, the exchange's seconds and bytes, the
+   backend and the peak device memory. Any rank's failure fails the phase;
+10. one JSON line on the kernels (launches on the path that reaches each,
    error, ms, the plain version's ms and the least time the card could
    take), the card's name and power limit, and the ``{"ok": true, ...}``
    line last.
 
 Needs one CUDA device; exits non-zero without one. Inputs are made from
-fixed seeds.
+fixed seeds. ``--sharded-worker SPEC`` runs one rank of a phase-9 mesh
+(started by the script itself).
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import math
@@ -201,6 +227,7 @@ from cytvdn_tpu_torch.kernels.temporal import (
     cooperative_grid,
     fused_pair_iteration,
     fused_pair_iteration_reference,
+    halo0_bands,
 )
 from cytvdn_tpu_torch.solver import engine, outofcore
 from cytvdn_tpu_torch.solver.engine import (
@@ -1885,10 +1912,10 @@ def cli_phase(smi, cube):
         for flags, rc_want, item in (
                 (["--help"], 0, None),
                 (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2", "--shard",
-                  "2"], 2, "Queue 1 item 5"),
+                  "2"], 2, "Queue 1 item 10"),
                 (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2",
                   "--out-of-core", "2", "-f", "1", "--lossy-duals"], 2,
-                 "Queue 1 item 6")):
+                 "Queue 1 item 12")):
             proc = subprocess.run(
                 [sys.executable, "-m", "cytvdn_tpu_torch.cli", *flags],
                 cwd=root, env=env, capture_output=True, text=True,
@@ -1939,29 +1966,57 @@ def seams(state, ndim, a0, a1, fista):
     return {k: v.contiguous() for k, v in h.items()}
 
 
+def block_seams(state, ndim, fista):
+    """The seam operands of the block [1:-1, 1:-1] of a state, both axes
+    from the neighbours, as an interior shard of a (2, 2, ...)-style mesh
+    takes them (``engine._k1_halos``): ``prev{ax}`` the -1 neighbour's last
+    recon slab, ``next{ax}_*`` the +1 neighbour's first recon, accumulator
+    and shadow-dual slabs along ``ax``."""
+    r, accs = state[0], state[1:1 + ndim]
+    inner = (slice(1, -1), slice(1, -1))
+    h = {"prev0": r[0:1, inner[1]], "next0_recon": r[-1:, inner[1]],
+         "next0_acc": accs[0][-1:, inner[1]],
+         "prev1": r[inner[0], 0:1], "next1_recon": r[inner[0], -1:],
+         "next1_acc": accs[1][inner[0], -1:]}
+    if fista:
+        ds = state[1 + ndim:]
+        h["next0_d"] = ds[0][-1:, inner[1]]
+        h["next1_d"] = ds[1][inner[0], -1:]
+    return {k: v.contiguous() for k, v in h.items()}
+
+
 def compare_halo_case(shape, fista, dtype, where, iters=3):
     """``iters`` launches with halos against the plain version with the same
     halos, on the first, an interior or the last of three slabs of a random
     state of ``shape``, or (``where="slab"``) on the interior slab of
     ``shape`` itself, cut from a state one row longer on each side (nonzero
-    halo values): state bitwise, sums within rtol 1e-5. Returns the largest
-    |difference| of the state."""
+    axis-0 halo values), or (``where="block"``) on ``shape`` itself cut
+    from a state one row and one column longer on each side (nonzero
+    axis-0 and axis-1 halo values): state bitwise, sums within rtol 1e-5.
+    Returns the largest |difference| of the state."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     n = shape[0]
+    ndim = len(shape)
     if where == "slab":
         shape = (n + 2,) + tuple(shape[1:])
         a0, a1 = 1, n + 1
+    elif where == "block":
+        shape = (n + 2, shape[1] + 2) + tuple(shape[2:])
     else:
         n //= 3
         a0, a1 = {"first": (0, n), "interior": (n, 2 * n),
                   "last": (2 * n, shape[0])}[where]
     orig, state, li, lm, rho = random_state(shape, fista, dtype, gen)
-    ndim = len(shape)
-    h = seams(state, ndim, a0, a1, fista)
-    o = orig[a0:a1].contiguous()
+    if where == "block":
+        cut = (slice(1, -1), slice(1, -1))
+        h = block_seams(state, ndim, fista)
+    else:
+        cut = (slice(a0, a1),)
+        h = seams(state, ndim, a0, a1, fista)
+    o = orig[cut].contiguous()
     runs = []
     for step in (fused_iteration, fused_iteration_reference):
-        st = [x[a0:a1].clone() for x in state]
+        st = [x[cut].clone() for x in state]
         fn = step_fn(step, o, st, li, lm, rho, fista, halos=h)
         sums = [torch.stack(fn()[3:]).double().cpu() for _ in range(iters)]
         torch.cuda.synchronize()
@@ -2275,6 +2330,598 @@ def outofcore_phase(smi, name, cube, cube3):
     log(f"phase 8 {time.perf_counter() - t_phase:.1f} s")
     return {"launches": halo_launches, "err": err, "ms": t_halo["halo"],
             "plain_ms": t_halo["plain"], "bound": (b_ms, b_by)}
+
+
+# phase 9: sharded runs on scan-axis meshes: the pair kernel's axis-0 bands
+# (HALO0) against its plain version, and meshes of processes sharing the
+# card through gloo against the single-device runs
+
+HALO0_SMALL = ((12, 13, 19, 23), (16, 9, 70), (8, 4, 10, 33), (12, 37, 9))
+SHARD4 = (128, 256, 128, 128)   # config 4's block on a (2, 1, 1, 1) mesh
+HALF4 = (128, 256, 128, 128)    # half of config 4's rows, for (d)
+QUAD4 = (128, 128, 128, 128)    # config 4's block on a (2, 2, 1, 1) mesh
+SHARD2 = (128, 256, 2048)       # config 2's block on a (2, 1, 1) mesh
+
+
+def halo0_state(shape, fista, gen):
+    """A random Jia-Zhao state of a whole cube on the card: each
+    accumulator's leading slab along its own axis is zero, so the own row 0
+    of every axis-0 slab but the first holds nonzero axis-0 accumulators
+    (the wrap a shard must not read)."""
+    orig, state, li, lm, _ = random_state(shape, fista, torch.float32, gen,
+                                          jz=True)
+    return orig, state, li, lm
+
+
+def halo0_pair(step, orig, state, fista, li, lm, a0, a1, ref=None,
+               bands=None, **kw):
+    """One pair of ``step`` on rows [a0, a1) of ``state`` with the bands
+    cut from it (or ``bands``: (halos0, first0, last0)); returns the slab's
+    state and its sums (float64, on the host)."""
+    ndim = orig.dim()
+    accs, ds = state[1:1 + ndim], state[1 + ndim:] if fista else None
+    h, f0, l0 = bands or halo0_bands(orig, state[0], accs, ds, a0, a1)
+    s = [x[a0:a1].clone() for x in state]
+    out = step(orig[a0:a1].contiguous(), s[0], s[1:1 + ndim],
+               s[1 + ndim:] if fista else None,
+               torch.tensor(0.37, device="cuda"),
+               torch.tensor(RHO2, device="cuda"), li, lm, fista=fista,
+               halos0=h, first0=f0, last0=l0,
+               ref=None if ref is None else ref[a0:a1].contiguous(), **kw)
+    sums = torch.stack(out[3:]).double().cpu()
+    torch.cuda.synchronize()
+    return s, sums
+
+
+def compare_halo0(shape, fista, with_ref, a0, a1, grids=(None,),
+                  strips=(None,)):
+    """The HALO0 pair on rows [a0, a1) of a random cube at each forced grid
+    and strip against the plain pair with the same bands: state bitwise,
+    sums within rtol 1e-5; returns max |Δstate|."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    orig, state, li, lm = halo0_state(shape, fista, gen)
+    if a0 > 0:
+        require(state[1][a0].abs().max().item() > 0,
+                "the slab's own axis-0 row 0 is zero")
+    ref = orig + 0.1 if with_ref else None
+    ps, psum = halo0_pair(fused_pair_iteration_reference, orig, state, fista,
+                          li, lm, a0, a1, ref)
+    err = 0.0
+    for g in grids:
+        for w in strips:
+            ks, ksum = halo0_pair(fused_pair_iteration, orig, state, fista,
+                                  li, lm, a0, a1, ref, grid=g,
+                                  strip=shape[1] if w == "N1" else w)
+            err = max(err, max((a - b).abs().max().item()
+                               for a, b in zip(ks, ps)))
+            require(all(torch.equal(a, b) for a, b in zip(ks, ps)),
+                    f"HALO0 pair {shape} rows [{a0}, {a1}) fista {fista} ref "
+                    f"{with_ref} grid {g} strip {w}: state differs from the "
+                    f"plain pair (max |Δ| {err})")
+            torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+            del ks
+    del ps, state, orig, ref
+    torch.cuda.empty_cache()
+    return err
+
+
+def halo0_slabs_equal_one_launch(shape, fista, with_ref, n_slabs):
+    """Axis-0 slabs of a random cube, each paired by the HALO0 kernel with
+    bands from the pre-update state and put back: bitwise one pair launch
+    of the whole cube, the slabs' sums adding up to its sums."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    orig, state, li, lm = halo0_state(shape, fista, gen)
+    ndim = len(shape)
+    ref = orig + 0.1 if with_ref else None
+    whole = [x.clone() for x in state]
+    out = fused_pair_iteration(
+        orig, whole[0], whole[1:1 + ndim], whole[1 + ndim:] if fista else None,
+        torch.tensor(0.37, device="cuda"), torch.tensor(RHO2, device="cuda"),
+        li, lm, fista=fista, ref=ref)
+    want = torch.stack(out[3:]).double().cpu()
+    n0 = shape[0]
+    bounds = [n0 * i // n_slabs for i in range(n_slabs + 1)]
+    got = 0
+    for a0, a1 in zip(bounds[:-1], bounds[1:]):
+        s, sums = halo0_pair(fused_pair_iteration, orig, state, fista, li, lm,
+                             a0, a1, ref)
+        got = got + sums
+        require(all(torch.equal(a, b[a0:a1]) for a, b in zip(s, whole)),
+                f"{shape} fista {fista} ref {with_ref} in {n_slabs} slabs "
+                f"with bands != one pair launch")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    del whole, state, orig
+    torch.cuda.empty_cache()
+
+
+def shard_bands(shape, fista, gen, first0, last0):
+    """Random bands for a shard of ``shape`` (the Jia-Zhao invariant held
+    along the in-row axes): zeros where the shard holds a global edge."""
+    ndim = len(shape)
+    row = (1,) + tuple(shape[1:])
+
+    def rnd(rows, scale, k=None):
+        t = torch.randn((rows,) + row[1:], generator=gen, device="cuda") * scale
+        if k:
+            t.select(k, 0).zero_()
+        return t
+
+    h = {"p_r0": rnd(2, 0.05) + 2.0, "p_orig": rnd(1, 0.5) + 2.0,
+         "n_r0": rnd(2, 0.05) + 2.0, "n_orig": rnd(1, 0.5) + 2.0,
+         "n_acc0_r1": rnd(1, 0.2)}
+    for k in range(ndim):
+        h[f"p_acc{k}"], h[f"n_acc{k}"] = rnd(1, 0.2, k), rnd(1, 0.2, k)
+        if fista:
+            h[f"p_d{k}"], h[f"n_d{k}"] = rnd(1, 0.2, k), rnd(1, 0.2, k)
+    if fista:
+        h["n_d0_r1"] = rnd(1, 0.2)
+    for key in h:
+        if first0 and key.startswith("p_") or last0 and key.startswith("n_"):
+            h[key].zero_()
+    return h, first0, last0
+
+
+def compare_halo0_shard(shape, fista, with_ref, first0, last0):
+    """The HALO0 pair on a shard of ``shape`` (own rows random, row 0's
+    axis-0 accumulators nonzero unless ``first0``) with random bands,
+    against the plain pair: state bitwise, sums within rtol 1e-5."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    orig, state, li, lm = halo0_state(shape, fista, gen)
+    if not first0:
+        state[1][0].normal_(generator=gen).mul_(0.2)
+    bands = shard_bands(shape, fista, gen, first0, last0)
+    ref = orig + 0.1 if with_ref else None
+    n0 = shape[0]
+    ps, psum = halo0_pair(fused_pair_iteration_reference, orig, state, fista,
+                          li, lm, 0, n0, ref, bands)
+    ks, ksum = halo0_pair(fused_pair_iteration, orig, state, fista, li, lm, 0,
+                          n0, ref, bands)
+    err = max((a - b).abs().max().item() for a, b in zip(ks, ps))
+    require(all(torch.equal(a, b) for a, b in zip(ks, ps)),
+            f"HALO0 pair at the shard {shape} (first0 {first0}, last0 "
+            f"{last0}, ref {with_ref}): state differs (max |Δ| {err})")
+    torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+    del ks, ps, state, orig, bands, ref
+    torch.cuda.empty_cache()
+    return err
+
+
+def time_halo0(shape, n_kernel, n_plain):
+    """ms per pair at the shard ``shape`` FISTA f32 of the HALO0 kernel (an
+    interior shard: bands on both sides), of the pair kernel without bands
+    and of the plain pair with bands, in turns (plain, halo0, pair, pair,
+    halo0, plain)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    orig, state, li, lm = halo0_state(shape, True, gen)
+    ndim = len(shape)
+    h = shard_bands(shape, True, gen, False, False)[0]
+    rho1 = torch.tensor(0.37, device="cuda")
+    rho2 = torch.tensor(RHO2, device="cuda")
+    args = (orig, state[0], state[1:1 + ndim], state[1 + ndim:], rho1, rho2,
+            li, lm)
+    fns = {"halo0": lambda: fused_pair_iteration(
+               *args, fista=True, halos0=h, first0=False, last0=False),
+           "pair": lambda: fused_pair_iteration(*args, fista=True),
+           "plain": lambda: fused_pair_iteration_reference(
+               *args, fista=True, halos0=h, first0=False, last0=False)}
+    raw = {k: [] for k in fns}
+    for name in ("plain", "halo0", "pair", "pair", "halo0", "plain"):
+        raw[name].append(time_ms(fns[name],
+                                 n_plain if name == "plain" else n_kernel))
+    del state, orig, h, fns, args
+    torch.cuda.empty_cache()
+    return {k: sum(v) / len(v) for k, v in raw.items()}, raw
+
+
+def digest(a) -> str:
+    """sha256 of an array's bytes (C order): equal digests, equal bits."""
+    return hashlib.sha256(np.ascontiguousarray(a).view(np.uint8)).hexdigest()
+
+
+def clean_handle(scan, det, rows):
+    """The clean config-4 signal of the first ``rows`` scan rows as a lazy
+    input: each block made when it is read."""
+    shape = (rows,) + scan.shape[1:] + det.shape
+
+    def read(sl):
+        return (scan[sl[0], sl[1]][:, :, None, None]
+                + det[sl[2], sl[3]][None, None])
+
+    from cytvdn_tpu_torch.io.loaders import InputHandle
+
+    return InputHandle(shape, np.float32, read)
+
+
+def sharded_worker(spec_path: str) -> int:
+    """One rank of a phase-9 mesh, started by :func:`run_mesh` with
+    torchrun's environment: joins the group through ``init_distributed``
+    (the spec's ``backend`` and ``device``, by default the rule's backend
+    on the card), runs every run of the spec through ``denoise_sharded``
+    and writes, per run, its digests, traces, seconds, exchange, launches
+    and peak device memory to ``rank{R}.json`` beside the spec."""
+    import torch.distributed as dist
+
+    from cytvdn_tpu_torch.parallel import denoise_sharded, init_distributed
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    on_card = spec.get("device", "cuda") == "cuda"
+    require(init_distributed(backend=spec.get("backend"),
+                             device=spec.get("device", "cuda")),
+            "init_distributed found no environment")
+    rank = dist.get_rank()
+    backend = str(dist.get_backend())
+    if on_card:
+        build.load()
+    results = []
+    for run in spec["runs"]:
+        src = run["input"]
+        if run.get("rows"):
+            src = np.load(src, mmap_mode="r")[:run["rows"]]
+        ref = None
+        if run.get("clean"):
+            z = np.load(run["clean"])
+            ref = clean_handle(z["scan"], z["det"], run["rows"])
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        # every rank starts the run together (rank 0 digests the last
+        # run's gathered cube meanwhile), so the seconds are the run's own
+        dist.barrier()
+        reset_counts()
+        fused_pair_iteration.halo0_launches = 0
+        out = denoise_sharded(
+            src, np.full(run["ndim"], 1.0, np.float32),
+            iterations=run["iterations"], FISTA=True,
+            stopping_relative_change=run.get("stop"), reference_data=ref,
+            shard=tuple(run["shard"]), quiet=True)
+        res = {
+            "name": run["name"], "rank": rank, "backend": backend,
+            "launches": launch_counts(),
+            "halo0": fused_pair_iteration.halo0_launches,
+            "k1_halo": fused_iteration.halo_launches,
+            "peak": torch.cuda.max_memory_allocated() if on_card else 0,
+            "iterations_run": out["iterations_run"],
+            "b_norm": out["b_norm"].tolist(), "delta": out["delta"].tolist(),
+            "mse": out["mse"].tolist() if "mse" in out else None,
+            "seconds": out["seconds"], "exchange": out["exchange"],
+            "block": digest(out["block"]),
+            "slices": [[s.start, s.stop] for s in out["slices"]],
+            "recon": digest(out["recon"]) if out["recon"] is not None
+            else None,
+        }
+        results.append(res)
+        del out
+    with open(os.path.join(os.path.dirname(spec_path),
+                           f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_mesh(tmp, n_ranks, runs, timeout, **spec_kw):
+    """Start ``n_ranks`` processes of this script as the ranks of a mesh
+    (torchrun's environment: all on this host), wait for them within
+    ``timeout`` seconds, and return each rank's results. Any rank's
+    failure, or the timeout, kills the others and raises. ``spec_kw``
+    (``backend``, ``device``) goes to the workers' spec."""
+    sub = tempfile.mkdtemp(prefix=f"mesh{n_ranks}_", dir=tmp)
+    spec = os.path.join(sub, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"runs": runs, **spec_kw}, f)
+    port = free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs, logs = [], []
+    for r in range(n_ranks):
+        env = dict(os.environ, WORLD_SIZE=str(n_ranks), RANK=str(r),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n_ranks),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   PYTHONPATH=root)
+        log_f = open(os.path.join(sub, f"rank{r}.log"), "w")
+        logs.append(log_f)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-worker",
+             spec], cwd=root, env=env, stdout=log_f,
+            stderr=subprocess.STDOUT))
+    t_end = time.perf_counter() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            if failed or time.perf_counter() > t_end:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        tails = []
+        for r in range(n_ranks):
+            with open(os.path.join(sub, f"rank{r}.log")) as f:
+                tails.append(f"rank {r} (rc {rcs[r]}):\n" + f.read()[-3000:])
+        raise AssertionError(f"mesh of {n_ranks} ranks failed: "
+                             + "\n".join(tails))
+    out = []
+    for r in range(n_ranks):
+        with open(os.path.join(sub, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def check_mesh_run(name, results, want, blocks_want, full_want, mse=False):
+    """Each rank's result of run ``name`` against the single-device run:
+    the block and (rank 0) the gathered cube bitwise (their digests), the
+    stop iteration, traces within rtol 1e-5."""
+    runs = [next(x for x in res if x["name"] == name) for res in results]
+    n_run = int(np.count_nonzero(want["delta"]))
+    for run in runs:
+        r = run["rank"]
+        require(run["iterations_run"] == n_run,
+                f"{name} rank {r}: {run['iterations_run']} iterations, the "
+                f"single-device run {n_run}")
+        require(run["block"] == blocks_want[r],
+                f"{name} rank {r}: block not bitwise the single-device "
+                f"recon's")
+        for key in ("b_norm", "delta") + (("mse",) if mse else ()):
+            np.testing.assert_allclose(np.asarray(run[key], np.float32),
+                                       want[key], rtol=1e-5,
+                                       err_msg=f"{name} rank {r} {key}")
+    require(runs[0]["recon"] == full_want,
+            f"{name}: the gathered recon on rank 0 is not bitwise the "
+            f"single-device recon")
+    return runs
+
+
+def rank_lines(name, runs, smi):
+    """One line per rank of run ``name`` (phase 9 (f)): the seconds per
+    iteration of the solve, the exchange's seconds and bytes, the backend,
+    the launches and the peak device memory."""
+    for run in runs:
+        n = max(run["iterations_run"], 1)
+        x = run["exchange"]
+        log(f"{name} rank {run['rank']} ({run['backend']}): "
+            f"solve {run['seconds']['solve']:.3f} s = "
+            f"{run['seconds']['solve'] / n * 1e3:.2f} ms per iteration; "
+            f"exchange {x['exchange_seconds']:.3f} s in {x['exchanges']} "
+            f"exchanges, {x['bytes_sent'] / 1e9:.3f} GB sent, "
+            f"{x['bytes_received'] / 1e9:.3f} GB received; allsum "
+            f"{x['allsum_seconds']:.3f} s in {x['allsums']} (waits for the "
+            f"other ranks included); load {run['seconds']['load']:.2f} s, "
+            f"gather of the recon {run['seconds']['gather']:.2f} s "
+            f"({x['gather_bytes'] / 1e9:.3f} GB); launches whole-run/K-step/"
+            f"pair/fused {tuple(run['launches'])}, of them HALO0 pairs "
+            f"{run['halo0']}, K=1 halo launches {run['k1_halo']}; peak "
+            f"device memory {run['peak'] / 2**30:.2f} GiB [{smi}]")
+
+
+def single(fn, want_keys=("recon", "b_norm", "delta")):
+    """A single-device API run's outputs as a dict, with the device memory
+    given back."""
+    out = fn()
+    torch.cuda.empty_cache()
+    return dict(zip(want_keys + (("mse",) if len(out) == 4 else ()), out))
+
+
+def blocks(recon, shard):
+    """The digest of each rank's block of ``recon`` on ``shard``, in rank
+    order, and of the whole."""
+    from cytvdn_tpu_torch.parallel.multihost import block_slices, rank_coords
+
+    n = math.prod(shard)
+    return ([digest(recon[block_slices(recon.shape, shard,
+                                       rank_coords(shard, r))])
+             for r in range(n)], digest(recon))
+
+
+def sharded_phase(smi, name, cube, scan, det):
+    """Phase 9: (a) the HALO0 pair against its plain version (small cubes
+    cut into slabs at forced grids and strips, reassembled against one
+    launch, and config 4's 2-rank shard with and without a reference cube)
+    and its time; (b) config 4 x20 on a (2, 1, 1, 1) mesh of 2 processes
+    sharing the card, (d) a stop run and an MSE x20 run on (2, 1, 1, 1) at
+    half of config 4's rows, (e) config 2 with stop 0.05 on (2, 1, 1) read
+    lazily from a .npy, and (c) config 4 x4 on a (2, 2, 1, 1) mesh of 4
+    processes, each against the single-device run; (f) per-rank seconds,
+    exchange and memory; (a) also holds the K=1 kernel's halos against its
+    plain version at the shards (c) and (e) give it. Returns the numbers of
+    the kernels line's HALO0 row."""
+    t_phase = time.perf_counter()
+    # (a) the kernel against its plain version
+    t0 = time.perf_counter()
+    n_cases, err = 0, 0.0
+    for shape in HALO0_SMALL:
+        n0 = shape[0]
+        for fista in (True, False):
+            for with_ref in (False, True):
+                for a0, a1 in ((0, 4), (4, 8), (n0 - 4, n0)):
+                    err = max(err, compare_halo0(
+                        shape, fista, with_ref, a0, a1, grids=(None, 1, 7),
+                        strips=(None, 1, 2, "N1")))
+                    n_cases += 1
+                for n_slabs in (1, 2, 3):
+                    if n0 // n_slabs >= 4:
+                        halo0_slabs_equal_one_launch(shape, fista, with_ref,
+                                                     n_slabs)
+    big = {}
+    for with_ref, first0, last0 in ((False, False, True), (True, True, False),
+                                    (False, False, False)):
+        big[(with_ref, first0, last0)] = compare_halo0_shard(
+            SHARD4, True, with_ref, first0, last0)
+    err = max(err, *big.values())
+    # the K=1 halo launches of (c) and (e) at their shards: config 4's
+    # (2, 2, 1, 1) block with neighbours on both axes, config 2's (2, 1, 1)
+    # block with neighbours on axis 0
+    k1_err = 0.0
+    for shape, where in ((QUAD4, "block"), (SHARD2, "slab")):
+        for fista in (True, False):
+            k1_err = max(k1_err, compare_halo_case(shape, fista,
+                                                   torch.float32, where))
+    log(f"phase 9 (a) K=1 kernel with halos vs its plain version (3 "
+        f"launches each, FISTA and unaccelerated f32): {QUAD4} with "
+        f"neighbours' halos on axes 0 and 1, {SHARD2} with neighbours' "
+        f"halos on axis 0; state bitwise (max |Δ| {k1_err}), sums within "
+        f"rtol 1e-5 [{smi}]")
+    t_h0, raw = time_halo0(SHARD4, 3, 1)
+    bw, f32 = peak_bandwidth(name), peak_f32(name)
+    # the interior shard's bands: 11 rows from the -1 shard, 13 from the +1
+    # shard
+    band_rows = 11 + 13
+    b_ms, b_by = (launch_bound_seconds(SHARD4, True, 2, bw, f32,
+                                       band_rows=band_rows)
+                  if bw and f32 else (float("nan"), None))
+    b_ms *= 1e3
+    log(f"phase 9 (a) HALO0 pair vs the plain pair with the same bands: "
+        f"{n_cases} slab cases ({HALO0_SMALL}; FISTA and unaccelerated, with "
+        f"and without a reference cube, the first, an interior and the last "
+        f"4-row slab; grids full, 1 and 7, strips default, 1, 2 and N1) and "
+        f"config 4's 2-rank shard {SHARD4} FISTA (the second rank, with a "
+        f"nonzero own row 0 and the cube's last row; the first with a "
+        f"reference cube; an interior shard), state bitwise (max |Δ| {err}), "
+        f"sums within rtol 1e-5; the small cubes in 1, 2 and 3 slabs with "
+        f"bands = one pair launch, bitwise; at {SHARD4} FISTA (interior): "
+        f"HALO0 pair {t_h0['halo0']:.3f} ms ({b_ms / t_h0['halo0']:.3f} of "
+        f"its {b_ms:.2f} ms bound, {b_by}, {band_rows} band rows), the pair "
+        f"without bands {t_h0['pair']:.3f} ms, plain pair with bands "
+        f"{t_h0['plain']:.3f} ms (runs {raw}); "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+
+    # single-device references, then the meshes
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cytv_mesh_")
+    try:
+        mu4 = np.full(4, 1.0, np.float32)
+        cube_npy = os.path.join(tmp, "config4.npy")
+        np.save(cube_npy, cube)
+        clean_npz = os.path.join(tmp, "clean.npz")
+        np.savez(clean_npz, scan=scan, det=det)
+        half = cube[:HALF4[0]]
+        ref_half = (scan[:HALF4[0], :, None, None]
+                    + det[None, None]).astype(np.float32)
+        want = {}
+        want["b"] = single(lambda: denoise4D(cube, mu4, iterations=20,
+                                             quiet=True, device="cuda"))
+        want["c"] = single(lambda: denoise4D(cube, mu4, iterations=4,
+                                             quiet=True, device="cuda"))
+        fixed = single(lambda: denoise4D(half, mu4, iterations=64,
+                                         quiet=True, device="cuda"))
+        thr_d, stop_d = stop_threshold(torch.from_numpy(fixed["delta"]), 40)
+        want["d1"] = single(lambda: denoise4D(
+            half, mu4, iterations=64, stopping_relative_change=thr_d,
+            quiet=True, device="cuda"))
+        require(int(np.count_nonzero(want["d1"]["delta"])) == stop_d,
+                f"half config 4 stop after "
+                f"{np.count_nonzero(want['d1']['delta'])}, expected {stop_d}")
+        want["d2"] = single(lambda: denoise4D(
+            half, mu4, iterations=20, reference_data=ref_half, quiet=True,
+            device="cuda"))
+        clean2, noisy2 = cfg2_eels()
+        del clean2
+        cfg2_npy = os.path.join(tmp, "config2.npy")
+        np.save(cfg2_npy, noisy2)
+        want["e"] = single(lambda: denoise3D(
+            noisy2, np.full(3, 1.0, np.float32), iterations=500, FISTA=True,
+            stopping_relative_change=0.05, quiet=True, device="cuda"))
+        del noisy2, ref_half, fixed
+        shards = {"b": (2, 1, 1, 1), "c": (2, 2, 1, 1), "d1": (2, 1, 1, 1),
+                  "d2": (2, 1, 1, 1), "e": (2, 1, 1)}
+        digests = {k: blocks(w["recon"], shards[k]) for k, w in want.items()}
+        for w in want.values():
+            del w["recon"]
+        torch.cuda.empty_cache()
+        log(f"phase 9 single-device references (config 4 x20 and x4, "
+            f"{HALF4} stop {thr_d:.6e} after {stop_d} and MSE x20, config 2 "
+            f"stop 0.05 after {int(np.count_nonzero(want['e']['delta']))}), "
+            f"the .npy inputs and the digests: "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # two ranks on the card: (b), (d), (e)
+        t0 = time.perf_counter()
+        runs2 = [
+            dict(name="b", input=cube_npy, ndim=4, iterations=20,
+                 shard=shards["b"]),
+            dict(name="d1", input=cube_npy, rows=HALF4[0], ndim=4,
+                 iterations=64, stop=thr_d, shard=shards["d1"]),
+            dict(name="d2", input=cube_npy, rows=HALF4[0], ndim=4,
+                 iterations=20, clean=clean_npz, shard=shards["d2"]),
+            dict(name="e", input=cfg2_npy, ndim=3, iterations=500,
+                 stop=0.05, shard=shards["e"]),
+        ]
+        res2 = run_mesh(tmp, 2, runs2, timeout=420)
+        wall2 = time.perf_counter() - t0
+        rows = {}
+        for run in runs2:
+            k = run["name"]
+            rows[k] = check_mesh_run(k, res2, want[k], *digests[k],
+                                     mse=k == "d2")
+        b = rows["b"]
+        require(all(tuple(r["launches"]) == (0, 0, 10, 0) and r["halo0"] == 10
+                    for r in b),
+                f"(b) launches per rank {[r['launches'] for r in b]}, "
+                f"HALO0 {[r['halo0'] for r in b]}: expected 10 HALO0 pairs")
+        require(all(r["halo0"] == 10 and r["k1_halo"] == 0
+                    for r in rows["d2"]), "(d) MSE run: 10 HALO0 pairs each")
+        require(all(r["halo0"] > 0 for r in rows["d1"]),
+                "(d) stop run: no HALO0 pair")
+        require(all(r["halo0"] == 0 and r["k1_halo"] == r["iterations_run"]
+                    for r in rows["e"]), "(e) config 2: K=1 halo steps only")
+        log(f"phase 9 (b) config 4 {CFG4} FISTA x20 on a (2, 1, 1, 1) mesh, "
+            f"2 processes sharing the one card (gloo): recon bitwise "
+            f"denoise4D's on one device (each block and the gathered cube), "
+            f"traces within rtol 1e-5 on both ranks; 10 HALO0 pairs per rank "
+            f"({[r['launches'] for r in b]}); the 2-rank group's 4 runs and "
+            f"its start {wall2:.1f} s [{smi}]")
+        rank_lines("phase 9 (f) (b)", b, smi)
+        log(f"phase 9 (d) {HALF4} FISTA on (2, 1, 1, 1): the stop run "
+            f"(stop {thr_d:.6e}) stops after {rows['d1'][0]['iterations_run']} "
+            f"as on one device, HALO0 pairs behind the guard "
+            f"{[r['halo0'] for r in rows['d1']]} and K=1 halo steps "
+            f"{[r['k1_halo'] for r in rows['d1']]} per rank, peak "
+            f"{[round(r['peak'] / 2**30, 2) for r in rows['d1']]} GiB (state "
+            f"and block checkpoint); the MSE x20 run with the clean cube: "
+            f"10 HALO0 pairs with the reference cube per rank, MSE within "
+            f"rtol 1e-5; both recons bitwise. Config 4 itself does not fit "
+            f"this way: 2 x (20 GiB state + 20 GiB checkpoint) is more than "
+            f"the one card [{smi}]")
+        rank_lines("phase 9 (f) (d) stop", rows["d1"], smi)
+        rank_lines("phase 9 (f) (d) MSE", rows["d2"], smi)
+        log(f"phase 9 (e) config 2 {CFG2} FISTA stop 0.05 on (2, 1, 1), "
+            f"blocks read lazily from a .npy: stops after "
+            f"{rows['e'][0]['iterations_run']} as on one device, recon "
+            f"bitwise; its 2 MiB rows take the K=1 kernel with halos "
+            f"({[r['k1_halo'] for r in rows['e']]} halo launches) [{smi}]")
+        rank_lines("phase 9 (f) (e)", rows["e"], smi)
+
+        # four ranks on the card: (c)
+        t0 = time.perf_counter()
+        res4 = run_mesh(tmp, 4, [dict(name="c", input=cube_npy, ndim=4,
+                                      iterations=4, shard=shards["c"])],
+                        timeout=300)
+        c = check_mesh_run("c", res4, want["c"], *digests["c"])
+        require(all(r["k1_halo"] == 4 and r["halo0"] == 0 for r in c),
+                f"(c) K=1 halo launches {[r['k1_halo'] for r in c]}")
+        log(f"phase 9 (c) config 4 FISTA x4 on a (2, 2, 1, 1) mesh, 4 "
+            f"processes sharing the card: 4 K=1 halo launches per rank with "
+            f"neighbours along axes 0 and 1, recon bitwise denoise4D's; "
+            f"{time.perf_counter() - t0:.1f} s [{smi}]")
+        rank_lines("phase 9 (f) (c)", c, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 9 {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": b[0]["halo0"], "err": err, "ms": t_h0["halo0"],
+            "plain_ms": t_h0["plain"], "bound": (b_ms, b_by)}
 
 
 def piecewise_4d(shape, seed):
@@ -3006,6 +3653,10 @@ def main() -> int:
     # phase 8: out-of-core runs
     halo8 = outofcore_phase(smi, name, cube, cube3)
 
+    # phase 9: sharded runs
+    torch.cuda.empty_cache()
+    halo9 = sharded_phase(smi, name, cube, scan, det)
+
     # launches: each kernel's count in the run of the path that reaches it
     # (x21: the odd iteration; x20: the pairs; config 1 through run_solver
     # with the whole-run kernel off: the K-step; config 1 through denoise3D:
@@ -3044,6 +3695,12 @@ def main() -> int:
         ("fused_iteration_halo", "fused_iteration.cu", "fused.py:872",
          halo8["launches"], halo8["err"], halo8["ms"], halo8["plain_ms"],
          halo8["bound"]),
+        # the pair kernel's HALO0 instantiation: its launches per rank on
+        # the config-4 (2, 1, 1, 1) mesh run of phase 9 (b), its time at
+        # that run's shard (bands on both sides)
+        ("fused_pair_iteration_halo0", "temporal_pair.cu", "temporal.py:947",
+         halo9["launches"], halo9["err"], halo9["ms"], halo9["plain_ms"],
+         halo9["bound"]),
     ]
     kernels = [{
         "name": kname,
@@ -3069,4 +3726,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--sharded-worker":
+        sys.exit(sharded_worker(sys.argv[2]))
     sys.exit(main())

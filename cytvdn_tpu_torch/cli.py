@@ -22,9 +22,10 @@ cannot honour (``--bc-mode``, ``--iso-r/--iso-q``, ``--backend``,
 
 What the port cannot run yet is refused with exit code 2 before the input
 is read, naming its ROADMAP.md item: ``--shard`` and multi-process
-launches (``WORLD_SIZE`` > 1; Queue 1 item 5, also with
-``--out-of-core``), ``--lossy-duals`` (item 6) and ``--backend cpp``
-(item 7).
+launches (``WORLD_SIZE`` > 1; Queue 1 item 10, also with
+``--out-of-core``, item 11), ``--lossy-duals`` (item 12) and ``--backend
+cpp`` (item 13). Sharded runs are a library call for now
+(``cytvdn_tpu_torch.parallel.denoise_sharded``).
 
     cytv-torch -i cube.dm4 -o out.emd -m 1.0 --preset eels3d
     python -m cytvdn_tpu_torch.cli -i cube.npy -o out.emd -m 1.0 -n 20 -f 1
@@ -193,9 +194,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                        "that supplies it)")
     world = int(os.environ.get("WORLD_SIZE") or 1)
     if world > 1:
-        raise _not_ported(f"a multi-process launch (WORLD_SIZE={world})", 5)
+        raise _not_ported(f"a multi-process launch (WORLD_SIZE={world})", 10)
     if args.shard:
-        raise _not_ported("--shard", 5)
+        raise _not_ported("--shard", 10)
     if args.temporal != 1 and not args.out_of_core:
         raise CliError("--temporal requires --out-of-core")
     if args.lossy_duals:
@@ -204,7 +205,7 @@ def parse_args(argv=None) -> argparse.Namespace:
             # without FISTA there ARE no shadow duals
             raise CliError("--lossy-duals covers float32 Jia-Zhao "
                            "anisotropic FISTA runs only")
-        raise _not_ported("--lossy-duals", 6)
+        raise _not_ported("--lossy-duals", 12)
     if args.out_of_core:
         # the flags out-of-core runs would silently ignore (cytv's check)
         bad = []
@@ -220,7 +221,7 @@ def parse_args(argv=None) -> argparse.Namespace:
             raise CliError(f"--out-of-core does not support {', '.join(bad)} "
                            "(Jia-Zhao anisotropic float32)")
     if args.backend == "cpp":
-        raise _not_ported("--backend cpp", 7)
+        raise _not_ported("--backend cpp", 13)
 
     import torch
 

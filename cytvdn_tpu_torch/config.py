@@ -87,7 +87,7 @@ class SolverOptions:
 
     def __post_init__(self):
         if isinstance(self.backend, str) and self.backend == "cpp":
-            raise _not_ported("backend='cpp'", "Queue 1 item 7")
+            raise _not_ported("backend='cpp'", "Queue 1 item 13")
         if not isinstance(self.backend, Backend):
             object.__setattr__(self, "backend", Backend(self.backend))
         if not isinstance(self.bc_mode, BCMode):
@@ -97,7 +97,7 @@ class SolverOptions:
         if self.ndim == 3 and (self.isotropic_R or self.isotropic_Q):
             raise ValueError("half-isotropic mode is 4D-only (as in reference)")
         if self.lossy_duals:
-            raise _not_ported("lossy_duals", "Queue 1 item 6")
+            raise _not_ported("lossy_duals", "Queue 1 item 12")
 
     @property
     def fista(self) -> bool:

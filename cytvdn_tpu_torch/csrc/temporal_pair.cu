@@ -111,6 +111,34 @@
 // exactly from run to run; they may differ from two K=1 launches in the
 // last bit after the cast.
 //
+// HALO0 (a shard of a mesh split along axis 0; the TPU kernel's halos0,
+// temporal.py:230-249, 600-640, 810-832): the shard's rows are rows
+// [a, a + N0) of a larger cube, and the Jia-Zhao row edges at its seams give
+// way to the neighbour shards' pre-update bands (kernels/temporal.py::
+// HALO0_KEYS): from the -1 shard its recon rows [-2, -1] and row -1 of
+// orig, b_k, d_k; from the +1 shard its recon rows [0, 1], row 0 of orig,
+// b_k, d_k and row 1 of b_0, d_0. first0/last0 mark the shards that hold
+// the cube's first and last rows, where the Jia-Zhao edge stays. The
+// iteration-1 values the seams need are recomputed from the bands, with the
+// neighbour's own arithmetic (seam_dual, seam_recon1; the order of
+// dual_elem and recon_elem, no FMA), never read from rows another block may
+// have rewritten:
+// - dual-1 at row 0 reads the -1 shard's row -1 of recon from its band;
+// - dual-2 at row 0 reads the -1 shard's row -1 of iteration 1's recon,
+//   recomputed from its bands and this shard's own row-0 b_0 at level 1
+//   (the thread's own element, still b_1 until it writes b_2);
+// - recon-1 at row N0-1 reads the +1 shard's row-0 b_0 at level 1,
+//   recomputed from its bands and this row's recon, and leaves it (and
+//   d_0) in a two-row scratch (`stash`) for recon-2, since recon-1
+//   overwrites the recon it came from;
+// - recon-2 at row N0-1 reads the +1 shard's row-0 b_0 at level 2,
+//   recomputed from the +1 shard's iteration-1 recon at row 0 (its bands and
+//   the stash) and this row's iteration-1 recon.
+// At the cube's last row (last0) the forward neighbour is a literal zero,
+// the value of Jia-Zhao's wrap: a shard's own row 0 is not the cube's and
+// holds no zero there. The sums cover the shard's own rows only. Without
+// HALO0 the instantiations compile to the code they were.
+//
 // Layout: a block is 32 x 8 threads over a tile of the two trailing axes.
 // In each stage the active sub-stages' (row-op, axis-1 index, tile) work
 // items are numbered op-major, then axis-1 index, tile fastest (in 3D the
@@ -150,7 +178,65 @@ struct PairArgs {
   int64_t tiles_m;   // tiles of TY along axis ndim-2
   int64_t tiles_l;   // tiles of TX along axis ndim-1
   int64_t strip;     // W, axis-1 indices per strip, 1 .. n[1]
+  // HALO0: the neighbour shards' pre-update bands (rows of s[0] elements)
+  const float* p_r0;       // -1 shard: recon rows [-2, -1]
+  const float* p_orig;     // -1 shard: orig row -1
+  const float* p_acc[4];   // -1 shard: b_k row -1
+  const float* p_d[4];     // -1 shard: d_k row -1 (FISTA)
+  const float* n_r0;       // +1 shard: recon rows [0, 1]
+  const float* n_orig;     // +1 shard: orig row 0
+  const float* n_acc[4];   // +1 shard: b_k row 0
+  const float* n_d[4];     // +1 shard: d_k row 0 (FISTA)
+  const float* n_acc0_r1;  // +1 shard: b_0 row 1
+  const float* n_d0_r1;    // +1 shard: d_0 row 1 (FISTA)
+  float* stash;            // [2][row]: the +1 shard's row-0 b_0, d_0 at level 1
+  int first0;              // this shard holds the cube's first row
+  int last0;               // this shard holds the cube's last row
 };
+
+// One dual update of one element along one axis from the values it reads,
+// in dual_elem's order of operations: returns b_new and sets dn (d_new).
+template <bool FISTA>
+__device__ __forceinline__ float seam_dual(float x, float xb, float bo,
+                                           float dold, float lam, float rho,
+                                           float& dn) {
+  const float diff = x - xb;
+  dn = fminf(fmaxf(diff + bo, -lam), lam);
+  return FISTA ? dn + rho * (dn - dold) : dn;
+}
+
+// Iteration 1's recon of the element at in-row offset `off` of a
+// neighbour's band row, in recon_elem's order of operations: `x` is that
+// row's recon before the pair, `acc`/`d` its b_k/d_k rows, `og` its orig;
+// b0 is its b_0 at level 1 at the element and b0f that of the row after it.
+// The in-row b_k (k >= 1) at the element and at its forward neighbour are
+// recomputed from the row (Jia-Zhao: the wrap's b_k at index 0 is zero,
+// and the recompute gives that zero).
+template <int ND, bool FISTA>
+__device__ __forceinline__ float seam_recon1(
+    const float* x, const float* const* acc, const float* const* d, float og,
+    float b0, float b0f, int64_t off, const int64_t* c, const int64_t* n,
+    const int64_t* s, const float* lam, const float* lm, float rho) {
+  float div = 0.0f;
+  div = div + lm[0] * (b0 - b0f);
+  const float xo = __ldg(x + off);
+#pragma unroll
+  for (int k = 1; k < ND; ++k) {
+    const bool wrap = c[k] == n[k] - 1;
+    const int64_t f = wrap ? off - (n[k] - 1) * s[k] : off + s[k];
+    const int64_t b = c[k] > 0 ? off - s[k] : off;
+    const float xf = __ldg(x + f);
+    float dn;
+    const float bk = seam_dual<FISTA>(xo, __ldg(x + b), __ldg(acc[k] + off),
+                                      FISTA ? __ldg(d[k] + off) : 0.0f,
+                                      lam[k], rho, dn);
+    const float bf = seam_dual<FISTA>(xf, wrap ? xf : xo, __ldg(acc[k] + f),
+                                      FISTA ? __ldg(d[k] + f) : 0.0f, lam[k],
+                                      rho, dn);
+    div = div + lm[k] * (bk - bf);
+  }
+  return og - div;
+}
 
 // The axis-1 range [lo, hi) of row-operation `op` in strip `j` of
 // `strips`: [jW, (j+1)W) shifted left by the op's lag (dual-1 0, recon-1 1,
@@ -164,7 +250,7 @@ __device__ __forceinline__ void op_range(int op, int64_t j, int64_t strips,
   if (hi < lo) hi = lo;
 }
 
-template <int ND, bool FISTA, bool REF>
+template <int ND, bool FISTA, bool REF, bool HALO0>
 __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {
   constexpr int SUMS = REF ? MAX_SUMS : 3 * LEVELS;
   cg::grid_group grid = cg::this_grid();
@@ -252,14 +338,70 @@ __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {
         c[ND - 1] = l;
         const int64_t idx = ((row * a.rows1 + r1) * M + m) * L + l;
         const int lev = op / 2;
+        const int64_t R = a.s[0];  // elements per row
         if (op % 2 == 0) {
-          const double v = dual_elem<ND, FISTA>(a, idx, c, lam, rho[lev]);
+          double v;
+          if (HALO0 && row == 0 && !a.first0) {
+            // the -1 shard's last row of the recon this level reads
+            float xb0;
+            if (lev == 0) {
+              xb0 = __ldg(a.p_r0 + R + idx);
+            } else {
+              float dn;
+              const float b0p = seam_dual<FISTA>(
+                  __ldg(a.p_r0 + R + idx), __ldg(a.p_r0 + idx),
+                  __ldg(a.p_acc[0] + idx),
+                  FISTA ? __ldg(a.p_d[0] + idx) : 0.0f, lam[0], rho[0], dn);
+              xb0 = seam_recon1<ND, FISTA>(
+                  a.p_r0 + R, a.p_acc, a.p_d, __ldg(a.p_orig + idx), b0p,
+                  ld(a.b[0] + idx), idx, c, a.n, a.s, lam, lm, rho[0]);
+            }
+            v = dual_elem<ND, FISTA, true>(a, idx, c, lam, rho[lev], xb0);
+          } else {
+            v = dual_elem<ND, FISTA, false>(a, idx, c, lam, rho[lev], 0.0f);
+          }
           if (lev == 0) acc[0] += v; else acc[3] += v;
+        } else if (HALO0 && row == N0 - 1) {
+          // the +1 shard's first row of b_0 at this level; Jia-Zhao's zero
+          // at the cube's last row
+          float bf0 = 0.0f;
+          if (!a.last0) {
+            const int64_t off = idx - row * R;
+            const float ro = ld(a.recon + idx);
+            float dn;
+            if (lev == 0) {
+              bf0 = seam_dual<FISTA>(__ldg(a.n_r0 + off), ro,
+                                     __ldg(a.n_acc[0] + off),
+                                     FISTA ? __ldg(a.n_d[0] + off) : 0.0f,
+                                     lam[0], rho[0], dn);
+              a.stash[off] = bf0;
+              if (FISTA) a.stash[R + off] = dn;
+            } else {
+              const float b1n = __ldcg(a.stash + off);
+              const float d1n = FISTA ? __ldcg(a.stash + R + off) : 0.0f;
+              const float b1n_r1 = seam_dual<FISTA>(
+                  __ldg(a.n_r0 + R + off), __ldg(a.n_r0 + off),
+                  __ldg(a.n_acc0_r1 + off),
+                  FISTA ? __ldg(a.n_d0_r1 + off) : 0.0f, lam[0], rho[0], dn);
+              const float r1n = seam_recon1<ND, FISTA>(
+                  a.n_r0, a.n_acc, a.n_d, __ldg(a.n_orig + off), b1n, b1n_r1,
+                  off, c, a.n, a.s, lam, lm, rho[0]);
+              bf0 = seam_dual<FISTA>(r1n, ro, b1n, d1n, lam[0], rho[1], dn);
+            }
+          }
+          if (lev == 0) {
+            recon_elem<ND, false, true>(a, idx, c, lm, acc[1], acc[2], acc[6],
+                                        acc[7], bf0);
+          } else {
+            recon_elem<ND, REF, true>(a, idx, c, lm, acc[4], acc[5], acc[6],
+                                      acc[7], bf0);
+          }
         } else if (lev == 0) {
-          recon_elem<ND, false>(a, idx, c, lm, acc[1], acc[2], acc[6],
-                                acc[7]);
+          recon_elem<ND, false, false>(a, idx, c, lm, acc[1], acc[2], acc[6],
+                                       acc[7], 0.0f);
         } else {
-          recon_elem<ND, REF>(a, idx, c, lm, acc[4], acc[5], acc[6], acc[7]);
+          recon_elem<ND, REF, false>(a, idx, c, lm, acc[4], acc[5], acc[6],
+                                     acc[7], 0.0f);
         }
       }
       grid.sync();
@@ -284,27 +426,35 @@ __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {
   }
 }
 
-template <int ND, bool FISTA>
+template <int ND, bool FISTA, bool HALO0>
 const void* kernel_for_ref(int ref) {
-  return ref ? reinterpret_cast<const void*>(pair_kernel<ND, FISTA, true>)
-             : reinterpret_cast<const void*>(pair_kernel<ND, FISTA, false>);
+  return ref ? reinterpret_cast<const void*>(
+                   pair_kernel<ND, FISTA, true, HALO0>)
+             : reinterpret_cast<const void*>(
+                   pair_kernel<ND, FISTA, false, HALO0>);
 }
 
-// The instantiation for (ndim, fista, ref).
-const void* kernel_for(int ndim, int fista, int ref) {
+template <int ND, bool FISTA>
+const void* kernel_for_halo(int ref, int halo0) {
+  return halo0 ? kernel_for_ref<ND, FISTA, true>(ref)
+               : kernel_for_ref<ND, FISTA, false>(ref);
+}
+
+// The instantiation for (ndim, fista, ref, halo0).
+const void* kernel_for(int ndim, int fista, int ref, int halo0) {
   if (ndim == 4) {
-    return fista ? kernel_for_ref<4, true>(ref)
-                 : kernel_for_ref<4, false>(ref);
+    return fista ? kernel_for_halo<4, true>(ref, halo0)
+                 : kernel_for_halo<4, false>(ref, halo0);
   }
-  return fista ? kernel_for_ref<3, true>(ref)
-               : kernel_for_ref<3, false>(ref);
+  return fista ? kernel_for_halo<3, true>(ref, halo0)
+               : kernel_for_halo<3, false>(ref, halo0);
 }
 
 }  // namespace
 
-// The largest grid a cooperative launch of the (ndim, fista, ref) kernel
-// may have on the current device: resident blocks per SM times SMs.
-extern "C" int tv_pair_max_blocks(int ndim, int fista, int ref,
+// The largest grid a cooperative launch of the (ndim, fista, ref, halo0)
+// kernel may have on the current device: resident blocks per SM times SMs.
+extern "C" int tv_pair_max_blocks(int ndim, int fista, int ref, int halo0,
                                   int* blocks) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -316,7 +466,7 @@ extern "C" int tv_pair_max_blocks(int ndim, int fista, int ref,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel_for(ndim, fista, ref), NT, 0);
+      &per_sm, kernel_for(ndim, fista, ref, halo0), NT, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   *blocks = per_sm * sms;
   return 0;
@@ -326,7 +476,8 @@ extern "C" int tv_pair_iteration_f32(
     const void* orig, void* recon, void* b0, void* b1, void* b2, void* b3,
     void* d0, void* d1, void* d2, void* d3, const void* lambda_inv,
     const void* lam_mu, const void* rho1, const void* rho2, const void* ref,
-    void* partials, void* out, int ndim, long long n0, long long n1,
+    void* partials, void* out, const void* const* halo0, int first0,
+    int last0, int ndim, long long n0, long long n1,
     long long n2, long long n3, long long strip, int fista, int nblocks,
     void* stream) {
   PairArgs a;
@@ -358,11 +509,33 @@ extern "C" int tv_pair_iteration_f32(
   a.tiles_m = (a.n[ndim - 2] + TY - 1) / TY;
   a.tiles_l = (a.n[ndim - 1] + TX - 1) / TX;
   a.strip = strip < 1 ? 1 : (strip > a.n[1] ? a.n[1] : strip);
+  // HALO0 bands, in kernels/temporal.py's order: p_r0, p_orig, p_acc0..3,
+  // p_d0..3, n_r0, n_orig, n_acc0..3, n_d0..3, n_acc0_r1, n_d0_r1, stash
+  const void* const* h = halo0;
+  auto hp = [h](int i) {
+    return h != nullptr ? static_cast<const float*>(h[i]) : nullptr;
+  };
+  a.p_r0 = hp(0);
+  a.p_orig = hp(1);
+  a.n_r0 = hp(10);
+  a.n_orig = hp(11);
+  for (int k = 0; k < 4; ++k) {
+    a.p_acc[k] = hp(2 + k);
+    a.p_d[k] = hp(6 + k);
+    a.n_acc[k] = hp(12 + k);
+    a.n_d[k] = hp(16 + k);
+  }
+  a.n_acc0_r1 = hp(20);
+  a.n_d0_r1 = hp(21);
+  a.stash = const_cast<float*>(hp(22));
+  a.first0 = first0;
+  a.last0 = last0;
 
   void* args[] = {&a};
   // a grid above the cooperative limit is refused here, not shrunk
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      kernel_for(ndim, fista, ref != nullptr), dim3(nblocks), dim3(TX, TY),
+      kernel_for(ndim, fista, ref != nullptr, halo0 != nullptr),
+      dim3(nblocks), dim3(TX, TY),
       args, 0, static_cast<cudaStream_t>(stream));
   // reading the last error also clears it, so a refused launch does not
   // surface again at the next launch's check

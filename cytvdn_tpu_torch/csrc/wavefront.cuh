@@ -50,15 +50,18 @@ __device__ __forceinline__ int64_t op_row(int64_t st, int op) {
 // order). Race-free: the element's own b, d are read and written by this
 // thread only, and recon, which a dual reads around the element, no dual
 // writes. The arithmetic and its order are dual_kernel's.
-template <int ND, bool FISTA, class Args>
+// SEAM0 (the first row of a mesh shard, temporal_pair.cu's HALO0): the
+// axis-0 backward neighbour is xb0, the caller's value from the -1 shard's
+// bands, instead of a load.
+template <int ND, bool FISTA, bool SEAM0, class Args>
 __device__ __forceinline__ double dual_elem(const Args& a, int64_t idx,
                                             const int64_t* c, const float* lam,
-                                            float rho) {
+                                            float rho, float xb0) {
   const float x = ld(a.recon + idx);
   float xb[ND], bo[ND], dold[ND];
 #pragma unroll
   for (int k = 0; k < ND; ++k) {
-    xb[k] = ld(a.recon + bwd(idx, c[k], a.s[k]));
+    xb[k] = SEAM0 && k == 0 ? xb0 : ld(a.recon + bwd(idx, c[k], a.s[k]));
     bo[k] = ld(a.b[k] + idx);
     if (FISTA) dold[k] = ld(a.d[k] + idx);
   }
@@ -86,16 +89,22 @@ __device__ __forceinline__ double dual_elem(const Args& a, int64_t idx,
 // of ref: the pair kernel's recon-2 element holds both iterations' recon
 // there (R_old is iteration 1's). ref, which nothing writes, takes the
 // read-only path, and its load is sent with orig's, before the store.
-template <int ND, bool REF, class Args>
+// SEAM0 (the last row of a mesh shard, HALO0): the axis-0 forward
+// neighbour is bf0, the caller's value (the +1 shard's first b_0 row,
+// recomputed, or Jia-Zhao's zero at the global edge), instead of a load.
+template <int ND, bool REF, bool SEAM0, class Args>
 __device__ __forceinline__ void recon_elem(const Args& a, int64_t idx,
                                            const int64_t* c, const float* lm,
                                            double& dnum, double& dden,
-                                           double& sse_old, double& sse_new) {
+                                           double& sse_old, double& sse_new,
+                                           float bf0) {
   float div = 0.0f;
 #pragma unroll
   for (int k = 0; k < ND; ++k) {
     const float bk = ld(a.b[k] + idx);
-    const float bf = ld(a.b[k] + fwd(idx, c[k], a.n[k], a.s[k]));
+    const float bf = SEAM0 && k == 0
+                         ? bf0
+                         : ld(a.b[k] + fwd(idx, c[k], a.n[k], a.s[k]));
     div = div + lm[k] * (bk - bf);
   }
   const float og = __ldg(a.orig + idx);

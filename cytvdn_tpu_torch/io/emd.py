@@ -8,7 +8,7 @@ region writes into one file (:func:`write_emd_regions`), the
 single-process analog of the reference's per-rank ``write_direct`` with
 ``dest_sel`` region selections (mpi.py:493-497). The JAX package's
 multi-process writers (sharded arrays, part files and their stitching, the
-raw-offset row writers) are not ported yet (ROADMAP.md Queue 1 item 5).
+raw-offset row writers) are not ported yet (ROADMAP.md Queue 1 item 10).
 """
 
 from __future__ import annotations

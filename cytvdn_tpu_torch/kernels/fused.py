@@ -22,10 +22,11 @@ into slabs, each run with halos taken from the pre-update state and put
 back together, is bitwise one iteration of the whole cube; its sums add up
 in slab order. The kernel's ``HALO`` instantiation computes the +1
 neighbour's first updated accumulator slab in the dual pass and leaves it
-in a scratch slab for the reconstruction pass. The halo variants only a
-sharded run needs (in-block and folded-axis halos, iso seams and corners,
-periodic and mirror halos) are refused; the JAX kernel's ``edge_next``
-(sharded mirror runs) is not taken.
+in a scratch slab for the reconstruction pass. A mesh run on the scan axes
+(``parallel/``) gives the same operands from its neighbours. The halo
+variants that other meshes need (in-block and folded-axis halos, iso seams
+and corners, periodic and mirror halos) are refused, naming ROADMAP.md
+Queue 1 item 8.
 
 :func:`fused_iteration` launches the kernel for CUDA tensors and runs
 :func:`fused_iteration_reference` — built from ``ops/stencil.py`` in the
@@ -95,7 +96,7 @@ def _check_halos(halos, orig: Tensor, fista: bool, bc: int, iso_r: bool,
                 BCMode(bc) != BCMode.JIA_ZHAO else
                 "operand halos with half-isotropic pairs")
         raise _not_ported(f"{what} (the sharded-only variants of the fused "
-                          f"iteration's halos)", "Queue 1 item 5")
+                          f"iteration's halos)", "Queue 1 item 8")
     for key in HALO_KEYS:
         if key.endswith("_d") and not fista:
             continue
@@ -232,7 +233,7 @@ def _check_state(orig: Tensor, recon: Tensor, accs, ds, fista: bool) -> None:
     for k in range(ndim):
         _check(accs[k], orig, f"accs[{k}]")
         if fista:
-            # a bfloat16 d (lossy duals, ROADMAP.md Queue 1 item 6) fails here
+            # a bfloat16 d (lossy duals, ROADMAP.md Queue 1 item 12) fails here
             _check(ds[k], orig, f"ds[{k}]")
 
 
@@ -285,9 +286,7 @@ def fused_iteration(
     and ``next1_*`` (N0,1,…) the +1 neighbours' pre-update first slabs. A
     global edge is given by values: the own edge slab as ``prev``, the own
     last slab with zero ``acc``/``d`` as ``next``. Other halo operands,
-    other boundaries and iso pairs (sharded runs) raise
-    ``NotImplementedError``; the JAX kernel's ``edge_next`` (sharded mirror
-    runs) is not taken.
+    other boundaries and iso pairs raise ``NotImplementedError``.
 
     Returns ``(recon, accs, ds, bnorm, delta_num, recon_norm)`` — the state
     objects passed in, and the three sums as 0-d tensors of the data type.

@@ -44,7 +44,16 @@ iteration (the JAX engine gets the same effect from buffer donation).
 chunks (``utils/checkpoint.py``). :func:`vmem_fallback` retries a run that
 exhausts device memory with the multi-iteration kernels turned off in turn.
 
-Not here yet: sharded runs (ROADMAP.md).
+With ``comm`` (a ``parallel/halo.py::MeshComm``) the cube is one shard of
+a mesh split along the scan axes, and every process runs the same schedule
+on its block (``cytvdn_tpu``'s engine under ``shard_map``): K=1 steps take
+operand halos from the neighbours (``_k1_halos``; the plain backend takes
+``prev_halo``/``next_halo``), an axis-0 mesh runs its pairs with the pair
+kernel's 2-row bands (``halos0``) where they pay, every sum goes through
+``comm.allsum``, and the stop, the guard and the block discards read only
+the summed traces, so all ranks take the same branches. Under a mesh the
+K-step and whole-run kernels never run (``engine.py:563-564, :723-724``).
+The state is bitwise that of the single-device run.
 """
 
 from __future__ import annotations
@@ -58,11 +67,12 @@ import numpy as np
 import torch
 
 from cytvdn_tpu_torch import ops
-from cytvdn_tpu_torch.config import Backend, BCMode, SolverOptions
+from cytvdn_tpu_torch.config import Backend, BCMode, SolverOptions, _not_ported
 from cytvdn_tpu_torch.kernels.fused import fused_iteration, fused_iteration_reference
 from cytvdn_tpu_torch.kernels.kstep import best_kstep, fused_kstep_iteration
 from cytvdn_tpu_torch.kernels.resident import resident_solve, resident_supported
 from cytvdn_tpu_torch.kernels.temporal import fused_pair_iteration, pair_supported
+from cytvdn_tpu_torch.ops.stencil import _slab
 
 Tensor = torch.Tensor
 
@@ -80,6 +90,71 @@ def fista_tk_ratios(n: int) -> np.ndarray:
     return ratios
 
 
+def _edge(t: Tensor) -> Tensor:
+    """A slab given as a halo value: a contiguous copy, so that no halo
+    operand aliases the state it stands beside."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _k1_halos(comm, recon: Tensor, accs: List[Tensor],
+              ds: Optional[List[Tensor]]):
+    """The K=1 kernel's operand halos on a mesh, for axes 0 and 1
+    (``engine.py:250-300``, Jia-Zhao): ``prev{ax}``, the -1 neighbour's
+    last recon slab (the own first slab at the global leading edge);
+    ``next{ax}_recon``/``_acc``/``_d``, the +1 neighbour's pre-update first
+    slabs (the own last recon slab and zeros at the global trailing edge,
+    the identically-zero Jia-Zhao wrap). One packed exchange per axis and
+    direction; an unsplit axis gets the edge values."""
+    halos = {}
+    for ax in (0, 1):
+        first, last = _slab(recon, ax, 0), _slab(recon, ax, -1)
+        to_prev = [first, _slab(accs[ax], ax, 0)]
+        if ds is not None:
+            to_prev.append(_slab(ds[ax], ax, 0))
+        got_p, got_n = comm.exchange_pieces(ax, [last], to_prev)
+        halos[f"prev{ax}"] = got_p[0] if got_p is not None else _edge(first)
+        if got_n is None:
+            zero = torch.zeros_like(first, memory_format=torch.contiguous_format)
+            got_n = [_edge(last), zero, zero]
+        halos[f"next{ax}_recon"], halos[f"next{ax}_acc"] = got_n[:2]
+        if ds is not None:
+            halos[f"next{ax}_d"] = got_n[2]
+    return halos
+
+
+def _plain_mesh_step(orig, recon, accs, ds, rho, lambda_inv, lam_mu,
+                     opts: SolverOptions, comm):
+    """One iteration of the plain spec on a mesh shard, in place: the dual
+    updates with the -1 neighbours' recon slabs (``comm.prev_halo``), then
+    the reconstruction with the +1 neighbours' updated accumulator slabs
+    (``comm.next_halo``), as ``engine.py:76-135, :384-393`` run it.
+    Returns the shard's ``(bnorm, dnum, dden)``. It is kept apart from
+    ``fused_iteration_reference`` with :func:`_k1_halos` on purpose: the
+    exchange after the dual update needs no seam recomputation, so
+    ``backend="torch"`` on a mesh is a witness independent of the kernels'
+    pre-update halos."""
+    bc = opts.bc_mode
+    ndim = opts.ndim
+    prev = [comm.prev_halo(recon, ax) for ax in range(ndim)]
+    bnorm = torch.zeros((), dtype=orig.dtype, device=orig.device)
+    for ax in range(ndim):
+        if ds is not None:
+            b, d, n = ops.accumulator_update_fista(
+                recon, accs[ax], ds[ax], rho, ax, lambda_inv[ax], bc,
+                halo_prev=prev[ax])
+            ds[ax].copy_(d)
+        else:
+            b, n = ops.accumulator_update(recon, accs[ax], ax, lambda_inv[ax],
+                                          bc, halo_prev=prev[ax])
+        accs[ax].copy_(b)
+        bnorm = bnorm + n
+    nxt = [comm.next_halo(accs[ax], ax) for ax in range(ndim)]
+    recon_new, dnum, dden = ops.datacube_update(orig, recon, accs, lam_mu, bc,
+                                                halos_next=nxt)
+    recon.copy_(recon_new)
+    return bnorm, dnum, dden
+
+
 def iteration_step(
     orig: Tensor,
     recon: Tensor,
@@ -89,13 +164,27 @@ def iteration_step(
     lambda_inv: Tensor,
     lam_mu: Tensor,
     opts: SolverOptions,
+    comm=None,
 ):
     """One full TV iteration, in place; returns ``(bnorm, delta)``.
 
     ``Backend.TORCH`` runs the plain spec on any device; otherwise the
     fused iteration runs — the CUDA kernel on a CUDA tensor, the plain spec
-    on a CPU tensor.
+    on a CPU tensor. With ``comm`` the cube is a mesh shard: the fused
+    iteration takes the operand halos of :func:`_k1_halos` (the plain spec
+    the ``prev_halo``/``next_halo`` slabs) and the sums are all-reduced.
     """
+    if comm is not None:
+        if opts.backend == Backend.TORCH:
+            bnorm, dnum, dden = _plain_mesh_step(
+                orig, recon, accs, ds, rho, lambda_inv, lam_mu, opts, comm)
+        else:
+            _, _, _, bnorm, dnum, dden = fused_iteration(
+                orig, recon, accs, ds, rho, lambda_inv, lam_mu,
+                fista=ds is not None, bc=int(opts.bc_mode),
+                halos=_k1_halos(comm, recon, accs, ds))
+        bnorm, dnum, dden = comm.allsum(torch.stack((bnorm, dnum, dden)))
+        return bnorm, dnum / dden
     step = fused_iteration_reference if opts.backend == Backend.TORCH \
         else fused_iteration
     _, _, _, bnorm, dnum, dden = step(
@@ -116,6 +205,10 @@ class _PhaseState:
     delta: Tensor                 # full-length trace
     mse: Optional[Tensor]         # full-length (+1) trace
     tk: Tensor                    # float32 momentum (fista_restart only)
+    # block-checkpoint buffers allocated before a mesh run's first
+    # collective (recon, n accumulators [, n shadow duals], then the
+    # traces); None: ``_run_blocks`` allocates them per phase
+    ckpt: Optional[List[Tensor]] = None
 
 
 def _run_phase(
@@ -128,10 +221,12 @@ def _run_phase(
     lam_mu: Tensor,
     opts: SolverOptions,
     reference_data: Optional[Tensor],
+    comm=None,
 ) -> None:
     """Advance ``st`` through one phase (FISTA or unaccelerated) up to the
     global index ``i_bound`` or the stop, as ``cytvdn_tpu``'s
-    ``_run_phase`` does (``engine.py:409-485``)."""
+    ``_run_phase`` does (``engine.py:409-485``); on a mesh shard
+    (``comm``) with the summed traces and SSE."""
     stopping = opts.stopping_relative_change
     restart = fista and opts.fista_restart
     while st.i < i_bound and not st.done:
@@ -146,11 +241,12 @@ def _run_phase(
             rho = None
         bnorm, delta = iteration_step(
             orig, st.recon, st.accs, st.ds if fista else None, rho,
-            lambda_inv, lam_mu, opts)
+            lambda_inv, lam_mu, opts, comm)
         st.b_norm[i] = bnorm
         st.delta[i] = delta
         if opts.calculate_mse:
-            st.mse[i + 1] = ops.sum_square_error(reference_data, st.recon)
+            sse = ops.sum_square_error(reference_data, st.recon)
+            st.mse[i + 1] = sse if comm is None else comm.allsum(sse)
         if stopping is not None:
             st.done = bool(delta < stopping)  # the one host sync
         if restart:
@@ -203,6 +299,57 @@ def _pairs_pay(shape, dtype) -> bool:
     return row >= PAIR_MIN_ROW_BYTES
 
 
+def _orig_bands0(comm, orig: Tensor):
+    """The neighbours' orig rows of the pair's bands (``p_orig``, the -1
+    shard's row -1; ``n_orig``, the +1 shard's row 0) in one exchange: orig
+    never changes, so a phase exchanges them once."""
+    got_p, got_n = comm.exchange_pieces(0, [orig[-1:]], [orig[:1]])
+    h = {}
+    if got_p is not None:
+        h["p_orig"] = got_p[0]
+    if got_n is not None:
+        h["n_orig"] = got_n[0]
+    return h
+
+
+def _pair_halos0(comm, orig_bands, recon: Tensor, accs: List[Tensor],
+                 ds: Optional[List[Tensor]]):
+    """The pair kernel's axis-0 bands on an axis-0 mesh
+    (``engine.py:1027-1071``), from the neighbours' pre-update state in one
+    packed exchange per direction: to the +1 neighbour the own rows [-2, -1]
+    of recon and row -1 of every accumulator [and shadow dual]; to the -1
+    neighbour rows [0, 1] of recon, rows 0 and 1 of the axis-0 accumulator
+    [and shadow dual] and row 0 of the others; with ``orig_bands``
+    (:func:`_orig_bands0`). Returns ``(halos0, first0, last0)``; a missing
+    neighbour's bands are left out, as the kernel never reads them
+    (``first0``/``last0``)."""
+    nd = recon.dim()
+    to_next = [recon[-2:], *(a[-1:] for a in accs)]
+    to_prev = [recon[:2], accs[0][:1], accs[0][1:2],
+               *(a[:1] for a in accs[1:])]
+    if ds is not None:
+        to_next += [d[-1:] for d in ds]
+        to_prev += [ds[0][:1], ds[0][1:2], *(d[:1] for d in ds[1:])]
+    got_p, got_n = comm.exchange_pieces(0, to_next, to_prev)
+    h = dict(orig_bands)
+    if got_p is not None:
+        h["p_r0"] = got_p[0]
+        for k in range(nd):
+            h[f"p_acc{k}"] = got_p[1 + k]
+            if ds is not None:
+                h[f"p_d{k}"] = got_p[1 + nd + k]
+    if got_n is not None:
+        h["n_r0"], h["n_acc0"], h["n_acc0_r1"] = got_n[:3]
+        for k in range(1, nd):
+            h[f"n_acc{k}"] = got_n[2 + k]
+        if ds is not None:
+            base = 2 + nd
+            h["n_d0"], h["n_d0_r1"] = got_n[base], got_n[base + 1]
+            for k in range(1, nd):
+                h[f"n_d{k}"] = got_n[base + 1 + k]
+    return h, comm.is_first(0), comm.is_last(0)
+
+
 def _run_phase_paired(
     fista: bool,
     i_bound: int,
@@ -213,38 +360,51 @@ def _run_phase_paired(
     lam_mu: Tensor,
     opts: SolverOptions,
     reference_data: Optional[Tensor],
+    comm=None,
 ) -> None:
     """Advance ``st`` two iterations per pair-kernel launch, for
     ``floor((i_bound - i) / 2)`` pairs, recording both iterations' trace
     entries as the one-iteration loop would (``cytvdn_tpu``'s
     ``_run_phase_paired``, ``engine.py:897-1183``); with ``calculate_mse``
     the launch takes the reference cube and records both iterations' SSE.
+    On an axis-0 mesh (``comm``) each launch takes the neighbours' bands
+    (:func:`_pair_halos0`) and its sums are all-reduced.
     The caller's :func:`_run_phase` finishes an odd remainder. Without
-    ``stopping_relative_change`` nothing here waits for the device; with
-    it the pairs run behind a guard of horizon 4 in checkpointed blocks
-    (:func:`_run_blocks`)."""
+    ``stopping_relative_change`` nothing here waits for the device (on one
+    device); with it the pairs run behind a guard of horizon 4 in
+    checkpointed blocks (:func:`_run_blocks`)."""
     ref = reference_data if opts.calculate_mse else None
+    mesh = comm is not None and bool(comm.split_axes)
+    orig_bands = _orig_bands0(comm, orig) if mesh else None
 
     def launch(i):
         rho1, rho2 = (tk_ratios[i], tk_ratios[i + 1]) if fista \
             else (None, None)
+        ds = st.ds if fista else None
+        kw = {}
+        if mesh:
+            kw["halos0"], kw["first0"], kw["last0"] = _pair_halos0(
+                comm, orig_bands, st.recon, st.accs, ds)
         out = fused_pair_iteration(
-            orig, st.recon, st.accs, st.ds if fista else None, rho1, rho2,
-            lambda_inv, lam_mu, fista=fista, ref=ref)
-        st.b_norm[i] = out[3]
-        st.b_norm[i + 1] = out[6]
-        deltas = torch.stack((out[4] / out[5], out[7] / out[8]))
+            orig, st.recon, st.accs, ds, rho1, rho2,
+            lambda_inv, lam_mu, fista=fista, ref=ref, **kw)
+        sums = out[3:]
+        if comm is not None:
+            sums = comm.allsum(torch.stack(sums)).unbind()
+        st.b_norm[i] = sums[0]
+        st.b_norm[i + 1] = sums[3]
+        deltas = torch.stack((sums[1] / sums[2], sums[4] / sums[5]))
         st.delta[i:i + 2] = deltas
         if ref is not None:
             # the one-iteration loop records the SSE after iteration i at
             # i + 1
-            st.mse[i + 1] = out[9]
-            st.mse[i + 2] = out[10]
+            st.mse[i + 1] = sums[6]
+            st.mse[i + 2] = sums[7]
         return deltas
 
     if opts.stopping_relative_change is not None:
         _run_blocks(fista, i_bound, st, orig, tk_ratios, lambda_inv, lam_mu,
-                    opts, reference_data, 2, 4, launch)
+                    opts, reference_data, 2, 4, launch, comm)
         return
     while st.i + 2 <= i_bound:
         launch(st.i)
@@ -392,8 +552,20 @@ def _guard_allows(d1: float, d2: float, stopping: float,
 _STOP_CKPT_PAIRS = 16
 
 
+def _ckpt_buffers(st: _PhaseState, live: List[Tensor]) -> List[Tensor]:
+    """Buffers like ``live`` (the cubes, then the traces) for a block
+    checkpoint: those allocated up front (``st.ckpt``, the FISTA phase's
+    full set, of which an unaccelerated phase takes its cubes and the
+    traces), or new ones."""
+    if st.ckpt is None:
+        return [torch.empty_like(x) for x in live]
+    n_cubes = sum(x.dim() > 1 for x in live)
+    n_traces = len(live) - n_cubes
+    return st.ckpt[:n_cubes] + st.ckpt[len(st.ckpt) - n_traces:]
+
+
 def _run_blocks(fista, i_bound, st, orig, tk_ratios, lambda_inv, lam_mu,
-                opts, reference_data, k, horizon, launch) -> None:
+                opts, reference_data, k, horizon, launch, comm=None) -> None:
     """The stop-aware loop of the whole-run chunk (``k`` = T), K-step
     (``k`` = K) and pair (``k`` = 2) phases, as ``cytvdn_tpu``'s
     ``_run_phase_kstep`` and ``_run_phase_paired`` run it
@@ -417,20 +589,24 @@ def _run_blocks(fista, i_bound, st, orig, tk_ratios, lambda_inv, lam_mu,
     iterations are left: the fast early decay of a run would otherwise end
     the launches before its slow tail, where they pay. (The JAX engine
     hands over to the next phase at the first refusal.) The state and
-    traces are bitwise those of the one-iteration loop in every case."""
+    traces are bitwise those of the one-iteration loop in every case.
+
+    On a mesh shard every decision reads the all-reduced deltas, so every
+    rank takes the same branch; the checkpoint buffers are those the run
+    allocated before its first collective (``st.ckpt``)."""
     stopping = opts.stopping_relative_change
     if st.done or st.i < 2 or st.i + k > i_bound:
         return
     d2, d1 = st.delta[st.i - 2:st.i].tolist()
     live = [st.recon, *st.accs] + (list(st.ds) if fista else []) \
         + [st.b_norm, st.delta] + ([st.mse] if st.mse is not None else [])
-    ckpt = [torch.empty_like(x) for x in live]
+    ckpt = _ckpt_buffers(st, live)
     start = limit = st.i
     while st.i + k <= i_bound and not st.done:
         i = st.i
         if not _guard_allows(d1, d2, stopping, horizon):
             _run_phase(fista, i + 1, st, orig, tk_ratios, lambda_inv, lam_mu,
-                       opts, reference_data)
+                       opts, reference_data, comm)
             d2, d1 = d1, st.delta[i].item()
             limit = st.i
             continue
@@ -521,28 +697,40 @@ def stop_ckpt_bytes(opts: SolverOptions, shape, dtype) -> int:
     return cubes * vox * dtype.itemsize
 
 
-def _plan(opts: SolverOptions, shape, dtype):
+def _plan(opts: SolverOptions, shape, dtype, comm=None):
     """The phases' kernels: ``(temporal, paired, chunks)``. ``temporal``:
     the K-step and pair phases may run (:func:`_resolve_temporal`; a
     stop-aware run only where :func:`stop_ckpt_bytes` is within
     :data:`STOP_CKPT_MAX_BYTES`); ``paired``: the pairs pay
     (:func:`_pairs_pay`); ``chunks``: whole-run launches on the state
-    (:func:`_resolve_resident_chunks`). Shape, dtype and options only."""
+    (:func:`_resolve_resident_chunks`). On a mesh shard (``comm``, ``shape``
+    the shard's) there are no whole-run launches and no K-steps
+    (:func:`_run_phases`), and pairs only on an axis-0 mesh: axis-1 meshes
+    and 2D grids run the K=1 loop, whose state is the same (their pair
+    modes, ``halos1`` and the seam repair, are ROADMAP.md Queue 1 items 6
+    and 7). Shape, dtype, options and the mesh's split axes only, so every
+    rank of an evenly tiled mesh plans alike."""
     temporal = _resolve_temporal(opts, shape, dtype) and (
         opts.stopping_relative_change is None
         or stop_ckpt_bytes(opts, shape, dtype) <= STOP_CKPT_MAX_BYTES)
+    if comm is not None:
+        temporal = temporal and set(comm.split_axes) <= {0}
+        return temporal, temporal and _pairs_pay(shape, dtype), False
     paired = temporal and _pairs_pay(shape, dtype)
     chunks = _resolve_resident_chunks(opts, shape, dtype)
     return temporal, paired, chunks
 
 
-def holds_block_checkpoint(opts: SolverOptions, shape, dtype) -> bool:
+def holds_block_checkpoint(opts: SolverOptions, shape, dtype,
+                           comm=None) -> bool:
     """Whether a run keeps a block checkpoint of its state (recon, the
     accumulators [, the shadow duals]) beside it: a stop-aware run whose
     phases go through :func:`_run_blocks`."""
     if opts.stopping_relative_change is None:
         return False
-    temporal, paired, chunks = _plan(opts, shape, dtype)
+    temporal, paired, chunks = _plan(opts, shape, dtype, comm)
+    if comm is not None:
+        return paired
     return chunks or paired or temporal and any(
         _resolve_kstep(opts, shape, dtype, f)
         for f, n in ((True, opts.iterations_fista),
@@ -559,6 +747,7 @@ def _run_phases(
     reference_data: Optional[Tensor],
     i_stop: int,
     keep_state: bool,
+    comm=None,
 ) -> None:
     """The FISTA phase, then the unaccelerated one, each up to ``i_stop``
     as: the one-iteration prologue of a stop-aware run (where it has
@@ -569,12 +758,13 @@ def _run_phases(
     cut short by the cap (not by the stop) keeps its index, and the
     unaccelerated phase waits for the next call. With ``keep_state`` the
     shadow duals stay in ``st``, frozen through the unaccelerated phase,
-    as the JAX engine returns them."""
+    as the JAX engine returns them. On a mesh shard (``comm``) the phases
+    are the prologue, the pairs of an axis-0 mesh and the K=1 loop."""
     n_f, n_u = opts.iterations_fista, opts.iterations_unacc
     n_total = n_f + n_u
     shape, dtype = tuple(orig.shape), orig.dtype
     stopping = opts.stopping_relative_change
-    temporal, paired, chunks = _plan(opts, shape, dtype)
+    temporal, paired, chunks = _plan(opts, shape, dtype, comm)
     ds = st.ds
     for fista, i_bound, n in ((True, n_f, n_f), (False, n_total, n_u)):
         if not n:
@@ -582,19 +772,21 @@ def _run_phases(
         bound = min(i_bound, i_stop)
         if stopping is not None and (temporal or chunks):
             _run_phase(fista, _history_bound(st, bound), st, orig,
-                       tk_ratios, lambda_inv, lam_mu, opts, reference_data)
+                       tk_ratios, lambda_inv, lam_mu, opts, reference_data,
+                       comm)
         if chunks:
             _run_phase_resident(fista, bound, st, orig, tk_ratios,
                                 lambda_inv, lam_mu, opts, reference_data)
-        k = _resolve_kstep(opts, shape, dtype, fista) if temporal else 0
+        k = _resolve_kstep(opts, shape, dtype, fista) \
+            if temporal and comm is None else 0
         if k:
             _run_phase_kstep(fista, bound, st, orig, tk_ratios, lambda_inv,
                              lam_mu, opts, reference_data, k)
         if paired:
             _run_phase_paired(fista, bound, st, orig, tk_ratios, lambda_inv,
-                              lam_mu, opts, reference_data)
+                              lam_mu, opts, reference_data, comm)
         _run_phase(fista, bound, st, orig, tk_ratios, lambda_inv, lam_mu,
-                   opts, reference_data)
+                   opts, reference_data, comm)
         if fista:
             st.ds = None  # the unaccelerated phase carries no shadow duals
             if not st.done and st.i < n_f:
@@ -609,7 +801,42 @@ def _run_phases(
         st.ds = ds
 
 
-def run_solver(
+def check_mesh(opts: SolverOptions, comm) -> None:
+    """Refuse the mesh runs the port has no halos for yet, naming their
+    ROADMAP.md item: splits of axes 2 and 3 (the K=1 kernel's in-block and
+    folded-axis halos), half-isotropic pairs (its iso seams and corners),
+    periodic and mirror boundaries (ring halos, ``edge_next``)."""
+    q = sorted(set(comm.split_axes) - {0, 1})
+    if q:
+        what = f"mesh splits of axes {q} (the K=1 kernel's in-block halos)"
+    elif opts.isotropic_R or opts.isotropic_Q:
+        what = "half-isotropic pairs on a mesh (iso seams and corners)"
+    elif opts.bc_mode != BCMode.JIA_ZHAO:
+        what = ("periodic and mirror boundaries on a mesh (ring halos, "
+                "edge_next)")
+    else:
+        return
+    raise _not_ported(what, "Queue 1 item 8")
+
+
+@dataclasses.dataclass
+class PreparedRun:
+    """A run whose device memory is allocated and which has made no
+    collective yet (:func:`prepare_run`); :func:`run_prepared` runs it."""
+    st: _PhaseState
+    orig: Tensor
+    tk_ratios: Tensor
+    lambda_inv: Tensor
+    lam_mu: Tensor
+    opts: SolverOptions
+    reference_data: Optional[Tensor]
+    i_stop: int
+    keep_state: bool
+    comm: Any
+    fresh: bool
+
+
+def prepare_run(
     orig: Tensor,
     lambda_inv: Tensor,
     lam_mu: Tensor,
@@ -618,35 +845,17 @@ def run_solver(
     state: Optional[Dict[str, Any]] = None,
     i_stop: Optional[int] = None,
     keep_state: bool = False,
-) -> Dict[str, object]:
-    """Run the full (possibly hybrid) TV-denoising schedule on ``orig``'s
-    device.
-
-    When both phase lengths are nonzero, the FISTA phase runs first and
-    the unaccelerated phase *always* follows (even if FISTA stopped early),
-    sharing the accumulators; trace entries of skipped iterations stay zero
-    (reference cyTVDN.py:100-108, 127-128, 195-201). Where
-    :func:`_resolve_resident` allows, a fresh uncapped run is one launch of
-    the whole-run kernel; otherwise :func:`_run_phases` runs each phase.
-
-    ``state``/``i_stop``/``keep_state`` run a schedule in chunks
-    (``cytvdn_tpu``'s ``run_solver``, ``engine.py:1302-1327``): ``state``
-    is the dict ``keep_state=True`` returns (``recon``, ``accs``, ``ds``,
-    ``b_norm``, ``delta``, ``mse``, ``i``, ``tk``; tensors on ``orig``'s
-    device, e.g. from ``utils/state.py``), and ``i_stop`` caps the global
-    iteration index. Unlike the JAX engine's functional result, the
-    handed-in tensors are adopted and updated in place: the returned
-    ``recon``, ``accs``, ``ds`` and traces are the objects passed in, and
-    no second copy of the state is made.
-
-    Returns a dict with ``recon``, ``b_norm``, ``delta`` [, ``mse``] as
-    tensors on the device, ``iterations_run`` (int) and ``early_stopped``
-    (bool) [, with ``keep_state``: ``accs``, ``ds`` (empty without a
-    FISTA phase, and after a whole-run hybrid launch), ``i`` (int) and
-    ``tk``].
-    """
+    comm=None,
+) -> PreparedRun:
+    """The first half of :func:`run_solver`: check the run, adopt or
+    allocate its state and, on a mesh shard whose stop-aware pairs keep a
+    block checkpoint, allocate that too. It makes no collective, so a
+    mesh run can agree on a failed allocation before its first one
+    (``parallel/sharded.py::run_sharded``)."""
     if opts.backend == Backend.CUDA and orig.device.type != "cuda":
         raise ValueError(f"backend='cuda' needs CUDA tensors, got {orig.device}")
+    if comm is not None:
+        check_mesh(opts, comm)
     dtype, device = orig.dtype, orig.device
     if reference_data is not None:
         reference_data = reference_data.to(dtype)
@@ -664,7 +873,8 @@ def run_solver(
         mse = None
         if opts.calculate_mse:
             mse = torch.zeros(n_total + 1, dtype=dtype, device=device)
-            mse[0] = ops.sum_square_error(orig, reference_data)
+            if comm is None:
+                mse[0] = ops.sum_square_error(orig, reference_data)
         st = _PhaseState(
             i=0,
             done=False,
@@ -677,9 +887,32 @@ def run_solver(
             mse=mse,
             tk=torch.ones((), dtype=torch.float32, device=device),
         )
+    if comm is not None and holds_block_checkpoint(opts, tuple(orig.shape),
+                                                   dtype, comm):
+        cubes = 1 + opts.ndim + (opts.ndim if n_f else 0)
+        traces = [st.b_norm, st.delta] + ([st.mse] if opts.calculate_mse
+                                          else [])
+        st.ckpt = [torch.empty_like(orig) for _ in range(cubes)] \
+            + [torch.empty_like(x) for x in traces]
+    return PreparedRun(st, orig, tk_ratios, lambda_inv, lam_mu, opts,
+                       reference_data, i_stop, keep_state, comm,
+                       state is None)
+
+
+def run_prepared(run: PreparedRun) -> Dict[str, object]:
+    """The second half of :func:`run_solver`: the schedule on a prepared
+    state."""
+    st, orig, opts, comm = run.st, run.orig, run.opts, run.comm
+    tk_ratios, reference_data = run.tk_ratios, run.reference_data
+    lambda_inv, lam_mu = run.lambda_inv, run.lam_mu
+    dtype, device = orig.dtype, orig.device
+    n_f, n_u = opts.iterations_fista, opts.iterations_unacc
+    n_total = n_f + n_u
+    if comm is not None and run.fresh and opts.calculate_mse:
+        st.mse[0] = comm.allsum(ops.sum_square_error(orig, reference_data))
     shape = tuple(orig.shape)
-    if (state is None and i_stop >= n_total and n_total
-            and not (keep_state and n_f and n_u)
+    if (run.fresh and run.i_stop >= n_total and n_total and comm is None
+            and not (run.keep_state and n_f and n_u)
             and _resolve_resident(opts, shape, dtype)):
         # the whole schedule in one launch; a hybrid run's unaccelerated
         # iterations are FISTA iterations with momentum 0
@@ -701,7 +934,7 @@ def run_solver(
             st.ds = None
     else:
         _run_phases(st, orig, tk_ratios, lambda_inv, lam_mu, opts,
-                    reference_data, i_stop, keep_state)
+                    reference_data, run.i_stop, run.keep_state, comm)
 
     out = {
         "recon": st.recon,
@@ -712,12 +945,60 @@ def run_solver(
     }
     if opts.calculate_mse:
         out["mse"] = st.mse
-    if keep_state:
+    if run.keep_state:
         out["accs"] = st.accs
         out["ds"] = st.ds if st.ds is not None else []
         out["i"] = st.i
         out["tk"] = st.tk
     return out
+
+
+def run_solver(
+    orig: Tensor,
+    lambda_inv: Tensor,
+    lam_mu: Tensor,
+    opts: SolverOptions,
+    reference_data: Optional[Tensor] = None,
+    state: Optional[Dict[str, Any]] = None,
+    i_stop: Optional[int] = None,
+    keep_state: bool = False,
+    comm=None,
+) -> Dict[str, object]:
+    """Run the full (possibly hybrid) TV-denoising schedule on ``orig``'s
+    device.
+
+    When both phase lengths are nonzero, the FISTA phase runs first and
+    the unaccelerated phase *always* follows (even if FISTA stopped early),
+    sharing the accumulators; trace entries of skipped iterations stay zero
+    (reference cyTVDN.py:100-108, 127-128, 195-201). Where
+    :func:`_resolve_resident` allows, a fresh uncapped run is one launch of
+    the whole-run kernel; otherwise :func:`_run_phases` runs each phase.
+
+    ``state``/``i_stop``/``keep_state`` run a schedule in chunks
+    (``cytvdn_tpu``'s ``run_solver``, ``engine.py:1302-1327``): ``state``
+    is the dict ``keep_state=True`` returns (``recon``, ``accs``, ``ds``,
+    ``b_norm``, ``delta``, ``mse``, ``i``, ``tk``; tensors on ``orig``'s
+    device, e.g. from ``utils/state.py``), and ``i_stop`` caps the global
+    iteration index. Unlike the JAX engine's functional result, the
+    handed-in tensors are adopted and updated in place: the returned
+    ``recon``, ``accs``, ``ds`` and traces are the objects passed in, and
+    no second copy of the state is made.
+
+    ``comm`` (``parallel/halo.py::MeshComm``) makes ``orig`` (and the
+    state, and ``reference_data``) one shard of a mesh split along the
+    scan axes; every rank calls this with its shard, and the traces are
+    those of the whole cube (``parallel/sharded.py::run_sharded``).
+    :func:`check_mesh` refuses the meshes not ported yet.
+
+    Returns a dict with ``recon``, ``b_norm``, ``delta`` [, ``mse``] as
+    tensors on the device, ``iterations_run`` (int) and ``early_stopped``
+    (bool) [, with ``keep_state``: ``accs``, ``ds`` (empty without a
+    FISTA phase, and after a whole-run hybrid launch), ``i`` (int) and
+    ``tk``].
+    """
+    return run_prepared(prepare_run(orig, lambda_inv, lam_mu, opts,
+                                    reference_data, state, i_stop,
+                                    keep_state, comm))
 
 
 def _adopt(state: Dict[str, Any], orig: Tensor,

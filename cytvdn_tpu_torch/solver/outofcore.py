@@ -43,9 +43,9 @@ explicit pipeline:
 synchronous copies, because the caller asked for it. There is no fallback:
 a CUDA run reaches the kernels or raises.
 
-Not here (ROADMAP.md Queue 1 item 5): slabs sharded over several devices
+Not here (ROADMAP.md Queue 1 item 11): slabs sharded over several devices
 (``shard_w``), multi-process runs and their band exchange; bfloat16 shadow
-duals (``lossy_duals``, item 6).
+duals (``lossy_duals``, item 12).
 """
 
 from __future__ import annotations
@@ -740,9 +740,9 @@ def denoise_outofcore(
     """
     if shard_w != 1 or devices is not None:
         raise _not_ported("out-of-core slabs sharded over several devices "
-                          "(shard_w, devices)", "Queue 1 item 5")
+                          "(shard_w, devices)", "Queue 1 item 11")
     if lossy_duals:
-        raise _not_ported("lossy_duals", "Queue 1 item 6")
+        raise _not_ported("lossy_duals", "Queue 1 item 12")
     ndim = np.asarray(datacube).ndim
     datacube, mu, lam, lambda_inv, lam_mu = _validate_and_derive(
         datacube, mu, lam, ndim, 32.0 if ndim == 4 else 16.0

@@ -12,8 +12,8 @@ The file format is the JAX package's (the same keys, ``meta`` JSON and
 format version; ``i`` int32, ``tk`` float32, ``mse`` zero-length without
 MSE, the ``early_stopped`` latch), so a checkpoint written by either
 package resumes in the other. Not ported: multi-process part files
-(``blocks`` in the meta; ROADMAP.md Queue 1 item 5) and bfloat16 shadow
-duals (``bf16_keys``; Queue 1 item 6); :func:`load_state` refuses both.
+(``blocks`` in the meta; ROADMAP.md Queue 1 item 9) and bfloat16 shadow
+duals (``bf16_keys``; Queue 1 item 12); :func:`load_state` refuses both.
 """
 
 from __future__ import annotations
@@ -78,12 +78,12 @@ def load_state(path: str):
                 f"{path} is one part of a multi-process checkpoint "
                 f"({meta.get('num_processes')} processes); multi-process "
                 f"runs are not ported to cytvdn_tpu_torch yet (ROADMAP.md "
-                f"Queue 1 item 5)")
+                f"Queue 1 item 9)")
         if meta.get("bf16_keys"):
             raise NotImplementedError(
                 f"{path} holds bfloat16 shadow duals "
                 f"({meta['bf16_keys']}); lossy duals are not ported to "
-                f"cytvdn_tpu_torch yet (ROADMAP.md Queue 1 item 6)")
+                f"cytvdn_tpu_torch yet (ROADMAP.md Queue 1 item 12)")
         ndim = meta["ndim"]
         state = {
             "recon": z["recon"],

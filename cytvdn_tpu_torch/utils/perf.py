@@ -88,14 +88,17 @@ def model_seconds(shape, fista: bool, backend: str, bandwidth: float,
 
 
 def launch_bytes(shape, fista: bool, itemsize: int = 4,
-                 ref: bool = False) -> int:
+                 ref: bool = False, band_rows: int = 0) -> int:
     """Bytes one launch of any of the port's kernels (one, two or K
     iterations) must move: each input read once (orig, recon, n
     accumulators [, n shadow duals] [, the reference cube]) and each output
     written once (recon, n accumulators [, n shadow duals]), i.e. 4n+3
-    (FISTA) or 2n+3 cube traversals, one more with a reference cube."""
+    (FISTA) or 2n+3 cube traversals, one more with a reference cube; plus
+    ``band_rows`` axis-0 rows of the shape moved once (a mesh shard's
+    seam bands)."""
     trav = traversals_per_iteration(len(shape), fista, "fused") + int(ref)
-    return trav * _voxels(shape) * itemsize
+    row = _voxels(shape) // shape[0]
+    return (trav * _voxels(shape) + band_rows * row) * itemsize
 
 
 def launch_operations(shape, fista: bool, iterations: int,
@@ -112,13 +115,16 @@ def launch_operations(shape, fista: bool, iterations: int,
 
 
 def launch_bound_seconds(shape, fista: bool, iterations: int,
-                         bandwidth: float, flops: float, ref: bool = False):
+                         bandwidth: float, flops: float, ref: bool = False,
+                         band_rows: int = 0):
     """The least time one launch could take on a card with ``bandwidth``
     bytes/s and ``flops`` operations/s: the larger of :func:`launch_bytes`
     over the bandwidth and :func:`launch_operations` over the rate, and
     which of the two it is (``"bytes"`` or ``"operations"``). ``ref``: the
     launch also reads a reference cube and sums each iteration's squared
-    error against it (the pair kernel's MSE launch)."""
-    t_bytes = launch_bytes(shape, fista, ref=ref) / bandwidth
+    error against it (the pair kernel's MSE launch); ``band_rows``: rows
+    of seam bands it also moves (the pair kernel's ``HALO0`` launch)."""
+    t_bytes = launch_bytes(shape, fista, ref=ref,
+                           band_rows=band_rows) / bandwidth
     t_ops = launch_operations(shape, fista, iterations, ref=ref) / flops
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

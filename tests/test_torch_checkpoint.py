@@ -428,8 +428,8 @@ def test_checkpoint_resumes_across_packages(tmp_path, writer, cut, mse):
     _close_run(got, want, mse)
 
 
-@pytest.mark.parametrize("key,item", [("blocks", "item 5"),
-                                      ("bf16_keys", "item 6")])
+@pytest.mark.parametrize("key,item", [("blocks", "item 9"),
+                                      ("bf16_keys", "item 12")])
 def test_load_refuses_unported_checkpoints(tmp_path, key, item):
     """Multi-process part files and bfloat16 shadow duals are refused with
     the ROADMAP item that ports them."""

@@ -368,13 +368,13 @@ def test_exit_2_as_jax(tmp_path, capsys, case):
 REFUSED = {
     # out-of-core runs are ported; sharded out-of-core slabs and lossy
     # duals are not
-    "out-of-core": (["--out-of-core", "2", "--shard", "2"], "Queue 1 item 5"),
+    "out-of-core": (["--out-of-core", "2", "--shard", "2"], "Queue 1 item 10"),
     "out-of-core-temporal": (["--out-of-core", "2", "--temporal", "2", "-f",
-                              "1", "--lossy-duals"], "Queue 1 item 6"),
-    "shard": (["--shard", "2,1,1"], "Queue 1 item 5"),
-    "shard-auto": (["--shard", "auto"], "Queue 1 item 5"),
-    "lossy-duals": (["-f", "1", "--lossy-duals"], "Queue 1 item 6"),
-    "backend-cpp": (["--backend", "cpp"], "Queue 1 item 7"),
+                              "1", "--lossy-duals"], "Queue 1 item 12"),
+    "shard": (["--shard", "2,1,1"], "Queue 1 item 10"),
+    "shard-auto": (["--shard", "auto"], "Queue 1 item 10"),
+    "lossy-duals": (["-f", "1", "--lossy-duals"], "Queue 1 item 12"),
+    "backend-cpp": (["--backend", "cpp"], "Queue 1 item 13"),
 }
 
 
@@ -477,12 +477,13 @@ def test_multi_process_launch_refused(tmp_path, capsys, monkeypatch):
     assert _port(str(tmp_path / "missing.npy"), out, "-m", "1.0",
                  "-n", "2") == 2
     err = capsys.readouterr().err
-    assert "WORLD_SIZE=2" in err and "(ROADMAP.md Queue 1 item 5)" in err
+    assert "WORLD_SIZE=2" in err and "(ROADMAP.md Queue 1 item 10)" in err
     assert not os.path.exists(out)
-    # multi-process out-of-core runs are item 5 as well
+    # multi-process out-of-core runs are refused there too, before their
+    # own item (11) is reached
     assert _port(str(tmp_path / "missing.npy"), out, "-m", "1.0", "-n", "2",
                  "--out-of-core", "2") == 2
-    assert "(ROADMAP.md Queue 1 item 5)" in capsys.readouterr().err
+    assert "(ROADMAP.md Queue 1 item 10)" in capsys.readouterr().err
     monkeypatch.setenv("WORLD_SIZE", "1")
     inp = _npy(tmp_path, _cube(S3, 14))
     assert _port(inp, out, "-m", "1.0", "-n", "2") == 0

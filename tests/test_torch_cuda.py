@@ -991,3 +991,221 @@ def test_outofcore_on_the_card_bitwise_incore(temporal_k):
     assert tfused.fused_iteration.launches > before
     want = denoise4D(cube, mu, iterations=(5, 4), quiet=True, device="cuda")
     np.testing.assert_array_equal(got[0], want[0])
+
+
+# -- the pair kernel's axis-0 bands (HALO0) and mesh runs --------------------
+
+HALO0_SHAPES = [(12, 13, 19, 23), (16, 9, 70), (8, 4, 10, 33), (12, 37, 9)]
+
+
+def _halo0_state(shape, fista, seed=0):
+    """A random Jia-Zhao state of a whole cube on the card: each
+    accumulator's leading slab along its own axis is zero, so the own row 0
+    of every slab but the first holds nonzero axis-0 accumulators (the
+    Jia-Zhao wrap a shard must not read there)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ndim = len(shape)
+
+    def rnd(scale):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    orig = rnd(0.5) + 2.0
+    state = [orig + rnd(0.05)] + [rnd(0.2) for _ in range(ndim)]
+    if fista:
+        state += [rnd(0.2) for _ in range(ndim)]
+    for j, x in enumerate(state[1:]):
+        x.select(j % ndim, 0).zero_()
+    li = torch.linspace(0.2, 0.35, ndim, device="cuda")
+    lm = torch.linspace(1 / 32, 1 / 48, ndim, device="cuda")
+    return orig, state, li, lm
+
+
+def _halo0_slab(step, orig, state, li, lm, fista, a0, a1, ref=None,
+                drop=False, **kw):
+    """One pair of ``step`` on rows [a0, a1) with the bands cut from the
+    whole state (with ``drop``, a missing neighbour's bands left out, as
+    the engine leaves them); returns the slab's state and its sums."""
+    ndim = orig.dim()
+    accs, ds = state[1:1 + ndim], state[1 + ndim:] if fista else None
+    h, f0, l0 = ttemporal.halo0_bands(orig, state[0], accs, ds, a0, a1)
+    if drop:
+        h = {k: v for k, v in h.items()
+             if not (f0 and k.startswith("p_") or l0 and k.startswith("n_"))}
+    s = [x[a0:a1].clone() for x in state]
+    rho1 = torch.tensor(0.37, device="cuda")
+    rho2 = torch.tensor(0.52, device="cuda")
+    out = step(orig[a0:a1].contiguous(), s[0], s[1:1 + ndim],
+               s[1 + ndim:] if fista else None, rho1, rho2, li, lm,
+               fista=fista, halos0=h, first0=f0, last0=l0,
+               ref=None if ref is None else ref[a0:a1].contiguous(), **kw)
+    return s, torch.stack(out[3:]).double().cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,strip", [(None, None), (1, None), (7, 3),
+                                        (None, 1), (None, 2)])
+@pytest.mark.parametrize("with_ref", [False, True])
+@pytest.mark.parametrize("where", ["first", "interior", "last"])
+@pytest.mark.parametrize("fista", [True, False])
+@pytest.mark.parametrize("shape", HALO0_SHAPES, ids=str)
+def test_pair_halo0_kernel_bitwise_equals_plain(shape, fista, where,
+                                                with_ref, grid, strip):
+    """The HALO0 pair on the first, an interior and the last 4-row axis-0
+    slab of a cube, at forced grids and strips: state bitwise
+    the plain pair with the same bands, sums within rtol 1e-5. The last
+    slab's own row 0 holds nonzero axis-0 accumulators (the wrap case)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    orig, state, li, lm = _halo0_state(shape, fista, seed=sum(shape))
+    n = 4  # the pair kernel's least rows
+    a0, a1 = {"first": (0, n), "interior": (n, 2 * n),
+              "last": (shape[0] - n, shape[0])}[where]
+    if a0 > 0:
+        assert state[1][a0].abs().max().item() > 0
+    ref = orig + 0.1 if with_ref else None
+    before = ttemporal.fused_pair_iteration.halo0_launches
+    ks, ksum = _halo0_slab(ttemporal.fused_pair_iteration, orig, state, li,
+                           lm, fista, a0, a1, ref=ref, grid=grid, strip=strip)
+    assert ttemporal.fused_pair_iteration.halo0_launches == before + 1
+    ps, psum = _halo0_slab(ttemporal.fused_pair_iteration_reference, orig,
+                           state, li, lm, fista, a0, a1, ref=ref)
+    for a, b in zip(ks, ps):
+        assert torch.equal(a, b), (a - b).abs().max().item()
+    torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ref", [False, True])
+@pytest.mark.parametrize("where", ["first", "last"])
+@pytest.mark.parametrize("fista", [True, False])
+@pytest.mark.parametrize("shape", HALO0_SHAPES, ids=str)
+def test_pair_halo0_missing_neighbour_bands_left_out(shape, fista, where,
+                                                     with_ref):
+    """On the first and the last slab the missing neighbour's bands may be
+    left out (null pointers the kernel never reads): state bitwise the
+    launch with zero bands and the plain pair without them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    orig, state, li, lm = _halo0_state(shape, fista, seed=sum(shape) + 1)
+    a0, a1 = (0, 4) if where == "first" else (shape[0] - 4, shape[0])
+    ref = orig + 0.1 if with_ref else None
+    runs = [_halo0_slab(step, orig, state, li, lm, fista, a0, a1, ref=ref,
+                        drop=drop)
+            for step, drop in ((ttemporal.fused_pair_iteration, True),
+                               (ttemporal.fused_pair_iteration, False),
+                               (ttemporal.fused_pair_iteration_reference,
+                                True))]
+    (ks, ksum), (zs, zsum), (ps, psum) = runs
+    for a, b, c in zip(ks, zs, ps):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(ksum, zsum)
+    torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ref", [False, True])
+@pytest.mark.parametrize("fista", [True, False])
+@pytest.mark.parametrize("shape,n_slabs", [
+    (shape, n) for shape in HALO0_SHAPES for n in (1, 2, 3)
+    if shape[0] // n >= 4], ids=str)
+def test_pair_halo0_slabs_reassemble_to_one_launch(shape, n_slabs, fista,
+                                                   with_ref):
+    """A cube cut into axis-0 slabs of at least 4 rows, each paired by the
+    HALO0 kernel with bands from the pre-update state and put back: bitwise
+    one pair launch of the whole cube; the slabs' sums add up to its sums
+    within rtol 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    n0 = shape[0]
+    orig, state, li, lm = _halo0_state(shape, fista, seed=7)
+    ndim = len(shape)
+    ref = orig + 0.1 if with_ref else None
+    whole = [x.clone() for x in state]
+    out = ttemporal.fused_pair_iteration(
+        orig, whole[0], whole[1:1 + ndim], whole[1 + ndim:] if fista else None,
+        torch.tensor(0.37, device="cuda"), torch.tensor(0.52, device="cuda"),
+        li, lm, fista=fista, ref=ref)
+    want_sums = torch.stack(out[3:]).double().cpu()
+    bounds = [n0 * i // n_slabs for i in range(n_slabs + 1)]
+    got_sums = 0
+    for a0, a1 in zip(bounds[:-1], bounds[1:]):
+        s, sums = _halo0_slab(ttemporal.fused_pair_iteration, orig, state, li,
+                              lm, fista, a0, a1, ref=ref)
+        got_sums = got_sums + sums
+        for a, b in zip(s, whole):
+            assert torch.equal(a, b[a0:a1]), (a - b[a0:a1]).abs().max().item()
+    torch.testing.assert_close(got_sums, want_sums, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard,kw", [
+    ((2, 1, 1, 1), dict(iterations=9)),
+    ((4, 1, 1, 1), dict(iterations=(5, 4))),
+    ((2, 1, 1, 1), dict(iterations=9, with_ref=True)),
+    ((2, 1, 1, 1), dict(iterations=40, stop=True)),
+    ((1, 2, 1, 1), dict(iterations=6)),
+    ((2, 2, 1, 1), dict(iterations=6)),
+])
+def test_mesh_run_on_the_card_bitwise_single_device(monkeypatch, shard, kw):
+    """``denoise_sharded`` with ranks as threads sharing the card (gloo
+    groups, slabs staged through page-locked memory) against ``denoise4D``
+    on the card: recon bitwise, traces within rtol 1e-5, the HALO0 pairs
+    launched on axis-0 meshes and K=1 halo launches on the others."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import datetime
+    import threading
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from cytvdn_tpu_torch import denoise4D
+    from cytvdn_tpu_torch.parallel import denoise_sharded
+    from cytvdn_tpu_torch.solver import engine
+
+    monkeypatch.setattr(engine, "PAIR_MIN_ROW_BYTES", 0)
+    cube = (np.random.default_rng(5).standard_normal((16, 12, 10, 33))
+            * 0.5 + 2.0).astype(np.float32)
+    mu = np.full(4, 1.0, np.float32)
+    args = dict(iterations=kw["iterations"], quiet=True)
+    if kw.get("with_ref"):
+        args["reference_data"] = (cube * 0.9).astype(np.float32)
+    if kw.get("stop"):
+        # between the deltas of iterations 18 and 19 (1.25e-3, 1.11e-3),
+        # far from both: the run stops after 19
+        args["stopping_relative_change"] = 1.18e-3
+    want = denoise4D(cube, mu, device="cuda", **args)
+    n = int(np.prod(shard))
+    store, res, errs = dist.HashStore(), [None] * n, [None] * n
+    before = (ttemporal.fused_pair_iteration.halo0_launches,
+              tfused.fused_iteration.halo_launches)
+
+    def rank(r):
+        try:
+            pg = dist.ProcessGroupGloo(dist.PrefixStore("card", store), r, n,
+                                       datetime.timedelta(seconds=60))
+            res[r] = denoise_sharded(cube, mu, shard=shard, group=pg,
+                                     device="cuda", **args)
+        except BaseException as e:  # re-raised below
+            errs[r] = e
+
+    threads = [threading.Thread(target=rank, args=(r,), daemon=True)
+               for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads), "a rank hung"
+    for e in errs:
+        if e is not None:
+            raise e
+    np.testing.assert_array_equal(res[0]["recon"], want[0])
+    assert all(r["iterations_run"] == np.count_nonzero(want[2]) for r in res)
+    np.testing.assert_allclose(res[0]["b_norm"], want[1], rtol=1e-5)
+    np.testing.assert_allclose(res[0]["delta"], want[2], rtol=1e-5)
+    if kw.get("with_ref"):
+        np.testing.assert_allclose(res[0]["mse"], want[3], rtol=1e-5)
+    halo0 = ttemporal.fused_pair_iteration.halo0_launches - before[0]
+    k1 = tfused.fused_iteration.halo_launches - before[1]
+    assert (halo0 > 0) == (shard[1] == 1), (halo0, k1)
+    assert k1 > 0 or (halo0 > 0 and not kw.get("stop"))

@@ -188,8 +188,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         denoise3D(orig, np.full(3, 1.0, np.float32), iterations=2,
                   quiet=True, backend="cuda", device="cpu")
     # operand halos are ported for axis-0 slabs; an in-block axis's halo
-    # (sharded runs, ROADMAP Queue 1 item 5) is not
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    # (Q-axis meshes, ROADMAP Queue 1 item 8) is not
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tfused.fused_iteration(*args, fista=True,
                                halos={"prev2": torch.zeros((4, 5, 1))})
     lossy = [d.to(torch.bfloat16) for d in args[3]]

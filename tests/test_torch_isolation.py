@@ -25,6 +25,11 @@ import cytvdn_tpu_torch.cli, cytvdn_tpu_torch.presets
 import cytvdn_tpu_torch.io, cytvdn_tpu_torch.io.dm, cytvdn_tpu_torch.io.emd
 import cytvdn_tpu_torch.io.loaders
 import cytvdn_tpu_torch.solver.outofcore
+import cytvdn_tpu_torch.parallel, cytvdn_tpu_torch.parallel.api
+import cytvdn_tpu_torch.parallel.distributed, cytvdn_tpu_torch.parallel.halo
+import cytvdn_tpu_torch.parallel.multihost
+import cytvdn_tpu_torch.parallel.partition
+import cytvdn_tpu_torch.parallel.sharded
 leaked = {'jax', 'jaxlib', 'cytvdn_tpu'} & {m.split('.')[0] for m in sys.modules}
 assert not leaked, leaked
 """

@@ -183,13 +183,13 @@ REFUSED_HALOS = {
 @pytest.mark.parametrize("case", sorted(REFUSED_HALOS))
 def test_sharded_only_halos_refused(case):
     """The halo variants only a sharded run uses raise, naming ROADMAP
-    Queue 1 item 5."""
+    Queue 1 item 8."""
     extra, kw = REFUSED_HALOS[case]
     state = _state((3, 6, 8, 16), True, seed=3)
     orig, recon, accs, ds, li, lm = state
     h = {k: _t(v) for k, v in _halos(recon, accs, ds, 0, 3, True).items()}
     h.update({k: torch.zeros(s) for k, s in extra.items()})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tfused.fused_iteration(_t(orig), _t(recon), [_t(x) for x in accs],
                                [_t(x) for x in ds], torch.tensor(0.3),
                                _t(li), _t(lm), fista=True, halos=h, **kw)
@@ -438,10 +438,10 @@ def test_refusals():
     cube = _cube(C4, 15)
     mu = MU[4]
     for kw, exc, match in (
-            (dict(shard_w=2), NotImplementedError, "Queue 1 item 5"),
-            (dict(shard_w=0), NotImplementedError, "Queue 1 item 5"),
-            (dict(devices=["cuda:0"]), NotImplementedError, "Queue 1 item 5"),
-            (dict(lossy_duals=True), NotImplementedError, "Queue 1 item 6"),
+            (dict(shard_w=2), NotImplementedError, "Queue 1 item 11"),
+            (dict(shard_w=0), NotImplementedError, "Queue 1 item 11"),
+            (dict(devices=["cuda:0"]), NotImplementedError, "Queue 1 item 11"),
+            (dict(lossy_duals=True), NotImplementedError, "Queue 1 item 12"),
             (dict(n_slabs=4, temporal_k=5), ValueError, "temporal_k"),
             (dict(n_slabs=8), ValueError, "at least 2 rows")):
         with pytest.raises(exc, match=match):
