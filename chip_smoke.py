@@ -175,14 +175,31 @@ non-zero — nothing is caught):
    4 processes, K=1 halo launches along both axes, bitwise; (f) per rank
    the seconds per iteration, the exchange's seconds and bytes, the
    backend and the peak device memory. Any rank's failure fails the phase;
-10. one JSON line on the kernels (launches on the path that reaches each,
+10. sharded runs in the K=1 kernel's mesh-only modes: (a) the kernel with
+   ring halos (periodic), mirror halos with their edge flags, iso seams and
+   corners and in-block halos of axes 2 and 3 against its plain version,
+   bitwise — every mode of ``tests/torch_halo_blocks.py`` on small cubes
+   (the first, an interior and the last block, FISTA and unaccelerated,
+   float32 and float64, blocks reassembled against one launch) and one
+   launch at each shard the meshes of (b) give it — and ms per launch at
+   config 4's (2,1,1,1) shard with stem4d-iso's options and at config 2's
+   periodic (2,1,1) shard against their bounds; (b) meshes of 2 and 4
+   processes sharing the card against the single-device runs (sha256 of
+   each block and of the gathered cube; traces within rtol 1e-5): config 4
+   with stem4d-iso's options on (2,1,1,1) and (2,2,1,1), config 2 periodic
+   and mirror on (2,1,1) and (2,2,1), config 4 Jia-Zhao on (1,1,2,1),
+   config 3 iso Q on (1,1,2,2), a mirror stop run and a periodic MSE run
+   at config 2, every iteration a K=1 launch in its mode; (c) per rank the
+   seconds per iteration, the exchange's seconds and bytes and the peak
+   device memory;
+11. one JSON line on the kernels (launches on the path that reaches each,
    error, ms, the plain version's ms and the least time the card could
    take), the card's name and power limit, and the ``{"ok": true, ...}``
    line last.
 
 Needs one CUDA device; exits non-zero without one. Inputs are made from
-fixed seeds. ``--sharded-worker SPEC`` runs one rank of a phase-9 mesh
-(started by the script itself).
+fixed seeds. ``--sharded-worker SPEC`` runs one rank of a phase-9 or
+phase-10 mesh (started by the script itself).
 """
 
 from __future__ import annotations
@@ -245,6 +262,10 @@ from cytvdn_tpu_torch.utils.perf import (
     peak_bandwidth,
     peak_f32,
 )
+
+# phase 10 builds its blocks' halos with the tests' builder (numpy or torch)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
 
 SEED = 0
 CFG4 = (256, 256, 128, 128)   # BASELINE.json config 4
@@ -846,6 +867,7 @@ def reset_counts():
     fused_pair_iteration.launches = 0
     fused_iteration.launches = 0
     fused_iteration.halo_launches = 0
+    fused_iteration.mode_launches = 0
 
 
 def res_state(shape, schedule, with_ref, n_iters, gen):
@@ -2533,7 +2555,7 @@ def clean_handle(scan, det, rows):
 
 
 def sharded_worker(spec_path: str) -> int:
-    """One rank of a phase-9 mesh, started by :func:`run_mesh` with
+    """One rank of a phase-9 or phase-10 mesh, started by :func:`run_mesh` with
     torchrun's environment: joins the group through ``init_distributed``
     (the spec's ``backend`` and ``device``, by default the rule's backend
     on the card), runs every run of the spec through ``denoise_sharded``
@@ -2562,6 +2584,8 @@ def sharded_worker(spec_path: str) -> int:
         if run.get("clean"):
             z = np.load(run["clean"])
             ref = clean_handle(z["scan"], z["det"], run["rows"])
+        if run.get("reference"):
+            ref = np.load(run["reference"], mmap_mode="r")
         if on_card:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -2574,12 +2598,13 @@ def sharded_worker(spec_path: str) -> int:
             src, np.full(run["ndim"], 1.0, np.float32),
             iterations=run["iterations"], FISTA=True,
             stopping_relative_change=run.get("stop"), reference_data=ref,
-            shard=tuple(run["shard"]), quiet=True)
+            shard=tuple(run["shard"]), quiet=True, **run.get("options", {}))
         res = {
             "name": run["name"], "rank": rank, "backend": backend,
             "launches": launch_counts(),
             "halo0": fused_pair_iteration.halo0_launches,
             "k1_halo": fused_iteration.halo_launches,
+            "modes": fused_iteration.mode_launches,
             "peak": torch.cuda.max_memory_allocated() if on_card else 0,
             "iterations_run": out["iterations_run"],
             "b_norm": out["b_norm"].tolist(), "delta": out["delta"].tolist(),
@@ -2922,6 +2947,363 @@ def sharded_phase(smi, name, cube, scan, det):
     log(f"phase 9 {time.perf_counter() - t_phase:.1f} s")
     return {"launches": b[0]["halo0"], "err": err, "ms": t_h0["halo0"],
             "plain_ms": t_h0["plain"], "bound": (b_ms, b_by)}
+
+
+# phase 10: the K=1 kernel's mesh-only modes (ring halos, mirror edges, iso
+# seams and corners, in-block halos) against its plain version, and meshes
+# in those modes against the single-device runs
+
+QUAD2 = (128, 128, 2048)        # config 2's block on a (2, 2, 1) mesh
+QSPLIT4 = (256, 256, 64, 128)   # config 4's block on a (1, 1, 2, 1) mesh
+STEM4D_ISO = {k: v for k, v in (("isotropic_R", True),
+                                ("isotropic_Q", True))}
+#: the mesh shards of (b), each mode on the shards the mesh gives it:
+#: (name, shard, grid, mode, the shards' coordinates)
+MODE_SHARDS = [
+    ("iso R+Q seams, stem4d-iso", SHARD4, (2, 1, 1, 1),
+     dict(iso_r=True, iso_q=True), [(0, 0, 0, 0), (1, 0, 0, 0)]),
+    ("iso R+Q corners, stem4d-iso", QUAD4, (2, 2, 1, 1),
+     dict(iso_r=True, iso_q=True), [(0, 0, 0, 0), (0, 1, 0, 0),
+                                    (1, 1, 0, 0)]),
+    ("periodic", SHARD2, (2, 1, 1), dict(bc=0), [(0, 0, 0), (1, 0, 0)]),
+    ("periodic 2D", QUAD2, (2, 2, 1), dict(bc=0), [(1, 1, 0)]),
+    ("mirror", SHARD2, (2, 1, 1), dict(bc=1), [(0, 0, 0), (1, 0, 0)]),
+    ("mirror 2D", QUAD2, (2, 2, 1), dict(bc=1), [(0, 0, 0), (1, 1, 0)]),
+    ("in-block Jia-Zhao", QSPLIT4, (1, 1, 2, 1), dict(),
+     [(0, 0, 0, 0), (0, 0, 1, 0)]),
+    ("iso Q corners", (128, 128, 32, 32), (1, 1, 2, 2), dict(iso_q=True),
+     [(0, 0, 0, 0), (0, 0, 0, 1), (0, 0, 1, 1)]),
+]
+
+
+def shard_halos(state, fista, mode, grid, coords, gen):
+    """The halos of a shard at ``coords`` of ``grid`` with the operand set
+    of ``engine._k1_halos``: random slabs (nonzero; recon near the
+    state's) from each neighbour the shard has (both on a ring), the
+    boundary's edge values at the global edges, the partner accumulator
+    of a split iso axis, the corner where its partner is split too
+    (random where the diagonal shard exists), and the mirror's edge
+    flags. Returns ``(halos, edge_next)``."""
+    from cytvdn_tpu_torch.ops.stencil import _slab
+
+    ndim = state[0].dim()
+    recon, accs = state[0], state[1:1 + ndim]
+    ds = state[1 + ndim:] if fista else None
+    bc = mode.get("bc", 2)
+    split = {ax for ax in range(ndim) if grid[ax] > 1}
+    partner = {}
+    if bc != 0:
+        for p, q in ([(0, 1)] if mode.get("iso_r") else []) \
+                + ([(2, 3)] if mode.get("iso_q") else []):
+            partner.update({p: q, q: p})
+
+    def rnd(like, scale, base=0.0):
+        return torch.randn(like.shape, generator=gen, device="cuda",
+                           dtype=like.dtype) * scale + base
+
+    def own(t):
+        return t.clone(memory_format=torch.contiguous_format)
+
+    h = {}
+    for ax in sorted({0, 1} | split):
+        first, last = _slab(recon, ax, 0), _slab(recon, ax, -1)
+        has_prev = ax in split and (bc == 0 or coords[ax] > 0)
+        has_next = ax in split and (bc == 0 or coords[ax] < grid[ax] - 1)
+        if has_prev:
+            h[f"prev{ax}"] = rnd(first, 0.05, 2.0)
+        else:
+            h[f"prev{ax}"] = own(last if bc == 0 else _slab(recon, ax, 1)
+                                 if bc == 1 else first)
+        keys = [("acc", accs[ax])] + ([("d", ds[ax])] if fista else [])
+        if ax in split and ax in partner:
+            keys.append((f"acc{partner[ax]}", accs[partner[ax]]))
+        if has_next:
+            h[f"next{ax}_recon"] = rnd(first, 0.05, 2.0)
+            for key, _ in keys:
+                h[f"next{ax}_{key}"] = rnd(first, 0.2)
+        elif bc == 0:
+            h[f"next{ax}_recon"] = own(first)
+            for key, a in keys:
+                h[f"next{ax}_{key}"] = own(_slab(a, ax, 0))
+        else:
+            h[f"next{ax}_recon"] = own(last)
+            for key, _ in keys:
+                h[f"next{ax}_{key}"] = torch.zeros_like(
+                    first, memory_format=torch.contiguous_format)
+    for s_, o in partner.items():
+        if s_ in split and o in split:
+            nr = h[f"next{s_}_recon"]
+            h[f"corner{s_}"] = rnd(_slab(nr, o, 0), 0.05, 2.0) \
+                if coords[o] > 0 else own(_slab(nr, o, 0))
+    edge = [coords[ax] == grid[ax] - 1 for ax in range(ndim)] \
+        if bc == 1 else None
+    return h, edge
+
+
+def compare_mode_shard(shape, fista, mode, grid, coords):
+    """One launch of the K=1 kernel with the halos of a shard at ``coords``
+    (:func:`shard_halos`) against its plain version with the same halos on
+    the same state (the state's first slab along each split axis nonzero,
+    as a non-first shard's is): state bitwise, sums within rtol 1e-5.
+    The plain version runs in place on the state the kernel's copy came
+    from, so the card holds the state twice, not three times. Returns the
+    largest |difference| of the state."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    orig, state, li, lm, rho = random_state(shape, fista, torch.float32, gen,
+                                            jz=True)
+    ndim = len(shape)
+    for ax in range(ndim):
+        if grid[ax] > 1 and coords[ax] > 0:
+            for j in (ax, ax + ndim):
+                if j < len(state) - 1:
+                    state[1 + j].select(ax, 0).normal_(generator=gen)
+    h, edge = shard_halos(state, fista, mode, grid, coords, gen)
+    kern = [x.clone() for x in state]
+    ksum = torch.stack(step_fn(fused_iteration, orig, kern, li, lm, rho,
+                               fista, halos=h, edge_next=edge, **mode)()[3:])
+    psum = torch.stack(step_fn(fused_iteration_reference, orig, state, li, lm,
+                               rho, fista, halos=h, edge_next=edge,
+                               **mode)()[3:])
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(kern, state))
+    require(all(torch.equal(a, b) for a, b in zip(kern, state)),
+            f"K=1 kernel {mode} at the shard {shape} {coords} of {grid} "
+            f"fista={fista}: state differs from the plain version (max |Δ| "
+            f"{err})")
+    torch.testing.assert_close(ksum.double().cpu(), psum.double().cpu(),
+                               rtol=1e-5, atol=0)
+    del kern, state, orig, h
+    torch.cuda.empty_cache()
+    return err
+
+
+def compare_mode_blocks(name, fista, dtype):
+    """A small cube of ``tests/torch_halo_blocks.py``'s mode ``name``: two
+    launches of the kernel with each block's halos against the plain
+    version on its first, an interior and its last block, and (float32)
+    every block launched and put back against one launch of the whole
+    cube: bitwise. Returns the largest |difference|."""
+    import itertools
+
+    from torch_halo_blocks import (HALO_MODES, block_bounds, block_halos,
+                                   block_state, mode_coords)
+
+    mode, shape, grid, ax = HALO_MODES[name]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    orig, state, li, lm, rho = random_state(shape, fista, dtype, gen, jz=True)
+    ndim = len(shape)
+
+    def block(step, coords, iters):
+        h, edge = block_halos(state[0], state[1:1 + ndim],
+                              state[1 + ndim:] if fista else None, grid,
+                              coords, **mode)
+        o, *st = block_state([orig] + state, grid, coords)
+        fn = step_fn(step, o, st, li, lm, rho, fista, halos=h,
+                     edge_next=edge, **mode)
+        sums = torch.stack([torch.stack(fn()[3:]).double().cpu()
+                            for _ in range(iters)])
+        return st, sums
+
+    err = 0.0
+    for i in range(3):
+        coords = mode_coords(grid, ax, i)
+        ks, ksum = block(fused_iteration, coords, 2)
+        ps, psum = block(fused_iteration_reference, coords, 2)
+        err = max(err, max((a - b).abs().max().item() for a, b in zip(ks, ps)))
+        require(all(torch.equal(a, b) for a, b in zip(ks, ps)),
+                f"K=1 kernel {name} {shape} block {coords} fista={fista} "
+                f"{dtype}: state differs from the plain version (max |Δ| "
+                f"{err})")
+        torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+    if dtype == torch.float32:
+        whole = [x.clone() for x in state]
+        step_fn(fused_iteration, orig, whole, li, lm, rho, fista, **mode)()
+        cut = [x.clone() for x in state]
+        for coords in itertools.product(*(range(w) for w in grid)):
+            st, _ = block(fused_iteration, coords, 1)
+            sl = tuple(slice(*b) for b in block_bounds(shape, grid, coords))
+            for dst, src in zip(cut, st):
+                dst[sl] = src
+        require(all(torch.equal(a, b) for a, b in zip(cut, whole)),
+                f"{name} {shape} fista={fista}: blocks with halos != one "
+                f"launch of the whole cube")
+    return err
+
+
+def time_mode(shape, mode, grid, coords, n_kernel, n_plain):
+    """ms per launch at the shard ``shape`` FISTA f32 (coordinates
+    ``coords`` of ``grid``) of the K=1 kernel with the shard's halos in
+    ``mode``, of the launch without halos, and of the plain version with
+    the halos, in turns (plain, halo, k1, k1, halo, plain); and the
+    elements of its halo operands."""
+    from cytvdn_tpu_torch.utils.perf import k1_halo_elements
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    orig, state, li, lm, rho = random_state(shape, True, torch.float32, gen,
+                                            jz=True)
+    h, edge = shard_halos(state, True, mode, grid, coords, gen)
+    fns = {"halo": step_fn(fused_iteration, orig, state, li, lm, rho, True,
+                           halos=h, edge_next=edge, **mode),
+           "k1": step_fn(fused_iteration, orig, state, li, lm, rho, True,
+                         **mode),
+           "plain": step_fn(fused_iteration_reference, orig, state, li, lm,
+                            rho, True, halos=h, edge_next=edge, **mode)}
+    raw = {k: [] for k in fns}
+    for name in ("plain", "halo", "k1", "k1", "halo", "plain"):
+        raw[name].append(time_ms(fns[name],
+                                 n_plain if name == "plain" else n_kernel))
+    elems = k1_halo_elements(shape, list(h))
+    del state, orig, h, fns
+    torch.cuda.empty_cache()
+    return {k: sum(v) / len(v) for k, v in raw.items()}, raw, elems
+
+
+def modes_phase(smi, name, cube, cube3):
+    """Phase 10: (a) the K=1 kernel in its mesh-only modes against its
+    plain version — every mode of ``tests/torch_halo_blocks.py`` on small
+    cubes (first, interior and last blocks, FISTA and unaccelerated,
+    float32 and float64, blocks reassembled against one launch) and at the
+    shards the meshes of (b) give it — and its time at config 4's (2, 1,
+    1, 1) shard with stem4d-iso's options and at config 2's periodic
+    shard; (b) meshes of 2 and 4 processes sharing the card in those
+    modes against the single-device runs (sha256 of each block and of the
+    gathered cube): config 4 with stem4d-iso's options on (2, 1, 1, 1) and
+    (2, 2, 1, 1), config 2 periodic and mirror on (2, 1, 1) and (2, 2, 1),
+    config 4 Jia-Zhao on (1, 1, 2, 1), config 3 iso Q on (1, 1, 2, 2), a
+    mirror stop run and a periodic MSE run at config 2; (c) per rank the
+    seconds per iteration, the exchange's seconds and bytes and the peak
+    device memory. Returns the numbers of the kernels line's row."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    from torch_halo_blocks import HALO_MODES
+
+    err, n_small = 0.0, 0
+    for mname in sorted(HALO_MODES):
+        for fista in (True, False):
+            for dtype in (torch.float32, torch.float64):
+                err = max(err, compare_mode_blocks(mname, fista, dtype))
+                n_small += 1
+    n_shard = 0
+    for _, shape, grid, mode, coords_list in MODE_SHARDS:
+        for coords in coords_list:
+            for fista in (True, False):
+                err = max(err, compare_mode_shard(shape, fista, mode, grid,
+                                                  coords))
+                n_shard += 1
+    log(f"phase 10 (a) K=1 kernel in its mesh-only modes vs its plain "
+        f"version: {n_small} small-cube cases ({sorted(HALO_MODES)}; FISTA "
+        f"and unaccelerated, float32 and float64; the first, an interior and "
+        f"the last block, two launches each; float32 blocks reassembled = "
+        f"one launch) and {n_shard} launches at the meshes' shards "
+        f"({[(m[0], m[1], m[2], m[4]) for m in MODE_SHARDS]}, FISTA and "
+        f"unaccelerated); state bitwise (max |Δ| {err}), sums within rtol "
+        f"1e-5; {time.perf_counter() - t0:.1f} s [{smi}]")
+    bw, f32 = peak_bandwidth(name), peak_f32(name)
+    timed = {}
+    for key, shape, mode, grid, coords in (
+            ("iso", SHARD4, dict(iso_r=True, iso_q=True), (3, 1, 1, 1),
+             (1, 0, 0, 0)),
+            ("periodic", SHARD2, dict(bc=0), (2, 1, 1), (0, 0, 0))):
+        t, raw, elems = time_mode(shape, mode, grid, coords, 3, 1)
+        b_ms, b_by = (launch_bound_seconds(shape, True, 1, bw, f32,
+                                           halo_elems=elems)
+                      if bw and f32 else (float("nan"), None))
+        timed[key] = (t, raw, b_ms * 1e3, b_by, elems)
+        log(f"phase 10 (a) time at the shard {shape} FISTA f32 {mode} "
+            f"(neighbours on both sides of axis 0): K=1 with halos "
+            f"{t['halo']:.3f} ms ({b_ms * 1e3 / t['halo']:.3f} of its "
+            f"{b_ms * 1e3:.2f} ms bound, {b_by}, {elems} halo elements), "
+            f"without halos {t['k1']:.3f} ms, plain with halos "
+            f"{t['plain']:.3f} ms (runs {raw}) [{smi}]")
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cytv_modes_")
+    try:
+        mu4 = np.full(4, 1.0, np.float32)
+        mu3 = np.full(3, 1.0, np.float32)
+        cube_npy = os.path.join(tmp, "config4.npy")
+        np.save(cube_npy, cube)
+        cube3_npy = os.path.join(tmp, "config3.npy")
+        np.save(cube3_npy, cube3)
+        clean2, noisy2 = cfg2_eels()
+        cfg2_npy = os.path.join(tmp, "config2.npy")
+        np.save(cfg2_npy, noisy2)
+        clean2_npy = os.path.join(tmp, "clean2.npy")
+        np.save(clean2_npy, clean2)
+        n4, n2, n3 = 10, 10, 10
+        runs = {
+            # name: (ranks, input, ndim, iterations, shard, options, extra)
+            "iso2": (2, cube_npy, 4, n4, (2, 1, 1, 1), STEM4D_ISO, {}),
+            "jzq": (2, cube_npy, 4, n4, (1, 1, 2, 1), {}, {}),
+            "per2": (2, cfg2_npy, 3, n2, (2, 1, 1), dict(BC_mode=0), {}),
+            "mir2": (2, cfg2_npy, 3, n2, (2, 1, 1), dict(BC_mode=1), {}),
+            "stop": (2, cfg2_npy, 3, 500, (2, 1, 1), dict(BC_mode=1),
+                     dict(stop=0.05)),
+            "mse": (2, cfg2_npy, 3, n2, (2, 1, 1), dict(BC_mode=0),
+                    dict(reference=clean2_npy)),
+            "iso4": (4, cube_npy, 4, n4, (2, 2, 1, 1), STEM4D_ISO, {}),
+            "per4": (4, cfg2_npy, 3, n2, (2, 2, 1), dict(BC_mode=0), {}),
+            "mir4": (4, cfg2_npy, 3, n2, (2, 2, 1), dict(BC_mode=1), {}),
+            "isoq": (4, cube3_npy, 4, n3, (1, 1, 2, 2),
+                     dict(isotropic_Q=True), {}),
+        }
+        inputs = {cube_npy: cube, cfg2_npy: noisy2, cube3_npy: cube3}
+        want, digests = {}, {}
+        for key, (_, inp, ndim, iters, shard, options, extra) in runs.items():
+            data = inputs[inp]
+            fn = denoise4D if ndim == 4 else denoise3D
+            kw = dict(iterations=iters, FISTA=True, quiet=True, device="cuda",
+                      stopping_relative_change=extra.get("stop"), **options)
+            if "reference" in extra:
+                kw["reference_data"] = clean2
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", "BC_mode=1")
+                want[key] = single(lambda: fn(
+                    data, mu4 if ndim == 4 else mu3, **kw))
+            digests[key] = blocks(want[key]["recon"], shard)
+            del want[key]["recon"]
+        del clean2, noisy2
+        torch.cuda.empty_cache()
+        log(f"phase 10 single-device references (config 4 stem4d-iso and "
+            f"Jia-Zhao x{n4}, config 2 periodic and mirror x{n2}, its mirror "
+            f"stop 0.05 after {int(np.count_nonzero(want['stop']['delta']))} "
+            f"and periodic MSE x{n2}, config 3 iso Q x{n3}), the .npy inputs "
+            f"and the digests: {time.perf_counter() - t0:.1f} s")
+
+        rows = {}
+        for n_ranks, timeout in ((2, 420), (4, 420)):
+            t0 = time.perf_counter()
+            spec = [dict(name=k, input=r[1], ndim=r[2], iterations=r[3],
+                         shard=r[4], options=r[5], **r[6])
+                    for k, r in runs.items() if r[0] == n_ranks]
+            res = run_mesh(tmp, n_ranks, spec, timeout=timeout)
+            wall = time.perf_counter() - t0
+            for run in spec:
+                k = run["name"]
+                rows[k] = check_mesh_run(k, res, want[k], *digests[k],
+                                         mse=k == "mse")
+                n_it = rows[k][0]["iterations_run"]
+                require(all(r["modes"] == n_it and r["launches"][3] == n_it
+                            for r in rows[k]),
+                        f"{k}: K=1 launches in the mesh-only modes "
+                        f"{[r['modes'] for r in rows[k]]}, fused "
+                        f"{[r['launches'] for r in rows[k]]}, expected "
+                        f"{n_it} each")
+            log(f"phase 10 (b) {n_ranks} processes sharing the card (gloo): "
+                f"{[(r['name'], r['shard'], r.get('options')) for r in spec]}"
+                f"; every block and the gathered recon bitwise the "
+                f"single-device run's (sha256), traces within rtol 1e-5, the "
+                f"stop at the single-device iteration, every iteration a K=1 "
+                f"launch in its mode; the group's runs and its start "
+                f"{wall:.1f} s [{smi}]")
+        for k in runs:
+            rank_lines(f"phase 10 (c) {k}", rows[k], smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 10 {time.perf_counter() - t_phase:.1f} s")
+    t, raw, b_ms, b_by, _ = timed["iso"]
+    return {"launches": rows["iso2"][0]["modes"], "err": err,
+            "ms": t["halo"], "plain_ms": t["plain"], "bound": (b_ms, b_by)}
 
 
 def piecewise_4d(shape, seed):
@@ -3657,6 +4039,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     halo9 = sharded_phase(smi, name, cube, scan, det)
 
+    # phase 10: sharded runs in the K=1 kernel's mesh-only modes
+    torch.cuda.empty_cache()
+    modes10 = modes_phase(smi, name, cube, cube3)
+
     # launches: each kernel's count in the run of the path that reaches it
     # (x21: the odd iteration; x20: the pairs; config 1 through run_solver
     # with the whole-run kernel off: the K-step; config 1 through denoise3D:
@@ -3701,6 +4087,12 @@ def main() -> int:
         ("fused_pair_iteration_halo0", "temporal_pair.cu", "temporal.py:947",
          halo9["launches"], halo9["err"], halo9["ms"], halo9["plain_ms"],
          halo9["bound"]),
+        # the K=1 kernel's HALO instantiation in its mesh-only modes: its
+        # launches per rank on the config-4 stem4d-iso (2, 1, 1, 1) mesh
+        # run of phase 10 (b), its time at that run's shard
+        ("fused_iteration_mesh_modes", "fused_iteration.cu", "fused.py:872",
+         modes10["launches"], modes10["err"], modes10["ms"],
+         modes10["plain_ms"], modes10["bound"]),
     ]
     kernels = [{
         "name": kname,

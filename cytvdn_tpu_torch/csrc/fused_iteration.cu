@@ -39,16 +39,25 @@
 // - 64-bit element offsets (the 256^2 x 128^2 cube has 1.07e9 elements).
 // - Scalars (lambda_inv, lam_mu, rho) are read through device pointers, so
 //   the host never waits for the momentum schedule or a restart.
-// - Seams (the HALO instantiations, out-of-core slabs; Jia-Zhao,
-//   anisotropic): the TPU kernel recomputes the +1 neighbour's first
-//   updated b slab at a trailing edge from halo operands. Here the dual
-//   pass reads only the old recon, so the threads on the slab's last row
-//   (axis 0) and last column (axis 1) also compute that slab and store it
-//   into a one-row / one-column scratch buffer (tv_elem.cuh Halos::bhat);
-//   the recon pass reads it in place of the Jia-Zhao b_0 wrap, which is
-//   only right while b_0 is zero, as it is not in an interior slab. The
+// - Seams (the HALO instantiations: out-of-core slabs and mesh shards):
+//   the TPU kernel recomputes the +1 neighbour's first updated b slab at a
+//   trailing edge from halo operands. Here the dual pass reads only the old
+//   recon, so the threads at a halo axis's last index (the block's last row
+//   along axis 0, its last column, and on meshes that split axes 2 or 3
+//   the threads at that axis's last index, whatever tile they are in) also
+//   compute that slab and store it into a one-slab scratch buffer
+//   (tv_elem.cuh Halos::bhat); the recon pass reads it in place of the
+//   Jia-Zhao b_0 wrap, which is only right while b_0 is zero, as it is not
+//   in an interior block, and in place of the periodic wrap, whose b_0 is
+//   another shard's. For a split half-isotropic axis the recompute is the
+//   pair's joint projection (hypot and the mag=0 guard in dual_elem's
+//   order), from the neighbour's partner accumulator and, at the partner's
+//   leading index, the diagonal neighbour's corner. Mirror boundaries: the
+//   leading edge reads the halo (the own slab 1 at the cube's edge), the
+//   trailing edge the own updated b_{N-1} where the block holds the cube's
+//   edge (Halos::edge, set per shard by the caller), else bhat. The
 //   leading edges read the halo's prev slab in the dual pass. The sums
-//   cover the slab's own elements. HALO is a template flag, so the
+//   cover the block's own elements. HALO is a template flag, so the
 //   no-halo instantiations are the code they were.
 //
 // Layout, boundary offsets and the element arithmetic live in tv_elem.cuh,
@@ -134,12 +143,14 @@ cudaError_t launch_passes(const Args<T>& a, const Halos<T>& h, int ndim,
   return cudaGetLastError();
 }
 
-// halo: null for a whole cube, else the ten seam pointers of Halos in the
-// order prev, next_recon, next_acc, next_d, bhat, each for axes 0 and 1.
+// halo: null for a whole cube, else the 28 seam pointers of Halos in the
+// order prev, next_recon, next_acc, next_d, next_accp, corner, bhat, each
+// for axes 0 to 3 (null: no halos on that axis, or no such operand);
+// edge: Halos::edge.
 template <typename T>
 int launch(const void* orig, void* recon, void* const b[4], void* const d[4],
            const void* lambda_inv, const void* lam_mu, const void* rho,
-           void* partials, void* out, void* const halo[10], int ndim,
+           void* partials, void* out, void* const* halo, int edge, int ndim,
            const long long n[4], int fista, int bc, int iso_r, int iso_q,
            int nblocks, cudaStream_t stream) {
   Args<T> a;
@@ -159,15 +170,18 @@ int launch(const void* orig, void* recon, void* const b[4], void* const d[4],
   a.iso_r = iso_r;
   a.iso_q = iso_q;
   Halos<T> h{};
-  const bool with_halo = halo != nullptr && halo[0] != nullptr;
+  const bool with_halo = halo != nullptr;
   if (with_halo) {
-    for (int A = 0; A < 2; ++A) {
+    for (int A = 0; A < 4; ++A) {
       h.prev[A] = static_cast<const T*>(halo[A]);
-      h.next_recon[A] = static_cast<const T*>(halo[2 + A]);
-      h.next_acc[A] = static_cast<const T*>(halo[4 + A]);
-      h.next_d[A] = static_cast<const T*>(halo[6 + A]);
-      h.bhat[A] = static_cast<T*>(halo[8 + A]);
+      h.next_recon[A] = static_cast<const T*>(halo[4 + A]);
+      h.next_acc[A] = static_cast<const T*>(halo[8 + A]);
+      h.next_d[A] = static_cast<const T*>(halo[12 + A]);
+      h.next_accp[A] = static_cast<const T*>(halo[16 + A]);
+      h.corner[A] = static_cast<const T*>(halo[20 + A]);
+      h.bhat[A] = static_cast<T*>(halo[24 + A]);
     }
+    h.edge = edge;
   }
 
   const dim3 block(TX, TY);
@@ -187,21 +201,16 @@ int launch(const void* orig, void* recon, void* const b[4], void* const d[4],
                       void* b2, void* b3, void* d0, void* d1, void* d2,      \
                       void* d3, const void* lambda_inv, const void* lam_mu,  \
                       const void* rho, void* partials, void* out,            \
-                      void* prev0, void* prev1, void* next_recon0,           \
-                      void* next_recon1, void* next_acc0, void* next_acc1,   \
-                      void* next_d0, void* next_d1, void* bhat0,             \
-                      void* bhat1, int ndim, long long n0, long long n1,     \
-                      long long n2, long long n3, int fista, int bc,         \
-                      int iso_r, int iso_q, int nblocks, void* stream) {     \
+                      void* const* halo, int edge, int ndim, long long n0,   \
+                      long long n1, long long n2, long long n3, int fista,   \
+                      int bc, int iso_r, int iso_q, int nblocks,             \
+                      void* stream) {                                        \
     void* const b[4] = {b0, b1, b2, b3};                                     \
     void* const d[4] = {d0, d1, d2, d3};                                     \
-    void* const halo[10] = {prev0, prev1, next_recon0, next_recon1,          \
-                            next_acc0, next_acc1, next_d0, next_d1,          \
-                            bhat0, bhat1};                                   \
     const long long n[4] = {n0, n1, n2, n3};                                 \
     return launch<T>(orig, recon, b, d, lambda_inv, lam_mu, rho, partials,   \
-                     out, halo, ndim, n, fista, bc, iso_r, iso_q, nblocks,   \
-                     static_cast<cudaStream_t>(stream));                     \
+                     out, halo, edge, ndim, n, fista, bc, iso_r, iso_q,      \
+                     nblocks, static_cast<cudaStream_t>(stream));            \
   }
 
 TV_ENTRY(tv_fused_iteration_f32, float)

@@ -12,17 +12,24 @@
 // The one-iteration kernels load the state plainly: a launch boundary
 // separates each write from every read of another block.
 //
-// HALO makes the cube one axis-0 slab of a larger one (out-of-core runs):
-// seam operands (Halos) stand in for the Jia-Zhao edges of axes 0 and 1,
-// as the TPU kernel's with-halo operands do (cytvdn_tpu/kernels/fused.py
-// :316-328). The backward difference at a leading edge reads the -1
-// neighbour's pre-update slab; the forward difference at a trailing edge
-// reads the +1 neighbour's first updated accumulator slab, which the dual
-// update recomputes from that neighbour's pre-update slabs with the
-// neighbour's own arithmetic and leaves in a scratch slab (bhat) for the
+// HALO makes the cube one block of a larger one (out-of-core slabs, mesh
+// shards): seam operands (Halos) stand in for the edges of the halo axes
+// (a non-null prev; axes 0 and 1 always, 2 and 3 on meshes that split
+// them), as the TPU kernel's with-halo operands do
+// (cytvdn_tpu/kernels/fused.py:316-356). The backward difference at a
+// leading edge reads the -1 neighbour's pre-update slab; the forward
+// difference at a trailing edge reads the +1 neighbour's first updated
+// accumulator slab, which the dual update recomputes from that neighbour's
+// pre-update slabs with the neighbour's own arithmetic (for a split
+// half-isotropic axis, the joint projection, with the neighbour's partner
+// accumulator and, at the partner's leading index, the diagonal
+// neighbour's corner) and leaves in a scratch slab (bhat) for the
 // reconstruction update. A caller realizes a global edge by the halo's
-// values: its own edge slab as prev, its own last slab with zero acc and d
-// as next, so that bhat is exactly the Jia-Zhao zero.
+// values: Jia-Zhao its own edge slab as prev, its own last slab with zero
+// acc and d as next, so that bhat is exactly the Jia-Zhao zero; mirror its
+// own slab 1 as prev, and the block holding the trailing edge (a bit of
+// Halos::edge) reads its own updated last slab; periodic the ring
+// neighbours' slabs.
 //
 // Layout: a block is 32 x 8 threads over a tile of the two trailing axes
 // (x along the contiguous last axis). Work items are (row, tile) pairs, the
@@ -70,15 +77,19 @@ struct Args {
   int iso_q;         // joint projection of axes (2, 3)
 };
 
-// Seam operands of a HALO launch, for axes 0 and 1. Each has the cube's
-// layout with that axis collapsed to 1.
+// Seam operands of a HALO launch, per axis (null: no halos on that axis).
+// Each slab has the cube's layout with its axis collapsed to 1; a corner
+// has the axis and its iso partner collapsed.
 template <typename T>
 struct Halos {
-  const T* prev[2];        // the -1 neighbour's pre-update last slab of recon
-  const T* next_recon[2];  // the +1 neighbour's pre-update first slab of recon,
-  const T* next_acc[2];    //   of its accumulator along the axis
-  const T* next_d[2];      //   and of its shadow dual (FISTA)
-  T* bhat[2];              // scratch: the +1 neighbour's updated first b slab
+  const T* prev[4];        // the -1 neighbour's pre-update last slab of recon
+  const T* next_recon[4];  // the +1 neighbour's pre-update first slab of recon,
+  const T* next_acc[4];    //   of its accumulator along the axis
+  const T* next_d[4];      //   and of its shadow dual (FISTA)
+  const T* next_accp[4];   //   and of its partner-axis accumulator (iso)
+  const T* corner[4];      // iso, partner split: the diagonal neighbour's recon
+  T* bhat[4];              // scratch: the +1 neighbour's updated first b slab
+  int edge;                // bit A: the block holds the cube's trailing edge
 };
 
 // Fills the extents, strides, rows and tiles of `a` for an ndim-axis cube.
@@ -114,13 +125,18 @@ __device__ __forceinline__ int64_t fwd(int64_t idx, int64_t c, int64_t n,
   return idx - (n - 1) * s;               // periodic and Jia-Zhao: b_0
 }
 
-// Offset of an element's image in a slab with axis A (0 or 1) collapsed
-// to 1: the element's offset without its axis-A coordinate.
-__device__ __forceinline__ int64_t seam_offset(int A, int64_t idx,
-                                               const int64_t* c,
-                                               const int64_t* s) {
-  const int64_t rest = idx - c[0] * s[0];
-  return A == 0 ? rest : c[0] * s[1] + (rest - c[1] * s[1]);
+// Offset of an element's image in a halo slab: its coordinates in the
+// cube's layout with axes A and B (B < 0: none) collapsed to 1.
+template <int ND>
+__device__ __forceinline__ int64_t slab_offset(const int64_t* c,
+                                               const int64_t* n, int A,
+                                               int B = -1) {
+  int64_t o = 0;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) {
+    if (i != A && i != B) o = o * n[i] + c[i];
+  }
+  return o;
 }
 
 // Walk this block's (row, tile) work items and call body(idx, c) with each
@@ -155,12 +171,64 @@ __device__ __forceinline__ void for_each_element(const Args<T>& a, F body) {
   }
 }
 
+// The +1 neighbour's first updated accumulator slab along halo axis s at
+// the image of element c (c[s] = n[s]-1, recon x), in the neighbour's own
+// order of operations, into h.bhat[s]: the clip of its backward difference
+// (whose operand is x) plus its accumulator, or, where it has a partner
+// slab (split iso axis, partner o), the s component of the pair's joint
+// projection, the partner's backward difference reading the neighbour's
+// slab, the corner at the partner's leading index (partner split) or
+// Jia-Zhao's zero.
+template <typename T, int ND, bool FISTA>
+__device__ __forceinline__ void seam_b(const Args<T>& a, const Halos<T>& h,
+                                       int s, int o, const int64_t* c, T x,
+                                       const T* lam, T rho) {
+  const int64_t off = slab_offset<ND>(c, a.n, s);
+  const T rn = h.next_recon[s][off];
+  const T ds = (rn - x) + h.next_acc[s][off];
+  T p;
+  if (o >= 0 && h.next_accp[s] != nullptr) {
+    T rp = rn;
+    if (c[o] > 0) {
+      int64_t cp[ND];
+#pragma unroll
+      for (int i = 0; i < ND; ++i) cp[i] = c[i] - (i == o);
+      rp = h.next_recon[s][slab_offset<ND>(cp, a.n, s)];
+    } else if (h.corner[s] != nullptr) {
+      rp = h.corner[s][slab_offset<ND>(c, a.n, s, o)];
+    }
+    const T dp = (rn - rp) + h.next_accp[s][off];
+    const T e1 = s < o ? ds : dp;
+    const T e2 = s < o ? dp : ds;
+    const T cl = lam[s < o ? s : o];
+    const T mag = hypot_(e1, e2);
+    const T scale = mag > cl ? cl / (mag > T(0) ? mag : T(1)) : T(1);
+    p = ds * scale;
+  } else {
+    p = clip_(ds, lam[s]);
+  }
+  T bh = p;
+  if (FISTA) bh = p + rho * (p - h.next_d[s][off]);
+  h.bhat[s][off] = bh;
+}
+
+// The backward neighbour's recon along axis k: with HALO, h.prev at a halo
+// axis's leading edge.
+template <typename T, int ND, bool HALO>
+__device__ __forceinline__ T prev_recon(const Args<T>& a, const Halos<T>& h,
+                                        int k, int64_t idx,
+                                        const int64_t* c) {
+  if (HALO && h.prev[k] != nullptr && c[k] == 0)
+    return h.prev[k][slab_offset<ND>(c, a.n, k)];
+  return a.recon[bwd(idx, c[k], a.n[k], a.s[k], a.bc)];
+}
+
 // Dual update of one element: every axis's b (and under FISTA d), reading
 // recon at the element and its backward neighbours and b, d at the element;
-// adds each new |b_k| to acc in axis order. With HALO, along axes 0 and 1
+// adds each new |b_k| to acc in axis order. With HALO, along each halo axis
 // the backward neighbour of a leading-edge element is h.prev, and a
 // trailing-edge element also writes the +1 neighbour's recomputed b into
-// h.bhat (not counted in acc).
+// h.bhat (seam_b; not counted in acc).
 template <typename T, int ND, bool FISTA, bool HALO>
 __device__ __forceinline__ void dual_elem(const Args<T>& a, const Halos<T>& h,
                                           int64_t idx, const int64_t* c,
@@ -175,10 +243,9 @@ __device__ __forceinline__ void dual_elem(const Args<T>& a, const Halos<T>& h,
     if ((k == 1 && iso_r) || (k == 3 && iso_q)) continue;  // done with k-1
     if ((k == 0 && iso_r) || (k == 2 && iso_q)) {
       // the pair shares axis k's clip radius (reference cyTVDN.py:160-162)
-      const T e1 = x - a.recon[bwd(idx, c[k], a.n[k], a.s[k], a.bc)]
+      const T e1 = x - prev_recon<T, ND, HALO>(a, h, k, idx, c)
                    + a.b[k][idx];
-      const T e2 = x - a.recon[bwd(idx, c[k + 1], a.n[k + 1], a.s[k + 1],
-                                   a.bc)]
+      const T e2 = x - prev_recon<T, ND, HALO>(a, h, k + 1, idx, c)
                    + a.b[k + 1][idx];
       const T cl = lam[k];
       const T mag = hypot_(e1, e2);
@@ -196,11 +263,14 @@ __device__ __forceinline__ void dual_elem(const Args<T>& a, const Halos<T>& h,
       a.b[k + 1][idx] = b2;
       acc += static_cast<double>(abs_(b1));
       acc += static_cast<double>(abs_(b2));
+      if (HALO) {
+        if (h.prev[k] != nullptr && c[k] == a.n[k] - 1)
+          seam_b<T, ND, FISTA>(a, h, k, k + 1, c, x, lam, rho);
+        if (h.prev[k + 1] != nullptr && c[k + 1] == a.n[k + 1] - 1)
+          seam_b<T, ND, FISTA>(a, h, k + 1, k, c, x, lam, rho);
+      }
     } else {
-      const bool seam = HALO && k < 2;
-      const T prev = seam && c[k] == 0
-                         ? h.prev[k][seam_offset(k, idx, c, a.s)]
-                         : a.recon[bwd(idx, c[k], a.n[k], a.s[k], a.bc)];
+      const T prev = prev_recon<T, ND, HALO>(a, h, k, idx, c);
       const T diff = x - prev;
       const T dn = clip_(diff + a.b[k][idx], lam[k]);
       T bn = dn;
@@ -210,23 +280,17 @@ __device__ __forceinline__ void dual_elem(const Args<T>& a, const Halos<T>& h,
       }
       a.b[k][idx] = bn;
       acc += static_cast<double>(abs_(bn));
-      if (seam && c[k] == a.n[k] - 1) {
-        // the +1 neighbour's first slab, in its own order of operations
-        const int64_t o = seam_offset(k, idx, c, a.s);
-        const T dh = clip_((h.next_recon[k][o] - x) + h.next_acc[k][o],
-                           lam[k]);
-        T bh = dh;
-        if (FISTA) bh = dh + rho * (dh - h.next_d[k][o]);
-        h.bhat[k][o] = bh;
-      }
+      if (HALO && h.prev[k] != nullptr && c[k] == a.n[k] - 1)
+        seam_b<T, ND, FISTA>(a, h, k, -1, c, x, lam, rho);
     }
   }
 }
 
 // Reconstruction update of one element, reading every b at the element and
-// its forward neighbours (with HALO, along axes 0 and 1 h.bhat at a
-// trailing edge); adds |R_new - R_old| and |R_old| to the sums and returns
-// R_new.
+// its forward neighbours (with HALO, along each halo axis h.bhat at a
+// trailing edge, but the own last b under mirror where the block holds the
+// cube's trailing edge); adds |R_new - R_old| and |R_old| to the sums and
+// returns R_new.
 template <typename T, int ND, bool HALO>
 __device__ __forceinline__ T recon_elem(const Args<T>& a, const Halos<T>& h,
                                         int64_t idx, const int64_t* c,
@@ -236,8 +300,9 @@ __device__ __forceinline__ T recon_elem(const Args<T>& a, const Halos<T>& h,
 #pragma unroll
   for (int k = 0; k < ND; ++k) {
     const T bk = a.b[k][idx];
-    const T bf = HALO && k < 2 && c[k] == a.n[k] - 1
-                     ? h.bhat[k][seam_offset(k, idx, c, a.s)]
+    const T bf = HALO && h.prev[k] != nullptr && c[k] == a.n[k] - 1 &&
+                         !(a.bc == 1 && (h.edge >> k & 1))
+                     ? h.bhat[k][slab_offset<ND>(c, a.n, k)]
                      : a.b[k][fwd(idx, c[k], a.n[k], a.s[k], a.bc)];
     div = div + lm[k] * (bk - bf);
   }

@@ -79,8 +79,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name in ("tv_fused_iteration_f32", "tv_fused_iteration_f64"):
         fn = getattr(lib, name)
-        # the state and scalars, then the ten seam pointers (null: no halos)
-        fn.argtypes = [vp] * 25 + [i] + [ll] * 4 + [i] * 5 + [vp]
+        # the state, scalars and sums, then the seam pointer table (null: no
+        # halos) and the trailing-edge bits
+        fn.argtypes = [vp] * 16 + [i] * 2 + [ll] * 4 + [i] * 5 + [vp]
         fn.restype = i
     # the state, scalars and sums, then the HALO0 band table (null: no
     # halos) and the first0/last0 flags

@@ -370,6 +370,7 @@ def fused_pair_iteration(
     halos0: Optional[Dict[str, Tensor]] = None,
     first0=None,
     last0=None,
+    stash: Optional[Tensor] = None,
 ):
     """Two full Jia-Zhao TV iterations, updating ``recon``, ``accs`` and
     ``ds`` in place.
@@ -388,7 +389,8 @@ def fused_pair_iteration(
     of :data:`HALO0_KEYS` bands (a missing neighbour's may be left out),
     with ``first0``/``last0`` (true on the shards that hold the cube's
     first and last rows), runs its ``HALO0`` instantiation: the cube is a
-    shard of an axis-0 mesh.
+    shard of an axis-0 mesh; ``stash``, a (2, N1, …) tensor like the cube's
+    rows, is its 2-row scratch (default: allocated per call).
 
     Returns ``(recon, accs, ds, bnorm1, dnum1, dden1, bnorm2, dnum2,
     dden2)`` — the state objects passed in and both iterations' sums as 0-d
@@ -443,9 +445,13 @@ def fused_pair_iteration(
         first, last = (int(f) for f in flags)
         # the +1 shard's recomputed row-0 b_0 (and d_0) at level 1, left by
         # recon-1 for recon-2 at the last row; read only with a +1 shard
-        stash = None if last else torch.empty(
-            (2,) + tuple(orig.shape[1:]), dtype=orig.dtype,
-            device=orig.device)
+        if last:
+            stash = None
+        elif stash is None:
+            stash = torch.empty((2,) + tuple(orig.shape[1:]),
+                                dtype=orig.dtype, device=orig.device)
+        else:
+            _check(stash, orig[:2], "stash")
         ptrs = [halos0[k].data_ptr() if halos0.get(k) is not None else None
                 for k in HALO0_KEYS]
         ptrs.append(stash.data_ptr() if stash is not None else None)

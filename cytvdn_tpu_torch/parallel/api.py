@@ -92,9 +92,10 @@ def denoise_sharded(
     ``datacube`` is an array (every rank slices its block from it) or a
     path or open ``InputHandle`` (every rank reads only its block, cast to
     float32 as the reference's loader does, mpi.py:223-230). ``shard``:
-    ``'auto'`` or a tile count per axis whose product is the group's size;
-    only the scan axes 0 and 1 may be split. ``device`` defaults to the
-    rank's card.
+    ``'auto'`` (a grid over the scan axes 0 and 1) or a tile count per
+    axis whose product is the group's size; any axis may be split evenly,
+    with any ``BC_mode`` and half-isotropic pairs. ``device`` defaults to
+    the rank's card.
 
     Returns on every rank ``b_norm``, ``delta``, ``iterations_run`` [,
     ``mse``] (numpy; the whole cube's traces), ``block`` (this rank's

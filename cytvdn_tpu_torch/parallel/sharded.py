@@ -6,9 +6,10 @@ reference's MPI runtime ``run_MPI`` (reference cyTVDN/mpi.py:27-501).
 The JAX package runs one program over a device mesh (``shard_map``); here
 every process runs the same engine on its own block, with a
 ``parallel/halo.py::MeshComm`` for the seams and the sums — one engine for
-one device and for a mesh, as in the JAX package. The mesh splits the scan
-axes (0, 1 or both, as the reference splits them, mpi.py:357-358) into
-even tiles: every rank's block has the same shape, so the engine's plan,
+one device and for a mesh, as in the JAX package. The mesh splits the cube
+into even tiles — the scan axes (0, 1 or both, as the reference splits
+them, mpi.py:357-358) and, as the JAX package allows, the detector or
+energy axes: every rank's block has the same shape, so the engine's plan,
 which depends on the shape, dtype and options only, is the same on every
 rank, and so is every collective it makes.
 """
@@ -110,14 +111,21 @@ def run_sharded(
     options. Same return contract as ``run_solver``, with the traces of
     the whole cube and this rank's block of the state.
 
+    ``comm`` takes the run's boundary condition (``opts.bc_mode``), as the
+    JAX ``run_sharded`` builds its ``MeshComm`` with it.
+
     The device-memory ladder (knob ``temporal_pairs`` only, as
     ``sharded.py:274-279``: under a mesh the whole-run and K-step kernels
-    never run) decides collectively: each attempt allocates its buffers
-    (``engine.prepare_run``) before its first collective, then all ranks
-    agree on whether any of them ran out of device memory (an all-reduce
-    of the largest flag) and retry together with pairs off, or all raise
-    where no knob is left. An out-of-memory error after that point
-    propagates: no rank retries alone."""
+    never run) decides collectively: each attempt allocates its state and
+    every buffer its steps will use — the halo exchanges' send and receive
+    buffers, the kernels' scratch slabs — (``engine.prepare_run``) before
+    its first collective, then all ranks agree on whether any of them ran
+    out of device memory (an all-reduce of the largest flag) and retry
+    together with pairs off, or all raise where no knob is left. The steps
+    allocate nothing more in ``comm`` (its buffer pool is sealed), so an
+    out-of-memory error after that point propagates: no rank retries
+    alone."""
+    comm.bc = BCMode(opts.bc_mode)
     attempt = opts
     while True:
         prepared, oom = None, None
@@ -130,6 +138,7 @@ def run_sharded(
         if not comm.allmax(int(oom is not None)):
             return run_prepared(prepared)
         prepared = None
+        comm.release()
         gc.collect()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()

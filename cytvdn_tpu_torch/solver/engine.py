@@ -45,15 +45,20 @@ chunks (``utils/checkpoint.py``). :func:`vmem_fallback` retries a run that
 exhausts device memory with the multi-iteration kernels turned off in turn.
 
 With ``comm`` (a ``parallel/halo.py::MeshComm``) the cube is one shard of
-a mesh split along the scan axes, and every process runs the same schedule
-on its block (``cytvdn_tpu``'s engine under ``shard_map``): K=1 steps take
-operand halos from the neighbours (``_k1_halos``; the plain backend takes
-``prev_halo``/``next_halo``), an axis-0 mesh runs its pairs with the pair
-kernel's 2-row bands (``halos0``) where they pay, every sum goes through
-``comm.allsum``, and the stop, the guard and the block discards read only
-the summed traces, so all ranks take the same branches. Under a mesh the
-K-step and whole-run kernels never run (``engine.py:563-564, :723-724``).
-The state is bitwise that of the single-device run.
+an evenly tiled mesh (any axes split, any boundary, half-isotropic pairs),
+and every process runs the same schedule on its block (``cytvdn_tpu``'s
+engine under ``shard_map``): K=1 steps take operand halos from the
+neighbours (``_k1_halos``: ring halos under periodic boundaries, the
+mirror's edge flags, iso seams and corners, in-block halos of axes 2 and
+3; the plain backend takes ``prev_halo``/``next_halo``), an axis-0
+Jia-Zhao mesh runs its pairs with the pair kernel's 2-row bands
+(``halos0``) where they pay, every sum goes through ``comm.allsum``, and
+the stop, the guard and the block discards read only the summed traces,
+so all ranks take the same branches. Every buffer a step uses is reserved
+in ``comm``'s pool before the run's first collective (``prepare_run``).
+Under a mesh the K-step and whole-run kernels never run
+(``engine.py:563-564, :723-724``). The state is bitwise that of the
+single-device run.
 """
 
 from __future__ import annotations
@@ -67,7 +72,7 @@ import numpy as np
 import torch
 
 from cytvdn_tpu_torch import ops
-from cytvdn_tpu_torch.config import Backend, BCMode, SolverOptions, _not_ported
+from cytvdn_tpu_torch.config import Backend, BCMode, SolverOptions
 from cytvdn_tpu_torch.kernels.fused import fused_iteration, fused_iteration_reference
 from cytvdn_tpu_torch.kernels.kstep import best_kstep, fused_kstep_iteration
 from cytvdn_tpu_torch.kernels.resident import resident_solve, resident_supported
@@ -90,36 +95,95 @@ def fista_tk_ratios(n: int) -> np.ndarray:
     return ratios
 
 
-def _edge(t: Tensor) -> Tensor:
-    """A slab given as a halo value: a contiguous copy, so that no halo
-    operand aliases the state it stands beside."""
-    return t.clone(memory_format=torch.contiguous_format)
-
-
-def _k1_halos(comm, recon: Tensor, accs: List[Tensor],
+def _k1_halos(comm, opts: SolverOptions, recon: Tensor, accs: List[Tensor],
               ds: Optional[List[Tensor]]):
-    """The K=1 kernel's operand halos on a mesh, for axes 0 and 1
-    (``engine.py:250-300``, Jia-Zhao): ``prev{ax}``, the -1 neighbour's
-    last recon slab (the own first slab at the global leading edge);
-    ``next{ax}_recon``/``_acc``/``_d``, the +1 neighbour's pre-update first
-    slabs (the own last recon slab and zeros at the global trailing edge,
-    the identically-zero Jia-Zhao wrap). One packed exchange per axis and
-    direction; an unsplit axis gets the edge values."""
-    halos = {}
-    for ax in (0, 1):
+    """The K=1 kernel's operand halos on a mesh (``engine.py:253-340``),
+    from the neighbours' pre-update state, per halo axis (0 and 1, and each
+    split axis above them, ``engine.py:266``) in one packed exchange each
+    way:
+    ``prev{ax}``, the -1 neighbour's last recon slab, and
+    ``next{ax}_recon``/``_acc``/``_d``, the +1 neighbour's first slabs.
+    Periodic runs exchange on a ring (an unsplit axis's wrap is its own
+    slabs). Elsewhere the global edges get the values that realize the
+    boundary: Jia-Zhao the own first slab as ``prev``, the own last recon
+    slab and zeros as ``next`` (the identically-zero wrap); mirror the
+    cube's slab 1 as ``prev`` (the own slab 1, or the +1 neighbour's first
+    slab where the shard is one slab thick) and, as the JAX engine, the
+    Jia-Zhao values as ``next``, which the kernel does not read where the
+    ``edge_next`` flag is set. A split axis ``s`` of a half-isotropic pair
+    with partner ``o`` also takes the +1 neighbour's first slab of
+    ``accs[o]`` (``next{s}_acc{o}``) and, where ``o`` is split too, the
+    diagonal neighbour's corner (``corner{s}``: the -1-along-``o``
+    neighbour's ``next{s}_recon``'s last slab along ``o``; its own leading
+    slab at the partner's leading edge).
+
+    Every tensor returned lives in ``comm``'s buffer pool (received views
+    and edge values copied into pool slabs), as do the kernel's scratch
+    slabs: returns ``(halos, edge_next, scratch)``."""
+    periodic = opts.bc_mode == BCMode.PERIODIC
+    mirror = opts.bc_mode == BCMode.MIRROR
+    split = set(comm.split_axes)
+    partner = {}
+    if not periodic:
+        for p, q in ([(0, 1)] if opts.isotropic_R else []) + \
+                ([(2, 3)] if opts.isotropic_Q else []):
+            partner.update({p: q, q: p})
+    tag = "k1" if ds is None else "k1d"
+
+    def pool(name, src=None, like=None, zero=False):
+        t = comm.buffer(f"{tag}_{name}", (src if src is not None
+                                          else like).shape, recon.dtype,
+                        recon.device, zero=zero)
+        if src is not None:
+            t.copy_(src)
+        return t
+
+    halos, scratch = {}, {}
+    for ax in sorted({0, 1} | split):
         first, last = _slab(recon, ax, 0), _slab(recon, ax, -1)
+        iso_s = ax in partner and ax in split
         to_prev = [first, _slab(accs[ax], ax, 0)]
         if ds is not None:
             to_prev.append(_slab(ds[ax], ax, 0))
-        got_p, got_n = comm.exchange_pieces(ax, [last], to_prev)
-        halos[f"prev{ax}"] = got_p[0] if got_p is not None else _edge(first)
+        if iso_s:
+            to_prev.append(_slab(accs[partner[ax]], ax, 0))
+        got_p, got_n = comm.exchange_pieces(ax, [last], to_prev,
+                                            name=f"{tag}_{ax}", ring=periodic)
         if got_n is None:
-            zero = torch.zeros_like(first, memory_format=torch.contiguous_format)
-            got_n = [_edge(last), zero, zero]
+            # the trailing edge (or an unsplit axis): the own first slabs
+            # on a ring, else the Jia-Zhao zero wrap
+            if periodic:
+                got_n = [pool(f"n{ax}_{i}", p) for i, p in enumerate(to_prev)]
+            else:
+                zero = pool(f"z{ax}", like=first, zero=True)
+                got_n = [pool(f"n{ax}", last)] + [zero] * (len(to_prev) - 1)
+        if got_p is not None:
+            prev = got_p[0]
+        elif periodic:
+            prev = pool(f"p{ax}", last)
+        elif mirror:
+            prev = pool(f"p{ax}", _slab(recon, ax, 1)) \
+                if recon.shape[ax] > 1 else got_n[0]
+        else:
+            prev = pool(f"p{ax}", first)
+        halos[f"prev{ax}"] = prev
         halos[f"next{ax}_recon"], halos[f"next{ax}_acc"] = got_n[:2]
         if ds is not None:
             halos[f"next{ax}_d"] = got_n[2]
-    return halos
+        if iso_s:
+            halos[f"next{ax}_acc{partner[ax]}"] = got_n[-1]
+        scratch[ax] = comm.buffer(f"k1_bhat{ax}", first.shape, recon.dtype,
+                                  recon.device)
+    for s_, o in sorted(partner.items()):
+        if s_ in split and o in split:
+            nr = halos[f"next{s_}_recon"]
+            got, _ = comm.exchange_pieces(o, [_slab(nr, o, -1)], (),
+                                          name=f"{tag}_corner{s_}")
+            halos[f"corner{s_}"] = got[0] if got is not None \
+                else pool(f"c{s_}", _slab(nr, o, 0))
+    edge_next = [comm.is_last(ax) for ax in range(opts.ndim)] \
+        if mirror else None
+    return halos, edge_next, scratch
 
 
 def _plain_mesh_step(orig, recon, accs, ds, rho, lambda_inv, lam_mu,
@@ -127,7 +191,9 @@ def _plain_mesh_step(orig, recon, accs, ds, rho, lambda_inv, lam_mu,
     """One iteration of the plain spec on a mesh shard, in place: the dual
     updates with the -1 neighbours' recon slabs (``comm.prev_halo``), then
     the reconstruction with the +1 neighbours' updated accumulator slabs
-    (``comm.next_halo``), as ``engine.py:76-135, :384-393`` run it.
+    (``comm.next_halo``), as ``engine.py:76-135, :384-393`` run it: per-axis
+    or half-isotropic pairs, on a ring under periodic boundaries, the
+    cube's slab 1 and the own updated last slab at mirror edges.
     Returns the shard's ``(bnorm, dnum, dden)``. It is kept apart from
     ``fused_iteration_reference`` with :func:`_k1_halos` on purpose: the
     exchange after the dual update needs no seam recomputation, so
@@ -137,7 +203,8 @@ def _plain_mesh_step(orig, recon, accs, ds, rho, lambda_inv, lam_mu,
     ndim = opts.ndim
     prev = [comm.prev_halo(recon, ax) for ax in range(ndim)]
     bnorm = torch.zeros((), dtype=orig.dtype, device=orig.device)
-    for ax in range(ndim):
+
+    def aniso(ax):
         if ds is not None:
             b, d, n = ops.accumulator_update_fista(
                 recon, accs[ax], ds[ax], rho, ax, lambda_inv[ax], bc,
@@ -147,6 +214,29 @@ def _plain_mesh_step(orig, recon, accs, ds, rho, lambda_inv, lam_mu,
             b, n = ops.accumulator_update(recon, accs[ax], ax, lambda_inv[ax],
                                           bc, halo_prev=prev[ax])
         accs[ax].copy_(b)
+        return n
+
+    def iso(ax1, ax2):
+        if ds is not None:
+            b1, b2, d1, d2, n = ops.iso_accumulator_update_fista(
+                recon, accs[ax1], accs[ax2], ds[ax1], ds[ax2], rho,
+                ax1, ax2, lambda_inv[ax1], prev[ax1], prev[ax2])
+            ds[ax1].copy_(d1)
+            ds[ax2].copy_(d2)
+        else:
+            b1, b2, n = ops.iso_accumulator_update(
+                recon, accs[ax1], accs[ax2], ax1, ax2, lambda_inv[ax1],
+                prev[ax1], prev[ax2])
+        accs[ax1].copy_(b1)
+        accs[ax2].copy_(b2)
+        return n
+
+    if ndim == 4:
+        norms = [iso(0, 1)] if opts.isotropic_R else [aniso(0), aniso(1)]
+        norms += [iso(2, 3)] if opts.isotropic_Q else [aniso(2), aniso(3)]
+    else:
+        norms = [aniso(ax) for ax in range(3)]
+    for n in norms:
         bnorm = bnorm + n
     nxt = [comm.next_halo(accs[ax], ax) for ax in range(ndim)]
     recon_new, dnum, dden = ops.datacube_update(orig, recon, accs, lam_mu, bc,
@@ -179,10 +269,12 @@ def iteration_step(
             bnorm, dnum, dden = _plain_mesh_step(
                 orig, recon, accs, ds, rho, lambda_inv, lam_mu, opts, comm)
         else:
+            halos, edge_next, scratch = _k1_halos(comm, opts, recon, accs, ds)
             _, _, _, bnorm, dnum, dden = fused_iteration(
                 orig, recon, accs, ds, rho, lambda_inv, lam_mu,
                 fista=ds is not None, bc=int(opts.bc_mode),
-                halos=_k1_halos(comm, recon, accs, ds))
+                iso_r=opts.isotropic_R, iso_q=opts.isotropic_Q,
+                halos=halos, edge_next=edge_next, scratch=scratch)
         bnorm, dnum, dden = comm.allsum(torch.stack((bnorm, dnum, dden)))
         return bnorm, dnum / dden
     step = fused_iteration_reference if opts.backend == Backend.TORCH \
@@ -303,7 +395,8 @@ def _orig_bands0(comm, orig: Tensor):
     """The neighbours' orig rows of the pair's bands (``p_orig``, the -1
     shard's row -1; ``n_orig``, the +1 shard's row 0) in one exchange: orig
     never changes, so a phase exchanges them once."""
-    got_p, got_n = comm.exchange_pieces(0, [orig[-1:]], [orig[:1]])
+    got_p, got_n = comm.exchange_pieces(0, [orig[-1:]], [orig[:1]],
+                                        name="pair_orig")
     h = {}
     if got_p is not None:
         h["p_orig"] = got_p[0]
@@ -330,7 +423,8 @@ def _pair_halos0(comm, orig_bands, recon: Tensor, accs: List[Tensor],
     if ds is not None:
         to_next += [d[-1:] for d in ds]
         to_prev += [ds[0][:1], ds[0][1:2], *(d[:1] for d in ds[1:])]
-    got_p, got_n = comm.exchange_pieces(0, to_next, to_prev)
+    got_p, got_n = comm.exchange_pieces(
+        0, to_next, to_prev, name="pair" if ds is None else "pair_d")
     h = dict(orig_bands)
     if got_p is not None:
         h["p_r0"] = got_p[0]
@@ -348,6 +442,13 @@ def _pair_halos0(comm, orig_bands, recon: Tensor, accs: List[Tensor],
             for k in range(1, nd):
                 h[f"n_d{k}"] = got_n[base + 1 + k]
     return h, comm.is_first(0), comm.is_last(0)
+
+
+def _pair_stash(comm, orig: Tensor) -> Tensor:
+    """The pair kernel's 2-row scratch of a mesh shard (the +1 shard's
+    recomputed row-0 b_0 and d_0), from ``comm``'s buffer pool."""
+    return comm.buffer("pair_stash", (2,) + tuple(orig.shape[1:]),
+                       orig.dtype, orig.device)
 
 
 def _run_phase_paired(
@@ -385,6 +486,7 @@ def _run_phase_paired(
         if mesh:
             kw["halos0"], kw["first0"], kw["last0"] = _pair_halos0(
                 comm, orig_bands, st.recon, st.accs, ds)
+            kw["stash"] = _pair_stash(comm, orig)
         out = fused_pair_iteration(
             orig, st.recon, st.accs, ds, rho1, rho2,
             lambda_inv, lam_mu, fista=fista, ref=ref, **kw)
@@ -801,22 +903,49 @@ def _run_phases(
         st.ds = ds
 
 
-def check_mesh(opts: SolverOptions, comm) -> None:
-    """Refuse the mesh runs the port has no halos for yet, naming their
-    ROADMAP.md item: splits of axes 2 and 3 (the K=1 kernel's in-block and
-    folded-axis halos), half-isotropic pairs (its iso seams and corners),
-    periodic and mirror boundaries (ring halos, ``edge_next``)."""
-    q = sorted(set(comm.split_axes) - {0, 1})
-    if q:
-        what = f"mesh splits of axes {q} (the K=1 kernel's in-block halos)"
-    elif opts.isotropic_R or opts.isotropic_Q:
-        what = "half-isotropic pairs on a mesh (iso seams and corners)"
-    elif opts.bc_mode != BCMode.JIA_ZHAO:
-        what = ("periodic and mirror boundaries on a mesh (ring halos, "
-                "edge_next)")
-    else:
-        return
-    raise _not_ported(what, "Queue 1 item 8")
+def check_mesh(opts: SolverOptions, comm, shape) -> None:
+    """Check a mesh run: the comm's boundary is the run's, and a mirror
+    mesh's every axis holds at least two slabs of the cube (the mirror's
+    backward edge reads slab 1). Every mode of the JAX package's sharded
+    K=1 path is ported; its folded 3D energy axis is a TPU layout
+    (ROADMAP "Not to port")."""
+    if BCMode(comm.bc) != opts.bc_mode:
+        raise ValueError(f"the mesh's MeshComm has bc {BCMode(comm.bc)!r}, "
+                         f"the run {opts.bc_mode!r}")
+    if opts.bc_mode == BCMode.MIRROR:
+        for ax, e in enumerate(shape):
+            if e * comm.size(ax) < 2:
+                raise ValueError(f"mirror boundaries need 2 slabs along "
+                                 f"axis {ax}, the cube has "
+                                 f"{e * comm.size(ax)}")
+
+
+def _reserve_mesh(comm, run_opts: SolverOptions, orig: Tensor,
+                  st: "_PhaseState") -> None:
+    """Allocate, before the run's first collective, every buffer of
+    ``comm``'s pool its steps will use — each exchange's send and receive
+    buffers both ways, the edge values, the K=1 kernel's scratch slabs, the
+    pair's bands and 2-row stash — by running the steps' halo assembly
+    under ``comm.reserving()`` (which allocates and does not communicate),
+    once per phase's state; then seal the pool."""
+    n_f, n_u = run_opts.iterations_fista, run_opts.iterations_unacc
+    variants = ([st.ds] if n_f and st.ds is not None else []) \
+        + ([None] if n_u or not n_f else [])
+    _, paired, _ = _plan(run_opts, tuple(orig.shape), orig.dtype, comm)
+    with comm.reserving():
+        for ds in variants:
+            if run_opts.backend == Backend.TORCH:
+                for ax in range(run_opts.ndim):
+                    comm.prev_halo(st.recon, ax)
+                    comm.next_halo(st.accs[ax], ax)
+            else:
+                _k1_halos(comm, run_opts, st.recon, st.accs, ds)
+            if paired:
+                _pair_halos0(comm, _orig_bands0(comm, orig), st.recon,
+                             st.accs, ds)
+        if paired:
+            _pair_stash(comm, orig)
+    comm.sealed = True
 
 
 @dataclasses.dataclass
@@ -855,7 +984,7 @@ def prepare_run(
     if opts.backend == Backend.CUDA and orig.device.type != "cuda":
         raise ValueError(f"backend='cuda' needs CUDA tensors, got {orig.device}")
     if comm is not None:
-        check_mesh(opts, comm)
+        check_mesh(opts, comm, tuple(orig.shape))
     dtype, device = orig.dtype, orig.device
     if reference_data is not None:
         reference_data = reference_data.to(dtype)
@@ -894,6 +1023,8 @@ def prepare_run(
                                           else [])
         st.ckpt = [torch.empty_like(orig) for _ in range(cubes)] \
             + [torch.empty_like(x) for x in traces]
+    if comm is not None:
+        _reserve_mesh(comm, opts, orig, st)
     return PreparedRun(st, orig, tk_ratios, lambda_inv, lam_mu, opts,
                        reference_data, i_stop, keep_state, comm,
                        state is None)
@@ -985,10 +1116,10 @@ def run_solver(
     no second copy of the state is made.
 
     ``comm`` (``parallel/halo.py::MeshComm``) makes ``orig`` (and the
-    state, and ``reference_data``) one shard of a mesh split along the
-    scan axes; every rank calls this with its shard, and the traces are
-    those of the whole cube (``parallel/sharded.py::run_sharded``).
-    :func:`check_mesh` refuses the meshes not ported yet.
+    state, and ``reference_data``) one shard of an evenly tiled mesh;
+    every rank calls this with its shard, and the traces are those of the
+    whole cube (``parallel/sharded.py::run_sharded``). :func:`check_mesh`
+    checks the mesh against the options.
 
     Returns a dict with ``recon``, ``b_norm``, ``delta`` [, ``mse``] as
     tensors on the device, ``iterations_run`` (int) and ``early_stopped``

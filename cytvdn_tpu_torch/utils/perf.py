@@ -88,17 +88,39 @@ def model_seconds(shape, fista: bool, backend: str, bandwidth: float,
 
 
 def launch_bytes(shape, fista: bool, itemsize: int = 4,
-                 ref: bool = False, band_rows: int = 0) -> int:
+                 ref: bool = False, band_rows: int = 0,
+                 halo_elems: int = 0) -> int:
     """Bytes one launch of any of the port's kernels (one, two or K
     iterations) must move: each input read once (orig, recon, n
     accumulators [, n shadow duals] [, the reference cube]) and each output
     written once (recon, n accumulators [, n shadow duals]), i.e. 4n+3
     (FISTA) or 2n+3 cube traversals, one more with a reference cube; plus
     ``band_rows`` axis-0 rows of the shape moved once (a mesh shard's
-    seam bands)."""
+    seam bands) and ``halo_elems`` elements of seam operands read once (the
+    K=1 kernel's halo slabs, :func:`k1_halo_elements`)."""
     trav = traversals_per_iteration(len(shape), fista, "fused") + int(ref)
     row = _voxels(shape) // shape[0]
-    return (trav * _voxels(shape) + band_rows * row) * itemsize
+    return (trav * _voxels(shape) + band_rows * row + halo_elems) * itemsize
+
+
+def k1_halo_elements(shape, halo_keys) -> int:
+    """Elements of the K=1 kernel's seam operands named ``halo_keys``
+    (``kernels/fused.py``'s ``prevA``, ``nextA_*``, ``nextA_accB`` and
+    ``cornerA``), each read once: a slab has the shape with its axis
+    collapsed, a corner with both pair axes collapsed. The scratch slab
+    the kernel writes and reads back per halo axis is the kernel's choice,
+    not the function's, and is not counted."""
+    n = _voxels(shape)
+    total = 0
+    for key in halo_keys:
+        if key.startswith("corner"):
+            s = int(key[6:])
+            o = s + 1 if s % 2 == 0 else s - 1
+            total += n // (shape[s] * shape[o])
+        else:
+            ax = int(key[4])
+            total += n // shape[ax]
+    return total
 
 
 def launch_operations(shape, fista: bool, iterations: int,
@@ -116,15 +138,17 @@ def launch_operations(shape, fista: bool, iterations: int,
 
 def launch_bound_seconds(shape, fista: bool, iterations: int,
                          bandwidth: float, flops: float, ref: bool = False,
-                         band_rows: int = 0):
+                         band_rows: int = 0, halo_elems: int = 0):
     """The least time one launch could take on a card with ``bandwidth``
     bytes/s and ``flops`` operations/s: the larger of :func:`launch_bytes`
     over the bandwidth and :func:`launch_operations` over the rate, and
     which of the two it is (``"bytes"`` or ``"operations"``). ``ref``: the
     launch also reads a reference cube and sums each iteration's squared
     error against it (the pair kernel's MSE launch); ``band_rows``: rows
-    of seam bands it also moves (the pair kernel's ``HALO0`` launch)."""
-    t_bytes = launch_bytes(shape, fista, ref=ref,
-                           band_rows=band_rows) / bandwidth
+    of seam bands it also moves (the pair kernel's ``HALO0`` launch);
+    ``halo_elems``: elements of seam operands it also reads (the K=1
+    kernel's ``HALO`` launch, :func:`k1_halo_elements`)."""
+    t_bytes = launch_bytes(shape, fista, ref=ref, band_rows=band_rows,
+                           halo_elems=halo_elems) / bandwidth
     t_ops = launch_operations(shape, fista, iterations, ref=ref) / flops
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

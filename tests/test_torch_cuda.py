@@ -13,7 +13,10 @@ launches of the one-iteration kernel, at forced grid sizes too. The
 one-iteration kernel with operand halos (out-of-core slabs) is held
 bitwise against its plain version with the same halos, slabs launched
 with halos and reassembled against one launch of the whole cube, and
-``denoise_outofcore`` on the card against ``denoise4D`` there.
+``denoise_outofcore`` on the card against ``denoise4D`` there; so is each
+of its mesh-only modes (rings, mirror edges, iso seams and corners,
+in-block axes), and mesh runs in those modes, ranks as threads sharing
+the card, against the single-device run.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -1209,3 +1212,189 @@ def test_mesh_run_on_the_card_bitwise_single_device(monkeypatch, shard, kw):
     k1 = tfused.fused_iteration.halo_launches - before[1]
     assert (halo0 > 0) == (shard[1] == 1), (halo0, k1)
     assert k1 > 0 or (halo0 > 0 and not kw.get("stop"))
+
+
+# -- the K=1 kernel's mesh-only halo modes -----------------------------------
+
+def _mode_state(shape, fista, dtype, seed=0):
+    """A random state on the card, the Jia-Zhao invariant held (each
+    accumulator's leading slab along its axis zero), and scalars whose
+    clip radii bind."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ndim = len(shape)
+
+    def rnd(scale):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=dtype) * scale
+
+    orig = rnd(0.5) + 2.0
+    state = [orig + rnd(0.05)] + [rnd(0.2) for _ in range(ndim)]
+    if fista:
+        state += [rnd(0.2) for _ in range(ndim)]
+    for j, x in enumerate(state[1:]):
+        x.select(j % ndim, 0).zero_()
+    li = torch.linspace(0.2, 0.35, ndim, device="cuda", dtype=dtype)
+    lm = torch.linspace(1 / 32, 1 / 48, ndim, device="cuda", dtype=dtype)
+    return orig, state, li, lm, torch.tensor(0.37, device="cuda",
+                                             dtype=dtype)
+
+
+def _mode_block(step, orig, state, li, lm, rho, fista, grid, coords, mode,
+                iters=1):
+    """``iters`` launches of ``step`` on one block of ``state`` with the
+    halos of ``mode`` (``tests/torch_halo_blocks.py``); returns the block's
+    state and sums."""
+    from torch_halo_blocks import block_halos, block_state
+
+    ndim = orig.dim()
+    recon, accs = state[0], state[1:1 + ndim]
+    ds = state[1 + ndim:] if fista else None
+    h, edge = block_halos(recon, accs, ds, grid, coords, **mode)
+    o, *s = block_state([orig] + state, grid, coords)
+    sums = []
+    for _ in range(iters):
+        out = step(o, s[0], s[1:1 + ndim], s[1 + ndim:] if fista else None,
+                   rho, li, lm, fista=fista, halos=h, edge_next=edge, **mode)
+        sums.append(torch.stack(out[3:]).double().cpu())
+    torch.cuda.synchronize()
+    return s, torch.stack(sums)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("fista", [True, False])
+@pytest.mark.parametrize("name", ["ring", "mirror", "iso-seam0", "iso-seam1",
+                                  "iso-corner", "inblock2", "inblock3",
+                                  "iso-q-corner", "energy"])
+def test_halo_mode_kernel_bitwise_equals_plain(name, fista, dtype):
+    """The HALO instantiation in each mesh-only mode (rings, mirror edges
+    with their flags, iso seams and corners, in-block axes) against the
+    plain version with the same halos, two launches on the first, an
+    interior and the last block: state bitwise, sums within rtol 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from torch_halo_blocks import HALO_MODES, mode_coords
+
+    mode, shape, grid, ax = HALO_MODES[name]
+    orig, state, li, lm, rho = _mode_state(shape, fista, dtype)
+    before = tfused.fused_iteration.mode_launches
+    for i in range(3):
+        coords = mode_coords(grid, ax, i)
+        ks, ksum = _mode_block(tfused.fused_iteration, orig, state, li, lm,
+                               rho, fista, grid, coords, mode, iters=2)
+        ps, psum = _mode_block(tfused.fused_iteration_reference, orig, state,
+                               li, lm, rho, fista, grid, coords, mode,
+                               iters=2)
+        for a, b in zip(ks, ps):
+            assert torch.equal(a, b), (i, (a - b).abs().max().item())
+        torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+    assert tfused.fused_iteration.mode_launches - before == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fista", [True, False])
+@pytest.mark.parametrize("name", ["ring", "mirror", "iso-corner", "inblock2",
+                                  "inblock3", "iso-q-corner", "energy"])
+def test_halo_mode_blocks_reassemble_to_one_launch(name, fista):
+    """Every block of the mode's grid launched with its halos and put
+    back: bitwise one launch of the whole cube."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import itertools
+
+    from torch_halo_blocks import HALO_MODES, block_bounds
+
+    mode, shape, grid, _ = HALO_MODES[name]
+    ndim = len(shape)
+    orig, state, li, lm, rho = _mode_state(shape, fista, torch.float32, 1)
+    whole = [x.clone() for x in state]
+    tfused.fused_iteration(orig, whole[0], whole[1:1 + ndim],
+                           whole[1 + ndim:] if fista else None, rho, li, lm,
+                           fista=fista, **mode)
+    cut = [x.clone() for x in state]
+    for coords in itertools.product(*(range(w) for w in grid)):
+        s, _ = _mode_block(tfused.fused_iteration, orig, state, li, lm, rho,
+                           fista, grid, coords, mode)
+        sl = tuple(slice(*b) for b in block_bounds(shape, grid, coords))
+        for dst, src in zip(cut, s):
+            dst[sl] = src
+    torch.cuda.synchronize()
+    for a, b in zip(cut, whole):
+        assert torch.equal(a, b), (a - b).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,shard,kw", [
+    ((16, 12, 10, 33), (2, 1, 1, 1), dict(BC_mode=0)),
+    ((16, 12, 10, 33), (2, 2, 1, 1), dict(BC_mode=1)),
+    ((16, 12, 10, 33), (2, 2, 1, 1),
+     dict(isotropic_R=True, isotropic_Q=True)),
+    ((8, 6, 16, 32), (1, 1, 2, 2), dict(isotropic_Q=True)),
+    ((8, 6, 16, 32), (1, 1, 2, 1), dict()),
+    ((12, 9, 70), (3, 1, 2), dict(BC_mode=0)),
+    ((12, 9, 70), (2, 1, 1), dict(BC_mode=1, stop=True)),
+    ((16, 12, 10, 33), (2, 1, 1, 1), dict(isotropic_R=True, with_ref=True)),
+    ((4, 12, 10, 33), (4, 1, 1, 1), dict(isotropic_R=True)),
+], ids=str)
+def test_mode_mesh_run_on_the_card_bitwise_single_device(shape, shard, kw):
+    """``denoise_sharded`` in the mesh-only modes with ranks as threads
+    sharing the card against the single-device run on the card: recon
+    bitwise, traces within rtol 1e-5, K=1 launches in those modes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import datetime
+    import threading
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from cytvdn_tpu_torch import denoise3D, denoise4D
+    from cytvdn_tpu_torch.parallel import denoise_sharded
+
+    kw = dict(kw)
+    stop, with_ref = kw.pop("stop", False), kw.pop("with_ref", False)
+    cube = (np.random.default_rng(6).standard_normal(shape) * 0.5
+            + 2.0).astype(np.float32)
+    mu = np.full(len(shape), 1.0, np.float32)
+    args = dict(iterations=30 if stop else 7, FISTA=True, quiet=True, **kw)
+    if with_ref:
+        args["reference_data"] = (cube * 0.9).astype(np.float32)
+    single = denoise4D if len(shape) == 4 else denoise3D
+    if stop:
+        fixed = single(cube, mu, device="cuda", **args)[2]
+        args["stopping_relative_change"] = float(np.sqrt(fixed[9] * fixed[10]))
+    want = single(cube, mu, device="cuda", **args)
+    n = int(np.prod(shard))
+    store, res, errs = dist.HashStore(), [None] * n, [None] * n
+    before = tfused.fused_iteration.mode_launches
+
+    def rank(r):
+        try:
+            pg = dist.ProcessGroupGloo(dist.PrefixStore("modes", store), r,
+                                       n, datetime.timedelta(seconds=60))
+            res[r] = denoise_sharded(cube, mu, shard=shard, group=pg,
+                                     device="cuda", **args)
+        except BaseException as e:  # re-raised below
+            errs[r] = e
+
+    threads = [threading.Thread(target=rank, args=(r,), daemon=True)
+               for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads), "a rank hung"
+    for e in errs:
+        if e is not None:
+            raise e
+    np.testing.assert_array_equal(res[0]["recon"], want[0])
+    assert all(r["iterations_run"] == np.count_nonzero(want[2]) for r in res)
+    if stop:
+        assert res[0]["iterations_run"] == 11
+    np.testing.assert_allclose(res[0]["b_norm"], want[1], rtol=1e-5)
+    np.testing.assert_allclose(res[0]["delta"], want[2], rtol=1e-5)
+    if with_ref:
+        np.testing.assert_allclose(res[0]["mse"], want[3], rtol=1e-5)
+    # the ranks are threads of this process, counting into one attribute
+    assert tfused.fused_iteration.mode_launches > before

@@ -187,11 +187,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="cuda"):
         denoise3D(orig, np.full(3, 1.0, np.float32), iterations=2,
                   quiet=True, backend="cuda", device="cpu")
-    # operand halos are ported for axis-0 slabs; an in-block axis's halo
-    # (Q-axis meshes, ROADMAP Queue 1 item 8) is not
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tfused.fused_iteration(*args, fista=True,
-                               halos={"prev2": torch.zeros((4, 5, 1))})
     lossy = [d.to(torch.bfloat16) for d in args[3]]
     with pytest.raises(ValueError, match="ds"):
         tfused.fused_iteration(*args[:3], lossy, *args[4:], fista=True)
@@ -201,3 +196,43 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                                None, t(li), t(lm), fista=False, bc=1)
     with pytest.raises(ValueError, match="does not cover"):
         tfused.fused_iteration(*args, fista=True, iso_r=True)
+
+
+@pytest.mark.parametrize("fista", [True, False])
+def test_wrapper_runs_inblock_halos(fista):
+    """An in-block axis's halos (``prev2`` and the +1 neighbour's slabs of
+    axis 2, as a mesh that splits the energy axis gives them, with axes 0
+    and 1's Jia-Zhao edge values): the cube of the rejection test above cut
+    in two along axis 2, each half run with its halos and put back, is
+    bitwise one iteration of the whole cube."""
+    orig, recon, accs, ds, li, lm = _state((4, 5, 6), fista, 2, seed=3)
+    if not fista:
+        ds = None
+    t = torch.from_numpy
+    R, A = t(recon.copy()), [t(a.copy()) for a in accs]
+    D = [t(d.copy()) for d in ds] if fista else None
+    tfused.fused_iteration(t(orig), R, A, D, torch.tensor(0.5), t(li), t(lm),
+                           fista=fista)
+    grid = (1, 1, 2)
+    got = np.concatenate([
+        _inblock_half(orig, recon, accs, ds, li, lm, grid, c, fista)
+        for c in ((0, 0, 0), (0, 0, 1))], axis=2)
+    np.testing.assert_array_equal(got, R.numpy())
+
+
+def _inblock_half(orig, recon, accs, ds, li, lm, grid, coords, fista):
+    from torch_halo_blocks import block_halos, block_state
+
+    h, _ = block_halos(recon, accs, ds, grid, coords)
+    assert "prev2" in h
+    bs = block_state([orig, recon], grid, coords)
+    blk = [torch.from_numpy(x) for x in block_state(accs + (ds or []), grid,
+                                                     coords)]
+    r = torch.from_numpy(bs[1])
+    tfused.fused_iteration(torch.from_numpy(bs[0]), r, blk[:3],
+                           blk[3:] if fista else None, torch.tensor(0.5),
+                           torch.from_numpy(li), torch.from_numpy(lm),
+                           fista=fista,
+                           halos={k: torch.from_numpy(v)
+                                  for k, v in h.items()})
+    return r.numpy()

@@ -16,6 +16,8 @@ itself is held bitwise against the plain version on the card
 (tests/test_torch_cuda.py and ``chip_smoke.py`` phase 8).
 """
 
+import itertools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -169,30 +171,50 @@ def test_slabs_with_halos_reassemble_bitwise(shape, fista, dtype, n_slabs):
                                rtol=1e-5 if dtype == np.float32 else 1e-12)
 
 
-REFUSED_HALOS = {
-    "inblock-prev2": ({"prev2": (3, 6, 1, 16)}, {}),
-    "folded": ({"next2_recon": (3, 6, 1, 16)}, {}),
-    "iso-partner": ({"next0_acc1": (1, 6, 8, 16)}, {}),
-    "corner": ({"corner0": (1, 1, 8, 16)}, {}),
-    "periodic": ({}, {"bc": 0}),
-    "mirror": ({}, {"bc": 1}),
-    "iso": ({}, {"iso_r": True}),
+#: the halo operands only a mesh run gives, which the wrapper once refused
+#: (ROADMAP Queue 1 item 8), each with the grid of blocks that gives it:
+#: an in-block axis's slabs, the 3D energy axis's, an iso pair's partner
+#: slab, its corner (both pair axes split), ring halos, mirror halos with
+#: the edge flags, and iso Q's in-block seams
+MESH_HALOS = {
+    "inblock-prev2": ((3, 6, 8, 16), (1, 1, 2, 1), {}),
+    "folded": ((6, 8, 16), (1, 1, 2), {}),
+    "iso-partner": ((6, 6, 8, 16), (2, 1, 1, 1), {"iso_r": True}),
+    "corner": ((6, 6, 8, 16), (2, 2, 1, 1), {"iso_r": True}),
+    "periodic": ((6, 6, 8, 16), (3, 2, 1, 1), {"bc": 0}),
+    "mirror": ((6, 6, 8, 16), (3, 2, 1, 1), {"bc": 1}),
+    "iso": ((3, 6, 8, 16), (1, 1, 2, 2), {"iso_q": True}),
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSED_HALOS))
-def test_sharded_only_halos_refused(case):
-    """The halo variants only a sharded run uses raise, naming ROADMAP
-    Queue 1 item 8."""
-    extra, kw = REFUSED_HALOS[case]
-    state = _state((3, 6, 8, 16), True, seed=3)
-    orig, recon, accs, ds, li, lm = state
-    h = {k: _t(v) for k, v in _halos(recon, accs, ds, 0, 3, True).items()}
-    h.update({k: torch.zeros(s) for k, s in extra.items()})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tfused.fused_iteration(_t(orig), _t(recon), [_t(x) for x in accs],
-                               [_t(x) for x in ds], torch.tensor(0.3),
-                               _t(li), _t(lm), fista=True, halos=h, **kw)
+@pytest.mark.parametrize("case", sorted(MESH_HALOS))
+def test_sharded_only_halos_run(case):
+    """The halo operands only a sharded run uses run: every block of the
+    grid, run with them (halos from the pre-update state, as
+    ``tests/torch_halo_blocks.py`` builds them) and put back, is bitwise
+    one iteration of the whole cube."""
+    from torch_halo_blocks import block_bounds, block_halos
+
+    shape, grid, mode = MESH_HALOS[case]
+    orig, recon, accs, ds, li, lm = _state(shape, True, seed=3)
+    R, A, D = _t(recon), [_t(x) for x in accs], [_t(x) for x in ds]
+    tfused.fused_iteration_reference(_t(orig), R, A, D, torch.tensor(0.3),
+                                     _t(li), _t(lm), fista=True, **mode)
+    got = [x.copy() for x in [recon] + accs + ds]
+    for coords in itertools.product(*(range(w) for w in grid)):
+        h, edge = block_halos(recon, accs, ds, grid, coords, **mode)
+        sl = tuple(slice(*b) for b in block_bounds(shape, grid, coords))
+        blk = [_t(x[sl]) for x in [recon] + accs + ds]
+        nd = len(shape)
+        tfused.fused_iteration(_t(orig[sl]), blk[0], blk[1:1 + nd],
+                               blk[1 + nd:], torch.tensor(0.3), _t(li),
+                               _t(lm), fista=True, edge_next=edge,
+                               halos={k: _t(v) for k, v in h.items()},
+                               **mode)
+        for g, x in zip(got, blk):
+            g[sl] = x.numpy()
+    for g, w in zip(got, [R] + A + D):
+        np.testing.assert_array_equal(g, w.numpy())
 
 
 def test_halo_operands_checked():
@@ -201,10 +223,10 @@ def test_halo_operands_checked():
     args = (_t(orig), _t(recon), [_t(x) for x in accs], [_t(x) for x in ds],
             torch.tensor(0.3), _t(li), _t(lm))
     h = {k: _t(v) for k, v in _halos(recon, accs, ds, 0, 3, True).items()}
-    # the sharded mirror runs' edge_next is not a keyword of the port
-    with pytest.raises(TypeError, match="edge_next"):
+    # the sharded mirror runs' edge_next: one flag per axis
+    with pytest.raises(ValueError, match="edge_next"):
         tfused.fused_iteration(*args, fista=True, halos=h,
-                               edge_next=torch.ones(4))
+                               edge_next=torch.ones(3))
     with pytest.raises(ValueError, match="next0_d"):
         tfused.fused_iteration(*args, fista=True,
                                halos={k: v for k, v in h.items()

@@ -414,10 +414,6 @@ def test_temporal_mesh_preference_matches_jax(kw):
 # -- refusals -----------------------------------------------------------------
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(shard=(1, 1, 2, 1)), "Queue 1 item 8"),
-    (dict(shard=(2, 1, 1, 1), isotropic_R=True), "Queue 1 item 8"),
-    (dict(shard=(2, 1, 1, 1), BC_mode=1), "Queue 1 item 8"),
-    (dict(shard=(2, 1, 1, 1), BC_mode=0), "Queue 1 item 8"),
     (dict(shard=(2, 1, 1, 1), checkpoint_path="x.npz",
           checkpoint_every=2), "Queue 1 item 9"),
     (dict(shard=(2, 1, 1, 1), resume=True), "Queue 1 item 9"),
@@ -486,13 +482,6 @@ def test_meshcomm_exchanges_and_sums():
         assert got["max"] == 1
         assert stats["exchanges"] == 4 and stats["allsums"] == 1
         assert stats["bytes_sent"] > 0
-
-
-def test_meshcomm_refuses_periodic_and_mirror_meshes():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        on_mesh(2, lambda pg, r: MeshComm(pg, (2, 1, 1), r, bc=0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        on_mesh(2, lambda pg, r: MeshComm(pg, (2, 1, 1), r, bc=1))
 
 
 # -- the collective device-memory ladder --------------------------------------
