@@ -217,6 +217,7 @@ import sys
 import tempfile
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -667,26 +668,54 @@ def compare_kstep_offcard(shape, fista, k):
         ("plain", kstep(fused_kstep_iteration_reference))])
 
 
+def kernel_args(mangled: str):
+    """(kernel name, template arguments) of a kernel instantiation's
+    mangled name, the arguments as strings ("f", "4", "1", ...)."""
+    k = re.search(r"([a-z]+_kernel)I(.+?)EEv", mangled)
+    return k.group(1), [a or b for a, b in re.findall(
+        r"([fd])(?=L|E|$)|L[ib](\d+)", k.group(2))]
+
+
 def ptxas_summary(log: str) -> str:
-    """Registers and spill stores/loads of every kernel instantiation, from
-    the build log's ``ptxas -v`` lines, as ``name<template args> R regs,
-    S/L spill``."""
+    """Registers, spill stores/loads and stack frame of every kernel
+    instantiation, from the build log's ``ptxas -v`` lines, as
+    ``name<template args> R regs, spill S/L, stack F``."""
     rows, name = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"([a-z]+_kernel)I(.+?)EEv", m.group(1))
-            args = [a or b for a, b in
-                    re.findall(r"([fd])(?=L|E|$)|L[ib](\d+)", k.group(2))]
-            name = f"{k.group(1)}<{','.join(args)}>"
-            spill = ""
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            kname, args = kernel_args(m.group(1))
+            name = f"{kname}<{','.join(args)}>"
+            spill = stack = ""
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
         if m:
-            spill = f"{m.group(1)}/{m.group(2)}"
+            stack, spill = m.group(1), f"{m.group(2)}/{m.group(3)}"
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            rows.append(f"{name} {m.group(1)} regs, spill {spill}")
+            rows.append(f"{name} {m.group(1)} regs, spill {spill}, "
+                        f"stack {stack}")
     return "; ".join(rows)
+
+
+def dual_store_order():
+    """Each instantiation of the K=1 kernel's dual pass in the built
+    library's SASS (``tools/torch_sass_order.py``): (template arguments
+    <T,ND,FISTA,HALO,ISO>, ISO, stores, stores sent while their own load is
+    in flight, LDL, STL)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "tools"))
+    import torch_sass_order as so
+
+    rows = []
+    for mangled, fn in so.functions(so.library_sass()):
+        if "dual_kernel" not in mangled:
+            continue
+        _, args = kernel_args(mangled)
+        stores, _, in_flight = so.store_order(fn)
+        rows.append((f"<{','.join(args)}>", args[-1] == "1" and len(args) == 5,
+                     stores, len(in_flight), *so.local_memory(fn)))
+    return rows
 
 
 def kstep_fn(step, orig, state, li, lm, rhos, k, fista, **kw):
@@ -3130,32 +3159,67 @@ def compare_mode_blocks(name, fista, dtype):
     return err
 
 
-def time_mode(shape, mode, grid, coords, n_kernel, n_plain):
+def time_mode(shape, mode, grid, coords, n_kernel, n_plain, extra=None):
     """ms per launch at the shard ``shape`` FISTA f32 (coordinates
     ``coords`` of ``grid``) of the K=1 kernel with the shard's halos in
-    ``mode``, of the launch without halos, and of the plain version with
-    the halos, in turns (plain, halo, k1, k1, halo, plain); and the
-    elements of its halo operands."""
+    ``mode``, of the launch without halos, of the launches without halos
+    in the modes of ``extra`` ({name: options}), and of the plain version
+    with the halos, in turns (plain, halo, k1, extra..., extra reversed,
+    k1, halo, plain); the elements of its halo operands; and the max |Δ|
+    of one launch without halos against its plain version from the same
+    state (bitwise required)."""
     from cytvdn_tpu_torch.utils.perf import k1_halo_elements
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
     orig, state, li, lm, rho = random_state(shape, True, torch.float32, gen,
                                             jz=True)
     h, edge = shard_halos(state, True, mode, grid, coords, gen)
+    extra = extra or {}
     fns = {"halo": step_fn(fused_iteration, orig, state, li, lm, rho, True,
                            halos=h, edge_next=edge, **mode),
            "k1": step_fn(fused_iteration, orig, state, li, lm, rho, True,
                          **mode),
            "plain": step_fn(fused_iteration_reference, orig, state, li, lm,
                             rho, True, halos=h, edge_next=edge, **mode)}
+    fns.update({k: step_fn(fused_iteration, orig, state, li, lm, rho, True,
+                           **kw) for k, kw in extra.items()})
+    up = ["plain", "halo", "k1", *extra]
     raw = {k: [] for k in fns}
-    for name in ("plain", "halo", "k1", "k1", "halo", "plain"):
+    for name in up + up[::-1]:
         raw[name].append(time_ms(fns[name],
                                  n_plain if name == "plain" else n_kernel))
     elems = k1_halo_elements(shape, list(h))
-    del state, orig, h, fns
+    del h, fns
+    twin = [x.clone() for x in state]
+    step_fn(fused_iteration, orig, state, li, lm, rho, True, **mode)()
+    step_fn(fused_iteration_reference, orig, twin, li, lm, rho, True,
+            **mode)()
+    err = max((a - b).abs().max().item() for a, b in zip(state, twin))
+    require(all(torch.equal(a, b) for a, b in zip(state, twin)),
+            f"K=1 launch at {shape} {mode} differs from its plain version: "
+            f"max |Δ| {err}")
+    del state, orig, twin
     torch.cuda.empty_cache()
-    return {k: sum(v) / len(v) for k, v in raw.items()}, raw, elems
+    return {k: sum(v) / len(v) for k, v in raw.items()}, raw, elems, err
+
+
+def time_iso_cube(n_kernel, n_plain):
+    """ms per launch at config 4's whole cube, FISTA f32 with stem4d-iso's
+    options (iso R and Q, the ISO instantiation), of the K=1 kernel and of
+    its plain version, in turns (plain, k1, k1, plain)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    orig, state, li, lm, rho = random_state(CFG4, True, torch.float32, gen,
+                                            jz=True)
+    fns = {"k1": step_fn(fused_iteration, orig, state, li, lm, rho, True,
+                         iso_r=True, iso_q=True),
+           "plain": step_fn(fused_iteration_reference, orig, state, li, lm,
+                            rho, True, iso_r=True, iso_q=True)}
+    raw = {k: [] for k in fns}
+    for k in ("plain", "k1", "k1", "plain"):
+        raw[k].append(time_ms(fns[k], n_plain if k == "plain" else n_kernel))
+    del orig, state, fns
+    torch.cuda.empty_cache()
+    return {k: sum(v) / len(v) for k, v in raw.items()}, raw
 
 
 def modes_phase(smi, name, cube, cube3):
@@ -3200,21 +3264,33 @@ def modes_phase(smi, name, cube, cube3):
         f"1e-5; {time.perf_counter() - t0:.1f} s [{smi}]")
     bw, f32 = peak_bandwidth(name), peak_f32(name)
     timed = {}
-    for key, shape, mode, grid, coords in (
+    # the iso shard also times the launch without halos with iso R only,
+    # iso Q only and anisotropic
+    iso_split = {"iso R": dict(iso_r=True), "iso Q": dict(iso_q=True),
+                 "aniso": {}}
+    for key, shape, mode, grid, coords, extra in (
             ("iso", SHARD4, dict(iso_r=True, iso_q=True), (3, 1, 1, 1),
-             (1, 0, 0, 0)),
-            ("periodic", SHARD2, dict(bc=0), (2, 1, 1), (0, 0, 0))):
-        t, raw, elems = time_mode(shape, mode, grid, coords, 3, 1)
+             (1, 0, 0, 0), iso_split),
+            ("periodic", SHARD2, dict(bc=0), (2, 1, 1), (0, 0, 0), None)):
+        t, raw, elems, e = time_mode(shape, mode, grid, coords, 3, 1, extra)
+        err = max(err, e)
         b_ms, b_by = (launch_bound_seconds(shape, True, 1, bw, f32,
                                            halo_elems=elems)
                       if bw and f32 else (float("nan"), None))
+        b0 = (launch_bound_seconds(shape, True, 1, bw, f32)[0] * 1e3
+              if bw and f32 else float("nan"))
         timed[key] = (t, raw, b_ms * 1e3, b_by, elems)
         log(f"phase 10 (a) time at the shard {shape} FISTA f32 {mode} "
             f"(neighbours on both sides of axis 0): K=1 with halos "
             f"{t['halo']:.3f} ms ({b_ms * 1e3 / t['halo']:.3f} of its "
             f"{b_ms * 1e3:.2f} ms bound, {b_by}, {elems} halo elements), "
-            f"without halos {t['k1']:.3f} ms, plain with halos "
-            f"{t['plain']:.3f} ms (runs {raw}) [{smi}]")
+            f"without halos {t['k1']:.3f} ms ({b0 / t['k1']:.3f} of its "
+            f"{b0:.2f} ms bound)"
+            + "".join(f", {k} without halos {t[k]:.3f} ms "
+                      f"({b0 / t[k]:.3f})" for k in extra or ())
+            + f", plain with halos {t['plain']:.3f} ms; one launch without "
+            f"halos bitwise its plain version (max |Δ| {e}) (runs {raw}) "
+            f"[{smi}]")
 
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="cytv_modes_")
@@ -3256,10 +3332,21 @@ def modes_phase(smi, name, cube, cube3):
                       stopping_relative_change=extra.get("stop"), **options)
             if "reference" in extra:
                 kw["reference_data"] = clean2
+            reset_counts()
+            torch.cuda.synchronize()
+            t_ref = time.perf_counter()
             with warnings.catch_warnings():
                 warnings.filterwarnings("ignore", "BC_mode=1")
                 want[key] = single(lambda: fn(
                     data, mu4 if ndim == 4 else mu3, **kw))
+            if key == "iso2":
+                # config 4 stem4d-iso x10 on one device: every iteration a
+                # K=1 launch (the ISO instantiation)
+                iso_wall = time.perf_counter() - t_ref
+                iso_launches = launch_counts()
+                require(iso_launches == (0, 0, 0, n4),
+                        f"config 4 stem4d-iso x{n4} on one device: launches "
+                        f"whole-run/K-step/pair/fused {iso_launches}")
             digests[key] = blocks(want[key]["recon"], shard)
             del want[key]["recon"]
         del clean2, noisy2
@@ -3269,6 +3356,16 @@ def modes_phase(smi, name, cube, cube3):
             f"stop 0.05 after {int(np.count_nonzero(want['stop']['delta']))} "
             f"and periodic MSE x{n2}, config 3 iso Q x{n3}), the .npy inputs "
             f"and the digests: {time.perf_counter() - t0:.1f} s")
+        cube_ms, cube_raw = time_iso_cube(3, 1)
+        b4 = (launch_bound_seconds(CFG4, True, 1, bw, f32)[0] * 1e3
+              if bw and f32 else float("nan"))
+        log(f"phase 10 config 4 {CFG4} stem4d-iso (iso R and Q) FISTA x{n4} "
+            f"on one device: {iso_wall / n4:.4f} s per iteration "
+            f"(denoise4D wall {iso_wall:.3f} s, host copies included; "
+            f"launches whole-run/K-step/pair/fused {iso_launches}); the K=1 "
+            f"launch at {CFG4} with those options {cube_ms['k1']:.3f} ms "
+            f"({b4 / cube_ms['k1']:.3f} of its {b4:.2f} ms bound), plain "
+            f"{cube_ms['plain']:.3f} ms (runs {cube_raw}) [{smi}]")
 
         rows = {}
         for n_ranks, timeout in ((2, 420), (4, 420)):
@@ -3303,7 +3400,9 @@ def modes_phase(smi, name, cube, cube3):
     log(f"phase 10 {time.perf_counter() - t_phase:.1f} s")
     t, raw, b_ms, b_by, _ = timed["iso"]
     return {"launches": rows["iso2"][0]["modes"], "err": err,
-            "ms": t["halo"], "plain_ms": t["plain"], "bound": (b_ms, b_by)}
+            "ms": t["halo"], "plain_ms": t["plain"], "bound": (b_ms, b_by),
+            "iso_launches": iso_launches[3], "iso_ms": cube_ms["k1"],
+            "iso_plain_ms": cube_ms["plain"]}
 
 
 def piecewise_4d(shape, seed):
@@ -3363,6 +3462,11 @@ def main() -> int:
     log(f"phase 1 pair kernel instantiations <ND,FISTA,REF> (REF: the "
         f"reference-cube SSE): {'; '.join(pair_ptx)}; full cooperative grid "
         f"without / with REF: {ref_grid}")
+    # the dual pass's SASS check runs beside phase 2 (cuobjdump takes ~11 s)
+    t_sass = time.perf_counter()
+    pool = ThreadPoolExecutor(1)
+    sass_check = pool.submit(dual_store_order)
+    pool.shutdown(wait=False)
 
     # phase 2: kernel vs plain on the card
     max_err = 0.0
@@ -3439,6 +3543,22 @@ def main() -> int:
         f"2 pairs each: state bitwise equal (max |Δ| {ref_err}), the eight "
         f"sums within rtol 1e-5 (the SSEs within {ref_rel:.2e}); "
         f"{time.perf_counter() - t0:.1f} s")
+    order = sass_check.result()
+    dual_ptx = [row for row in ptxas.split("; ")
+                if row.startswith("dual_kernel")]
+    log(f"phase 1 K=1 dual pass dual_kernel<T,ND,FISTA,HALO,ISO> (ISO: the "
+        f"4D half-isotropic launches, loads first, b before d): ptxas "
+        f"{'; '.join(dual_ptx)}; SASS (tools/torch_sass_order.py) stores / "
+        f"sent while their own load is in flight / LDL / STL: "
+        + "; ".join(f"{a} {st}/{fl}/{ldl}/{stl}"
+                    for a, _, st, fl, ldl, stl in order)
+        + f"; checked beside phase 2, {time.perf_counter() - t_sass:.1f} s")
+    iso_rows = [r for r in order if r[1]]
+    require(len(iso_rows) == 8, f"expected 8 ISO instantiations of "
+                                f"dual_kernel, found {iso_rows}")
+    require(all(r[3] == 0 for r in iso_rows),
+            f"an ISO instantiation of dual_kernel sends a store while its "
+            f"own load is in flight: {iso_rows}")
     t0 = time.perf_counter()
     err4r, rel4r = compare_offcard_ref(CFG4)
     ref_err = max(ref_err, err4r)
@@ -4093,6 +4213,12 @@ def main() -> int:
         ("fused_iteration_mesh_modes", "fused_iteration.cu", "fused.py:872",
          modes10["launches"], modes10["err"], modes10["ms"],
          modes10["plain_ms"], modes10["bound"]),
+        # the K=1 kernel's ISO instantiation (half-isotropic, no halos): its
+        # launches on the single-device config-4 stem4d-iso x10 run of phase
+        # 10, its time at that run's cube
+        ("fused_iteration_iso", "fused_iteration.cu", "fused.py:872",
+         modes10["iso_launches"], max(max_err, modes10["err"]),
+         modes10["iso_ms"], modes10["iso_plain_ms"], bound(CFG4, True, 1)),
     ]
     kernels = [{
         "name": kname,

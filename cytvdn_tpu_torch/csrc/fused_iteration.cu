@@ -60,6 +60,21 @@
 //   cover the block's own elements. HALO is a template flag, so the
 //   no-halo instantiations are the code they were.
 //
+// - Half-isotropic launches (ISO, a template flag of the dual pass, 4D
+//   only, picked where iso_r or iso_q is set): each element issues every
+//   load first (recon at the element and its four backward neighbours,
+//   every b, under FISTA every d), then does the pairs' arithmetic, then
+//   stores every b and then every d (tv_elem.cuh dual_elem_iso), as the
+//   whole-run walk does (vec_walk.cuh dual_item). With the pair choice at
+//   run time inside the axis loop, the iso branch's d stores, whose values
+//   do not depend on the old d, were sent while the loads of that d were
+//   in flight, and each pair's loads waited for the previous axes'
+//   stores: on an H100 (80GB HBM3, 700 W) 164.7 ms at (128,256,128,128)
+//   FISTA against 23.2 ms anisotropic; loads first, 22.8 ms (PERF.md
+//   section 6). The
+//   other instantiations keep the runtime branch and are the code they
+//   were.
+//
 // Layout, boundary offsets and the element arithmetic live in tv_elem.cuh,
 // shared with the whole-run kernel (resident.cu).
 
@@ -70,8 +85,9 @@
 
 namespace {
 
-template <typename T, int ND, bool FISTA, bool HALO>
+template <typename T, int ND, bool FISTA, bool HALO, bool ISO>
 __global__ void __launch_bounds__(NT) dual_kernel(Args<T> a, Halos<T> h) {
+  static_assert(!ISO || ND == 4, "half-isotropic pairs are 4D");
   __shared__ double red[NT];
   T lam[ND];
 #pragma unroll
@@ -81,7 +97,13 @@ __global__ void __launch_bounds__(NT) dual_kernel(Args<T> a, Halos<T> h) {
   const bool iso_q = ND == 4 && a.iso_q;
   double acc = 0.0;
   for_each_element<ND>(a, [&](int64_t idx, const int64_t* c) {
-    dual_elem<T, ND, FISTA, HALO>(a, h, idx, c, lam, rho, iso_r, iso_q, acc);
+    if constexpr (ISO) {
+      dual_elem_iso<T, FISTA, HALO>(a, h, idx, c, lam, rho, iso_r, iso_q,
+                                    acc);
+    } else {
+      dual_elem<T, ND, FISTA, HALO>(a, h, idx, c, lam, rho, iso_r, iso_q,
+                                    acc);
+    }
   });
   const double total = block_sum(acc, red);
   if (threadIdx.x == 0 && threadIdx.y == 0) a.partials[blockIdx.x] = total;
@@ -119,19 +141,31 @@ __global__ void __launch_bounds__(NT) finalize_kernel(const double* partials,
   }
 }
 
+// The dual pass: the ISO instantiation where a 4D launch has a
+// half-isotropic pair.
+template <typename T, int ND, bool FISTA, bool HALO>
+void launch_dual(const Args<T>& a, const Halos<T>& h, dim3 grid, dim3 block,
+                 cudaStream_t stream) {
+  if (ND == 4 && (a.iso_r || a.iso_q)) {
+    dual_kernel<T, ND, FISTA, HALO, ND == 4><<<grid, block, 0, stream>>>(a, h);
+  } else {
+    dual_kernel<T, ND, FISTA, HALO, false><<<grid, block, 0, stream>>>(a, h);
+  }
+}
+
 // The dual and recon passes of one instantiation of the seams.
 template <typename T, bool HALO>
 cudaError_t launch_passes(const Args<T>& a, const Halos<T>& h, int ndim,
                           int fista, dim3 grid, dim3 block,
                           cudaStream_t stream) {
   if (ndim == 4 && fista) {
-    dual_kernel<T, 4, true, HALO><<<grid, block, 0, stream>>>(a, h);
+    launch_dual<T, 4, true, HALO>(a, h, grid, block, stream);
   } else if (ndim == 4) {
-    dual_kernel<T, 4, false, HALO><<<grid, block, 0, stream>>>(a, h);
+    launch_dual<T, 4, false, HALO>(a, h, grid, block, stream);
   } else if (fista) {
-    dual_kernel<T, 3, true, HALO><<<grid, block, 0, stream>>>(a, h);
+    launch_dual<T, 3, true, HALO>(a, h, grid, block, stream);
   } else {
-    dual_kernel<T, 3, false, HALO><<<grid, block, 0, stream>>>(a, h);
+    launch_dual<T, 3, false, HALO>(a, h, grid, block, stream);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;

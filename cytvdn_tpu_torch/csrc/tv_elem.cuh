@@ -7,7 +7,9 @@
 // and does each element's arithmetic in the order of dual_elem and
 // recon_elem (built with --fmad=false), so their state is bitwise equal to
 // the same number of one-iteration launches; its walk and loads are its
-// own. The block's layout (TX, TY, NT) is block.cuh's.
+// own. dual_elem_iso, the dual update of 4D half-isotropic launches, does
+// dual_elem's arithmetic in its order with every load first. The block's
+// layout (TX, TY, NT) is block.cuh's.
 //
 // The one-iteration kernels load the state plainly: a launch boundary
 // separates each write from every read of another block.
@@ -228,7 +230,9 @@ __device__ __forceinline__ T prev_recon(const Args<T>& a, const Halos<T>& h,
 // adds each new |b_k| to acc in axis order. With HALO, along each halo axis
 // the backward neighbour of a leading-edge element is h.prev, and a
 // trailing-edge element also writes the +1 neighbour's recomputed b into
-// h.bhat (seam_b; not counted in acc).
+// h.bhat (seam_b; not counted in acc). The 4D half-isotropic launches take
+// dual_elem_iso, so no launch runs the iso branch here; it stays so that
+// the anisotropic instantiations compile to the code they were measured as.
 template <typename T, int ND, bool FISTA, bool HALO>
 __device__ __forceinline__ void dual_elem(const Args<T>& a, const Halos<T>& h,
                                           int64_t idx, const int64_t* c,
@@ -282,6 +286,80 @@ __device__ __forceinline__ void dual_elem(const Args<T>& a, const Halos<T>& h,
       acc += static_cast<double>(abs_(bn));
       if (HALO && h.prev[k] != nullptr && c[k] == a.n[k] - 1)
         seam_b<T, ND, FISTA>(a, h, k, -1, c, x, lam, rho);
+    }
+  }
+}
+
+// New d and b of axes K and K+1 from loaded values (recon x, its backward
+// neighbours xb, b and d at the element): under `iso` the pair's joint
+// projection, else each axis's clip, in dual_elem's order of operations.
+template <int K, typename T, bool FISTA>
+__device__ __forceinline__ void dual_pair(bool iso, T x, const T* xb,
+                                          const T* bo, const T* dol,
+                                          const T* lam, T rho, T* bn, T* dn) {
+  if (iso) {
+    // the pair shares axis K's clip radius (reference cyTVDN.py:160-162)
+    const T e1 = x - xb[K] + bo[K];
+    const T e2 = x - xb[K + 1] + bo[K + 1];
+    const T cl = lam[K];
+    const T mag = hypot_(e1, e2);
+    const T scale = mag > cl ? cl / (mag > T(0) ? mag : T(1)) : T(1);
+    dn[K] = e1 * scale;
+    dn[K + 1] = e2 * scale;
+  } else {
+#pragma unroll
+    for (int k = K; k < K + 2; ++k) {
+      const T diff = x - xb[k];
+      dn[k] = clip_(diff + bo[k], lam[k]);
+    }
+  }
+#pragma unroll
+  for (int k = K; k < K + 2; ++k)
+    bn[k] = FISTA ? dn[k] + rho * (dn[k] - dol[k]) : dn[k];
+}
+
+// dual_elem of a 4D half-isotropic launch (iso_r or iso_q): every load of
+// the element first (recon at the element and its four backward
+// neighbours, every b and under FISTA every d), then the arithmetic of the
+// pairs (0, 1) and (2, 3), then every b and then every d stored, so that
+// no store is sent while a load of its address is in flight. The sums and
+// the seam recomputes follow dual_elem's axis order.
+template <typename T, bool FISTA, bool HALO>
+__device__ __forceinline__ void dual_elem_iso(const Args<T>& a,
+                                              const Halos<T>& h, int64_t idx,
+                                              const int64_t* c, const T* lam,
+                                              T rho, bool iso_r, bool iso_q,
+                                              double& acc) {
+  const T x = a.recon[idx];
+  T xb[4], bo[4], dol[4], bn[4], dn[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) xb[k] = prev_recon<T, 4, HALO>(a, h, k, idx, c);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    bo[k] = a.b[k][idx];
+    dol[k] = FISTA ? a.d[k][idx] : T(0);
+  }
+  dual_pair<0, T, FISTA>(iso_r, x, xb, bo, dol, lam, rho, bn, dn);
+  dual_pair<2, T, FISTA>(iso_q, x, xb, bo, dol, lam, rho, bn, dn);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) acc += static_cast<double>(abs_(bn[k]));
+#pragma unroll
+  for (int k = 0; k < 4; ++k) a.b[k][idx] = bn[k];
+  if (FISTA) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) a.d[k][idx] = dn[k];
+  }
+  if (HALO) {
+    // each call with constant axes: a runtime partner would index c[] in
+    // local memory
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (h.prev[k] == nullptr || c[k] != a.n[k] - 1) continue;
+      if (k < 2 ? iso_r : iso_q) {
+        seam_b<T, 4, FISTA>(a, h, k, k ^ 1, c, x, lam, rho);
+      } else {
+        seam_b<T, 4, FISTA>(a, h, k, -1, c, x, lam, rho);
+      }
     }
   }
 }

@@ -114,6 +114,36 @@ def test_kernel_counts_launches_and_repeats_exactly():
     assert torch.equal(a[0][1], b[0][1])
 
 
+# the dual pass's ISO instantiations (4D launches with a half-isotropic
+# pair): odd extents on every axis, last extents 1, 31 and 33
+ISO_SHAPES = [(7, 9, 5, 1), (5, 7, 9, 31), (9, 5, 7, 33)]
+ISO_PAIRS = [(True, False), (False, True), (True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("fista", [True, False])
+@pytest.mark.parametrize("iso", ISO_PAIRS, ids=["R", "Q", "RQ"])
+@pytest.mark.parametrize("shape", ISO_SHAPES, ids=str)
+def test_iso_kernel_bitwise_equals_plain_at_forced_grids(monkeypatch, shape,
+                                                         iso, fista, dtype):
+    """Three launches of the ISO instantiation at the wrapper's grid and at
+    forced grids of 1, 7 and all blocks (one per work item) against the
+    plain version: state bitwise, sums within rtol 1e-5 (1e-12 in
+    float64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    for grid in (None, 1, 7, tfused._work_items(shape)):
+        if grid is not None:
+            monkeypatch.setattr(tfused, "MAX_BLOCKS", grid)
+        (ks, ksum), (ps, psum) = _run_both(shape, 2, *iso, fista, dtype)
+        for a, b in zip(ks, ps):
+            assert torch.equal(a, b), (grid, (a - b).abs().max().item())
+        torch.testing.assert_close(ksum, psum, rtol=rtol, atol=0)
+
+
 # pair kernel: N0 = 4..7 (stages where only some row operations have a
 # row), 3D and 4D, and ragged tile edges on every axis
 PAIR_SHAPES = [(n0, 9, 10, 33) for n0 in (4, 5, 6, 7)] \
@@ -1290,6 +1320,35 @@ def test_halo_mode_kernel_bitwise_equals_plain(name, fista, dtype):
             assert torch.equal(a, b), (i, (a - b).abs().max().item())
         torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
     assert tfused.fused_iteration.mode_launches - before == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [1, 7])
+@pytest.mark.parametrize("fista", [True, False])
+@pytest.mark.parametrize("name", ["iso-seam0", "iso-seam1", "iso-corner",
+                                  "iso-q-corner"])
+def test_iso_halo_mode_kernel_at_forced_grids(monkeypatch, name, fista, grid):
+    """The ISO and HALO instantiation (iso seams and corners) at forced
+    grids of 1 and 7 blocks against the plain version with the same halos,
+    two launches on the first, an interior and the last block: state
+    bitwise, sums within rtol 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from torch_halo_blocks import HALO_MODES, mode_coords
+
+    mode, shape, grid_blocks, ax = HALO_MODES[name]
+    orig, state, li, lm, rho = _mode_state(shape, fista, torch.float32)
+    monkeypatch.setattr(tfused, "MAX_BLOCKS", grid)
+    for i in range(3):
+        coords = mode_coords(grid_blocks, ax, i)
+        ks, ksum = _mode_block(tfused.fused_iteration, orig, state, li, lm,
+                               rho, fista, grid_blocks, coords, mode, iters=2)
+        ps, psum = _mode_block(tfused.fused_iteration_reference, orig, state,
+                               li, lm, rho, fista, grid_blocks, coords, mode,
+                               iters=2)
+        for a, b in zip(ks, ps):
+            assert torch.equal(a, b), (i, (a - b).abs().max().item())
+        torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
 
 
 @pytest.mark.cuda

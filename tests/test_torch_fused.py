@@ -114,11 +114,19 @@ def test_fused_iteration_matches_pallas(shape, bc, fista):
     _compare(got, want)
 
 
-@pytest.mark.parametrize("iso_r,iso_q", [(True, False), (False, True),
-                                         (True, True)])
+ISO_PAIRS = [(True, False), (False, True), (True, True)]
+
+
+# each iso pair at (6, 8, 6, 16) and at a ragged shape (odd extents on every
+# axis, a last extent past one 32-wide tile)
+@pytest.mark.parametrize(
+    "iso_r,iso_q,shape",
+    [(r, q, (6, 8, 6, 16)) for r, q in ISO_PAIRS]
+    + [(r, q, (5, 7, 9, 33)) for r, q in ISO_PAIRS],
+    ids=[f"{r}-{q}" for r, q in ISO_PAIRS]
+    + [f"{r}-{q}-ragged" for r, q in ISO_PAIRS])
 @pytest.mark.parametrize("fista", [True, False])
-def test_fused_iteration_iso_matches_pallas(iso_r, iso_q, fista):
-    shape = (6, 8, 6, 16)
+def test_fused_iteration_iso_matches_pallas(iso_r, iso_q, shape, fista):
     state = _state(shape, fista, 2, seed=40 + 2 * iso_r + iso_q)
     rhos = [0.0, 0.28, 0.43]
     want = _jax_steps(*state[:4], rhos, *state[4:], 2, iso_r, iso_q)
