@@ -35,7 +35,8 @@ non-zero — nothing is caught):
    then ms per pair of the pair kernel, of two fused-iteration
    launches and of the plain pair at (128,128,64,64), (256,256,2048) and
    (256,256,128,128), and each CUDA kernel's device time from
-   ``torch.profiler`` at the last; the pair kernel's strip sweep: ms per
+   ``torch.profiler`` at the last, the lossy K=1 launch's passes (d
+   bfloat16) apart in the same session; the pair kernel's strip sweep: ms per
    pair at W = 4, 8, 12, 16, 32, 64 and N1 (the whole-row schedule, the
    default), in turns with two fused-iteration launches, at rows of 2 to 16
    MB (STRIP_SWEEP), and ``run_solver`` x48 there (x16 at config 4), at
@@ -124,7 +125,7 @@ non-zero — nothing is caught):
    ``--preset eels3d`` through ``python -m cytvdn_tpu_torch.cli`` (the
    stop iteration and launches from its log); each recon bitwise the
    ``denoise4D``/``denoise3D`` run with the same arguments; ``--shard``
-   and ``--out-of-core`` with ``--lossy-duals`` exit 2 naming their
+   and ``--out-of-core --temporal 2 --lossy-duals`` exit 2 naming their
    ROADMAP items. Where h5py is missing, the command's load-and-solve
    step stands in for it;
 8. out-of-core runs (``solver/outofcore.py``): (a) the K=1 kernel with
@@ -192,7 +193,23 @@ non-zero — nothing is caught):
    at config 2, every iteration a K=1 launch in its mode; (c) per rank the
    seconds per iteration, the exchange's seconds and bytes and the peak
    device memory;
-11. one JSON line on the kernels (launches on the path that reaches each,
+11. lossy shadow duals (``lossy_duals``: d stored as bfloat16): (a) the
+   K=1 kernel's LOSSY instantiation against its plain version, 3
+   iterations each, state bitwise with d, at ragged 3D and 4D shapes
+   (last extents 1 and 33) at the wrapper's grid and forced grids of 1 and
+   7 blocks, with halos on the first, an interior and the last of three
+   slabs, on config 4's interior stream slab and on two mesh shards'
+   operands, and on config 4's whole cube, compared off the card; (b) config 4 through ``denoise4D(lossy_duals=True)`` x20:
+   20 K=1 launches and no other, s per iteration with and without the
+   host copies, the peak device memory, the recon's rel-L2 against the
+   exact run, and ms of one lossy K=1 launch and of its plain version at
+   config 4 against the lossy bound (d at 2 bytes); (c) config 4 lossy in
+   stream mode, 4 slabs x2, bitwise the in-core lossy run, GB/s each way;
+   (d) a small 4D cube lossy x4 on a (2, 1, 1, 1) mesh of 2 processes
+   sharing the card, bitwise the single-device lossy run. Phase 1's SASS
+   check covers the 4 LOSSY instantiations (no store in flight, no local
+   memory);
+12. one JSON line on the kernels (launches on the path that reaches each,
    error, ms, the plain version's ms and the least time the card could
    take), the card's name and power limit, and the ``{"ok": true, ...}``
    line last.
@@ -225,6 +242,7 @@ import torch
 from cytvdn_tpu_torch import api, denoise3D, denoise4D, ops
 from cytvdn_tpu_torch.config import SolverOptions
 from cytvdn_tpu_torch.kernels import build
+from cytvdn_tpu_torch.kernels import fused as fused_mod
 from cytvdn_tpu_torch.kernels import resident as resident_mod
 from cytvdn_tpu_torch.kernels.fused import fused_iteration, fused_iteration_reference
 from cytvdn_tpu_torch.kernels.kstep import (
@@ -511,18 +529,22 @@ def pair_refuses_oversized_grid(shape, strip):
     raise AssertionError(f"a pair grid of {full + 1} blocks was accepted")
 
 
-def offcard_equal(shape, fista, runs):
-    """At a state too large to hold twice on the card (Jia-Zhao, float32):
-    ``runs`` is a list of (name, fn), fn(orig, state, li, lm, rho) updating
-    ``state`` in place and returning its sums. The first run's state is kept
-    on the host; each later run starts from the same state rebuilt from the
-    seed, and each of its arrays is brought back alone and compared bitwise
-    with the host copy, its sums within rtol 1e-5. Returns max |Δstate| and
-    the sums' largest relative difference."""
+def offcard_equal(shape, fista, runs, lossy=False):
+    """At a state too large to hold twice on the card (Jia-Zhao, float32;
+    with ``lossy``, FISTA's d cast to bfloat16): ``runs`` is a list of
+    (name, fn), fn(orig, state, li, lm, rho) updating ``state`` in place
+    and returning its sums. The first run's state is kept on the host; each
+    later run starts from the same state rebuilt from the seed, and each of
+    its arrays is brought back alone and compared bitwise with the host
+    copy, its sums within rtol 1e-5. Returns max |Δstate| and the sums'
+    largest relative difference."""
     def run(fn):
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         orig, state, li, lm, rho = random_state(shape, fista, torch.float32,
                                                 gen, jz=True)
+        if lossy:
+            for i in range(1 + len(shape), len(state)):
+                state[i] = state[i].to(torch.bfloat16)
         sums = fn(orig, state, li, lm, rho)
         return state, sums.double().cpu()
 
@@ -537,8 +559,8 @@ def offcard_equal(shape, fista, runs):
         bitwise = True
         for i, p in enumerate(state):
             k = host[i].cuda()
-            err = max(err, (k - p).abs().max().item())
-            bitwise = bitwise and torch.equal(k, p)
+            err = max(err, (k.float() - p.float()).abs().max().item())
+            bitwise = bitwise and k.dtype == p.dtype and torch.equal(k, p)
             del k
         del state
         torch.cuda.empty_cache()
@@ -701,8 +723,8 @@ def ptxas_summary(log: str) -> str:
 def dual_store_order():
     """Each instantiation of the K=1 kernel's dual pass in the built
     library's SASS (``tools/torch_sass_order.py``): (template arguments
-    <T,ND,FISTA,HALO,ISO>, ISO, stores, stores sent while their own load is
-    in flight, LDL, STL)."""
+    <T,ND,FISTA,HALO,ISO,LOSSY>, ISO, LOSSY, stores, stores sent while their
+    own load is in flight, LDL, STL)."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "tools"))
     import torch_sass_order as so
@@ -713,7 +735,7 @@ def dual_store_order():
             continue
         _, args = kernel_args(mangled)
         stores, _, in_flight = so.store_order(fn)
-        rows.append((f"<{','.join(args)}>", args[-1] == "1" and len(args) == 5,
+        rows.append((f"<{','.join(args)}>", args[4] == "1", args[5] == "1",
                      stores, len(in_flight), *so.local_memory(fn)))
     return rows
 
@@ -897,6 +919,7 @@ def reset_counts():
     fused_iteration.launches = 0
     fused_iteration.halo_launches = 0
     fused_iteration.mode_launches = 0
+    fused_iteration.lossy_launches = 0
 
 
 def res_state(shape, schedule, with_ref, n_iters, gen):
@@ -1108,19 +1131,26 @@ def time_resident(shape, schedule, with_ref, n_iters):
     return mean, label, [(n, round(t, 5)) for n, t in runs]
 
 
-def profile_kernels(shape, iters=6, kstep=None):
+def profile_kernels(shape, iters=6, kstep=None, lossy=False):
     """Device ms per FISTA float32 iteration of each CUDA kernel, from
-    ``torch.profiler``'s ``key_averages()``, over ``iters`` iterations run
+    ``torch.profiler``'s device events, over ``iters`` iterations run
     as fused-iteration launches, then as pair-kernel launches, then (with
     ``kstep`` = K) as K-step launches, and the bytes per second that the
     traffic model's traversals imply: the dual pass 4n+1 (17 in 4D), the
     reconstruction pass n+3, the pair and K-step kernels the two-pass 5n+4
-    per iteration (the top of their bands)."""
+    per iteration (the top of their bands). With ``lossy``, ``iters``
+    lossy fused-iteration launches follow in the same session on the same
+    state, its d cast to bfloat16; each launch runs one dual, one recon
+    and one finalize kernel, so the lossy launches' are the last
+    ``iters`` of each, reported apart (the dual pass then moves 12n+4
+    bytes per voxel, 52 in 4D)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     orig, state, li, lm, rho = random_state(shape, True, torch.float32, gen,
                                             jz=True)
+    n = len(shape)
     runs = [(pair_fn(two_k1, orig, state, li, lm, rho, True), iters // 2),
             (pair_fn(fused_pair_iteration, orig, state, li, lm, rho, True),
              iters // 2)]
@@ -1130,29 +1160,59 @@ def profile_kernels(shape, iters=6, kstep=None):
                               rhos, kstep, True), iters // kstep))
     for fn, _ in runs:
         fn()
+    if lossy:
+        # the LOSSY instantiation's first launch, outside the session
+        small = random_state((4, 4, 4, 4)[:n], True, torch.float32, gen,
+                             jz=True)
+        small[1][1 + n:] = [d.to(torch.bfloat16) for d in small[1][1 + n:]]
+        step_fn(fused_iteration, small[0], small[1], *small[2:], True)()
+        del small
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for fn, n in runs:
-            for _ in range(n):
+        for fn, k in runs:
+            for _ in range(k):
+                fn()
+        if lossy:
+            for i in range(1 + n, len(state)):
+                state[i] = state[i].to(torch.bfloat16)
+            fn = step_fn(fused_iteration, orig, state, li, lm, rho, True)
+            for _ in range(iters):
                 fn()
         torch.cuda.synchronize()
     del orig, state, runs
     torch.cuda.empty_cache()
-    n = len(shape)
-    nbytes = int(np.prod(shape)) * 4
-    trav = {"dual_kernel": 4 * n + 1, "recon_kernel": n + 3,
-            "finalize_kernel": 0, "pair_kernel": 5 * n + 4,
-            "kstep_kernel": 5 * n + 4}
-    rows = []
-    for e in prof.key_averages():
-        for key, t in trav.items():
-            if key in e.key:
-                # each kernel's launches covered ``iters`` iterations
-                ms = e.device_time_total / 1e3 / iters
-                rate = t * nbytes / (ms / 1e3) if t and ms > 0 else None
-                rows.append(f"{key} {ms:.3f} ms" + (
-                    f" ({t} traversals, {rate / 1e12:.2f} TB/s)" if rate else ""))
-    return rows
+    nvox = int(np.prod(shape))
+    # bytes per voxel each kernel moves per iteration
+    per_vox = {"dual_kernel": 4 * (4 * n + 1), "recon_kernel": 4 * (n + 3),
+               "finalize_kernel": 0, "pair_kernel": 4 * (5 * n + 4),
+               "kstep_kernel": 4 * (5 * n + 4)}
+    lossy_vox = {"dual_kernel": 12 * n + 4, "recon_kernel": 4 * (n + 3),
+                 "finalize_kernel": 0}
+    events = sorted((e for e in prof.events()
+                     if e.device_type != DeviceType.CPU),
+                    key=lambda e: e.time_range.start)
+
+    def row(key, evs, bpv, label=""):
+        # the launches of ``evs`` covered ``iters`` iterations
+        ms = sum(e.device_time_total for e in evs) / 1e3 / iters
+        rate = bpv * nvox / (ms / 1e3) if bpv and ms > 0 else None
+        return f"{label}{key} {ms:.3f} ms" + (
+            f" ({bpv} B per voxel, {rate / 1e12:.2f} TB/s)" if rate else "")
+
+    rows, lossy_rows = [], []
+    for key, bpv in per_vox.items():
+        evs = [e for e in events if key in e.name]
+        if not evs:
+            continue
+        if lossy and key in lossy_vox:
+            if len(evs) != 2 * iters:
+                lossy_rows.append(f"{key}: {len(evs)} device events, not "
+                                  f"{2 * iters}; not measured")
+                continue
+            lossy_rows.append(row(key, evs[iters:], lossy_vox[key], "lossy "))
+            evs = evs[:iters]
+        rows.append(row(key, evs, bpv))
+    return rows + lossy_rows
 
 
 def time_ms(fn, n, warm=1):
@@ -1820,7 +1880,7 @@ def cli_phase(smi, cube):
     from a .npy file, ``--preset stem4d``, in this process; (b) config 1,
     a synthetic EELS cube, from a .dm4 file, ``--preset eels3d``, as a
     separate process; each recon bitwise the API's run with the same
-    arguments. (c) ``--shard`` and ``--out-of-core`` with
+    arguments. (c) ``--shard`` and ``--out-of-core --temporal 2`` with
     ``--lossy-duals`` exit 2, naming their ROADMAP items."""
     from cytvdn_tpu_torch import cli
     from cytvdn_tpu_torch.io.dm import write_dm
@@ -1965,8 +2025,8 @@ def cli_phase(smi, cube):
                 (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2", "--shard",
                   "2"], 2, "Queue 1 item 10"),
                 (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2",
-                  "--out-of-core", "2", "-f", "1", "--lossy-duals"], 2,
-                 "Queue 1 item 12")):
+                  "--out-of-core", "2", "--temporal", "2", "-f", "1",
+                  "--lossy-duals"], 2, "Queue 1 items 12(b), 12(c)")):
             proc = subprocess.run(
                 [sys.executable, "-m", "cytvdn_tpu_torch.cli", *flags],
                 cwd=root, env=env, capture_output=True, text=True,
@@ -3405,6 +3465,272 @@ def modes_phase(smi, name, cube, cube3):
             "iso_plain_ms": cube_ms["plain"]}
 
 
+# phase 11: lossy shadow duals (the K=1 kernel's LOSSY instantiation): its
+# shapes against the plain version (ragged edges, 3D and 4D, last extents
+# 1 and 33), the slabs and shards it takes with halos, and the small cube
+# of the lossy mesh run
+LOSSY_SHAPES = [ODD, (13, 17, 70), (7, 9, 5, 1), (9, 5, 7, 33)]
+LOSSY_MESH = (16, 8, 16, 32)
+
+
+def lossy_case(shape, where=None, grids=(None,), iters=3):
+    """``iters`` lossy launches (bfloat16 d) of the kernel against its
+    plain version from the same state, at each forced grid of ``grids``
+    (None: the wrapper's): on the whole cube (``where`` None), or with the
+    halos of :func:`compare_halo_case`'s ``where`` (the first, an interior
+    or the last of three slabs; ``"slab"``, an interior slab of ``shape``;
+    ``"block"``, ``shape`` as an interior shard of a 2D mesh), the
+    bfloat16 d seams widened to float32 as the engine widens them. State
+    bitwise, d included; sums within rtol 1e-5. Returns the largest
+    |difference| of the state and the launches made."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    ndim = len(shape)
+    cut, full = (slice(None),), shape
+    if where == "slab":
+        full = (shape[0] + 2,) + tuple(shape[1:])
+        cut = (slice(1, shape[0] + 1),)
+    elif where == "block":
+        full = (shape[0] + 2, shape[1] + 2) + tuple(shape[2:])
+        cut = (slice(1, -1), slice(1, -1))
+    elif where is not None:
+        n = shape[0] // 3
+        cut = ({"first": slice(0, n), "interior": slice(n, 2 * n),
+                "last": slice(2 * n, shape[0])}[where],)
+    orig, state, li, lm, rho = random_state(full, True, torch.float32, gen)
+    state = state[:1 + ndim] + [d.to(torch.bfloat16)
+                                for d in state[1 + ndim:]]
+    h = None
+    if where == "block":
+        h = block_seams(state, ndim, True)
+    elif where is not None:
+        h = seams(state, ndim, cut[0].start, cut[0].stop, True)
+    if h is not None:
+        h = {k: v.float() if v.dtype == torch.bfloat16 else v
+             for k, v in h.items()}
+    o = orig[cut].contiguous()
+    err, launches = 0.0, fused_iteration.lossy_launches
+    saved = fused_mod.MAX_BLOCKS
+    try:
+        for grid in grids:
+            fused_mod.MAX_BLOCKS = saved if grid is None else grid
+            runs = []
+            for step in (fused_iteration, fused_iteration_reference):
+                st = [x[cut].clone() for x in state]
+                fn = step_fn(step, o, st, li, lm, rho, True, halos=h)
+                sums = [torch.stack(fn()[3:]).double().cpu()
+                        for _ in range(iters)]
+                torch.cuda.synchronize()
+                runs.append((st, torch.stack(sums)))
+            (ks, ksum), (ps, psum) = runs
+            err = max([err] + [(a.float() - b.float()).abs().max().item()
+                               for a, b in zip(ks, ps)])
+            require(all(a.dtype == b.dtype and torch.equal(a, b)
+                        for a, b in zip(ks, ps)),
+                    f"lossy kernel {shape} {where} grid {grid}: state "
+                    f"differs from the plain version (max |Δ| {err})")
+            torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+    finally:
+        fused_mod.MAX_BLOCKS = saved
+    del state, orig, h, o, runs
+    torch.cuda.empty_cache()
+    return err, fused_iteration.lossy_launches - launches
+
+
+def compare_lossy_offcard(shape=CFG4, iters=3):
+    """``iters`` lossy launches of the kernel and of its plain version from
+    one random Jia-Zhao FISTA state of ``shape``, d bfloat16, compared off
+    the card (``offcard_equal``): the state bitwise, d included, the sums
+    within rtol 1e-5. Returns max |Δstate| and the launches made."""
+    def launches(step):
+        def fn(orig, state, li, lm, rho):
+            f = step_fn(step, orig, state, li, lm, rho, True)
+            return torch.stack([torch.stack(f()[3:]) for _ in range(iters)])
+        return fn
+
+    before = fused_iteration.lossy_launches
+    err, _ = offcard_equal(shape, True, [
+        ("lossy kernel", launches(fused_iteration)),
+        ("plain", launches(fused_iteration_reference))], lossy=True)
+    return err, fused_iteration.lossy_launches - before
+
+
+def rel_l2_on_card(a: torch.Tensor, b: np.ndarray) -> float:
+    """||a - b|| / ||a|| in float64, ``b`` brought to the card in
+    32-row chunks."""
+    num = den = 0.0
+    for i in range(0, a.shape[0], 32):
+        x = a[i:i + 32].double()
+        y = torch.from_numpy(b[i:i + 32]).cuda().double()
+        num += float(((x - y) ** 2).sum())
+        den += float((x ** 2).sum())
+    return math.sqrt(num / den)
+
+
+def lossy_phase(smi, name, cube, tmp):
+    """Phase 11: lossy shadow duals. (a) the K=1 kernel's LOSSY
+    instantiation against its plain version, bitwise with d, at ragged 3D
+    and 4D shapes and forced grids of 1 and 7 blocks, its HALO form on
+    slabs (config 4's stream slab among them) and on a mesh shard's
+    operands, and on config 4's whole cube, compared off the card; (b) config 4 through ``denoise4D(lossy_duals=True)`` x20
+    (20 K=1 launches and no other), its time with and without the host
+    copies, the K=1 launch's ms and plain ms at config 4 against the lossy
+    bound, the peak device memory and the recon's rel-L2 against the exact
+    run; (c) config 4 lossy out of core, stream mode in 4 slabs x2,
+    bitwise the in-core lossy run; (d) a 2-rank (2, 1, 1, 1) lossy mesh of
+    processes sharing the card, bitwise the single-device lossy run.
+    Returns the numbers of the kernels line's row."""
+    t_phase = t0 = time.perf_counter()
+    err, n_cases, launches = 0.0, 0, 0
+    for shape in LOSSY_SHAPES:
+        e, n = lossy_case(shape, grids=(None, 1, 7))
+        err, n_cases, launches = max(err, e), n_cases + 1, launches + n
+    for shape in HALO_SHAPES:
+        for where in ("first", "interior", "last"):
+            e, n = lossy_case(shape, where, grids=(None, 7))
+            err, n_cases, launches = max(err, e), n_cases + 1, launches + n
+    for shape, where in ((SLAB4, "slab"), ((16, 18, 19, 23), "block"),
+                         ((14, 13, 70), "block")):
+        e, n = lossy_case(shape, where)
+        err, n_cases, launches = max(err, e), n_cases + 1, launches + n
+    # the whole cube of run (b), its state held on the host
+    e, n = compare_lossy_offcard(CFG4)
+    err, n_cases, launches = max(err, e), n_cases + 1, launches + n
+    log(f"phase 11 (a) lossy K=1 kernel (LOSSY: bfloat16 d) vs its plain "
+        f"version: {n_cases} cases, {launches} launches ({LOSSY_SHAPES} at "
+        f"the wrapper's grid and 1 and 7 blocks; with halos the first, an "
+        f"interior and the last slab of {HALO_SHAPES} at the wrapper's grid "
+        f"and 7 blocks, config 4's interior stream slab {SLAB4} and two "
+        f"mesh shards with neighbours on axes 0 and 1; config 4's whole "
+        f"cube {CFG4}, compared off the card), 3 iterations each: state "
+        f"bitwise equal, d included (max |Δ| {err}), sums within rtol "
+        f"1e-5; {time.perf_counter() - t0:.1f} s")
+
+    # (b) config 4 x20 through the API, then on the card alone
+    t0 = time.perf_counter()
+    mu = np.full(4, 1.0, np.float32)
+    opts = SolverOptions(ndim=4, iterations_fista=20, iterations_unacc=0,
+                         lossy_duals=True)
+    want = expected_launches(opts, CFG4)
+    require(want == (0, 0, 0, 20), f"lossy config 4 plan {want}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t1 = time.perf_counter()
+    recon, b_norm, delta = denoise4D(cube, mu, iterations=20, FISTA=True,
+                                     lossy_duals=True, quiet=True,
+                                     device="cuda")
+    wall = time.perf_counter() - t1
+    counts = launch_counts()
+    n_lossy = fused_iteration.lossy_launches
+    peak = torch.cuda.max_memory_allocated()
+    require(counts == want and n_lossy == 20,
+            f"lossy config 4: launches (whole-run, K-step, pair, K=1) "
+            f"{counts}, {n_lossy} of them lossy; expected {want}")
+    require(recon.shape == CFG4 and bool(np.isfinite(recon).all())
+            and bool((delta > 0).all()), "lossy config 4 result")
+    orig = torch.from_numpy(cube).cuda()
+    li = torch.full((4,), 32.0, device="cuda")
+    lm = torch.full((4,), 1 / 32, device="cuda")
+    exact = run_solver(orig, li, lm, SolverOptions(
+        ndim=4, iterations_fista=20, iterations_unacc=0))["recon"]
+    torch.cuda.empty_cache()
+    drift = rel_l2_on_card(exact, recon)
+    del exact
+    torch.cuda.empty_cache()
+    require(math.isfinite(drift) and drift > 0,
+            f"lossy config 4 rel-L2 against the exact run {drift}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    st = run_solver(orig, li, lm, opts, keep_state=True)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t1
+    require(torch.equal(st["recon"].cpu(), torch.from_numpy(recon)),
+            "lossy config 4: run_solver recon != denoise4D's")
+    # the K=1 launch at config 4, lossy, on the run's state: the kernel and
+    # its plain version in turns
+    accs, ds = st["accs"], st["ds"]
+    rho = torch.tensor(0.5, device="cuda")
+    fns = {"kernel": step_fn(fused_iteration, orig, [st["recon"], *accs, *ds],
+                             li, lm, rho, True),
+           "plain": step_fn(fused_iteration_reference, orig,
+                            [st["recon"], *accs, *ds], li, lm, rho, True)}
+    raw = {k: [] for k in fns}
+    for k in ("plain", "kernel", "kernel", "plain"):
+        raw[k].append(time_ms(fns[k], 1 if k == "plain" else 5))
+    ms = {k: sum(v) / len(v) for k, v in raw.items()}
+    bw, f32 = peak_bandwidth(name), peak_f32(name)
+    bound = launch_bound_seconds(CFG4, True, 1, bw, f32, d_itemsize=2) \
+        if bw and f32 else (None, None)
+    b_ms = bound[0] * 1e3 if bound[0] else float("nan")
+    del st, accs, ds, fns, orig
+    torch.cuda.empty_cache()
+    log(f"phase 11 (b) config 4 {CFG4} FISTA x20 lossy_duals: denoise4D "
+        f"{wall:.3f} s = {wall / 20:.4f} s per iteration with the host "
+        f"copies, run_solver on the card {solve_s:.4f} s = "
+        f"{solve_s / 20:.4f} s per iteration without; launches whole-run/"
+        f"K-step/pair/K=1 {counts}, {n_lossy} lossy; peak device memory "
+        f"{peak / 2**30:.3f} GiB; recon rel-L2 against the exact run "
+        f"{drift:.6e}; one lossy K=1 launch {ms['kernel']:.3f} ms "
+        f"({b_ms / ms['kernel']:.3f} of the lossy bound {b_ms:.2f} ms, 60 "
+        f"B per voxel), plain {ms['plain']:.3f} ms (runs "
+        f"{ {k: [round(x, 3) for x in v] for k, v in raw.items()} }); "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+
+    # (c) config 4 lossy out of core, stream mode, against in core
+    t0 = time.perf_counter()
+    want_c = denoise4D(cube, mu, iterations=2, FISTA=True, lossy_duals=True,
+                       quiet=True, device="cuda")
+    torch.cuda.empty_cache()
+    (got, la, run, peak_c) = ooc_run(lambda: outofcore.denoise_outofcore(
+        cube, mu, iterations=2, FISTA=True, n_slabs=4, lossy_duals=True,
+        device="cuda"))
+    require(np.array_equal(got[0], want_c[0]),
+            "config 4 lossy out of core recon != denoise4D's")
+    for g, w in zip(got[1:], want_c[1:]):
+        np.testing.assert_allclose(g, w, rtol=1e-5)
+    require(la == (0, 0, 0, 8, 8), f"config 4 lossy out of core launches "
+                                   f"(whole-run, K-step, pair, K=1, K=1 with "
+                                   f"halos) {la}")
+    log(f"phase 11 (c) config 4 lossy out of core, stream mode, 4 slabs, x2: "
+        f"recon bitwise denoise4D's, traces within rtol 1e-5; "
+        f"{run['sweep_seconds'] / 2:.4f} s per iteration; "
+        f"{run['h2d_bytes'] / 2e9:.2f} GB in and {run['d2h_bytes'] / 2e9:.2f}"
+        f" GB out per iteration at "
+        f"{run['h2d_bytes'] / run['h2d_seconds'] / 1e9:.2f} and "
+        f"{run['d2h_bytes'] / run['d2h_seconds'] / 1e9:.2f} GB/s; host memory "
+        f"pinned {run['pinned_bytes'] / 2**30:.2f} GiB in "
+        f"{run['pin_seconds']:.3f} s; peak device memory "
+        f"{peak_c / 2**30:.3f} GiB; launches {la}; "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    del got, want_c
+
+    # (d) a 2-rank lossy mesh of processes sharing the card
+    t0 = time.perf_counter()
+    small = piecewise_4d(LOSSY_MESH, SEED + 12)[0]
+    src = os.path.join(tmp, "lossy_mesh.npy")
+    np.save(src, small)
+    want_d = single(lambda: denoise4D(small, mu, iterations=4, FISTA=True,
+                                      lossy_duals=True, quiet=True,
+                                      device="cuda"))
+    shard = (2, 1, 1, 1)
+    blocks_want, full_want = blocks(want_d["recon"], shard)
+    res = run_mesh(tmp, 2, [dict(name="lossy", input=src, ndim=4,
+                                 iterations=4, shard=list(shard),
+                                 options=dict(lossy_duals=True))], 300)
+    runs = check_mesh_run("lossy", res, want_d, blocks_want, full_want)
+    require(all(tuple(r["launches"]) == (0, 0, 0, 4) and r["k1_halo"] == 4
+                for r in runs),
+            f"lossy mesh launches {[r['launches'] for r in runs]}")
+    log(f"phase 11 (d) {LOSSY_MESH} lossy x4 on a (2, 1, 1, 1) mesh of 2 "
+        f"processes sharing the card: each block and the gathered recon "
+        f"bitwise the single-device lossy run (sha256), traces within rtol "
+        f"1e-5; 4 K=1 halo launches per rank; "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"phase 11 {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": n_lossy, "err": err, "ms": ms["kernel"],
+            "plain_ms": ms["plain"], "bound": (b_ms, bound[1])}
+
+
 def piecewise_4d(shape, seed):
     """Noisy piecewise-constant 4D cube in float32 on the host: a
     checkerboard of 64×64 scan tiles plus a bright disk on the detector,
@@ -3546,19 +3872,28 @@ def main() -> int:
     order = sass_check.result()
     dual_ptx = [row for row in ptxas.split("; ")
                 if row.startswith("dual_kernel")]
-    log(f"phase 1 K=1 dual pass dual_kernel<T,ND,FISTA,HALO,ISO> (ISO: the "
-        f"4D half-isotropic launches, loads first, b before d): ptxas "
+    log(f"phase 1 K=1 dual pass dual_kernel<T,ND,FISTA,HALO,ISO,LOSSY> (ISO: "
+        f"the 4D half-isotropic launches, loads first, b before d; LOSSY: "
+        f"bfloat16 d, b before d): ptxas "
         f"{'; '.join(dual_ptx)}; SASS (tools/torch_sass_order.py) stores / "
         f"sent while their own load is in flight / LDL / STL: "
         + "; ".join(f"{a} {st}/{fl}/{ldl}/{stl}"
-                    for a, _, st, fl, ldl, stl in order)
+                    for a, _, _, st, fl, ldl, stl in order)
         + f"; checked beside phase 2, {time.perf_counter() - t_sass:.1f} s")
     iso_rows = [r for r in order if r[1]]
     require(len(iso_rows) == 8, f"expected 8 ISO instantiations of "
                                 f"dual_kernel, found {iso_rows}")
-    require(all(r[3] == 0 for r in iso_rows),
+    require(all(r[4] == 0 for r in iso_rows),
             f"an ISO instantiation of dual_kernel sends a store while its "
             f"own load is in flight: {iso_rows}")
+    # phase 11 (e): the LOSSY instantiations (float, FISTA, ND 3 and 4,
+    # with and without HALO)
+    lossy_rows = [r for r in order if r[2]]
+    require(len(lossy_rows) == 4, f"expected 4 LOSSY instantiations of "
+                                  f"dual_kernel, found {lossy_rows}")
+    require(all(r[4:] == (0, 0, 0) for r in lossy_rows),
+            f"a LOSSY instantiation of dual_kernel sends a store while its "
+            f"own load is in flight, or uses local memory: {lossy_rows}")
     t0 = time.perf_counter()
     err4r, rel4r = compare_offcard_ref(CFG4)
     ref_err = max(ref_err, err4r)
@@ -3597,9 +3932,11 @@ def main() -> int:
         f"kernel {k4:.3f} ms, plain {p4:.3f} ms; at {CFG3}: "
         f"{times[CFG3]['k1x2'] / 2:.3f} / {times[CFG3]['plain'] / 2:.3f} ms "
         f"[{smi}]")
-    prof = profile_kernels(CFG4)
+    prof = profile_kernels(CFG4, lossy=True)
     log(f"phase 2 torch.profiler device time per FISTA f32 iteration at "
-        f"{CFG4}: {'; '.join(prof) or 'no device events seen'} [{smi}]")
+        f"{CFG4}, exact launches, then lossy (bfloat16 d) K=1 launches on "
+        f"the same state: {'; '.join(prof) or 'no device events seen'} "
+        f"[{smi}]")
     # the pair kernel's strip sweep (the whole-row schedule is W = N1)
     t0 = time.perf_counter()
     strip_ms = {}
@@ -4163,6 +4500,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     modes10 = modes_phase(smi, name, cube, cube3)
 
+    # phase 11: lossy shadow duals
+    torch.cuda.empty_cache()
+    tmp11 = tempfile.mkdtemp(prefix="cytv_lossy_")
+    try:
+        lossy11 = lossy_phase(smi, name, cube, tmp11)
+    finally:
+        shutil.rmtree(tmp11, ignore_errors=True)
+
     # launches: each kernel's count in the run of the path that reaches it
     # (x21: the odd iteration; x20: the pairs; config 1 through run_solver
     # with the whole-run kernel off: the K-step; config 1 through denoise3D:
@@ -4219,6 +4564,12 @@ def main() -> int:
         ("fused_iteration_iso", "fused_iteration.cu", "fused.py:872",
          modes10["iso_launches"], max(max_err, modes10["err"]),
          modes10["iso_ms"], modes10["iso_plain_ms"], bound(CFG4, True, 1)),
+        # the K=1 kernel's LOSSY instantiation (bfloat16 d): its launches on
+        # the config-4 lossy x20 run of phase 11 (b), its time at that
+        # run's cube, the bound with d at 2 bytes
+        ("fused_iteration_lossy", "fused_iteration.cu", "fused.py:872",
+         lossy11["launches"], lossy11["err"], lossy11["ms"],
+         lossy11["plain_ms"], lossy11["bound"]),
     ]
     kernels = [{
         "name": kname,

@@ -24,6 +24,7 @@ from cytvdn_tpu_torch.config import (
 from cytvdn_tpu_torch.solver.engine import (
     _resolve_resident,
     _resolve_resident_chunks,
+    d_dtype,
     holds_block_checkpoint,
     run_solver,
     vmem_fallback,
@@ -138,9 +139,9 @@ def _bc_note(bc_mode: int) -> None:
 
 def _memory_note(datacube, opts: SolverOptions, quiet):
     """The device memory the run holds: orig, recon, the accumulators [,
-    the shadow duals], and a stop run's block checkpoint of recon, the
-    accumulators [and shadow duals] where its phases keep one
-    (``holds_block_checkpoint``)."""
+    the shadow duals, at 2 bytes an element under lossy duals], and a stop
+    run's block checkpoint of recon, the accumulators [and shadow duals]
+    where its phases keep one (``holds_block_checkpoint``)."""
     if quiet:
         return
     fista, ndim = opts.iterations_fista > 0, opts.ndim
@@ -148,13 +149,30 @@ def _memory_note(datacube, opts: SolverOptions, quiet):
     dtype = torch.from_numpy(np.empty(0, datacube.dtype)).dtype
     ckpt = holds_block_checkpoint(opts, datacube.shape, dtype)
     n_arrays = 1 + state + (state if ckpt else 0)
-    gib = datacube.nbytes * n_arrays / 2**30
+    n_ds = ndim * (1 + ckpt) if fista else 0
+    d_size = d_dtype(opts, dtype).itemsize
+    gib = datacube.size * ((n_arrays - n_ds) * dtype.itemsize
+                           + n_ds * d_size) / 2**30
     label = "FISTA accelerated" if fista else "Unaccelerated"
     extra = " (a stop run's block checkpoint included)" if ckpt else ""
+    if d_size != dtype.itemsize:
+        extra += f" ({n_ds} of them bfloat16 shadow duals)"
     print(
         f"{label} TV denoising holds {n_arrays} cube-size arrays{extra} "
         f"≈ {gib:.2f} GiB of device memory"
     )
+
+
+def _lossy_note(lossy_duals: bool, n_f: int, quiet: bool) -> None:
+    """Warn once per call that ``lossy_duals`` trades exactness for memory
+    and traffic (``cytvdn_tpu.api._lossy_note``); it is never a default."""
+    if lossy_duals and n_f and not quiet:
+        warnings.warn(
+            "lossy_duals: FISTA shadow duals stored as bfloat16 — "
+            "reconstruction is NOT bit-exact vs float32 (measured drift "
+            "saturates ~6.8e-4 rel-L2, EXPERIMENT_BF16_DUALS.json) in "
+            "exchange for a smaller state and less memory traffic",
+            stacklevel=3)
 
 
 def _finish(result, calculate_mse):
@@ -198,8 +216,13 @@ def denoise4D(
     lines otherwise) via chunked execution (state bitwise that of the
     unchunked run; traces to the last ulp); defaults to on for long
     non-quiet runs that the whole-run kernel does not serve.
-    ``lossy_duals=True`` is not ported yet and raises
-    ``NotImplementedError``.
+
+    ``lossy_duals``: opt-in LOSSY mode (float32 Jia-Zhao anisotropic FISTA
+    runs) — the FISTA shadow duals are stored as bfloat16 and rounded at
+    every iteration, the arithmetic stays float32. The state shrinks by n
+    half-size arrays (config 4: 32 GiB instead of 40); the recon is not
+    bitwise the exact run's. Such runs take one K=1 launch per iteration
+    (ROADMAP.md Queue 1 items 12(b), 12(c)). Warns unless ``quiet``.
     """
     datacube, mu, lam, lambda_inv, lam_mu = _validate_and_derive(
         datacube, mu, lam, 4, 32.0
@@ -231,6 +254,7 @@ def denoise4D(
         fista_restart=fista_restart,
         lossy_duals=lossy_duals,
     )
+    _lossy_note(lossy_duals, n_f, quiet)
     _memory_note(datacube, opts, quiet)
 
     result = _run(datacube, lambda_inv, lam_mu, opts, reference_data, device,
@@ -259,8 +283,8 @@ def denoise3D(
 
     Signature, defaults (``iterations=7500``, ``FISTA=False``) and return
     contract match the reference (reference cyTVDN/cyTVDN.py:250-435).
-    ``device`` selects where the run happens; ``progress`` as in
-    :func:`denoise4D`.
+    ``device`` selects where the run happens; ``progress`` and
+    ``lossy_duals`` as in :func:`denoise4D`.
     """
     datacube, mu, lam, lambda_inv, lam_mu = _validate_and_derive(
         datacube, mu, lam, 3, 16.0
@@ -287,6 +311,7 @@ def denoise3D(
         fista_restart=fista_restart,
         lossy_duals=lossy_duals,
     )
+    _lossy_note(lossy_duals, n_f, quiet)
     _memory_note(datacube, opts, quiet)
 
     result = _run(datacube, lambda_inv, lam_mu, opts, reference_data, device,

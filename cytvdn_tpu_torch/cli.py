@@ -23,9 +23,15 @@ cannot honour (``--bc-mode``, ``--iso-r/--iso-q``, ``--backend``,
 What the port cannot run yet is refused with exit code 2 before the input
 is read, naming its ROADMAP.md item: ``--shard`` and multi-process
 launches (``WORLD_SIZE`` > 1; Queue 1 item 10, also with
-``--out-of-core``, item 11), ``--lossy-duals`` (item 12) and ``--backend
-cpp`` (item 13). Sharded runs are a library call for now
+``--out-of-core``, item 11), ``--lossy-duals`` with ``--out-of-core N
+--temporal K`` (K > 1; items 12(b), 12(c)) and ``--backend cpp`` (item
+13). Sharded runs are a library call for now
 (``cytvdn_tpu_torch.parallel.denoise_sharded``).
+
+``--lossy-duals`` stores the FISTA shadow duals as bfloat16 (float32
+Jia-Zhao anisotropic FISTA runs; the other combinations exit 2 with
+``cytv``'s message), in core, with ``--checkpoint`` and in
+``--out-of-core`` stream mode.
 
     cytv-torch -i cube.dm4 -o out.emd -m 1.0 --preset eels3d
     python -m cytvdn_tpu_torch.cli -i cube.npy -o out.emd -m 1.0 -n 20 -f 1
@@ -130,7 +136,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "traffic K-fold)")
     p.add_argument("--lossy-duals", action="store_true",
                    help="LOSSY opt-in: store the FISTA shadow duals as "
-                        "bfloat16 (not ported yet)")
+                        "bfloat16 (a smaller state, less memory traffic; "
+                        "not bit-exact). Float32 Jia-Zhao anisotropic FISTA "
+                        "runs only")
     p.add_argument("--device", default="cuda",
                    help="torch device of the run (default cuda; cpu runs the "
                         "plain PyTorch version on the host)")
@@ -174,10 +182,12 @@ class CliError(Exception):
     2, the convention of every argument failure."""
 
 
-def _not_ported(what: str, item: int) -> CliError:
+def _not_ported(what: str, item) -> CliError:
+    """``item``: a Queue 1 item's number, or the words naming items."""
     from cytvdn_tpu_torch.config import _not_ported as msg
 
-    return CliError(str(msg(what, f"Queue 1 item {item}")))
+    where = f"item {item}" if isinstance(item, int) else item
+    return CliError(str(msg(what, f"Queue 1 {where}")))
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -205,7 +215,10 @@ def parse_args(argv=None) -> argparse.Namespace:
             # without FISTA there ARE no shadow duals
             raise CliError("--lossy-duals covers float32 Jia-Zhao "
                            "anisotropic FISTA runs only")
-        raise _not_ported("--lossy-duals", 12)
+        if args.out_of_core and args.temporal > 1:
+            raise _not_ported("--out-of-core --temporal K > 1 with "
+                              "--lossy-duals (its slabs take pairs and "
+                              "K-steps)", "items 12(b), 12(c)")
     if args.out_of_core:
         # the flags out-of-core runs would silently ignore (cytv's check)
         bad = []
@@ -311,6 +324,8 @@ def load_and_solve(argv=None) -> Solved:
         backend=args.backend,
         device=args.device,
     )
+    if args.lossy_duals:
+        kwargs["lossy_duals"] = True
 
     kernels = (("whole-run", resident_solve), ("K-step", fused_kstep_iteration),
                ("pair", fused_pair_iteration), ("K=1", fused_iteration))
@@ -324,7 +339,7 @@ def load_and_solve(argv=None) -> Solved:
                 n_slabs=args.out_of_core, temporal_k=args.temporal,
                 quiet=not args.verbose, checkpoint_path=args.checkpoint,
                 checkpoint_every=args.checkpoint_every, resume=args.resume,
-                device=args.device)
+                lossy_duals=bool(args.lossy_duals), device=args.device)
         elif args.checkpoint and args.checkpoint_every:
             result = run_with_checkpointing(
                 data, checkpoint_path=args.checkpoint,

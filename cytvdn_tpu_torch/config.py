@@ -82,7 +82,13 @@ class SolverOptions:
     temporal_kstep: bool = True
     temporal_k: Optional[int] = None
     vmem_resident: bool = True
-    # bfloat16 storage of the FISTA shadow duals (lossy, opt-in).
+    # LOSSY opt-in: store the FISTA shadow duals (``d``) as bfloat16, compute
+    # in float32; ``d`` is rounded to nearest even at every iteration's
+    # store and widened exactly at every load. Not bitwise an exact run
+    # (the JAX package measured ~6.8e-4 rel-L2 of drift, which is why it is
+    # never a default); chunked, resumed, mesh and out-of-core lossy runs
+    # are bitwise the single-device lossy run. Float32 Jia-Zhao anisotropic
+    # FISTA runs, as in cytvdn_tpu (``config.py:143-149``).
     lossy_duals: bool = False
 
     def __post_init__(self):
@@ -97,7 +103,12 @@ class SolverOptions:
         if self.ndim == 3 and (self.isotropic_R or self.isotropic_Q):
             raise ValueError("half-isotropic mode is 4D-only (as in reference)")
         if self.lossy_duals:
-            raise _not_ported("lossy_duals", "Queue 1 item 12")
+            if self.isotropic_R or self.isotropic_Q:
+                raise ValueError(
+                    "lossy_duals does not cover half-isotropic runs")
+            if self.bc_mode != BCMode.JIA_ZHAO:
+                raise ValueError(
+                    "lossy_duals covers Jia-Zhao anisotropic runs only")
 
     @property
     def fista(self) -> bool:

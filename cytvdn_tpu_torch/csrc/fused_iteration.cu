@@ -75,19 +75,35 @@
 //   other instantiations keep the runtime branch and are the code they
 //   were.
 //
+// - Lossy duals (LOSSY, a template flag of the dual pass, picked by the
+//   caller's lossy argument; float FISTA Jia-Zhao anisotropic launches, the
+//   mode's scope): d is stored as bfloat16, as the TPU kernel stores it
+//   under lossy_duals (fused.py:555-566, :1230-1233). Loads widen exactly,
+//   stores round to nearest even, the arithmetic stays float
+//   (tv_elem.cuh dual_elem_lossy). Each axis stores b before d, so that
+//   the 2-byte d store is not sent while the load of the old d at its
+//   address is in flight. The recon pass and finalize_kernel never read d
+//   and are shared with the exact launches; the HALO seam operand next_d
+//   stays float. LOSSY is a template flag, so the exact instantiations are
+//   the code they were.
+//
 // Layout, boundary offsets and the element arithmetic live in tv_elem.cuh,
 // shared with the whole-run kernel (resident.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "tv_elem.cuh"
 
 namespace {
 
-template <typename T, int ND, bool FISTA, bool HALO, bool ISO>
+template <typename T, int ND, bool FISTA, bool HALO, bool ISO, bool LOSSY>
 __global__ void __launch_bounds__(NT) dual_kernel(Args<T> a, Halos<T> h) {
   static_assert(!ISO || ND == 4, "half-isotropic pairs are 4D");
+  static_assert(!LOSSY || (std::is_same<T, float>::value && FISTA && !ISO),
+                "lossy duals: float, FISTA, anisotropic");
   __shared__ double red[NT];
   T lam[ND];
 #pragma unroll
@@ -97,7 +113,9 @@ __global__ void __launch_bounds__(NT) dual_kernel(Args<T> a, Halos<T> h) {
   const bool iso_q = ND == 4 && a.iso_q;
   double acc = 0.0;
   for_each_element<ND>(a, [&](int64_t idx, const int64_t* c) {
-    if constexpr (ISO) {
+    if constexpr (LOSSY) {
+      dual_elem_lossy<ND, HALO>(a, h, idx, c, lam, rho, acc);
+    } else if constexpr (ISO) {
       dual_elem_iso<T, FISTA, HALO>(a, h, idx, c, lam, rho, iso_r, iso_q,
                                     acc);
     } else {
@@ -141,31 +159,41 @@ __global__ void __launch_bounds__(NT) finalize_kernel(const double* partials,
   }
 }
 
-// The dual pass: the ISO instantiation where a 4D launch has a
+// The dual pass: the LOSSY instantiation where a float FISTA launch stores
+// d as bfloat16, the ISO instantiation where a 4D launch has a
 // half-isotropic pair.
 template <typename T, int ND, bool FISTA, bool HALO>
-void launch_dual(const Args<T>& a, const Halos<T>& h, dim3 grid, dim3 block,
-                 cudaStream_t stream) {
+void launch_dual(const Args<T>& a, const Halos<T>& h, bool lossy, dim3 grid,
+                 dim3 block, cudaStream_t stream) {
+  if constexpr (FISTA && std::is_same<T, float>::value) {
+    if (lossy) {
+      dual_kernel<T, ND, FISTA, HALO, false, true>
+          <<<grid, block, 0, stream>>>(a, h);
+      return;
+    }
+  }
   if (ND == 4 && (a.iso_r || a.iso_q)) {
-    dual_kernel<T, ND, FISTA, HALO, ND == 4><<<grid, block, 0, stream>>>(a, h);
+    dual_kernel<T, ND, FISTA, HALO, ND == 4, false>
+        <<<grid, block, 0, stream>>>(a, h);
   } else {
-    dual_kernel<T, ND, FISTA, HALO, false><<<grid, block, 0, stream>>>(a, h);
+    dual_kernel<T, ND, FISTA, HALO, false, false>
+        <<<grid, block, 0, stream>>>(a, h);
   }
 }
 
 // The dual and recon passes of one instantiation of the seams.
 template <typename T, bool HALO>
 cudaError_t launch_passes(const Args<T>& a, const Halos<T>& h, int ndim,
-                          int fista, dim3 grid, dim3 block,
+                          int fista, bool lossy, dim3 grid, dim3 block,
                           cudaStream_t stream) {
   if (ndim == 4 && fista) {
-    launch_dual<T, 4, true, HALO>(a, h, grid, block, stream);
+    launch_dual<T, 4, true, HALO>(a, h, lossy, grid, block, stream);
   } else if (ndim == 4) {
-    launch_dual<T, 4, false, HALO>(a, h, grid, block, stream);
+    launch_dual<T, 4, false, HALO>(a, h, lossy, grid, block, stream);
   } else if (fista) {
-    launch_dual<T, 3, true, HALO>(a, h, grid, block, stream);
+    launch_dual<T, 3, true, HALO>(a, h, lossy, grid, block, stream);
   } else {
-    launch_dual<T, 3, false, HALO>(a, h, grid, block, stream);
+    launch_dual<T, 3, false, HALO>(a, h, lossy, grid, block, stream);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -180,13 +208,17 @@ cudaError_t launch_passes(const Args<T>& a, const Halos<T>& h, int ndim,
 // halo: null for a whole cube, else the 28 seam pointers of Halos in the
 // order prev, next_recon, next_acc, next_d, next_accp, corner, bhat, each
 // for axes 0 to 3 (null: no halos on that axis, or no such operand);
-// edge: Halos::edge.
+// edge: Halos::edge; lossy: the d arrays are bfloat16 (float FISTA
+// Jia-Zhao anisotropic launches only; the seam operand next_d stays T).
 template <typename T>
 int launch(const void* orig, void* recon, void* const b[4], void* const d[4],
            const void* lambda_inv, const void* lam_mu, const void* rho,
            void* partials, void* out, void* const* halo, int edge, int ndim,
            const long long n[4], int fista, int bc, int iso_r, int iso_q,
-           int nblocks, cudaStream_t stream) {
+           int lossy, int nblocks, cudaStream_t stream) {
+  if (lossy && (!std::is_same<T, float>::value || !fista || iso_r || iso_q ||
+                bc != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args<T> a;
   a.orig = static_cast<const T*>(orig);
   a.recon = static_cast<T*>(recon);
@@ -221,8 +253,10 @@ int launch(const void* orig, void* recon, void* const b[4], void* const d[4],
   const dim3 block(TX, TY);
   const dim3 grid(nblocks);
   const cudaError_t err =
-      with_halo ? launch_passes<T, true>(a, h, ndim, fista, grid, block, stream)
-                : launch_passes<T, false>(a, h, ndim, fista, grid, block, stream);
+      with_halo
+          ? launch_passes<T, true>(a, h, ndim, fista, lossy, grid, block, stream)
+          : launch_passes<T, false>(a, h, ndim, fista, lossy, grid, block,
+                                    stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   finalize_kernel<T><<<1, block, 0, stream>>>(a.partials, nblocks, a.out);
   return static_cast<int>(cudaGetLastError());
@@ -237,14 +271,14 @@ int launch(const void* orig, void* recon, void* const b[4], void* const d[4],
                       const void* rho, void* partials, void* out,            \
                       void* const* halo, int edge, int ndim, long long n0,   \
                       long long n1, long long n2, long long n3, int fista,   \
-                      int bc, int iso_r, int iso_q, int nblocks,             \
-                      void* stream) {                                        \
+                      int bc, int iso_r, int iso_q, int lossy,               \
+                      int nblocks, void* stream) {                           \
     void* const b[4] = {b0, b1, b2, b3};                                     \
     void* const d[4] = {d0, d1, d2, d3};                                     \
     const long long n[4] = {n0, n1, n2, n3};                                 \
     return launch<T>(orig, recon, b, d, lambda_inv, lam_mu, rho, partials,   \
                      out, halo, edge, ndim, n, fista, bc, iso_r, iso_q,      \
-                     nblocks, static_cast<cudaStream_t>(stream));            \
+                     lossy, nblocks, static_cast<cudaStream_t>(stream));     \
   }
 
 TV_ENTRY(tv_fused_iteration_f32, float)

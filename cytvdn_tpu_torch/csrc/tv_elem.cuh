@@ -8,8 +8,9 @@
 // recon_elem (built with --fmad=false), so their state is bitwise equal to
 // the same number of one-iteration launches; its walk and loads are its
 // own. dual_elem_iso, the dual update of 4D half-isotropic launches, does
-// dual_elem's arithmetic in its order with every load first. The block's
-// layout (TX, TY, NT) is block.cuh's.
+// dual_elem's arithmetic in its order with every load first;
+// dual_elem_lossy, that of lossy-duals launches, with d stored as
+// bfloat16. The block's layout (TX, TY, NT) is block.cuh's.
 //
 // The one-iteration kernels load the state plainly: a launch boundary
 // separates each write from every read of another block.
@@ -44,6 +45,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -286,6 +288,62 @@ __device__ __forceinline__ void dual_elem(const Args<T>& a, const Halos<T>& h,
       acc += static_cast<double>(abs_(bn));
       if (HALO && h.prev[k] != nullptr && c[k] == a.n[k] - 1)
         seam_b<T, ND, FISTA>(a, h, k, -1, c, x, lam, rho);
+    }
+  }
+}
+
+// v[k] for a k known only at run time, as a chain of selects over the ND
+// constant indices, so that v stays in registers: a runtime index into a
+// local array (lam, c) puts the array in local memory, as it does in
+// dual_elem's rolled 3D loop.
+template <int ND, typename V>
+__device__ __forceinline__ V pick(const V* v, int k) {
+  V r = v[0];
+#pragma unroll
+  for (int i = 1; i < ND; ++i) r = k == i ? v[i] : r;
+  return r;
+}
+
+// dual_elem of a lossy-duals launch (float, FISTA, anisotropic, Jia-Zhao:
+// the mode's scope): d is stored as bfloat16 (Args::d holds bf16 arrays).
+// The old d widens exactly (__bfloat162float); b = dn + rho (dn - d_old)
+// takes the unrounded float dn; dn is stored rounded to nearest even
+// (__float2bfloat16_rn), as the TPU kernel's bf16 d_new
+// (cytvdn_tpu/kernels/fused.py:555-566, :1230-1233). b is stored before d:
+// b's value reads the old d, and the stores keep their order (the arrays
+// may alias as far as the compiler knows), so the d store is not sent
+// while the load of the old d at its address is in flight. The axis loop
+// is rolled in 3D and unrolled in 4D, as dual_elem's (and for its
+// reason); lam[k] and c[k] are picked from registers. The +1 neighbour's
+// recomputed slab (HALO) is seam_b's, without a partner: the seam operand
+// next_d stays float (the neighbour's d widened by the caller).
+template <int ND, bool HALO>
+__device__ __forceinline__ void dual_elem_lossy(const Args<float>& a,
+                                                const Halos<float>& h,
+                                                int64_t idx, const int64_t* c,
+                                                const float* lam, float rho,
+                                                double& acc) {
+  const float x = a.recon[idx];
+#pragma unroll (ND == 4 ? 4 : 1)
+  for (int k = 0; k < ND; ++k) {
+    __nv_bfloat16* d = reinterpret_cast<__nv_bfloat16*>(a.d[k]);
+    const int64_t ck = pick<ND>(c, k);
+    const float clip = pick<ND>(lam, k);
+    const bool halo = HALO && h.prev[k] != nullptr;
+    const float prev = halo && ck == 0
+                           ? h.prev[k][slab_offset<ND>(c, a.n, k)]
+                           : a.recon[bwd(idx, ck, a.n[k], a.s[k], a.bc)];
+    const float diff = x - prev;
+    const float dn = clip_(diff + a.b[k][idx], clip);
+    const float bn = dn + rho * (dn - __bfloat162float(d[idx]));
+    a.b[k][idx] = bn;
+    d[idx] = __float2bfloat16_rn(dn);
+    acc += static_cast<double>(abs_(bn));
+    if (halo && ck == a.n[k] - 1) {
+      const int64_t off = slab_offset<ND>(c, a.n, k);
+      const float rn = h.next_recon[k][off];
+      const float p = clip_((rn - x) + h.next_acc[k][off], clip);
+      h.bhat[k][off] = p + rho * (p - h.next_d[k][off]);
     }
   }
 }

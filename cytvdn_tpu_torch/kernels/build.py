@@ -80,8 +80,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name in ("tv_fused_iteration_f32", "tv_fused_iteration_f64"):
         fn = getattr(lib, name)
         # the state, scalars and sums, then the seam pointer table (null: no
-        # halos) and the trailing-edge bits
-        fn.argtypes = [vp] * 16 + [i] * 2 + [ll] * 4 + [i] * 5 + [vp]
+        # halos) and the trailing-edge bits; fista, bc, iso_r, iso_q, lossy
+        # and the grid
+        fn.argtypes = [vp] * 16 + [i] * 2 + [ll] * 4 + [i] * 6 + [vp]
         fn.restype = i
     # the state, scalars and sums, then the HALO0 band table (null: no
     # halos) and the first0/last0 flags

@@ -243,6 +243,8 @@ def fused_iteration_reference(
     before ``recon`` changes — except under mirror boundaries on an axis
     whose ``edge_next`` flag is set, which reads the own updated last slab.
     ``scratch`` is the kernel's; the plain version takes and ignores it.
+    Bfloat16 ``ds`` (lossy duals) are read widened, and the new ``d``
+    rounds to nearest even in its ``copy_``.
     """
     bc = BCMode(bc)
     ndim = orig.dim()
@@ -300,9 +302,12 @@ def fused_iteration_reference(
     return recon, accs, ds, bnorm, dnum, dden
 
 
-def _check(t: Tensor, like: Tensor, name: str) -> None:
-    if t.device != like.device or t.dtype != like.dtype:
-        raise ValueError(f"{name}: expected {like.dtype} on {like.device}, "
+def _check(t: Tensor, like: Tensor, name: str, dtype=None) -> None:
+    """``t`` is contiguous, of ``like``'s shape and device, and of its
+    dtype (or of ``dtype``)."""
+    dtype = like.dtype if dtype is None else dtype
+    if t.device != like.device or t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype} on {like.device}, "
                          f"got {t.dtype} on {t.device}")
     if t.shape != like.shape:
         raise ValueError(f"{name}: expected shape {tuple(like.shape)}, "
@@ -311,20 +316,28 @@ def _check(t: Tensor, like: Tensor, name: str) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_state(orig: Tensor, recon: Tensor, accs, ds, fista: bool) -> None:
+def _check_state(orig: Tensor, recon: Tensor, accs, ds, fista: bool,
+                 lossy_ok: bool = False) -> bool:
     """The state a kernel updates in place: one accumulator (and one shadow
-    dual under FISTA) per axis, each like ``orig``."""
+    dual under FISTA) per axis, each like ``orig``; with ``lossy_ok`` (the
+    K=1 kernel) the shadow duals of float32 data may all be bfloat16 (lossy
+    duals). Returns whether they are."""
     ndim = orig.dim()
     if len(accs) != ndim or (fista and (ds is None or len(ds) != ndim)):
         raise ValueError("need one accumulator (and one shadow dual under "
                          "FISTA) per axis")
     _check(orig, orig, "orig")
     _check(recon, orig, "recon")
+    # the pair, K-step and whole-run kernels refuse a bfloat16 d (ROADMAP.md
+    # Queue 1 items 12(b) and 12(c))
+    lossy = bool(lossy_ok and fista and orig.dtype == torch.float32
+                 and ds[0].dtype == torch.bfloat16)
     for k in range(ndim):
         _check(accs[k], orig, f"accs[{k}]")
         if fista:
-            # a bfloat16 d (lossy duals, ROADMAP.md Queue 1 item 12) fails here
-            _check(ds[k], orig, f"ds[{k}]")
+            _check(ds[k], orig, f"ds[{k}]",
+                   torch.bfloat16 if lossy else None)
+    return lossy
 
 
 def _launch_args(orig: Tensor, accs, ds, scalars):
@@ -428,9 +441,16 @@ def fused_iteration(
     ``fused_iteration.launches`` counts the kernel launches,
     ``fused_iteration.halo_launches`` those of them with halos,
     ``fused_iteration.mode_launches`` those with a mesh-only mode (a halo
-    axis above 1, periodic or mirror boundaries, or iso pairs with halos);
+    axis above 1, periodic or mirror boundaries, or iso pairs with halos),
+    ``fused_iteration.lossy_launches`` those with bfloat16 shadow duals;
     ``fused_iteration.calls`` counts every call that passed the checks, on
     the CPU too.
+
+    Lossy duals: with float32 data under FISTA, ``ds`` may be bfloat16
+    (Jia-Zhao, anisotropic). The old ``d`` widens exactly, the arithmetic
+    stays float32 and the new ``d`` is stored rounded to nearest even (the
+    kernel's ``LOSSY`` instantiation; the plain version's ``copy_`` into
+    the bfloat16 tensor). The seam operand ``nextA_d`` stays float32.
     """
     ndim = orig.dim()
     axes = halo_axes(halos) if halos is not None else ()
@@ -439,7 +459,10 @@ def fused_iteration(
         raise ValueError(
             f"fused_iteration does not cover shape {tuple(orig.shape)}, "
             f"dtype {orig.dtype}, bc {int(bc)}, iso ({iso_r}, {iso_q})")
-    _check_state(orig, recon, accs, ds, fista)
+    lossy = _check_state(orig, recon, accs, ds, fista, lossy_ok=True)
+    if lossy and (BCMode(bc) != BCMode.JIA_ZHAO or iso_r or iso_q):
+        raise ValueError("bfloat16 shadow duals (lossy duals) cover Jia-Zhao "
+                         "anisotropic launches only")
     if halos is not None:
         _check_halos(halos, orig, fista, bc, iso_r, iso_q, edge_next)
     if orig.device.type == "cpu":
@@ -476,11 +499,13 @@ def fused_iteration(
              rho.data_ptr() if fista else None,
              partials.data_ptr(), out.data_ptr(), table,
              _edge_bits(edge_next, ndim), ndim, *dims,
-             int(fista), int(bc), int(iso_r), int(iso_q), nblocks, stream)
+             int(fista), int(bc), int(iso_r), int(iso_q), int(lossy), nblocks,
+             stream)
     build.check(err)
     fused_iteration.calls += 1
     fused_iteration.launches += 1
     fused_iteration.halo_launches += halos is not None
+    fused_iteration.lossy_launches += lossy
     fused_iteration.mode_launches += halos is not None and (
         any(ax > 1 for ax in axes) or BCMode(bc) != BCMode.JIA_ZHAO
         or iso_r or iso_q)
@@ -490,4 +515,5 @@ def fused_iteration(
 fused_iteration.launches = 0
 fused_iteration.halo_launches = 0
 fused_iteration.mode_launches = 0
+fused_iteration.lossy_launches = 0
 fused_iteration.calls = 0

@@ -38,7 +38,8 @@ neighbour's own arithmetic (``temporal.py:230-249``), so the shards of a
 cube, each paired with bands cut from the pre-update state and put back
 together, are bitwise one pair of the whole cube. The pair kernel's
 axis-1 mode (``halos1``) and the lossy duals' ``qd1`` are not ported yet
-(ROADMAP.md Queue 1 items 6 and 12).
+(ROADMAP.md Queue 1 items 6 and 12(b)); :func:`round_bf16`, the rounding
+``qd1`` applies, is here already, in PyTorch.
 
 Scope, as the TPU kernel's: float32, Jia-Zhao boundaries, anisotropic
 duals, 3D and 4D, FISTA and unaccelerated, N0 ≥ 4, with or without a
@@ -67,6 +68,28 @@ from cytvdn_tpu_torch.kernels.fused import (
 )
 
 Tensor = torch.Tensor
+
+
+def round_bf16(v: Tensor) -> Tensor:
+    """Round-to-nearest-even onto the bfloat16 grid, staying float32: the
+    lossy duals' per-iteration rounding (``cytvdn_tpu``'s ``round_bf16``,
+    ``temporal.py:83-100``), bit for bit what storing ``d`` as bfloat16 and
+    widening it again gives.
+
+    Integer bit arithmetic on the float's bits, in int64 so that no add
+    overflows: ``(u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000``. It is RNE
+    for every finite value, denormals and the carry to infinity included,
+    and no compiler can fold it away as excess precision, as it may a
+    ``.to(bfloat16).to(float32)`` round trip inside one fused
+    computation."""
+    if v.dtype != torch.float32:
+        raise ValueError(f"round_bf16 takes float32, got {v.dtype}")
+    u = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    # back to int32's range before the cast: bit 31 is the sign
+    r = r - ((r >> 31) << 32)
+    return r.to(torch.int32).view(torch.float32).view(v.shape)
+
 
 #: the full cooperative grid per (device, ndim, fista, ref, halo0), read
 #: once from the device's occupancy (each instantiation has its own

@@ -104,8 +104,11 @@ def denoise_sharded(
     (this rank's wall seconds of the block's load and copy to the device,
     the solve up to the traces on the host, and the gather); ``recon`` is the
     gathered cube on rank 0 and None on the others. The progress bar shows
-    on rank 0 only. ``checkpoint_path``/``resume`` (multi-process part
-    files) and ``lossy_duals`` are not ported yet and raise
+    on rank 0 only. ``lossy_duals`` stores the shadow duals as bfloat16
+    on every rank (float32 Jia-Zhao anisotropic FISTA runs); every
+    iteration is then a K=1 launch with halos, and the gathered recon is
+    bitwise the single-device lossy run's. ``checkpoint_path``/``resume``
+    (multi-process part files) are not ported yet and raise
     ``NotImplementedError``.
     """
     from cytvdn_tpu_torch.api import _validate_and_derive
@@ -115,8 +118,6 @@ def denoise_sharded(
         raise _not_ported("checkpoints of a mesh run (multi-process part "
                           "files and the collective resume)",
                           "Queue 1 item 9")
-    if lossy_duals:
-        raise _not_ported("lossy_duals", "Queue 1 item 12")
     if group is None:
         if not dist.is_initialized():
             raise ValueError("denoise_sharded needs a process group: call "
@@ -148,6 +149,7 @@ def denoise_sharded(
         isotropic_Q=isotropic_Q,
         calculate_mse=reference_data is not None,
         backend=Backend(backend),
+        lossy_duals=lossy_duals,
     )
     grid = resolve_shard(shard, shape, world,
                          prefer_axis0=temporal_mesh_preference(opts, dtype))

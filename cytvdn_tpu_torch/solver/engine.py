@@ -15,6 +15,11 @@ semantics:
 - hybrid runs run FISTA first, then always the unaccelerated phase, which
   shares the accumulators, with the stop latch reset between the phases.
 
+- lossy runs (``lossy_duals``: the shadow duals stored as bfloat16) take
+  the one-iteration loop, one K=1 launch per iteration, on one device and
+  on a mesh: the pair and K-step kernels' rounding of intermediate duals
+  is ROADMAP.md Queue 1 items 12(b) and 12(c), and the whole-run kernel
+  refuses them, as the JAX gate does;
 - float32 runs whose whole state is small (``_resolve_resident``) run the
   whole schedule in one launch of the whole-run kernel; with
   ``stopping_relative_change`` (``_resolve_resident_chunks``) each phase
@@ -95,6 +100,18 @@ def fista_tk_ratios(n: int) -> np.ndarray:
     return ratios
 
 
+def lossy_duals(opts: SolverOptions) -> bool:
+    """Whether the run stores its shadow duals as bfloat16: ``lossy_duals``
+    with a FISTA phase (``engine.py:1332``)."""
+    return bool(opts.lossy_duals and opts.iterations_fista > 0)
+
+
+def d_dtype(opts: SolverOptions, dtype: torch.dtype) -> torch.dtype:
+    """The shadow duals' storage dtype: bfloat16 under lossy duals
+    (``engine.py:1456``), else the data's."""
+    return torch.bfloat16 if lossy_duals(opts) else dtype
+
+
 def _k1_halos(comm, opts: SolverOptions, recon: Tensor, accs: List[Tensor],
               ds: Optional[List[Tensor]]):
     """The K=1 kernel's operand halos on a mesh (``engine.py:253-340``),
@@ -116,6 +133,9 @@ def _k1_halos(comm, opts: SolverOptions, recon: Tensor, accs: List[Tensor],
     diagonal neighbour's corner (``corner{s}``: the -1-along-``o``
     neighbour's ``next{s}_recon``'s last slab along ``o``; its own leading
     slab at the partner's leading edge).
+
+    Under lossy duals the ``next{ax}_d`` slabs are the neighbour's
+    bfloat16 slab widened exactly to the data's dtype.
 
     Every tensor returned lives in ``comm``'s buffer pool (received views
     and edge values copied into pool slabs), as do the kernel's scratch
@@ -144,6 +164,11 @@ def _k1_halos(comm, opts: SolverOptions, recon: Tensor, accs: List[Tensor],
         iso_s = ax in partner and ax in split
         to_prev = [first, _slab(accs[ax], ax, 0)]
         if ds is not None:
+            # a bfloat16 d slab (lossy duals) widens exactly to the data's
+            # dtype as it is packed into the exchange's buffer, so the
+            # message stays one dtype and the kernel's next_d operand
+            # float32 (the JAX engine sends it as bfloat16 and widens it on
+            # arrival, ``engine.py:293-299``: the same bits)
             to_prev.append(_slab(ds[ax], ax, 0))
         if iso_s:
             to_prev.append(_slab(accs[partner[ax]], ax, 0))
@@ -365,6 +390,11 @@ def _resolve_temporal(opts: SolverOptions, shape, dtype) -> bool:
         return False
     if opts.bc_mode != BCMode.JIA_ZHAO:
         return False
+    if lossy_duals(opts):
+        # the pair kernel's mid-pair rounding of iteration 1's duals (qd1) is
+        # ROADMAP.md Queue 1 item 12(b): lossy runs take the K=1 loop, whose
+        # state is the JAX paired run's, bitwise (tests/test_lossy.py:93)
+        return False
     return pair_supported(shape, dtype, opts.bc_mode,
                           with_mse=opts.calculate_mse)
 
@@ -521,6 +551,10 @@ def _resolve_kstep(opts: SolverOptions, shape, dtype, fista: bool) -> int:
     has no SSE), and :func:`best_kstep` with ``temporal_k``. It depends on
     the shape, dtype and options only, never on the device."""
     if not opts.temporal_kstep or opts.calculate_mse:
+        return 0
+    if lossy_duals(opts):
+        # the K-step kernel's rounding at every intermediate level is
+        # ROADMAP.md Queue 1 item 12(c)
         return 0
     if not _resolve_temporal(opts, shape, dtype):
         return 0
@@ -788,15 +822,16 @@ STOP_CKPT_MAX_BYTES = 76 * 2**30
 def stop_ckpt_bytes(opts: SolverOptions, shape, dtype) -> int:
     """Device bytes of a stop-aware temporal run: the state (orig, recon,
     n accumulators [, n shadow duals]), its block checkpoint (recon, n
-    accumulators [, n shadow duals]) [, the reference cube]. It depends on
-    the shape, dtype and options only."""
+    accumulators [, n shadow duals]) [, the reference cube]; lossy shadow
+    duals at 2 bytes. It depends on the shape, dtype and options only."""
     n = len(shape)
-    per_state = 1 + n + (n if opts.iterations_fista else 0)
-    cubes = 1 + 2 * per_state + int(opts.calculate_mse)
+    cubes = 1 + 2 * (1 + n) + int(opts.calculate_mse)
     vox = 1
     for e in shape:
         vox *= e
-    return cubes * vox * dtype.itemsize
+    d_bytes = 2 * n * vox * d_dtype(opts, dtype).itemsize \
+        if opts.iterations_fista else 0
+    return cubes * vox * dtype.itemsize + d_bytes
 
 
 def _plan(opts: SolverOptions, shape, dtype, comm=None):
@@ -986,6 +1021,8 @@ def prepare_run(
     if comm is not None:
         check_mesh(opts, comm, tuple(orig.shape))
     dtype, device = orig.dtype, orig.device
+    if lossy_duals(opts) and dtype != torch.float32:
+        raise ValueError("lossy_duals requires float32 data")
     if reference_data is not None:
         reference_data = reference_data.to(dtype)
     n_f, n_u = opts.iterations_fista, opts.iterations_unacc
@@ -1009,8 +1046,8 @@ def prepare_run(
             done=False,
             recon=orig.clone(),
             accs=[torch.zeros_like(orig) for _ in range(opts.ndim)],
-            ds=[torch.zeros_like(orig) for _ in range(opts.ndim)]
-            if n_f else None,
+            ds=[torch.zeros_like(orig, dtype=d_dtype(opts, dtype))
+                for _ in range(opts.ndim)] if n_f else None,
             b_norm=torch.zeros(n_total, dtype=dtype, device=device),
             delta=torch.zeros(n_total, dtype=dtype, device=device),
             mse=mse,
@@ -1018,11 +1055,10 @@ def prepare_run(
         )
     if comm is not None and holds_block_checkpoint(opts, tuple(orig.shape),
                                                    dtype, comm):
-        cubes = 1 + opts.ndim + (opts.ndim if n_f else 0)
+        cubes = [st.recon, *st.accs] + (list(st.ds) if n_f else [])
         traces = [st.b_norm, st.delta] + ([st.mse] if opts.calculate_mse
                                           else [])
-        st.ckpt = [torch.empty_like(orig) for _ in range(cubes)] \
-            + [torch.empty_like(x) for x in traces]
+        st.ckpt = [torch.empty_like(x) for x in cubes + traces]
     if comm is not None:
         _reserve_mesh(comm, opts, orig, st)
     return PreparedRun(st, orig, tk_ratios, lambda_inv, lam_mu, opts,
@@ -1136,16 +1172,22 @@ def _adopt(state: Dict[str, Any], orig: Tensor,
            opts: SolverOptions) -> _PhaseState:
     """A handed-in state as the phases' ``_PhaseState``, its tensors
     adopted as they are (``engine.py:1458-1467``): the shadow duals only
-    with a FISTA phase, the MSE trace only with ``calculate_mse``."""
+    with a FISTA phase, cast to the run's storage dtype where they differ
+    (bfloat16 under lossy duals; the JAX engine casts them so, ``:1460``;
+    a cast makes a new tensor), the MSE trace only with ``calculate_mse``."""
     accs = list(state["accs"])
     ds = list(state.get("ds") or ()) if opts.iterations_fista else None
-    arrays = [state["recon"], *accs, *(ds or ())]
     if len(accs) != opts.ndim or (ds is not None and len(ds) != opts.ndim):
         raise ValueError(f"state holds {len(accs)} accumulators and "
                          f"{len(ds or ())} shadow duals; a {opts.ndim}D "
                          f"run needs {opts.ndim} of each it uses")
-    for a in arrays:
-        if a.shape != orig.shape or a.dtype != orig.dtype \
+    d_dt = d_dtype(opts, orig.dtype)
+    if ds is not None:
+        ds = [d if d.dtype == d_dt else d.to(d_dt) for d in ds]
+    checks = [(a, orig.dtype) for a in (state["recon"], *accs)]
+    checks += [(d, d_dt) for d in ds or ()]
+    for a, want in checks:
+        if a.shape != orig.shape or a.dtype != want \
                 or a.device != orig.device:
             raise ValueError(
                 f"state array {tuple(a.shape)} {a.dtype} on {a.device} does "

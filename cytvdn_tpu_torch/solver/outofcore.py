@@ -43,9 +43,17 @@ explicit pipeline:
 synchronous copies, because the caller asked for it. There is no fallback:
 a CUDA run reaches the kernels or raises.
 
+Lossy duals (``lossy_duals``, stream mode): the host's shadow duals are
+bfloat16, page-locked (``outofcore.py:303-310, :385``), which halves their
+host memory and PCIe bytes; the slabs' duals on the card are bfloat16 too,
+and the +1 neighbour's first d row, copied in as bfloat16, widens exactly
+to float32 on the card for the kernel's seam operand (``:456-457``). A
+lossy stream run is bitwise the in-core lossy run.
+
 Not here (ROADMAP.md Queue 1 item 11): slabs sharded over several devices
-(``shard_w``), multi-process runs and their band exchange; bfloat16 shadow
-duals (``lossy_duals``, item 12).
+(``shard_w``), multi-process runs and their band exchange. Temporal mode
+with lossy duals waits for the pair and K-step kernels' lossy rounding
+(items 12(b), 12(c)).
 """
 
 from __future__ import annotations
@@ -66,7 +74,7 @@ from cytvdn_tpu_torch.config import (
 from cytvdn_tpu_torch.kernels import build
 from cytvdn_tpu_torch.kernels.fused import fused_iteration, fused_supported
 from cytvdn_tpu_torch.kernels.temporal import fused_pair_iteration, pair_supported
-from cytvdn_tpu_torch.solver.engine import fista_tk_ratios
+from cytvdn_tpu_torch.solver.engine import d_dtype, fista_tk_ratios
 
 Tensor = torch.Tensor
 
@@ -120,13 +128,17 @@ def _ckpt_resume(path, resume: bool, meta: Dict, shape):
 
 
 def _restore_state(st, recon, accs, ds, b_norm, delta, mse):
-    """Restore a loaded checkpoint into the run's host arrays in place.
-    Returns ``(start, resumed_stop)``."""
+    """Restore a loaded checkpoint into the run's host arrays in place
+    (``ds``: the host's shadow-dual tensors, bfloat16 under lossy duals,
+    where the checkpoint's are bfloat16 tensors too). Returns ``(start,
+    resumed_stop)``."""
     recon[...] = np.asarray(st["recon"], np.float32)
     for k, a in enumerate(accs):
         a[...] = np.asarray(st["accs"][k], np.float32)
     for k, d in enumerate(ds):
-        d[...] = np.asarray(st["ds"][k], np.float32)
+        x = st["ds"][k]
+        d.copy_(x if torch.is_tensor(x)
+                else torch.from_numpy(np.asarray(x, np.float32)))
     b_norm[:] = st["b_norm"]
     delta[:] = st["delta"]
     if mse is not None and np.asarray(st["mse"]).size == mse.size:
@@ -190,31 +202,36 @@ def _check_options(opts: SolverOptions, orig: np.ndarray) -> np.ndarray:
 
 class _HostState:
     """The run's state in host memory: orig, recon, the accumulators and
-    (FISTA) the shadow duals, as tensors over numpy arrays. On a CUDA run
-    the arrays are page-locked, each exactly sized
+    (FISTA) the shadow duals (of ``d_dt``: bfloat16 under lossy duals), as
+    tensors over numpy arrays (a bfloat16 tensor over an int16 array). On a
+    CUDA run the arrays are page-locked, each exactly sized
     (``kernels/build.py::host_empty``): PyTorch's pinned allocator
     (``pin_memory=True``) rounds each allocation up to a power of two and
     keeps it locked in its cache after the run, and locking ordinary pages
     in place (``cudaHostRegister``) took 2.5-3 times as long."""
 
     def __init__(self, orig: np.ndarray, ndim: int, fista: bool,
-                 device: torch.device):
+                 device: torch.device, d_dt: torch.dtype = torch.float32):
         self.cuda = device.type == "cuda"
         t0 = time.perf_counter()
 
-        def empty():
-            if self.cuda:
-                return torch.from_numpy(build.host_empty(orig.shape))
-            return torch.empty(orig.shape, dtype=torch.float32)
+        def empty(dtype=torch.float32):
+            if not self.cuda:
+                return torch.empty(orig.shape, dtype=dtype)
+            if dtype == torch.bfloat16:
+                return torch.from_numpy(build.host_empty(
+                    orig.shape, np.int16)).view(torch.bfloat16)
+            return torch.from_numpy(build.host_empty(orig.shape))
 
         self.orig = empty()
         self.orig.numpy()[...] = orig
         self.recon = empty()
         self.recon.numpy()[...] = orig
         self.accs = [empty().zero_() for _ in range(ndim)]
-        self.ds = [empty().zero_() for _ in range(ndim)] if fista else []
-        n = 2 + len(self.accs) + len(self.ds)
-        last_run["pinned_bytes"] = float(orig.nbytes * n) if self.cuda else 0.0
+        self.ds = [empty(d_dt).zero_() for _ in range(ndim)] if fista else []
+        last_run["pinned_bytes"] = float(sum(
+            t.numel() * t.element_size() for t in self.arrays(fista))) \
+            if self.cuda else 0.0
         last_run["pin_seconds"] = time.perf_counter() - t0
 
     def arrays(self, fista: bool) -> List[Tensor]:
@@ -231,24 +248,30 @@ class _HostState:
 
 class _Slabs:
     """Device buffers for ``GENERATIONS`` slabs of up to ``rows`` rows:
-    orig, recon, the accumulators [, the shadow duals], and per generation
-    the seam operands of a stream-mode launch. A slab of fewer rows uses
-    the leading rows (contiguous views)."""
+    orig, recon, the accumulators [, the shadow duals, of ``d_dt``], and
+    per generation the seam operands of a stream-mode launch (float32; a
+    bfloat16 d row as it arrives, ``next0_d16``, under lossy duals). A slab
+    of fewer rows uses the leading rows (contiguous views)."""
 
     def __init__(self, rows: int, tail: Tuple[int, ...], ndim: int,
-                 fista: bool, device: torch.device, halos: bool):
-        n_arrays = 2 + ndim * (2 if fista else 1)
-
-        def empty(r, *t):
-            return torch.empty((r, *t), dtype=torch.float32, device=device)
+                 fista: bool, device: torch.device, halos: bool,
+                 d_dt: torch.dtype = torch.float32):
+        def empty(r, *t, dtype=torch.float32):
+            return torch.empty((r, *t), dtype=dtype, device=device)
 
         self.gens = []
         for _ in range(GENERATIONS):
-            g = {"arrays": [empty(rows, *tail) for _ in range(n_arrays)]}
+            arrays = [empty(rows, *tail) for _ in range(2 + ndim)]
+            if fista:
+                arrays += [empty(rows, *tail, dtype=d_dt)
+                           for _ in range(ndim)]
+            g = {"arrays": arrays}
             if halos:
                 col = (1,) + tail[1:]
                 g["prev0"], g["next0_recon"], g["next0_acc"], g["next0_d"] = (
                     empty(1, *tail) for _ in range(4))
+                if fista and d_dt != torch.float32:
+                    g["next0_d16"] = empty(1, *tail, dtype=d_dt)
                 g["prev1"], g["next1_recon"] = (empty(rows, *col)
                                                 for _ in range(2))
             self.gens.append(g)
@@ -290,7 +313,8 @@ class _Pipe:
         """Queue ``dst.copy_(src)`` for each pair on the copy stream (after
         the event ``after``), then ``t.zero_()`` for each of ``zero``;
         returns the event of their end."""
-        last_run[f"{kind}_bytes"] += float(sum(s.numel() * 4 for _, s in pairs))
+        last_run[f"{kind}_bytes"] += float(sum(s.numel() * s.element_size()
+                                               for _, s in pairs))
         if not self.cuda:
             t0 = time.perf_counter()
             for dst, src in pairs:
@@ -380,7 +404,8 @@ class _Run:
                  checkpoint_every, resume, mode: str, device):
         n_total = opts.total_iterations
         self.opts, self.reference = opts, reference
-        self.host = host = _HostState(orig, opts.ndim, opts.fista, device)
+        self.host = host = _HostState(orig, opts.ndim, opts.fista, device,
+                                      d_dtype(opts, torch.float32))
         self.pipe = _Pipe(device)
         self.b_norm = np.zeros(n_total, np.float32)
         self.delta = np.zeros(n_total, np.float32)
@@ -399,8 +424,7 @@ class _Run:
             if st is not None:
                 self.start, self.resumed_stop = _restore_state(
                     st, host.recon.numpy(), [a.numpy() for a in host.accs],
-                    [d.numpy() for d in host.ds], self.b_norm, self.delta,
-                    self.mse)
+                    host.ds, self.b_norm, self.delta, self.mse)
         self.save = self._saver(checkpoint_path, checkpoint_every, meta)
         last_run["sweeps"] = 0.0
         last_run["sweep_seconds"] = 0.0
@@ -420,9 +444,9 @@ class _Run:
             due = nxt is not None and it_run >= nxt and not done
             if done or due:
                 _ckpt_save(checkpoint_path, meta, it_run, host.recon.numpy(),
-                           [a.numpy() for a in host.accs],
-                           [d.numpy() for d in host.ds], self.b_norm,
-                           self.delta, self.mse, done and stopped)
+                           [a.numpy() for a in host.accs], host.ds,
+                           self.b_norm, self.delta, self.mse,
+                           done and stopped)
             if due:
                 nxt = (it_run // every + 1) * every
 
@@ -510,6 +534,8 @@ def solve_outofcore(
     ``i``. ``checkpoint_path``/``checkpoint_every``/``resume``: atomic
     full-state saves every N iterations in the JAX package's format and a
     bitwise resume; resuming a finished or stopped run changes nothing.
+    ``opts.lossy_duals``: the shadow duals live as bfloat16, on the host
+    and on the card.
     """
     orig = _check_options(opts, orig)
     device = torch.device(device)
@@ -523,7 +549,8 @@ def solve_outofcore(
                              "the fused kernel")
     li, lm, rhos = _scalars(lambda_inv, lam_mu, opts.iterations_fista, device)
     slabs = _Slabs(max(b - a for a, b in bounds), tail, ndim,
-                   opts.iterations_fista > 0, device, halos=True)
+                   opts.iterations_fista > 0, device, halos=True,
+                   d_dt=d_dtype(opts, torch.float32))
     run = _Run(orig, opts, reference, checkpoint_path, checkpoint_every,
                resume, "stream", device)
     host, last = run.host, len(bounds) - 1
@@ -544,7 +571,11 @@ def solve_outofcore(
             pairs += [(g["next0_recon"], H_recon[a1:a1 + 1]),
                       (g["next0_acc"], H_acc0[a1:a1 + 1])]
             if fista:
-                pairs.append((g["next0_d"], H_d0[a1:a1 + 1]))
+                # a bfloat16 row lands in its own buffer and widens on the
+                # card (halos); a copy that converts would go through
+                # pageable host memory
+                pairs.append((g.get("next0_d16", g["next0_d"]),
+                              H_d0[a1:a1 + 1]))
         else:
             pairs.append((g["next0_recon"], H_recon[a1 - 1:a1]))
         return run.pipe.copies("h2d", pairs)
@@ -563,6 +594,8 @@ def solve_outofcore(
              "next0_acc": g["next0_acc"] if si < last else slabs.zero_row,
              "next1_recon": g["next1_recon"][:rows], "next1_acc": zc}
         if fista:
+            if si < last and "next0_d16" in g:
+                g["next0_d"].copy_(g["next0_d16"])  # exact
             h["next0_d"] = g["next0_d"] if si < last else slabs.zero_row
             h["next1_d"] = zc
         return h
@@ -619,6 +652,10 @@ def solve_outofcore_temporal(
                                checkpoint_path=checkpoint_path,
                                checkpoint_every=checkpoint_every,
                                resume=resume, device=device)
+    if d_dtype(opts, torch.float32) != torch.float32:
+        raise _not_ported("out-of-core temporal mode with lossy_duals (its "
+                          "slabs take pairs and K-steps)",
+                          "Queue 1 items 12(b), 12(c)")
     orig = _check_options(opts, orig)
     device = torch.device(device)
     ndim, n0, tail = opts.ndim, orig.shape[0], orig.shape[1:]
@@ -729,9 +766,11 @@ def denoise_outofcore(
 
     ``temporal_k > 1`` runs K iterations per slab residency
     (:func:`solve_outofcore_temporal`), cutting host↔device traffic per
-    iteration K-fold. ``shard_w != 1``/``devices`` (slabs sharded over
-    several cards) and ``lossy_duals`` are not ported and raise
-    ``NotImplementedError``.
+    iteration K-fold. ``lossy_duals`` stores the shadow duals as bfloat16
+    on the host and the card (stream mode; with ``temporal_k > 1`` it
+    raises ``NotImplementedError``, ROADMAP.md Queue 1 items 12(b), 12(c)).
+    ``shard_w != 1``/``devices`` (slabs sharded over several cards) are not
+    ported and raise ``NotImplementedError``.
 
     Returns ``(recon, b_norm, delta)`` like ``denoise3D/4D``, plus the
     ``mse`` trace when ``reference_data`` is given (per iteration in the
@@ -741,14 +780,14 @@ def denoise_outofcore(
     if shard_w != 1 or devices is not None:
         raise _not_ported("out-of-core slabs sharded over several devices "
                           "(shard_w, devices)", "Queue 1 item 11")
-    if lossy_duals:
-        raise _not_ported("lossy_duals", "Queue 1 item 12")
     ndim = np.asarray(datacube).ndim
     datacube, mu, lam, lambda_inv, lam_mu = _validate_and_derive(
         datacube, mu, lam, ndim, 32.0 if ndim == 4 else 16.0
     )
     if not quiet:
-        n_state = 2 + 2 * ndim if FISTA else 2 + ndim
+        # the shadow duals count half under lossy duals
+        n_state = 2 + ndim + (ndim / (2 if lossy_duals else 1) if FISTA
+                              else 0)
         per_slab = datacube.nbytes * n_state / n_slabs / 2**30
         print(f"out-of-core: {n_slabs} slabs, ~{per_slab:.2f} GiB of device "
               f"memory per slab, {GENERATIONS} slabs on the device at once "
@@ -767,6 +806,7 @@ def denoise_outofcore(
         iterations_unacc=n_u,
         stopping_relative_change=stopping_relative_change,
         calculate_mse=with_mse,
+        lossy_duals=lossy_duals,
     )
     ck = dict(checkpoint_path=checkpoint_path,
               checkpoint_every=checkpoint_every, resume=resume, device=device)

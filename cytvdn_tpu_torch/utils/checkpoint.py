@@ -11,9 +11,12 @@ and is updated in place; it reaches the host only inside
 The file format is the JAX package's (the same keys, ``meta`` JSON and
 format version; ``i`` int32, ``tk`` float32, ``mse`` zero-length without
 MSE, the ``early_stopped`` latch), so a checkpoint written by either
-package resumes in the other. Not ported: multi-process part files
-(``blocks`` in the meta; ROADMAP.md Queue 1 item 9) and bfloat16 shadow
-duals (``bf16_keys``; Queue 1 item 12); :func:`load_state` refuses both.
+package resumes in the other. A lossy run's bfloat16 shadow duals are
+stored, as the JAX package stores them, as their uint16 bit patterns, named
+in the meta's ``bf16_keys`` (``np.savez`` cannot hold bfloat16), and come
+back from :func:`load_state` as bfloat16 CPU tensors. Not ported:
+multi-process part files (``blocks`` in the meta; ROADMAP.md Queue 1 item
+9), which :func:`load_state` refuses.
 """
 
 from __future__ import annotations
@@ -27,7 +30,12 @@ import numpy as np
 import torch
 
 from cytvdn_tpu_torch.config import BCMode, SolverOptions, normalize_iterations
-from cytvdn_tpu_torch.utils.state import state_from_numpy, to_numpy
+from cytvdn_tpu_torch.utils.state import (
+    bf16_bits,
+    from_bf16_bits,
+    state_from_numpy,
+    to_numpy,
+)
 
 _FMT_VERSION = 1
 
@@ -48,7 +56,9 @@ def _atomic_savez(path: str, arrays: Dict[str, np.ndarray]):
 def save_state(path: str, state: Dict[str, Any], meta: Dict[str, Any]):
     """Atomic .npz checkpoint write (tmp file + rename) of a state dict
     (tensors on any device, or numpy arrays), in the JAX package's
-    single-process format."""
+    single-process format; bfloat16 arrays (tensors or ``ml_dtypes``
+    arrays) as their uint16 bit patterns, listed in the meta's
+    ``bf16_keys``."""
     mse = state.get("mse")
     arrays = {
         "b_norm": to_numpy(state["b_norm"]),
@@ -61,16 +71,22 @@ def save_state(path: str, state: Dict[str, Any], meta: Dict[str, Any]):
     }
     for k, a in enumerate(state["accs"]):
         arrays[f"acc{k}"] = to_numpy(a)
+    bf16_keys = []
     for k, a in enumerate(state.get("ds") or ()):
-        arrays[f"d{k}"] = to_numpy(a)
+        bits = bf16_bits(a)
+        if bits is not None:
+            bf16_keys.append(f"d{k}")
+        arrays[f"d{k}"] = bits if bits is not None else to_numpy(a)
+    extra = {"bf16_keys": bf16_keys} if bf16_keys else {}
     arrays["meta"] = np.frombuffer(
-        json.dumps({**meta, "version": _FMT_VERSION}).encode(),
+        json.dumps({**meta, "version": _FMT_VERSION, **extra}).encode(),
         dtype=np.uint8)
     _atomic_savez(path, arrays)
 
 
 def load_state(path: str):
-    """Load a checkpoint; returns ``(state, meta)`` with numpy arrays."""
+    """Load a checkpoint; returns ``(state, meta)`` with numpy arrays, and
+    the arrays the meta's ``bf16_keys`` names as bfloat16 CPU tensors."""
     with np.load(path) as z:
         meta = json.loads(bytes(z["meta"]).decode())
         if meta.get("blocks") is not None:
@@ -79,21 +95,21 @@ def load_state(path: str):
                 f"({meta.get('num_processes')} processes); multi-process "
                 f"runs are not ported to cytvdn_tpu_torch yet (ROADMAP.md "
                 f"Queue 1 item 9)")
-        if meta.get("bf16_keys"):
-            raise NotImplementedError(
-                f"{path} holds bfloat16 shadow duals "
-                f"({meta['bf16_keys']}); lossy duals are not ported to "
-                f"cytvdn_tpu_torch yet (ROADMAP.md Queue 1 item 12)")
+        bf16_keys = set(meta.get("bf16_keys") or ())
+
+        def data(k):
+            return from_bf16_bits(z[k]) if k in bf16_keys else z[k]
+
         ndim = meta["ndim"]
         state = {
-            "recon": z["recon"],
+            "recon": data("recon"),
             "b_norm": z["b_norm"],
             "delta": z["delta"],
             "mse": z["mse"],
             "i": z["i"],
             "tk": z["tk"] if "tk" in z.files else np.float32(1.0),
-            "accs": tuple(z[f"acc{k}"] for k in range(ndim)),
-            "ds": tuple(z[f"d{k}"] for k in range(ndim)
+            "accs": tuple(data(f"acc{k}") for k in range(ndim)),
+            "ds": tuple(data(f"d{k}") for k in range(ndim)
                         if f"d{k}" in z.files),
         }
         if "early_stopped" in z.files:

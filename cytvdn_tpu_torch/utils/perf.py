@@ -89,7 +89,7 @@ def model_seconds(shape, fista: bool, backend: str, bandwidth: float,
 
 def launch_bytes(shape, fista: bool, itemsize: int = 4,
                  ref: bool = False, band_rows: int = 0,
-                 halo_elems: int = 0) -> int:
+                 halo_elems: int = 0, d_itemsize: Optional[int] = None) -> int:
     """Bytes one launch of any of the port's kernels (one, two or K
     iterations) must move: each input read once (orig, recon, n
     accumulators [, n shadow duals] [, the reference cube]) and each output
@@ -97,10 +97,17 @@ def launch_bytes(shape, fista: bool, itemsize: int = 4,
     (FISTA) or 2n+3 cube traversals, one more with a reference cube; plus
     ``band_rows`` axis-0 rows of the shape moved once (a mesh shard's
     seam bands) and ``halo_elems`` elements of seam operands read once (the
-    K=1 kernel's halo slabs, :func:`k1_halo_elements`)."""
+    K=1 kernel's halo slabs, :func:`k1_halo_elements`). The 2n traversals
+    of the shadow duals take ``d_itemsize`` bytes an element (2 under lossy
+    duals; default ``itemsize``): a lossy 4D FISTA launch moves
+    11 × 4 + 8 × 2 = 60 bytes per voxel."""
+    n_vox = _voxels(shape)
     trav = traversals_per_iteration(len(shape), fista, "fused") + int(ref)
-    row = _voxels(shape) // shape[0]
-    return (trav * _voxels(shape) + band_rows * row + halo_elems) * itemsize
+    d_trav = 2 * len(shape) if fista else 0
+    d_itemsize = itemsize if d_itemsize is None else d_itemsize
+    row = n_vox // shape[0]
+    return ((trav - d_trav) * n_vox + band_rows * row + halo_elems) \
+        * itemsize + d_trav * n_vox * d_itemsize
 
 
 def k1_halo_elements(shape, halo_keys) -> int:
@@ -138,7 +145,8 @@ def launch_operations(shape, fista: bool, iterations: int,
 
 def launch_bound_seconds(shape, fista: bool, iterations: int,
                          bandwidth: float, flops: float, ref: bool = False,
-                         band_rows: int = 0, halo_elems: int = 0):
+                         band_rows: int = 0, halo_elems: int = 0,
+                         d_itemsize: Optional[int] = None):
     """The least time one launch could take on a card with ``bandwidth``
     bytes/s and ``flops`` operations/s: the larger of :func:`launch_bytes`
     over the bandwidth and :func:`launch_operations` over the rate, and
@@ -147,8 +155,10 @@ def launch_bound_seconds(shape, fista: bool, iterations: int,
     error against it (the pair kernel's MSE launch); ``band_rows``: rows
     of seam bands it also moves (the pair kernel's ``HALO0`` launch);
     ``halo_elems``: elements of seam operands it also reads (the K=1
-    kernel's ``HALO`` launch, :func:`k1_halo_elements`)."""
+    kernel's ``HALO`` launch, :func:`k1_halo_elements`); ``d_itemsize``:
+    bytes per shadow-dual element (2: the K=1 kernel's lossy launch)."""
     t_bytes = launch_bytes(shape, fista, ref=ref, band_rows=band_rows,
-                           halo_elems=halo_elems) / bandwidth
+                           halo_elems=halo_elems,
+                           d_itemsize=d_itemsize) / bandwidth
     t_ops = launch_operations(shape, fista, iterations, ref=ref) / flops
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -7,22 +7,53 @@ device and back, so a run started in one package can be continued in the
 other. Accumulators keep the JAX axis order (accumulator k differences
 along axis k); missing entries (``ds`` after an unaccelerated phase,
 ``mse`` without reference data) stay empty.
+
+Lossy runs store their shadow duals as bfloat16, which numpy has no type
+for: the JAX package hands them over as ``ml_dtypes`` bfloat16 arrays,
+checkpoints hold their uint16 bit patterns, and here they are bfloat16
+tensors. :func:`state_from_numpy` takes all three; :func:`to_numpy` widens
+a bfloat16 tensor to float32, exactly, and an engine casts such duals back
+when it adopts them (``solver/engine.py::_adopt``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 
+def bf16_bits(x) -> Optional[np.ndarray]:
+    """The uint16 bit patterns of a bfloat16 tensor or ``ml_dtypes``
+    bfloat16 array, on the host; None for any other array."""
+    if torch.is_tensor(x):
+        if x.dtype != torch.bfloat16:
+            return None
+        return x.detach().cpu().contiguous().view(torch.int16).numpy() \
+            .view(np.uint16)
+    a = np.asarray(x)
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else None
+
+
+def from_bf16_bits(bits: np.ndarray) -> torch.Tensor:
+    """A bfloat16 CPU tensor from uint16 bit patterns (copied)."""
+    return torch.from_numpy(np.array(bits, np.uint16).view(np.int16)) \
+        .view(torch.bfloat16)
+
+
 def _t(a, device) -> torch.Tensor:
+    if torch.is_tensor(a):
+        return a.detach().to(device, copy=True)
+    bits = bf16_bits(a)
+    if bits is not None:
+        return from_bf16_bits(bits).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 def state_from_numpy(d: Dict[str, Any], device) -> Dict[str, Any]:
-    """numpy (or array-like) state dict → torch tensors on ``device``."""
+    """numpy (or array-like, or CPU tensor) state dict → torch tensors on
+    ``device``; bfloat16 duals stay bfloat16."""
     device = torch.device(device)
     return {
         "recon": _t(d["recon"], device),
@@ -38,8 +69,11 @@ def state_from_numpy(d: Dict[str, Any], device) -> Dict[str, Any]:
 
 def to_numpy(x) -> np.ndarray:
     """A tensor on any device (or an array-like) as a numpy array on the
-    host."""
-    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    host; a bfloat16 tensor widened exactly to float32."""
+    if not torch.is_tensor(x):
+        return np.asarray(x)
+    x = x.detach().cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
 def state_to_numpy(s: Dict[str, Any]) -> Dict[str, Any]:

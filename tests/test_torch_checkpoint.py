@@ -431,16 +431,36 @@ def test_checkpoint_resumes_across_packages(tmp_path, writer, cut, mse):
 @pytest.mark.parametrize("key,item", [("blocks", "item 9"),
                                       ("bf16_keys", "item 12")])
 def test_load_refuses_unported_checkpoints(tmp_path, key, item):
-    """Multi-process part files and bfloat16 shadow duals are refused with
-    the ROADMAP item that ports them."""
-    value = {"recon": {"shape": [4], "dtype": "float32", "bounds": []}} \
-        if key == "blocks" else ["d0"]
-    meta = {"ndim": 1, "shape": [4], key: value, "num_processes": 2,
-            "version": 1}
+    """Multi-process part files are refused with the ROADMAP item that
+    ports them (item 9). BFloat16 shadow duals (item 12, lossy duals) are
+    ported: the uint16 bit patterns the meta's ``bf16_keys`` names load as
+    bfloat16 tensors, bit for bit, and the other arrays as they were."""
     path = str(tmp_path / "x.npz")
-    np.savez(path, meta=np.frombuffer(json.dumps(meta).encode(), np.uint8))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        tck.load_state(path)
+    if key == "blocks":
+        value = {"recon": {"shape": [4], "dtype": "float32", "bounds": []}}
+        meta = {"ndim": 1, "shape": [4], key: value, "num_processes": 2,
+                "version": 1}
+        np.savez(path,
+                 meta=np.frombuffer(json.dumps(meta).encode(), np.uint8))
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md Queue 1 {item}"):
+            tck.load_state(path)
+        return
+    bits = np.array([0, 0x3F80, 0xBF80, 0x7F7F], np.uint16)  # 0, 1, -1, max
+    meta = {"ndim": 1, "shape": [4], key: ["d0"], "version": 1}
+    np.savez(path, meta=np.frombuffer(json.dumps(meta).encode(), np.uint8),
+             recon=np.arange(4, dtype=np.float32), acc0=np.zeros(4, np.float32),
+             d0=bits, b_norm=np.zeros(2, np.float32),
+             delta=np.zeros(2, np.float32), mse=np.zeros(0), i=np.int32(1))
+    state, _ = tck.load_state(path)
+    d0 = state["ds"][0]
+    assert torch.is_tensor(d0) and d0.dtype == torch.bfloat16
+    np.testing.assert_array_equal(d0.view(torch.int16).numpy().view(np.uint16),
+                                  bits)
+    np.testing.assert_array_equal(
+        d0.float().numpy(), np.array([0.0, 1.0, -1.0, 3.3895314e38],
+                                     np.float32))
+    assert state["recon"].dtype == np.float32
 
 
 @pytest.mark.parametrize("change", ["schedule", "shape"])

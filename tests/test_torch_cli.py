@@ -367,21 +367,35 @@ def test_exit_2_as_jax(tmp_path, capsys, case):
 
 REFUSED = {
     # out-of-core runs are ported; sharded out-of-core slabs and lossy
-    # duals are not
+    # duals in temporal mode (pairs and K-steps) are not
     "out-of-core": (["--out-of-core", "2", "--shard", "2"], "Queue 1 item 10"),
     "out-of-core-temporal": (["--out-of-core", "2", "--temporal", "2", "-f",
-                              "1", "--lossy-duals"], "Queue 1 item 12"),
+                              "1", "--lossy-duals"],
+                             "Queue 1 items 12(b), 12(c)"),
     "shard": (["--shard", "2,1,1"], "Queue 1 item 10"),
     "shard-auto": (["--shard", "auto"], "Queue 1 item 10"),
-    "lossy-duals": (["-f", "1", "--lossy-duals"], "Queue 1 item 12"),
+    # ported (Queue 1 item 12(a)): runs as cytv --lossy-duals does
+    "lossy-duals": (["-f", "1", "--lossy-duals"], None),
     "backend-cpp": (["--backend", "cpp"], "Queue 1 item 13"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_refused_flags_name_roadmap_item(tmp_path, capsys, case):
+    """Each refused flag exits 2 before the input is read, naming its
+    ROADMAP item; a flag since ported (item None) runs, and its recon is
+    the JAX ``cytv``'s with the same flags (within atol 5e-7 for lossy
+    duals, as tests/test_lossy.py holds the JAX lossy runs)."""
     flags, item = REFUSED[case]
     out = str(tmp_path / "t.emd")
+    if item is None:
+        inp = _npy(tmp_path, _cube(S4, 17))
+        jout = str(tmp_path / "j.emd")
+        assert _jax(inp, jout, "-m", "1.0", "-n", "6", *flags) == 0
+        assert _port(inp, out, "-m", "1.0", "-n", "6", *flags) == 0
+        np.testing.assert_allclose(tread(out), jread(jout), rtol=0,
+                                   atol=5e-7)
+        return
     # the input does not exist: the refusal comes before any load
     rc = _port(str(tmp_path / "missing.npy"), out, "-m", "1.0", "-n", "2",
                *flags)

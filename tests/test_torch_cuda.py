@@ -16,7 +16,10 @@ with halos and reassembled against one launch of the whole cube, and
 ``denoise_outofcore`` on the card against ``denoise4D`` there; so is each
 of its mesh-only modes (rings, mirror edges, iso seams and corners,
 in-block axes), and mesh runs in those modes, ranks as threads sharing
-the card, against the single-device run.
+the card, against the single-device run; so is its LOSSY instantiation
+(bfloat16 shadow duals), with and without halos, at forced grids, d
+included, and lossy runs on the card against the plain backend and
+stream-mode ``denoise_outofcore``.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -1457,3 +1460,155 @@ def test_mode_mesh_run_on_the_card_bitwise_single_device(shape, shard, kw):
         np.testing.assert_allclose(res[0]["mse"], want[3], rtol=1e-5)
     # the ranks are threads of this process, counting into one attribute
     assert tfused.fused_iteration.mode_launches > before
+
+
+# -- lossy duals: the K=1 kernel's LOSSY instantiation -------------------------
+
+# ragged edges on every axis, last extents 1, 31 and 33, 3D and 4D
+LOSSY_SHAPES = [(37, 45, 19, 23), (13, 17, 70), (7, 9, 5, 1), (5, 7, 9, 31),
+                (9, 5, 7, 33)]
+
+
+def _lossy_state(shape, seed=0):
+    """A random float32 state on the card with bfloat16 shadow duals."""
+    orig, state = _halo_state(shape, True, torch.float32, seed=seed)
+    ndim = len(shape)
+    return orig, state[:1 + ndim] + [d.to(torch.bfloat16)
+                                     for d in state[1 + ndim:]]
+
+
+def _lossy_runs(orig, state, halos=None, iters=3):
+    """``iters`` lossy launches of the kernel and of its plain version on
+    copies of ``state``: each's final state and stacked sums."""
+    ndim = orig.dim()
+    li = torch.linspace(0.2, 0.35, ndim, device="cuda")
+    lm = torch.linspace(1 / 32, 1 / 48, ndim, device="cuda")
+    rho = torch.tensor(0.37, device="cuda")
+    runs = []
+    for step in (tfused.fused_iteration, tfused.fused_iteration_reference):
+        s = [x.clone() for x in state]
+        sums = []
+        for _ in range(iters):
+            out = step(orig, s[0], s[1:1 + ndim], s[1 + ndim:], rho, li, lm,
+                       fista=True, halos=halos)
+            sums.append(torch.stack(out[3:]).double().cpu())
+        torch.cuda.synchronize()
+        runs.append((s, torch.stack(sums)))
+    return runs
+
+
+def _assert_same(runs, what):
+    (ks, ksum), (ps, psum) = runs
+    for a, b in zip(ks, ps):
+        assert a.dtype == b.dtype and torch.equal(a, b), (
+            what, (a.float() - b.float()).abs().max().item())
+    torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LOSSY_SHAPES, ids=str)
+def test_lossy_kernel_bitwise_equals_plain_at_forced_grids(monkeypatch,
+                                                           shape):
+    """Three launches of the LOSSY instantiation (bfloat16 d: widened on
+    load, rounded to nearest even on store) at the wrapper's grid and at
+    forced grids of 1, 7 and all blocks against the plain version, whose
+    ``copy_`` into the bfloat16 d rounds: state bitwise, d included, sums
+    within rtol 1e-5; the launches counted as lossy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    orig, state = _lossy_state(shape)
+    before = tfused.fused_iteration.lossy_launches
+    for grid in (None, 1, 7, tfused._work_items(shape)):
+        if grid is not None:
+            monkeypatch.setattr(tfused, "MAX_BLOCKS", grid)
+        _assert_same(_lossy_runs(orig, state), grid)
+    assert tfused.fused_iteration.lossy_launches - before == 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["first", "interior", "last"])
+@pytest.mark.parametrize("shape", HALO_SHAPES, ids=str)
+def test_lossy_halo_kernel_bitwise_equals_plain(monkeypatch, shape, where):
+    """The LOSSY HALO instantiation (bfloat16 d, a float32 ``next0_d``
+    seam: the neighbour's d widened) against the plain version with the
+    same halos on the first, an interior and the last of three slabs,
+    three launches, also at a grid of 7 blocks: state bitwise, sums within
+    rtol 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    ndim = len(shape)
+    orig, state = _lossy_state(shape, seed=2)
+    n = shape[0] // 3
+    a0, a1 = {"first": (0, n), "interior": (n, 2 * n),
+              "last": (2 * n, shape[0])}[where]
+    h = _seams(state, ndim, a0, a1, True)
+    h["next0_d"] = h["next0_d"].float()
+    slab = [x[a0:a1].clone() for x in state]
+    _assert_same(_lossy_runs(orig[a0:a1].contiguous(), slab, h), where)
+    monkeypatch.setattr(tfused, "MAX_BLOCKS", 7)
+    _assert_same(_lossy_runs(orig[a0:a1].contiguous(), slab, h), 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slabs", [3, 4])
+@pytest.mark.parametrize("shape", HALO_SHAPES, ids=str)
+def test_lossy_halo_slabs_reassemble_to_one_launch(shape, n_slabs):
+    """A lossy cube cut into slabs, each launched with halos from the
+    pre-update state (the +1 neighbour's bfloat16 d row widened),
+    reassembled: bitwise one lossy launch of the whole cube."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from cytvdn_tpu_torch.solver.outofcore import _slab_bounds
+
+    ndim = len(shape)
+    orig, state = _lossy_state(shape, seed=1)
+    for k in range(ndim):
+        state[1 + k].narrow(k, 0, 1).zero_()
+        state[1 + ndim + k].narrow(k, 0, 1).zero_()
+    whole = _lossy_runs(orig, state, iters=1)[0][0]
+    cut = [x.clone() for x in state]
+    for a0, a1 in _slab_bounds(shape[0], n_slabs):
+        h = _seams(state, ndim, a0, a1, True)
+        h["next0_d"] = h["next0_d"].float()
+        s = _lossy_runs(orig[a0:a1].contiguous(),
+                        [x[a0:a1].clone() for x in state], h, iters=1)[0][0]
+        for dst, src in zip(cut, s):
+            dst[a0:a1] = src
+    for a, b in zip(cut, whole):
+        assert torch.equal(a, b), (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_lossy_runs_on_the_card():
+    """``denoise4D(lossy_duals=True)`` on the card: every iteration one
+    LOSSY K=1 launch, the recon bitwise the plain backend's there and
+    ``denoise_outofcore`` in stream mode's (bfloat16 pinned host duals),
+    and not the exact run's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+
+    from cytvdn_tpu_torch import denoise4D
+    from cytvdn_tpu_torch.solver.outofcore import denoise_outofcore
+
+    cube = (np.random.default_rng(5).standard_normal((22, 9, 10, 33)) * 0.5
+            + 2.0).astype(np.float32)
+    mu = np.full(4, 1.0, np.float32)
+    kw = dict(iterations=9, FISTA=True, lossy_duals=True)
+    before = (tfused.fused_iteration.lossy_launches,
+              ttemporal.fused_pair_iteration.launches,
+              tkstep.fused_kstep_iteration.launches,
+              tres.resident_solve.launches)
+    got = denoise4D(cube, mu, quiet=True, device="cuda", **kw)
+    after = (tfused.fused_iteration.lossy_launches,
+             ttemporal.fused_pair_iteration.launches,
+             tkstep.fused_kstep_iteration.launches,
+             tres.resident_solve.launches)
+    assert [a - b for a, b in zip(after, before)] == [9, 0, 0, 0]
+    plain = denoise4D(cube, mu, quiet=True, device="cuda", backend="torch",
+                      **kw)
+    np.testing.assert_array_equal(got[0], plain[0])
+    ooc = denoise_outofcore(cube, mu, n_slabs=3, device="cuda", **kw)
+    np.testing.assert_array_equal(ooc[0], got[0])
+    exact = denoise4D(cube, mu, iterations=9, quiet=True, device="cuda")
+    assert np.abs(exact[0] - got[0]).max() > 1e-6

@@ -21,6 +21,7 @@ from cytvdn_tpu.config import SolverOptions as JOptions  # noqa: E402
 from cytvdn_tpu.kernels.fused import fused_supported as j_supported  # noqa: E402
 from cytvdn_tpu.solver import engine as jengine  # noqa: E402
 from cytvdn_tpu_torch.kernels import fused as tfused  # noqa: E402
+from cytvdn_tpu_torch.kernels.temporal import round_bf16  # noqa: E402
 from cytvdn_tpu_torch.solver.engine import fista_tk_ratios  # noqa: E402
 from cytvdn_tpu_torch.utils.state import state_from_numpy, state_to_numpy  # noqa: E402
 
@@ -195,9 +196,27 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="cuda"):
         denoise3D(orig, np.full(3, 1.0, np.float32), iterations=2,
                   quiet=True, backend="cuda", device="cpu")
+    # bfloat16 shadow duals (lossy duals) run: recon and b are the exact
+    # launch's on the widened duals, and the new d is its d rounded to
+    # nearest even; float64 data and mirror boundaries refuse them
     lossy = [d.to(torch.bfloat16) for d in args[3]]
+    exact = [d.float() for d in lossy]
+    runs = []
+    for ds in (lossy, exact):
+        r, a = args[1].clone(), [x.clone() for x in args[2]]
+        tfused.fused_iteration(args[0], r, a, ds, *args[4:], fista=True)
+        runs.append((r, a, ds))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k in range(3):
+        assert torch.equal(runs[0][1][k], runs[1][1][k])
+        assert runs[0][2][k].dtype == torch.bfloat16
+        assert torch.equal(runs[0][2][k].float(), round_bf16(runs[1][2][k]))
     with pytest.raises(ValueError, match="ds"):
-        tfused.fused_iteration(*args[:3], lossy, *args[4:], fista=True)
+        tfused.fused_iteration(*(x.double() for x in args[:2]),
+                               [x.double() for x in args[2]], lossy,
+                               *(x.double() for x in args[4:]), fista=True)
+    with pytest.raises(ValueError, match="Jia-Zhao"):
+        tfused.fused_iteration(*args[:3], lossy, *args[4:], fista=True, bc=1)
     thin = torch.zeros((1, 5, 6))
     with pytest.raises(ValueError, match="does not cover"):
         tfused.fused_iteration(thin, thin.clone(), [thin.clone()] * 3, None,

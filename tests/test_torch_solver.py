@@ -147,10 +147,22 @@ def test_validation_errors_match_jax():
 
 @pytest.mark.parametrize("kw", [dict(lossy_duals=True), dict(backend="cpp")])
 def test_not_ported_options_raise(kw):
+    """``backend='cpp'`` is not ported and raises, naming its ROADMAP item.
+    ``lossy_duals`` is ported (Queue 1 item 12(a)): the run happens, equals
+    the JAX package's lossy run (the recon within atol 5e-7, its own
+    tolerance, tests/test_lossy.py) and is not the exact run."""
     cube = _cube((4, 5, 6, 7), 12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttv.denoise4D(cube, np.full(4, 1.0, np.float32), iterations=2,
-                      quiet=True, device="cpu", **kw)
+    mu = np.full(4, 1.0, np.float32)
+    if "backend" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ttv.denoise4D(cube, mu, iterations=2, quiet=True, device="cpu",
+                          **kw)
+        return
+    got, want = _both("denoise4D", cube, mu, "pallas", iterations=6, **kw)
+    _compare(got[:1], want[:1], rtol=0, atol=5e-7)
+    _compare(got[1:], want[1:])  # the traces: sums, in another order
+    exact = ttv.denoise4D(cube, mu, iterations=6, quiet=True, device="cpu")
+    assert np.max(np.abs(got[0] - exact[0])) > 1e-6
 
 
 def test_solver_options_rejections_match_jax():

@@ -37,7 +37,6 @@ or if the digests differ.
 
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 import subprocess
@@ -148,10 +147,7 @@ def static(root: str):
     sass, _ = so.report(lib, ["dual_kernel"])
     # a digest of each pass's instructions (offsets left out), to show
     # which instantiations compiled to the same code in two trees
-    digests = {so.label(m): hashlib.sha256("\n".join(
-        i for _, i, _ in so._instructions(fn)).encode()).hexdigest()[:16]
-        for m, fn in so.functions(lib)
-        if "dual_kernel" in m or "recon_kernel" in m}
+    digests = so.digests(lib, ["dual_kernel", "recon_kernel"])
     lined = so.lineinfo_sass(
         [os.path.join(root, "cytvdn_tpu_torch", "csrc", "fused_iteration.cu")],
         os.path.join(build_dir, "lineinfo"))

@@ -23,11 +23,21 @@ indexed at run time). Exits 1 if any store is sent in flight.
 ``nvdisasm -g``, so that each in-flight store is printed with the source
 line it comes from (the branch of the element code that holds it). Needs
 ``nvcc``, ``cuobjdump`` and ``nvdisasm`` (a CUDA toolkit), not a card.
+
+``--digests FILE`` also writes, as JSON, a digest of each matching
+instantiation's instructions (offsets left out) by its label, so that two
+trees' builds can be compared function by function:
+``--compare PARENT.json CHANGE.json`` prints which of the parent's
+instantiations compiled to the same code in the change (by digest, so a
+template argument added to a kernel does not hide a match) and exits 1 if
+any did not.
 """
 
 from __future__ import annotations
 
 import glob
+import hashlib
+import json
 import os
 import re
 import subprocess
@@ -161,11 +171,53 @@ def report(sass: str, names):
     return rows, bad
 
 
+def digests(sass: str, names):
+    """{label: digest of the instructions} of the matching functions."""
+    return {label(m): hashlib.sha256("\n".join(
+        i for _, i, _ in _instructions(fn)).encode()).hexdigest()[:16]
+        for m, fn in functions(sass) if any(n in m for n in names)}
+
+
+def compare(parent_path: str, change_path: str) -> int:
+    """Print, per parent instantiation, whether the change holds one with
+    the same code; 1 if any parent instantiation has none."""
+    with open(parent_path) as f:
+        parent = json.load(f)
+    with open(change_path) as f:
+        change = json.load(f)
+    by_digest = {}
+    for lab, dig in change.items():
+        by_digest.setdefault(dig, []).append(lab)
+    missing = 0
+    for lab, dig in sorted(parent.items()):
+        same = by_digest.get(dig)
+        missing += not same
+        print(f"{lab} {dig}: " + ("same code as " + ", ".join(same) if same
+                                  else "no instantiation of the change has "
+                                       "this code"))
+    new = sorted(lab for lab, dig in change.items()
+                 if dig not in set(parent.values()))
+    print(f"{len(parent) - missing} of {len(parent)} parent instantiations "
+          f"unchanged; the change's instantiations with new code: {new}")
+    return 1 if missing else 0
+
+
 def main(argv) -> int:
+    if argv[:1] == ["--compare"]:
+        return compare(argv[1], argv[2])
     lines = "--lines" in argv
+    out = None
+    if "--digests" in argv:
+        i = argv.index("--digests")
+        out = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
     names = [a for a in argv if a != "--lines"] or ["pair_kernel"]
-    rows, bad = report(library_sass(), names)
+    sass = library_sass()
+    rows, bad = report(sass, names)
     print("\n".join(rows))
+    if out:
+        with open(out, "w") as f:
+            json.dump(digests(sass, names), f, indent=1, sort_keys=True)
     if lines:
         srcs = sorted(glob.glob(os.path.join(ROOT, "cytvdn_tpu_torch", "csrc",
                                              "*.cu")))
