@@ -37,9 +37,9 @@ non-zero — nothing is caught):
    (256,256,128,128), and each CUDA kernel's device time from
    ``torch.profiler`` at the last, the lossy K=1 launch's passes (d
    bfloat16) apart in the same session; the pair kernel's strip sweep: ms per
-   pair at W = 4, 8, 12, 16, 32, 64 and N1 (the whole-row schedule, the
+   pair at W = 8, 16, 64 and N1 (the whole-row schedule, the
    default), in turns with two fused-iteration launches, at rows of 2 to 16
-   MB (STRIP_SWEEP), and ``run_solver`` x48 there (x16 at config 4), at
+   MB (STRIP_SWEEP), and ``run_solver`` x24 there (x16 at config 4), at
    (N0,64,2048) for N0 = 128, 192, 1024, at (128,128,64,64) unaccelerated
    and at N0 = 2K with large rows, (16,512,128,128) FISTA and
    (12,1024,2048) unaccelerated, along the engine's pick, K=8, pairs and
@@ -125,8 +125,7 @@ non-zero — nothing is caught):
    ``--preset eels3d`` through ``python -m cytvdn_tpu_torch.cli`` (the
    stop iteration and launches from its log); each recon bitwise the
    ``denoise4D``/``denoise3D`` run with the same arguments; ``--shard``
-   and ``--out-of-core --temporal 2 --lossy-duals`` exit 2 naming their
-   ROADMAP items. Where h5py is missing, the command's load-and-solve
+   and ``--backend cpp`` exit 2 naming their ROADMAP items. Where h5py is missing, the command's load-and-solve
    step stands in for it;
 8. out-of-core runs (``solver/outofcore.py``): (a) the K=1 kernel with
    operand halos against its plain version with the same halos, 3
@@ -199,16 +198,31 @@ non-zero — nothing is caught):
    (last extents 1 and 33) at the wrapper's grid and forced grids of 1 and
    7 blocks, with halos on the first, an interior and the last of three
    slabs, on config 4's interior stream slab and on two mesh shards'
-   operands, and on config 4's whole cube, compared off the card; (b) config 4 through ``denoise4D(lossy_duals=True)`` x20:
-   20 K=1 launches and no other, s per iteration with and without the
-   host copies, the peak device memory, the recon's rel-L2 against the
-   exact run, and ms of one lossy K=1 launch and of its plain version at
-   config 4 against the lossy bound (d at 2 bytes); (c) config 4 lossy in
-   stream mode, 4 slabs x2, bitwise the in-core lossy run, GB/s each way;
+   operands, and on config 4's whole cube, compared off the card; the
+   pair kernel's LOSSY instantiations (iteration 1's d rounded in the
+   middle of the pair) against the plain pair and four LOSSY K=1 launches,
+   two pairs each, state bitwise with d, at N0 = 4..7 and ragged shapes,
+   with and without the reference cube, at forced grids of 1 and 7 blocks
+   and a forced strip, with HALO0 bands on the first, an interior and the
+   last slab (the stash against one plain K=1 step), ``round_bf16`` in
+   CUDA against torch's bfloat16 cast on canary values (through the
+   stash), and on config 4's whole cube against two plain iterations
+   (off the card) and two LOSSY K=1 launches (on it); (b) config 4
+   through ``denoise4D(lossy_duals=True)`` x20: 10 LOSSY pairs and no
+   other launch, recon bitwise the lossy K=1 loop's, s per iteration with
+   and without the host copies, the peak device memory, the recon's
+   rel-L2 against the exact run, and ms of one lossy K=1 launch, one
+   lossy pair (with and without the reference cube), the exact pair and
+   their plain versions at config 4 against the lossy bounds (d at 2
+   bytes); a lossy MSE x20 in REF+LOSSY pairs and a lossy stop run behind
+   the guard, each bitwise the lossy K=1 loop; (c) config 4 lossy in
+   stream mode, 4 slabs x2, and in temporal mode, K=8 in 4 slabs x16,
+   each bitwise the in-core lossy run, s per iteration and GB/s each way;
    (d) a small 4D cube lossy x4 on a (2, 1, 1, 1) mesh of 2 processes
-   sharing the card, bitwise the single-device lossy run. Phase 1's SASS
-   check covers the 4 LOSSY instantiations (no store in flight, no local
-   memory);
+   sharing the card, in LOSSY HALO0 pairs, bitwise the single-device
+   lossy run. Phase 1's SASS check covers the 4 LOSSY instantiations of
+   the K=1 dual pass and the 8 of the pair kernel (no store in flight, no
+   local memory);
 12. one JSON line on the kernels (launches on the path that reaches each,
    error, ms, the plain version's ms and the least time the card could
    take), the card's name and power limit, and the ``{"ok": true, ...}``
@@ -309,7 +323,9 @@ RAGGED_STRIPS = [((5, 10, 9, 33), 3), ((6, 13, 70), 5), ((6, 45, 70), 11),
 # K=1 loop
 STRIP_SWEEP = [(CFG4, True), ((64, 128, 128, 128), True), (CFG3, True),
                (CFG2, True), ((64, 64, 8192), False), ((64, 64, 16384), False)]
-STRIP_WIDTHS = (4, 8, 12, 16, 32, 64)
+# (whole rows won or tied at every row size swept, PERF.md section 6; the
+# sweep keeps three widths)
+STRIP_WIDTHS = (8, 16, 64)
 # run_solver only: 3D unaccelerated states of 336 MB, 503 MB and 2.7 GB
 # with 512 KB rows; 4D unaccelerated (config 3's shape, 1.6 GB); N0 = 2K of
 # the depth the gate picks with large rows, where most of a launch's stages
@@ -720,23 +736,26 @@ def ptxas_summary(log: str) -> str:
     return "; ".join(rows)
 
 
-def dual_store_order():
-    """Each instantiation of the K=1 kernel's dual pass in the built
-    library's SASS (``tools/torch_sass_order.py``): (template arguments
-    <T,ND,FISTA,HALO,ISO,LOSSY>, ISO, LOSSY, stores, stores sent while their
-    own load is in flight, LDL, STL)."""
+def store_order():
+    """Each instantiation of the K=1 kernel's dual pass and of the pair
+    kernel in the built library's SASS (``tools/torch_sass_order.py``), by
+    kernel name: (template arguments, <T,ND,FISTA,HALO,ISO,LOSSY> of
+    dual_kernel or <ND,FISTA,REF,HALO0,LOSSY> of pair_kernel; ISO; LOSSY;
+    stores; stores sent while their own load is in flight; LDL; STL)."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "tools"))
     import torch_sass_order as so
 
-    rows = []
+    rows = {"dual_kernel": [], "pair_kernel": []}
     for mangled, fn in so.functions(so.library_sass()):
-        if "dual_kernel" not in mangled:
+        name = next((k for k in rows if k in mangled), None)
+        if name is None:
             continue
         _, args = kernel_args(mangled)
         stores, _, in_flight = so.store_order(fn)
-        rows.append((f"<{','.join(args)}>", args[4] == "1", args[5] == "1",
-                     stores, len(in_flight), *so.local_memory(fn)))
+        iso = name == "dual_kernel" and args[4] == "1"
+        rows[name].append((f"<{','.join(args)}>", iso, args[-1] == "1",
+                           stores, len(in_flight), *so.local_memory(fn)))
     return rows
 
 
@@ -916,6 +935,7 @@ def reset_counts():
     resident_solve.launches = 0
     fused_kstep_iteration.launches = 0
     fused_pair_iteration.launches = 0
+    fused_pair_iteration.lossy_launches = 0
     fused_iteration.launches = 0
     fused_iteration.halo_launches = 0
     fused_iteration.mode_launches = 0
@@ -1880,8 +1900,8 @@ def cli_phase(smi, cube):
     from a .npy file, ``--preset stem4d``, in this process; (b) config 1,
     a synthetic EELS cube, from a .dm4 file, ``--preset eels3d``, as a
     separate process; each recon bitwise the API's run with the same
-    arguments. (c) ``--shard`` and ``--out-of-core --temporal 2`` with
-    ``--lossy-duals`` exit 2, naming their ROADMAP items."""
+    arguments. (c) ``--shard`` and ``--backend cpp`` exit 2, naming their
+    ROADMAP items."""
     from cytvdn_tpu_torch import cli
     from cytvdn_tpu_torch.io.dm import write_dm
 
@@ -2025,8 +2045,7 @@ def cli_phase(smi, cube):
                 (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2", "--shard",
                   "2"], 2, "Queue 1 item 10"),
                 (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2",
-                  "--out-of-core", "2", "--temporal", "2", "-f", "1",
-                  "--lossy-duals"], 2, "Queue 1 items 12(b), 12(c)")):
+                  "--backend", "cpp"], 2, "Queue 1 item 13")):
             proc = subprocess.run(
                 [sys.executable, "-m", "cytvdn_tpu_torch.cli", *flags],
                 cwd=root, env=env, capture_output=True, text=True,
@@ -2454,13 +2473,17 @@ QUAD4 = (128, 128, 128, 128)    # config 4's block on a (2, 2, 1, 1) mesh
 SHARD2 = (128, 256, 2048)       # config 2's block on a (2, 1, 1) mesh
 
 
-def halo0_state(shape, fista, gen):
+def halo0_state(shape, fista, gen, lossy=False):
     """A random Jia-Zhao state of a whole cube on the card: each
     accumulator's leading slab along its own axis is zero, so the own row 0
     of every axis-0 slab but the first holds nonzero axis-0 accumulators
-    (the wrap a shard must not read)."""
+    (the wrap a shard must not read). ``lossy``: FISTA's d in bfloat16."""
     orig, state, li, lm, _ = random_state(shape, fista, torch.float32, gen,
                                           jz=True)
+    if lossy:
+        nd = len(shape)
+        state = state[:1 + nd] + [d.to(torch.bfloat16)
+                                  for d in state[1 + nd:]]
     return orig, state, li, lm
 
 
@@ -2485,12 +2508,13 @@ def halo0_pair(step, orig, state, fista, li, lm, a0, a1, ref=None,
 
 
 def compare_halo0(shape, fista, with_ref, a0, a1, grids=(None,),
-                  strips=(None,)):
+                  strips=(None,), lossy=False):
     """The HALO0 pair on rows [a0, a1) of a random cube at each forced grid
-    and strip against the plain pair with the same bands: state bitwise,
-    sums within rtol 1e-5; returns max |Δstate|."""
+    and strip against the plain pair with the same bands: state bitwise
+    (``lossy``: d bfloat16, bands widened, the LOSSY instantiation), sums
+    within rtol 1e-5; returns max |Δstate|."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    orig, state, li, lm = halo0_state(shape, fista, gen)
+    orig, state, li, lm = halo0_state(shape, fista, gen, lossy)
     if a0 > 0:
         require(state[1][a0].abs().max().item() > 0,
                 "the slab's own axis-0 row 0 is zero")
@@ -2503,12 +2527,13 @@ def compare_halo0(shape, fista, with_ref, a0, a1, grids=(None,),
             ks, ksum = halo0_pair(fused_pair_iteration, orig, state, fista,
                                   li, lm, a0, a1, ref, grid=g,
                                   strip=shape[1] if w == "N1" else w)
-            err = max(err, max((a - b).abs().max().item()
+            err = max(err, max((a.float() - b.float()).abs().max().item()
                                for a, b in zip(ks, ps)))
-            require(all(torch.equal(a, b) for a, b in zip(ks, ps)),
+            require(all(a.dtype == b.dtype and torch.equal(a, b)
+                        for a, b in zip(ks, ps)),
                     f"HALO0 pair {shape} rows [{a0}, {a1}) fista {fista} ref "
-                    f"{with_ref} grid {g} strip {w}: state differs from the "
-                    f"plain pair (max |Δ| {err})")
+                    f"{with_ref} lossy {lossy} grid {g} strip {w}: state "
+                    f"differs from the plain pair (max |Δ| {err})")
             torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
             del ks
     del ps, state, orig, ref
@@ -2683,15 +2708,20 @@ def sharded_worker(spec_path: str) -> int:
         dist.barrier()
         reset_counts()
         fused_pair_iteration.halo0_launches = 0
-        out = denoise_sharded(
-            src, np.full(run["ndim"], 1.0, np.float32),
-            iterations=run["iterations"], FISTA=True,
-            stopping_relative_change=run.get("stop"), reference_data=ref,
-            shard=tuple(run["shard"]), quiet=True, **run.get("options", {}))
+        # "any_row": pairs at any row size (a small cube's mesh pairs)
+        with pairs_at_any_row() if run.get("any_row") \
+                else contextlib.nullcontext():
+            out = denoise_sharded(
+                src, np.full(run["ndim"], 1.0, np.float32),
+                iterations=run["iterations"], FISTA=True,
+                stopping_relative_change=run.get("stop"), reference_data=ref,
+                shard=tuple(run["shard"]), quiet=True,
+                **run.get("options", {}))
         res = {
             "name": run["name"], "rank": rank, "backend": backend,
             "launches": launch_counts(),
             "halo0": fused_pair_iteration.halo0_launches,
+            "pair_lossy": fused_pair_iteration.lossy_launches,
             "k1_halo": fused_iteration.halo_launches,
             "modes": fused_iteration.mode_launches,
             "peak": torch.cuda.max_memory_allocated() if on_card else 0,
@@ -3566,19 +3596,211 @@ def rel_l2_on_card(a: torch.Tensor, b: np.ndarray) -> float:
     return math.sqrt(num / den)
 
 
-def lossy_phase(smi, name, cube, tmp):
+# the pair kernel's LOSSY cases: N0 = 4..7 in 3D and 4D (stages where only
+# some row operations have a row) and ragged edges on every axis, at the
+# wrapper's grid, 1 and 7 blocks and a forced strip of 3
+LOSSY_PAIR_SHAPES = [(4, 9, 10, 33), (7, 9, 10, 33), (5, 13, 70),
+                     (7, 13, 70), ODD]
+LOSSY_PAIR_GRIDS = ((None, None), (1, None), (7, None), (None, 3))
+
+
+def lossy_pair_case(shape, with_ref=False, grids=LOSSY_PAIR_GRIDS):
+    """Two pairs of the pair kernel's LOSSY instantiation (bfloat16 d) at
+    each forced (grid, strip) of ``grids`` against the plain pair and,
+    without a reference cube, against four LOSSY K=1 launches, from one
+    Jia-Zhao state: state bitwise, d included, sums within rtol 1e-5.
+    Returns max |Δstate| and the lossy pair launches made."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    orig, state, li, lm, rho = random_state(shape, True, torch.float32, gen,
+                                            jz=True)
+    nd = len(shape)
+    state = state[:1 + nd] + [d.to(torch.bfloat16) for d in state[1 + nd:]]
+    ref = {"ref": ref_cube(shape)} if with_ref else {}
+
+    def run(step, **kw):
+        s = [x.clone() for x in state]
+        fn = pair_fn(step, orig, s, li, lm, rho, True, **kw)
+        sums = torch.stack([torch.stack(fn()).double() for _ in range(2)])
+        torch.cuda.synchronize()
+        return s, sums.cpu()
+
+    wants = [("plain pair", run(fused_pair_iteration_reference, **ref))]
+    if not with_ref:
+        wants.append(("four LOSSY K=1 launches", run(two_k1)))
+    err, before = 0.0, fused_pair_iteration.lossy_launches
+    for g, w in grids:
+        ks, ksum = run(fused_pair_iteration, grid=g, strip=w, **ref)
+        for what, (ps, psum) in wants:
+            err = max([err] + [(a.float() - b.float()).abs().max().item()
+                               for a, b in zip(ks, ps)])
+            require(all(a.dtype == b.dtype and torch.equal(a, b)
+                        for a, b in zip(ks, ps)),
+                    f"lossy pair {shape} ref {with_ref} grid {g} strip {w}: "
+                    f"state differs from the {what} (max |Δ| {err})")
+            torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+    launches = fused_pair_iteration.lossy_launches - before
+    require(launches == 2 * len(grids),
+            f"lossy pair {shape}: {launches} lossy launches")
+    del state, orig, wants, ks, ref
+    torch.cuda.empty_cache()
+    return err, launches
+
+
+def lossy_halo0_stash(shape, a0, a1):
+    """The LOSSY HALO0 pair's 2-row stash on rows [a0, a1) (a1 below the
+    cube's last row): the +1 shard's row-0 b_0 and d_0 after iteration 1,
+    bitwise one plain lossy K=1 step of the whole cube at row a1, d_0 on
+    the bfloat16 grid (wavefront.cuh round_bf16)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    orig, state, li, lm = halo0_state(shape, True, gen, lossy=True)
+    nd = len(shape)
+    stash = torch.full((2,) + tuple(shape[1:]), float("nan"), device="cuda")
+    halo0_pair(fused_pair_iteration, orig, state, True, li, lm, a0, a1,
+               stash=stash)
+    s = [x.clone() for x in state]
+    fused_iteration_reference(orig, s[0], s[1:1 + nd], s[1 + nd:],
+                              torch.tensor(0.37, device="cuda"), li, lm,
+                              fista=True)
+    require(torch.equal(stash[0], s[1][a1])
+            and torch.equal(stash[1], s[1 + nd][a1].float()),
+            f"lossy HALO0 stash {shape} rows [{a0}, {a1}) != one plain "
+            f"lossy K=1 step at row {a1}")
+
+
+def bf16_canaries() -> np.ndarray:
+    """The lossy duals' rounding canaries (tests/test_torch_lossy.py::
+    _torture): ties, denormals, the carry to infinity, and 4096 random
+    values over 26 decades; 4118 float32 values."""
+    torture = np.array([
+        0.0, -0.0, 1.0, -1.0, 1.0 + 2.0 ** -9, 1.0 + 3.0 * 2.0 ** -9,
+        1.0 + 2.0 ** -9 + 2.0 ** -20, np.float32(np.pi), -np.float32(np.e),
+        1e-38, -1e-38, 1.1754944e-38, 1e-41, -3e-44, 3.3895314e38, 3.39e38,
+        -3.39e38, 65535.5, 65504.0, 2.0 ** 127, np.finfo(np.float32).max,
+        np.finfo(np.float32).tiny], dtype=np.float32)
+    rng = np.random.default_rng(7)
+    rand = (rng.standard_normal(4096)
+            * np.exp(rng.uniform(-30, 30, 4096))).astype(np.float32)
+    return np.concatenate([torture, rand])
+
+
+def round_bf16_through_stash():
+    """``wavefront.cuh::round_bf16`` on :func:`bf16_canaries` through the
+    stash of one LOSSY HALO0 pair: with this shard's last recon row and the
+    +1 shard's row-0 recon band zero and the axis-0 clip radius the largest
+    float, the stashed row-0 d_0 of the +1 shard is round_bf16(0 + b) for
+    the band b of canary values. Returns it and torch's float -> bfloat16
+    -> float cast of 0 + b (0 + -0.0 is +0.0), both as int32 bits."""
+    vals = torch.from_numpy(bf16_canaries()).cuda()
+    shape = (4, 71, 58)  # a row of 4118 elements, one per canary value
+    nd = len(shape)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    orig, state, li, lm = halo0_state(shape, True, gen, lossy=True)
+    state[0][-1].zero_()
+    h, _, _ = halo0_bands(orig, state[0], state[1:1 + nd], state[1 + nd:], 0,
+                          shape[0])
+    h = {k: torch.zeros_like(v) for k, v in h.items() if k.startswith("n_")}
+    h["n_acc0"] = vals.view(h["n_acc0"].shape).clone()
+    li[0] = torch.finfo(torch.float32).max
+    stash = torch.full((2,) + shape[1:], float("nan"), device="cuda")
+    fused_pair_iteration(
+        orig, state[0], state[1:1 + nd], state[1 + nd:],
+        torch.tensor(0.37, device="cuda"), torch.tensor(RHO2, device="cuda"),
+        li, lm, fista=True, halos0=h, first0=True, last0=False, stash=stash)
+    want = (torch.zeros_like(vals) + vals).to(torch.bfloat16).float()
+    return (stash[1].reshape(-1).view(torch.int32).cpu(),
+            want.view(torch.int32).cpu())
+
+
+def compare_lossy_pair_cfg4():
+    """One lossy pair at config 4 (256²×128² FISTA, d bfloat16): against
+    two plain lossy iterations, compared off the card (``offcard_equal``),
+    and against two LOSSY K=1 launches on the card from one state (each
+    of the 9 arrays bitwise, the sums within rtol 1e-5). Returns max
+    |Δstate| and the lossy pair launches made."""
+    def pair(step):
+        return lambda orig, state, li, lm, rho: torch.stack(
+            pair_fn(step, orig, state, li, lm, rho, True)())
+
+    before = fused_pair_iteration.lossy_launches
+    err, _ = offcard_equal(CFG4, True, [
+        ("lossy pair kernel", pair(fused_pair_iteration)),
+        ("plain", pair(fused_pair_iteration_reference))], lossy=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    orig, state, li, lm, rho = random_state(CFG4, True, torch.float32, gen,
+                                            jz=True)
+    for i in range(5, 9):
+        state[i] = state[i].to(torch.bfloat16)
+    torch.cuda.empty_cache()
+    k1 = [x.clone() for x in state]
+    sp = torch.stack(pair_fn(fused_pair_iteration, orig, state, li, lm, rho,
+                             True)()).double().cpu()
+    sk = torch.stack(pair_fn(two_k1, orig, k1, li, lm, rho,
+                             True)()).double().cpu()
+    for a, b in zip(state, k1):
+        err = max(err, (a.float() - b.float()).abs().max().item())
+        require(a.dtype == b.dtype and torch.equal(a, b),
+                f"lossy pair at {CFG4} != two LOSSY K=1 launches (max |Δ| "
+                f"{err})")
+    torch.testing.assert_close(sp, sk, rtol=1e-5, atol=0)
+    del orig, state, k1
+    torch.cuda.empty_cache()
+    return err, fused_pair_iteration.lossy_launches - before
+
+
+def lossy_pair_cases():
+    """Phase 11 (a), the pair kernel's part: :func:`lossy_pair_case` at
+    LOSSY_PAIR_SHAPES with and without a reference cube, the LOSSY HALO0
+    pair on the first, an interior and the last 4-row slab of HALO0_SMALL
+    (with and without a reference cube, at the grids and strip of
+    LOSSY_PAIR_GRIDS) and its stash, ``round_bf16`` through the stash on
+    the canaries, and config 4's whole cube. Returns (max |Δstate|,
+    cases, lossy pair launches)."""
+    err, n_cases, launches = 0.0, 0, 0
+    for shape in LOSSY_PAIR_SHAPES:
+        for with_ref in (False, True):
+            e, n = lossy_pair_case(shape, with_ref)
+            err, n_cases, launches = max(err, e), n_cases + 1, launches + n
+    before = fused_pair_iteration.lossy_launches
+    grids = [g for g, _ in LOSSY_PAIR_GRIDS if g is not None]
+    for shape in HALO0_SMALL:
+        for a0, a1 in ((0, 4), (4, 8), (shape[0] - 4, shape[0])):
+            for with_ref in (False, True):
+                err = max(err, compare_halo0(
+                    shape, True, with_ref, a0, a1, grids=(None, *grids),
+                    lossy=True))
+                err = max(err, compare_halo0(
+                    shape, True, with_ref, a0, a1, strips=(3,), lossy=True))
+                n_cases += 1
+            if a1 < shape[0]:
+                lossy_halo0_stash(shape, a0, a1)
+    got, want = round_bf16_through_stash()
+    require(torch.equal(got, want), f"round_bf16 in CUDA != torch's bfloat16 "
+                                    f"cast at {(got != want).sum().item()} of "
+                                    f"{got.numel()} canary values")
+    launches += fused_pair_iteration.lossy_launches - before
+    e, n = compare_lossy_pair_cfg4()
+    return max(err, e), n_cases + 2, launches + n
+
+
+def lossy_phase(smi, name, cube, scan, det, tmp):
     """Phase 11: lossy shadow duals. (a) the K=1 kernel's LOSSY
     instantiation against its plain version, bitwise with d, at ragged 3D
     and 4D shapes and forced grids of 1 and 7 blocks, its HALO form on
     slabs (config 4's stream slab among them) and on a mesh shard's
-    operands, and on config 4's whole cube, compared off the card; (b) config 4 through ``denoise4D(lossy_duals=True)`` x20
-    (20 K=1 launches and no other), its time with and without the host
-    copies, the K=1 launch's ms and plain ms at config 4 against the lossy
-    bound, the peak device memory and the recon's rel-L2 against the exact
-    run; (c) config 4 lossy out of core, stream mode in 4 slabs x2,
-    bitwise the in-core lossy run; (d) a 2-rank (2, 1, 1, 1) lossy mesh of
-    processes sharing the card, bitwise the single-device lossy run.
-    Returns the numbers of the kernels line's row."""
+    operands, and on config 4's whole cube, compared off the card; the pair
+    kernel's LOSSY instantiations (:func:`lossy_pair_cases`); (b) config 4
+    through ``denoise4D(lossy_duals=True)`` x20 (10 LOSSY pairs and no
+    other launch), bitwise the lossy K=1 loop, its time with and without
+    the host copies, the peak device memory and the recon's rel-L2 against
+    the exact run; the lossy K=1 launch, the lossy pair (with and without
+    the clean cube as reference), the exact pair and the plain versions at
+    config 4 in turns, against the lossy bounds; a lossy MSE x20 in
+    REF+LOSSY pairs and a lossy stop run near 48 behind the guard, each
+    bitwise the lossy K=1 loop; (c) config 4 lossy out of core, stream mode
+    in 4 slabs x2 and temporal mode K=8 in 4 slabs x16, each bitwise the
+    in-core lossy run; (d) a 2-rank (2, 1, 1, 1) lossy mesh of processes
+    sharing the card, in LOSSY HALO0 pairs, bitwise the single-device lossy
+    run. Returns the numbers of the kernels line's rows."""
     t_phase = t0 = time.perf_counter()
     err, n_cases, launches = 0.0, 0, 0
     for shape in LOSSY_SHAPES:
@@ -3604,14 +3826,31 @@ def lossy_phase(smi, name, cube, tmp):
         f"cube {CFG4}, compared off the card), 3 iterations each: state "
         f"bitwise equal, d included (max |Δ| {err}), sums within rtol "
         f"1e-5; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    perr, p_cases, p_launches = lossy_pair_cases()
+    log(f"phase 11 (a) lossy pair kernel (LOSSY: bfloat16 d, iteration 1's "
+        f"d rounded in the middle of the pair) vs the plain pair and four "
+        f"LOSSY K=1 launches: {p_cases} cases, {p_launches} lossy pair "
+        f"launches ({LOSSY_PAIR_SHAPES} with and without a reference cube, "
+        f"2 pairs at (grid, strip) {LOSSY_PAIR_GRIDS}; HALO0 on the first, "
+        f"an interior and the last 4-row slab of {HALO0_SMALL} at those "
+        f"grids and strip, with and without a reference cube, the stash "
+        f"bitwise one plain lossy K=1 step; round_bf16 in CUDA bitwise "
+        f"torch's bfloat16 cast on {bf16_canaries().size} canary values; "
+        f"config 4's whole cube against two plain iterations off the card "
+        f"and two LOSSY K=1 launches on it): state bitwise equal, d "
+        f"included (max |Δ| {perr}), sums within rtol 1e-5; "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # (b) config 4 x20 through the API, then on the card alone
     t0 = time.perf_counter()
     mu = np.full(4, 1.0, np.float32)
     opts = SolverOptions(ndim=4, iterations_fista=20, iterations_unacc=0,
                          lossy_duals=True)
+    k1_opts = SolverOptions(ndim=4, iterations_fista=20, iterations_unacc=0,
+                            lossy_duals=True, temporal_pairs=False)
     want = expected_launches(opts, CFG4)
-    require(want == (0, 0, 0, 20), f"lossy config 4 plan {want}")
+    require(want == (0, 0, 10, 0), f"lossy config 4 plan {want}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -3621,16 +3860,22 @@ def lossy_phase(smi, name, cube, tmp):
                                      device="cuda")
     wall = time.perf_counter() - t1
     counts = launch_counts()
-    n_lossy = fused_iteration.lossy_launches
+    n_lossy = fused_pair_iteration.lossy_launches
     peak = torch.cuda.max_memory_allocated()
-    require(counts == want and n_lossy == 20,
+    require(counts == want and n_lossy == 10,
             f"lossy config 4: launches (whole-run, K-step, pair, K=1) "
-            f"{counts}, {n_lossy} of them lossy; expected {want}")
+            f"{counts}, {n_lossy} of them lossy pairs; expected {want}")
     require(recon.shape == CFG4 and bool(np.isfinite(recon).all())
             and bool((delta > 0).all()), "lossy config 4 result")
     orig = torch.from_numpy(cube).cuda()
     li = torch.full((4,), 32.0, device="cuda")
     lm = torch.full((4,), 1 / 32, device="cuda")
+    k1 = run_solver(orig, li, lm, k1_opts)
+    require(torch.equal(k1["recon"].cpu(), torch.from_numpy(recon)),
+            "lossy config 4: the pairs' recon != the lossy K=1 loop's")
+    np.testing.assert_allclose(k1["delta"].cpu().numpy(), delta, rtol=1e-5)
+    del k1
+    torch.cuda.empty_cache()
     exact = run_solver(orig, li, lm, SolverOptions(
         ndim=4, iterations_fista=20, iterations_unacc=0))["recon"]
     torch.cuda.empty_cache()
@@ -3646,37 +3891,135 @@ def lossy_phase(smi, name, cube, tmp):
     solve_s = time.perf_counter() - t1
     require(torch.equal(st["recon"].cpu(), torch.from_numpy(recon)),
             "lossy config 4: run_solver recon != denoise4D's")
-    # the K=1 launch at config 4, lossy, on the run's state: the kernel and
-    # its plain version in turns
+    # the launches at config 4 on the run's state, in turns: the lossy K=1
+    # launch, the lossy pair, the exact pair (d widened to float32) and the
+    # plain versions; then the lossy pair with the clean cube as reference
     accs, ds = st["accs"], st["ds"]
     rho = torch.tensor(0.5, device="cuda")
-    fns = {"kernel": step_fn(fused_iteration, orig, [st["recon"], *accs, *ds],
-                             li, lm, rho, True),
-           "plain": step_fn(fused_iteration_reference, orig,
-                            [st["recon"], *accs, *ds], li, lm, rho, True)}
+    lossy_state = [st["recon"], *accs, *ds]
+    exact_state = [st["recon"], *accs, *(d.float() for d in ds)]
+    fns = {"k1": step_fn(fused_iteration, orig, lossy_state, li, lm, rho,
+                         True),
+           "plain": step_fn(fused_iteration_reference, orig, lossy_state, li,
+                            lm, rho, True),
+           "pair": pair_fn(fused_pair_iteration, orig, lossy_state, li, lm,
+                           rho, True),
+           "plain_pair": pair_fn(fused_pair_iteration_reference, orig,
+                                 lossy_state, li, lm, rho, True),
+           "exact_pair": pair_fn(fused_pair_iteration, orig, exact_state, li,
+                                 lm, rho, True)}
     raw = {k: [] for k in fns}
-    for k in ("plain", "kernel", "kernel", "plain"):
-        raw[k].append(time_ms(fns[k], 1 if k == "plain" else 5))
+    for k in ("plain", "plain_pair", "k1", "pair", "exact_pair",
+              "exact_pair", "pair", "k1", "plain_pair", "plain"):
+        raw[k].append(time_ms(fns[k], 1 if k.startswith("plain") else 5))
+    del exact_state, fns
+    torch.cuda.empty_cache()
+    ref4 = (torch.from_numpy(scan).cuda()[:, :, None, None]
+            + torch.from_numpy(det).cuda()[None, None]).contiguous()
+    fn_ref = pair_fn(fused_pair_iteration, orig, lossy_state, li, lm, rho,
+                     True, ref=ref4)
+    raw["pair_ref"] = [time_ms(fn_ref, 5) for _ in range(2)]
     ms = {k: sum(v) / len(v) for k, v in raw.items()}
     bw, f32 = peak_bandwidth(name), peak_f32(name)
-    bound = launch_bound_seconds(CFG4, True, 1, bw, f32, d_itemsize=2) \
-        if bw and f32 else (None, None)
-    b_ms = bound[0] * 1e3 if bound[0] else float("nan")
-    del st, accs, ds, fns, orig
+
+    def bound(iters, ref=False):
+        if not (bw and f32):
+            return float("nan"), None
+        t, by = launch_bound_seconds(CFG4, True, iters, bw, f32, ref=ref,
+                                     d_itemsize=2)
+        return t * 1e3, by
+
+    b_k1, b_pair, b_ref = bound(1), bound(2), bound(2, ref=True)
+    del st, accs, ds, lossy_state, fn_ref
     torch.cuda.empty_cache()
     log(f"phase 11 (b) config 4 {CFG4} FISTA x20 lossy_duals: denoise4D "
         f"{wall:.3f} s = {wall / 20:.4f} s per iteration with the host "
         f"copies, run_solver on the card {solve_s:.4f} s = "
         f"{solve_s / 20:.4f} s per iteration without; launches whole-run/"
-        f"K-step/pair/K=1 {counts}, {n_lossy} lossy; peak device memory "
-        f"{peak / 2**30:.3f} GiB; recon rel-L2 against the exact run "
-        f"{drift:.6e}; one lossy K=1 launch {ms['kernel']:.3f} ms "
-        f"({b_ms / ms['kernel']:.3f} of the lossy bound {b_ms:.2f} ms, 60 "
-        f"B per voxel), plain {ms['plain']:.3f} ms (runs "
+        f"K-step/pair/K=1 {counts}, {n_lossy} LOSSY pairs; recon bitwise "
+        f"the lossy K=1 loop's (run_solver, temporal_pairs=False), traces "
+        f"within rtol 1e-5; peak device memory {peak / 2**30:.3f} GiB; "
+        f"recon rel-L2 against the exact run {drift:.6e}; one lossy pair "
+        f"{ms['pair']:.3f} ms ({b_pair[0] / ms['pair']:.3f} of its "
+        f"{b_pair[0]:.2f} ms bound, 60 B per voxel), plain "
+        f"{ms['plain_pair']:.3f} ms; the exact pair on the same state (d "
+        f"widened) {ms['exact_pair']:.3f} ms; with the clean cube as "
+        f"reference {ms['pair_ref']:.3f} ms ({b_ref[0] / ms['pair_ref']:.3f}"
+        f" of {b_ref[0]:.2f} ms); one lossy K=1 launch {ms['k1']:.3f} ms "
+        f"({b_k1[0] / ms['k1']:.3f} of {b_k1[0]:.2f} ms), plain "
+        f"{ms['plain']:.3f} ms (runs "
         f"{ {k: [round(x, 3) for x in v] for k, v in raw.items()} }); "
         f"{time.perf_counter() - t0:.1f} s [{smi}]")
 
-    # (c) config 4 lossy out of core, stream mode, against in core
+    # (b) the lossy MSE run in REF+LOSSY pairs and the lossy stop run behind
+    # the guard, each against the lossy K=1 loop
+    t0 = time.perf_counter()
+    mse_kw = dict(ndim=4, iterations_fista=20, iterations_unacc=0,
+                  calculate_mse=True, lossy_duals=True)
+    runs_m = {path: counted_run(orig, li, lm, SolverOptions(**mse_kw, **kw),
+                                ref=ref4)
+              for path, kw in (("pairs", {}),
+                               ("k1", dict(temporal_pairs=False)))}
+    lossy_m = fused_iteration.lossy_launches
+    want_m = runs_m["k1"][0]
+    same_result([runs_m["pairs"]], want_m, "config 4 lossy MSE",
+                keys=("b_norm", "delta", "mse"))
+    lm_ = {path: r[2] for path, r in runs_m.items()}
+    require(lm_["pairs"] == (0, 0, 10, 0) and lm_["k1"] == (0, 0, 0, 20)
+            and lossy_m == 20, f"config 4 lossy MSE launches {lm_}")
+    mse = want_m["mse"].numpy()
+    require(bool(np.all(mse > 0)) and mse[-1] < mse[0],
+            f"config 4 lossy MSE did not fall: {mse[0]} -> {mse[-1]}")
+    secs_m = {path: r[1] for path, r in runs_m.items()}
+    del ref4, runs_m
+    torch.cuda.empty_cache()
+    n4 = 64
+    fixed = run_solver(orig, li, lm, SolverOptions(
+        ndim=4, iterations_fista=n4, iterations_unacc=0, lossy_duals=True))
+    thr4, stop4 = stop_threshold(fixed["delta"], 48)
+    del fixed
+    torch.cuda.empty_cache()
+    base4 = dict(ndim=4, iterations_fista=n4, iterations_unacc=0,
+                 stopping_relative_change=thr4, lossy_duals=True)
+    need4 = engine.stop_ckpt_bytes(SolverOptions(**base4), CFG4,
+                                   torch.float32)
+    runs4, lossy4 = {}, {}
+    for path, kw in (("pick", {}), ("k1", dict(temporal_pairs=False))):
+        runs4[path] = counted_run(orig, li, lm, SolverOptions(**base4, **kw))
+        lossy4[path] = (fused_iteration.lossy_launches,
+                        fused_pair_iteration.lossy_launches)
+    want4 = runs4["k1"][0]
+    require(want4["iterations_run"] == stop4 and want4["early_stopped"],
+            f"config 4 lossy stop after {want4['iterations_run']}, expected "
+            f"{stop4}")
+    same_result([runs4["pick"]], want4, "config 4 lossy stop")
+    l4 = {path: r[2] for path, r in runs4.items()}
+    k1_stop, pair_stop = lossy4["pick"]
+    require(need4 <= engine.STOP_CKPT_MAX_BYTES and l4["pick"][:2] == (0, 0)
+            and l4["pick"][2] == pair_stop > 0
+            and l4["pick"][3] == k1_stop > 0 and l4["k1"][:3] == (0, 0, 0)
+            and lossy4["k1"][0] == l4["k1"][3],
+            f"config 4 lossy stop launches {l4}")
+    log(f"phase 11 (b) config 4 lossy MSE x20 with the clean cube as "
+        f"reference: REF+LOSSY pairs (launches {lm_['pairs']}) and the lossy "
+        f"K=1 loop ({lm_['k1']}, all LOSSY): recon bitwise equal, MSE trace "
+        f"within rtol 1e-5 (SSE {mse[0]:.4e} -> {mse[-1]:.4e}), seconds "
+        f"pairs {secs_m['pairs']:.4f}, K=1 loop {secs_m['k1']:.4f}; lossy stop "
+        f"{thr4:.6e}: both stop after {stop4} iterations, recon bitwise "
+        f"equal, traces within rtol 1e-5; state + checkpoint "
+        f"{need4 / 2**30:.2f} GiB; launches whole-run/K-step/pair/K=1: the "
+        f"engine's pick {l4['pick']} (all LOSSY), the lossy K=1 loop "
+        f"{l4['k1']}; seconds: pick {runs4['pick'][1]:.4f} "
+        f"({runs4['pick'][1] / stop4 * 1e3:.3f} ms per iteration), K=1 loop "
+        f"{runs4['k1'][1]:.4f} ({runs4['k1'][1] / stop4 * 1e3:.3f}); peak "
+        f"device memory: pick {runs4['pick'][3] / 2**30:.3f} GiB, K=1 loop "
+        f"{runs4['k1'][3] / 2**30:.3f} GiB; {time.perf_counter() - t0:.1f} s "
+        f"[{smi}]")
+    del runs4, orig
+    torch.cuda.empty_cache()
+
+    # (c) config 4 lossy out of core, stream and temporal mode, against in
+    # core
     t0 = time.perf_counter()
     want_c = denoise4D(cube, mu, iterations=2, FISTA=True, lossy_duals=True,
                        quiet=True, device="cuda")
@@ -3703,32 +4046,64 @@ def lossy_phase(smi, name, cube, tmp):
         f"{peak_c / 2**30:.3f} GiB; launches {la}; "
         f"{time.perf_counter() - t0:.1f} s [{smi}]")
     del got, want_c
+    t0 = time.perf_counter()
+    n_t = 16
+    want_t = denoise4D(cube, mu, iterations=n_t, FISTA=True,
+                       lossy_duals=True, quiet=True, device="cuda")
+    torch.cuda.empty_cache()
+    (got, la, run, peak_t) = ooc_run(lambda: outofcore.denoise_outofcore(
+        cube, mu, iterations=n_t, FISTA=True, n_slabs=4, temporal_k=8,
+        lossy_duals=True, device="cuda"))
+    lossy_t = (fused_pair_iteration.lossy_launches,
+               fused_iteration.lossy_launches)
+    require(np.array_equal(got[0], want_t[0]),
+            "config 4 lossy temporal out of core recon != denoise4D's")
+    np.testing.assert_allclose(got[2][7::8], want_t[2][7::8], rtol=1e-5)
+    require(la == (0, 0, 24, 16, 0) and lossy_t == (24, 16),
+            f"config 4 lossy temporal out of core launches (whole-run, "
+            f"K-step, pair, K=1, K=1 with halos) {la}, lossy pair and K=1 "
+            f"{lossy_t}")
+    log(f"phase 11 (c) config 4 lossy out of core, temporal mode K=8, 4 "
+        f"slabs, x{n_t}: recon bitwise denoise4D's, sweep-end deltas within "
+        f"rtol 1e-5; {run['sweep_seconds'] / n_t:.4f} s per iteration "
+        f"(the exact run's in PERF.md: 0.2101); {run['h2d_bytes'] / 2e9:.2f}"
+        f" GB in and "
+        f"{run['d2h_bytes'] / 2e9:.2f} GB out per sweep; host memory pinned "
+        f"{run['pinned_bytes'] / 2**30:.2f} GiB in {run['pin_seconds']:.3f} "
+        f"s; peak device memory {peak_t / 2**30:.3f} GiB; launches {la}, all "
+        f"LOSSY; {time.perf_counter() - t0:.1f} s [{smi}]")
+    del got, want_t
 
-    # (d) a 2-rank lossy mesh of processes sharing the card
+    # (d) a 2-rank lossy mesh of processes sharing the card, in pairs at
+    # its small rows
     t0 = time.perf_counter()
     small = piecewise_4d(LOSSY_MESH, SEED + 12)[0]
     src = os.path.join(tmp, "lossy_mesh.npy")
     np.save(src, small)
-    want_d = single(lambda: denoise4D(small, mu, iterations=4, FISTA=True,
-                                      lossy_duals=True, quiet=True,
-                                      device="cuda"))
+    with pairs_at_any_row():
+        want_d = single(lambda: denoise4D(small, mu, iterations=4, FISTA=True,
+                                          lossy_duals=True, quiet=True,
+                                          device="cuda"))
     shard = (2, 1, 1, 1)
     blocks_want, full_want = blocks(want_d["recon"], shard)
     res = run_mesh(tmp, 2, [dict(name="lossy", input=src, ndim=4,
                                  iterations=4, shard=list(shard),
+                                 any_row=True,
                                  options=dict(lossy_duals=True))], 300)
     runs = check_mesh_run("lossy", res, want_d, blocks_want, full_want)
-    require(all(tuple(r["launches"]) == (0, 0, 0, 4) and r["k1_halo"] == 4
-                for r in runs),
+    require(all(tuple(r["launches"]) == (0, 0, 2, 0) and r["halo0"] == 2
+                and r["pair_lossy"] == 2 for r in runs),
             f"lossy mesh launches {[r['launches'] for r in runs]}")
     log(f"phase 11 (d) {LOSSY_MESH} lossy x4 on a (2, 1, 1, 1) mesh of 2 "
-        f"processes sharing the card: each block and the gathered recon "
-        f"bitwise the single-device lossy run (sha256), traces within rtol "
-        f"1e-5; 4 K=1 halo launches per rank; "
+        f"processes sharing the card, pairs at any row size: each block and "
+        f"the gathered recon bitwise the single-device lossy run (sha256), "
+        f"traces within rtol 1e-5; 2 LOSSY HALO0 pairs per rank; "
         f"{time.perf_counter() - t0:.1f} s")
     log(f"phase 11 {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": n_lossy, "err": err, "ms": ms["kernel"],
-            "plain_ms": ms["plain"], "bound": (b_ms, bound[1])}
+    return {"k1": {"launches": k1_stop, "err": err, "ms": ms["k1"],
+                   "plain_ms": ms["plain"], "bound": b_k1},
+            "pair": {"launches": n_lossy, "err": perr, "ms": ms["pair"],
+                     "plain_ms": ms["plain_pair"], "bound": b_pair}}
 
 
 def piecewise_4d(shape, seed):
@@ -3781,17 +4156,21 @@ def main() -> int:
         f"{ptxas.count(';') + 1} kernel instantiations; ptxas "
         f"(registers, spill stores/loads in bytes): {ptxas}")
     pair_ptx = [row for row in ptxas.split("; ") if row.startswith("pair_kernel")]
+    dev = torch.device("cuda")
     ref_grid = {f"{nd}D {'FISTA' if f else 'unacc'}":
-                (cooperative_grid(torch.device("cuda"), nd, f),
-                 cooperative_grid(torch.device("cuda"), nd, f, True))
+                (cooperative_grid(dev, nd, f), cooperative_grid(dev, nd, f, True))
                 for nd in (3, 4) for f in (True, False)}
-    log(f"phase 1 pair kernel instantiations <ND,FISTA,REF> (REF: the "
-        f"reference-cube SSE): {'; '.join(pair_ptx)}; full cooperative grid "
-        f"without / with REF: {ref_grid}")
+    lossy_grid = {f"{nd}D": (cooperative_grid(dev, nd, True, lossy=True),
+                             cooperative_grid(dev, nd, True, True, lossy=True))
+                  for nd in (3, 4)}
+    log(f"phase 1 pair kernel instantiations <ND,FISTA,REF,HALO0,LOSSY> "
+        f"(REF: the reference-cube SSE; LOSSY: bfloat16 d): "
+        f"{'; '.join(pair_ptx)}; full cooperative grid without / with REF: "
+        f"{ref_grid}, LOSSY (FISTA): {lossy_grid}")
     # the dual pass's SASS check runs beside phase 2 (cuobjdump takes ~11 s)
     t_sass = time.perf_counter()
     pool = ThreadPoolExecutor(1)
-    sass_check = pool.submit(dual_store_order)
+    sass_check = pool.submit(store_order)
     pool.shutdown(wait=False)
 
     # phase 2: kernel vs plain on the card
@@ -3869,7 +4248,8 @@ def main() -> int:
         f"2 pairs each: state bitwise equal (max |Δ| {ref_err}), the eight "
         f"sums within rtol 1e-5 (the SSEs within {ref_rel:.2e}); "
         f"{time.perf_counter() - t0:.1f} s")
-    order = sass_check.result()
+    orders = sass_check.result()
+    order = orders["dual_kernel"]
     dual_ptx = [row for row in ptxas.split("; ")
                 if row.startswith("dual_kernel")]
     log(f"phase 1 K=1 dual pass dual_kernel<T,ND,FISTA,HALO,ISO,LOSSY> (ISO: "
@@ -3894,6 +4274,22 @@ def main() -> int:
     require(all(r[4:] == (0, 0, 0) for r in lossy_rows),
             f"a LOSSY instantiation of dual_kernel sends a store while its "
             f"own load is in flight, or uses local memory: {lossy_rows}")
+    # the pair kernel's LOSSY instantiations (ND 3 and 4, with and without
+    # REF and HALO0), beside its exact ones
+    pair_order = orders["pair_kernel"]
+    pair_lossy = [r for r in pair_order if r[2]]
+    log(f"phase 1 pair kernel pair_kernel<ND,FISTA,REF,HALO0,LOSSY> (LOSSY: "
+        f"bfloat16 d, iteration 1's d rounded in the middle of the pair): "
+        f"ptxas "
+        f"{'; '.join(r for r in pair_ptx if r.split('>')[0].endswith(',1'))}"
+        f"; SASS stores / sent while their own load is in flight / LDL / "
+        f"STL: " + "; ".join(f"{a} {st}/{fl}/{ldl}/{stl}"
+                             for a, _, _, st, fl, ldl, stl in pair_order))
+    require(len(pair_lossy) == 8, f"expected 8 LOSSY instantiations of "
+                                  f"pair_kernel, found {pair_lossy}")
+    require(all(r[4:] == (0, 0, 0) for r in pair_lossy),
+            f"a LOSSY instantiation of pair_kernel sends a store while its "
+            f"own load is in flight, or uses local memory: {pair_lossy}")
     t0 = time.perf_counter()
     err4r, rel4r = compare_offcard_ref(CFG4)
     ref_err = max(ref_err, err4r)
@@ -3967,7 +4363,7 @@ def main() -> int:
         f"launches {t4['k1x2']:.3f} ms; sweep {time.perf_counter() - t0:.1f}"
         f" s [{smi}]")
     for shape, fista in STRIP_SWEEP + SOLVER_ONLY:
-        n_it = 16 if shape == CFG4 else 48
+        n_it = 16 if shape == CFG4 else 24
         mean, launches, raw = time_solver_paths(shape, fista, n_it)
         mb = resident_state_bytes(shape, fista, False) / 1e6
         log(f"phase 2 run_solver {shape} {'FISTA' if fista else 'unaccelerated'}"
@@ -4504,7 +4900,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     tmp11 = tempfile.mkdtemp(prefix="cytv_lossy_")
     try:
-        lossy11 = lossy_phase(smi, name, cube, tmp11)
+        lossy11 = lossy_phase(smi, name, cube, scan, det, tmp11)
     finally:
         shutil.rmtree(tmp11, ignore_errors=True)
 
@@ -4565,11 +4961,19 @@ def main() -> int:
          modes10["iso_launches"], max(max_err, modes10["err"]),
          modes10["iso_ms"], modes10["iso_plain_ms"], bound(CFG4, True, 1)),
         # the K=1 kernel's LOSSY instantiation (bfloat16 d): its launches on
-        # the config-4 lossy x20 run of phase 11 (b), its time at that
-        # run's cube, the bound with d at 2 bytes
+        # the config-4 lossy stop run of phase 11 (b) (its prologue and the
+        # steps where the guard refuses), its time at config 4, the bound
+        # with d at 2 bytes
         ("fused_iteration_lossy", "fused_iteration.cu", "fused.py:872",
-         lossy11["launches"], lossy11["err"], lossy11["ms"],
-         lossy11["plain_ms"], lossy11["bound"]),
+         lossy11["k1"]["launches"], lossy11["k1"]["err"], lossy11["k1"]["ms"],
+         lossy11["k1"]["plain_ms"], lossy11["k1"]["bound"]),
+        # the pair kernel's LOSSY instantiation (bfloat16 d, iteration 1's d
+        # rounded in the middle of the pair): its launches on the config-4
+        # lossy x20 run of phase 11 (b), its time at that run's cube
+        ("fused_pair_iteration_lossy", "temporal_pair.cu", "temporal.py:947",
+         lossy11["pair"]["launches"], lossy11["pair"]["err"],
+         lossy11["pair"]["ms"], lossy11["pair"]["plain_ms"],
+         lossy11["pair"]["bound"]),
     ]
     kernels = [{
         "name": kname,

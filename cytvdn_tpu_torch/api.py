@@ -221,8 +221,10 @@ def denoise4D(
     runs) — the FISTA shadow duals are stored as bfloat16 and rounded at
     every iteration, the arithmetic stays float32. The state shrinks by n
     half-size arrays (config 4: 32 GiB instead of 40); the recon is not
-    bitwise the exact run's. Such runs take one K=1 launch per iteration
-    (ROADMAP.md Queue 1 items 12(b), 12(c)). Warns unless ``quiet``.
+    bitwise the exact run's. Such runs take pairs where they pay and K=1
+    launches, each bitwise the per-iteration rounding, and no K-step or
+    whole-run launch (ROADMAP.md Queue 1 item 12(c)). Warns unless
+    ``quiet``.
     """
     datacube, mu, lam, lambda_inv, lam_mu = _validate_and_derive(
         datacube, mu, lam, 4, 32.0

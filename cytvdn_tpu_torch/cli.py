@@ -23,15 +23,13 @@ cannot honour (``--bc-mode``, ``--iso-r/--iso-q``, ``--backend``,
 What the port cannot run yet is refused with exit code 2 before the input
 is read, naming its ROADMAP.md item: ``--shard`` and multi-process
 launches (``WORLD_SIZE`` > 1; Queue 1 item 10, also with
-``--out-of-core``, item 11), ``--lossy-duals`` with ``--out-of-core N
---temporal K`` (K > 1; items 12(b), 12(c)) and ``--backend cpp`` (item
-13). Sharded runs are a library call for now
-(``cytvdn_tpu_torch.parallel.denoise_sharded``).
+``--out-of-core``, item 11) and ``--backend cpp`` (item 13). Sharded runs
+are a library call for now (``cytvdn_tpu_torch.parallel.denoise_sharded``).
 
 ``--lossy-duals`` stores the FISTA shadow duals as bfloat16 (float32
 Jia-Zhao anisotropic FISTA runs; the other combinations exit 2 with
-``cytv``'s message), in core, with ``--checkpoint`` and in
-``--out-of-core`` stream mode.
+``cytv``'s message), in core, with ``--checkpoint`` and out of core, in
+stream and in temporal mode.
 
     cytv-torch -i cube.dm4 -o out.emd -m 1.0 --preset eels3d
     python -m cytvdn_tpu_torch.cli -i cube.npy -o out.emd -m 1.0 -n 20 -f 1
@@ -215,10 +213,6 @@ def parse_args(argv=None) -> argparse.Namespace:
             # without FISTA there ARE no shadow duals
             raise CliError("--lossy-duals covers float32 Jia-Zhao "
                            "anisotropic FISTA runs only")
-        if args.out_of_core and args.temporal > 1:
-            raise _not_ported("--out-of-core --temporal K > 1 with "
-                              "--lossy-duals (its slabs take pairs and "
-                              "K-steps)", "items 12(b), 12(c)")
     if args.out_of_core:
         # the flags out-of-core runs would silently ignore (cytv's check)
         bad = []

@@ -139,6 +139,20 @@
 // holds no zero there. The sums cover the shard's own rows only. Without
 // HALO0 the instantiations compile to the code they were.
 //
+// LOSSY (lossy duals, FISTA only; the TPU kernel's bfloat16 d0 operands
+// and its mid-pair rounding qd1, temporal.py:414-424, :474-482, :621-625):
+// PairArgs::d holds bfloat16 arrays. The dual elements load the old d
+// widened, compute in float, store b from the unrounded d_new and then d
+// rounded to nearest even (wavefront.cuh dual_elem). Dual-1's bfloat16
+// store of d_1 is qd1 for the shard's own rows: dual-2 reads the rounded
+// value back, as the K=1 kernel's second launch reads it from its d. The
+// one d_1 value that does not go through the d array is HALO0's stash of
+// the +1 shard's recomputed row-0 d_0 at level 1, which recon-2 reads as
+// the old d of level 2: it is rounded with round_bf16 (the TPU kernel's
+// s_d1n0 = qd1(cv)). The bands p_d, n_d and n_d0_r1 hold pre-pair values,
+// float32 (the neighbour's bfloat16 rows widened exactly); the stash stays
+// float. Without LOSSY the instantiations compile to the code they were.
+//
 // Layout: a block is 32 x 8 threads over a tile of the two trailing axes.
 // In each stage the active sub-stages' (row-op, axis-1 index, tile) work
 // items are numbered op-major, then axis-1 index, tile fastest (in 3D the
@@ -164,7 +178,7 @@ struct PairArgs {
   const float* orig;
   float* recon;
   float* b[4];
-  float* d[4];
+  float* d[4];       // LOSSY: bfloat16 arrays
   const float* lambda_inv;
   const float* lam_mu;
   const float* rho[LEVELS];
@@ -238,6 +252,15 @@ __device__ __forceinline__ float seam_recon1(
   return og - div;
 }
 
+// The momentum of level `lev` (0 or 1). Indexing rho[] at run time puts the
+// array in local memory (one 8-byte stack slot, an LDL per dual element);
+// the LOSSY instantiations pick it from registers instead. The exact ones
+// keep the indexed load, and so the code they compiled to.
+template <bool LOSSY>
+__device__ __forceinline__ float level_rho(const float* rho, int lev) {
+  return LOSSY ? (lev == 0 ? rho[0] : rho[1]) : rho[lev];
+}
+
 // The axis-1 range [lo, hi) of row-operation `op` in strip `j` of
 // `strips`: [jW, (j+1)W) shifted left by the op's lag (dual-1 0, recon-1 1,
 // dual-2 1, recon-2 2), clipped at 0; the last strip runs up to n1.
@@ -250,8 +273,9 @@ __device__ __forceinline__ void op_range(int op, int64_t j, int64_t strips,
   if (hi < lo) hi = lo;
 }
 
-template <int ND, bool FISTA, bool REF, bool HALO0>
+template <int ND, bool FISTA, bool REF, bool HALO0, bool LOSSY>
 __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {
+  static_assert(!LOSSY || FISTA, "lossy duals: FISTA only");
   constexpr int SUMS = REF ? MAX_SUMS : 3 * LEVELS;
   cg::grid_group grid = cg::this_grid();
   __shared__ double red[NT];
@@ -356,9 +380,11 @@ __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {
                   a.p_r0 + R, a.p_acc, a.p_d, __ldg(a.p_orig + idx), b0p,
                   ld(a.b[0] + idx), idx, c, a.n, a.s, lam, lm, rho[0]);
             }
-            v = dual_elem<ND, FISTA, true>(a, idx, c, lam, rho[lev], xb0);
+            v = dual_elem<ND, FISTA, true, LOSSY>(
+                a, idx, c, lam, level_rho<LOSSY>(rho, lev), xb0);
           } else {
-            v = dual_elem<ND, FISTA, false>(a, idx, c, lam, rho[lev], 0.0f);
+            v = dual_elem<ND, FISTA, false, LOSSY>(
+                a, idx, c, lam, level_rho<LOSSY>(rho, lev), 0.0f);
           }
           if (lev == 0) acc[0] += v; else acc[3] += v;
         } else if (HALO0 && row == N0 - 1) {
@@ -375,7 +401,9 @@ __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {
                                      FISTA ? __ldg(a.n_d[0] + off) : 0.0f,
                                      lam[0], rho[0], dn);
               a.stash[off] = bf0;
-              if (FISTA) a.stash[R + off] = dn;
+              // LOSSY: the +1 shard stores this d_1 as bfloat16, and its
+              // dual-2 reads it rounded (qd1)
+              if (FISTA) a.stash[R + off] = LOSSY ? round_bf16(dn) : dn;
             } else {
               const float b1n = __ldcg(a.stash + off);
               const float d1n = FISTA ? __ldcg(a.stash + R + off) : 0.0f;
@@ -426,36 +454,42 @@ __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {
   }
 }
 
-template <int ND, bool FISTA, bool HALO0>
+template <int ND, bool FISTA, bool HALO0, bool LOSSY>
 const void* kernel_for_ref(int ref) {
   return ref ? reinterpret_cast<const void*>(
-                   pair_kernel<ND, FISTA, true, HALO0>)
+                   pair_kernel<ND, FISTA, true, HALO0, LOSSY>)
              : reinterpret_cast<const void*>(
-                   pair_kernel<ND, FISTA, false, HALO0>);
+                   pair_kernel<ND, FISTA, false, HALO0, LOSSY>);
 }
 
-template <int ND, bool FISTA>
+template <int ND, bool FISTA, bool LOSSY>
 const void* kernel_for_halo(int ref, int halo0) {
-  return halo0 ? kernel_for_ref<ND, FISTA, true>(ref)
-               : kernel_for_ref<ND, FISTA, false>(ref);
+  return halo0 ? kernel_for_ref<ND, FISTA, true, LOSSY>(ref)
+               : kernel_for_ref<ND, FISTA, false, LOSSY>(ref);
 }
 
-// The instantiation for (ndim, fista, ref, halo0).
-const void* kernel_for(int ndim, int fista, int ref, int halo0) {
-  if (ndim == 4) {
-    return fista ? kernel_for_halo<4, true>(ref, halo0)
-                 : kernel_for_halo<4, false>(ref, halo0);
-  }
-  return fista ? kernel_for_halo<3, true>(ref, halo0)
-               : kernel_for_halo<3, false>(ref, halo0);
+template <int ND>
+const void* kernel_for_nd(int fista, int ref, int halo0, int lossy) {
+  if (lossy) return kernel_for_halo<ND, true, true>(ref, halo0);
+  return fista ? kernel_for_halo<ND, true, false>(ref, halo0)
+               : kernel_for_halo<ND, false, false>(ref, halo0);
+}
+
+// The instantiation for (ndim, fista, ref, halo0, lossy); lossy needs fista
+// (the callers check).
+const void* kernel_for(int ndim, int fista, int ref, int halo0, int lossy) {
+  return ndim == 4 ? kernel_for_nd<4>(fista, ref, halo0, lossy)
+                   : kernel_for_nd<3>(fista, ref, halo0, lossy);
 }
 
 }  // namespace
 
-// The largest grid a cooperative launch of the (ndim, fista, ref, halo0)
-// kernel may have on the current device: resident blocks per SM times SMs.
+// The largest grid a cooperative launch of the (ndim, fista, ref, halo0,
+// lossy) kernel may have on the current device: resident blocks per SM
+// times SMs. lossy (bfloat16 d) takes fista.
 extern "C" int tv_pair_max_blocks(int ndim, int fista, int ref, int halo0,
-                                  int* blocks) {
+                                  int lossy, int* blocks) {
+  if (lossy && !fista) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -466,7 +500,7 @@ extern "C" int tv_pair_max_blocks(int ndim, int fista, int ref, int halo0,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel_for(ndim, fista, ref, halo0), NT, 0);
+      &per_sm, kernel_for(ndim, fista, ref, halo0, lossy), NT, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   *blocks = per_sm * sms;
   return 0;
@@ -478,8 +512,10 @@ extern "C" int tv_pair_iteration_f32(
     const void* lam_mu, const void* rho1, const void* rho2, const void* ref,
     void* partials, void* out, const void* const* halo0, int first0,
     int last0, int ndim, long long n0, long long n1,
-    long long n2, long long n3, long long strip, int fista, int nblocks,
-    void* stream) {
+    long long n2, long long n3, long long strip, int fista, int lossy,
+    int nblocks, void* stream) {
+  // lossy: the d arrays are bfloat16 (an unaccelerated launch has none)
+  if (lossy && !fista) return static_cast<int>(cudaErrorInvalidValue);
   PairArgs a;
   a.orig = static_cast<const float*>(orig);
   a.recon = static_cast<float*>(recon);
@@ -534,7 +570,7 @@ extern "C" int tv_pair_iteration_f32(
   void* args[] = {&a};
   // a grid above the cooperative limit is refused here, not shrunk
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      kernel_for(ndim, fista, ref != nullptr, halo0 != nullptr),
+      kernel_for(ndim, fista, ref != nullptr, halo0 != nullptr, lossy),
       dim3(nblocks), dim3(TX, TY),
       args, 0, static_cast<cudaStream_t>(stream));
   // reading the last error also clears it, so a refused launch does not

@@ -13,9 +13,17 @@
 // rewrites rows that other blocks read before the previous grid barrier.
 // Only orig and the reference cube, which nothing writes, take the
 // read-only path.
+//
+// Lossy duals (LOSSY, the pair kernel's bfloat16 d): `Args::d` then holds
+// bfloat16 arrays. The old d widens exactly, the arithmetic stays float, b
+// takes the unrounded d_new, and d_new is stored rounded to nearest even,
+// as the K=1 kernel's LOSSY element does (tv_elem.cuh dual_elem_lossy).
+// round_bf16 is that rounding for a d_new that never goes through a d
+// array (the pair kernel's stash).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "block.cuh"
@@ -23,6 +31,25 @@
 namespace {
 
 __device__ __forceinline__ float ld(const float* p) { return __ldcg(p); }
+
+// Round to nearest even onto the bfloat16 grid, staying float: the lossy
+// duals' per-iteration rounding (cytvdn_tpu/kernels/temporal.py::
+// round_bf16, :83-100). Integer arithmetic on the float's bits, bit for bit
+// __float2bfloat16_rn widened back for every finite value (denormals and the
+// carry to infinity included); a convert down and up could be folded away
+// as excess precision, integer operations cannot.
+__device__ __forceinline__ float round_bf16(float v) {
+  const uint32_t u = __float_as_uint(v);
+  return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
+}
+
+// The old d of a lossy element, through L2 like every state load, widened
+// exactly (a bfloat16 is the upper half of a float's bits).
+__device__ __forceinline__ float ld_bf16(const float* d, int64_t idx) {
+  const unsigned short bits =
+      __ldcg(reinterpret_cast<const unsigned short*>(d) + idx);
+  return __uint_as_float(static_cast<uint32_t>(bits) << 16);
+}
 
 // Jia-Zhao backward neighbour: a_{i-1}, or the element itself at index 0.
 __device__ __forceinline__ int64_t bwd(int64_t idx, int64_t c, int64_t s) {
@@ -52,18 +79,20 @@ __device__ __forceinline__ int64_t op_row(int64_t st, int op) {
 // writes. The arithmetic and its order are dual_kernel's.
 // SEAM0 (the first row of a mesh shard, temporal_pair.cu's HALO0): the
 // axis-0 backward neighbour is xb0, the caller's value from the -1 shard's
-// bands, instead of a load.
-template <int ND, bool FISTA, bool SEAM0, class Args>
+// bands, instead of a load. LOSSY (FISTA only): d is bfloat16, loaded
+// widened and stored rounded, still after b.
+template <int ND, bool FISTA, bool SEAM0, bool LOSSY = false, class Args>
 __device__ __forceinline__ double dual_elem(const Args& a, int64_t idx,
                                             const int64_t* c, const float* lam,
                                             float rho, float xb0) {
+  static_assert(!LOSSY || FISTA, "lossy duals: FISTA only");
   const float x = ld(a.recon + idx);
   float xb[ND], bo[ND], dold[ND];
 #pragma unroll
   for (int k = 0; k < ND; ++k) {
     xb[k] = SEAM0 && k == 0 ? xb0 : ld(a.recon + bwd(idx, c[k], a.s[k]));
     bo[k] = ld(a.b[k] + idx);
-    if (FISTA) dold[k] = ld(a.d[k] + idx);
+    if (FISTA) dold[k] = LOSSY ? ld_bf16(a.d[k], idx) : ld(a.d[k] + idx);
   }
   double acc = 0.0;
 #pragma unroll
@@ -76,7 +105,11 @@ __device__ __forceinline__ double dual_elem(const Args& a, int64_t idx,
     // store sent with that load in flight made the pair kernel 2.6-6x
     // slower, PERF.md section 6, PR 8)
     a.b[k][idx] = bn;
-    if (FISTA) a.d[k][idx] = dn;
+    if (LOSSY) {
+      reinterpret_cast<__nv_bfloat16*>(a.d[k])[idx] = __float2bfloat16_rn(dn);
+    } else if (FISTA) {
+      a.d[k][idx] = dn;
+    }
     acc += static_cast<double>(fabsf(bn));
   }
   return acc;

@@ -85,11 +85,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [vp] * 16 + [i] * 2 + [ll] * 4 + [i] * 6 + [vp]
         fn.restype = i
     # the state, scalars and sums, then the HALO0 band table (null: no
-    # halos) and the first0/last0 flags
+    # halos) and the first0/last0 flags; fista, lossy, the grid
     lib.tv_pair_iteration_f32.argtypes = \
-        [vp] * 18 + [i] * 3 + [ll] * 5 + [i] * 2 + [vp]
+        [vp] * 18 + [i] * 3 + [ll] * 5 + [i] * 3 + [vp]
     lib.tv_pair_iteration_f32.restype = i
-    lib.tv_pair_max_blocks.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.tv_pair_max_blocks.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
     lib.tv_pair_max_blocks.restype = i
     lib.tv_kstep_iteration_f32.argtypes = \
         [vp] * 15 + [i] + [ll] * 4 + [i] * 4 + [vp]

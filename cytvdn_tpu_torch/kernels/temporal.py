@@ -37,13 +37,20 @@ recomputes the iteration-1 values the seams need from the bands, with the
 neighbour's own arithmetic (``temporal.py:230-249``), so the shards of a
 cube, each paired with bands cut from the pre-update state and put back
 together, are bitwise one pair of the whole cube. The pair kernel's
-axis-1 mode (``halos1``) and the lossy duals' ``qd1`` are not ported yet
-(ROADMAP.md Queue 1 items 6 and 12(b)); :func:`round_bf16`, the rounding
-``qd1`` applies, is here already, in PyTorch.
+axis-1 mode (``halos1``) is not ported yet (ROADMAP.md Queue 1 item 6).
+
+Lossy duals (``lossy_duals``): under FISTA ``ds`` may be bfloat16. The
+kernel's ``LOSSY`` instantiations round iteration 1's ``d`` onto the
+bfloat16 grid in the middle of the pair, as the TPU kernel's ``qd1`` does
+(``temporal.py:414-424, :474-482, :621-625``): dual-1 stores it as
+bfloat16 and dual-2 reads it back, and the +1 shard's recomputed row-0
+``d`` of a ``halos0`` launch goes through ``round_bf16`` in CUDA. So a
+lossy pair is bitwise two lossy K=1 launches, d included.
+:func:`round_bf16` is that rounding in PyTorch.
 
 Scope, as the TPU kernel's: float32, Jia-Zhao boundaries, anisotropic
 duals, 3D and 4D, FISTA and unaccelerated, N0 ≥ 4, with or without a
-reference cube and ``halos0``. :func:`fused_pair_iteration` launches the
+reference cube and ``halos0``, bfloat16 ``ds`` under FISTA. :func:`fused_pair_iteration` launches the
 kernel for CUDA tensors and runs :func:`fused_pair_iteration_reference`
 for CPU tensors; there is no fallback.
 """
@@ -91,18 +98,19 @@ def round_bf16(v: Tensor) -> Tensor:
     return r.to(torch.int32).view(torch.float32).view(v.shape)
 
 
-#: the full cooperative grid per (device, ndim, fista, ref, halo0), read
-#: once from the device's occupancy (each instantiation has its own
+#: the full cooperative grid per (device, ndim, fista, ref, halo0, lossy),
+#: read once from the device's occupancy (each instantiation has its own
 #: registers), so the order of the partial sums depends only on the shape,
 #: the mode and the device
-_GRID: Dict[Tuple[int, int, bool, bool, bool], int] = {}
+_GRID: Dict[Tuple[int, int, bool, bool, bool, bool], int] = {}
 
 #: the axis-0 seam bands of a mesh shard (``cytvdn_tpu``'s ``halos0``,
 #: ``temporal.py:982-988``), each a contiguous float32 tensor of rows of
 #: the shard's axis-0 slab shape: ``p_*`` from the -1 shard (``p_r0`` its
 #: recon rows [-2, -1], the rest its row -1), ``n_*`` from the +1 shard
 #: (``n_r0`` its recon rows [0, 1], the rest its row 0, ``*_r1`` its row 1);
-#: the ``_d`` bands under FISTA only. Two rows: ``p_r0``, ``n_r0``.
+#: the ``_d`` bands under FISTA only, float32 also under lossy duals (the
+#: neighbour's bfloat16 rows widened exactly). Two rows: ``p_r0``, ``n_r0``.
 HALO0_KEYS = ("p_r0", "p_orig", "p_acc0", "p_acc1", "p_acc2", "p_acc3",
               "p_d0", "p_d1", "p_d2", "p_d3", "n_r0", "n_orig", "n_acc0",
               "n_acc1", "n_acc2", "n_acc3", "n_d0", "n_d1", "n_d2", "n_d3",
@@ -231,7 +239,8 @@ def fused_pair_iteration_reference(
     ``(recon, accs, ds, bnorm1, dnum1, dden1, bnorm2, dnum2, dden2)`` and,
     with ``ref``, ``(sse1, sse2)``: ``ops.sum_square_error`` after each
     iteration. With ``halos0`` each iteration takes the axis-0 K=1 halos
-    that the bands give (:func:`_pair_seams`)."""
+    that the bands give (:func:`_pair_seams`). Bfloat16 ``ds`` (lossy
+    duals) round after each iteration, in the K=1 steps' ``copy_``."""
     if halos0 is not None:
         _check_halos0(halos0, orig, fista, _edge_flag(first0),
                       _edge_flag(last0))
@@ -255,16 +264,17 @@ def halo0_bands(orig: Tensor, recon: Tensor, accs: Sequence[Tensor],
     """The bands of the slab of rows [a0, a1) of a whole-cube state, cut
     from it as an axis-0 mesh's neighbours would send them: returns
     ``(halos0, first0, last0)``, zeros in place of a missing neighbour's
-    bands. A slab paired with them is bitwise rows [a0, a1) of one pair of
-    the whole cube."""
+    bands. Bfloat16 ``ds`` rows (lossy duals) widen exactly to ``orig``'s
+    dtype, as the engine widens them at the pack. A slab paired with them
+    is bitwise rows [a0, a1) of one pair of the whole cube."""
     n0, nd = orig.shape[0], orig.dim()
     first0, last0 = a0 == 0, a1 == n0
 
     def rows(x, i, j):
         if first0 and i < 0 or last0 and j > 0:
-            return torch.zeros_like(x[:j - i])
-        return x[a0 + i:a0 + j].contiguous() if i < 0 else \
-            x[a1 + i:a1 + j].contiguous()
+            return torch.zeros_like(x[:j - i], dtype=orig.dtype)
+        return (x[a0 + i:a0 + j] if i < 0 else x[a1 + i:a1 + j]).to(
+            orig.dtype).contiguous()
 
     h = {"p_r0": rows(recon, -2, 0), "p_orig": rows(orig, -1, 0),
          "n_r0": rows(recon, 0, 2), "n_orig": rows(orig, 0, 1),
@@ -294,13 +304,20 @@ def _pair_seams(orig, recon, accs, ds, rho1, lambda_inv, lam_mu, fista,
     iteration with :func:`fused_iteration_reference` on one-row cubes (the
     -1 shard's row -1 against this shard's row 0, the +1 shard's row 0
     against this shard's last row and its own row 1), before this shard's
-    state changes. The axis-1 halos are the Jia-Zhao edge values."""
+    state changes. The axis-1 halos are the Jia-Zhao edge values.
+
+    Lossy duals (bfloat16 ``ds``): the bands are float32, every ``d`` that
+    enters a K=1 halo operand widens to float32, and the +1 shard's
+    advanced row-0 ``d`` is rounded with :func:`round_bf16` before
+    iteration 2 reads it, as that shard's own bfloat16 store rounds it (the
+    TPU kernel's ``qd1`` of ``s_d1n0``)."""
     first0, last0 = _edge_flag(first0), _edge_flag(last0)
     nd = orig.dim()
     h = halos0
+    lossy = fista and ds[0].dtype == torch.bfloat16
 
     def row1(x, i=0):
-        return x[i:i + 1].clone()
+        return x[i:i + 1].to(orig.dtype, copy=True)
 
     def k1_halos(cube_recon, prev0, nxt):
         """Axis 0 from ``prev0`` and ``nxt`` (recon, acc, d); axis 1 the
@@ -343,7 +360,8 @@ def _pair_seams(orig, recon, accs, ds, rho1, lambda_inv, lam_mu, fista,
         advance(h["n_orig"], r, a, d, recon[-1:].clone(),
                 (row1(h["n_r0"], 1), h["n_acc0_r1"],
                  h["n_d0_r1"] if fista else None))
-        nxt1 = (r, a[0], d[0] if fista else None)
+        nxt1 = (r, a[0], (round_bf16(d[0]) if lossy else d[0]) if fista
+                else None)
 
     def seams1(cube_recon):
         prev0 = cube_recon[:1].clone() if first0 else h["p_r0"][1:2]
@@ -360,17 +378,18 @@ def _pair_seams(orig, recon, accs, ds, rho1, lambda_inv, lam_mu, fista,
 
 
 def cooperative_grid(device: torch.device, ndim: int, fista: bool,
-                     ref: bool = False, halo0: bool = False) -> int:
-    """Blocks of the full cooperative grid of the (ndim, fista, ref, halo0)
-    kernel on ``device``: resident blocks per SM times SMs."""
+                     ref: bool = False, halo0: bool = False,
+                     lossy: bool = False) -> int:
+    """Blocks of the full cooperative grid of the (ndim, fista, ref, halo0,
+    lossy) kernel on ``device``: resident blocks per SM times SMs."""
     key = (device.index if device.index is not None
-           else torch.cuda.current_device(), ndim, fista, ref, halo0)
+           else torch.cuda.current_device(), ndim, fista, ref, halo0, lossy)
     if key not in _GRID:
         lib = build.load()
         blocks = ctypes.c_int(0)
         with torch.cuda.device(key[0]):
             build.check(lib.tv_pair_max_blocks(ndim, int(fista), int(ref),
-                                               int(halo0),
+                                               int(halo0), int(lossy),
                                                ctypes.byref(blocks)))
         _GRID[key] = blocks.value
     return _GRID[key]
@@ -415,12 +434,19 @@ def fused_pair_iteration(
     shard of an axis-0 mesh; ``stash``, a (2, N1, …) tensor like the cube's
     rows, is its 2-row scratch (default: allocated per call).
 
+    Lossy duals: under FISTA ``ds`` may be bfloat16. The old ``d`` widens
+    exactly, the arithmetic stays float32, and each iteration's new ``d``
+    is stored rounded to nearest even, iteration 1's before iteration 2
+    reads it (the kernel's ``LOSSY`` instantiations; the plain version's two
+    lossy K=1 steps). The ``halos0`` bands stay float32.
+
     Returns ``(recon, accs, ds, bnorm1, dnum1, dden1, bnorm2, dnum2,
     dden2)`` — the state objects passed in and both iterations' sums as 0-d
     tensors — and, with ``ref``, ``(sse1, sse2)``, the sum of squared
     errors of each iteration's recon against ``ref``.
     ``fused_pair_iteration.launches`` counts kernel launches,
-    ``fused_pair_iteration.halo0_launches`` those of them with ``halos0``;
+    ``fused_pair_iteration.halo0_launches`` those of them with ``halos0``,
+    ``fused_pair_iteration.lossy_launches`` those with bfloat16 ``ds``;
     ``fused_pair_iteration.calls`` counts every call that passed the checks,
     on the CPU too.
     """
@@ -429,7 +455,7 @@ def fused_pair_iteration(
         raise ValueError(
             f"fused_pair_iteration does not cover shape {tuple(orig.shape)}, "
             f"dtype {orig.dtype} (float32, 3D/4D, N0 >= 4)")
-    _check_state(orig, recon, accs, ds, fista)
+    lossy = _check_state(orig, recon, accs, ds, fista, lossy_ok=True)
     if ref is not None:
         _check(ref, orig, "ref")
     if halos0 is not None:
@@ -458,7 +484,7 @@ def fused_pair_iteration(
                          "< 2**31")
     lib = build.load()
     nblocks = grid if grid is not None else cooperative_grid(
-        orig.device, ndim, fista, ref is not None, halos0 is not None)
+        orig.device, ndim, fista, ref is not None, halos0 is not None, lossy)
     n_out = 6 if ref is None else 8
     partials = torch.empty(n_out * nblocks, dtype=torch.float64,
                            device=orig.device)
@@ -485,14 +511,16 @@ def fused_pair_iteration(
         rho1.data_ptr() if fista else None, rho2.data_ptr() if fista else None,
         ref.data_ptr() if ref is not None else None,
         partials.data_ptr(), out.data_ptr(), table, first, last, ndim, *dims,
-        strip, int(fista), nblocks, stream)
+        strip, int(fista), int(lossy), nblocks, stream)
     build.check(err)
     fused_pair_iteration.calls += 1
     fused_pair_iteration.launches += 1
     fused_pair_iteration.halo0_launches += halos0 is not None
+    fused_pair_iteration.lossy_launches += lossy
     return (recon, accs, ds, *out.unbind())
 
 
 fused_pair_iteration.launches = 0
 fused_pair_iteration.halo0_launches = 0
+fused_pair_iteration.lossy_launches = 0
 fused_pair_iteration.calls = 0

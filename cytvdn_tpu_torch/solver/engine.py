@@ -15,11 +15,13 @@ semantics:
 - hybrid runs run FISTA first, then always the unaccelerated phase, which
   shares the accumulators, with the stop latch reset between the phases.
 
-- lossy runs (``lossy_duals``: the shadow duals stored as bfloat16) take
-  the one-iteration loop, one K=1 launch per iteration, on one device and
-  on a mesh: the pair and K-step kernels' rounding of intermediate duals
-  is ROADMAP.md Queue 1 items 12(b) and 12(c), and the whole-run kernel
-  refuses them, as the JAX gate does;
+- lossy runs (``lossy_duals``: the shadow duals stored as bfloat16) run in
+  pairs where they pay, on one device and on an axis-0 mesh, the pair
+  kernel rounding iteration 1's duals in the middle of the pair (its
+  ``LOSSY`` instantiations), and the one-iteration loop for the rest; the
+  K-step kernel's rounding at its intermediate levels is ROADMAP.md Queue
+  1 item 12(c), and the whole-run kernel refuses them, as the JAX gate
+  does;
 - float32 runs whose whole state is small (``_resolve_resident``) run the
   whole schedule in one launch of the whole-run kernel; with
   ``stopping_relative_change`` (``_resolve_resident_chunks``) each phase
@@ -382,18 +384,15 @@ def _resolve_temporal(opts: SolverOptions, shape, dtype) -> bool:
     pairs, Jia-Zhao, and :func:`pair_supported` (with ``calculate_mse``,
     the kernel's reference-cube SSE). Stop-aware runs pair too, behind the
     guard (:func:`_run_blocks`). Pairing changes no result: the state is
-    bitwise that of two one-iteration steps. (What :func:`pair_supported`
-    admits, the fused kernel covers too.)"""
+    bitwise that of two one-iteration steps, lossy runs included: the pair
+    kernel rounds iteration 1's bfloat16 duals in the middle of the pair,
+    as the JAX engine's pairs do (``engine.py:1332-1348``). (What
+    :func:`pair_supported` admits, the fused kernel covers too.)"""
     if not opts.temporal_pairs or opts.backend == Backend.TORCH:
         return False
     if opts.fista_restart or opts.isotropic_R or opts.isotropic_Q:
         return False
     if opts.bc_mode != BCMode.JIA_ZHAO:
-        return False
-    if lossy_duals(opts):
-        # the pair kernel's mid-pair rounding of iteration 1's duals (qd1) is
-        # ROADMAP.md Queue 1 item 12(b): lossy runs take the K=1 loop, whose
-        # state is the JAX paired run's, bitwise (tests/test_lossy.py:93)
         return False
     return pair_supported(shape, dtype, opts.bc_mode,
                           with_mse=opts.calculate_mse)
@@ -445,7 +444,12 @@ def _pair_halos0(comm, orig_bands, recon: Tensor, accs: List[Tensor],
     [and shadow dual] and row 0 of the others; with ``orig_bands``
     (:func:`_orig_bands0`). Returns ``(halos0, first0, last0)``; a missing
     neighbour's bands are left out, as the kernel never reads them
-    (``first0``/``last0``)."""
+    (``first0``/``last0``).
+
+    Under lossy duals the bfloat16 d rows widen exactly to the data's
+    dtype as they are packed into the exchange's buffer (whose dtype is
+    recon's, the first piece's), as in :func:`_k1_halos`: the message keeps
+    one dtype and the kernel's ``_d`` bands are float32."""
     nd = recon.dim()
     to_next = [recon[-2:], *(a[-1:] for a in accs)]
     to_prev = [recon[:2], accs[0][:1], accs[0][1:2],

@@ -43,17 +43,18 @@ explicit pipeline:
 synchronous copies, because the caller asked for it. There is no fallback:
 a CUDA run reaches the kernels or raises.
 
-Lossy duals (``lossy_duals``, stream mode): the host's shadow duals are
-bfloat16, page-locked (``outofcore.py:303-310, :385``), which halves their
-host memory and PCIe bytes; the slabs' duals on the card are bfloat16 too,
-and the +1 neighbour's first d row, copied in as bfloat16, widens exactly
-to float32 on the card for the kernel's seam operand (``:456-457``). A
-lossy stream run is bitwise the in-core lossy run.
+Lossy duals (``lossy_duals``): the host's shadow duals are bfloat16,
+page-locked (``outofcore.py:303-310, :385``), which halves their host
+memory and PCIe bytes; the slabs' duals on the card are bfloat16 too. In
+stream mode the +1 neighbour's first d row, copied in as bfloat16, widens
+exactly to float32 on the card for the kernel's seam operand
+(``:456-457``); in temporal mode the pairs and K=1 launches run on the
+slabs' bfloat16 d (the pair kernel's and the K=1 kernel's ``LOSSY``
+instantiations), and a margin's zeroed first d row is a bfloat16 zero. A
+lossy run is bitwise the in-core lossy run in either mode.
 
 Not here (ROADMAP.md Queue 1 item 11): slabs sharded over several devices
-(``shard_w``), multi-process runs and their band exchange. Temporal mode
-with lossy duals waits for the pair and K-step kernels' lossy rounding
-(items 12(b), 12(c)).
+(``shard_w``), multi-process runs and their band exchange.
 """
 
 from __future__ import annotations
@@ -645,6 +646,8 @@ def solve_outofcore_temporal(
     hold true values at sweep-final iterations only (zeros between), the
     stop is checked at sweep ends, and a sweep never crosses the
     FISTA→unaccelerated boundary. ``temporal_k`` ≤ 1 is the stream mode.
+    ``opts.lossy_duals``: the shadow duals live as bfloat16, on the host
+    and in the slabs on the card.
     """
     if temporal_k <= 1:
         return solve_outofcore(orig, lambda_inv, lam_mu, opts, n_slabs,
@@ -652,10 +655,6 @@ def solve_outofcore_temporal(
                                checkpoint_path=checkpoint_path,
                                checkpoint_every=checkpoint_every,
                                resume=resume, device=device)
-    if d_dtype(opts, torch.float32) != torch.float32:
-        raise _not_ported("out-of-core temporal mode with lossy_duals (its "
-                          "slabs take pairs and K-steps)",
-                          "Queue 1 items 12(b), 12(c)")
     orig = _check_options(opts, orig)
     device = torch.device(device)
     ndim, n0, tail = opts.ndim, orig.shape[0], orig.shape[1:]
@@ -677,7 +676,7 @@ def solve_outofcore_temporal(
     li, lm, rhos = _scalars(lambda_inv, lam_mu, opts.iterations_fista, device)
     rows = max(hi - lo for lo, hi, _, _ in ext)
     slabs = _Slabs(rows, tail, ndim, opts.iterations_fista > 0, device,
-                   halos=False)
+                   halos=False, d_dt=d_dtype(opts, torch.float32))
     # the K-1st recon of a chunk, for the last iteration's delta
     r_prev = torch.empty((rows,) + tail, dtype=torch.float32, device=device)
     run = _Run(orig, opts, reference, checkpoint_path, checkpoint_every,
@@ -686,11 +685,11 @@ def solve_outofcore_temporal(
 
     def load(si, fista):
         """Slab ``si`` with its margins. Below a top margin the slab's
-        first accumulator (and shadow dual) row along axis 0 is set to
-        zero: the margin's first row is then a Jia-Zhao edge, whose b stays
-        exactly zero, as the kernels' axis-0 wrap needs wherever the slab
-        ends at the cube's last row; the change stays inside the
-        discarded margin."""
+        first accumulator (and shadow dual, bfloat16 under lossy duals) row
+        along axis 0 is set to zero: the margin's first row is then a
+        Jia-Zhao edge, whose b stays exactly zero, as the kernels' axis-0
+        wrap needs wherever the slab ends at the cube's last row; the
+        change stays inside the discarded margin."""
         lo, hi, _, _ = ext[si]
         arrays = slabs.gens[si % GENERATIONS]["arrays"]
         pairs = [(dst[:hi - lo], src[lo:hi]) for dst, src in
@@ -767,8 +766,7 @@ def denoise_outofcore(
     ``temporal_k > 1`` runs K iterations per slab residency
     (:func:`solve_outofcore_temporal`), cutting host↔device traffic per
     iteration K-fold. ``lossy_duals`` stores the shadow duals as bfloat16
-    on the host and the card (stream mode; with ``temporal_k > 1`` it
-    raises ``NotImplementedError``, ROADMAP.md Queue 1 items 12(b), 12(c)).
+    on the host and the card, in either mode.
     ``shard_w != 1``/``devices`` (slabs sharded over several cards) are not
     ported and raise ``NotImplementedError``.
 

@@ -19,7 +19,11 @@ in-block axes), and mesh runs in those modes, ranks as threads sharing
 the card, against the single-device run; so is its LOSSY instantiation
 (bfloat16 shadow duals), with and without halos, at forced grids, d
 included, and lossy runs on the card against the plain backend and
-stream-mode ``denoise_outofcore``.
+stream-mode ``denoise_outofcore``; so is the pair kernel's LOSSY
+instantiations (bfloat16 shadow duals rounded in the middle of the pair),
+plain, with a reference cube and with axis-0 bands, at forced grids and
+strips, against two LOSSY K=1 launches, its seam rounding against torch's
+bfloat16 cast on canary values, and lossy runs that pair on the card.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -1181,12 +1185,15 @@ def test_pair_halo0_slabs_reassemble_to_one_launch(shape, n_slabs, fista,
     ((2, 1, 1, 1), dict(iterations=40, stop=True)),
     ((1, 2, 1, 1), dict(iterations=6)),
     ((2, 2, 1, 1), dict(iterations=6)),
+    ((2, 1, 1, 1), dict(iterations=9, lossy=True)),
+    ((2, 1, 1, 1), dict(iterations=40, stop=True, lossy=True)),
 ])
 def test_mesh_run_on_the_card_bitwise_single_device(monkeypatch, shard, kw):
     """``denoise_sharded`` with ranks as threads sharing the card (gloo
     groups, slabs staged through page-locked memory) against ``denoise4D``
     on the card: recon bitwise, traces within rtol 1e-5, the HALO0 pairs
-    launched on axis-0 meshes and K=1 halo launches on the others."""
+    launched on axis-0 meshes (LOSSY ones under lossy duals) and K=1 halo
+    launches on the others."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     import datetime
@@ -1210,11 +1217,14 @@ def test_mesh_run_on_the_card_bitwise_single_device(monkeypatch, shard, kw):
         # between the deltas of iterations 18 and 19 (1.25e-3, 1.11e-3),
         # far from both: the run stops after 19
         args["stopping_relative_change"] = 1.18e-3
+    if kw.get("lossy"):
+        args.update(lossy_duals=True, FISTA=True)
     want = denoise4D(cube, mu, device="cuda", **args)
     n = int(np.prod(shard))
     store, res, errs = dist.HashStore(), [None] * n, [None] * n
     before = (ttemporal.fused_pair_iteration.halo0_launches,
-              tfused.fused_iteration.halo_launches)
+              tfused.fused_iteration.halo_launches,
+              ttemporal.fused_pair_iteration.lossy_launches)
 
     def rank(r):
         try:
@@ -1245,6 +1255,8 @@ def test_mesh_run_on_the_card_bitwise_single_device(monkeypatch, shard, kw):
     k1 = tfused.fused_iteration.halo_launches - before[1]
     assert (halo0 > 0) == (shard[1] == 1), (halo0, k1)
     assert k1 > 0 or (halo0 > 0 and not kw.get("stop"))
+    lossy = ttemporal.fused_pair_iteration.lossy_launches - before[2]
+    assert lossy == (halo0 if kw.get("lossy") else 0)
 
 
 # -- the K=1 kernel's mesh-only halo modes -----------------------------------
@@ -1612,3 +1624,189 @@ def test_lossy_runs_on_the_card():
     np.testing.assert_array_equal(ooc[0], got[0])
     exact = denoise4D(cube, mu, iterations=9, quiet=True, device="cuda")
     assert np.abs(exact[0] - got[0]).max() > 1e-6
+
+
+# -- lossy duals: the pair kernel's LOSSY instantiations -----------------------
+
+LOSSY_PAIR_SHAPES = [(4, 9, 10, 33), (7, 9, 10, 33), (5, 13, 70), (7, 13, 70),
+                     (37, 45, 19, 23)]
+# (grid, strip): the wrapper's, 1 and 7 blocks, a forced strip
+LOSSY_PAIR_GRIDS = [(None, None), (1, None), (7, None), (None, 3)]
+
+
+def _lossy_pair_state(shape, seed=0):
+    """A random Jia-Zhao state on the card with bfloat16 shadow duals."""
+    orig, state, li, lm = _halo0_state(shape, True, seed=seed)
+    nd = len(shape)
+    return orig, state[:1 + nd] + [d.to(torch.bfloat16)
+                                   for d in state[1 + nd:]], li, lm
+
+
+def _assert_states(got, want, what):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), (
+            what, (a.float() - b.float()).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ref", [False, True])
+@pytest.mark.parametrize("shape", LOSSY_PAIR_SHAPES, ids=str)
+def test_lossy_pair_kernel_bitwise_plain_and_two_lossy_k1(shape, with_ref):
+    """Two pairs of the LOSSY instantiation (bfloat16 d: iteration 1's d
+    stored rounded and read back by iteration 2) at the wrapper's grid, at
+    forced grids of 1 and 7 blocks and at a forced strip, against the plain
+    pair and (without a reference cube) two LOSSY K=1 launches per pair:
+    state bitwise, d included, sums within rtol 1e-5; every launch counted
+    as lossy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    orig, state, li, lm = _lossy_pair_state(shape, seed=sum(shape) + 3)
+    rhos = [torch.tensor(r, device="cuda") for r in RHOS]
+    kw = {"ref": orig + 0.1} if with_ref else {}
+    want = _pairs(ttemporal.fused_pair_iteration_reference, orig, state, li,
+                  lm, rhos, True, **kw)
+    k1 = None if with_ref else _pairs(_two_k1_launches, orig, state, li, lm,
+                                      rhos, True)
+    before = ttemporal.fused_pair_iteration.lossy_launches
+    for grid, strip in LOSSY_PAIR_GRIDS:
+        got = _pairs(ttemporal.fused_pair_iteration, orig, state, li, lm,
+                     rhos, True, grid=grid, strip=strip, **kw)
+        for other in [want] + ([k1] if k1 is not None else []):
+            _assert_states(got[0], other[0], (grid, strip))
+            torch.testing.assert_close(got[1], other[1], rtol=1e-5, atol=0)
+    assert ttemporal.fused_pair_iteration.lossy_launches - before == \
+        2 * len(LOSSY_PAIR_GRIDS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,strip", LOSSY_PAIR_GRIDS)
+@pytest.mark.parametrize("with_ref", [False, True])
+@pytest.mark.parametrize("where", ["first", "interior", "last"])
+@pytest.mark.parametrize("shape", HALO0_SHAPES, ids=str)
+def test_lossy_pair_halo0_bitwise_plain_and_stash(shape, where, with_ref,
+                                                  grid, strip):
+    """The LOSSY HALO0 pair on the first, an interior and the last 4-row
+    slab, at forced grids and strips: state bitwise the plain pair with the
+    same bands, d included, sums within rtol 1e-5. Its stash (below the
+    last slab) holds the +1 shard's row-0 b_0 and d_0 after iteration 1:
+    bitwise one plain lossy K=1 step of the whole cube there, d_0 on the
+    bfloat16 grid (round_bf16 in CUDA)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    orig, state, li, lm = _lossy_pair_state(shape, seed=sum(shape) + 5)
+    n = 4
+    a0, a1 = {"first": (0, n), "interior": (n, 2 * n),
+              "last": (shape[0] - n, shape[0])}[where]
+    ref = orig + 0.1 if with_ref else None
+    stash = torch.full((2,) + tuple(shape[1:]), float("nan"), device="cuda")
+    before = ttemporal.fused_pair_iteration.lossy_launches
+    ks, ksum = _halo0_slab(ttemporal.fused_pair_iteration, orig, state, li,
+                           lm, True, a0, a1, ref=ref, grid=grid, strip=strip,
+                           stash=stash)
+    assert ttemporal.fused_pair_iteration.lossy_launches == before + 1
+    ps, psum = _halo0_slab(ttemporal.fused_pair_iteration_reference, orig,
+                           state, li, lm, True, a0, a1, ref=ref)
+    _assert_states(ks, ps, where)
+    torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+    if a1 < shape[0]:  # a slab with a +1 neighbour fills its stash
+        nd = len(shape)
+        s = [x.clone() for x in state]
+        tfused.fused_iteration_reference(
+            orig, s[0], s[1:1 + nd], s[1 + nd:],
+            torch.tensor(0.37, device="cuda"), li, lm, fista=True)
+        assert torch.equal(stash[0], s[1][a1])
+        assert torch.equal(stash[1], s[1 + nd][a1].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n_slabs", [
+    (shape, n) for shape in HALO0_SHAPES for n in (2, 3)
+    if shape[0] // n >= 4], ids=str)
+def test_lossy_pair_halo0_slabs_reassemble_to_one_launch(shape, n_slabs):
+    """A lossy cube cut into axis-0 slabs of at least 4 rows, each paired
+    by the LOSSY HALO0 kernel with bands from the pre-update state and put
+    back: bitwise one LOSSY pair launch of the whole cube, d included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    n0, nd = shape[0], len(shape)
+    orig, state, li, lm = _lossy_pair_state(shape, seed=11)
+    whole = [x.clone() for x in state]
+    ttemporal.fused_pair_iteration(
+        orig, whole[0], whole[1:1 + nd], whole[1 + nd:],
+        torch.tensor(0.37, device="cuda"), torch.tensor(0.52, device="cuda"),
+        li, lm, fista=True)
+    bounds = [n0 * i // n_slabs for i in range(n_slabs + 1)]
+    for a0, a1 in zip(bounds[:-1], bounds[1:]):
+        s, _ = _halo0_slab(ttemporal.fused_pair_iteration, orig, state, li,
+                           lm, True, a0, a1)
+        _assert_states(s, [x[a0:a1] for x in whole], (a0, a1))
+
+
+@pytest.mark.cuda
+def test_round_bf16_device_function_bitwise_torch_cast():
+    """``wavefront.cuh::round_bf16`` through the stash of a LOSSY HALO0
+    pair (``chip_smoke.round_bf16_through_stash``) on the lossy duals'
+    canary values (ties, denormals, the carry to infinity, 4096 random
+    values over 26 decades): bitwise torch's float -> bfloat16 -> float
+    cast."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from chip_smoke import round_bf16_through_stash
+
+    got, want = round_bf16_through_stash()
+    assert torch.equal(got, want), (got != want).nonzero()[:8].flatten()
+
+
+@pytest.mark.cuda
+def test_lossy_pair_runs_on_the_card(monkeypatch):
+    """Lossy runs that pair on the card (``PAIR_MIN_ROW_BYTES`` patched to
+    0): ``denoise4D(lossy_duals=True)`` ×9 makes 4 LOSSY pairs and one
+    LOSSY K=1 launch, bitwise the K=1 lossy loop (pairs never paying) and
+    the plain backend; an MSE run pairs with REF+LOSSY, bitwise the K=1
+    loop; out-of-core temporal mode (K=4, 3 slabs) bitwise in core."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+
+    from cytvdn_tpu_torch import denoise4D
+    from cytvdn_tpu_torch.solver import engine
+    from cytvdn_tpu_torch.solver.outofcore import denoise_outofcore
+
+    def k1_loop(*a, **k):
+        monkeypatch.setattr(engine, "PAIR_MIN_ROW_BYTES", 2**62)
+        out = denoise4D(*a, **k)
+        monkeypatch.setattr(engine, "PAIR_MIN_ROW_BYTES", 0)
+        return out
+
+    monkeypatch.setattr(engine, "PAIR_MIN_ROW_BYTES", 0)
+    cube = (np.random.default_rng(6).standard_normal((22, 9, 10, 33)) * 0.5
+            + 2.0).astype(np.float32)
+    mu = np.full(4, 1.0, np.float32)
+    kw = dict(iterations=9, FISTA=True, lossy_duals=True, quiet=True,
+              device="cuda")
+    before = (ttemporal.fused_pair_iteration.lossy_launches,
+              tfused.fused_iteration.lossy_launches,
+              tkstep.fused_kstep_iteration.launches,
+              tres.resident_solve.launches)
+    got = denoise4D(cube, mu, **kw)
+    after = (ttemporal.fused_pair_iteration.lossy_launches,
+             tfused.fused_iteration.lossy_launches,
+             tkstep.fused_kstep_iteration.launches,
+             tres.resident_solve.launches)
+    assert [a - b for a, b in zip(after, before)] == [4, 1, 0, 0]
+    k1 = k1_loop(cube, mu, **kw)
+    plain = denoise4D(cube, mu, backend="torch", **kw)
+    for other in (k1, plain):
+        np.testing.assert_array_equal(got[0], other[0])
+        np.testing.assert_allclose(got[2], other[2], rtol=1e-5)
+    ref = (cube * 0.9).astype(np.float32)
+    mse = denoise4D(cube, mu, reference_data=ref, **kw)
+    mse_k1 = k1_loop(cube, mu, reference_data=ref, **kw)
+    np.testing.assert_array_equal(mse[0], mse_k1[0])
+    np.testing.assert_allclose(mse[3], mse_k1[3], rtol=1e-5)
+    calls = ttemporal.fused_pair_iteration.lossy_launches
+    ooc = denoise_outofcore(cube, mu, iterations=8, FISTA=True, n_slabs=3,
+                            temporal_k=4, lossy_duals=True, device="cuda")
+    assert ttemporal.fused_pair_iteration.lossy_launches - calls == 6
+    want = denoise4D(cube, mu, **dict(kw, iterations=8))
+    np.testing.assert_array_equal(ooc[0], want[0])

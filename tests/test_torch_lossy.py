@@ -290,9 +290,10 @@ def test_lossy_run_matches_jax_and_cadence(shape, n):
 
 def test_lossy_run_matches_jax_paired_run():
     """The JAX engine pairs lossy runs (its pair kernel's mid-pair
-    rounding); the port runs them on the K=1 loop. The JAX paired run is
-    bitwise its K=1 run, so the port's lossy run meets it within atol
-    5e-7 too."""
+    rounding); at this cube's rows the port's pairs do not pay, so it runs
+    the K=1 loop. The JAX paired run is bitwise its K=1 run, so the port's
+    lossy run meets it within atol 5e-7 too (the port's lossy pairs against
+    it: tests/test_torch_lossy_pair.py)."""
     orig, li, lm = _cube(S4, seed=2)
     got = _port_run(orig, li, lm, _opts("port", S4, 6))
     want = _jax_run(orig, li, lm, _opts("jax", S4, 6, temporal_pairs=True))
@@ -643,8 +644,10 @@ def test_api_warns_and_notes_memory(capsys):
 def test_lossy_validation_matches_jax():
     """The same refusals as the JAX package, with the same kinds of error:
     half-isotropic and non-Jia-Zhao options, and float64 data at run time.
-    The engine's gates keep lossy runs off the pair, K-step and whole-run
-    kernels, which refuse bfloat16 duals (their own tests)."""
+    The engine's gates let lossy runs pair (the pair kernel rounds
+    iteration 1's bfloat16 duals in the middle of the pair,
+    tests/test_torch_lossy_pair.py) and keep them off the K-step and
+    whole-run kernels, which refuse bfloat16 duals (their own tests)."""
     for kw, match in ((dict(ndim=4, isotropic_R=True), "half-isotropic"),
                       (dict(ndim=4, isotropic_Q=True), "half-isotropic"),
                       (dict(ndim=3, bc_mode=BCMode.MIRROR), "Jia-Zhao"),
@@ -660,7 +663,7 @@ def test_lossy_validation_matches_jax():
                            _opts("port", (4, 4, 8), 2))
     opts = _opts("port", S3, 20)
     f32 = torch.float32
-    assert not tengine._resolve_temporal(opts, S3, f32)
+    assert tengine._resolve_temporal(opts, S3, f32)
     assert not tengine._resolve_kstep(opts, S3, f32, True)
     assert not tengine._resident_gates(opts, S3, f32)
 

@@ -407,10 +407,12 @@ def test_pair_wrapper_rejects_what_the_kernel_does_not_take():
         ttemporal.fused_pair_iteration(
             *thin, [a[:3] for a in args[2]], [d[:3] for d in args[3]],
             *args[4:], fista=True)
+    # bfloat16 shadow duals (lossy duals) run, all of them or none
+    # (tests/test_torch_lossy_pair.py): a mix is refused
     with pytest.raises(ValueError, match="ds"):
         ttemporal.fused_pair_iteration(
-            *args[:3], [d.to(torch.bfloat16) for d in args[3]], *args[4:],
-            fista=True)
+            *args[:3], [args[3][0].to(torch.bfloat16), *args[3][1:]],
+            *args[4:], fista=True)
     with pytest.raises(ValueError, match="per axis"):
         ttemporal.fused_pair_iteration(*args[:3], None, *args[4:], fista=True)
     assert ttemporal.fused_pair_iteration.calls == calls
