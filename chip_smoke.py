@@ -207,22 +207,32 @@ non-zero — nothing is caught):
    last slab (the stash against one plain K=1 step), ``round_bf16`` in
    CUDA against torch's bfloat16 cast on canary values (through the
    stash), and on config 4's whole cube against two plain iterations
-   (off the card) and two LOSSY K=1 launches (on it); (b) config 4
-   through ``denoise4D(lossy_duals=True)`` x20: 10 LOSSY pairs and no
-   other launch, recon bitwise the lossy K=1 loop's, s per iteration with
-   and without the host copies, the peak device memory, the recon's
-   rel-L2 against the exact run, and ms of one lossy K=1 launch, one
-   lossy pair (with and without the reference cube), the exact pair and
-   their plain versions at config 4 against the lossy bounds (d at 2
-   bytes); a lossy MSE x20 in REF+LOSSY pairs and a lossy stop run behind
-   the guard, each bitwise the lossy K=1 loop; (c) config 4 lossy in
+   (off the card) and two LOSSY K=1 launches (on it); the K-step kernel's
+   LOSSY instantiations (every level's d rounded at its store) against
+   the plain version, K LOSSY K=1 launches and K/2 LOSSY pairs at every
+   depth, N0 = 2K and 2K+1, 3D and 4D, at forced grids of 1 and 7 blocks
+   and its tile edges, and one K=8 launch on config 4's whole cube against
+   8 plain lossy iterations (off the card); (b) config 4 through
+   ``denoise4D(lossy_duals=True)`` x20: 2 LOSSY K=8 launches, 2 LOSSY
+   pairs and no other launch, recon bitwise the lossy K=1 loop's, s per
+   iteration with and without the host copies, the peak device memory,
+   the recon's rel-L2 against the exact run, and ms of one lossy K=8
+   launch, the exact K=8, one lossy K=1 launch, one lossy pair (with and
+   without the reference cube), the exact pair and their plain versions
+   at config 4 against the lossy bounds (d at 2 bytes); config 2 lossy
+   x24 (3 LOSSY K=8 launches) bitwise the lossy K=1 loop, and ms of the
+   lossy K=8, the exact K=8 and the lossy K=1 launch there; a lossy MSE
+   x20 in REF+LOSSY pairs and a lossy stop run on K-steps behind the
+   guard, each bitwise the lossy K=1 loop; (c) config 4 lossy in
    stream mode, 4 slabs x2, and in temporal mode, K=8 in 4 slabs x16,
    each bitwise the in-core lossy run, s per iteration and GB/s each way;
    (d) a small 4D cube lossy x4 on a (2, 1, 1, 1) mesh of 2 processes
    sharing the card, in LOSSY HALO0 pairs, bitwise the single-device
    lossy run. Phase 1's SASS check covers the 4 LOSSY instantiations of
    the K=1 dual pass and the 8 of the pair kernel (no store in flight, no
-   local memory);
+   local memory) and the 8 of the K-step kernel (no store in flight; no
+   local memory in 3D, no more than the exact twin in the capped 4D
+   launch, which spills);
 12. one JSON line on the kernels (launches on the path that reaches each,
    error, ms, the plain version's ms and the least time the card could
    take), the card's name and power limit, and the ``{"ok": true, ...}``
@@ -689,12 +699,12 @@ def time_pair_ref(shape, n_kernel, n_plain):
     return mean, [(n, round(t, 3)) for n, t in runs]
 
 
-def compare_kstep_offcard(shape, fista, k):
+def compare_kstep_offcard(shape, fista, k, lossy=False):
     """One K-step launch of depth ``k`` at the wrapper's defaults (the full
     cooperative grid, ``kstep_rows`` rows per stage) and ``k`` plain
     iterations from the same state, with distinct momentum ratios, compared
-    off the card (``offcard_equal``): every array bitwise, the 3k sums
-    within rtol 1e-5."""
+    off the card (``offcard_equal``; ``lossy``: d bfloat16): every array
+    bitwise, the 3k sums within rtol 1e-5."""
     rhos = torch.linspace(0.0, 0.6, k, device="cuda")
 
     def kstep(step):
@@ -703,7 +713,7 @@ def compare_kstep_offcard(shape, fista, k):
 
     return offcard_equal(shape, fista, [
         ("K-step kernel", kstep(fused_kstep_iteration)),
-        ("plain", kstep(fused_kstep_iteration_reference))])
+        ("plain", kstep(fused_kstep_iteration_reference))], lossy=lossy)
 
 
 def kernel_args(mangled: str):
@@ -737,16 +747,19 @@ def ptxas_summary(log: str) -> str:
 
 
 def store_order():
-    """Each instantiation of the K=1 kernel's dual pass and of the pair
-    kernel in the built library's SASS (``tools/torch_sass_order.py``), by
-    kernel name: (template arguments, <T,ND,FISTA,HALO,ISO,LOSSY> of
-    dual_kernel or <ND,FISTA,REF,HALO0,LOSSY> of pair_kernel; ISO; LOSSY;
-    stores; stores sent while their own load is in flight; LDL; STL)."""
+    """Each instantiation of the K=1 kernel's dual pass, of the pair kernel
+    and of the K-step kernel's two entry points in the built library's SASS
+    (``tools/torch_sass_order.py``), by kernel name: (template arguments,
+    <T,ND,FISTA,HALO,ISO,LOSSY> of dual_kernel, <ND,FISTA,REF,HALO0,LOSSY>
+    of pair_kernel, <ND,FISTA,K,LOSSY> of kstep_kernel or <K,LOSSY> of
+    kstepcap_kernel; ISO; LOSSY; stores; stores sent while their own load
+    is in flight; LDL; STL)."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "tools"))
     import torch_sass_order as so
 
-    rows = {"dual_kernel": [], "pair_kernel": []}
+    rows = {"dual_kernel": [], "pair_kernel": [], "kstep_kernel": [],
+            "kstepcap_kernel": []}
     for mangled, fn in so.functions(so.library_sass()):
         name = next((k for k in rows if k in mangled), None)
         if name is None:
@@ -789,17 +802,21 @@ def pair_steps(orig, recon, accs, ds, rhos, li, lm, *, k, fista):
 
 
 def compare_kstep_case(shape, k, fista, grids=(None,), launches=2,
-                       plain_only=False, rows=None):
+                       plain_only=False, rows=None, lossy=False):
     """``launches`` launches of the K-step kernel of depth ``k`` (at each
     forced grid of ``grids``, None the full cooperative grid; at ``rows``
     axis-0 rows per stage, None the wrapper's default) against
     its plain version and, unless ``plain_only``, K fused-iteration
     launches and (K even) K/2 pair launches per launch, from the same
-    Jia-Zhao state with distinct momentum ratios: state bitwise equal, sums
-    within rtol 1e-5. Returns max |Δstate|."""
+    Jia-Zhao state with distinct momentum ratios (``lossy``: FISTA's d
+    bfloat16, the LOSSY instantiations of all three kernels): state bitwise
+    equal, d included, sums within rtol 1e-5. Returns max |Δstate|."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     orig, state, li, lm, _ = random_state(shape, fista, torch.float32, gen,
                                           jz=True)
+    if lossy:
+        for i in range(1 + len(shape), len(state)):
+            state[i] = state[i].to(torch.bfloat16)
     rhos = torch.linspace(0.0, 0.6, launches * k, device="cuda")
     steps = [lambda *a, g=g, **kw: fused_kstep_iteration(
         *a, grid=g, rows_per_stage=rows, **kw)
@@ -821,8 +838,10 @@ def compare_kstep_case(shape, k, fista, grids=(None,), launches=2,
     ks, ksum = results[0]
     err = 0.0
     for ps, psum in results[1:]:
-        err = max(err, max((a - b).abs().max().item() for a, b in zip(ks, ps)))
-        require(all(torch.equal(a, b) for a, b in zip(ks, ps)),
+        err = max(err, max((a.float() - b.float()).abs().max().item()
+                           for a, b in zip(ks, ps)))
+        require(all(a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(ks, ps)),
                 f"K-step kernel state differs: shape {shape} K {k} fista "
                 f"{fista} grids {grids}: max |Δ| {err}")
         rel = ((ksum - psum).abs() / psum.abs().clamp_min(1e-300)).max().item()
@@ -934,6 +953,7 @@ def launch_counts():
 def reset_counts():
     resident_solve.launches = 0
     fused_kstep_iteration.launches = 0
+    fused_kstep_iteration.lossy_launches = 0
     fused_pair_iteration.launches = 0
     fused_pair_iteration.lossy_launches = 0
     fused_iteration.launches = 0
@@ -3782,20 +3802,92 @@ def lossy_pair_cases():
     return max(err, e), n_cases + 2, launches + n
 
 
+# the K-step kernel's LOSSY cases (FISTA): every depth at N0 = 2K and 2K+1
+# (kstep_shape), 3D and 4D (the capped 4D entry), ragged edges and 128-bit
+# shapes (VEC: 64-bit bfloat16 accesses), at the wrapper's grid and 1 and 7
+# blocks
+LOSSY_KSTEP_SHAPES = [(2, 9, 10, 33), (3, 13, 70), (3, 13, 64),
+                      (2, 9, 10, 32)]
+
+
+def lossy_kstep_cases():
+    """Phase 11 (a), the K-step kernel's part: :func:`compare_kstep_case`
+    with bfloat16 d at every depth on LOSSY_KSTEP_SHAPES (the wrapper's
+    grid and 1 and 7 blocks) against the plain version, K LOSSY K=1
+    launches and (K even) K/2 LOSSY pairs per launch; the tile edges of
+    :func:`kstep_edge_cases` (last extents 1 to 129) at the wrapper's grid
+    against the same; config 2's whole cube at every depth (the wrapper's
+    default rows per stage, the main path's 3D shape), one launch against
+    its plain version; one K=8 launch at config 4 against 8 plain lossy
+    iterations off the card. Returns (max |Δstate|, cases, lossy K-step
+    launches)."""
+    before = fused_kstep_iteration.lossy_launches
+    err, n_cases = 0.0, 0
+    for k in KS:
+        for shape in LOSSY_KSTEP_SHAPES:
+            err = max(err, compare_kstep_case(kstep_shape(shape, k), k, True,
+                                              grids=(None, 1, 7),
+                                              lossy=True))
+            n_cases += 1
+    for shape, k, _ in kstep_edge_cases():
+        err = max(err, compare_kstep_case(shape, k, True, lossy=True))
+        n_cases += 1
+    for k in KS:
+        err = max(err, compare_kstep_case(CFG2, k, True, launches=1,
+                                          plain_only=True, lossy=True))
+        n_cases += 1
+    e, _ = compare_kstep_offcard(CFG4, True, max(KS), lossy=True)
+    return (max(err, e), n_cases + 1,
+            fused_kstep_iteration.lossy_launches - before)
+
+
+def lossy_turns(orig, lossy_state, li, lm, extra=None):
+    """The launches on a lossy run's ``lossy_state`` (recon, b, bfloat16
+    d), in turns, each timed once and then again in reverse order: one
+    LOSSY K=8 launch ("kstep"), the exact K=8 on the same state with d
+    widened to float32 ("exact_kstep"), one LOSSY K=1 launch ("k1"), and
+    the functions of ``extra(lossy_state, exact_state, rho)`` by name (the
+    plain versions, named "plain...", first and once per turn, the
+    kernels 5 times). Returns the mean ms and the runs by name."""
+    rho = torch.tensor(0.5, device="cuda")
+    rhos = torch.full((8,), 0.5, device="cuda")
+    nd = orig.dim()
+    exact_state = [*lossy_state[:1 + nd],
+                   *(d.float() for d in lossy_state[1 + nd:])]
+    fns = {"kstep": kstep_fn(fused_kstep_iteration, orig, lossy_state, li,
+                             lm, rhos, 8, True),
+           "exact_kstep": kstep_fn(fused_kstep_iteration, orig, exact_state,
+                                   li, lm, rhos, 8, True),
+           "k1": step_fn(fused_iteration, orig, lossy_state, li, lm, rho,
+                         True),
+           **(extra(lossy_state, exact_state, rho) if extra else {})}
+    order = sorted(fns, key=lambda k: not k.startswith("plain"))
+    raw = {k: [] for k in fns}
+    for k in order + order[::-1]:
+        raw[k].append(time_ms(fns[k], 1 if k.startswith("plain") else 5))
+    del exact_state, fns
+    torch.cuda.empty_cache()
+    return {k: sum(v) / len(v) for k, v in raw.items()}, raw
+
+
 def lossy_phase(smi, name, cube, scan, det, tmp):
     """Phase 11: lossy shadow duals. (a) the K=1 kernel's LOSSY
     instantiation against its plain version, bitwise with d, at ragged 3D
     and 4D shapes and forced grids of 1 and 7 blocks, its HALO form on
     slabs (config 4's stream slab among them) and on a mesh shard's
     operands, and on config 4's whole cube, compared off the card; the pair
-    kernel's LOSSY instantiations (:func:`lossy_pair_cases`); (b) config 4
-    through ``denoise4D(lossy_duals=True)`` x20 (10 LOSSY pairs and no
-    other launch), bitwise the lossy K=1 loop, its time with and without
-    the host copies, the peak device memory and the recon's rel-L2 against
-    the exact run; the lossy K=1 launch, the lossy pair (with and without
-    the clean cube as reference), the exact pair and the plain versions at
-    config 4 in turns, against the lossy bounds; a lossy MSE x20 in
-    REF+LOSSY pairs and a lossy stop run near 48 behind the guard, each
+    kernel's LOSSY instantiations (:func:`lossy_pair_cases`); the K-step
+    kernel's (:func:`lossy_kstep_cases`); (b) config 4 through
+    ``denoise4D(lossy_duals=True)`` x20 (2 LOSSY K=8 launches and 2 LOSSY
+    pairs, no other launch), bitwise the lossy K=1 loop, its time with and
+    without the host copies, the peak device memory and the recon's rel-L2
+    against the exact run; the lossy K=8 launch, the exact K=8, the lossy
+    K=1 launch, the lossy pair (with and without the clean cube as
+    reference), the exact pair and the plain versions at config 4 in turns,
+    against the lossy bounds; config 2 lossy x24 (3 LOSSY K=8 launches)
+    bitwise the lossy K=1 loop, and the lossy K=8, exact K=8 and lossy K=1
+    launches there in turns; a lossy MSE x20 in REF+LOSSY pairs and a
+    lossy stop run near 48 on K-steps and pairs behind the guard, each
     bitwise the lossy K=1 loop; (c) config 4 lossy out of core, stream mode
     in 4 slabs x2 and temporal mode K=8 in 4 slabs x16, each bitwise the
     in-core lossy run; (d) a 2-rank (2, 1, 1, 1) lossy mesh of processes
@@ -3841,6 +3933,20 @@ def lossy_phase(smi, name, cube, scan, det, tmp):
         f"and two LOSSY K=1 launches on it): state bitwise equal, d "
         f"included (max |Δ| {perr}), sums within rtol 1e-5; "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kerr, k_cases, k_launches = lossy_kstep_cases()
+    log(f"phase 11 (a) lossy K-step kernel (LOSSY: bfloat16 d, every "
+        f"level's d rounded at its store) vs its plain version, K LOSSY K=1 "
+        f"launches and (K even) K/2 LOSSY pairs: {k_cases} cases, "
+        f"{k_launches} lossy K-step launches (K {KS} at N0 = 2K and 2K+1 "
+        f"of {LOSSY_KSTEP_SHAPES}, 2 launches at the wrapper's grid and 1 "
+        f"and 7 blocks; the tile edges {kstep_edge_cases()} at the "
+        f"wrapper's grid; config 2's whole cube {CFG2} at every K, one "
+        f"launch against its plain version, R = {kstep_rows(CFG2)} rows per "
+        f"stage; config 4's whole cube {CFG4}, one K=8 launch "
+        f"against 8 plain lossy iterations off the card): state bitwise "
+        f"equal, d included (max |Δ| {kerr}), sums within rtol 1e-5; "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # (b) config 4 x20 through the API, then on the card alone
     t0 = time.perf_counter()
@@ -3850,7 +3956,7 @@ def lossy_phase(smi, name, cube, scan, det, tmp):
     k1_opts = SolverOptions(ndim=4, iterations_fista=20, iterations_unacc=0,
                             lossy_duals=True, temporal_pairs=False)
     want = expected_launches(opts, CFG4)
-    require(want == (0, 0, 10, 0), f"lossy config 4 plan {want}")
+    require(want == (0, 2, 2, 0), f"lossy config 4 plan {want}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -3861,10 +3967,12 @@ def lossy_phase(smi, name, cube, scan, det, tmp):
     wall = time.perf_counter() - t1
     counts = launch_counts()
     n_lossy = fused_pair_iteration.lossy_launches
+    n_lossy_k = fused_kstep_iteration.lossy_launches
     peak = torch.cuda.max_memory_allocated()
-    require(counts == want and n_lossy == 10,
+    require(counts == want and n_lossy == 2 and n_lossy_k == 2,
             f"lossy config 4: launches (whole-run, K-step, pair, K=1) "
-            f"{counts}, {n_lossy} of them lossy pairs; expected {want}")
+            f"{counts}, {n_lossy_k} lossy K-steps and {n_lossy} lossy pairs "
+            f"among them; expected {want}")
     require(recon.shape == CFG4 and bool(np.isfinite(recon).all())
             and bool((delta > 0).all()), "lossy config 4 result")
     orig = torch.from_numpy(cube).cuda()
@@ -3872,7 +3980,8 @@ def lossy_phase(smi, name, cube, scan, det, tmp):
     lm = torch.full((4,), 1 / 32, device="cuda")
     k1 = run_solver(orig, li, lm, k1_opts)
     require(torch.equal(k1["recon"].cpu(), torch.from_numpy(recon)),
-            "lossy config 4: the pairs' recon != the lossy K=1 loop's")
+            "lossy config 4: the K-steps' and pairs' recon != the lossy K=1 "
+            "loop's")
     np.testing.assert_allclose(k1["delta"].cpu().numpy(), delta, rtol=1e-5)
     del k1
     torch.cuda.empty_cache()
@@ -3891,35 +4000,33 @@ def lossy_phase(smi, name, cube, scan, det, tmp):
     solve_s = time.perf_counter() - t1
     require(torch.equal(st["recon"].cpu(), torch.from_numpy(recon)),
             "lossy config 4: run_solver recon != denoise4D's")
-    # the launches at config 4 on the run's state, in turns: the lossy K=1
-    # launch, the lossy pair, the exact pair (d widened to float32) and the
-    # plain versions; then the lossy pair with the clean cube as reference
-    accs, ds = st["accs"], st["ds"]
+    # the launches at config 4 on the run's state, in turns: the lossy K=8
+    # launch, the exact K=8, the lossy K=1 launch, the lossy pair, the exact
+    # pair and the plain versions; then the lossy pair with the clean cube
+    # as reference
+    lossy_state = [st["recon"], *st["accs"], *st["ds"]]
     rho = torch.tensor(0.5, device="cuda")
-    lossy_state = [st["recon"], *accs, *ds]
-    exact_state = [st["recon"], *accs, *(d.float() for d in ds)]
-    fns = {"k1": step_fn(fused_iteration, orig, lossy_state, li, lm, rho,
-                         True),
-           "plain": step_fn(fused_iteration_reference, orig, lossy_state, li,
-                            lm, rho, True),
-           "pair": pair_fn(fused_pair_iteration, orig, lossy_state, li, lm,
-                           rho, True),
-           "plain_pair": pair_fn(fused_pair_iteration_reference, orig,
-                                 lossy_state, li, lm, rho, True),
-           "exact_pair": pair_fn(fused_pair_iteration, orig, exact_state, li,
-                                 lm, rho, True)}
-    raw = {k: [] for k in fns}
-    for k in ("plain", "plain_pair", "k1", "pair", "exact_pair",
-              "exact_pair", "pair", "k1", "plain_pair", "plain"):
-        raw[k].append(time_ms(fns[k], 1 if k.startswith("plain") else 5))
-    del exact_state, fns
-    torch.cuda.empty_cache()
+    rhos = torch.full((8,), 0.5, device="cuda")
+
+    def extra4(lossy, exact, rho):
+        return {"plain_kstep": kstep_fn(fused_kstep_iteration_reference,
+                                        orig, lossy, li, lm, rhos, 8, True),
+                "plain": step_fn(fused_iteration_reference, orig, lossy, li,
+                                 lm, rho, True),
+                "pair": pair_fn(fused_pair_iteration, orig, lossy, li, lm,
+                                rho, True),
+                "plain_pair": pair_fn(fused_pair_iteration_reference, orig,
+                                      lossy, li, lm, rho, True),
+                "exact_pair": pair_fn(fused_pair_iteration, orig, exact, li,
+                                      lm, rho, True)}
+
+    ms, raw = lossy_turns(orig, lossy_state, li, lm, extra4)
     ref4 = (torch.from_numpy(scan).cuda()[:, :, None, None]
             + torch.from_numpy(det).cuda()[None, None]).contiguous()
     fn_ref = pair_fn(fused_pair_iteration, orig, lossy_state, li, lm, rho,
                      True, ref=ref4)
     raw["pair_ref"] = [time_ms(fn_ref, 5) for _ in range(2)]
-    ms = {k: sum(v) / len(v) for k, v in raw.items()}
+    ms["pair_ref"] = sum(raw["pair_ref"]) / 2
     bw, f32 = peak_bandwidth(name), peak_f32(name)
 
     def bound(iters, ref=False):
@@ -3930,26 +4037,74 @@ def lossy_phase(smi, name, cube, scan, det, tmp):
         return t * 1e3, by
 
     b_k1, b_pair, b_ref = bound(1), bound(2), bound(2, ref=True)
-    del st, accs, ds, lossy_state, fn_ref
+    b_k8 = bound(8)
+    del st, lossy_state, fn_ref
     torch.cuda.empty_cache()
     log(f"phase 11 (b) config 4 {CFG4} FISTA x20 lossy_duals: denoise4D "
         f"{wall:.3f} s = {wall / 20:.4f} s per iteration with the host "
         f"copies, run_solver on the card {solve_s:.4f} s = "
         f"{solve_s / 20:.4f} s per iteration without; launches whole-run/"
-        f"K-step/pair/K=1 {counts}, {n_lossy} LOSSY pairs; recon bitwise "
+        f"K-step/pair/K=1 {counts}, {n_lossy_k} LOSSY K=8 launches and "
+        f"{n_lossy} LOSSY pairs; recon bitwise "
         f"the lossy K=1 loop's (run_solver, temporal_pairs=False), traces "
         f"within rtol 1e-5; peak device memory {peak / 2**30:.3f} GiB; "
         f"recon rel-L2 against the exact run {drift:.6e}; one lossy pair "
         f"{ms['pair']:.3f} ms ({b_pair[0] / ms['pair']:.3f} of its "
         f"{b_pair[0]:.2f} ms bound, 60 B per voxel), plain "
         f"{ms['plain_pair']:.3f} ms; the exact pair on the same state (d "
-        f"widened) {ms['exact_pair']:.3f} ms; with the clean cube as "
+        f"widened) {ms['exact_pair']:.3f} ms; one lossy K=8 launch "
+        f"{ms['kstep']:.3f} ms ({b_k8[0] / ms['kstep']:.3f} of its "
+        f"{b_k8[0]:.2f} ms bound), the exact K=8 {ms['exact_kstep']:.3f} ms, "
+        f"8 lossy K=1 launches {8 * ms['k1']:.3f} ms, 4 lossy pairs "
+        f"{4 * ms['pair']:.3f} ms, the plain lossy K-step (8 plain "
+        f"iterations) {ms['plain_kstep']:.3f} ms; with the clean cube as "
         f"reference {ms['pair_ref']:.3f} ms ({b_ref[0] / ms['pair_ref']:.3f}"
         f" of {b_ref[0]:.2f} ms); one lossy K=1 launch {ms['k1']:.3f} ms "
         f"({b_k1[0] / ms['k1']:.3f} of {b_k1[0]:.2f} ms), plain "
         f"{ms['plain']:.3f} ms (runs "
         f"{ {k: [round(x, 3) for x in v] for k, v in raw.items()} }); "
         f"{time.perf_counter() - t0:.1f} s [{smi}]")
+
+    # (b) config 2 lossy x24 in LOSSY K=8 launches against the lossy K=1
+    # loop, then the launches on the run's state in turns
+    t0 = time.perf_counter()
+    orig2 = cfg2_cube()
+    li3 = torch.full((3,), 16.0, device="cuda")
+    lm3 = torch.full((3,), 1 / 16, device="cuda")
+    opts2 = SolverOptions(ndim=3, iterations_fista=24, iterations_unacc=0,
+                          lossy_duals=True)
+    want2 = expected_launches(opts2, CFG2)
+    require(want2 == (0, 3, 0, 0), f"lossy config 2 plan {want2}")
+    run2, secs2, l2, peak2 = timed_run(
+        lambda: run_solver(orig2, li3, lm3, opts2, keep_state=True))
+    lossy_k2 = fused_kstep_iteration.lossy_launches
+    require(l2 == want2 and lossy_k2 == 3,
+            f"lossy config 2 launches {l2}, {lossy_k2} lossy K-steps")
+    k1_2 = counted_run(orig2, li3, lm3, SolverOptions(
+        ndim=3, iterations_fista=24, iterations_unacc=0, lossy_duals=True,
+        temporal_kstep=False, temporal_pairs=False))
+    require(torch.equal(k1_2[0]["recon"], run2["recon"].cpu()),
+            "lossy config 2: the K-steps' recon != the lossy K=1 loop's")
+    np.testing.assert_allclose(k1_2[0]["delta"].numpy(),
+                               run2["delta"].cpu().numpy(), rtol=1e-5)
+    ms2, raw2 = lossy_turns(orig2, [run2["recon"], *run2["accs"],
+                                    *run2["ds"]], li3, lm3)
+    b2 = launch_bound_seconds(CFG2, True, 8, bw, f32, d_itemsize=2)[0] \
+        * 1e3 if bw and f32 else float("nan")
+    del run2, orig2
+    torch.cuda.empty_cache()
+    log(f"phase 11 (b) config 2 {CFG2} FISTA x24 lossy_duals: run_solver "
+        f"{secs2:.4f} s = {secs2 / 24:.4f} s per iteration, launches "
+        f"whole-run/K-step/pair/K=1 {l2}, all LOSSY K=8; recon bitwise the "
+        f"lossy K=1 loop's ({k1_2[1]:.4f} s, launches {k1_2[2]}), traces "
+        f"within rtol 1e-5; peak device memory {peak2 / 2**30:.3f} GiB; in "
+        f"turns on the run's state: one lossy K=8 launch {ms2['kstep']:.3f} "
+        f"ms ({b2 / ms2['kstep']:.3f} of its {b2:.2f} ms bound), the exact "
+        f"K=8 {ms2['exact_kstep']:.3f} ms, 8 lossy K=1 launches "
+        f"{8 * ms2['k1']:.3f} ms (runs "
+        f"{ {k: [round(x, 3) for x in v] for k, v in raw2.items()} }); "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    del k1_2
 
     # (b) the lossy MSE run in REF+LOSSY pairs and the lossy stop run behind
     # the guard, each against the lossy K=1 loop
@@ -3984,19 +4139,22 @@ def lossy_phase(smi, name, cube, scan, det, tmp):
     need4 = engine.stop_ckpt_bytes(SolverOptions(**base4), CFG4,
                                    torch.float32)
     runs4, lossy4 = {}, {}
-    for path, kw in (("pick", {}), ("k1", dict(temporal_pairs=False))):
+    for path, kw in (("pick", {}), ("k1", dict(temporal_kstep=False,
+                                              temporal_pairs=False))):
         runs4[path] = counted_run(orig, li, lm, SolverOptions(**base4, **kw))
         lossy4[path] = (fused_iteration.lossy_launches,
-                        fused_pair_iteration.lossy_launches)
+                        fused_pair_iteration.lossy_launches,
+                        fused_kstep_iteration.lossy_launches)
     want4 = runs4["k1"][0]
     require(want4["iterations_run"] == stop4 and want4["early_stopped"],
             f"config 4 lossy stop after {want4['iterations_run']}, expected "
             f"{stop4}")
     same_result([runs4["pick"]], want4, "config 4 lossy stop")
     l4 = {path: r[2] for path, r in runs4.items()}
-    k1_stop, pair_stop = lossy4["pick"]
-    require(need4 <= engine.STOP_CKPT_MAX_BYTES and l4["pick"][:2] == (0, 0)
-            and l4["pick"][2] == pair_stop > 0
+    k1_stop, pair_stop, kstep_stop = lossy4["pick"]
+    require(need4 <= engine.STOP_CKPT_MAX_BYTES and l4["pick"][0] == 0
+            and l4["pick"][1] == kstep_stop > 0
+            and l4["pick"][2] == pair_stop
             and l4["pick"][3] == k1_stop > 0 and l4["k1"][:3] == (0, 0, 0)
             and lossy4["k1"][0] == l4["k1"][3],
             f"config 4 lossy stop launches {l4}")
@@ -4008,7 +4166,8 @@ def lossy_phase(smi, name, cube, scan, det, tmp):
         f"{thr4:.6e}: both stop after {stop4} iterations, recon bitwise "
         f"equal, traces within rtol 1e-5; state + checkpoint "
         f"{need4 / 2**30:.2f} GiB; launches whole-run/K-step/pair/K=1: the "
-        f"engine's pick {l4['pick']} (all LOSSY), the lossy K=1 loop "
+        f"engine's pick {l4['pick']} (all LOSSY: K-steps behind the guard), "
+        f"the lossy K=1 loop "
         f"{l4['k1']}; seconds: pick {runs4['pick'][1]:.4f} "
         f"({runs4['pick'][1] / stop4 * 1e3:.3f} ms per iteration), K=1 loop "
         f"{runs4['k1'][1]:.4f} ({runs4['k1'][1] / stop4 * 1e3:.3f}); peak "
@@ -4103,7 +4262,9 @@ def lossy_phase(smi, name, cube, scan, det, tmp):
     return {"k1": {"launches": k1_stop, "err": err, "ms": ms["k1"],
                    "plain_ms": ms["plain"], "bound": b_k1},
             "pair": {"launches": n_lossy, "err": perr, "ms": ms["pair"],
-                     "plain_ms": ms["plain_pair"], "bound": b_pair}}
+                     "plain_ms": ms["plain_pair"], "bound": b_pair},
+            "kstep": {"launches": n_lossy_k, "err": kerr, "ms": ms["kstep"],
+                      "plain_ms": ms["plain_kstep"], "bound": b_k8}}
 
 
 def piecewise_4d(shape, seed):
@@ -4290,6 +4451,34 @@ def main() -> int:
     require(all(r[4:] == (0, 0, 0) for r in pair_lossy),
             f"a LOSSY instantiation of pair_kernel sends a store while its "
             f"own load is in flight, or uses local memory: {pair_lossy}")
+    # the K-step kernel's LOSSY instantiations (ND 3 and 4, K 3, 4, 6, 8;
+    # the 4D ones through the capped entry, whose exact twins spill under
+    # the 128-register cap), beside its exact ones
+    kstep_order = [(n, r) for n in ("kstep_kernel", "kstepcap_kernel")
+                   for r in orders[n]]
+    twin_local = {(n, r[0]): r[5:] for n, r in kstep_order if not r[2]}
+    kstep_lossy = [(n, r) for n, r in kstep_order if r[2]]
+    kstep_ptx = [row for row in ptxas.split("; ")
+                 if row.startswith("kstep")]
+    log(f"phase 1 K-step kernel kstep_kernel<ND,FISTA,K,LOSSY> and "
+        f"kstepcap_kernel<K,LOSSY> (LOSSY: bfloat16 d, every level's d "
+        f"rounded at its store): ptxas {'; '.join(kstep_ptx)}; SASS stores / "
+        f"sent while their own load is in flight / LDL / STL: "
+        + "; ".join(f"{n}{a} {st}/{fl}/{ldl}/{stl}"
+                    for n in ("kstep_kernel", "kstepcap_kernel")
+                    for a, _, _, st, fl, ldl, stl in orders[n]))
+    require(len(kstep_lossy) == 8, f"expected 8 LOSSY instantiations of the "
+                                   f"K-step kernel, found {kstep_lossy}")
+    # no local memory, but for the capped 4D entry: no more than its exact
+    # twin (its spill is open work, ROADMAP Queue 2 item 4)
+    require(all(r[4] == 0 and (all(
+                m <= t for m, t in zip(r[5:], twin_local[n, r[0][:-2] + "0>"]))
+                if n == "kstepcap_kernel" else r[5:] == (0, 0))
+                for n, r in kstep_lossy),
+            f"a LOSSY instantiation of the K-step kernel sends a store while "
+            f"its own load is in flight, uses local memory (3D) or uses more "
+            f"than its exact twin (the capped 4D entry): {kstep_lossy}, "
+            f"exact {twin_local}")
     t0 = time.perf_counter()
     err4r, rel4r = compare_offcard_ref(CFG4)
     ref_err = max(ref_err, err4r)
@@ -4974,6 +5163,14 @@ def main() -> int:
          lossy11["pair"]["launches"], lossy11["pair"]["err"],
          lossy11["pair"]["ms"], lossy11["pair"]["plain_ms"],
          lossy11["pair"]["bound"]),
+        # the K-step kernel's LOSSY instantiation (bfloat16 d, every level's
+        # d rounded at its store): its launches on the config-4 lossy x20
+        # run of phase 11 (b), its time at that run's cube (K=8), the bound
+        # with d at 2 bytes
+        ("fused_kstep_iteration_lossy", "temporal_kstep.cu", "kstep.py:395",
+         lossy11["kstep"]["launches"], lossy11["kstep"]["err"],
+         lossy11["kstep"]["ms"], lossy11["kstep"]["plain_ms"],
+         lossy11["kstep"]["bound"]),
     ]
     kernels = [{
         "name": kname,

@@ -1,6 +1,7 @@
 // K TV-denoising iterations in one cooperative launch on a Hopper card
 // (sm_90a), K in {3, 4, 6, 8}, float32, Jia-Zhao boundaries, anisotropic
-// duals, 3D and 4D, FISTA and unaccelerated.
+// duals, 3D and 4D, FISTA and unaccelerated, and FISTA with bfloat16 shadow
+// duals (LOSSY).
 //
 // Replaces the TPU kernel cytvdn_tpu/kernels/kstep.py::
 // fused_kstep_iteration (entry kstep.py:395, body _make_kstep_kernel
@@ -108,9 +109,20 @@
 // reduces its slots in a fixed order into
 // per-block partials, and block 0 reduces those in a fixed order after one
 // more grid barrier. The grid is fixed by the wrapper (the occupancy of
-// this exact (ndim, FISTA, K) instantiation), so the traces repeat exactly
-// from run to run; they may differ from K K=1 launches in the last bit
-// after the cast.
+// this exact (ndim, FISTA, K, LOSSY) instantiation), so the traces repeat
+// exactly from run to run; they may differ from K K=1 launches in the last
+// bit after the cast.
+//
+// Lossy duals (LOSSY, FISTA only; the TPU kernel's bfloat16 ds, its qd
+// rounding of every intermediate level's d and the last level's bfloat16
+// store, cytvdn_tpu/kernels/kstep.py:251-254, :329, :339-340, :480-482):
+// the d arrays are bfloat16. Every level keeps its d in the d array, in
+// place, so each level's dual store of d is itself that rounding: dual-l
+// stores d_l rounded to nearest even, and dual-(l+1) reads it back widened,
+// as the K=1 kernel's next launch reads its d (vec_walk.cuh's LOSSY
+// dual_item, the element of tv_elem.cuh dual_elem_lossy). So a LOSSY
+// launch is bitwise K LOSSY K=1 launches and (K even) K/2 LOSSY pairs, d
+// included. Without LOSSY the instantiations compile to the code they were.
 //
 // Index arithmetic is 32-bit (the wrapper keeps a stage's 2K x rows work
 // items below 2^31 and the rows below 2^32); element offsets are 64-bit.
@@ -143,7 +155,7 @@ constexpr size_t smem_bytes(int k) {
 
 // The ceil(N0 / R) + 3K - 1 stages of the wavefront, with a grid barrier
 // after each.
-template <int ND, bool FISTA, int K, bool VEC>
+template <int ND, bool FISTA, int K, bool VEC, bool LOSSY>
 __device__ __forceinline__ void walk(const Args<float>& a, const KstepArgs& r,
                                      const float* lam, const float* lm,
                                      const float* rho, double* slots,
@@ -184,8 +196,8 @@ __device__ __forceinline__ void walk(const Args<float>& a, const KstepArgs& r,
       const int lev = op / 2;
       if (op % 2 == 0) {
         double acc = 0.0;
-        dual_item<ND, FISTA, VEC>(a, it, lw, xl, y, tid, lam, rho[lev], false,
-                                  false, buf, parity, acc);
+        dual_item<ND, FISTA, VEC, LOSSY>(a, it, lw, xl, y, tid, lam, rho[lev],
+                                         false, false, buf, parity, acc);
         slots[3 * lev * NT + tid] += acc;
       } else {
         double s[4] = {0.0, 0.0, 0.0, 0.0};
@@ -201,7 +213,7 @@ __device__ __forceinline__ void walk(const Args<float>& a, const KstepArgs& r,
 
 // One launch: the walk, then the 3K sums. kstep_kernel and kstepcap_kernel
 // are its entry points.
-template <int ND, bool FISTA, int K>
+template <int ND, bool FISTA, int K, bool LOSSY>
 __device__ __forceinline__ void kstep_body(const Args<float>& a,
                                            const KstepArgs& r, int vec) {
   constexpr int SUMS = 3 * K;
@@ -222,9 +234,9 @@ __device__ __forceinline__ void kstep_body(const Args<float>& a,
   for (int j = 0; j < SUMS; ++j) slots[j * NT + t] = 0.0;
   __syncthreads();
   if (vec) {
-    walk<ND, FISTA, K, true>(a, r, lam, lm, rho, slots, buf);
+    walk<ND, FISTA, K, true, LOSSY>(a, r, lam, lm, rho, slots, buf);
   } else {
-    walk<ND, FISTA, K, false>(a, r, lam, lm, rho, slots, buf);
+    walk<ND, FISTA, K, false, LOSSY>(a, r, lam, lm, rho, slots, buf);
   }
 
   // fixed-tree reduction of every slot row over the block
@@ -250,49 +262,58 @@ __device__ __forceinline__ void kstep_body(const Args<float>& a,
   }
 }
 
-template <int ND, bool FISTA, int K>
+template <int ND, bool FISTA, int K, bool LOSSY>
 __global__ void __launch_bounds__(NT) kstep_kernel(Args<float> a,
                                                    KstepArgs r, int vec) {
-  kstep_body<ND, FISTA, K>(a, r, vec);
+  static_assert(!LOSSY || FISTA, "lossy duals: FISTA only");
+  kstep_body<ND, FISTA, K, LOSSY>(a, r, vec);
 }
 
 // The 4D FISTA launch, capped at 128 registers, 2 blocks per SM. Uncapped
 // it takes 235 registers, one block per SM, and was 5-6% slower at
 // 128^2 x 64^2 and 256^2 x 128^2 (PERF.md section 6, PR 9). The other
 // instantiations keep __launch_bounds__(NT): given (NT, 1) they took more
-// registers and lost 2-5% at 64 x 64 x 512.
-template <int K>
+// registers and lost 2-5% at 64 x 64 x 512. The 4D LOSSY launch keeps the
+// cap.
+template <int K, bool LOSSY>
 __global__ void __launch_bounds__(NT, 2) kstepcap_kernel(Args<float> a,
                                                          KstepArgs r,
                                                          int vec) {
-  kstep_body<4, true, K>(a, r, vec);
+  kstep_body<4, true, K, LOSSY>(a, r, vec);
 }
 
-template <int ND, bool FISTA, int K>
+template <int ND, bool FISTA, int K, bool LOSSY>
 const void* entry() {
   if constexpr (ND == 4 && FISTA) {
-    return reinterpret_cast<const void*>(kstepcap_kernel<K>);
+    return reinterpret_cast<const void*>(kstepcap_kernel<K, LOSSY>);
   } else {
-    return reinterpret_cast<const void*>(kstep_kernel<ND, FISTA, K>);
+    return reinterpret_cast<const void*>(kstep_kernel<ND, FISTA, K, LOSSY>);
   }
 }
 
-template <int ND, bool FISTA>
+template <int ND, bool FISTA, bool LOSSY>
 const void* kernel_for_k(int k) {
   switch (k) {
-    case 3: return entry<ND, FISTA, 3>();
-    case 4: return entry<ND, FISTA, 4>();
-    case 6: return entry<ND, FISTA, 6>();
-    case 8: return entry<ND, FISTA, 8>();
+    case 3: return entry<ND, FISTA, 3, LOSSY>();
+    case 4: return entry<ND, FISTA, 4, LOSSY>();
+    case 6: return entry<ND, FISTA, 6, LOSSY>();
+    case 8: return entry<ND, FISTA, 8, LOSSY>();
     default: return nullptr;
   }
 }
 
-const void* kernel_for(int ndim, int fista, int k) {
-  if (ndim == 4) {
-    return fista ? kernel_for_k<4, true>(k) : kernel_for_k<4, false>(k);
-  }
-  return fista ? kernel_for_k<3, true>(k) : kernel_for_k<3, false>(k);
+template <int ND>
+const void* kernel_for_nd(int fista, int k, int lossy) {
+  if (lossy) return kernel_for_k<ND, true, true>(k);
+  return fista ? kernel_for_k<ND, true, false>(k)
+               : kernel_for_k<ND, false, false>(k);
+}
+
+// The instantiation for (ndim, fista, k, lossy); lossy needs fista (the
+// callers check).
+const void* kernel_for(int ndim, int fista, int k, int lossy) {
+  return ndim == 4 ? kernel_for_nd<4>(fista, k, lossy)
+                   : kernel_for_nd<3>(fista, k, lossy);
 }
 
 // Allows the instantiation its dynamic shared memory (above the 48 KB
@@ -305,11 +326,14 @@ cudaError_t prepare(const void* fn, int k) {
 
 }  // namespace
 
-// The largest grid a cooperative launch of the (ndim, fista, k) kernel may
-// have on the current device: resident blocks per SM of that exact
-// instantiation (its registers and shared memory) times SMs.
-extern "C" int tv_kstep_max_blocks(int ndim, int fista, int k, int* blocks) {
-  const void* fn = kernel_for(ndim, fista, k);
+// The largest grid a cooperative launch of the (ndim, fista, k, lossy)
+// kernel may have on the current device: resident blocks per SM of that
+// exact instantiation (its registers and shared memory) times SMs. lossy
+// (bfloat16 d) takes fista.
+extern "C" int tv_kstep_max_blocks(int ndim, int fista, int k, int lossy,
+                                   int* blocks) {
+  if (lossy && !fista) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = kernel_for(ndim, fista, k, lossy);
   cudaError_t err = prepare(fn, k);
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0;
@@ -333,8 +357,11 @@ extern "C" int tv_kstep_iteration_f32(
     void* d0, void* d1, void* d2, void* d3, const void* lambda_inv,
     const void* lam_mu, const void* rhos, void* partials, void* out,
     int ndim, long long n0, long long n1, long long n2, long long n3,
-    int fista, int k, int rows_per_stage, int nblocks, void* stream) {
-  const void* fn = kernel_for(ndim, fista, k);
+    int fista, int lossy, int k, int rows_per_stage, int nblocks,
+    void* stream) {
+  // lossy: the d arrays are bfloat16 (an unaccelerated launch has none)
+  if (lossy && !fista) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = kernel_for(ndim, fista, k, lossy);
   cudaError_t err = prepare(fn, k);
   if (err != cudaSuccess) return static_cast<int>(err);
   Args<float> a{};
@@ -342,11 +369,14 @@ extern "C" int tv_kstep_iteration_f32(
   a.recon = static_cast<float*>(recon);
   void* const bs[4] = {b0, b1, b2, b3};
   void* const dd[4] = {d0, d1, d2, d3};
+  // VEC moves four elements per access: 16 bytes of a float array, 8 of a
+  // bfloat16 d array
   int vec = aligned16(orig) && aligned16(recon);
   for (int q = 0; q < 4; ++q) {
     a.b[q] = static_cast<float*>(bs[q]);
     a.d[q] = static_cast<float*>(dd[q]);
-    vec = vec && aligned16(bs[q]) && aligned16(dd[q]);
+    vec = vec && aligned16(bs[q]) &&
+          (lossy ? aligned8(dd[q]) : aligned16(dd[q]));
   }
   const long long n[4] = {n0, n1, n2, n3};
   set_shape(a, ndim, n);

@@ -9,8 +9,9 @@
 // - A thread owns four consecutive elements along the last axis and moves
 //   them with one 128-bit load or store per array (ld.global.cg.v4.f32)
 //   where VEC: the last extent a multiple of 4 and every array 16-byte
-//   aligned. Otherwise the same walk moves the elements one by one and
-//   masks those past the ragged edge.
+//   aligned (a bfloat16 d array 8-byte: one 64-bit access). Otherwise the
+//   same walk moves the elements one by one and masks those past the
+//   ragged edge.
 // - Every load of an item is issued before its first store, so the item
 //   waits out one round of L2 latency, not one per axis; b is stored before
 //   d, so the store of d waits for bn, which needs d's old value, and never
@@ -50,6 +51,15 @@
 // Each element's arithmetic is tv_elem.cuh dual_elem's and recon_elem's, in
 // their order, built with --fmad=false, so a walk's state is bitwise that
 // of the one-iteration kernel.
+//
+// Lossy duals (dual_item's LOSSY, FISTA only; the K-step kernel's bfloat16
+// d): Args::d then holds bfloat16 arrays. A thread's four old d values
+// come in one 64-bit load where VEC (the d arrays 8-byte aligned), else
+// one by one, and stay packed until each widens exactly at its use; the
+// arithmetic stays float, b takes the unrounded d_new, and the four d_new,
+// each rounded to nearest even as it is computed, go out packed in one
+// 64-bit store where VEC, still after b: tv_elem.cuh dual_elem_lossy's
+// element, so a lossy walk's state is bitwise that of LOSSY K=1 launches.
 
 #pragma once
 
@@ -90,6 +100,10 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+inline bool aligned8(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 7u) == 0;
+}
+
 // The four elements at p + i, the first n (0..4) of them inside the cube:
 // one 128-bit load where VEC, else n scalar loads; through L2 where CG,
 // else through the read-only path. Elements past n read as 0.
@@ -125,6 +139,65 @@ __device__ __forceinline__ void st4(float* p, int64_t i, int n,
 #pragma unroll
     for (int j = 0; j < VW; ++j) {
       if (j < n) p[i + j] = v[j];
+    }
+  }
+}
+
+// A thread's four bfloat16 values of a d array stay packed, two to a
+// 32-bit word (element j in the low half of word j / 2 where j is even,
+// the high half where it is odd), from their load to their use and from
+// their rounding to their store: 2 registers an axis instead of 4, for
+// the 128-register cap of the 4D FISTA K-step launch.
+
+// The bits of the four bfloat16 values at p + i (p a bfloat16 array), the
+// first n of them inside the cube: one 64-bit load where VEC, else n
+// scalar loads; through L2. Elements past n read as 0.
+template <bool VEC>
+__device__ __forceinline__ void ld4_bf16(uint32_t (&w)[2], const float* p,
+                                         int64_t i, int n) {
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+  if (VEC) {
+    uint2 q = make_uint2(0u, 0u);
+    if (n > 0) q = __ldcg(reinterpret_cast<const uint2*>(h + i));
+    w[0] = q.x;
+    w[1] = q.y;
+  } else {
+    uint32_t e[VW];
+#pragma unroll
+    for (int j = 0; j < VW; ++j) e[j] = j < n ? __ldcg(h + i + j) : 0u;
+    w[0] = e[0] | e[1] << 16;
+    w[1] = e[2] | e[3] << 16;
+  }
+}
+
+// Element j of packed bfloat16 bits, widened exactly (a bfloat16 is the
+// upper half of a float's bits).
+__device__ __forceinline__ float widen_bf16(const uint32_t (&w)[2], int j) {
+  const uint32_t u = w[j >> 1];
+  return __uint_as_float(j & 1 ? u & 0xFFFF0000u : u << 16);
+}
+
+// Packs v rounded to nearest even onto the bfloat16 grid as element j.
+__device__ __forceinline__ void pack_bf16(uint32_t (&w)[2], int j, float v) {
+  const uint32_t bits = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  w[j >> 1] = j & 1 ? w[j >> 1] | bits << 16 : bits;
+}
+
+// Stores the first n of four packed bfloat16 values at p + i (p a
+// bfloat16 array): one 64-bit store where VEC.
+template <bool VEC>
+__device__ __forceinline__ void st4_bf16(float* p, int64_t i, int n,
+                                         const uint32_t (&w)[2]) {
+  unsigned short* h = reinterpret_cast<unsigned short*>(p);
+  if (VEC) {
+    if (n > 0) *reinterpret_cast<uint2*>(h + i) = make_uint2(w[0], w[1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VW; ++j) {
+      if (j < n) {
+        h[i + j] = static_cast<unsigned short>(j & 1 ? w[j >> 1] >> 16
+                                                     : w[j >> 1]);
+      }
     }
   }
 }
@@ -214,19 +287,22 @@ __device__ __forceinline__ void dual_math(float x, const float* xb,
 }
 
 // One dual work item: the thread's elements' b_k (and d_k); adds each new
-// |b_k| to acc, element by element in axis order.
-template <int ND, bool FISTA, bool VEC>
+// |b_k| to acc, element by element in axis order. LOSSY (FISTA only): the
+// d arrays are bfloat16, loaded widened and stored rounded.
+template <int ND, bool FISTA, bool VEC, bool LOSSY = false>
 __device__ __forceinline__ void dual_item(const Args<float>& a,
                                           const Item<ND>& it, int lw, int xl,
                                           int y, int tid, const float* lam,
                                           float rho, bool iso_r, bool iso_q,
                                           float4 (*buf)[NT], int& parity,
                                           double& acc) {
+  static_assert(!LOSSY || FISTA, "lossy duals: FISTA only");
   const int64_t M = a.n[ND - 2];
   const int64_t L = a.n[ND - 1];
   const int n = it.n;
   // every load first
   float x[VW], xk[ND - 2][VW], xm[VW], bo[ND][VW], dol[ND][VW];
+  uint32_t dq[ND][2];  // LOSSY: the old d, packed bfloat16
   ld4<VEC, true>(x, a.recon, it.idx, n);
 #pragma unroll
   for (int k = 0; k < ND - 2; ++k) {
@@ -236,7 +312,11 @@ __device__ __forceinline__ void dual_item(const Args<float>& a,
 #pragma unroll
   for (int k = 0; k < ND; ++k) {
     ld4<VEC, true>(bo[k], a.b[k], it.idx, n);
-    if (FISTA) ld4<VEC, true>(dol[k], a.d[k], it.idx, n);
+    if (LOSSY) {
+      ld4_bf16<VEC>(dq[k], a.d[k], it.idx, n);
+    } else if (FISTA) {
+      ld4<VEC, true>(dol[k], a.d[k], it.idx, n);
+    }
   }
   // the tile's first row: its backward row along axis ND-2 (or the wrap)
   ld4<VEC, true>(xm, a.recon,
@@ -252,6 +332,7 @@ __device__ __forceinline__ void dual_item(const Args<float>& a,
   if (y > 0) unpack(xm, buf[parity][tid - lw]);
   parity ^= 1;
   float bn[ND][VW], dn[ND][VW];
+  uint32_t dqn[ND][2];  // LOSSY: the new d, rounded and packed
 #pragma unroll
   for (int j = 0; j < VW; ++j) {
     float xb[ND], b1[ND], d1[ND], nb[ND], nd[ND];
@@ -262,13 +343,14 @@ __device__ __forceinline__ void dual_item(const Args<float>& a,
 #pragma unroll
     for (int k = 0; k < ND; ++k) {
       b1[k] = bo[k][j];
-      d1[k] = FISTA ? dol[k][j] : 0.0f;
+      d1[k] = LOSSY ? widen_bf16(dq[k], j) : FISTA ? dol[k][j] : 0.0f;
     }
     dual_math<ND, FISTA>(x[j], xb, b1, d1, lam, rho, iso_r, iso_q, nb, nd);
 #pragma unroll
     for (int k = 0; k < ND; ++k) {
       bn[k][j] = nb[k];
       dn[k][j] = nd[k];
+      if (LOSSY) pack_bf16(dqn[k], j, nd[k]);
       if (j < n) acc += static_cast<double>(abs_(nb[k]));
     }
   }
@@ -276,7 +358,11 @@ __device__ __forceinline__ void dual_item(const Args<float>& a,
 #pragma unroll
   for (int k = 0; k < ND; ++k) {
     st4<VEC>(a.b[k], it.idx, n, bn[k]);
-    if (FISTA) st4<VEC>(a.d[k], it.idx, n, dn[k]);
+    if (LOSSY) {
+      st4_bf16<VEC>(a.d[k], it.idx, n, dqn[k]);
+    } else if (FISTA) {
+      st4<VEC>(a.d[k], it.idx, n, dn[k]);
+    }
   }
 }
 

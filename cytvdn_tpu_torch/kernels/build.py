@@ -91,10 +91,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tv_pair_iteration_f32.restype = i
     lib.tv_pair_max_blocks.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
     lib.tv_pair_max_blocks.restype = i
+    # the state, scalars and sums, ndim, the extents; fista, lossy, k, R,
+    # the grid
     lib.tv_kstep_iteration_f32.argtypes = \
-        [vp] * 15 + [i] + [ll] * 4 + [i] * 4 + [vp]
+        [vp] * 15 + [i] + [ll] * 4 + [i] * 5 + [vp]
     lib.tv_kstep_iteration_f32.restype = i
-    lib.tv_kstep_max_blocks.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.tv_kstep_max_blocks.argtypes = [i, i, i, i, ctypes.POINTER(i)]
     lib.tv_kstep_max_blocks.restype = i
     lib.tv_resident_solve_f32.argtypes = \
         [vp] * 16 + [i] + [ll] * 4 + [i] * 6 + [vp]

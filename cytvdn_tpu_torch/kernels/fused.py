@@ -320,17 +320,16 @@ def _check_state(orig: Tensor, recon: Tensor, accs, ds, fista: bool,
                  lossy_ok: bool = False) -> bool:
     """The state a kernel updates in place: one accumulator (and one shadow
     dual under FISTA) per axis, each like ``orig``; with ``lossy_ok`` (the
-    K=1 and pair kernels) the shadow duals of float32 data may all be
-    bfloat16 (lossy duals). Returns whether they are."""
+    K=1, pair and K-step kernels) the shadow duals of float32 data may all
+    be bfloat16 (lossy duals). Returns whether they are."""
     ndim = orig.dim()
     if len(accs) != ndim or (fista and (ds is None or len(ds) != ndim)):
         raise ValueError("need one accumulator (and one shadow dual under "
                          "FISTA) per axis")
     _check(orig, orig, "orig")
     _check(recon, orig, "recon")
-    # the K-step kernel refuses a bfloat16 d (its rounding at every
-    # intermediate level is ROADMAP.md Queue 1 item 12(c)), and so does the
-    # whole-run kernel, whose JAX gate keeps lossy runs off it
+    # the whole-run kernel refuses a bfloat16 d: its JAX gate keeps lossy
+    # runs off it
     lossy = bool(lossy_ok and fista and orig.dtype == torch.float32
                  and ds[0].dtype == torch.bfloat16)
     for k in range(ndim):

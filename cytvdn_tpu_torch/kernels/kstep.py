@@ -25,11 +25,20 @@ iterations; its HBM traffic lies between K two-pass iterations and one
 fused pass per K iterations (``utils/perf.py``, ``kstep_upper`` and
 ``kstep_floor``).
 
+Lossy duals (``lossy_duals``): under FISTA ``ds`` may be bfloat16. The TPU
+kernel rounds every intermediate level's ``d`` onto the bfloat16 grid
+(``qd``, ``kstep.py:251-254, :329``) and stores the last level's as
+bfloat16 (``:339-340, :480-482``). The CUDA kernel keeps every level's
+``d`` in the ``d`` array itself, so its ``LOSSY`` instantiations round
+each level's ``d`` at its bfloat16 store, and the next level reads it back
+widened; the plain version's K lossy K=1 steps round in their ``copy_``.
+So a lossy K-step is bitwise K lossy K=1 launches, ``d`` included.
+
 Scope, as the TPU kernel's on one device: float32, Jia-Zhao boundaries,
-anisotropic duals, 3D and 4D, FISTA and unaccelerated, N0 ≥ 2K.
-:func:`fused_kstep_iteration` launches the kernel for CUDA tensors and runs
-:func:`fused_kstep_iteration_reference` for CPU tensors; there is no
-fallback.
+anisotropic duals, 3D and 4D, FISTA and unaccelerated, N0 ≥ 2K, bfloat16
+``ds`` under FISTA. :func:`fused_kstep_iteration` launches the kernel for
+CUDA tensors and runs :func:`fused_kstep_iteration_reference` for CPU
+tensors; there is no fallback.
 """
 
 from __future__ import annotations
@@ -60,10 +69,10 @@ KSTEP_CANDIDATES = (8, 6, 4, 3)
 MAX_ROWS_PER_STAGE = 16
 SUPER_ROW_BYTES = 32 * 2**20
 
-#: the full cooperative grid per (device, ndim, fista, k): each depth is its
-#: own instantiation with its own registers and shared memory, so its own
-#: occupancy
-_GRID: Dict[Tuple[int, int, bool, int], int] = {}
+#: the full cooperative grid per (device, ndim, fista, k, lossy): each depth
+#: and mode is its own instantiation with its own registers and shared
+#: memory, so its own occupancy
+_GRID: Dict[Tuple[int, int, bool, int, bool], int] = {}
 
 
 def kstep_supported(shape, dtype, bc, k: int, fista: bool) -> bool:
@@ -163,7 +172,9 @@ def fused_kstep_iteration_reference(
 ):
     """The plain version of :func:`fused_kstep_iteration`: ``k`` Jia-Zhao
     iterations of :func:`fused_iteration_reference`, in place, returning
-    ``(recon, accs, ds, bn, dnum, dden)`` with (k,) sums."""
+    ``(recon, accs, ds, bn, dnum, dden)`` with (k,) sums. Bfloat16 ``ds``
+    (lossy duals) round after each iteration, in the K=1 steps'
+    ``copy_``, as the kernel rounds each level's ``d``."""
     sums = []
     for t in range(k):
         sums.append(torch.stack(fused_iteration_reference(
@@ -174,16 +185,18 @@ def fused_kstep_iteration_reference(
 
 
 def cooperative_grid(device: torch.device, ndim: int, fista: bool,
-                     k: int) -> int:
-    """Blocks of the full cooperative grid of the (ndim, fista, k) kernel on
-    ``device``: resident blocks per SM of that instantiation times SMs."""
+                     k: int, lossy: bool = False) -> int:
+    """Blocks of the full cooperative grid of the (ndim, fista, k, lossy)
+    kernel on ``device``: resident blocks per SM of that instantiation
+    times SMs."""
     key = (device.index if device.index is not None
-           else torch.cuda.current_device(), ndim, fista, k)
+           else torch.cuda.current_device(), ndim, fista, k, lossy)
     if key not in _GRID:
         lib = build.load()
         blocks = ctypes.c_int(0)
         with torch.cuda.device(key[0]):
             build.check(lib.tv_kstep_max_blocks(ndim, int(fista), k,
+                                                int(lossy),
                                                 ctypes.byref(blocks)))
         _GRID[key] = blocks.value
     return _GRID[key]
@@ -218,9 +231,16 @@ def fused_kstep_iteration(
     clipped to N0); by default :func:`kstep_rows`. The result does not
     depend on it.
 
+    Lossy duals: under FISTA ``ds`` may be bfloat16 (float32 data). The old
+    ``d`` widens exactly, the arithmetic stays float32, and each level's
+    new ``d`` is stored rounded to nearest even before the next level reads
+    it (the kernel's ``LOSSY`` instantiations; the plain version's K lossy
+    K=1 steps).
+
     Returns ``(recon, accs, ds, bn, dnum, dden)`` — the state objects
     passed in and the per-iteration sums as (k,) tensors.
-    ``fused_kstep_iteration.launches`` counts kernel launches;
+    ``fused_kstep_iteration.launches`` counts kernel launches,
+    ``fused_kstep_iteration.lossy_launches`` those with bfloat16 ``ds``;
     ``fused_kstep_iteration.calls`` counts every call that passed the
     checks, on the CPU too.
     """
@@ -231,7 +251,7 @@ def fused_kstep_iteration(
             f"fused_kstep_iteration does not cover shape {tuple(orig.shape)}, "
             f"dtype {orig.dtype} at K={k} (float32, 3D/4D, K in "
             f"{sorted(KSTEP_CANDIDATES)}, N0 >= 2K)")
-    _check_state(orig, recon, accs, ds, fista)
+    lossy = _check_state(orig, recon, accs, ds, fista, lossy_ok=True)
     rr = kstep_rows(orig.shape) if rows_per_stage is None \
         else int(rows_per_stage)
     if rr < 1:
@@ -260,7 +280,7 @@ def fused_kstep_iteration(
                          "arithmetic takes < 2**31 and < 2**32")
     lib = build.load()
     nblocks = grid if grid is not None else cooperative_grid(
-        orig.device, ndim, fista, k)
+        orig.device, ndim, fista, k, lossy)
     partials = torch.empty(3 * k * nblocks, dtype=torch.float64,
                            device=orig.device)
     out = torch.empty(k, 3, dtype=orig.dtype, device=orig.device)
@@ -268,13 +288,15 @@ def fused_kstep_iteration(
         orig.data_ptr(), recon.data_ptr(), *bs, *dd,
         lambda_inv.data_ptr(), lam_mu.data_ptr(),
         rhos.data_ptr() if fista else None,
-        partials.data_ptr(), out.data_ptr(), ndim, *dims, int(fista), k, rr,
-        nblocks, stream)
+        partials.data_ptr(), out.data_ptr(), ndim, *dims, int(fista),
+        int(lossy), k, rr, nblocks, stream)
     build.check(err)
     fused_kstep_iteration.calls += 1
     fused_kstep_iteration.launches += 1
+    fused_kstep_iteration.lossy_launches += lossy
     return (recon, accs, ds, *out.unbind(1))
 
 
 fused_kstep_iteration.launches = 0
+fused_kstep_iteration.lossy_launches = 0
 fused_kstep_iteration.calls = 0

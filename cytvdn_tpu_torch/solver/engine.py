@@ -15,13 +15,13 @@ semantics:
 - hybrid runs run FISTA first, then always the unaccelerated phase, which
   shares the accumulators, with the stop latch reset between the phases.
 
-- lossy runs (``lossy_duals``: the shadow duals stored as bfloat16) run in
-  pairs where they pay, on one device and on an axis-0 mesh, the pair
-  kernel rounding iteration 1's duals in the middle of the pair (its
-  ``LOSSY`` instantiations), and the one-iteration loop for the rest; the
-  K-step kernel's rounding at its intermediate levels is ROADMAP.md Queue
-  1 item 12(c), and the whole-run kernel refuses them, as the JAX gate
-  does;
+- lossy runs (``lossy_duals``: the shadow duals stored as bfloat16) take
+  K-steps on one device, pairs where they pay on one device and on an
+  axis-0 mesh, and the one-iteration loop for the rest, as exact runs do:
+  the K-step kernel rounds every level's duals at its store and the pair
+  kernel iteration 1's in the middle of the pair (their ``LOSSY``
+  instantiations), so the state is that of the lossy one-iteration loop.
+  The whole-run kernel refuses them, as the JAX gate does;
 - float32 runs whose whole state is small (``_resolve_resident``) run the
   whole schedule in one launch of the whole-run kernel; with
   ``stopping_relative_change`` (``_resolve_resident_chunks``) each phase
@@ -552,13 +552,11 @@ def _resolve_kstep(opts: SolverOptions, shape, dtype, fista: bool) -> int:
     ``cytvdn_tpu``'s ``_resolve_kstep`` (``engine.py:546-570``) decides on
     one device: ``temporal_kstep`` on, the pair gate
     (:func:`_resolve_temporal`), no ``calculate_mse`` (the K-step kernel
-    has no SSE), and :func:`best_kstep` with ``temporal_k``. It depends on
-    the shape, dtype and options only, never on the device."""
+    has no SSE), and :func:`best_kstep` with ``temporal_k``. Lossy runs
+    K-step too, as in the JAX engine: the kernel rounds every level's
+    bfloat16 duals (its ``LOSSY`` instantiations). It depends on the shape,
+    dtype and options only, never on the device."""
     if not opts.temporal_kstep or opts.calculate_mse:
-        return 0
-    if lossy_duals(opts):
-        # the K-step kernel's rounding at every intermediate level is
-        # ROADMAP.md Queue 1 item 12(c)
         return 0
     if not _resolve_temporal(opts, shape, dtype):
         return 0

@@ -23,7 +23,12 @@ stream-mode ``denoise_outofcore``; so is the pair kernel's LOSSY
 instantiations (bfloat16 shadow duals rounded in the middle of the pair),
 plain, with a reference cube and with axis-0 bands, at forced grids and
 strips, against two LOSSY K=1 launches, its seam rounding against torch's
-bfloat16 cast on canary values, and lossy runs that pair on the card.
+bfloat16 cast on canary values, and lossy runs that pair on the card; so
+is the K-step kernel's LOSSY instantiations (bfloat16 shadow duals rounded
+at every level), at every depth, its tile edges, forced grids, rows per
+stage and bfloat16 views off 16-byte boundaries, against K LOSSY K=1
+launches and (K even) K/2 LOSSY pairs, and lossy runs that K-step on the
+card against the lossy K=1 loop.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -1592,10 +1597,10 @@ def test_lossy_halo_slabs_reassemble_to_one_launch(shape, n_slabs):
 
 @pytest.mark.cuda
 def test_lossy_runs_on_the_card():
-    """``denoise4D(lossy_duals=True)`` on the card: every iteration one
-    LOSSY K=1 launch, the recon bitwise the plain backend's there and
-    ``denoise_outofcore`` in stream mode's (bfloat16 pinned host duals),
-    and not the exact run's."""
+    """``denoise4D(lossy_duals=True)`` ×9 on the card: one LOSSY K=8
+    launch and one LOSSY K=1 launch, the recon bitwise the plain backend's
+    there and ``denoise_outofcore`` in stream mode's (bfloat16 pinned host
+    duals), and not the exact run's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     import numpy as np
@@ -1609,14 +1614,14 @@ def test_lossy_runs_on_the_card():
     kw = dict(iterations=9, FISTA=True, lossy_duals=True)
     before = (tfused.fused_iteration.lossy_launches,
               ttemporal.fused_pair_iteration.launches,
-              tkstep.fused_kstep_iteration.launches,
+              tkstep.fused_kstep_iteration.lossy_launches,
               tres.resident_solve.launches)
     got = denoise4D(cube, mu, quiet=True, device="cuda", **kw)
     after = (tfused.fused_iteration.lossy_launches,
              ttemporal.fused_pair_iteration.launches,
-             tkstep.fused_kstep_iteration.launches,
+             tkstep.fused_kstep_iteration.lossy_launches,
              tres.resident_solve.launches)
-    assert [a - b for a, b in zip(after, before)] == [9, 0, 0, 0]
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 1, 0]
     plain = denoise4D(cube, mu, quiet=True, device="cuda", backend="torch",
                       **kw)
     np.testing.assert_array_equal(got[0], plain[0])
@@ -1760,10 +1765,11 @@ def test_round_bf16_device_function_bitwise_torch_cast():
 @pytest.mark.cuda
 def test_lossy_pair_runs_on_the_card(monkeypatch):
     """Lossy runs that pair on the card (``PAIR_MIN_ROW_BYTES`` patched to
-    0): ``denoise4D(lossy_duals=True)`` ×9 makes 4 LOSSY pairs and one
-    LOSSY K=1 launch, bitwise the K=1 lossy loop (pairs never paying) and
-    the plain backend; an MSE run pairs with REF+LOSSY, bitwise the K=1
-    loop; out-of-core temporal mode (K=4, 3 slabs) bitwise in core."""
+    0, K-steps off): ``denoise4D(lossy_duals=True)`` ×9 makes 4 LOSSY
+    pairs and one LOSSY K=1 launch, bitwise the K=1 lossy loop (pairs
+    never paying) and the plain backend; an MSE run pairs with REF+LOSSY,
+    bitwise the K=1 loop; out-of-core temporal mode (K=4, 3 slabs) bitwise
+    in core."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     import numpy as np
@@ -1779,6 +1785,8 @@ def test_lossy_pair_runs_on_the_card(monkeypatch):
         return out
 
     monkeypatch.setattr(engine, "PAIR_MIN_ROW_BYTES", 0)
+    # the K-step kernel would take these runs (its lossy runs: below)
+    monkeypatch.setattr(engine, "_resolve_kstep", lambda *a: 0)
     cube = (np.random.default_rng(6).standard_normal((22, 9, 10, 33)) * 0.5
             + 2.0).astype(np.float32)
     mu = np.full(4, 1.0, np.float32)
@@ -1810,3 +1818,214 @@ def test_lossy_pair_runs_on_the_card(monkeypatch):
     assert ttemporal.fused_pair_iteration.lossy_launches - calls == 6
     want = denoise4D(cube, mu, **dict(kw, iterations=8))
     np.testing.assert_array_equal(ooc[0], want[0])
+
+
+# -- lossy duals: the K-step kernel's LOSSY instantiations ---------------------
+
+def _lossy_kstep_state(shape, seed=0):
+    """A random Jia-Zhao FISTA state on the card with bfloat16 shadow
+    duals (each leading slab along its own axis zero)."""
+    orig, state, li, lm, _ = _jz_state(shape, True, seed=seed)
+    nd = len(shape)
+    return orig, state[:1 + nd] + [d.to(torch.bfloat16)
+                                   for d in state[1 + nd:]], li, lm
+
+
+def _assert_lossy_runs(got, others, what):
+    for s, sums in others:
+        _assert_states(got[0], s, what)
+        torch.testing.assert_close(got[1], sums, rtol=1e-5, atol=0)
+    assert got[0][-1].dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", KSTEP_SHAPES, ids=str)
+@pytest.mark.parametrize("k", KS)
+def test_lossy_kstep_kernel_bitwise_plain_k1_and_pairs(k, shape):
+    """Two launches of the LOSSY instantiation (bfloat16 d: every level's
+    d stored rounded and read back by the next) at every depth, N0 = 2K
+    and 2K+1, ragged and 128-bit shapes, against the plain version, K
+    LOSSY K=1 launches and (K even) K/2 LOSSY pairs per launch: state
+    bitwise, d included, sums within rtol 1e-5; both launches counted as
+    lossy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    shape = _at(shape, k)
+    orig, state, li, lm = _lossy_kstep_state(shape, seed=sum(shape) + k)
+    args = (orig, state, li, lm, k, True)
+    before = tkstep.fused_kstep_iteration.lossy_launches
+    got = _ksteps(tkstep.fused_kstep_iteration, *args)
+    assert tkstep.fused_kstep_iteration.lossy_launches - before == 2
+    others = [_ksteps(tkstep.fused_kstep_iteration_reference, *args),
+              _ksteps(_k1_launches, *args)]
+    if k % 2 == 0:
+        others.append(_ksteps(_pair_launches, *args))
+    _assert_lossy_runs(got, others, (shape, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 45, 19, 23), ("2K+1", 13, 70)],
+                         ids=str)
+@pytest.mark.parametrize("k", KS)
+def test_lossy_kstep_kernel_state_independent_of_grid(k, shape):
+    """The LOSSY schedule is race-free at every depth: one block, 7 blocks
+    and the full cooperative grid of the LOSSY instantiation give the same
+    state bitwise, the plain version's; a grid one block larger is
+    refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    shape = _at(shape, k)
+    orig, state, li, lm = _lossy_kstep_state(shape, seed=1)
+    args = (orig, state, li, lm, k, True)
+    full = tkstep.cooperative_grid(torch.device("cuda"), len(shape), True, k,
+                                   lossy=True)
+    runs = [_ksteps(tkstep.fused_kstep_iteration, *args, grid=g)
+            for g in (1, 7, full)]
+    plain = _ksteps(tkstep.fused_kstep_iteration_reference, *args)
+    _assert_lossy_runs(plain, runs, (shape, k))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _ksteps(tkstep.fused_kstep_iteration, *args, grid=full + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [(s, k) for s, k, _ in kstep_edge_cases()],
+                         ids=str)
+def test_lossy_kstep_kernel_tile_edges(shape, k):
+    """The LOSSY instantiation at the vector walk's tile edges (last
+    extents 1, 4, 5, 128, 129; ND-2 extents 1, 7, 9): the full grid, 1
+    block and 7 blocks give the plain version's state and K LOSSY K=1
+    launches', d included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    orig, state, li, lm = _lossy_kstep_state(shape, seed=3)
+    args = (orig, state, li, lm, k, True)
+    got = _ksteps(tkstep.fused_kstep_iteration, *args)
+    others = [_ksteps(tkstep.fused_kstep_iteration, *args, grid=g)
+              for g in (1, 7)]
+    others += [_ksteps(tkstep.fused_kstep_iteration_reference, *args),
+               _ksteps(_k1_launches, *args)]
+    _assert_lossy_runs(got, others, (shape, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [("N0", 9, 10, 33), ("N0", 13, 64)],
+                         ids=str)
+@pytest.mark.parametrize("rr", (1, 2, 3))
+@pytest.mark.parametrize("k", KS)
+def test_lossy_kstep_kernel_rows_per_stage(k, rr, shape):
+    """R axis-0 rows per stage of the LOSSY instantiation, N0 not a
+    multiple of R, at the full grid and at 1 and 7 blocks: the plain
+    version's state and K LOSSY K=1 launches', d included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    n0 = 2 * k + 1 if (2 * k + 1) % rr or rr == 1 else 2 * k + 2
+    shape = (n0,) + shape[1:]
+    orig, state, li, lm = _lossy_kstep_state(shape, seed=5)
+    args = (orig, state, li, lm, k, True)
+    runs = [_ksteps(tkstep.fused_kstep_iteration, *args, grid=g,
+                          rows_per_stage=rr) for g in (None, 1, 7)]
+    runs += [_ksteps(tkstep.fused_kstep_iteration_reference, *args),
+             _ksteps(_k1_launches, *args)]
+    _assert_lossy_runs(runs[0], runs[1:], (shape, k, rr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [4, 1], ids=["8-byte", "2-byte"])
+@pytest.mark.parametrize("shape", [(9, 9, 32), (9, 3, 7, 64)], ids=str)
+def test_lossy_kstep_kernel_bfloat16_views_off_16_bytes(shape, offset):
+    """bfloat16 d arrays that start 8 bytes past a 16-byte boundary keep
+    the 64-bit walk (VEC needs 8-byte aligned d), those 2 bytes past it
+    take the element-by-element walk: both give the plain version's state
+    and K LOSSY K=1 launches', d included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    orig, state, li, lm = _lossy_kstep_state(shape, seed=6)
+    nd = len(shape)
+    for q in range(1 + nd, 1 + 2 * nd):
+        d = state[q]
+        view = torch.empty(d.numel() + offset, dtype=torch.bfloat16,
+                           device="cuda")[offset:].view(d.shape).copy_(d)
+        assert view.data_ptr() % 16 == 2 * offset
+        state[q] = view
+    args = (orig, state, li, lm, 4, True)
+    got = _ksteps(tkstep.fused_kstep_iteration, *args)
+    _assert_lossy_runs(got, [
+        _ksteps(tkstep.fused_kstep_iteration_reference, *args),
+        _ksteps(_k1_launches, *args)], (shape, offset))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", [
+    ((22, 9, 10, 33), dict(iterations_fista=19, iterations_unacc=0)),
+    ((20, 13, 64), dict(iterations_fista=9, iterations_unacc=9)),
+    ((16, 13, 70), dict(iterations_fista=11, iterations_unacc=0,
+                        temporal_k=3))], ids=str)
+def test_lossy_kstep_runs_on_the_card(shape, kw):
+    """``run_solver`` lossy runs on the card that K-step (fixed 4D with a
+    remainder, hybrid 3D with both phases K-stepping, a forced K=3):
+    bitwise the lossy K=1 loop (K-steps and pairs off), the bfloat16 duals
+    included, with LOSSY K-step launches made."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+
+    from cytvdn_tpu_torch.config import SolverOptions
+    from cytvdn_tpu_torch.solver.engine import run_solver
+
+    cube = torch.from_numpy((np.random.default_rng(7).standard_normal(shape)
+                             * 0.5 + 2.0).astype(np.float32)).cuda()
+    nd = len(shape)
+    li = torch.full((nd,), 16.0, device="cuda")
+    lm = torch.full((nd,), 1 / 16.0, device="cuda")
+    base = dict(ndim=nd, lossy_duals=True, **kw)
+    before = tkstep.fused_kstep_iteration.lossy_launches
+    got = run_solver(cube, li, lm, SolverOptions(**base), keep_state=True)
+    assert tkstep.fused_kstep_iteration.lossy_launches > before
+    want = run_solver(cube, li, lm, SolverOptions(
+        **base, temporal_kstep=False, temporal_pairs=False), keep_state=True)
+    assert got["iterations_run"] == want["iterations_run"]
+    assert torch.equal(got["recon"], want["recon"])
+    _assert_states(got["ds"], want["ds"], shape)
+    _assert_states(got["accs"], want["accs"], shape)
+    assert got["ds"][0].dtype == torch.bfloat16
+    torch.testing.assert_close(got["delta"].cpu(), want["delta"].cpu(),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guard", ["real", "always"])
+def test_lossy_kstep_stop_run_on_the_card(monkeypatch, guard):
+    """A stop-aware lossy hybrid run on the card through LOSSY K=8 launches
+    behind the guard (test_stop_aware_run_solver_equals_k1_loop's run,
+    lossy) stops at the lossy K=1 loop's iteration with recon and the
+    bfloat16 duals bitwise; with a guard that always allows, blocks are
+    discarded (their bfloat16 checkpoint restored) and redone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from cytvdn_tpu_torch.config import SolverOptions
+    from cytvdn_tpu_torch.solver import engine
+
+    shape = (16, 9, 10, 64)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    orig = torch.randn(shape, generator=gen, device="cuda") * 0.5 + 2.0
+    li = torch.full((4,), 32.0, device="cuda")
+    lm = torch.full((4,), 1 / 32, device="cuda")
+    base = dict(ndim=4, iterations_fista=12, iterations_unacc=40,
+                lossy_duals=True)
+    k1 = dict(temporal_kstep=False, temporal_pairs=False)
+    probe = engine.run_solver(orig, li, lm, SolverOptions(**base, **k1))
+    stop = dict(stopping_relative_change=_stop_threshold(probe["delta"], 40))
+    want = engine.run_solver(orig, li, lm, SolverOptions(**base, **stop, **k1),
+                             keep_state=True)
+    if guard == "always":
+        monkeypatch.setattr(engine, "_guard_allows", lambda *a: True)
+    before = tkstep.fused_kstep_iteration.lossy_launches
+    got = engine.run_solver(orig, li, lm, SolverOptions(**base, **stop),
+                            keep_state=True)
+    assert tkstep.fused_kstep_iteration.lossy_launches > before
+    assert got["iterations_run"] == want["iterations_run"] == 41
+    assert got["early_stopped"] and want["early_stopped"]
+    assert torch.equal(got["recon"], want["recon"])
+    _assert_states(got["ds"], want["ds"], shape)
+    for key in ("b_norm", "delta"):
+        torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=0)

@@ -254,13 +254,15 @@ def test_stop_aware_kstep_matches_jax(monkeypatch, iters, stop_at, tk):
 def _gate_variants():
     """(ndim, jax options, port options) for the K-step gate: the knob
     off, a forced K=2, MSE, each non-Jia-Zhao BC, iso pairs, adaptive
-    restart, the plain backends, forced depths, and the defaults."""
+    restart, the plain backends, forced depths, lossy duals (alone and at
+    a forced depth), and the defaults."""
     out = []
     for ndim in (3, 4):
         kws = [dict(), dict(temporal_kstep=False), dict(temporal_k=2),
                dict(temporal_k=3), dict(temporal_k=4), dict(calculate_mse=True),
                dict(bc_mode=0), dict(bc_mode=1), dict(fista_restart=True),
-               dict(temporal_pairs=False)]
+               dict(temporal_pairs=False), dict(lossy_duals=True),
+               dict(lossy_duals=True, temporal_k=3)]
         if ndim == 4:
             kws += [dict(isotropic_R=True), dict(isotropic_Q=True)]
         for kw in kws:
@@ -361,10 +363,18 @@ def test_kstep_wrapper_rejects_what_the_kernel_does_not_take():
     for k in (5, 8):  # uncompiled; N0 = 8 < 2K
         with pytest.raises(ValueError, match="does not cover"):
             tkstep.fused_kstep_iteration(*args, k=k, fista=True)
+    # bfloat16 ds (lossy duals) are taken with float32 FISTA data, all of
+    # them (tests/test_torch_lossy_kstep.py), not mixed with float32 ones
+    # and not with float64 data
     with pytest.raises(ValueError, match="ds"):
         tkstep.fused_kstep_iteration(
-            *args[:3], [d.to(torch.bfloat16) for d in args[3]], *args[4:],
-            k=3, fista=True)
+            *args[:3], [args[3][0].to(torch.bfloat16), *args[3][1:]],
+            *args[4:], k=3, fista=True)
+    with pytest.raises(ValueError, match="does not cover"):
+        tkstep.fused_kstep_iteration(
+            *(x.double() for x in args[:2]), [a.double() for a in args[2]],
+            [d.to(torch.bfloat16) for d in args[3]],
+            *(x.double() for x in args[4:]), k=3, fista=True)
     with pytest.raises(ValueError, match="per axis"):
         tkstep.fused_kstep_iteration(*args[:3], None, *args[4:], k=3,
                                      fista=True)

@@ -260,13 +260,15 @@ def test_lossy_run_matches_jax_and_cadence(shape, n):
     interpret mode) within atol 5e-7, traces within rtol 2e-5; bitwise the
     every-iteration emulation (the port's ops with :func:`round_bf16`, and
     the JAX package's eager one), and more than 1e-4 from the
-    every-second-iteration one; every iteration a K=1 step, none in pairs
-    or K-steps; ``d`` kept as bfloat16."""
+    every-second-iteration one; with K-steps off every iteration a K=1
+    step, none in pairs or K-steps; ``d`` kept as bfloat16."""
     orig, li, lm = _cube(shape)
     calls = tfused.fused_iteration.calls
     pair, kst = (ttemporal.fused_pair_iteration.calls,
                  tkstep.fused_kstep_iteration.calls)
-    got = _port_run(orig, li, lm, _opts("port", shape, n), keep_state=True)
+    got = _port_run(orig, li, lm, _opts("port", shape, n,
+                                        temporal_kstep=False),
+                    keep_state=True)
     assert tfused.fused_iteration.calls - calls == n
     assert (ttemporal.fused_pair_iteration.calls,
             tkstep.fused_kstep_iteration.calls) == (pair, kst)
@@ -311,18 +313,19 @@ def test_lossy_hybrid_and_stop_runs():
     against the JAX package's within atol 5e-7; a stop-aware one stops at
     the JAX run's iteration and is bitwise the JAX package's eager
     every-iteration emulation of that many iterations (the module
-    docstring says why not the JAX run); both on the K=1 loop."""
+    docstring says why not the JAX run); both on the K=1 loop (K-steps
+    off; on K-steps: tests/test_torch_lossy_kstep.py)."""
     orig, li, lm = _cube(S3, seed=5)
     calls = tfused.fused_iteration.calls
     hyb = dict(ndim=3, iterations_fista=4, iterations_unacc=3,
                lossy_duals=True)
-    got = _port_run(orig, li, lm, TOptions(**hyb))
+    got = _port_run(orig, li, lm, TOptions(**hyb, temporal_kstep=False))
     want = _jax_run(orig, li, lm, JOptions(**hyb, backend=JBackend.PALLAS))
     np.testing.assert_allclose(got["recon"].numpy(), np.asarray(want["recon"]),
                                rtol=0, atol=ATOL)
     stop = dict(ndim=3, iterations_fista=40, iterations_unacc=0,
                 stopping_relative_change=3e-3, lossy_duals=True)
-    got = _port_run(orig, li, lm, TOptions(**stop))
+    got = _port_run(orig, li, lm, TOptions(**stop, temporal_kstep=False))
     want = _jax_run(orig, li, lm, JOptions(**stop, backend=JBackend.PALLAS))
     n = got["iterations_run"]
     assert 2 < n < 40 and got["early_stopped"]
@@ -646,8 +649,10 @@ def test_lossy_validation_matches_jax():
     half-isotropic and non-Jia-Zhao options, and float64 data at run time.
     The engine's gates let lossy runs pair (the pair kernel rounds
     iteration 1's bfloat16 duals in the middle of the pair,
-    tests/test_torch_lossy_pair.py) and keep them off the K-step and
-    whole-run kernels, which refuse bfloat16 duals (their own tests)."""
+    tests/test_torch_lossy_pair.py) and K-step at the depth an exact run
+    takes (the K-step kernel rounds every level's,
+    tests/test_torch_lossy_kstep.py), and keep them off the whole-run
+    kernel, which refuses bfloat16 duals (its own tests)."""
     for kw, match in ((dict(ndim=4, isotropic_R=True), "half-isotropic"),
                       (dict(ndim=4, isotropic_Q=True), "half-isotropic"),
                       (dict(ndim=3, bc_mode=BCMode.MIRROR), "Jia-Zhao"),
@@ -664,7 +669,9 @@ def test_lossy_validation_matches_jax():
     opts = _opts("port", S3, 20)
     f32 = torch.float32
     assert tengine._resolve_temporal(opts, S3, f32)
-    assert not tengine._resolve_kstep(opts, S3, f32, True)
+    assert tengine._resolve_kstep(opts, S3, f32, True) == 4
+    exact = TOptions(ndim=3, iterations_fista=20, iterations_unacc=0)
+    assert tengine._resolve_kstep(exact, S3, f32, True) == 4
     assert not tengine._resident_gates(opts, S3, f32)
 
 

@@ -201,11 +201,11 @@ def test_plain_lossy_pair_with_bands_reassembles(shape, n_slabs):
 # -- the engine ----------------------------------------------------------------
 
 def _both(monkeypatch, orig, li, lm, ref=None, **kw):
-    """A lossy run in pairs (rows of any size pay) and the port's K=1 lossy
-    loop (``temporal_pairs=False``) from the same input; the pair calls the
-    first made."""
+    """A lossy run in pairs (rows of any size pay, K-steps off) and the
+    port's K=1 lossy loop (``temporal_pairs=False``) from the same input;
+    the pair calls the first made."""
     monkeypatch.setattr(tengine, "PAIR_MIN_ROW_BYTES", 0)
-    base = dict(ndim=orig.ndim, lossy_duals=True, **kw)
+    base = dict(ndim=orig.ndim, lossy_duals=True, temporal_kstep=False, **kw)
     rr = None if ref is None else _t(ref)
     calls = ttemporal.fused_pair_iteration.calls
     paired = _port_run(orig, li, lm, TOptions(**base), reference_data=rr,
@@ -288,13 +288,14 @@ def test_lossy_pairs_keep_the_per_iteration_cadence(monkeypatch, shape, n):
 
 @pytest.mark.parametrize("shape,n", [(S3, 5), (S4, 6)], ids=["3d", "4d"])
 def test_lossy_pairs_match_jax_paired_run(monkeypatch, shape, n):
-    """A lossy run of at most 6 iterations in pairs against the JAX
-    engine's paired lossy run (its pair kernel in interpret mode): recon
-    within atol 5e-7, traces within rtol 2e-5."""
+    """A lossy run of at most 6 iterations in pairs (K-steps off) against
+    the JAX engine's paired lossy run (its pair kernel in interpret mode):
+    recon within atol 5e-7, traces within rtol 2e-5."""
     monkeypatch.setattr(tengine, "PAIR_MIN_ROW_BYTES", 0)
     orig, li, lm = _cube(shape, seed=2)
     calls = ttemporal.fused_pair_iteration.calls
-    got = _port_run(orig, li, lm, _opts("port", shape, n))
+    got = _port_run(orig, li, lm, _opts("port", shape, n,
+                                        temporal_kstep=False))
     assert ttemporal.fused_pair_iteration.calls - calls == n // 2
     want = _jax_run(orig, li, lm, _opts("jax", shape, n, temporal_pairs=True))
     np.testing.assert_allclose(got["recon"].numpy(), np.asarray(want["recon"]),

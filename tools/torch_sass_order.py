@@ -21,7 +21,8 @@ indexed at run time). Exits 1 if any store is sent in flight.
 ``--lines`` also compiles every ``csrc/*.cu`` into a cubin with
 ``-lineinfo`` (the library's flags otherwise) and disassembles it with
 ``nvdisasm -g``, so that each in-flight store is printed with the source
-line it comes from (the branch of the element code that holds it). Needs
+line it comes from (the branch of the element code that holds it), and
+each instantiation's ``LDL``/``STL`` are counted by source line. Needs
 ``nvcc``, ``cuobjdump`` and ``nvdisasm`` (a CUDA toolkit), not a card.
 
 ``--digests FILE`` also writes, as JSON, a digest of each matching
@@ -120,6 +121,21 @@ def local_memory(sass_function: str):
     return ops.count("LDL"), ops.count("STL")
 
 
+def local_lines(sass_function: str) -> str:
+    """``; local memory at LINE OPxN, ...``: the function's ``LDL``/``STL``
+    counted by source line, in order of first appearance (empty without
+    line information)."""
+    counts = {}
+    for _, line, where in _instructions(sass_function):
+        m = _LOCAL.match(line)
+        if m and where:
+            key = f"{where} {m.group(1)}"
+            counts[key] = counts.get(key, 0) + 1
+    return ("; local memory at " + ", ".join(f"{k}x{n}"
+                                              for k, n in counts.items())
+            if counts else "")
+
+
 def library_sass() -> str:
     build.load()
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -167,7 +183,7 @@ def report(sass: str, names):
         rows.append(f"{label(mangled)}: {stores} stores, {matched} after a "
                     f"same-address load, {len(in_flight)} sent with that "
                     f"load in flight{f' ({at})' if at else ''}; LDL {ldl}, "
-                    f"STL {stl}")
+                    f"STL {stl}{local_lines(fn)}")
     return rows, bad
 
 
