@@ -124,9 +124,10 @@ non-zero — nothing is caught):
    and config 1, a synthetic low-dose EELS cube, from a .dm4 file with
    ``--preset eels3d`` through ``python -m cytvdn_tpu_torch.cli`` (the
    stop iteration and launches from its log); each recon bitwise the
-   ``denoise4D``/``denoise3D`` run with the same arguments; ``--shard``
-   and ``--backend cpp`` exit 2 naming their ROADMAP items. Where h5py is missing, the command's load-and-solve
-   step stands in for it;
+   ``denoise4D``/``denoise3D`` run with the same arguments;
+   ``--out-of-core 2 --shard 2`` and ``--backend cpp`` exit 2 naming their
+   ROADMAP items (11, 13). Where h5py is missing, the command's
+   load-and-solve step stands in for it;
 8. out-of-core runs (``solver/outofcore.py``): (a) the K=1 kernel with
    operand halos against its plain version with the same halos, 3
    launches each (state bitwise, sums within rtol 1e-5), FISTA and
@@ -174,7 +175,20 @@ non-zero — nothing is caught):
    lazily, K=1 halo steps, bitwise; (c) config 4 x4 on a (2,2,1,1) mesh of
    4 processes, K=1 halo launches along both axes, bitwise; (f) per rank
    the seconds per iteration, the exchange's seconds and bytes, the
-   backend and the peak device memory. Any rank's failure fails the phase;
+   backend and the peak device memory; (g) the command line on meshes of 2
+   processes of this script (``--cli-worker``: ``cli.load_and_solve``,
+   with h5py also ``cli.write_output``, the steps of ``python -m
+   cytvdn_tpu_torch.cli``), torchrun's environment, gloo: (i) config 4
+   x20 FISTA ``--shard 2,1,1,1`` from the ``.npy``, each block and the
+   gathered recon bitwise ``denoise4D``'s, 10 HALO0 pairs per rank, per
+   rank the seconds of load, solve, gather and write; (ii) config 3 hybrid
+   (20, 12) ``--shard 2,1,1,1 --checkpoint-every 8``, both processes
+   killed once the second generation (master and part) is on disk, then
+   ``--resume 1``: resumed from iteration 16 on both ranks, recon bitwise
+   phase 6's uninterrupted run, per rank the seconds of each part save
+   (copy to the host and write apart) and its bytes; (iii) the same with
+   rank 1's part swapped for an older generation: both ranks warn and
+   start afresh, bitwise. Any rank's failure fails the phase;
 10. sharded runs in the K=1 kernel's mesh-only modes: (a) the kernel with
    ring halos (periodic), mirror halos with their edge flags, iso seams and
    corners and in-block halos of axes 2 and 3 against its plain version,
@@ -240,7 +254,8 @@ non-zero — nothing is caught):
 
 Needs one CUDA device; exits non-zero without one. Inputs are made from
 fixed seeds. ``--sharded-worker SPEC`` runs one rank of a phase-9 or
-phase-10 mesh (started by the script itself).
+phase-10 mesh, ``--cli-worker SPEC`` one rank of a phase-9 (g) command
+line (both started by the script itself).
 """
 
 from __future__ import annotations
@@ -1803,6 +1818,8 @@ def chunk_phase(smi, cube, cube1, r1, cube3, stop5):
             "config 3 resumed recon not bitwise the uninterrupted run's")
     np.testing.assert_allclose(got_c["delta"], want_c["delta"], rtol=1e-4)
     require(len(saves) == 4, f"config 3: {len(saves)} saves, expected 4")
+    # phase 9 (g) (ii) holds the command's resumed mesh run to this recon
+    cfg3_digest = digest(want_c["recon"])
     log(f"phase 6 (c) {CFG3} hybrid (20, 12), a checkpoint every 8 "
         f"iterations, killed after the second chunk and resumed: recon "
         f"bitwise equal to the uninterrupted run, both {want_i} iterations; "
@@ -1892,6 +1909,7 @@ def chunk_phase(smi, cube, cube1, r1, cube3, stop5):
         f"besides the filler's {fill / GiB:.2f}; {s_e:.3f} s in all "
         f"(the cube's copy to the card included); "
         f"{time.perf_counter() - t_e:.1f} s [{smi}]")
+    return cfg3_digest
 
 
 def eels_3d(shape, seed, dose=0.5):
@@ -1920,8 +1938,8 @@ def cli_phase(smi, cube):
     from a .npy file, ``--preset stem4d``, in this process; (b) config 1,
     a synthetic EELS cube, from a .dm4 file, ``--preset eels3d``, as a
     separate process; each recon bitwise the API's run with the same
-    arguments. (c) ``--shard`` and ``--backend cpp`` exit 2, naming their
-    ROADMAP items."""
+    arguments. (c) ``--out-of-core`` with ``--shard`` and ``--backend cpp``
+    exit 2, naming their ROADMAP items (phase 9 (g) runs ``--shard``)."""
     from cytvdn_tpu_torch import cli
     from cytvdn_tpu_torch.io.dm import write_dm
 
@@ -2062,8 +2080,9 @@ def cli_phase(smi, cube):
         # yet, refused before the input is read
         for flags, rc_want, item in (
                 (["--help"], 0, None),
-                (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2", "--shard",
-                  "2"], 2, "Queue 1 item 10"),
+                (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2",
+                  "--out-of-core", "2", "--shard", "2"], 2,
+                 "Queue 1 item 11"),
                 (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2",
                   "--backend", "cpp"], 2, "Queue 1 item 13")):
             proc = subprocess.run(
@@ -2771,12 +2790,17 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_mesh(tmp, n_ranks, runs, timeout, **spec_kw):
+def run_mesh(tmp, n_ranks, runs, timeout, worker="--sharded-worker",
+             poll=None, **spec_kw):
     """Start ``n_ranks`` processes of this script as the ranks of a mesh
-    (torchrun's environment: all on this host), wait for them within
+    (torchrun's environment: all on this host; ``worker``: the script's
+    ``--sharded-worker`` or ``--cli-worker``), wait for them within
     ``timeout`` seconds, and return each rank's results. Any rank's
-    failure, or the timeout, kills the others and raises. ``spec_kw``
-    (``backend``, ``device``) goes to the workers' spec."""
+    failure, or the timeout, kills the others and raises. ``poll()``,
+    where given, is called every 50 ms while the ranks run: once it
+    returns True every rank is killed and the result is None.
+    ``spec_kw`` (``backend``, ``device``; the command's ``argv``) goes to
+    the workers' spec."""
     sub = tempfile.mkdtemp(prefix=f"mesh{n_ranks}_", dir=tmp)
     spec = os.path.join(sub, "spec.json")
     with open(spec, "w") as f:
@@ -2792,17 +2816,20 @@ def run_mesh(tmp, n_ranks, runs, timeout, **spec_kw):
         log_f = open(os.path.join(sub, f"rank{r}.log"), "w")
         logs.append(log_f)
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--sharded-worker",
-             spec], cwd=root, env=env, stdout=log_f,
-            stderr=subprocess.STDOUT))
+            [sys.executable, os.path.abspath(__file__), worker, spec],
+            cwd=root, env=env, stdout=log_f, stderr=subprocess.STDOUT))
     t_end = time.perf_counter() + timeout
+    stopped = False
     try:
         while any(p.poll() is None for p in procs):
             failed = [r for r, p in enumerate(procs)
                       if p.poll() not in (None, 0)]
             if failed or time.perf_counter() > t_end:
                 break
-            time.sleep(0.5)
+            if poll is not None and poll():
+                stopped = True
+                break
+            time.sleep(0.05 if poll is not None else 0.5)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2810,6 +2837,8 @@ def run_mesh(tmp, n_ranks, runs, timeout, **spec_kw):
             p.wait()
         for f in logs:
             f.close()
+    if stopped:
+        return None
     rcs = [p.returncode for p in procs]
     if any(rcs):
         tails = []
@@ -2823,6 +2852,200 @@ def run_mesh(tmp, n_ranks, runs, timeout, **spec_kw):
         with open(os.path.join(sub, f"rank{r}.json")) as f:
             out.append(json.load(f))
     return out
+
+
+def cli_worker(spec_path: str) -> int:
+    """One rank of a phase-9 (g) command-line mesh, started by
+    :func:`run_mesh` with torchrun's environment: the command's steps with
+    the spec's ``argv`` — ``cli.load_and_solve``, and ``cli.write_output``
+    where the spec says so (h5py present) — with every rank's log lines
+    (``CYTV_LOG_ALL_PROCS``); writes the rank's digests (block, and the
+    gathered recon on rank 0), launches, seconds, checkpoint saves, resume
+    point, checkpoint warnings and peak device memory to ``rank{R}.json``
+    beside the spec."""
+    import torch.distributed as dist
+
+    from cytvdn_tpu_torch import cli
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    os.environ["CYTV_LOG_ALL_PROCS"] = "1"
+    on_card = torch.cuda.is_available()
+    if on_card:
+        build.load()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    fused_pair_iteration.halo0_launches = 0
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        run = cli.load_and_solve(spec["argv"])
+        if spec["write"]:
+            cli.write_output(run)
+    rank = dist.get_rank()
+    res = {
+        "rank": rank, "launches": launch_counts(),
+        "halo0": fused_pair_iteration.halo0_launches,
+        "k1_halo": fused_iteration.halo_launches,
+        "iterations_run": int(np.count_nonzero(run.delta)),
+        "seconds": run.seconds, "saves": run.saves,
+        "resumed_from": run.resumed_from,
+        "warnings": [str(w.message) for w in rec
+                     if "disagree on iteration" in str(w.message)],
+        "peak": torch.cuda.max_memory_allocated() if on_card else 0,
+        "block": digest(run.block),
+        "recon": digest(run.recon) if run.recon is not None else None,
+    }
+    with open(os.path.join(os.path.dirname(spec_path),
+                           f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def checkpoint_generations(path, n_ranks=2):
+    """The iteration of each rank's part of a checkpoint on disk (-1 where
+    it is not there yet). Parts are renamed into place whole, so a part
+    that exists is complete."""
+    gens = []
+    for r in range(n_ranks):
+        try:
+            with np.load(path if r == 0 else f"{path}.p{r}") as z:
+                gens.append(int(z["i"]))
+        except FileNotFoundError:
+            gens.append(-1)
+    return gens
+
+
+def cli_mesh_phase(smi, tmp, cube_npy, digests4, cube3, cfg3_digest):
+    """Phase 9 (g): the command line on meshes of 2 processes sharing the
+    card. (i) config 4 x20 from the .npy against ``denoise4D``'s digests;
+    (ii) config 3 hybrid (20, 12) with a checkpoint every 8 iterations,
+    killed after the second generation and resumed, against phase 6's
+    uninterrupted run; (iii) the same resume with rank 1's part swapped
+    for an older generation. Returns the ranks' results of (i) and
+    (ii)."""
+    try:
+        import h5py  # noqa: F401
+        write = True
+    except ImportError:
+        write = False
+    how = ("cli.load_and_solve + cli.write_output (the steps of python -m "
+           "cytvdn_tpu_torch.cli)" if write else
+           "cli.load_and_solve (h5py is missing: no EMD output written)")
+
+    def lines(tag, runs):
+        for r in runs:
+            sec = r["seconds"]
+            wrote = (f"write {sec['write']} s" if "write" in sec
+                     else "write not run (no h5py)")
+            log(f"phase 9 (g) {tag} rank {r['rank']}: load "
+                f"{sec['load']} s, solve {sec['solve']} s, gather "
+                f"{sec['gather']} s, {wrote}; launches "
+                f"whole-run/K-step/pair/fused {tuple(r['launches'])}, HALO0 "
+                f"pairs {r['halo0']}, K=1 halo launches {r['k1_halo']}; "
+                f"saves (copy s, write s, bytes) "
+                f"{[(sv['copy'], sv['write'], sv['bytes']) for sv in r['saves']]}"
+                f"; peak device memory {r['peak'] / 2**30:.3f} GiB [{smi}]")
+
+    # (i) config 4 x20
+    t0 = time.perf_counter()
+    out4 = os.path.join(tmp, "config4.emd")
+    g1 = run_mesh(tmp, 2, None, timeout=300, worker="--cli-worker",
+                  write=write, argv=["-i", cube_npy, "-o", out4, "-m", "1.0",
+                                     "-n", "20", "-f", "1", "--shard",
+                                     "2,1,1,1"])
+    blocks_want, full_want = digests4
+    for r in g1:
+        require(r["block"] == blocks_want[r["rank"]],
+                f"(g) (i) rank {r['rank']}: block not bitwise denoise4D's")
+        require(tuple(r["launches"]) == (0, 0, 10, 0) and r["halo0"] == 10
+                and r["iterations_run"] == 20,
+                f"(g) (i) rank {r['rank']}: launches {r['launches']}, HALO0 "
+                f"{r['halo0']}, {r['iterations_run']} iterations")
+    require(g1[0]["recon"] == full_want,
+            "(g) (i) the gathered recon is not bitwise denoise4D's")
+    if write:
+        from cytvdn_tpu_torch.io.emd import read_emd
+
+        require(digest(read_emd(out4)) == full_want,
+                "(g) (i) the EMD output is not bitwise denoise4D's recon")
+        os.remove(out4)
+    log(f"phase 9 (g) (i) {how} --shard 2,1,1,1 on config 4 {CFG4} FISTA "
+        f"x20 from a .npy, 2 processes sharing the card (gloo): each block "
+        f"and the gathered recon bitwise denoise4D's (sha256), 10 HALO0 "
+        f"pairs per rank; {time.perf_counter() - t0:.1f} s [{smi}]")
+    lines("(i)", g1)
+
+    # (ii) config 3 hybrid (20, 12), a checkpoint every 8, killed, resumed
+    t0 = time.perf_counter()
+    cfg3_npy = os.path.join(tmp, "config3.npy")
+    np.save(cfg3_npy, cube3)
+    ck = os.path.join(tmp, "config3.ckpt.npz")
+    old = os.path.join(tmp, "config3.ckpt.old")
+    argv3 = ["-i", cfg3_npy, "-o", os.path.join(tmp, "config3.emd"), "-m",
+             "1.0", "-n", "20", "12", "--shard", "2,1,1,1", "--checkpoint",
+             ck, "--checkpoint-every", "8"]
+    seen = {}
+
+    def second_generation():
+        gens = checkpoint_generations(ck)
+        seen["gens"] = gens
+        if gens[1] == 8 and not os.path.exists(old):
+            # rank 1's first part, kept for (iii)
+            shutil.copy(ck + ".p1", old)
+        return min(gens) >= 16
+
+    killed = run_mesh(tmp, 2, None, timeout=300, worker="--cli-worker",
+                      poll=second_generation, write=write, argv=argv3)
+    s_kill = time.perf_counter() - t0
+    require(killed is None, "(g) (ii) the run ended before its second "
+                            "checkpoint generation")
+    gens = checkpoint_generations(ck)
+    require(gens == [16, 16], f"(g) (ii) parts on disk after the kill: {gens}")
+    with np.load(old) as z:
+        old_i = int(z["i"])
+    t1 = time.perf_counter()
+    g2 = run_mesh(tmp, 2, None, timeout=300, worker="--cli-worker",
+                  write=write, argv=argv3 + ["--resume", "1"])
+    s_res = time.perf_counter() - t1
+    for r in g2:
+        require(r["resumed_from"] == 16 and not r["warnings"]
+                and r["iterations_run"] == 32 and len(r["saves"]) == 2,
+                f"(g) (ii) rank {r['rank']}: resumed from "
+                f"{r['resumed_from']}, warnings {r['warnings']}, "
+                f"{r['iterations_run']} iterations, {len(r['saves'])} saves")
+        require(tuple(r["launches"]) == (0, 0, 0, 16) and r["k1_halo"] == 16,
+                f"(g) (ii) rank {r['rank']}: launches {r['launches']}")
+    require(g2[0]["recon"] == cfg3_digest,
+            "(g) (ii) the resumed recon is not bitwise phase 6's "
+            "uninterrupted run")
+    log(f"phase 9 (g) (ii) {how} on config 3 {CFG3} hybrid (20, 12) "
+        f"--shard 2,1,1,1 --checkpoint-every 8: both processes killed once "
+        f"the parts of iteration 16 were on disk ({gens}; "
+        f"{s_kill:.1f} s), then --resume 1: both ranks resumed from "
+        f"iteration 16, 16 K=1 halo launches each, recon bitwise phase 6's "
+        f"uninterrupted run; the resumed launch {s_res:.1f} s [{smi}]")
+    lines("(ii)", g2)
+
+    # (iii) rank 1's part one or two generations older: a fresh start
+    t1 = time.perf_counter()
+    os.replace(old, ck + ".p1")
+    g3 = run_mesh(tmp, 2, None, timeout=300, worker="--cli-worker",
+                  write=write, argv=argv3 + ["--resume", "1"])
+    for r in g3:
+        require(r["resumed_from"] is None and len(r["warnings"]) == 1
+                and r["iterations_run"] == 32 and len(r["saves"]) == 4,
+                f"(g) (iii) rank {r['rank']}: resumed from "
+                f"{r['resumed_from']}, warnings {r['warnings']}, "
+                f"{len(r['saves'])} saves")
+    require(g3[0]["recon"] == cfg3_digest,
+            "(g) (iii) the restarted recon is not bitwise phase 6's run")
+    log(f"phase 9 (g) (iii) the same with rank 1's part of iteration "
+        f"{old_i} beside rank 0's of 32: both ranks warned "
+        f"({g3[0]['warnings'][0]!r}) and started afresh, recon bitwise "
+        f"phase 6's run; {time.perf_counter() - t1:.1f} s [{smi}]")
+    lines("(iii)", g3)
+    return g1, g2
 
 
 def check_mesh_run(name, results, want, blocks_want, full_want, mse=False):
@@ -2890,7 +3113,7 @@ def blocks(recon, shard):
              for r in range(n)], digest(recon))
 
 
-def sharded_phase(smi, name, cube, scan, det):
+def sharded_phase(smi, name, cube, scan, det, cube3, cfg3_digest):
     """Phase 9: (a) the HALO0 pair against its plain version (small cubes
     cut into slabs at forced grids and strips, reassembled against one
     launch, and config 4's 2-rank shard with and without a reference cube)
@@ -2899,7 +3122,9 @@ def sharded_phase(smi, name, cube, scan, det):
     half of config 4's rows, (e) config 2 with stop 0.05 on (2, 1, 1) read
     lazily from a .npy, and (c) config 4 x4 on a (2, 2, 1, 1) mesh of 4
     processes, each against the single-device run; (f) per-rank seconds,
-    exchange and memory; (a) also holds the K=1 kernel's halos against its
+    exchange and memory; (g) the command line on meshes of 2 processes
+    (:func:`cli_mesh_phase`; config 3 ``cube3`` against phase 6's recon,
+    ``cfg3_digest``); (a) also holds the K=1 kernel's halos against its
     plain version at the shards (c) and (e) give it. Returns the numbers of
     the kernels line's HALO0 row."""
     t_phase = time.perf_counter()
@@ -3081,6 +3306,11 @@ def sharded_phase(smi, name, cube, scan, det):
             f"neighbours along axes 0 and 1, recon bitwise denoise4D's; "
             f"{time.perf_counter() - t0:.1f} s [{smi}]")
         rank_lines("phase 9 (f) (c)", c, smi)
+
+        # (g) the command line on meshes of 2 processes
+        t0 = time.perf_counter()
+        cli_mesh_phase(smi, tmp, cube_npy, digests["b"], cube3, cfg3_digest)
+        log(f"phase 9 (g) {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 9 {time.perf_counter() - t_phase:.1f} s")
@@ -5068,7 +5298,7 @@ def main() -> int:
 
     # phase 6: chunked runs, a killed run resumed, the fallback ladder
     t6 = time.perf_counter()
-    chunk_phase(smi, cube, cube1, r1, cube3, stop5)
+    cfg3_digest = chunk_phase(smi, cube, cube1, r1, cube3, stop5)
     log(f"phase 6 {time.perf_counter() - t6:.1f} s")
 
     # phase 7: the command line on the card
@@ -5079,7 +5309,7 @@ def main() -> int:
 
     # phase 9: sharded runs
     torch.cuda.empty_cache()
-    halo9 = sharded_phase(smi, name, cube, scan, det)
+    halo9 = sharded_phase(smi, name, cube, scan, det, cube3, cfg3_digest)
 
     # phase 10: sharded runs in the K=1 kernel's mesh-only modes
     torch.cuda.empty_cache()
@@ -5198,4 +5428,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--sharded-worker":
         sys.exit(sharded_worker(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--cli-worker":
+        sys.exit(cli_worker(sys.argv[2]))
     sys.exit(main())

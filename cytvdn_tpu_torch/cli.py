@@ -20,11 +20,32 @@ through the card in N slabs, K iterations per slab residency; the flags it
 cannot honour (``--bc-mode``, ``--iso-r/--iso-q``, ``--backend``,
 ``--dtype``) exit 2 with ``cytv``'s message.
 
+A mesh run is one process per block, started by ``torchrun`` (or
+anything that sets its environment), every process with the same flags::
+
+    torchrun --nproc-per-node 2 -m cytvdn_tpu_torch.cli -i cube.npy \
+        -o out.emd -m 1.0 -n 20 -f 1 --shard 2,1,1,1
+
+The processes join one group (``parallel/distributed.py::
+init_distributed``: NCCL where every rank has a card of its own, gloo
+where they share one or run on the CPU), and run ``denoise_sharded``: each
+reads only its block of a float32 input (float64 inputs are loaded whole,
+as ``cytv`` does). ``--shard`` gives the tiles per axis, whose product is
+the number of processes, or ``auto``, the default of a launch of several
+processes. In one process ``--shard auto`` (or a tiling of one block) is
+the one-device run. Log lines are tagged ``[cytv-torch p<rank>]`` and
+printed by rank 0 only, unless ``CYTV_LOG_ALL_PROCS`` is set.
+``--checkpoint``/``--checkpoint-every`` write one part per rank
+(``utils/checkpoint.py``), and ``--resume 1`` resumes where every rank
+has its part. The output is written by ``io/emd.py::write_emd_sharded``:
+rank 0 writes the gathered cube up to 4 GiB; a larger cube is never
+assembled in one process: every rank writes a ``.partN.h5`` beside the
+output and rank 0 stitches them.
+
 What the port cannot run yet is refused with exit code 2 before the input
-is read, naming its ROADMAP.md item: ``--shard`` and multi-process
-launches (``WORLD_SIZE`` > 1; Queue 1 item 10, also with
-``--out-of-core``, item 11) and ``--backend cpp`` (item 13). Sharded runs
-are a library call for now (``cytvdn_tpu_torch.parallel.denoise_sharded``).
+is read, naming its ROADMAP.md item: ``--out-of-core`` on a mesh
+(``--shard`` or ``WORLD_SIZE`` > 1; Queue 1 item 11) and ``--backend cpp``
+(item 13).
 
 ``--lossy-duals`` stores the FISTA shadow duals as bfloat16 (float32
 Jia-Zhao anisotropic FISTA runs; the other combinations exit 2 with
@@ -40,10 +61,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import sys
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -111,8 +133,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "PyTorch version on the CPU; cpp is not ported yet")
     p.add_argument("--shard", default=None,
                    help="'auto' or comma-separated per-axis tile counts "
-                        "(e.g. 2,4,1,1) to run over a device mesh (not "
-                        "ported yet)")
+                        "(e.g. 2,4,1,1) to run over a mesh of processes, "
+                        "one per tile (torchrun --nproc-per-node N)")
     p.add_argument("--dtype", default="float32",
                    choices=("float32", "float64"))
     p.add_argument("--checkpoint", default=None,
@@ -200,11 +222,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     if not ok:
         raise CliError("-n/--niterations is required (or use a --preset "
                        "that supplies it)")
-    world = int(os.environ.get("WORLD_SIZE") or 1)
-    if world > 1:
-        raise _not_ported(f"a multi-process launch (WORLD_SIZE={world})", 10)
-    if args.shard:
-        raise _not_ported("--shard", 10)
+    world = _world()
+    if args.out_of_core and (args.shard or world > 1):
+        raise _not_ported("--out-of-core with --shard or WORLD_SIZE > 1 "
+                          "(sharded and multi-host out of core)", 11)
+    tiles = _tiles(args.shard)
+    if tiles is not None and math.prod(tiles) != world:
+        n = math.prod(tiles)
+        raise CliError(
+            f"--shard {args.shard} tiles the cube into {n} blocks, one per "
+            f"process, but this launch has {world} (WORLD_SIZE); start {n}: "
+            f"torchrun --nproc-per-node {n} -m cytvdn_tpu_torch.cli ...")
     if args.temporal != 1 and not args.out_of_core:
         raise CliError("--temporal requires --out-of-core")
     if args.lossy_duals:
@@ -243,10 +271,34 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def _logger(verbose: bool):
+def _world() -> int:
+    """The launch's process count (``WORLD_SIZE``, as torchrun sets it)."""
+    return int(os.environ.get("WORLD_SIZE") or 1)
+
+
+def _tiles(shard: Optional[str]) -> Optional[Tuple[int, ...]]:
+    """``--shard``'s tile counts, or None for ``auto`` and no flag."""
+    if not shard or shard == "auto":
+        return None
+    try:
+        return tuple(int(x) for x in shard.split(","))
+    except ValueError:
+        raise CliError(f"--shard {shard!r}: 'auto' or comma-separated tile "
+                       f"counts per axis (e.g. 2,1,1,1)") from None
+
+
+def _logger(args, rank: int = 0, world: int = 1):
+    """The command's log: ``[cytv-torch]`` lines, or ``[cytv-torch
+    p<rank>]`` in a launch of several processes, printed by rank 0 only
+    unless ``CYTV_LOG_ALL_PROCS`` is set (the reference's head-rank
+    logging, mpi.py:298-305)."""
+    verbose = args.verbose and (
+        rank == 0 or bool(os.environ.get("CYTV_LOG_ALL_PROCS")))
+    tag = f"[cytv-torch p{rank}]" if world > 1 else "[cytv-torch]"
+
     def log(msg):
         if verbose:
-            print(f"[cytv-torch] {msg}", flush=True)
+            print(f"{tag} {msg}", flush=True)
 
     return log
 
@@ -256,20 +308,38 @@ class Solved:
     """What :func:`load_and_solve` returns: the parsed arguments, the
     solver's ``recon``/``b_norm``/``delta`` (numpy, on the host) and the
     wall seconds of each step (``load``; ``solve``, the host-device copies
-    included)."""
+    included; on a mesh also ``gather``).
+
+    In a launch of several processes each rank returns its own: ``recon``
+    is the gathered cube on rank 0 (None on the others, and on every rank
+    where the cube is too large to gather), ``block`` and ``slices`` the
+    rank's block and its place in the cube, ``gathered`` whether the run
+    gathered the cube (alike on every rank), ``grid`` the mesh, ``saves``
+    the seconds (``copy``, ``write``) and ``bytes`` of each checkpoint
+    save of the rank's part, ``resumed_from`` the iteration it resumed
+    from (or None)."""
 
     args: argparse.Namespace
-    recon: np.ndarray
+    recon: Optional[np.ndarray]
     b_norm: np.ndarray
     delta: np.ndarray
     seconds: Dict[str, float]
+    block: Optional[np.ndarray] = None
+    slices: Optional[Tuple[slice, ...]] = None
+    grid: Optional[Tuple[int, ...]] = None
+    gathered: bool = False
+    saves: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+    resumed_from: Optional[int] = None
 
 
 def load_and_solve(argv=None) -> Solved:
-    """Parse, load the whole input and denoise it on ``--device``: every
-    step of :func:`main` but the output file. Raises :class:`CliError`."""
+    """Parse, load the input and denoise it on ``--device``: every step of
+    :func:`main` but the output file. In a launch of several processes
+    (``WORLD_SIZE`` > 1) every process calls it: it joins the group and
+    returns this rank's part of the mesh run. Raises :class:`CliError`."""
     from cytvdn_tpu_torch import denoise3D, denoise4D
-    from cytvdn_tpu_torch.io.loaders import load_input
+    from cytvdn_tpu_torch.io.emd import gathers
+    from cytvdn_tpu_torch.io.loaders import load_input, open_input
     from cytvdn_tpu_torch.kernels import (
         fused_iteration,
         fused_kstep_iteration,
@@ -281,18 +351,49 @@ def load_and_solve(argv=None) -> Solved:
     from cytvdn_tpu_torch.utils.log import profile_trace
 
     args = parse_args(argv)
-    log = _logger(args.verbose)
+    world, rank = _world(), 0
+    if world > 1:
+        # join the group first: every process of the launch runs this
+        # same command (the reference's one MPI rank per node)
+        import torch.distributed as dist
+
+        from cytvdn_tpu_torch.parallel.distributed import init_distributed
+
+        if not init_distributed(device=args.device):
+            raise CliError(
+                f"WORLD_SIZE={world} without RANK: start the processes "
+                f"with torchrun (torchrun --nproc-per-node {world} -m "
+                f"cytvdn_tpu_torch.cli ...)")
+        rank = dist.get_rank()
+    log = _logger(args, rank, world)
+    if world > 1 and not args.shard:
+        log("multi-process run without --shard: defaulting to --shard auto")
+        args.shard = "auto"
+    mesh = world > 1
+    if args.shard and not mesh:
+        log(f"--shard {args.shard} in one process is one block: the "
+            f"one-device run")
     seconds = {}
 
     t0 = time.perf_counter()
-    data = load_input(args.input, dtype=np.dtype(args.dtype))
-    seconds["load"] = time.perf_counter() - t0
-    log(f"loaded {args.input}: shape {data.shape}, {data.dtype}, "
-        f"{data.nbytes / 2**20:.1f} MiB in {seconds['load']:.3f}s")
+    if mesh and args.dtype == "float32":
+        # each rank reads only its block (the reference's memmap/MPI-IO
+        # opens, mpi.py:93-124); here only the shape
+        with open_input(args.input) as h:
+            shape, in_dtype = tuple(h.shape), h.dtype
+        data = args.input
+        seconds["load"] = time.perf_counter() - t0
+        log(f"opened {args.input} lazily: shape {shape}, {in_dtype}")
+    else:
+        data = load_input(args.input, dtype=np.dtype(args.dtype))
+        shape = data.shape
+        seconds["load"] = time.perf_counter() - t0
+        log(f"loaded {args.input}: shape {data.shape}, {data.dtype}, "
+            f"{data.nbytes / 2**20:.1f} MiB in {seconds['load']:.3f}s")
 
-    ndim = args.dimensions or data.ndim
-    if data.ndim != ndim:
-        raise CliError(f"input is {data.ndim}D but -d {ndim} given")
+    ndim = args.dimensions or len(shape)
+    if len(shape) != ndim:
+        raise CliError(f"input is {len(shape)}D but -d {ndim} given")
 
     run_dtype = np.dtype(args.dtype)
     mu = np.asarray(args.mu, dtype=run_dtype)
@@ -314,6 +415,8 @@ def load_and_solve(argv=None) -> Solved:
         FISTA=bool(args.fista),
         stopping_relative_change=args.stop,
         BC_mode=args.bc_mode,
+        # the same on every rank: it feeds the choice between one shot and
+        # progress chunks, which must not diverge
         quiet=not args.verbose,
         backend=args.backend,
         device=args.device,
@@ -324,8 +427,10 @@ def load_and_solve(argv=None) -> Solved:
     kernels = (("whole-run", resident_solve), ("K-step", fused_kstep_iteration),
                ("pair", fused_pair_iteration), ("K=1", fused_iteration))
     before = [k.launches for _, k in kernels]
+    mesh_out = {}
     t0 = time.perf_counter()
-    with profile_trace(args.profile):
+    # the trace of rank 0 (its waits for the others included)
+    with profile_trace(args.profile if rank == 0 else None):
         if args.out_of_core:
             recon, b_norm, delta = denoise_outofcore(
                 data, mu, lam=lam, iterations=iterations,
@@ -334,6 +439,17 @@ def load_and_solve(argv=None) -> Solved:
                 quiet=not args.verbose, checkpoint_path=args.checkpoint,
                 checkpoint_every=args.checkpoint_every, resume=args.resume,
                 lossy_duals=bool(args.lossy_duals), device=args.device)
+        elif mesh:
+            from cytvdn_tpu_torch.parallel.api import denoise_sharded
+
+            tiles = _tiles(args.shard)
+            mesh_out = denoise_sharded(
+                data, shard=tiles or "auto", isotropic_R=args.iso_r,
+                isotropic_Q=args.iso_q, checkpoint_path=args.checkpoint,
+                checkpoint_every=args.checkpoint_every, resume=args.resume,
+                gather=gathers(shape, run_dtype), **kwargs)
+            recon, b_norm, delta = (mesh_out["recon"], mesh_out["b_norm"],
+                                    mesh_out["delta"])
         elif args.checkpoint and args.checkpoint_every:
             result = run_with_checkpointing(
                 data, checkpoint_path=args.checkpoint,
@@ -348,31 +464,77 @@ def load_and_solve(argv=None) -> Solved:
                 data, isotropic_R=args.iso_r, isotropic_Q=args.iso_q,
                 **kwargs)[:3]
     seconds["solve"] = time.perf_counter() - t0
+    if mesh_out:
+        # the block's read and copy to the card, the solve and the gather
+        seconds["load"] += mesh_out["seconds"]["load"]
+        seconds.update(solve=mesh_out["seconds"]["solve"],
+                       gather=mesh_out["seconds"]["gather"])
+        log(f"mesh {mesh_out['grid']} of {world} processes: rank {rank}'s "
+            f"block {mesh_out['slices']}; load {seconds['load']:.3f}s, "
+            f"gather {seconds['gather']:.3f}s"
+            + (f"; resumed from iteration {mesh_out['resumed_from']}"
+               if mesh_out["resumed_from"] is not None else ""))
+        for k, sv in enumerate(mesh_out["saves"]):
+            log(f"checkpoint save {k + 1}: copy {sv['copy']:.3f}s, write "
+                f"{sv['write']:.3f}s, {sv['bytes']} bytes")
     ran = delta[np.nonzero(delta)]
     log(f"denoising took {seconds['solve']:.3f}s; {ran.size} iterations; "
         f"final delta {ran[-1] if ran.size else 0:.5f}")
     log("kernel launches: " + ", ".join(
         f"{name} {k.launches - b}" for (name, k), b in zip(kernels, before)))
-    return Solved(args, recon, b_norm, delta, seconds)
+    return Solved(args, recon, b_norm, delta, seconds,
+                  block=mesh_out.get("block"), slices=mesh_out.get("slices"),
+                  grid=mesh_out.get("grid"),
+                  gathered=mesh_out.get("gathered", False),
+                  saves=mesh_out.get("saves", []),
+                  resumed_from=mesh_out.get("resumed_from"))
+
+
+def write_output(run: Solved) -> str:
+    """The EMD v0.7 output of :func:`load_and_solve`'s result: one file,
+    or, in a launch of several processes, every rank's block through
+    ``write_emd_sharded`` (every rank calls it). Records the seconds in
+    ``run.seconds["write"]``; returns the output's path."""
+    from cytvdn_tpu_torch.io.emd import write_emd, write_emd_sharded
+
+    rank = 0
+    t0 = time.perf_counter()
+    if run.block is None:
+        out = write_emd(run.args.output, run.recon)
+    else:
+        import torch.distributed as dist
+
+        from cytvdn_tpu_torch.parallel.halo import MeshComm
+
+        rank = dist.get_rank()
+        comm = MeshComm(dist.group.WORLD, run.grid, rank)
+        shape = tuple(n * w for n, w in zip(run.block.shape, run.grid))
+        out = write_emd_sharded(
+            run.args.output, run.block, run.slices, shape, comm,
+            gathered=run.gathered, recon=run.recon)
+    run.seconds["write"] = time.perf_counter() - t0
+    _logger(run.args, rank, _world())(
+        f"wrote {out} in {run.seconds['write']:.3f}s")
+    return out
 
 
 def main(argv=None, seconds: Optional[Dict[str, float]] = None) -> int:
-    """The command: :func:`load_and_solve`, then the EMD v0.7 output.
+    """The command: :func:`load_and_solve`, then :func:`write_output`; in
+    a launch of several processes it leaves the group at the end.
     ``seconds``, where given, receives the wall seconds of the load, the
     solve and the write."""
-    from cytvdn_tpu_torch.io.emd import write_emd
-
     try:
         run = load_and_solve(argv)
     except CliError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    t0 = time.perf_counter()
-    out = write_emd(run.args.output, run.recon)
-    run.seconds["write"] = time.perf_counter() - t0
-    _logger(run.args.verbose)(f"wrote {out} in {run.seconds['write']:.3f}s")
+    write_output(run)
     if seconds is not None:
         seconds.update(run.seconds)
+    if run.block is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

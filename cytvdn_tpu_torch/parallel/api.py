@@ -24,7 +24,6 @@ from cytvdn_tpu_torch.config import (
     Backend,
     BCMode,
     SolverOptions,
-    _not_ported,
     normalize_iterations,
 )
 from cytvdn_tpu_torch.io.loaders import InputHandle, open_input
@@ -40,7 +39,7 @@ from cytvdn_tpu_torch.parallel.sharded import (
     run_sharded,
     temporal_mesh_preference,
 )
-from cytvdn_tpu_torch.utils.state import to_numpy
+from cytvdn_tpu_torch.utils.state import state_from_numpy, to_numpy
 
 
 def _rank_device(device) -> torch.device:
@@ -84,6 +83,7 @@ def denoise_sharded(
     lossy_duals: bool = False,
     *,
     device=None,
+    gather: bool = True,
 ) -> Dict[str, Any]:
     """Denoise a datacube on a mesh of processes; every rank of ``group``
     (default: the group of ``init_distributed``) calls this with the same
@@ -103,21 +103,29 @@ def denoise_sharded(
     ``exchange`` (the ``MeshComm.stats`` of the run) and ``seconds``
     (this rank's wall seconds of the block's load and copy to the device,
     the solve up to the traces on the host, and the gather); ``recon`` is the
-    gathered cube on rank 0 and None on the others. The progress bar shows
-    on rank 0 only. ``lossy_duals`` stores the shadow duals as bfloat16
-    on every rank (float32 Jia-Zhao anisotropic FISTA runs); every
-    iteration is then a K=1 launch with halos, and the gathered recon is
-    bitwise the single-device lossy run's. ``checkpoint_path``/``resume``
-    (multi-process part files) are not ported yet and raise
-    ``NotImplementedError``.
+    gathered cube on rank 0 and None on the others, and None on every rank
+    with ``gather=False`` (a cube too large to assemble on one host: each
+    rank keeps its ``block``, as the JAX package's multi-process run keeps
+    its sharded recon); ``gathered`` says which, alike on every rank. The
+    progress bar shows on rank 0 only.
+    ``lossy_duals`` stores the shadow duals as bfloat16 on every rank
+    (float32 Jia-Zhao anisotropic FISTA runs), and the gathered recon is
+    bitwise the single-device lossy run's.
+
+    ``checkpoint_path`` with ``checkpoint_every``: the run goes in chunks,
+    and after each one every rank writes its part of the checkpoint
+    (``utils/checkpoint.py``; one file on a mesh of one rank). ``resume``
+    continues from it where every rank has its part, or cuts every rank's
+    block from a single-process checkpoint; the ranks vote, so all resume
+    or all start afresh. ``saves`` holds this rank's seconds and bytes of
+    each save, ``resumed_from`` the iteration it resumed from (or None).
     """
     from cytvdn_tpu_torch.api import _validate_and_derive
-    from cytvdn_tpu_torch.utils.checkpoint import chunk_driver
+    from cytvdn_tpu_torch.utils.checkpoint import (
+        checkpoint_exists,
+        chunk_driver,
+    )
 
-    if checkpoint_path or resume:
-        raise _not_ported("checkpoints of a mesh run (multi-process part "
-                          "files and the collective resume)",
-                          "Queue 1 item 9")
     if group is None:
         if not dist.is_initialized():
             raise ValueError("denoise_sharded needs a process group: call "
@@ -182,25 +190,49 @@ def denoise_sharded(
     del block
     t1 = time.perf_counter()
 
-    if not _mesh_progress(progress, quiet, opts):
+    checkpointing = bool(checkpoint_path and checkpoint_every)
+    resuming = bool(resume) and checkpoint_exists(checkpoint_path, comm)
+    if resume:
+        # every rank resumes only if every rank has its checkpoint (a job
+        # that died between two ranks' first saves leaves one rank without
+        # a part): diverging resume-or-fresh programs would deadlock the
+        # collectives; stale parts are overwritten at the next save
+        resuming = not comm.allmax(int(not resuming))
+    # the choice between one shot and chunks is the same on every rank
+    want_progress = _mesh_progress(progress, quiet, opts)
+    if not checkpointing and not resuming and not want_progress:
         out = run_sharded(orig, li, lm, opts, comm, ref)
+        out.update(saves=[], resumed_from=None)
     else:
         from cytvdn_tpu_torch.utils.checkpoint import progress_chunk_size
 
         def run_chunk(engine_state, i_stop):
+            if engine_state is not None and \
+                    not torch.is_tensor(engine_state["recon"]):
+                engine_state = state_from_numpy(engine_state, device)
             return run_sharded(orig, li, lm, opts, comm, ref,
                                state=engine_state, i_stop=i_stop,
                                keep_state=True)
 
+        every = checkpoint_every
+        if want_progress and not every:
+            every = progress_chunk_size(opts.total_iterations)
+        meta = {
+            "ndim": ndim,
+            "shape": list(shape),
+            "iterations_fista": n_f,
+            "iterations_unacc": n_u,
+            "lossy_duals": bool(lossy_duals and n_f),
+        }
         cb = None
-        if rank == 0:
+        if rank == 0 and want_progress:
             from cytvdn_tpu_torch.utils.log import make_progress
 
             cb = make_progress("TV denoising (sharded)")
         try:
-            out = chunk_driver(run_chunk, opts.total_iterations, None,
-                               progress_chunk_size(opts.total_iterations),
-                               False, {}, shape, progress=cb)
+            out = chunk_driver(run_chunk, opts.total_iterations,
+                               checkpoint_path, every, resuming, meta, shape,
+                               progress=cb, comm=comm)
         finally:
             if cb is not None:
                 cb.close()
@@ -208,7 +240,8 @@ def denoise_sharded(
     b_norm, delta = to_numpy(out["b_norm"]), to_numpy(out["delta"])
     t2 = time.perf_counter()
     result = {
-        "recon": comm.gather_blocks(out["recon"], shape),
+        "recon": comm.gather_blocks(out["recon"], shape) if gather else None,
+        "gathered": bool(gather),
         "block": to_numpy(out["recon"]),
         "slices": block_slices(shape, grid, rank_coords(grid, rank)),
         "grid": grid,
@@ -216,6 +249,8 @@ def denoise_sharded(
         "delta": delta,
         "iterations_run": int(out["iterations_run"]),
         "exchange": dict(comm.stats),
+        "saves": out["saves"],
+        "resumed_from": out["resumed_from"],
     }
     result["seconds"] = {"load": t1 - t0, "solve": t2 - t1,
                          "gather": time.perf_counter() - t2}

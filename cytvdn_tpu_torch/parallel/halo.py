@@ -19,7 +19,9 @@ sends wait for their receive). Under gloo a CUDA slab goes through page-
 locked host memory: gloo's point-to-point takes CPU tensors, so the stage
 is the transport. Sums go through :meth:`MeshComm.allsum`: every rank
 gathers every rank's partials and adds them in rank order in float64, so
-every rank holds the same bits (stop decisions hang on them).
+every rank holds the same bits (stop decisions hang on them). A step of
+the host that may fail on one rank alone (a file's write or read) goes
+through :meth:`MeshComm.together`, so that every rank raises with it.
 
 Boundaries: a Jia-Zhao or mirror mesh exchanges along a path (the shards
 at the global edges have one neighbour), a periodic mesh along a ring
@@ -343,9 +345,34 @@ class MeshComm:
 
     def allmax(self, flag: int) -> int:
         """The largest of every rank's integer ``flag``."""
-        parts = self._gather(torch.tensor([float(flag)],
+        return int(self.gather_values([flag]).max())
+
+    def gather_values(self, values: Sequence[float]) -> np.ndarray:
+        """Every rank's short list of numbers, as a ``(ranks, len)``
+        float64 array in rank order, the same on every rank."""
+        parts = self._gather(torch.tensor([float(v) for v in values],
+                                          dtype=torch.float64,
                                           device=self._sum_device()))
-        return int(max(float(p[0]) for p in parts))
+        return np.stack([p.cpu().numpy() for p in parts])
+
+    def together(self, step, failure: str, error=OSError):
+        """``step()`` on this rank, then one collective in which every rank
+        says whether its step raised; returns the step's result. Where any
+        rank's step raised, every rank raises (its own error, or an
+        ``error`` naming the ranks that ``failure``), so that no rank is
+        left waiting for it in a later collective."""
+        out, err = None, None
+        try:
+            out = step()
+        except Exception as e:
+            err = e
+        failed = np.flatnonzero(self.gather_values([err is not None])[:, 0])
+        if failed.size:
+            if err is not None:
+                raise err
+            raise error(f"ranks {failed.tolist()} of the mesh {failure} "
+                        f"(see their errors)")
+        return out
 
     def _sum_device(self):
         if self.backend == "nccl":

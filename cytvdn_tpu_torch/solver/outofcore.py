@@ -111,21 +111,15 @@ def _ckpt_meta(opts: SolverOptions, shape, mode: str) -> Dict:
 
 def _ckpt_resume(path, resume: bool, meta: Dict, shape):
     """Load and validate an out-of-core checkpoint, or None."""
-    from cytvdn_tpu_torch.utils.checkpoint import checkpoint_exists, load_state
+    from cytvdn_tpu_torch.utils.checkpoint import (
+        _meta_check,
+        checkpoint_exists,
+        load_state,
+    )
 
     if not (resume and checkpoint_exists(path)):
         return None
-    state, ck_meta = load_state(path)
-    if ck_meta["shape"] != list(shape):
-        raise ValueError(
-            f"checkpoint shape {ck_meta['shape']} does not match input "
-            f"{list(shape)}")
-    for k, v in meta.items():
-        if k != "shape" and ck_meta.get(k, v) != v:
-            raise ValueError(
-                f"checkpoint {k}={ck_meta.get(k)!r} does not match the "
-                f"requested run's {k}={v!r}")
-    return state
+    return load_state(path, check=_meta_check(meta, shape))[0]
 
 
 def _restore_state(st, recon, accs, ds, b_norm, delta, mse):

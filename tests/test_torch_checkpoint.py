@@ -431,10 +431,13 @@ def test_checkpoint_resumes_across_packages(tmp_path, writer, cut, mse):
 @pytest.mark.parametrize("key,item", [("blocks", "item 9"),
                                       ("bf16_keys", "item 12")])
 def test_load_refuses_unported_checkpoints(tmp_path, key, item):
-    """Multi-process part files are refused with the ROADMAP item that
-    ports them (item 9). BFloat16 shadow duals (item 12, lossy duals) are
-    ported: the uint16 bit patterns the meta's ``bf16_keys`` names load as
-    bfloat16 tensors, bit for bit, and the other arrays as they were."""
+    """Multi-process part files (item 9) load on a mesh of their process
+    count only: one process refuses a part written by two with the JAX
+    package's message, as the JAX ``load_state`` does
+    (tests/test_torch_mesh_checkpoint.py reads parts on meshes). BFloat16
+    shadow duals (item 12, lossy duals): the uint16 bit patterns the meta's
+    ``bf16_keys`` names load as bfloat16 tensors, bit for bit, and the
+    other arrays as they were."""
     path = str(tmp_path / "x.npz")
     if key == "blocks":
         value = {"recon": {"shape": [4], "dtype": "float32", "bounds": []}}
@@ -442,9 +445,10 @@ def test_load_refuses_unported_checkpoints(tmp_path, key, item):
                 "version": 1}
         np.savez(path,
                  meta=np.frombuffer(json.dumps(meta).encode(), np.uint8))
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md Queue 1 {item}"):
-            tck.load_state(path)
+        msg = "checkpoint was written by 2 processes; this run has 1"
+        for mod in (tck, jck):
+            with pytest.raises(ValueError, match=msg):
+                mod.load_state(path)
         return
     bits = np.array([0, 0x3F80, 0xBF80, 0x7F7F], np.uint16)  # 0, 1, -1, max
     meta = {"ndim": 1, "shape": [4], key: ["d0"], "version": 1}

@@ -367,13 +367,17 @@ def test_exit_2_as_jax(tmp_path, capsys, case):
 
 REFUSED = {
     # out-of-core runs are ported; sharded out-of-core slabs are not
-    "out-of-core": (["--out-of-core", "2", "--shard", "2"], "Queue 1 item 10"),
+    "out-of-core": (["--out-of-core", "2", "--shard", "2"], "Queue 1 item 11"),
     # ported (Queue 1 item 12(b)): lossy duals in temporal mode, whose
     # slabs' pairs round the bfloat16 duals in the middle of the pair
     "out-of-core-temporal": (["--out-of-core", "2", "--temporal", "2", "-f",
                               "1", "--lossy-duals"], None),
-    "shard": (["--shard", "2,1,1"], "Queue 1 item 10"),
-    "shard-auto": (["--shard", "auto"], "Queue 1 item 10"),
+    # ported (Queue 1 item 10): a tiling of 2 blocks needs 2 processes
+    # (tests/test_torch_cli_shard.py runs them)
+    "shard": (["--shard", "2,1,1,1"], "tiles the cube into 2 blocks, one per "
+                                      "process, but this launch has 1"),
+    # ported (Queue 1 item 10): in one process, the one-device run
+    "shard-auto": (["--shard", "auto"], None),
     # ported (Queue 1 item 12(a)): runs as cytv --lossy-duals does
     "lossy-duals": (["-f", "1", "--lossy-duals"], None),
     "backend-cpp": (["--backend", "cpp"], "Queue 1 item 13"),
@@ -383,9 +387,10 @@ REFUSED = {
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_refused_flags_name_roadmap_item(tmp_path, capsys, case):
     """Each refused flag exits 2 before the input is read, naming its
-    ROADMAP item; a flag since ported (item None) runs, and its recon is
-    the JAX ``cytv``'s with the same flags (within atol 5e-7 for lossy
-    duals, as tests/test_lossy.py holds the JAX lossy runs)."""
+    ROADMAP item (or, for a tiling the launch cannot run, why); a flag
+    since ported (item None) runs, and its recon is the JAX ``cytv``'s with
+    the same flags (within atol 5e-7 for lossy duals, as
+    tests/test_lossy.py holds the JAX lossy runs)."""
     flags, item = REFUSED[case]
     out = str(tmp_path / "t.emd")
     if item is None:
@@ -401,8 +406,11 @@ def test_refused_flags_name_roadmap_item(tmp_path, capsys, case):
                *flags)
     assert rc == 2
     err = capsys.readouterr().err
-    assert "not ported to cytvdn_tpu_torch yet" in err
-    assert f"(ROADMAP.md {item})" in err
+    if item.startswith("Queue"):
+        assert "not ported to cytvdn_tpu_torch yet" in err
+        assert f"(ROADMAP.md {item})" in err
+    else:
+        assert item in err and "torchrun --nproc-per-node 2" in err
     assert not os.path.exists(out)
 
 
@@ -486,20 +494,23 @@ def test_out_of_core_checkpoint_and_resume(tmp_path, monkeypatch, temporal):
 
 
 def test_multi_process_launch_refused(tmp_path, capsys, monkeypatch):
+    """A launch of several processes (``WORLD_SIZE`` > 1) runs a mesh
+    (tests/test_torch_cli_shard.py starts its processes); one without
+    torchrun's ``RANK`` cannot join its group and exits 2, and one with
+    ``--out-of-core`` exits 2 before the input is read, naming item 11
+    (sharded and multi-host out of core)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.delenv("RANK", raising=False)
     out = str(tmp_path / "t.emd")
-    assert _port(str(tmp_path / "missing.npy"), out, "-m", "1.0",
-                 "-n", "2") == 2
+    inp = _npy(tmp_path, _cube(S3, 14))
+    assert _port(inp, out, "-m", "1.0", "-n", "2") == 2
     err = capsys.readouterr().err
-    assert "WORLD_SIZE=2" in err and "(ROADMAP.md Queue 1 item 10)" in err
+    assert "WORLD_SIZE=2 without RANK" in err and "torchrun" in err
     assert not os.path.exists(out)
-    # multi-process out-of-core runs are refused there too, before their
-    # own item (11) is reached
     assert _port(str(tmp_path / "missing.npy"), out, "-m", "1.0", "-n", "2",
                  "--out-of-core", "2") == 2
-    assert "(ROADMAP.md Queue 1 item 10)" in capsys.readouterr().err
+    assert "(ROADMAP.md Queue 1 item 11)" in capsys.readouterr().err
     monkeypatch.setenv("WORLD_SIZE", "1")
-    inp = _npy(tmp_path, _cube(S3, 14))
     assert _port(inp, out, "-m", "1.0", "-n", "2") == 0
 
 

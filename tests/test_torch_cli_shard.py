@@ -1,0 +1,149 @@
+"""The port's command line on a mesh: ``cytv-torch --device cpu --shard``
+in two real processes with torchrun's environment (gloo), against the JAX
+package's ``cytv --shard`` in this process (its 8 fake CPU devices) and
+the port's one-process ``cytv-torch --device cpu`` on the same ``.npy``.
+
+The mesh's recon is bitwise the one-process run's, and within
+tests/test_torch_cli.py's tolerances of the JAX command's (rtol 2e-5 /
+atol 2e-6 in float32, 1e-12 in float64). Each launch has a time limit of
+its own, so a rank that hangs fails the test.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_torch_mesh_checkpoint import Killed, _kill_after, _mesh_run  # noqa: E402
+from test_torch_sharded import REPO, _free_port  # noqa: E402
+from cytvdn_tpu import cli as jcli  # noqa: E402
+from cytvdn_tpu.io.emd import read_emd as jread  # noqa: E402
+from cytvdn_tpu_torch import cli as tcli  # noqa: E402
+from cytvdn_tpu_torch.io.emd import read_emd as tread  # noqa: E402
+from cytvdn_tpu_torch.utils import checkpoint as tck  # noqa: E402
+
+TOL = {np.float32: dict(rtol=2e-5, atol=2e-6),
+       np.float64: dict(rtol=1e-12, atol=1e-12)}
+SHAPE = (8, 4, 6, 8)
+FLAGS = ["-m", "1.0", "-n", "6", "-f", "1"]
+LAUNCH_TIMEOUT = 120
+
+
+def _cube(dtype=np.float32, seed=61):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(SHAPE) * 0.3 + 1.0).astype(dtype)
+
+
+def _launch(argv, n=2, env=None):
+    """``python -m cytvdn_tpu_torch.cli ARGV`` as ``n`` processes with
+    torchrun's environment; returns each rank's (rc, stdout, stderr)."""
+    port = _free_port()
+    procs = []
+    for r in range(n):
+        e = dict(os.environ, WORLD_SIZE=str(n), RANK=str(r),
+                 LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n),
+                 MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                 PYTHONPATH=REPO, **(env or {}))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "cytvdn_tpu_torch.cli", *argv], cwd=REPO,
+            env=e, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        outs = [p.communicate(timeout=LAUNCH_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    return [(p.returncode, o, e) for p, (o, e) in zip(procs, outs)]
+
+
+def _ok(runs):
+    for r, (rc, out, err) in enumerate(runs):
+        assert rc == 0, f"rank {r}: {err[-3000:]}"
+    return runs
+
+
+def _one_process(tmp_path, inp, *flags):
+    out = str(tmp_path / "one.emd")
+    assert tcli.main(["-i", inp, "-o", out, "-v", "0", "--device", "cpu",
+                      *flags]) == 0
+    return tread(out)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["float32", "float64"])
+def test_shard_command_matches_cytv(tmp_path, dtype):
+    """``--shard 2,1,1,1`` in two processes: bitwise the one-process
+    command, and the JAX ``cytv --shard 2,1,1,1``'s recon within
+    tolerance. A float32 input is opened lazily (each rank reads its
+    block), a float64 one loaded whole; only rank 0 logs, with its tag."""
+    inp = str(tmp_path / "in.npy")
+    np.save(inp, _cube(dtype))
+    dflags = ["--dtype", "float64"] if dtype == np.float64 else []
+    out = str(tmp_path / "mesh.emd")
+    runs = _ok(_launch(["-i", inp, "-o", out, "--device", "cpu", *FLAGS,
+                        *dflags, "--shard", "2,1,1,1"]))
+    log0 = runs[0][1]
+    assert ("opened" if dtype == np.float32 else "loaded") in log0
+    assert "[cytv-torch p0] mesh (2, 1, 1, 1) of 2 processes" in log0
+    assert f"[cytv-torch p0] wrote {out}" in log0
+    assert runs[1][1] == ""
+    got = tread(out)
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(
+        got, _one_process(tmp_path, inp, *FLAGS, *dflags))
+    jout = str(tmp_path / "j.emd")
+    assert jcli.main(["-i", inp, "-o", jout, "-v", "0", *FLAGS, *dflags,
+                      "--shard", "2,1,1,1"]) == 0
+    np.testing.assert_allclose(got, jread(jout), **TOL[dtype])
+
+
+def test_shard_command_checkpoint_and_resume(tmp_path, monkeypatch):
+    """Two processes without ``--shard`` (``auto``) and with
+    ``--checkpoint``: every rank writes its part, each log line carries its
+    rank (``CYTV_LOG_ALL_PROCS``), and the recon is bitwise the
+    one-process command's and within tolerance of ``cytv --shard 2,1,1,1
+    --checkpoint``'s. Then parts of the same run killed at iteration 2 (a
+    mesh of threads) resume in the command (``--resume 1``): bitwise the
+    uninterrupted run."""
+    cube = _cube()
+    inp = str(tmp_path / "in.npy")
+    np.save(inp, cube)
+    one = _one_process(tmp_path, inp, *FLAGS)
+    ck = str(tmp_path / "ck.npz")
+    out = str(tmp_path / "mesh.emd")
+    runs = _ok(_launch(["-i", inp, "-o", out, "--device", "cpu", *FLAGS,
+                        "--checkpoint", ck, "--checkpoint-every", "2"],
+                       env={"CYTV_LOG_ALL_PROCS": "1"}))
+    for r, (_, log, _) in enumerate(runs):
+        assert f"[cytv-torch p{r}] multi-process run without --shard: " \
+               f"defaulting to --shard auto" in log
+        assert f"[cytv-torch p{r}] checkpoint save 3: copy" in log
+    np.testing.assert_array_equal(tread(out), one)
+    for part in (ck, ck + ".p1"):
+        with np.load(part) as z:
+            assert int(z["i"]) == 6 and "recon.b0" in z.files
+    jout = str(tmp_path / "j.emd")
+    assert jcli.main(["-i", inp, "-o", jout, "-v", "0", *FLAGS, "--shard",
+                      "2,1,1,1", "--checkpoint", str(tmp_path / "j.npz"),
+                      "--checkpoint-every", "2"]) == 0
+    np.testing.assert_allclose(tread(out), jread(jout), **TOL[np.float32])
+
+    killed = str(tmp_path / "killed.npz")
+    _kill_after(monkeypatch, 2)
+    errs = _mesh_run(cube, (2, 1, 1, 1), killed, every=2, catch=True,
+                     iterations=6)
+    assert all(isinstance(e, Killed) for e in errs)
+    with np.load(killed + ".p1") as z:
+        assert int(z["i"]) == 2
+    out2 = str(tmp_path / "resumed.emd")
+    runs = _ok(_launch(["-i", inp, "-o", out2, "--device", "cpu", *FLAGS,
+                        "--shard", "2,1,1,1", "--checkpoint", killed,
+                        "--checkpoint-every", "2", "--resume", "1"]))
+    assert "; resumed from iteration 2" in runs[0][1]
+    np.testing.assert_array_equal(tread(out2), one)
+    with np.load(killed) as z:
+        assert int(z["i"]) == 6
+    assert tck.checkpoint_exists(killed)

@@ -419,17 +419,26 @@ def test_temporal_mesh_preference_matches_jax(kw):
     (dict(shard=(2, 1, 1, 1), resume=True), "Queue 1 item 9"),
     (dict(shard=(2, 1, 1, 1), lossy_duals=True), "Queue 1 item 12"),
 ], ids=str)
-def test_unported_mesh_runs_name_their_item(kw, item):
-    """Mesh checkpoints (item 9) raise, naming their item. Lossy duals
-    (item 12(a)) are ported: the lossy mesh run is bitwise the
-    single-device lossy run."""
+def test_unported_mesh_runs_name_their_item(tmp_path, kw, item):
+    """Mesh checkpoints (item 9) and lossy duals (item 12(a)) are ported:
+    a mesh run checkpointing every 2 iterations (parts of both ranks on
+    disk), one asked to resume where there is no checkpoint (a fresh
+    start) and the lossy mesh run are each bitwise the single-device
+    run."""
     cube = _cube((8, 8, 6, 4), seed=13)
-    if kw.get("lossy_duals"):
-        _check(_sharded(cube, kw.pop("shard"), iterations=4, **kw),
-               _single(cube, iterations=4, lossy_duals=True))
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        _sharded(cube, kw.pop("shard"), iterations=2, **kw)
+    kw = dict(kw)
+    if kw.get("checkpoint_path"):
+        kw["checkpoint_path"] = str(tmp_path / kw["checkpoint_path"])
+    shard = kw.pop("shard")
+    single = {"lossy_duals": True} if kw.get("lossy_duals") else {}
+    res = _sharded(cube, shard, iterations=4, **kw)
+    _check(res, _single(cube, iterations=4, **single))
+    assert all(r["resumed_from"] is None for r in res)
+    if kw.get("checkpoint_path"):
+        assert [len(r["saves"]) for r in res] == [2, 2]
+        for part in (kw["checkpoint_path"], kw["checkpoint_path"] + ".p1"):
+            with np.load(part) as z:
+                assert int(z["i"]) == 4 and "recon.b0" in z.files
 
 
 def test_denoise_sharded_needs_a_group_and_matching_shard():
