@@ -151,7 +151,19 @@ non-zero — nothing is caught):
    bitwise, MSE within rtol 1e-5); (d) config 3 temporal K=4 killed after
    a checkpoint save and resumed (bitwise the uninterrupted run); (e)
    config 3 through ``cli.load_and_solve --out-of-core 3 --temporal 4``
-   from a ``.npy`` (bitwise the API run);
+   from a ``.npy`` (bitwise the API run); (f) multi-process out of core:
+   processes of this script (``--cli-worker``, torchrun's environment,
+   gloo) sharing the card run ``cli.load_and_solve``: config 4 x16
+   ``--out-of-core 4 --temporal 8`` on 2 processes, each reading its 128
+   rows of the ``.npy``, each rank's rows bitwise (b)'s temporal K=8
+   recon, 24 pairs and 16 K=1 launches per rank, per rank the seconds of
+   load, pin and solve, s per iteration, GB/s each way, the band
+   exchange's seconds and bytes and the peak device memory, the host's
+   available memory before; config 3 hybrid (8, 4) ``--out-of-core 2
+   --temporal 4 --lossy-duals`` on 3 processes (43, 43 and 42 rows) with
+   a part every 4 iterations, every process stopped after the first
+   generation and killed, then resumed from 4 on every rank (the FISTA
+   sweep in LOSSY pairs and K=1 launches), bitwise the in-core lossy run;
 9. sharded runs (``cytvdn_tpu_torch.parallel``): (a) the pair kernel with
    axis-0 bands (``HALO0``) against the plain pair with the same bands
    (state bitwise, sums within rtol 1e-5) on the first, an interior and
@@ -254,8 +266,8 @@ non-zero — nothing is caught):
 
 Needs one CUDA device; exits non-zero without one. Inputs are made from
 fixed seeds. ``--sharded-worker SPEC`` runs one rank of a phase-9 or
-phase-10 mesh, ``--cli-worker SPEC`` one rank of a phase-9 (g) command
-line (both started by the script itself).
+phase-10 mesh, ``--cli-worker SPEC`` one rank of a phase-8 (f) or phase-9
+(g) command line (both started by the script itself).
 """
 
 from __future__ import annotations
@@ -570,6 +582,43 @@ def pair_refuses_oversized_grid(shape, strip):
     raise AssertionError(f"a pair grid of {full + 1} blocks was accepted")
 
 
+#: the page-locked host buffers ``offcard_equal`` copies states into within
+#: ``pinned_copies``; None outside it (pageable copies)
+_PINNED = None
+
+
+@contextlib.contextmanager
+def pinned_copies():
+    """Within it, :func:`offcard_equal` copies its states to page-locked
+    host buffers (exact-size ``cudaHostAlloc``, ``build.host_empty``),
+    allocated by the first comparison, reused by the next ones and freed at
+    the end: a config-4 state (38.6 GB) then crosses the link at the
+    page-locked rate, several times the pageable one, and is pinned once
+    for all of a phase's comparisons."""
+    global _PINNED
+    _PINNED = []
+    try:
+        yield
+    finally:
+        _PINNED = None
+
+
+def host_copy(i: int, x: torch.Tensor) -> torch.Tensor:
+    """``x`` (on the card) on the host: in the ``i``-th page-locked buffer
+    within :func:`pinned_copies` (``i`` counting up from 0 over a state's
+    arrays), else a pageable copy."""
+    if _PINNED is None:
+        return x.cpu()
+    nbytes = x.numel() * x.element_size()
+    if len(_PINNED) == i:
+        _PINNED.append(build.host_empty((nbytes,), np.uint8))
+    elif _PINNED[i].size < nbytes:
+        _PINNED[i] = build.host_empty((nbytes,), np.uint8)
+    h = torch.from_numpy(_PINNED[i][:nbytes]).view(x.dtype).view(x.shape)
+    h.copy_(x)
+    return h
+
+
 def offcard_equal(shape, fista, runs, lossy=False):
     """At a state too large to hold twice on the card (Jia-Zhao, float32;
     with ``lossy``, FISTA's d cast to bfloat16): ``runs`` is a list of
@@ -591,7 +640,7 @@ def offcard_equal(shape, fista, runs, lossy=False):
 
     (first, fn), *rest = runs
     state, want_sums = run(fn)
-    host = [x.cpu() for x in state]
+    host = [host_copy(i, x) for i, x in enumerate(state)]
     del state
     torch.cuda.empty_cache()
     err, rel = 0.0, 0.0
@@ -2290,7 +2339,8 @@ def outofcore_phase(smi, name, cube, cube3):
     (×16), 4 slabs, against ``denoise4D``; (c) config 2 in stream mode
     with a stop and a reference cube against the K=1 loop; (d) config 3
     temporal K=4 killed after a checkpoint save and resumed; (e) config 3
-    through ``cli.load_and_solve --out-of-core 3 --temporal 4``. Returns
+    through ``cli.load_and_solve --out-of-core 3 --temporal 4``; (f)
+    multi-process out of core (:func:`outofcore_mesh_phase`). Returns
     the numbers of the kernels line's halo row."""
     from cytvdn_tpu_torch import cli
 
@@ -2372,6 +2422,10 @@ def outofcore_phase(smi, name, cube, cube3):
                                f"expected {want_la}")
         if k == 1:
             halo_launches = la[4]
+        else:
+            # (f) holds each process's rows of a 2-process run to these
+            rows16 = [digest(want[0][slice(*outofcore.process_row_range(
+                CFG4[0], 2, r))]) for r in range(2)]
         secs = run["sweep_seconds"] / iters
         link_s = (run["h2d_bytes"] / (rates["h2d"] * 1e9)
                   + run["d2h_bytes"] / (rates["d2h"] * 1e9))
@@ -2496,9 +2550,165 @@ def outofcore_phase(smi, name, cube, cube3):
         f"from a .npy: bitwise the API run's (solve "
         f"{run_cli.seconds['solve']:.3f} s); "
         f"{time.perf_counter() - t0:.1f} s")
+    del plain3, got, api, run_cli
+    outofcore_mesh_phase(smi, cube, rows16, cube3)
     log(f"phase 8 {time.perf_counter() - t_phase:.1f} s")
     return {"launches": halo_launches, "err": err, "ms": t_halo["halo"],
             "plain_ms": t_halo["plain"], "bound": (b_ms, b_by)}
+
+
+def mem_available() -> float:
+    """The host's available memory in GiB (``/proc/meminfo``)."""
+    with open("/proc/meminfo") as f:
+        for ln in f:
+            if ln.startswith("MemAvailable"):
+                return int(ln.split()[1]) * 1024 / 2**30
+    return float("nan")
+
+
+def ooc_generations(path, n_ranks):
+    """The iteration of each process's out-of-core checkpoint part
+    (``path.ooc<p>``) on disk, -1 where it is not there yet (parts are
+    renamed into place whole)."""
+    gens = []
+    for r in range(n_ranks):
+        try:
+            with np.load(f"{path}.ooc{r}") as z:
+                gens.append(int(z["i"]))
+        except FileNotFoundError:
+            gens.append(-1)
+    return gens
+
+
+def outofcore_mesh_phase(smi, cube, rows16, cube3):
+    """Phase 8 (f): multi-process out of core, processes of this script
+    (``--cli-worker``) sharing the card (gloo). (i) config 4 through
+    ``cli.load_and_solve --out-of-core 4 --temporal 8`` x16 FISTA on 2
+    processes, each reading only its 128 rows of the ``.npy``: each rank's
+    rows bitwise phase 8 (b)'s temporal K=8 x16 recon's (``rows16``, their
+    digests), 24 pairs and 16 K=1 launches per rank; (ii) config 3 hybrid
+    (8, 4) ``--lossy-duals --out-of-core 2 --temporal 4`` on 3 processes
+    (uneven rows), a part every 4 iterations, every process stopped after
+    the first generation and killed, then ``--resume 1``: every rank
+    resumed from 4, the FISTA sweep in LOSSY pairs and K=1 launches, its
+    rows bitwise the in-core lossy run's."""
+    try:
+        import h5py  # noqa: F401
+        write = True
+    except ImportError:
+        write = False
+    how = ("cli.load_and_solve + cli.write_output" if write else
+           "cli.load_and_solve (h5py is missing: no EMD output written)")
+    t_f = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cytv_oocmesh_")
+    try:
+        npy = os.path.join(tmp, "config4.npy")
+        np.save(npy, cube)
+        avail = mem_available()
+        out4 = os.path.join(tmp, "config4.emd")
+        t0 = time.perf_counter()
+        g1 = run_mesh(tmp, 2, None, timeout=300, worker="--cli-worker",
+                      write=write, argv=[
+                          "-i", npy, "-o", out4, "-m", "1.0", "-n", "16",
+                          "-f", "1", "--out-of-core", "4", "--temporal",
+                          "8"])
+        s_i = time.perf_counter() - t0
+        os.remove(npy)
+        for r in g1:
+            rank = r["rank"]
+            require(r["block"] == rows16[rank],
+                    f"8 (f) (i) rank {rank}: rows not bitwise phase 8 (b)'s "
+                    f"temporal K=8 recon")
+            require(tuple(r["launches"]) == (0, 0, 24, 16)
+                    and r["iterations_run"] == 2,
+                    f"8 (f) (i) rank {rank}: launches {r['launches']}, "
+                    f"{r['iterations_run']} sweep-final trace entries")
+        if write:
+            from cytvdn_tpu_torch.io.emd import read_emd
+
+            got = read_emd(out4)
+            for rank in range(2):
+                require(digest(got[slice(*outofcore.process_row_range(
+                    CFG4[0], 2, rank))]) == rows16[rank],
+                        "8 (f) (i) the EMD output is not bitwise")
+            del got
+        log(f"phase 8 (f) (i) {how} --out-of-core 4 --temporal 8 on config "
+            f"4 {CFG4} FISTA x16 from a .npy, 2 processes sharing the card "
+            f"(gloo), each reading its 128 rows: each rank's rows bitwise "
+            f"phase 8 (b)'s temporal K=8 recon (sha256), 24 pairs and 16 "
+            f"K=1 launches per rank; host memory available before "
+            f"{avail:.1f} GiB; {s_i:.1f} s [{smi}]")
+        for r in g1:
+            o, ex, sec = r["ooc"], r["exchange"], r["seconds"]
+            log(f"phase 8 (f) (i) rank {r['rank']}: load {sec['load']} s, "
+                f"pin {o['pinned_bytes'] / 2**30:.2f} GiB in "
+                f"{o['pin_seconds']} s, solve {sec['solve']} s, "
+                f"{o['sweep_seconds'] / 16} s per iteration "
+                f"({o['sweeps']:.0f} sweeps), "
+                f"{o['h2d_bytes'] / o['h2d_seconds'] / 1e9:.2f} GB/s in and "
+                f"{o['d2h_bytes'] / o['d2h_seconds'] / 1e9:.2f} GB/s out; "
+                f"band exchanges {ex['exchanges']} ({ex['exchange_seconds']} "
+                f"s, {ex['bytes_sent']} bytes sent, {ex['bytes_received']} "
+                f"received, "
+                f"{ex['bytes_sent'] / max(ex['exchange_seconds'], 1e-9) / 1e9:.3f}"
+                f" GB/s); launches whole-run/K-step/pair/K=1 "
+                f"{tuple(r['launches'])}; peak device memory "
+                f"{r['peak'] / 2**30:.3f} GiB [{smi}]")
+
+        # (ii) config 3 lossy on 3 processes, killed after the first
+        # generation
+        t0 = time.perf_counter()
+        want3 = denoise4D(cube3, np.full(4, 1.0, np.float32),
+                          iterations=(8, 4), lossy_duals=True, quiet=True,
+                          device="cuda")[0]
+        npy3 = os.path.join(tmp, "config3.npy")
+        np.save(npy3, cube3)
+        ck = os.path.join(tmp, "config3.ckpt.npz")
+        argv3 = ["-i", npy3, "-o", os.path.join(tmp, "config3.emd"), "-m",
+                 "1.0", "-n", "8", "4", "-f", "1", "--lossy-duals",
+                 "--out-of-core", "2", "--temporal", "4", "--checkpoint", ck,
+                 "--checkpoint-every", "4"]
+        killed = run_mesh(tmp, 3, None, timeout=300, worker="--cli-worker",
+                          poll=lambda: min(ooc_generations(ck, 3)) >= 4,
+                          write=write, argv=argv3, hang_after_save=True)
+        require(killed is None, "8 (f) (ii) the run ended before its first "
+                                "checkpoint generation")
+        gens = ooc_generations(ck, 3)
+        require(gens == [4, 4, 4], f"8 (f) (ii) parts after the kill: {gens}")
+        s_kill = time.perf_counter() - t0
+        g2 = run_mesh(tmp, 3, None, timeout=300, worker="--cli-worker",
+                      write=write, argv=argv3 + ["--resume", "1"])
+        for r in g2:
+            rank = r["rank"]
+            rows = slice(*outofcore.process_row_range(CFG3[0], 3, rank))
+            require(r["resumed_from"] == 4 and not r["warnings"],
+                    f"8 (f) (ii) rank {rank}: resumed from "
+                    f"{r['resumed_from']}, warnings {r['warnings']}")
+            require(r["block"] == digest(want3[rows]),
+                    f"8 (f) (ii) rank {rank}: rows not bitwise the in-core "
+                    f"lossy run's")
+            # resumed from 4: the FISTA sweep (2 slabs, 1 pair and 2 K=1
+            # launches each) in LOSSY launches, then the unaccelerated one,
+            # which has no shadow duals
+            require(tuple(r["launches"]) == (0, 0, 4, 8)
+                    and r["lossy"] == [2, 4],
+                    f"8 (f) (ii) rank {rank}: launches {r['launches']}, "
+                    f"LOSSY pairs and K=1 launches {r['lossy']}")
+        log(f"phase 8 (f) (ii) {how} --lossy-duals --out-of-core 2 "
+            f"--temporal 4 on config 3 {CFG3} hybrid (8, 4), 3 processes (rows "
+            f"{[outofcore.process_row_range(CFG3[0], 3, q) for q in range(3)]}"
+            f"), a part every 4 iterations: every process stopped after the "
+            f"parts of iteration 4 were on disk and killed ({s_kill:.1f} s), "
+            f"then --resume 1: every rank resumed from 4, its rows bitwise "
+            f"the in-core lossy run's, the FISTA sweep's 2 pairs and 4 K=1 "
+            f"launches LOSSY; launches per rank "
+            f"{[tuple(r['launches']) for r in g2]}, band exchanges "
+            f"{[r['exchange']['exchanges'] for r in g2]}; "
+            f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 8 (f) {time.perf_counter() - t_f:.1f} s")
+    return g1
 
 
 # phase 9: sharded runs on scan-axis meshes: the pair kernel's axis-0 bands
@@ -2855,14 +3065,16 @@ def run_mesh(tmp, n_ranks, runs, timeout, worker="--sharded-worker",
 
 
 def cli_worker(spec_path: str) -> int:
-    """One rank of a phase-9 (g) command-line mesh, started by
+    """One rank of a phase-8 (f) or phase-9 (g) command-line mesh, started by
     :func:`run_mesh` with torchrun's environment: the command's steps with
     the spec's ``argv`` — ``cli.load_and_solve``, and ``cli.write_output``
     where the spec says so (h5py present) — with every rank's log lines
     (``CYTV_LOG_ALL_PROCS``); writes the rank's digests (block, and the
     gathered recon on rank 0), launches, seconds, checkpoint saves, resume
-    point, checkpoint warnings and peak device memory to ``rank{R}.json``
-    beside the spec."""
+    point, checkpoint warnings, the exchange's statistics, an out-of-core
+    run's rows and ``outofcore.last_run`` record, and peak device memory
+    to ``rank{R}.json`` beside the spec. ``hang_after_save`` in the spec
+    stops the rank after its first checkpoint save, to be killed there."""
     import torch.distributed as dist
 
     from cytvdn_tpu_torch import cli
@@ -2870,6 +3082,10 @@ def cli_worker(spec_path: str) -> int:
     with open(spec_path) as f:
         spec = json.load(f)
     os.environ["CYTV_LOG_ALL_PROCS"] = "1"
+    if spec.get("hang_after_save"):
+        # stop after the first checkpoint generation (after its post-save
+        # collective: every part is on disk), to be killed there
+        outofcore._POST_CKPT_HOOK = lambda it_run: time.sleep(3600)
     on_card = torch.cuda.is_available()
     if on_card:
         build.load()
@@ -2890,7 +3106,11 @@ def cli_worker(spec_path: str) -> int:
         "seconds": run.seconds, "saves": run.saves,
         "resumed_from": run.resumed_from,
         "warnings": [str(w.message) for w in rec
-                     if "disagree on iteration" in str(w.message)],
+                     if "disagree" in str(w.message)],
+        "exchange": run.exchange, "rows": run.rows,
+        "lossy": [fused_pair_iteration.lossy_launches,
+                  fused_iteration.lossy_launches],
+        "ooc": dict(outofcore.last_run) if run.rows else None,
         "peak": torch.cuda.max_memory_allocated() if on_card else 0,
         "block": digest(run.block),
         "recon": digest(run.recon) if run.recon is not None else None,
@@ -4124,6 +4344,9 @@ def lossy_phase(smi, name, cube, scan, det, tmp):
     sharing the card, in LOSSY HALO0 pairs, bitwise the single-device lossy
     run. Returns the numbers of the kernels line's rows."""
     t_phase = t0 = time.perf_counter()
+    # (a)'s off-card comparisons at config 4 share one page-locked state
+    pinned = contextlib.ExitStack()
+    pinned.enter_context(pinned_copies())
     err, n_cases, launches = 0.0, 0, 0
     for shape in LOSSY_SHAPES:
         e, n = lossy_case(shape, grids=(None, 1, 7))
@@ -4165,6 +4388,7 @@ def lossy_phase(smi, name, cube, scan, det, tmp):
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kerr, k_cases, k_launches = lossy_kstep_cases()
+    pinned.close()
     log(f"phase 11 (a) lossy K-step kernel (LOSSY: bfloat16 d, every "
         f"level's d rounded at its store) vs its plain version, K LOSSY K=1 "
         f"launches and (K even) K/2 LOSSY pairs: {k_cases} cases, "
@@ -4709,6 +4933,9 @@ def main() -> int:
             f"its own load is in flight, uses local memory (3D) or uses more "
             f"than its exact twin (the capped 4D entry): {kstep_lossy}, "
             f"exact {twin_local}")
+    # the off-card comparisons at config 4 share one page-locked host state
+    pinned = contextlib.ExitStack()
+    pinned.enter_context(pinned_copies())
     t0 = time.perf_counter()
     err4r, rel4r = compare_offcard_ref(CFG4)
     ref_err = max(ref_err, err4r)
@@ -4859,6 +5086,7 @@ def main() -> int:
         f"{kstep_err}), sums within rtol 1e-5; {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     err4k, rel4k = compare_kstep_offcard(CFG4, True, max(KS))
+    pinned.close()
     kstep_err = max(kstep_err, err4k)
     log(f"phase 2 K-step kernel at the main path's {CFG4}, FISTA f32 (state "
         f"held on the host): one K={max(KS)} launch at the defaults (the full "

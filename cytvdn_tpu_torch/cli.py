@@ -42,10 +42,21 @@ rank 0 writes the gathered cube up to 4 GiB; a larger cube is never
 assembled in one process: every rank writes a ``.partN.h5`` beside the
 output and rank 0 stitches them.
 
+``--out-of-core N [--temporal K]`` in a launch of several processes runs
+``solve_outofcore_multihost``, one card per process: each rank reads only
+its axis-0 row range of the input (``process_row_range``) and keeps only
+its rows of the state in host memory, in N slabs of its own; the output is
+written by ``io/emd.py::write_emd_rows_multihost``, every rank its own
+rows into the one file, or, where the ranks share no filesystem (or
+``CYTV_NO_SHARED_FS=1``), ``write_emd_rows_gathered``, rank 0 writing the
+rows it receives in slab-sized chunks. ``--shard auto`` (the default there)
+and ``--shard 1`` are one card per process.
+
 What the port cannot run yet is refused with exit code 2 before the input
-is read, naming its ROADMAP.md item: ``--out-of-core`` on a mesh
-(``--shard`` or ``WORLD_SIZE`` > 1; Queue 1 item 11) and ``--backend cpp``
-(item 13).
+is read, naming its ROADMAP.md item: out-of-core slabs split over several
+cards (``--out-of-core`` with ``--shard N`` > 1 in a launch of several
+processes, or with any ``--shard`` in one process; Queue 1 item 11(b)) and
+``--backend cpp`` (item 13).
 
 ``--lossy-duals`` stores the FISTA shadow duals as bfloat16 (float32
 Jia-Zhao anisotropic FISTA runs; the other combinations exit 2 with
@@ -223,10 +234,23 @@ def parse_args(argv=None) -> argparse.Namespace:
         raise CliError("-n/--niterations is required (or use a --preset "
                        "that supplies it)")
     world = _world()
-    if args.out_of_core and (args.shard or world > 1):
-        raise _not_ported("--out-of-core with --shard or WORLD_SIZE > 1 "
-                          "(sharded and multi-host out of core)", 11)
-    tiles = _tiles(args.shard)
+    if args.out_of_core and args.shard:
+        if world == 1:
+            raise _not_ported("--out-of-core with --shard (out-of-core "
+                              "slabs split over several cards, 11(b))", 11)
+        if args.shard != "auto":
+            try:
+                shard_w = int(args.shard)
+            except ValueError:
+                raise CliError(
+                    "--out-of-core does not support --shard (out-of-core "
+                    "takes a device COUNT or 'auto', not a per-axis "
+                    "tiling) (Jia-Zhao anisotropic float32)") from None
+            if shard_w > 1:
+                raise _not_ported(f"--out-of-core with --shard {shard_w} "
+                                  "(out-of-core slabs split over several "
+                                  "cards, 11(b))", 11)
+    tiles = None if args.out_of_core else _tiles(args.shard)
     if tiles is not None and math.prod(tiles) != world:
         n = math.prod(tiles)
         raise CliError(
@@ -317,7 +341,10 @@ class Solved:
     gathered the cube (alike on every rank), ``grid`` the mesh, ``saves``
     the seconds (``copy``, ``write``) and ``bytes`` of each checkpoint
     save of the rank's part, ``resumed_from`` the iteration it resumed
-    from (or None)."""
+    from (or None), ``exchange`` the rank's ``MeshComm`` statistics. A
+    multi-process out-of-core run gives no ``recon`` and no ``grid``:
+    ``block`` is the rank's rows and ``rows`` their range ``(g0, g1,
+    n0)``, which the write step takes as it is."""
 
     args: argparse.Namespace
     recon: Optional[np.ndarray]
@@ -330,6 +357,46 @@ class Solved:
     gathered: bool = False
     saves: List[Dict[str, float]] = dataclasses.field(default_factory=list)
     resumed_from: Optional[int] = None
+    rows: Optional[Tuple[int, int, int]] = None
+    exchange: Optional[Dict[str, float]] = None
+
+
+def _outofcore_mesh(args, shape, ndim, mu, lam, iterations, world, rank,
+                    seconds, log) -> Dict:
+    """This rank's part of a multi-process out-of-core run: it reads only
+    its axis-0 rows of the input (the reference's per-rank reads,
+    mpi.py:93-124) and runs ``solve_outofcore_multihost`` on them."""
+    from cytvdn_tpu_torch.api import _validate_and_derive
+    from cytvdn_tpu_torch.config import SolverOptions, normalize_iterations
+    from cytvdn_tpu_torch.io.loaders import open_input
+    from cytvdn_tpu_torch.parallel.distributed import distributed_device
+    from cytvdn_tpu_torch.solver.outofcore import (
+        process_row_range,
+        solve_outofcore_multihost,
+    )
+
+    g0, g1 = process_row_range(shape[0], world, rank)
+    t0 = time.perf_counter()
+    with open_input(args.input) as h:
+        local = np.ascontiguousarray(h.read_block(
+            (slice(g0, g1),) + (slice(None),) * (ndim - 1)), dtype=np.float32)
+    seconds["load"] += time.perf_counter() - t0
+    log(f"multi-process out-of-core: rows [{g0}, {g1}) of {shape[0]}, "
+        f"{world} processes")
+    local, _, _, lambda_inv, lam_mu = _validate_and_derive(
+        local, mu, lam, ndim, 32.0 if ndim == 4 else 16.0)
+    n_f, n_u = normalize_iterations(iterations, bool(args.fista))
+    return solve_outofcore_multihost(
+        local, lambda_inv, lam_mu,
+        SolverOptions(ndim=ndim, iterations_fista=n_f, iterations_unacc=n_u,
+                      stopping_relative_change=args.stop,
+                      lossy_duals=bool(args.lossy_duals)),
+        args.out_of_core, max(args.temporal, 1),
+        global_rows=(g0, g1, shape[0]),
+        shard_w=0 if args.shard == "auto" else int(args.shard),
+        checkpoint_path=args.checkpoint,
+        checkpoint_every=args.checkpoint_every, resume=bool(args.resume),
+        device=distributed_device())
 
 
 def load_and_solve(argv=None) -> Solved:
@@ -428,10 +495,21 @@ def load_and_solve(argv=None) -> Solved:
                ("pair", fused_pair_iteration), ("K=1", fused_iteration))
     before = [k.launches for _, k in kernels]
     mesh_out = {}
+    rows = None
     t0 = time.perf_counter()
     # the trace of rank 0 (its waits for the others included)
     with profile_trace(args.profile if rank == 0 else None):
-        if args.out_of_core:
+        if args.out_of_core and mesh:
+            mesh_out = _outofcore_mesh(args, shape, ndim, mu, lam,
+                                       iterations, world, rank, seconds, log)
+            g0, g1, n0 = (int(v) for v in mesh_out["global_rows"])
+            rows = (g0, g1, n0)
+            recon, b_norm, delta = (None, mesh_out["b_norm"],
+                                    mesh_out["delta"])
+            mesh_out.update(
+                block=mesh_out["recon"], gathered=False,
+                slices=(slice(g0, g1),) + (slice(None),) * (ndim - 1))
+        elif args.out_of_core:
             recon, b_norm, delta = denoise_outofcore(
                 data, mu, lam=lam, iterations=iterations,
                 FISTA=bool(args.fista), stopping_relative_change=args.stop,
@@ -464,7 +542,15 @@ def load_and_solve(argv=None) -> Solved:
                 data, isotropic_R=args.iso_r, isotropic_Q=args.iso_q,
                 **kwargs)[:3]
     seconds["solve"] = time.perf_counter() - t0
-    if mesh_out:
+    if rows is not None:
+        ex = mesh_out["exchange"]
+        log(f"rank {rank}'s rows [{rows[0]}, {rows[1]}): solve "
+            f"{seconds['solve']:.3f}s; band exchanges {ex['exchanges']}, "
+            f"{ex['exchange_seconds']:.3f}s, {ex['bytes_sent']} bytes sent, "
+            f"{ex['bytes_received']} received"
+            + (f"; resumed from iteration {mesh_out['resumed_from']}"
+               if mesh_out["resumed_from"] is not None else ""))
+    elif mesh_out:
         # the block's read and copy to the card, the solve and the gather
         seconds["load"] += mesh_out["seconds"]["load"]
         seconds.update(solve=mesh_out["seconds"]["solve"],
@@ -487,20 +573,49 @@ def load_and_solve(argv=None) -> Solved:
                   grid=mesh_out.get("grid"),
                   gathered=mesh_out.get("gathered", False),
                   saves=mesh_out.get("saves", []),
-                  resumed_from=mesh_out.get("resumed_from"))
+                  resumed_from=mesh_out.get("resumed_from"), rows=rows,
+                  exchange=mesh_out.get("exchange"))
 
 
 def write_output(run: Solved) -> str:
     """The EMD v0.7 output of :func:`load_and_solve`'s result: one file,
     or, in a launch of several processes, every rank's block through
-    ``write_emd_sharded`` (every rank calls it). Records the seconds in
-    ``run.seconds["write"]``; returns the output's path."""
-    from cytvdn_tpu_torch.io.emd import write_emd, write_emd_sharded
+    ``write_emd_sharded``, or every rank's rows of a multi-process
+    out-of-core run through ``write_emd_rows_multihost`` (every rank its
+    rows into the one file) or, where that finds no filesystem every rank
+    shares, ``write_emd_rows_gathered`` (every rank calls it). Records the
+    seconds in ``run.seconds["write"]``; returns the output's path."""
+    from cytvdn_tpu_torch.io.emd import (
+        emd_path,
+        write_emd,
+        write_emd_rows_gathered,
+        write_emd_rows_multihost,
+        write_emd_sharded,
+    )
 
     rank = 0
     t0 = time.perf_counter()
+    how = ""
     if run.block is None:
         out = write_emd(run.args.output, run.recon)
+    elif run.rows is not None:
+        import torch.distributed as dist
+
+        from cytvdn_tpu_torch.parallel.halo import MeshComm
+
+        rank, world = dist.get_rank(), dist.get_world_size()
+        comm = MeshComm(dist.group.WORLD, (world,), rank)
+        g0, g1, n0 = run.rows
+        shape = (n0,) + run.block.shape[1:]
+        out = write_emd_rows_multihost(run.args.output, shape, np.float32,
+                                       run.block, (g0, g1), comm)
+        how = " (every rank its rows)"
+        if out is None:
+            ch = max(1, -(-n0 // (world * run.args.out_of_core)))
+            write_emd_rows_gathered(run.args.output, shape, np.float32,
+                                    run.block, (g0, g1), ch, comm)
+            out = emd_path(run.args.output)
+            how = f" (rows gathered to rank 0 in chunks of {ch})"
     else:
         import torch.distributed as dist
 
@@ -514,7 +629,7 @@ def write_output(run: Solved) -> str:
             gathered=run.gathered, recon=run.recon)
     run.seconds["write"] = time.perf_counter() - t0
     _logger(run.args, rank, _world())(
-        f"wrote {out} in {run.seconds['write']:.3f}s")
+        f"wrote {out}{how} in {run.seconds['write']:.3f}s")
     return out
 
 

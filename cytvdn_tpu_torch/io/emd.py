@@ -12,8 +12,17 @@ per-rank ``write_direct`` with ``dest_sel`` region selections
 ``.partN.h5`` sidecar and rank 0 stitches the master, copied into one file
 (:func:`stitch_emd_solid`) or as a virtual dataset over the parts
 (:func:`stitch_emd_virtual`), as the JAX package's multi-process writer
-does. Not ported: the raw-offset row writers of multi-host out-of-core
-runs (ROADMAP.md Queue 1 item 11).
+does. A multi-process out-of-core run, whose processes hold axis-0 row
+ranges, writes through :func:`write_emd_rows_multihost`: rank 0 creates
+the file with the datacube's space allocated early, and, where every rank
+sees the file, every rank writes its own rows at their raw byte offset
+(``os.pwrite``), the boundary pages in a serialized ring (the HDF5 token
+ring where the raw span is not usable); where some rank does not see it
+(or ``CYTV_NO_SHARED_FS=1``), :func:`write_emd_rows_gathered` streams the
+rows to rank 0 in fixed-size chunks. Each collective of the JAX writers is
+a ``parallel/halo.py::MeshComm`` collective here, and each write that may
+fail on one rank goes through ``MeshComm.together``, so that every rank
+raises with it.
 """
 
 from __future__ import annotations
@@ -42,10 +51,16 @@ _DIM_META = [
 ]
 
 
-def _create_structure(fout, shape, dtype, virtual_layout=None):
+def _create_structure(fout, shape, dtype, virtual_layout=None,
+                      alloc_early=False):
     """Create the EMD v0.7 skeleton (groups, attrs, dim axes) exactly as
     the reference lays it out (reference cyTVDN/mpi.py:449-491); the
-    datacube a virtual dataset with ``virtual_layout``."""
+    datacube a virtual dataset with ``virtual_layout``.
+
+    ``alloc_early`` allocates the (contiguous) datacube's file space at
+    creation, never filled: its raw byte span has an offset before any
+    write, which the concurrent row writers need; every byte is then
+    written by some rank, and the dataset reads as the default writer's."""
     top = fout.create_group("4DSTEM_experiment")
     top.attrs.create("emd_group_type", 2)
     top.attrs.create("version_major", 0)
@@ -63,6 +78,15 @@ def _create_structure(fout, shape, dtype, virtual_layout=None):
     dc = datacubes.create_group("datacube_0")
     if virtual_layout is not None:
         dset = dc.create_virtual_dataset("data", virtual_layout)
+    elif alloc_early:
+        space = h5py.h5s.create_simple(tuple(shape))
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        dcpl.set_alloc_time(h5py.h5d.ALLOC_TIME_EARLY)
+        dcpl.set_fill_time(h5py.h5d.FILL_TIME_NEVER)
+        did = h5py.h5d.create(dc.id, b"data",
+                              h5py.h5t.py_create(np.dtype(dtype), logical=1),
+                              space, dcpl)
+        dset = h5py.Dataset(did)
     else:
         dset = dc.create_dataset("data", shape, dtype=dtype)
     dc.attrs.create("emd_group_type", 1)
@@ -246,6 +270,242 @@ def stitch_emd_solid(path: str, global_shape, dtype, num_parts: int) -> str:
         except FileNotFoundError:
             pass
     return path
+
+
+_DSET_PATH = "4DSTEM_experiment/data/datacubes/datacube_0/data"
+
+
+def _raw_row_span(path: str, global_shape, dtype):
+    """``(byte_offset, row_bytes)`` of the datacube's contiguous span in
+    the file, or None where raw-offset writes cannot be used (a layout
+    that is not contiguous, space not yet allocated, a byte order that is
+    not the host's). Axis-0 rows of a C-order contiguous dataset are
+    contiguous byte ranges, so each rank's rows are one span.
+    ``CYTV_NO_RAW_WRITES=1`` turns the raw path off (the ranks then write
+    through HDF5 in turns: the same bytes)."""
+    if os.environ.get("CYTV_NO_RAW_WRITES"):
+        return None
+    try:
+        with h5py.File(path, "r") as f:
+            d = f[_DSET_PATH]
+            if tuple(d.shape) != tuple(global_shape):
+                return None
+            if d.id.get_create_plist().get_layout() != h5py.h5d.CONTIGUOUS:
+                return None
+            off = d.id.get_offset()
+            # numpy's dtype equality knows the byte order: a big-endian
+            # file or host takes the HDF5 ring
+            if off is None or d.dtype != np.dtype(dtype).newbyteorder("="):
+                return None
+            return int(off), int(np.prod(global_shape[1:])) * d.dtype.itemsize
+    except Exception:
+        return None
+
+
+#: the page size of the raw writer's split between the ranks' concurrent
+#: bulk writes and the boundary fragments written in turns: a client of a
+#: page-caching filesystem (NFS) writes whole pages back, so two ranks must
+#: never write one page at once
+_RAW_PAGE = 4096
+
+
+def _pwrite_span(fd, buf, pos: int) -> None:
+    """A positioned write of one byte span, in 1 GiB pieces (Linux caps a
+    single ``pwrite`` near 2 GiB)."""
+    done = 0
+    while done < len(buf):
+        done += os.pwrite(fd, buf[done:done + (1 << 30)], pos + done)
+
+
+def _pwrite_rows(path: str, offset: int, row_bytes: int, rows: np.ndarray,
+                 g0: int, dtype):
+    """Write the page-aligned interior of the byte span of ``rows``
+    (axis-0 rows from the cube's row ``g0``) with positioned writes, which
+    take no HDF5 lock: every rank writes its bulk at once, and no two ranks
+    write one page. Returns the up to two boundary fragments ``(file
+    position, bytes)`` that share a page with a neighbour's rows (or with
+    HDF5 metadata), for the ring."""
+    data = np.ascontiguousarray(rows, dtype=np.dtype(dtype).newbyteorder("="))
+    buf = memoryview(data).cast("B")
+    pos0 = offset + g0 * row_bytes
+    pos1 = pos0 + len(buf)
+    a0 = min(-(-pos0 // _RAW_PAGE) * _RAW_PAGE, pos1)  # up to a page
+    a1 = max((pos1 // _RAW_PAGE) * _RAW_PAGE, a0)      # down to a page
+    frags = []
+    if a0 > pos0:
+        frags.append((pos0, bytes(buf[:a0 - pos0])))
+    if pos1 > a1:
+        frags.append((a1, bytes(buf[a1 - pos0:])))
+    if a1 > a0:
+        fd = os.open(path, os.O_WRONLY)
+        try:
+            _pwrite_span(fd, buf[a0 - pos0:a1 - pos0], a0)
+        finally:
+            os.close(fd)
+    return frags
+
+
+def _pwrite_frags(path: str, frags) -> None:
+    """This rank's boundary fragments (its turn in the ring), the file
+    opened and closed in the turn, so that a page-caching client sees the
+    pages earlier turns wrote."""
+    if not frags:
+        return
+    fd = os.open(path, os.O_WRONLY)
+    try:
+        for pos, chunk in frags:
+            _pwrite_span(fd, memoryview(chunk), pos)
+    finally:
+        os.close(fd)
+
+
+def _drop_nonce(path: str) -> None:
+    """Remove the visibility probe's token: the finished file keeps the
+    reference writer's attributes."""
+    with h5py.File(path, "r+") as fout:
+        if "cytv_run_nonce" in fout.attrs:
+            del fout.attrs["cytv_run_nonce"]
+
+
+def write_emd_rows_multihost(path: str, global_shape, dtype,
+                             rows: np.ndarray, row_range,
+                             comm) -> Optional[str]:
+    """Every rank of ``comm`` writes its own axis-0 ``rows`` (the cube's
+    rows ``row_range = (g0, g1)``) into one EMD file: the reference's
+    parallel-HDF5 region writes through MPI-IO (mpi.py:444-498) on
+    plain h5py. Every rank calls it.
+
+    Rank 0 creates the file, the datacube contiguous with its space
+    allocated early and a fresh nonce in an attribute. Every rank reads
+    the nonce back; where some rank does not read rank 0's nonce (its
+    filesystem is not shared, or ``CYTV_NO_SHARED_FS=1``), rank 0 removes
+    the file and every rank returns None: the caller then gathers
+    (:func:`write_emd_rows_gathered`). Else, where every rank finds the
+    same raw byte span (:func:`_raw_row_span`), each writes its rows there
+    at once (``os.pwrite``) and the page-sharing boundary fragments in
+    turns; otherwise the ranks write their rows through HDF5 in turns.
+    Either way the file is the one ``write_emd`` writes. Every decision is
+    taken in a collective, alike on every rank, and every write goes
+    through ``comm.together``. Returns the written path on every rank, or
+    None."""
+    _require_h5py()
+    path = emd_path(path)
+    rank = comm.rank
+    g0, g1 = int(row_range[0]), int(row_range[1])
+    failure = "failed to write its rows of the EMD output"
+
+    def create():
+        if rank != 0:
+            return
+        # a fresh nonce per run: a stale file of the same shape on a rank's
+        # own disk must not pass the probe (the rows would be scattered
+        # over local files); 48 bits, exact in the float64 vote
+        nonce = int.from_bytes(os.urandom(6), "little") | 1
+        with h5py.File(path, "w") as fout:
+            _create_structure(fout, tuple(global_shape), dtype,
+                              alloc_early=True)
+            fout.attrs["cytv_run_nonce"] = np.int64(nonce)
+
+    comm.together(create, "failed to create the EMD output")
+    observed = 0
+    if not os.environ.get("CYTV_NO_SHARED_FS"):
+        try:
+            with h5py.File(path, "r") as f:
+                if tuple(f[_DSET_PATH].shape) == tuple(global_shape):
+                    observed = int(f.attrs.get("cytv_run_nonce", 0))
+        except Exception:
+            observed = 0
+    seen = comm.gather_values([observed])[:, 0]
+    if seen.min() == 0 or seen.min() != seen.max():
+        comm.together(lambda: os.remove(path) if rank == 0 else None,
+                      "failed to remove the unshared EMD output")
+        return None
+    span = _raw_row_span(path, global_shape, dtype)
+    offs = comm.gather_values([span[0] if span else -1])[:, 0]
+    if offs.min() == offs.max() and offs.min() >= 0:
+        frags = comm.together(lambda: _pwrite_rows(
+            path, span[0], span[1], rows, g0, dtype), failure)
+
+        def write():
+            _pwrite_frags(path, frags)
+    else:
+        def write():
+            with h5py.File(path, "r+") as fout:
+                fout[_DSET_PATH][(slice(g0, g1),) + (slice(None),)
+                                 * (len(global_shape) - 1)] = rows
+
+    # the boundary fragments, or the rows through HDF5, one rank at a time
+    for p in range(comm.world):
+        comm.together(lambda: write() if p == rank else None, failure)
+    comm.together(lambda: _drop_nonce(path) if rank == 0 else None, failure)
+    return path
+
+
+def write_emd_rows_gathered(path: str, global_shape, dtype,
+                            rows: np.ndarray, row_range, chunk_rows: int,
+                            comm) -> Optional[str]:
+    """The writer for ranks that share no filesystem: every rank's axis-0
+    rows go to rank 0 in chunks of ``chunk_rows`` rows of the cube (each
+    rank's part of a chunk padded to the chunk's size, so every message has
+    one shape), and rank 0 writes each chunk as it comes; no rank holds the
+    whole cube. The row ranges are gathered first, so any contiguous
+    partition works, uneven ones too. Every rank calls it; returns the
+    written path on rank 0 and None on the others. Rank 0's writes go
+    through ``comm.together``."""
+    import torch
+
+    _require_h5py()
+    rank = comm.rank
+    g0, g1 = int(row_range[0]), int(row_range[1])
+    ranges = comm.gather_values([g0, g1]).astype(np.int64)
+    n0, rest = int(global_shape[0]), tuple(global_shape[1:])
+    ch = max(1, int(chunk_rows))
+    failure = "failed to write the EMD output"
+    out = {}
+
+    def create():
+        if rank == 0:
+            out["file"] = h5py.File(emd_path(path), "w")
+            out["dset"] = _create_structure(out["file"], tuple(global_shape),
+                                            dtype)
+
+    def close():
+        if "file" in out:
+            out.pop("file").close()
+
+    comm.together(create, failure)
+    try:
+        for c0 in range(0, n0, ch):
+            c1 = min(c0 + ch, n0)
+            senders = [q for q in range(comm.world)
+                       if max(c0, ranges[q][0]) < min(c1, ranges[q][1])]
+            pad = np.zeros((ch,) + rest, dtype)
+            o0, o1 = max(c0, g0), min(c1, g1)
+            if o1 > o0:
+                pad[o0 - c0:o1 - c0] = rows[o0 - g0:o1 - g0]
+            t = torch.from_numpy(pad)
+            if comm.backend == "nccl":
+                # NCCL moves tensors on the card only
+                t = t.cuda()
+            got = comm.gather_pieces(t, senders)
+
+            def write():
+                if got is None:
+                    return
+                block = np.zeros((c1 - c0,) + rest, dtype)
+                for q, piece in zip(senders, got):
+                    a0 = max(c0, ranges[q][0])
+                    a1 = min(c1, ranges[q][1])
+                    block[a0 - c0:a1 - c0] = \
+                        piece.cpu().numpy()[a0 - c0:a1 - c0]
+                out["dset"][c0:c1] = block
+
+            comm.together(write, failure)
+    finally:
+        # every rank reaches the close together (an error above was every
+        # rank's)
+        close()
+    return emd_path(path) if rank == 0 else None
 
 
 def read_emd(path: str, lazy: bool = False):

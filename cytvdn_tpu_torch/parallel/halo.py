@@ -409,6 +409,34 @@ class MeshComm:
         self.stats["gather_seconds"] += time.perf_counter() - t0
         return out
 
+    def gather_pieces(self, piece: Tensor,
+                      senders: Sequence[int]) -> Optional[List[Tensor]]:
+        """The ``piece`` of every rank in ``senders`` (all of one shape and
+        dtype; a rank not in it sends nothing), by rank in ``senders``'
+        order, on rank 0; None on the other ranks. Every rank makes the
+        call with the same ``senders``."""
+        t0 = time.perf_counter()
+        nbytes = piece.numel() * piece.element_size()
+        if self.rank != 0:
+            if self.rank in senders:
+                self.group.send([self._wire(piece)], 0, _TAG_GATHER).wait()
+                self.stats["gather_bytes"] += nbytes
+            self.stats["gather_seconds"] += time.perf_counter() - t0
+            return None
+        out = []
+        for r in senders:
+            if r == 0:
+                out.append(piece)
+                continue
+            got = torch.empty_like(piece) if self.backend == "nccl" else \
+                torch.empty(piece.shape, dtype=piece.dtype,
+                            pin_memory=piece.device.type == "cuda")
+            self.group.recv([got], r, _TAG_GATHER).wait()
+            self.stats["gather_bytes"] += nbytes
+            out.append(got)
+        self.stats["gather_seconds"] += time.perf_counter() - t0
+        return out
+
     # -- halos -------------------------------------------------------------
 
     def prev_halo(self, a: Tensor, ax: int) -> Optional[Tensor]:

@@ -53,17 +53,31 @@ slabs' bfloat16 d (the pair kernel's and the K=1 kernel's ``LOSSY``
 instantiations), and a margin's zeroed first d row is a bfloat16 zero. A
 lossy run is bitwise the in-core lossy run in either mode.
 
-Not here (ROADMAP.md Queue 1 item 11): slabs sharded over several devices
-(``shard_w``), multi-process runs and their band exchange.
+Several processes (:func:`solve_outofcore_multihost`): each owns a
+balanced axis-0 row range of the cube (:func:`process_row_range`), holds
+only its rows of the host state, with K ghost rows on each interior edge,
+and runs the temporal-mode pipeline above on its own slabs, one card per
+process. One exchange of the K-row pre-sweep bands of every state array
+per sweep (``parallel/halo.py::MeshComm``, point to point, its buffers
+reserved before the first collective) refreshes the ghost rows; the slabs'
+sums are added across the processes in rank order, so every process takes
+the same stop decision; each process writes its own checkpoint part
+(``path.ooc<p>``) in the JAX package's format. The stitched recon is
+bitwise the in-core run.
+
+Not here (ROADMAP.md Queue 1 item 11(b)): slabs split over several cards
+(``shard_w`` > 1, ``devices``).
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cytvdn_tpu_torch.api import _validate_and_derive
 from cytvdn_tpu_torch.config import (
@@ -75,6 +89,7 @@ from cytvdn_tpu_torch.config import (
 from cytvdn_tpu_torch.kernels import build
 from cytvdn_tpu_torch.kernels.fused import fused_iteration, fused_supported
 from cytvdn_tpu_torch.kernels.temporal import fused_pair_iteration, pair_supported
+from cytvdn_tpu_torch.parallel.halo import MeshComm
 from cytvdn_tpu_torch.solver.engine import d_dtype, fista_tk_ratios
 
 Tensor = torch.Tensor
@@ -122,18 +137,19 @@ def _ckpt_resume(path, resume: bool, meta: Dict, shape):
     return load_state(path, check=_meta_check(meta, shape))[0]
 
 
-def _restore_state(st, recon, accs, ds, b_norm, delta, mse):
-    """Restore a loaded checkpoint into the run's host arrays in place
-    (``ds``: the host's shadow-dual tensors, bfloat16 under lossy duals,
-    where the checkpoint's are bfloat16 tensors too). Returns ``(start,
-    resumed_stop)``."""
-    recon[...] = np.asarray(st["recon"], np.float32)
+def _restore_state(st, sl, recon, accs, ds, b_norm, delta, mse):
+    """Restore a loaded checkpoint into the rows ``sl`` of the run's host
+    arrays in place (the whole arrays in one process, the own rows between
+    the ghost rows of a multi-process run; ``ds``: the host's shadow-dual
+    tensors, bfloat16 under lossy duals, where the checkpoint's are
+    bfloat16 tensors too). Returns ``(start, resumed_stop)``."""
+    recon[sl] = np.asarray(st["recon"], np.float32)
     for k, a in enumerate(accs):
-        a[...] = np.asarray(st["accs"][k], np.float32)
+        a[sl] = np.asarray(st["accs"][k], np.float32)
     for k, d in enumerate(ds):
         x = st["ds"][k]
-        d.copy_(x if torch.is_tensor(x)
-                else torch.from_numpy(np.asarray(x, np.float32)))
+        d[sl].copy_(x if torch.is_tensor(x)
+                    else torch.from_numpy(np.asarray(x, np.float32)))
     b_norm[:] = st["b_norm"]
     delta[:] = st["delta"]
     if mse is not None and np.asarray(st["mse"]).size == mse.size:
@@ -157,8 +173,6 @@ def _ckpt_save(path, meta, it_run, recon, accs, ds, b_norm, delta, mse,
         "i": np.int32(it_run),
         "early_stopped": bool(stopped),
     }, meta)
-    if _POST_CKPT_HOOK is not None:
-        _POST_CKPT_HOOK(it_run)
 
 
 def _host_sse(a: np.ndarray, b: np.ndarray) -> float:
@@ -206,22 +220,33 @@ class _HostState:
     in place (``cudaHostRegister``) took 2.5-3 times as long."""
 
     def __init__(self, orig: np.ndarray, ndim: int, fista: bool,
-                 device: torch.device, d_dt: torch.dtype = torch.float32):
+                 device: torch.device, d_dt: torch.dtype = torch.float32,
+                 pad: Tuple[int, int] = (0, 0)):
         self.cuda = device.type == "cuda"
         t0 = time.perf_counter()
+        # a multi-process run's ghost rows: ``pad`` rows before and after
+        # the own rows, zero until the first exchange fills them
+        tg, bg = pad
+        shape = (tg + orig.shape[0] + bg,) + orig.shape[1:]
 
         def empty(dtype=torch.float32):
             if not self.cuda:
-                return torch.empty(orig.shape, dtype=dtype)
+                return torch.empty(shape, dtype=dtype)
             if dtype == torch.bfloat16:
                 return torch.from_numpy(build.host_empty(
-                    orig.shape, np.int16)).view(torch.bfloat16)
-            return torch.from_numpy(build.host_empty(orig.shape))
+                    shape, np.int16)).view(torch.bfloat16)
+            return torch.from_numpy(build.host_empty(shape))
 
-        self.orig = empty()
-        self.orig.numpy()[...] = orig
-        self.recon = empty()
-        self.recon.numpy()[...] = orig
+        def filled():
+            t = empty()
+            a = t.numpy()
+            a[:tg] = 0
+            a[tg:tg + orig.shape[0]] = orig
+            a[tg + orig.shape[0]:] = 0
+            return t
+
+        self.orig = filled()
+        self.recon = filled()
         self.accs = [empty().zero_() for _ in range(ndim)]
         self.ds = [empty(d_dt).zero_() for _ in range(ndim)] if fista else []
         last_run["pinned_bytes"] = float(sum(
@@ -391,35 +416,58 @@ def _run_schedule(opts, start, resumed_stop, sweep, record, save, k_max):
 
 
 class _Run:
-    """What both modes share: a run's host state, traces, checkpoint and
+    """What every mode shares: a run's host state, traces, checkpoint and
     copy pipe, and :meth:`solve`, which drives the schedule through
-    pipelined sweeps built from each mode's slab steps."""
+    pipelined sweeps built from each mode's slab steps. ``procs`` (a
+    :class:`_Procs`) makes it one process's part of a multi-process run:
+    its host arrays carry ghost rows, each sweep starts with the band
+    exchange, the sums are added across the processes, and the checkpoint
+    is this process's part."""
 
     def __init__(self, orig, opts, reference, checkpoint_path,
-                 checkpoint_every, resume, mode: str, device):
+                 checkpoint_every, resume, mode: str, device, procs=None):
         n_total = opts.total_iterations
-        self.opts, self.reference = opts, reference
-        self.host = host = _HostState(orig, opts.ndim, opts.fista, device,
-                                      d_dtype(opts, torch.float32))
+        self.opts, self.reference, self.procs = opts, reference, procs
+        pad = (procs.tg, procs.bg) if procs else (0, 0)
+        #: the own rows of the host arrays
+        self.own = slice(pad[0], pad[0] + orig.shape[0])
+
+        def alloc():
+            return _HostState(orig, opts.ndim, opts.fista, device,
+                              d_dtype(opts, torch.float32), pad)
+
+        self.host = host = alloc() if procs is None else procs.comm.together(
+            alloc, "could not allocate its out-of-core host state",
+            RuntimeError)
         self.pipe = _Pipe(device)
         self.b_norm = np.zeros(n_total, np.float32)
         self.delta = np.zeros(n_total, np.float32)
         with_mse = opts.calculate_mse and reference is not None
         self.mse = np.zeros(n_total + 1, np.float32) if with_mse else None
         if with_mse:
-            self.mse[0] = _host_sse(orig, reference)
-        meta = _ckpt_meta(opts, orig.shape, mode) if checkpoint_path else None
-        self.start, self.resumed_stop = 0, False
+            sse0 = _host_sse(orig, reference)
+            self.mse[0] = procs.sums([sse0])[0] if procs else sse0
+        meta = None
+        if checkpoint_path:
+            meta = _ckpt_meta(opts, orig.shape, mode)
+            if procs:
+                checkpoint_path = f"{checkpoint_path}.ooc{procs.pid}"
+                meta.update(proc=procs.pid, nproc=procs.nproc,
+                            grows=[procs.g0, procs.g1, procs.n0])
+        self.start, self.resumed_stop, self.resumed = 0, False, False
         if checkpoint_path:
             try:
-                st = _ckpt_resume(checkpoint_path, resume, meta, orig.shape)
+                st = (procs.resume if procs else _ckpt_resume)(
+                    checkpoint_path, resume, meta, orig.shape)
             except BaseException:
                 host.close()
                 raise
+            self.resumed = st is not None
             if st is not None:
                 self.start, self.resumed_stop = _restore_state(
-                    st, host.recon.numpy(), [a.numpy() for a in host.accs],
-                    host.ds, self.b_norm, self.delta, self.mse)
+                    st, self.own, host.recon.numpy(),
+                    [a.numpy() for a in host.accs], host.ds, self.b_norm,
+                    self.delta, self.mse)
         self.save = self._saver(checkpoint_path, checkpoint_every, meta)
         last_run["sweeps"] = 0.0
         last_run["sweep_seconds"] = 0.0
@@ -428,20 +476,34 @@ class _Run:
         """``save(it_run, done, stopped)``: a save at the first sweep end at
         or past each multiple of ``every`` (every multiple, in stream
         mode), and the terminal save; only the terminal save may record a
-        stop."""
+        stop. In a multi-process run each process saves its own rows to its
+        part, and the processes meet in one collective after it, so that no
+        process takes a generation as resumable before every part of it
+        exists, and one process's failed save is every process's."""
         if not checkpoint_path:
             return lambda it_run, done, stopped: None
-        host = self.host
+        host, own, procs = self.host, self.own, self.procs
         nxt = (self.start // every + 1) * every if every > 0 else None
 
         def save(it_run, done, stopped):
             nonlocal nxt
             due = nxt is not None and it_run >= nxt and not done
             if done or due:
-                _ckpt_save(checkpoint_path, meta, it_run, host.recon.numpy(),
-                           [a.numpy() for a in host.accs], host.ds,
-                           self.b_norm, self.delta, self.mse,
-                           done and stopped)
+                def write():
+                    _ckpt_save(checkpoint_path, meta, it_run,
+                               host.recon.numpy()[own],
+                               [a.numpy()[own] for a in host.accs],
+                               [d[own] for d in host.ds], self.b_norm,
+                               self.delta, self.mse, done and stopped)
+
+                if procs:
+                    procs.comm.together(
+                        write, "failed to save its out-of-core checkpoint "
+                        "part")
+                else:
+                    write()
+                if _POST_CKPT_HOOK is not None:
+                    _POST_CKPT_HOOK(it_run)
             if due:
                 nxt = (it_run // every + 1) * every
 
@@ -463,11 +525,21 @@ class _Run:
         rows they read; ``store(si, fista, after)`` queues slab si's
         results out behind its kernels. The slabs' sums are read once per
         sweep and added in slab order; ``sse()`` is then the recon's SSE
-        against the reference."""
-        pipe = self.pipe
+        against the reference. In a multi-process run a sweep starts with
+        the band exchange, and the sums (the SSE among them) are added
+        across the processes in rank order."""
+        pipe, procs, host = self.pipe, self.procs, self.host
 
         def sweep(fista, t, count):
             t0 = time.perf_counter()
+            if procs:
+                # the bands are the pre-sweep state: every write-back of
+                # the last sweep has landed (drained), none of this one
+                # is queued yet, and the exchange returns only once both
+                # neighbours have packed theirs
+                pipe.drain()
+                procs.exchange([host.recon, *host.accs, *host.ds],
+                               "ooc_state")
             sums = []
             ready = load(0, fista)
             for si in range(n):
@@ -483,20 +555,22 @@ class _Run:
                 bn += s[0]
                 dn += s[1]
                 dd += s[2]
+            err = sse() if self.mse is not None else 0.0
+            if procs:
+                bn, dn, dd, err = procs.sums([bn, dn, dd, err])
             last_run["sweeps"] += 1
             last_run["sweep_seconds"] += time.perf_counter() - t0
             # all-zero input: the in-core 0/0 -> NaN instead of raising
-            return (bn, dn / dd if dd else float("nan"),
-                    sse() if self.mse is not None else 0.0)
+            return bn, dn / dd if dd else float("nan"), err
 
         try:
             it_run, stopped = _run_schedule(
                 self.opts, self.start, self.resumed_stop, sweep,
                 self._record, self.save, k_max)
         finally:
-            self.host.close()
+            host.close()
         out = {
-            "recon": self.host.recon.numpy(),
+            "recon": host.recon.numpy()[self.own],
             "b_norm": self.b_norm,
             "delta": self.delta,
             "iterations_run": np.int32(it_run),
@@ -504,6 +578,11 @@ class _Run:
         }
         if self.mse is not None:
             out["mse"] = self.mse
+        if procs:
+            out["global_rows"] = np.asarray([procs.g0, procs.g1, procs.n0],
+                                            np.int64)
+            out["exchange"] = dict(procs.comm.stats)
+            out["resumed_from"] = self.start if self.resumed else None
         return out
 
 
@@ -617,6 +696,22 @@ def solve_outofcore(
     return run.solve(len(bounds), 1, load, compute, store, sse)
 
 
+def _extents(bounds, k: int, tg: int, total: int):
+    """Each slab's rows with K-row margins, ``(lo, hi, a0, a1)`` in the
+    rows of the host arrays (``tg`` ghost rows first, ``total`` rows in
+    all), its core ``[a0, a1)``."""
+    return [(max(tg + a - k, 0), min(tg + b + k, total), tg + a, tg + b)
+            for a, b in bounds]
+
+
+def _check_extents(ext, tail, opts) -> None:
+    for lo, hi, _, _ in ext:
+        if hi - lo < 2 or not fused_supported((hi - lo,) + tail,
+                                              torch.float32, opts.bc_mode):
+            raise ValueError(f"extended slab shape {(hi - lo,) + tail} "
+                             "unsupported by the fused kernel")
+
+
 def solve_outofcore_temporal(
     orig: np.ndarray,
     lambda_inv: np.ndarray,
@@ -650,8 +745,7 @@ def solve_outofcore_temporal(
                                checkpoint_every=checkpoint_every,
                                resume=resume, device=device)
     orig = _check_options(opts, orig)
-    device = torch.device(device)
-    ndim, n0, tail = opts.ndim, orig.shape[0], orig.shape[1:]
+    n0, tail = orig.shape[0], orig.shape[1:]
     K = int(temporal_k)
     bounds = _slab_bounds(n0, n_slabs)
     min_core = min(b - a for a, b in bounds)
@@ -661,24 +755,47 @@ def solve_outofcore_temporal(
         raise ValueError(
             f"temporal_k={K} exceeds the smallest slab core ({min_core} "
             f"rows); use fewer slabs or a smaller temporal_k")
-    ext = [(max(a - K, 0), min(b + K, n0), a, b) for a, b in bounds]
-    for lo, hi, _, _ in ext:
-        if hi - lo < 2 or not fused_supported((hi - lo,) + tail,
-                                              torch.float32, opts.bc_mode):
-            raise ValueError(f"extended slab shape {(hi - lo,) + tail} "
-                             "unsupported by the fused kernel")
-    li, lm, rhos = _scalars(lambda_inv, lam_mu, opts.iterations_fista, device)
-    rows = max(hi - lo for lo, hi, _, _ in ext)
-    slabs = _Slabs(rows, tail, ndim, opts.iterations_fista > 0, device,
-                   halos=False, d_dt=d_dtype(opts, torch.float32))
-    # the K-1st recon of a chunk, for the last iteration's delta
-    r_prev = torch.empty((rows,) + tail, dtype=torch.float32, device=device)
+    ext = _extents(bounds, K, 0, n0)
+    _check_extents(ext, tail, opts)
+    return _run_temporal(orig, lambda_inv, lam_mu, opts, ext, K, reference,
+                         checkpoint_path, checkpoint_every, resume,
+                         f"temporal{K}", torch.device(device))
+
+
+def _run_temporal(orig, lambda_inv, lam_mu, opts, ext, K, reference,
+                  checkpoint_path, checkpoint_every, resume, mode, device,
+                  procs=None):
+    """The temporal-mode pipeline over the slabs ``ext`` (``_extents``) of
+    the host arrays, K iterations per residency; with ``procs``, one
+    process's part of a multi-process run."""
+    ndim, tail = opts.ndim, orig.shape[1:]
+    fista_run = opts.iterations_fista > 0
+
+    def alloc():
+        scalars = _scalars(lambda_inv, lam_mu, opts.iterations_fista, device)
+        rows = max(hi - lo for lo, hi, _, _ in ext)
+        slabs = _Slabs(rows, tail, ndim, fista_run, device, halos=False,
+                       d_dt=d_dtype(opts, torch.float32))
+        # the K-1st recon of a chunk, for the last iteration's delta
+        r_prev = torch.empty((rows,) + tail, dtype=torch.float32,
+                             device=device)
+        return scalars, slabs, r_prev
+
+    (li, lm, rhos), slabs, r_prev = alloc() if procs is None else \
+        procs.comm.together(alloc, "could not allocate its slab buffers",
+                            RuntimeError)
     run = _Run(orig, opts, reference, checkpoint_path, checkpoint_every,
-               resume, f"temporal{K}", device)
+               resume, mode, device, procs)
     host = run.host
+    # the global row of the host arrays' row 0
+    row0 = procs.g0 - procs.tg if procs else 0
+    if procs:
+        # orig is constant: its ghost rows are fetched once
+        procs.exchange([host.orig], "ooc_orig")
 
     def load(si, fista):
-        """Slab ``si`` with its margins. Below a top margin the slab's
+        """Slab ``si`` with its margins. Where the slab's first row is not
+        the cube's first row (keyed on its global position), the slab's
         first accumulator (and shadow dual, bfloat16 under lossy duals) row
         along axis 0 is set to zero: the margin's first row is then a
         Jia-Zhao edge, whose b stays exactly zero, as the kernels' axis-0
@@ -689,7 +806,7 @@ def solve_outofcore_temporal(
         pairs = [(dst[:hi - lo], src[lo:hi]) for dst, src in
                  zip(arrays, host.arrays(fista))]
         zero = [arrays[2][0]] + ([arrays[2 + ndim][0]] if fista else []) \
-            if lo > 0 else []
+            if row0 + lo > 0 else []
         return run.pipe.copies("h2d", pairs, zero=zero)
 
     def compute(si, fista, t, count):
@@ -730,7 +847,271 @@ def solve_outofcore_temporal(
         run.pipe.copies("d2h", pairs, after=after)
 
     return run.solve(len(ext), K, load, compute, store,
-                     lambda: _host_sse(host.recon.numpy(), reference))
+                     lambda: _host_sse(host.recon.numpy()[run.own],
+                                       reference))
+
+
+def process_row_range(n0: int, nproc: int, pid: int) -> Tuple[int, int]:
+    """Balanced axis-0 row range owned by process ``pid`` of ``nproc`` in
+    a multi-process out-of-core run (sizes differ by at most one; the
+    policy of :func:`_slab_bounds`)."""
+    base, extra = divmod(n0, nproc)
+    g0 = pid * base + min(pid, extra)
+    return g0, g0 + base + (1 if pid < extra else 0)
+
+
+class _Procs:
+    """One process's side of a multi-process out-of-core run: its rows
+    ``[g0, g1)`` of ``n0``, its ghost rows (K before the own rows unless
+    they start the cube, K after unless they end it), and the
+    ``MeshComm`` over the group, on a grid ``(nproc, 1, ...)``.
+
+    The band exchange goes through ``MeshComm.exchange_pieces`` on axis 0,
+    each array's head K rows to the -1 neighbour and its tail K rows to the
+    +1 neighbour, all arrays in one message each way (bfloat16 duals widened
+    to float32 in the message; narrowed back exactly, since they come off
+    the bfloat16 grid). Under gloo the host rows are the message's pieces;
+    under NCCL they are staged through a device buffer. Every buffer is
+    reserved (:meth:`reserve`) before the run's first collective."""
+
+    def __init__(self, comm: MeshComm, grows, k: int, device):
+        self.comm = comm
+        self.pid, self.nproc = comm.rank, comm.world
+        self.g0, self.g1, self.n0 = (int(v) for v in grows)
+        self.k = k
+        self.tg = k if self.g0 > 0 else 0
+        self.bg = k if self.g1 < self.n0 else 0
+        self.m = self.g1 - self.g0
+        self.device = device
+        self.staged = comm.backend == "nccl"
+
+    def sums(self, values) -> List[float]:
+        """Every process's ``values`` added up in rank order, in float64:
+        the same bits on every process."""
+        parts = self.comm.gather_values(values)
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        return [float(v) for v in total]
+
+    def _pieces(self, arrays, name):
+        """The tails (to the +1 neighbour) and heads (to the -1 neighbour)
+        of ``arrays``, as the message's pieces."""
+        k, tg, m = self.k, self.tg, self.m
+        if not self.staged:
+            return ([x[tg + m - k:tg + m] for x in arrays],
+                    [x[tg:tg + k] for x in arrays])
+        rest = tuple(arrays[0].shape[1:])
+        stage = self.comm.buffer(f"{name}_stage", (len(arrays), 2 * k) + rest,
+                                 torch.float32, self.device)
+        for j, x in enumerate(arrays):
+            stage[j, :k].copy_(x[tg:tg + k].float())
+            stage[j, k:].copy_(x[tg + m - k:tg + m].float())
+        return [stage[j, k:] for j in range(len(arrays))], \
+            [stage[j, :k] for j in range(len(arrays))]
+
+    def exchange(self, arrays, name) -> None:
+        """Refresh the ghost rows of the host ``arrays`` from the
+        neighbours' bands (their rows next to this process's)."""
+        if self.nproc == 1:
+            return
+        to_next, to_prev = self._pieces(arrays, name)
+        from_prev, from_next = self.comm.exchange_pieces(
+            0, to_next, to_prev, name=name)
+        tg, m = self.tg, self.m
+        for got, rows in ((from_prev, slice(0, tg)),
+                          (from_next, slice(tg + m, tg + m + self.bg))):
+            if got is None:
+                continue
+            for x, g in zip(arrays, got):
+                x[rows].copy_(g.cpu() if self.staged else g)
+
+    def reserve(self, rest, dtypes) -> None:
+        """Allocate the buffers of both exchanges (orig once; recon, the
+        accumulators and the shadow duals, of ``dtypes``, each sweep),
+        then seal the pool."""
+        if self.nproc == 1:
+            return
+        shape = (self.tg + self.m + self.bg,) + tuple(rest)
+
+        def like(dtype):
+            # the shape and dtype of a host array, with no memory behind it
+            return torch.zeros((), dtype=dtype).expand(shape)
+
+        with self.comm.reserving():
+            for name, arrays in (
+                    ("ooc_orig", [like(torch.float32)]),
+                    ("ooc_state", [like(dt) for dt in dtypes])):
+                self.comm.exchange_pieces(0, *self._pieces(arrays, name),
+                                          name=name)
+        self.comm.sealed = True
+
+    def resume(self, path, resume, meta, shape):
+        """This process's part, read and agreed on by every process: a
+        part that cannot be read fails every process; a meta mismatch on
+        any process is every process's ``ValueError``; parts of different
+        generations (or some missing) make every process warn and start
+        afresh. Returns the part's state, or None."""
+        def read():
+            try:
+                return _ckpt_resume(path, resume, meta, shape), None
+            except ValueError as e:
+                return None, e
+
+        st, err = self.comm.together(
+            read, "could not read its out-of-core checkpoint part",
+            ValueError)
+        votes = self.comm.gather_values([
+            2 if err is not None else (1 if st is not None else 0),
+            int(st["i"]) if st is not None else -1])
+        if int(votes[:, 0].max()) == 2:
+            raise ValueError(
+                "multihost out-of-core resume rejected on at least one "
+                "process: " + (str(err) if err is not None
+                               else "a peer's checkpoint meta does not "
+                                    "match this run"))
+        if int(votes[:, 0].min()) == 1 \
+                and votes[:, 1].min() == votes[:, 1].max():
+            return st
+        if int(votes[:, 0].max()) == 1:
+            warnings.warn(
+                "multihost out-of-core checkpoint parts disagree or are "
+                "incomplete — discarding and restarting fresh",
+                stacklevel=4)
+        return None
+
+
+def solve_outofcore_multihost(
+    orig_local: np.ndarray,
+    lambda_inv: np.ndarray,
+    lam_mu: np.ndarray,
+    opts: SolverOptions,
+    n_slabs: int,
+    temporal_k: int,
+    global_rows: Tuple[int, int, int],
+    shard_w: int = 0,
+    devices=None,
+    reference_local: Optional[np.ndarray] = None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
+    *,
+    device=None,
+    group=None,
+) -> Dict[str, np.ndarray]:
+    """Multi-process out-of-core solve: each process of ``group`` (default:
+    the group of ``init_distributed``) runs its own axis-0 row range of the
+    host-resident state on its own card, all with the same arguments but
+    their rows (the reference's MPI ranks owning row ranges, mpi.py:130-153).
+
+    ``orig_local`` holds only this process's rows; ``global_rows = (g0,
+    g1, n0)`` gives them and the cube's axis-0 extent (the ranges must tile
+    ``[0, n0)`` in process order: :func:`process_row_range` gives balanced
+    ones). Each process keeps K ghost rows on each interior edge, refreshed
+    at the start of every sweep by one exchange of the K-row pre-sweep bands
+    of every state array with its axis-0 neighbours (a TV iteration reads
+    only iteration-t state, so this is the in-core run's Jacobi order), and
+    sweeps its own slabs with K-row margins through the temporal-mode
+    pipeline of :func:`solve_outofcore_temporal`; ghost rows are never
+    written back. ``temporal_k`` ≤ 1 runs one iteration per sweep with
+    1-row margins (one K=1 launch per slab), bitwise as stream mode is.
+    The sums (and with ``reference_local``, this process's rows of the
+    reference cube, the SSE) are added across the processes in rank order,
+    so every process records the same traces at the sweep-final entries
+    (zeros between) and takes the same stop decision. ``opts.lossy_duals``:
+    bfloat16 shadow duals on the host and in the slabs.
+
+    ``shard_w`` of 0 or 1 is one card per process: ``device``, or the one
+    device of ``devices``, else the rank's card. Checkpoints: each process
+    saves its own part, ``checkpoint_path.ooc<p>``, in the JAX package's
+    format, and the processes agree on a resume in one collective; parts
+    of different generations make every process warn and start afresh.
+
+    Every refusal and every failure of one process (a range that does not
+    tile, a wrong row count, a margin deeper than a slab, a part that
+    cannot be read or saved) raises on every process. Returns this
+    process's ``recon`` rows, the traces, ``iterations_run``,
+    ``early_stopped``, ``global_rows``, ``exchange`` (the ``MeshComm``
+    statistics), ``resumed_from`` (the iteration of the checkpoint it
+    resumed from, or None) [and ``mse``].
+    """
+    from cytvdn_tpu_torch.parallel.api import _rank_device
+
+    if opts.bc_mode != BCMode.JIA_ZHAO or opts.isotropic_R \
+            or opts.isotropic_Q:
+        raise ValueError("out-of-core mode covers Jia-Zhao anisotropic runs")
+    if shard_w not in (0, 1) or (devices is not None and len(devices) != 1):
+        raise _not_ported("out-of-core slabs sharded over several devices "
+                          "(shard_w, devices)", "Queue 1 item 11")
+    if devices is not None and device is None:
+        device = devices[0]
+    if group is None:
+        if not dist.is_initialized():
+            raise ValueError("solve_outofcore_multihost needs a process "
+                             "group: call init_distributed() first, or pass "
+                             "group=")
+        group = dist.group.WORLD
+    device = _rank_device(device)
+    ndim = opts.ndim
+    comm = MeshComm(group, (group.size(),) + (1,) * (ndim - 1), group.rank())
+    orig_local = np.ascontiguousarray(orig_local)
+    K = max(int(temporal_k), 1)
+    procs = _Procs(comm, global_rows, K, device)
+    m, rest = procs.m, orig_local.shape[1:]
+    bounds = _slab_bounds(m, n_slabs)
+    min_core = min(b - a for a, b in bounds)
+    ok = (orig_local.dtype == np.float32 and orig_local.shape[0] == m
+          and K <= min_core and K <= m)
+    # this process's refusal or failure that only it can see: it rides the
+    # validation collective, so that every process raises
+    local_err = None
+    ext = []
+    if ok:
+        try:
+            ext = _extents(bounds, K, procs.tg, procs.tg + m + procs.bg)
+            _check_extents(ext, rest, opts)
+            d_dt = d_dtype(opts, torch.float32)
+            procs.reserve(rest, [torch.float32] * (1 + ndim)
+                          + ([d_dt] * ndim if opts.iterations_fista else []))
+        except Exception as e:
+            local_err = e
+    votes = comm.gather_values([procs.g0, procs.g1, orig_local.shape[0],
+                                orig_local.dtype == np.float32,
+                                local_err is not None])
+    g = votes.astype(np.int64)
+    if not g[:, 3].all():
+        raise ValueError("out-of-core mode requires float32 data")
+    for q in range(procs.nproc):
+        if g[q, 2] != g[q, 1] - g[q, 0]:
+            raise ValueError(f"orig_local has {g[q, 2]} rows; global_rows "
+                             f"declares {g[q, 1] - g[q, 0]}")
+    ranges = g[:, :2].tolist()
+    expect = 0
+    for q in range(procs.nproc):
+        if ranges[q][0] != expect:
+            raise ValueError(f"process ranges {ranges} do not tile "
+                             f"[0, {procs.n0}) in process order")
+        expect = ranges[q][1]
+    if expect != procs.n0:
+        raise ValueError(f"process ranges {ranges} do not cover "
+                         f"[0, {procs.n0})")
+    for q in range(procs.nproc):
+        mq = ranges[q][1] - ranges[q][0]
+        core_q = min(b - a for a, b in _slab_bounds(mq, n_slabs))
+        if K > core_q or K > mq:
+            raise ValueError(
+                f"temporal_k={K} exceeds the smallest local slab core "
+                f"({core_q} rows of {mq}); use fewer slabs or a smaller "
+                f"temporal_k")
+    failed = np.flatnonzero(g[:, 4]).tolist()
+    if failed:
+        if local_err is not None:
+            raise local_err
+        raise RuntimeError(f"processes {failed} could not prepare their "
+                           f"out-of-core run (see their errors)")
+    return _run_temporal(orig_local, lambda_inv, lam_mu, opts, ext, K,
+                         reference_local, checkpoint_path, checkpoint_every,
+                         resume, f"multihost_temporal{K}", device, procs)
 
 
 def denoise_outofcore(
@@ -761,8 +1142,10 @@ def denoise_outofcore(
     (:func:`solve_outofcore_temporal`), cutting host↔device traffic per
     iteration K-fold. ``lossy_duals`` stores the shadow duals as bfloat16
     on the host and the card, in either mode.
-    ``shard_w != 1``/``devices`` (slabs sharded over several cards) are not
-    ported and raise ``NotImplementedError``.
+    ``shard_w != 1``/``devices`` (slabs split over several cards, ROADMAP
+    Queue 1 item 11(b)) are not ported and raise ``NotImplementedError``;
+    several processes, one card each, run
+    :func:`solve_outofcore_multihost`, as in the JAX package.
 
     Returns ``(recon, b_norm, delta)`` like ``denoise3D/4D``, plus the
     ``mse`` trace when ``reference_data`` is given (per iteration in the

@@ -496,9 +496,11 @@ def test_out_of_core_checkpoint_and_resume(tmp_path, monkeypatch, temporal):
 def test_multi_process_launch_refused(tmp_path, capsys, monkeypatch):
     """A launch of several processes (``WORLD_SIZE`` > 1) runs a mesh
     (tests/test_torch_cli_shard.py starts its processes); one without
-    torchrun's ``RANK`` cannot join its group and exits 2, and one with
-    ``--out-of-core`` exits 2 before the input is read, naming item 11
-    (sharded and multi-host out of core)."""
+    torchrun's ``RANK`` cannot join its group and exits 2. With
+    ``--out-of-core`` it runs (Queue 1 item 11(a)): two processes with
+    torchrun's environment write the one-process command's recon, bitwise;
+    with ``--shard 2`` (slabs split over two cards, item 11(b)) it exits 2
+    before the input is read, naming item 11."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.delenv("RANK", raising=False)
     out = str(tmp_path / "t.emd")
@@ -508,10 +510,18 @@ def test_multi_process_launch_refused(tmp_path, capsys, monkeypatch):
     assert "WORLD_SIZE=2 without RANK" in err and "torchrun" in err
     assert not os.path.exists(out)
     assert _port(str(tmp_path / "missing.npy"), out, "-m", "1.0", "-n", "2",
-                 "--out-of-core", "2") == 2
+                 "--out-of-core", "2", "--shard", "2") == 2
     assert "(ROADMAP.md Queue 1 item 11)" in capsys.readouterr().err
     monkeypatch.setenv("WORLD_SIZE", "1")
     assert _port(inp, out, "-m", "1.0", "-n", "2") == 0
+    from test_torch_cli_shard import _launch, _ok
+
+    mesh = str(tmp_path / "ooc-mesh.emd")
+    _ok(_launch(["-i", inp, "-o", mesh, "-v", "0", "--device", "cpu", "-m",
+                 "1.0", "-n", "2", "--out-of-core", "2"]))
+    one = str(tmp_path / "ooc-one.emd")
+    assert _port(inp, one, "-m", "1.0", "-n", "2", "--out-of-core", "2") == 0
+    np.testing.assert_array_equal(tread(mesh), tread(one))
 
 
 @pytest.mark.parametrize("backend", ["jax", "pallas"])

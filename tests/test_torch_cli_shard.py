@@ -1,7 +1,10 @@
 """The port's command line on a mesh: ``cytv-torch --device cpu --shard``
 in two real processes with torchrun's environment (gloo), against the JAX
 package's ``cytv --shard`` in this process (its 8 fake CPU devices) and
-the port's one-process ``cytv-torch --device cpu`` on the same ``.npy``.
+the port's one-process ``cytv-torch --device cpu`` on the same ``.npy``;
+and ``cytv-torch --out-of-core N --temporal K`` in two processes (each its
+rows, the row writers), against the port's one-process ``--out-of-core``
+and the JAX ``cytv --out-of-core``.
 
 The mesh's recon is bitwise the one-process run's, and within
 tests/test_torch_cli.py's tolerances of the JAX command's (rtol 2e-5 /
@@ -19,11 +22,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_mesh_checkpoint import Killed, _kill_after, _mesh_run  # noqa: E402
-from test_torch_sharded import REPO, _free_port  # noqa: E402
+from test_torch_sharded import REPO, _free_port, on_mesh  # noqa: E402
 from cytvdn_tpu import cli as jcli  # noqa: E402
 from cytvdn_tpu.io.emd import read_emd as jread  # noqa: E402
 from cytvdn_tpu_torch import cli as tcli  # noqa: E402
+from cytvdn_tpu_torch.config import SolverOptions  # noqa: E402
 from cytvdn_tpu_torch.io.emd import read_emd as tread  # noqa: E402
+from cytvdn_tpu_torch.solver import outofcore as tooc  # noqa: E402
 from cytvdn_tpu_torch.utils import checkpoint as tck  # noqa: E402
 
 TOL = {np.float32: dict(rtol=2e-5, atol=2e-6),
@@ -147,3 +152,94 @@ def test_shard_command_checkpoint_and_resume(tmp_path, monkeypatch):
     with np.load(killed) as z:
         assert int(z["i"]) == 6
     assert tck.checkpoint_exists(killed)
+
+
+OOC = ["-m", "1.0", "-n", "6", "-f", "1", "--out-of-core", "2", "--temporal",
+       "2"]
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["rows", "gathered"])
+def test_outofcore_command_on_two_processes(tmp_path, shared):
+    """``--out-of-core 2 --temporal 2`` in two processes: each reads only its
+    rows and writes them, every rank into the one file or (with
+    ``CYTV_NO_SHARED_FS=1``) gathered to rank 0 in slab-sized chunks; the
+    datacube is bitwise the one-process command's and within tolerance of
+    the JAX ``cytv --out-of-core 2 --temporal 2``'s."""
+    inp = str(tmp_path / "in.npy")
+    np.save(inp, _cube())
+    out = str(tmp_path / "mesh.emd")
+    env = {"CYTV_LOG_ALL_PROCS": "1"}
+    if not shared:
+        env["CYTV_NO_SHARED_FS"] = "1"
+    runs = _ok(_launch(["-i", inp, "-o", out, "--device", "cpu", *OOC],
+                       env=env))
+    for r, (_, log, _) in enumerate(runs):
+        rows = tooc.process_row_range(SHAPE[0], 2, r)
+        assert (f"[cytv-torch p{r}] multi-process out-of-core: rows "
+                f"[{rows[0]}, {rows[1]}) of {SHAPE[0]}, 2 processes") in log
+        how = ("every rank its rows" if shared else
+               "rows gathered to rank 0 in chunks of 2")
+        assert f"[cytv-torch p{r}] wrote {out} ({how})" in log
+    got = tread(out)
+    np.testing.assert_array_equal(got, _one_process(tmp_path, inp, *OOC))
+    jout = str(tmp_path / "j.emd")
+    assert jcli.main(["-i", inp, "-o", jout, "-v", "0", *OOC]) == 0
+    np.testing.assert_allclose(got, jread(jout), **TOL[np.float32])
+
+
+def test_outofcore_command_resumes_killed_parts(tmp_path, monkeypatch):
+    """Parts of the same run killed after their first generation (every
+    rank stopped after the post-save collective; ranks as threads) resume
+    in the command (``--resume 1``): every rank from iteration 2, bitwise
+    the uninterrupted one-process command."""
+    cube = _cube()
+    inp = str(tmp_path / "in.npy")
+    np.save(inp, cube)
+    one = _one_process(tmp_path, inp, *OOC)
+    ck = str(tmp_path / "ck.npz")
+
+    def kill(it_run):
+        raise Killed(it_run)
+
+    monkeypatch.setattr(tooc, "_POST_CKPT_HOOK", kill)
+    li, lm = np.full(4, 32.0, np.float32), np.full(4, 1 / 32, np.float32)
+
+    def rank(pg, r):
+        g0, g1 = tooc.process_row_range(SHAPE[0], 2, r)
+        try:
+            tooc.solve_outofcore_multihost(
+                cube[g0:g1], li, lm, SolverOptions(
+                    ndim=4, iterations_fista=6, iterations_unacc=0), 2, 2,
+                (g0, g1, SHAPE[0]), checkpoint_path=ck, checkpoint_every=2,
+                device="cpu", group=pg)
+        except Killed as e:
+            return e.args[0]
+
+    assert on_mesh(2, rank) == [2, 2]
+    monkeypatch.setattr(tooc, "_POST_CKPT_HOOK", None)
+    out = str(tmp_path / "resumed.emd")
+    runs = _ok(_launch(["-i", inp, "-o", out, "--device", "cpu", *OOC,
+                        "--checkpoint", ck, "--checkpoint-every", "2",
+                        "--resume", "1"], env={"CYTV_LOG_ALL_PROCS": "1"}))
+    for r, (_, log, _) in enumerate(runs):
+        assert "; resumed from iteration 2" in log
+    np.testing.assert_array_equal(tread(out), one)
+    for r in range(2):
+        with np.load(f"{ck}.ooc{r}") as z:
+            assert int(z["i"]) == 6
+
+
+def test_outofcore_command_refuses_split_slabs(tmp_path):
+    """In two processes ``--out-of-core`` with ``--shard 2`` (slabs split
+    over two cards, Queue 1 item 11(b)) exits 2 naming item 11, and with a
+    per-axis tiling exits 2 with ``cytv``'s message, on both ranks, before
+    the input is read."""
+    out = str(tmp_path / "mesh.emd")
+    missing = str(tmp_path / "missing.npy")
+    for shard, said in (("2", "(ROADMAP.md Queue 1 item 11)"),
+                        ("2,1,1,1", "out-of-core takes a device COUNT or "
+                                    "'auto', not a per-axis tiling")):
+        runs = _launch(["-i", missing, "-o", out, "--device", "cpu", *OOC,
+                        "--shard", shard])
+        for rc, _, err in runs:
+            assert rc == 2 and said in err, err
