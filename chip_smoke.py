@@ -11,6 +11,8 @@ non-zero — nothing is caught):
    process per source, with the build time and each kernel
    instantiation's registers and spills from ptxas, the pair kernel's with
    and without its reference-cube SSE (REF) and their cooperative grids;
+   every instantiation listed in ``tools/sass_digests.json`` compiled to
+   the same code (the digests of ``tools/torch_sass_order.py``);
 2. kernels vs plain: 3 iterations of the fused-iteration kernel against its
    plain PyTorch version on the same inputs — state bitwise equal, the
    three sums within rtol 1e-5 — for every boundary condition, FISTA and
@@ -176,12 +178,25 @@ non-zero — nothing is caught):
    of the plain pair; the K=1 kernel with halos against its plain version
    at the shards (c) and (e) launch it on, (128,128,128,128) with
    neighbours on axes 0 and 1 and (128,256,2048) with neighbours on axis 0
-   (state bitwise); (b) config 4 x20 on a (2,1,1,1) mesh of 2 processes
+   (state bitwise); the pair kernel with axis-1 bands (``HALO1``) the same
+   way on the first, an interior and the last column shard (2 and 3
+   columns), FISTA, unaccelerated and LOSSY, and without a reference cube
+   also against two K=1 HALO launches with the axis-1 halos the bands
+   give; the small cubes in 2-4 column shards against one pair launch; at
+   config 4's (1,2,1,1) shard (256,128,128,128) FISTA both ranks' sides
+   and an interior shard, against the plain pair and two K=1 HALO
+   launches, and ms per HALO1 pair there, of the pair without bands, of
+   two K=1 HALO launches and of the plain pair, against its bound; (b)
+   config 4 x20 on a (2,1,1,1) mesh of 2 processes
    of this script (``--sharded-worker``, torchrun's environment,
    ``init_distributed``, gloo) sharing the card, through
    ``denoise_sharded`` from a ``.npy``: each block and the gathered recon
    bitwise ``denoise4D``'s (sha256 digests), traces within rtol 1e-5, 10
-   HALO0 pairs per rank; (d) at half of config 4's rows on (2,1,1,1) a
+   HALO0 pairs per rank; (b1) config 4 x20 on a (1,2,1,1) mesh of 2
+   processes the same way, 10 HALO1 pairs per rank, bitwise the same
+   single-device run, and x4 there on the K=1 loop (the pair rule set
+   above every row), bitwise, for the exchange's bytes per two
+   iterations either way; (d) at half of config 4's rows on (2,1,1,1) a
    stop run and an MSE x20 run, each stopping and ending as on one device,
    bitwise; (e) config 2 FISTA with stop 0.05 on (2,1,1), blocks read
    lazily, K=1 halo steps, bitwise; (c) config 4 x4 on a (2,2,1,1) mesh of
@@ -252,11 +267,13 @@ non-zero — nothing is caught):
    guard, each bitwise the lossy K=1 loop; (c) config 4 lossy in
    stream mode, 4 slabs x2, and in temporal mode, K=8 in 4 slabs x16,
    each bitwise the in-core lossy run, s per iteration and GB/s each way;
-   (d) a small 4D cube lossy x4 on a (2, 1, 1, 1) mesh of 2 processes
-   sharing the card, in LOSSY HALO0 pairs, bitwise the single-device
-   lossy run. Phase 1's SASS check covers the 4 LOSSY instantiations of
-   the K=1 dual pass and the 8 of the pair kernel (no store in flight, no
-   local memory) and the 8 of the K-step kernel (no store in flight; no
+   (d) a small 4D cube lossy x4 on a (2, 1, 1, 1) and a (1, 2, 1, 1) mesh
+   of 2 processes sharing the card, in LOSSY HALO0 and LOSSY HALO1 pairs,
+   bitwise the single-device lossy run. Phase 1's SASS check covers the 4
+   LOSSY instantiations of the K=1 dual pass and the 12 of the pair kernel
+   (no store in flight, no local memory), the pair kernel's 12 HALO1
+   instantiations (no store in flight), and the 8 of the K-step kernel
+   (no store in flight; no
    local memory in 3D, no more than the exact twin in the capped 4D
    launch, which spills);
 12. one JSON line on the kernels (launches on the path that reaches each,
@@ -310,11 +327,13 @@ from cytvdn_tpu_torch.kernels.resident import (
     resident_state_bytes,
 )
 from cytvdn_tpu_torch.kernels.resident import cooperative_grid as res_grid
+from cytvdn_tpu_torch.kernels import temporal as temporal_mod
 from cytvdn_tpu_torch.kernels.temporal import (
     cooperative_grid,
     fused_pair_iteration,
     fused_pair_iteration_reference,
     halo0_bands,
+    halo1_bands,
 )
 from cytvdn_tpu_torch.solver import engine, outofcore
 from cytvdn_tpu_torch.solver.engine import (
@@ -814,17 +833,22 @@ def store_order():
     """Each instantiation of the K=1 kernel's dual pass, of the pair kernel
     and of the K-step kernel's two entry points in the built library's SASS
     (``tools/torch_sass_order.py``), by kernel name: (template arguments,
-    <T,ND,FISTA,HALO,ISO,LOSSY> of dual_kernel, <ND,FISTA,REF,HALO0,LOSSY>
-    of pair_kernel, <ND,FISTA,K,LOSSY> of kstep_kernel or <K,LOSSY> of
-    kstepcap_kernel; ISO; LOSSY; stores; stores sent while their own load
-    is in flight; LDL; STL)."""
+    <T,ND,FISTA,HALO,ISO,LOSSY> of dual_kernel, <ND,FISTA,REF,HALO,LOSSY>
+    of pair_kernel (HALO 0 none, 1 axis-0 bands, 2 axis-1 bands),
+    <ND,FISTA,K,LOSSY> of kstep_kernel or <K,LOSSY> of kstepcap_kernel;
+    ISO; LOSSY; stores; stores sent while their own load is in flight; LDL;
+    STL); under "digests", a digest of every kernel instantiation's
+    instructions by its label."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "tools"))
     import torch_sass_order as so
 
     rows = {"dual_kernel": [], "pair_kernel": [], "kstep_kernel": [],
             "kstepcap_kernel": []}
-    for mangled, fn in so.functions(so.library_sass()):
+    sass = so.library_sass()
+    # every kernel's instantiations by their code (tools/sass_digests.json)
+    rows["digests"] = so.digests(sass, ["_kernel"])
+    for mangled, fn in so.functions(sass):
         name = next((k for k in rows if k in mangled), None)
         if name is None:
             continue
@@ -971,11 +995,12 @@ def time_kstep(shape, fista, n_kernel, n_plain):
 
 
 @contextlib.contextmanager
-def pairs_at_any_row():
-    """Lift the engine's row-size rule for pairs (``_pairs_pay``), so that
-    a small cube runs its phases in pairs."""
+def pairs_at_any_row(min_bytes=0):
+    """Set the engine's row-size rule for pairs (``_pairs_pay``) to
+    ``min_bytes``: 0 lifts it, so that a small cube runs its phases in
+    pairs; infinity keeps every phase on the K=1 loop."""
     saved = engine.PAIR_MIN_ROW_BYTES
-    engine.PAIR_MIN_ROW_BYTES = 0
+    engine.PAIR_MIN_ROW_BYTES = min_bytes
     try:
         yield
     finally:
@@ -2898,6 +2923,238 @@ def time_halo0(shape, n_kernel, n_plain):
     return {k: sum(v) / len(v) for k, v in raw.items()}, raw
 
 
+# the pair kernel's axis-1 bands (HALO1): column shards of small cubes (2
+# columns and more, ragged trailing axes, 3D and 4D) and config 4's block
+# on a (1, 2, 1, 1) mesh
+HALO1_SMALL = ((6, 12, 19, 23), (9, 9, 70), (5, 8, 10, 33), (7, 15, 9))
+SHARD41 = (256, 128, 128, 128)  # config 4's block on a (1, 2, 1, 1) mesh
+
+
+def halo1_pair(step, orig, state, fista, li, lm, j0, j1, ref=None,
+               bands=None, **kw):
+    """One pair of ``step`` on columns [j0, j1) of ``state`` with the bands
+    cut from it (or ``bands``: (halos1, first1, last1)); returns the
+    shard's state and its sums (float64, on the host)."""
+    ndim = orig.dim()
+    accs, ds = state[1:1 + ndim], state[1 + ndim:] if fista else None
+    h, f1, l1 = bands or halo1_bands(orig, state[0], accs, ds, j0, j1)
+    s = [x[:, j0:j1].clone(memory_format=torch.contiguous_format)
+         for x in state]
+    out = step(orig[:, j0:j1].contiguous(), s[0], s[1:1 + ndim],
+               s[1 + ndim:] if fista else None,
+               torch.tensor(0.37, device="cuda"),
+               torch.tensor(RHO2, device="cuda"), li, lm, fista=fista,
+               halos1=h, first1=f1, last1=l1,
+               ref=None if ref is None else ref[:, j0:j1].contiguous(), **kw)
+    sums = torch.stack(out[3:]).double().cpu()
+    torch.cuda.synchronize()
+    return s, sums
+
+
+def halo1_k1_halos(orig, state, fista, li, lm, bands):
+    """The K=1 halos of a HALO1 pair's two iterations on ``state`` (a
+    shard) from its ``bands`` (``kernels/temporal.py::_pair_seams``, axis
+    1): two functions of the current recon."""
+    ndim = orig.dim()
+    h, f1, l1 = bands
+    return temporal_mod._pair_seams(
+        orig, state[0], state[1:1 + ndim], state[1 + ndim:] if fista else None,
+        torch.tensor(0.37, device="cuda"), li, lm, fista, 1, h, f1, l1)
+
+
+def halo1_two_k1(orig, state, fista, li, lm, j0, j1, bands=None):
+    """Two K=1 kernel launches (its HALO instantiation) on columns [j0, j1)
+    with the axis-1 halos the shard's bands give: the HALO1 pair's
+    reference in K=1 launches. Returns the shard's state."""
+    ndim = orig.dim()
+    accs, ds = state[1:1 + ndim], state[1 + ndim:] if fista else None
+    bands = bands or halo1_bands(orig, state[0], accs, ds, j0, j1)
+    s = [x[:, j0:j1].clone(memory_format=torch.contiguous_format)
+         for x in state]
+    o = orig[:, j0:j1].contiguous()
+    seams = halo1_k1_halos(o, s, fista, li, lm, bands)
+    for rho, seam in zip((0.37, RHO2), seams):
+        fused_iteration(o, s[0], s[1:1 + ndim], s[1 + ndim:] if fista else None,
+                        torch.tensor(rho, device="cuda"), li, lm, fista=fista,
+                        halos=seam(s[0]))
+    torch.cuda.synchronize()
+    return s
+
+
+def compare_halo1(shape, fista, with_ref, j0, j1, grids=(None,),
+                  strips=(None,), lossy=False):
+    """The HALO1 pair on columns [j0, j1) of a random cube at each forced
+    grid and strip against the plain pair with the same bands: state
+    bitwise (``lossy``: d bfloat16, the LOSSY instantiation), sums within
+    rtol 1e-5; without a reference cube also against two K=1 HALO launches,
+    bitwise. Returns max |Δstate|."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    orig, state, li, lm = halo0_state(shape, fista, gen, lossy)
+    if j0 > 0:
+        require(state[2][:, j0].abs().max().item() > 0,
+                "the shard's own axis-1 column 0 is zero")
+    ref = orig + 0.1 if with_ref else None
+    ps, psum = halo1_pair(fused_pair_iteration_reference, orig, state, fista,
+                          li, lm, j0, j1, ref)
+    err = 0.0
+    for g in grids:
+        for w in strips:
+            ks, ksum = halo1_pair(fused_pair_iteration, orig, state, fista,
+                                  li, lm, j0, j1, ref, grid=g,
+                                  strip=shape[1] if w == "N1" else w)
+            err = max(err, max((a.float() - b.float()).abs().max().item()
+                               for a, b in zip(ks, ps)))
+            require(all(a.dtype == b.dtype and torch.equal(a, b)
+                        for a, b in zip(ks, ps)),
+                    f"HALO1 pair {shape} columns [{j0}, {j1}) fista {fista} "
+                    f"ref {with_ref} lossy {lossy} grid {g} strip {w}: state "
+                    f"differs from the plain pair (max |Δ| {err})")
+            torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+            del ks
+    if ref is None:
+        k1 = halo1_two_k1(orig, state, fista, li, lm, j0, j1)
+        require(all(a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(k1, ps)),
+                f"HALO1 pair {shape} columns [{j0}, {j1}) fista {fista} lossy "
+                f"{lossy}: two K=1 HALO launches differ from the plain pair")
+        del k1
+    del ps, state, orig, ref
+    torch.cuda.empty_cache()
+    return err
+
+
+def halo1_shards_equal_one_launch(shape, fista, with_ref, n_shards):
+    """Column shards of a random cube, each paired by the HALO1 kernel with
+    bands from the pre-update state and put back: bitwise one pair launch
+    of the whole cube, the shards' sums adding up to its sums."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    orig, state, li, lm = halo0_state(shape, fista, gen)
+    ndim = len(shape)
+    ref = orig + 0.1 if with_ref else None
+    whole = [x.clone() for x in state]
+    out = fused_pair_iteration(
+        orig, whole[0], whole[1:1 + ndim], whole[1 + ndim:] if fista else None,
+        torch.tensor(0.37, device="cuda"), torch.tensor(RHO2, device="cuda"),
+        li, lm, fista=fista, ref=ref)
+    want = torch.stack(out[3:]).double().cpu()
+    n1 = shape[1]
+    bounds = [n1 * i // n_shards for i in range(n_shards + 1)]
+    got = 0
+    for j0, j1 in zip(bounds[:-1], bounds[1:]):
+        s, sums = halo1_pair(fused_pair_iteration, orig, state, fista, li, lm,
+                             j0, j1, ref)
+        got = got + sums
+        require(all(torch.equal(a, b[:, j0:j1]) for a, b in zip(s, whole)),
+                f"{shape} fista {fista} ref {with_ref} in {n_shards} column "
+                f"shards with bands != one pair launch")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    del whole, state, orig
+    torch.cuda.empty_cache()
+
+
+def column_bands(shape, fista, gen, first1, last1):
+    """Random column bands for a shard of ``shape`` (the Jia-Zhao invariant
+    held along axis 0 and the trailing axes): zeros where the shard holds
+    a global edge."""
+    ndim = len(shape)
+    col = (shape[0], 1) + tuple(shape[2:])
+
+    def rnd(scale, k=None):
+        t = torch.randn(col, generator=gen, device="cuda") * scale
+        if k is not None and k != 1:
+            t.select(k, 0).zero_()
+        return t
+
+    h = {"p_r0_m2": rnd(0.05) + 2.0, "p_r0_m1": rnd(0.05) + 2.0,
+         "p_orig_m1": rnd(0.5) + 2.0, "n_r0_c0": rnd(0.05) + 2.0,
+         "n_r0_c1": rnd(0.05) + 2.0, "n_orig_c0": rnd(0.5) + 2.0,
+         "n_acc1_c1": rnd(0.2)}
+    for k in range(ndim):
+        h[f"p_acc{k}_m1"], h[f"n_acc{k}_c0"] = rnd(0.2, k), rnd(0.2, k)
+        if fista:
+            h[f"p_d{k}_m1"], h[f"n_d{k}_c0"] = rnd(0.2, k), rnd(0.2, k)
+    if fista:
+        h["n_d1_c1"] = rnd(0.2)
+    for key in h:
+        if first1 and key.startswith("p_") or last1 and key.startswith("n_"):
+            h[key].zero_()
+    return h, first1, last1
+
+
+def compare_halo1_shard(shape, fista, with_ref, first1, last1):
+    """The HALO1 pair on a shard of ``shape`` (own state random, column 0's
+    axis-1 accumulators nonzero unless ``first1``) with random column
+    bands, against the plain pair and (without a reference cube) two K=1
+    HALO launches: state bitwise, sums within rtol 1e-5. One copy of the
+    shard's state at a time beside the plain one (config 4's (1, 2, 1, 1)
+    shard: 21.5 GB each)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    orig, state, li, lm = halo0_state(shape, fista, gen)
+    if not first1:
+        state[2][:, 0].normal_(generator=gen).mul_(0.2)
+    bands = column_bands(shape, fista, gen, first1, last1)
+    ref = orig + 0.1 if with_ref else None
+    n1 = shape[1]
+    ps, psum = halo1_pair(fused_pair_iteration_reference, orig, state, fista,
+                          li, lm, 0, n1, ref, bands)
+    ks, ksum = halo1_pair(fused_pair_iteration, orig, state, fista, li, lm, 0,
+                          n1, ref, bands)
+    err = max((a - b).abs().max().item() for a, b in zip(ks, ps))
+    require(all(torch.equal(a, b) for a, b in zip(ks, ps)),
+            f"HALO1 pair at the shard {shape} (first1 {first1}, last1 "
+            f"{last1}, ref {with_ref}): state differs (max |Δ| {err})")
+    torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+    del ks
+    if ref is None:
+        k1 = halo1_two_k1(orig, state, fista, li, lm, 0, n1, bands)
+        require(all(torch.equal(a, b) for a, b in zip(k1, ps)),
+                f"HALO1 pair at the shard {shape} (first1 {first1}, last1 "
+                f"{last1}): two K=1 HALO launches differ")
+        del k1
+    del ps, state, orig, bands, ref
+    torch.cuda.empty_cache()
+    return err
+
+
+def time_halo1(shape, n_kernel, n_plain):
+    """ms per pair at the shard ``shape`` FISTA f32 of the HALO1 kernel (an
+    interior shard: bands on both sides), of the pair kernel without bands,
+    of two K=1 HALO launches with the pair's axis-1 halos (built once,
+    outside the timing) and of the plain pair with bands, in turns (plain,
+    halo1, pair, k1, k1, pair, halo1, plain)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    orig, state, li, lm = halo0_state(shape, True, gen)
+    ndim = len(shape)
+    bands = column_bands(shape, True, gen, False, False)
+    h = bands[0]
+    rho1 = torch.tensor(0.37, device="cuda")
+    rho2 = torch.tensor(RHO2, device="cuda")
+    accs, ds = state[1:1 + ndim], state[1 + ndim:]
+    args = (orig, state[0], accs, ds, rho1, rho2, li, lm)
+    seams = halo1_k1_halos(orig, state, True, li, lm, bands)
+    k1_halos = [seam(state[0]) for seam in seams]
+
+    def two_k1():
+        for rho, halos in zip((rho1, rho2), k1_halos):
+            fused_iteration(orig, state[0], accs, ds, rho, li, lm, fista=True,
+                            halos=halos)
+
+    fns = {"halo1": lambda: fused_pair_iteration(
+               *args, fista=True, halos1=h, first1=False, last1=False),
+           "pair": lambda: fused_pair_iteration(*args, fista=True),
+           "k1": two_k1,
+           "plain": lambda: fused_pair_iteration_reference(
+               *args, fista=True, halos1=h, first1=False, last1=False)}
+    raw = {k: [] for k in fns}
+    for name in ("plain", "halo1", "pair", "k1", "k1", "pair", "halo1",
+                 "plain"):
+        raw[name].append(time_ms(fns[name],
+                                 n_plain if name == "plain" else n_kernel))
+    del state, orig, h, bands, fns, args, k1_halos, seams
+    torch.cuda.empty_cache()
+    return {k: sum(v) / len(v) for k, v in raw.items()}, raw
+
+
 def digest(a) -> str:
     """sha256 of an array's bytes (C order): equal digests, equal bits."""
     return hashlib.sha256(np.ascontiguousarray(a).view(np.uint8)).hexdigest()
@@ -2957,8 +3214,12 @@ def sharded_worker(spec_path: str) -> int:
         dist.barrier()
         reset_counts()
         fused_pair_iteration.halo0_launches = 0
-        # "any_row": pairs at any row size (a small cube's mesh pairs)
-        with pairs_at_any_row() if run.get("any_row") \
+        fused_pair_iteration.halo1_launches = 0
+        # "any_row": pairs at any row size (a small cube's mesh pairs);
+        # "k1_loop": no pairs (the K=1 loop a mesh run pairs instead of)
+        rule = 0 if run.get("any_row") else \
+            float("inf") if run.get("k1_loop") else None
+        with pairs_at_any_row(rule) if rule is not None \
                 else contextlib.nullcontext():
             out = denoise_sharded(
                 src, np.full(run["ndim"], 1.0, np.float32),
@@ -2970,6 +3231,7 @@ def sharded_worker(spec_path: str) -> int:
             "name": run["name"], "rank": rank, "backend": backend,
             "launches": launch_counts(),
             "halo0": fused_pair_iteration.halo0_launches,
+            "halo1": fused_pair_iteration.halo1_launches,
             "pair_lossy": fused_pair_iteration.lossy_launches,
             "k1_halo": fused_iteration.halo_launches,
             "modes": fused_iteration.mode_launches,
@@ -3310,7 +3572,8 @@ def rank_lines(name, runs, smi):
             f"gather of the recon {run['seconds']['gather']:.2f} s "
             f"({x['gather_bytes'] / 1e9:.3f} GB); launches whole-run/K-step/"
             f"pair/fused {tuple(run['launches'])}, of them HALO0 pairs "
-            f"{run['halo0']}, K=1 halo launches {run['k1_halo']}; peak "
+            f"{run['halo0']}, HALO1 pairs {run['halo1']}, K=1 halo launches "
+            f"{run['k1_halo']}; peak "
             f"device memory {run['peak'] / 2**30:.2f} GiB [{smi}]")
 
 
@@ -3333,12 +3596,82 @@ def blocks(recon, shard):
              for r in range(n)], digest(recon))
 
 
+def halo1_cases(smi, bw, f32):
+    """Phase 9 (a), the HALO1 part: the pair with axis-1 bands against its
+    plain version on the first (2 columns), an interior (3) and the last
+    (2) column shard of small cubes, FISTA and unaccelerated, with and
+    without a reference cube, at grids full, 1 and 7 and strips default, 1
+    and N1, and without a reference cube against two K=1 HALO launches;
+    the LOSSY HALO1 instantiations the same at the default grid and a
+    forced strip of 2; the cubes in 2, 3 and 4 column shards against one
+    launch; config 4's (1, 2, 1, 1) shard (both ranks' sides, one with a
+    reference cube, and an interior shard) against its plain version and
+    two K=1 HALO launches; and its time at that shard against its bound.
+    Returns the kernels line's numbers."""
+    t0 = time.perf_counter()
+    n_cases, err = 0, 0.0
+    for shape in HALO1_SMALL:
+        n1 = shape[1]
+        for fista in (True, False):
+            for with_ref in (False, True):
+                for j0, j1 in ((0, 2), (2, 5), (n1 - 2, n1)):
+                    err = max(err, compare_halo1(
+                        shape, fista, with_ref, j0, j1, grids=(None, 1, 7),
+                        strips=(None, 1, "N1")))
+                    n_cases += 1
+                    if fista:
+                        err = max(err, compare_halo1(
+                            shape, True, with_ref, j0, j1, strips=(None, 2),
+                            lossy=True))
+                        n_cases += 1
+                for n_shards in (2, 3, 4):
+                    if n1 // n_shards >= 2:
+                        halo1_shards_equal_one_launch(shape, fista, with_ref,
+                                                      n_shards)
+    big = {}
+    for with_ref, first1, last1 in ((False, False, True), (True, True, False),
+                                    (False, False, False)):
+        big[(with_ref, first1, last1)] = compare_halo1_shard(
+            SHARD41, True, with_ref, first1, last1)
+    err = max(err, *big.values())
+    t_h1, raw = time_halo1(SHARD41, 3, 1)
+    # the interior shard's bands: 11 column slabs from the -1 shard, 13
+    # from the +1 shard
+    halo_elems = 24 * SHARD41[0] * SHARD41[2] * SHARD41[3]
+    b_ms, b_by = (launch_bound_seconds(SHARD41, True, 2, bw, f32,
+                                       halo_elems=halo_elems)
+                  if bw and f32 else (float("nan"), None))
+    b_ms *= 1e3
+    log(f"phase 9 (a) HALO1 pair vs the plain pair with the same column "
+        f"bands: {n_cases} shard cases ({HALO1_SMALL}; FISTA, unaccelerated "
+        f"and LOSSY, with and without a reference cube, the first, an "
+        f"interior and the last column shard of 2, 3 and 2 columns; grids "
+        f"full, 1 and 7, strips default, 1 and N1; LOSSY at the full grid, "
+        f"strips default and 2) and config 4's (1, 2, 1, 1) shard {SHARD41} "
+        f"FISTA (the second rank, with a nonzero own column 0 and the cube's "
+        f"last column; the first with a reference cube; an interior shard), "
+        f"state bitwise (max |Δ| {err}), sums within rtol 1e-5; without a "
+        f"reference cube also bitwise two K=1 HALO launches with the axis-1 "
+        f"halos the bands give; the small cubes in 2, 3 and 4 column shards "
+        f"with bands = one pair launch, bitwise; at {SHARD41} FISTA "
+        f"(interior): HALO1 pair {t_h1['halo1']:.3f} ms "
+        f"({b_ms / t_h1['halo1']:.3f} of its {b_ms:.2f} ms bound, {b_by}, "
+        f"24 column slabs), the pair without bands {t_h1['pair']:.3f} ms, "
+        f"two K=1 HALO launches {t_h1['k1']:.3f} ms, plain pair with bands "
+        f"{t_h1['plain']:.3f} ms (runs {raw}); "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    return {"err": err, "ms": t_h1["halo1"], "plain_ms": t_h1["plain"],
+            "bound": (b_ms, b_by)}
+
+
 def sharded_phase(smi, name, cube, scan, det, cube3, cfg3_digest):
     """Phase 9: (a) the HALO0 pair against its plain version (small cubes
     cut into slabs at forced grids and strips, reassembled against one
     launch, and config 4's 2-rank shard with and without a reference cube)
-    and its time; (b) config 4 x20 on a (2, 1, 1, 1) mesh of 2 processes
-    sharing the card, (d) a stop run and an MSE x20 run on (2, 1, 1, 1) at
+    and its time, and the HALO1 pair the same way (:func:`halo1_cases`);
+    (b) config 4 x20 on a (2, 1, 1, 1) mesh of 2 processes sharing the
+    card, and on a (1, 2, 1, 1) mesh in HALO1 pairs against the same
+    single-device run, (d) a stop run and an MSE x20 run on (2, 1, 1, 1) at
     half of config 4's rows, (e) config 2 with stop 0.05 on (2, 1, 1) read
     lazily from a .npy, and (c) config 4 x4 on a (2, 2, 1, 1) mesh of 4
     processes, each against the single-device run; (f) per-rank seconds,
@@ -3346,7 +3679,7 @@ def sharded_phase(smi, name, cube, scan, det, cube3, cfg3_digest):
     (:func:`cli_mesh_phase`; config 3 ``cube3`` against phase 6's recon,
     ``cfg3_digest``); (a) also holds the K=1 kernel's halos against its
     plain version at the shards (c) and (e) give it. Returns the numbers of
-    the kernels line's HALO0 row."""
+    the kernels line's HALO0 and HALO1 rows."""
     t_phase = time.perf_counter()
     # (a) the kernel against its plain version
     t0 = time.perf_counter()
@@ -3392,6 +3725,7 @@ def sharded_phase(smi, name, cube, scan, det, cube3, cfg3_digest):
                                        band_rows=band_rows)
                   if bw and f32 else (float("nan"), None))
     b_ms *= 1e3
+    h1 = halo1_cases(smi, bw, f32)
     log(f"phase 9 (a) HALO0 pair vs the plain pair with the same bands: "
         f"{n_cases} slab cases ({HALO0_SMALL}; FISTA and unaccelerated, with "
         f"and without a reference cube, the first, an interior and the last "
@@ -3445,10 +3779,14 @@ def sharded_phase(smi, name, cube, scan, det, cube3, cfg3_digest):
             stopping_relative_change=0.05, quiet=True, device="cuda"))
         del noisy2, ref_half, fixed
         shards = {"b": (2, 1, 1, 1), "c": (2, 2, 1, 1), "d1": (2, 1, 1, 1),
-                  "d2": (2, 1, 1, 1), "e": (2, 1, 1)}
+                  "d2": (2, 1, 1, 1), "e": (2, 1, 1), "b1": (1, 2, 1, 1),
+                  "b1k": (1, 2, 1, 1)}
+        # (b1): config 4 x20 on (1, 2, 1, 1) in pairs, held to (b)'s
+        # single-device run; x4 there on the K=1 loop, held to (c)'s
+        want["b1"], want["b1k"] = want["b"], want["c"]
         digests = {k: blocks(w["recon"], shards[k]) for k, w in want.items()}
         for w in want.values():
-            del w["recon"]
+            w.pop("recon", None)
         torch.cuda.empty_cache()
         log(f"phase 9 single-device references (config 4 x20 and x4, "
             f"{HALF4} stop {thr_d:.6e} after {stop_d} and MSE x20, config 2 "
@@ -3461,6 +3799,10 @@ def sharded_phase(smi, name, cube, scan, det, cube3, cfg3_digest):
         runs2 = [
             dict(name="b", input=cube_npy, ndim=4, iterations=20,
                  shard=shards["b"]),
+            dict(name="b1", input=cube_npy, ndim=4, iterations=20,
+                 shard=shards["b1"]),
+            dict(name="b1k", input=cube_npy, ndim=4, iterations=4,
+                 shard=shards["b1k"], k1_loop=True),
             dict(name="d1", input=cube_npy, rows=HALF4[0], ndim=4,
                  iterations=64, stop=thr_d, shard=shards["d1"]),
             dict(name="d2", input=cube_npy, rows=HALF4[0], ndim=4,
@@ -3493,6 +3835,36 @@ def sharded_phase(smi, name, cube, scan, det, cube3, cfg3_digest):
             f"({[r['launches'] for r in b]}); the 2-rank group's 4 runs and "
             f"its start {wall2:.1f} s [{smi}]")
         rank_lines("phase 9 (f) (b)", b, smi)
+        b1 = rows["b1"]
+        require(all(tuple(r["launches"]) == (0, 0, 10, 0) and r["halo1"] == 10
+                    and r["halo0"] == 0 and r["k1_halo"] == 0 for r in b1),
+                f"(b1) launches per rank {[r['launches'] for r in b1]}, "
+                f"HALO1 {[r['halo1'] for r in b1]}: expected 10 HALO1 pairs")
+        log(f"phase 9 (b1) config 4 {CFG4} FISTA x20 on a (1, 2, 1, 1) mesh, "
+            f"2 processes sharing the card (gloo), shards {SHARD41} (8 MiB "
+            f"rows): recon bitwise (b)'s denoise4D run on one device (each "
+            f"block and the gathered cube, sha256), traces within rtol 1e-5 "
+            f"on both ranks; 10 HALO1 pairs per rank "
+            f"({[r['launches'] for r in b1]}), no K=1 launch [{smi}]")
+        rank_lines("phase 9 (f) (b1)", b1, smi)
+        b1k = rows["b1k"]
+        require(all(tuple(r["launches"]) == (0, 0, 0, 4) and r["k1_halo"] == 4
+                    for r in b1k),
+                f"(b1k) launches per rank {[r['launches'] for r in b1k]}")
+
+        def per_pair(r, n_pairs):
+            x = r["exchange"]
+            return (f"rank {r['rank']}: {x['bytes_sent'] / n_pairs / 1e9:.4f}"
+                    f" GB sent, {x['bytes_received'] / n_pairs / 1e9:.4f} GB "
+                    f"received")
+
+        log(f"phase 9 (b1) the exchange per two iterations on (1, 2, 1, 1): "
+            f"in HALO1 pairs (x20, the orig columns once) "
+            f"{[per_pair(r, 10) for r in b1]}; on the K=1 loop (x4, config 4 "
+            f"with the pair rule set above every row, bitwise (c)'s "
+            f"single-device x4 run, 4 K=1 halo launches per rank) "
+            f"{[per_pair(r, 2) for r in b1k]} [{smi}]")
+        rank_lines("phase 9 (f) (b1k)", b1k, smi)
         log(f"phase 9 (d) {HALF4} FISTA on (2, 1, 1, 1): the stop run "
             f"(stop {thr_d:.6e}) stops after {rows['d1'][0]['iterations_run']} "
             f"as on one device, HALO0 pairs behind the guard "
@@ -3535,7 +3907,8 @@ def sharded_phase(smi, name, cube, scan, det, cube3, cfg3_digest):
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 9 {time.perf_counter() - t_phase:.1f} s")
     return {"launches": b[0]["halo0"], "err": err, "ms": t_h0["halo0"],
-            "plain_ms": t_h0["plain"], "bound": (b_ms, b_by)}
+            "plain_ms": t_h0["plain"], "bound": (b_ms, b_by),
+            "halo1": dict(h1, launches=b1[0]["halo1"])}
 
 
 # phase 10: the K=1 kernel's mesh-only modes (ring halos, mirror edges, iso
@@ -4697,21 +5070,22 @@ def lossy_phase(smi, name, cube, scan, det, tmp):
         want_d = single(lambda: denoise4D(small, mu, iterations=4, FISTA=True,
                                           lossy_duals=True, quiet=True,
                                           device="cuda"))
-    shard = (2, 1, 1, 1)
-    blocks_want, full_want = blocks(want_d["recon"], shard)
-    res = run_mesh(tmp, 2, [dict(name="lossy", input=src, ndim=4,
-                                 iterations=4, shard=list(shard),
-                                 any_row=True,
-                                 options=dict(lossy_duals=True))], 300)
-    runs = check_mesh_run("lossy", res, want_d, blocks_want, full_want)
-    require(all(tuple(r["launches"]) == (0, 0, 2, 0) and r["halo0"] == 2
-                and r["pair_lossy"] == 2 for r in runs),
-            f"lossy mesh launches {[r['launches'] for r in runs]}")
-    log(f"phase 11 (d) {LOSSY_MESH} lossy x4 on a (2, 1, 1, 1) mesh of 2 "
-        f"processes sharing the card, pairs at any row size: each block and "
-        f"the gathered recon bitwise the single-device lossy run (sha256), "
-        f"traces within rtol 1e-5; 2 LOSSY HALO0 pairs per rank; "
-        f"{time.perf_counter() - t0:.1f} s")
+    shards = {"lossy": (2, 1, 1, 1), "lossy1": (1, 2, 1, 1)}
+    res = run_mesh(tmp, 2, [dict(name=k, input=src, ndim=4, iterations=4,
+                                 shard=list(v), any_row=True,
+                                 options=dict(lossy_duals=True))
+                            for k, v in shards.items()], 300)
+    for k, v in shards.items():
+        runs = check_mesh_run(k, res, want_d, *blocks(want_d["recon"], v))
+        halo = "halo1" if v[1] > 1 else "halo0"
+        require(all(tuple(r["launches"]) == (0, 0, 2, 0) and r[halo] == 2
+                    and r["pair_lossy"] == 2 for r in runs),
+                f"lossy mesh {v} launches {[r['launches'] for r in runs]}")
+    log(f"phase 11 (d) {LOSSY_MESH} lossy x4 on a (2, 1, 1, 1) and a (1, 2, "
+        f"1, 1) mesh of 2 processes sharing the card, pairs at any row "
+        f"size: each block and the gathered recon bitwise the single-device "
+        f"lossy run (sha256), traces within rtol 1e-5; 2 LOSSY HALO0 and 2 "
+        f"LOSSY HALO1 pairs per rank; {time.perf_counter() - t0:.1f} s")
     log(f"phase 11 {time.perf_counter() - t_phase:.1f} s")
     return {"k1": {"launches": k1_stop, "err": err, "ms": ms["k1"],
                    "plain_ms": ms["plain"], "bound": b_k1},
@@ -4778,7 +5152,7 @@ def main() -> int:
     lossy_grid = {f"{nd}D": (cooperative_grid(dev, nd, True, lossy=True),
                              cooperative_grid(dev, nd, True, True, lossy=True))
                   for nd in (3, 4)}
-    log(f"phase 1 pair kernel instantiations <ND,FISTA,REF,HALO0,LOSSY> "
+    log(f"phase 1 pair kernel instantiations <ND,FISTA,REF,HALO,LOSSY> "
         f"(REF: the reference-cube SSE; LOSSY: bfloat16 d): "
         f"{'; '.join(pair_ptx)}; full cooperative grid without / with REF: "
         f"{ref_grid}, LOSSY (FISTA): {lossy_grid}")
@@ -4890,18 +5264,38 @@ def main() -> int:
             f"a LOSSY instantiation of dual_kernel sends a store while its "
             f"own load is in flight, or uses local memory: {lossy_rows}")
     # the pair kernel's LOSSY instantiations (ND 3 and 4, with and without
-    # REF and HALO0), beside its exact ones
+    # REF, no bands, HALO0 and HALO1), beside its exact ones
     pair_order = orders["pair_kernel"]
     pair_lossy = [r for r in pair_order if r[2]]
-    log(f"phase 1 pair kernel pair_kernel<ND,FISTA,REF,HALO0,LOSSY> (LOSSY: "
+    log(f"phase 1 pair kernel pair_kernel<ND,FISTA,REF,HALO,LOSSY> (HALO: 0 "
+        f"no bands, 1 HALO0, 2 HALO1; LOSSY: "
         f"bfloat16 d, iteration 1's d rounded in the middle of the pair): "
         f"ptxas "
         f"{'; '.join(r for r in pair_ptx if r.split('>')[0].endswith(',1'))}"
         f"; SASS stores / sent while their own load is in flight / LDL / "
         f"STL: " + "; ".join(f"{a} {st}/{fl}/{ldl}/{stl}"
                              for a, _, _, st, fl, ldl, stl in pair_order))
-    require(len(pair_lossy) == 8, f"expected 8 LOSSY instantiations of "
-                                  f"pair_kernel, found {pair_lossy}")
+    require(len(pair_lossy) == 12, f"expected 12 LOSSY instantiations of "
+                                   f"pair_kernel, found {pair_lossy}")
+    halo1_rows = [r for r in pair_order if r[0].split(",")[3] == "2"]
+    require(len(halo1_rows) == 12 and all(r[4] == 0 for r in halo1_rows),
+            f"expected 12 HALO1 instantiations of pair_kernel, none sending a "
+            f"store while its own load is in flight: {halo1_rows}")
+    # the instantiations of every kernel that must keep their code, by the
+    # digests of their instructions (tools/sass_digests.json, written by
+    # tools/torch_sass_order.py --digests)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tools", "sass_digests.json")) as f:
+        kept = json.load(f)
+    built = orders["digests"]
+    have = set(built.values())
+    lost = sorted(lab for lab, dig in kept.items() if dig not in have)
+    new = sorted(lab for lab, dig in built.items()
+                 if dig not in set(kept.values()))
+    log(f"phase 1 SASS digests: {len(kept) - len(lost)} of {len(kept)} "
+        f"instantiations in tools/sass_digests.json compiled to the same "
+        f"code; {len(built)} built, with new code: {new}")
+    require(not lost, f"instantiations whose code changed: {lost}")
     require(all(r[4:] == (0, 0, 0) for r in pair_lossy),
             f"a LOSSY instantiation of pair_kernel sends a store while its "
             f"own load is in flight, or uses local memory: {pair_lossy}")
@@ -5595,6 +5989,13 @@ def main() -> int:
         ("fused_pair_iteration_halo0", "temporal_pair.cu", "temporal.py:947",
          halo9["launches"], halo9["err"], halo9["ms"], halo9["plain_ms"],
          halo9["bound"]),
+        # the pair kernel's HALO1 instantiation: its launches per rank on
+        # the config-4 (1, 2, 1, 1) mesh run of phase 9 (b1), its time at
+        # that run's shard (bands on both sides)
+        ("fused_pair_iteration_halo1", "temporal_pair.cu", "temporal.py:947",
+         halo9["halo1"]["launches"], halo9["halo1"]["err"],
+         halo9["halo1"]["ms"], halo9["halo1"]["plain_ms"],
+         halo9["halo1"]["bound"]),
         # the K=1 kernel's HALO instantiation in its mesh-only modes: its
         # launches per rank on the config-4 stem4d-iso (2, 1, 1, 1) mesh
         # run of phase 10 (b), its time at that run's shard

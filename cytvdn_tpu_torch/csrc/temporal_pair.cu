@@ -139,6 +139,48 @@
 // holds no zero there. The sums cover the shard's own rows only. Without
 // HALO0 the instantiations compile to the code they were.
 //
+// HALO1 (a shard of a mesh split along axis 1; the TPU kernel's halos1,
+// temporal.py:321-334, :450-457, :649-688, :704-711, :765-775, :816-869):
+// the shard's columns are columns [j, j + N1) of a larger cube, and the
+// Jia-Zhao column edges at its seams give way to the neighbour shards'
+// pre-update column slabs (N0 x 1 x the trailing axes; kernels/
+// temporal.py::HALO1_KEYS): from the -1 shard its recon columns [-2, -1]
+// and column -1 of orig, b_k, d_k; from the +1 shard its recon columns
+// [0, 1], column 0 of orig, b_k, d_k and column 1 of b_1, d_1. first1/
+// last1 mark the shards that hold the cube's first and last columns. Each
+// stage is one axis-0 row of the whole axis-1 extent, so the seam work is
+// per row, at the first column (the duals) and the last (the recons):
+// - dual-1 at column 0 reads the -1 shard's column -1 of recon;
+// - dual-2 at column 0 reads the -1 shard's column -1 of iteration 1's
+//   recon, recomputed from its bands (col_recon1: its b_0 from the band's
+//   rows r-1, r, r+1, its b_1 from columns -2 and -1, the trailing axes
+//   within the band) and this shard's own column-0 b_1 at level 1 (the
+//   thread's own element, still b_1 until it writes b_2);
+// - recon-1 at column N1-1 reads the +1 shard's column-0 b_1 at level 1,
+//   recomputed from its bands and this column's recon, and leaves it and
+//   d_1 in the stash for recon-2 (the row's slot of a [2][N0 x column]
+//   scratch: recon-1 overwrites the recon it came from);
+// - recon-2 at column N1-1 reads the +1 shard's column-0 b_1 at level 2,
+//   recomputed from the +1 shard's iteration-1 recon at column 0 (its
+//   bands, the stash and its column-1 b_1 from columns 0 and 1) and this
+//   column's iteration-1 recon.
+// The stash, not the K=1 kernel's in-place recompute (tv_elem.cuh
+// seam_b), because recon-2 needs the +1 shard's level-1 b_1 and d_1 three
+// stages after the recon they came from is gone; HALO0's stash already
+// does this for one row, and here every row's last column needs it, so
+// the stash holds a column slab per value (2 x 16.8 MB at config 4's
+// (1, 2, 1, 1) shard, against the 4.3 GB state arrays). At the cube's
+// last column (last1) the forward neighbour is a literal zero: the port's
+// Jia-Zhao wrap reads b_1 at column 0 (fwd), which on any shard but the
+// first is not the cube's column 0 and not zero. So a HALO1 launch never
+// reads its own column 0 through the wrap, and the axis-1 wrap hazard
+// below does not arise. Stash entries are written once per launch by
+// recon-1 and read by recon-2 three stages later, through L2. The sums
+// cover the shard's own columns only. JAX never takes both halo modes in
+// one launch (temporal.py:995); 2D grids pair there with a seam repair,
+// which the port does not run (its 2D grids take the K=1 loop). Without
+// HALO1 the instantiations compile to the code they were.
+//
 // LOSSY (lossy duals, FISTA only; the TPU kernel's bfloat16 d0 operands
 // and its mid-pair rounding qd1, temporal.py:414-424, :474-482, :621-625):
 // PairArgs::d holds bfloat16 arrays. The dual elements load the old d
@@ -151,7 +193,9 @@
 // the old d of level 2: it is rounded with round_bf16 (the TPU kernel's
 // s_d1n0 = qd1(cv)). The bands p_d, n_d and n_d0_r1 hold pre-pair values,
 // float32 (the neighbour's bfloat16 rows widened exactly); the stash stays
-// float. Without LOSSY the instantiations compile to the code they were.
+// float. HALO1's stash of the +1 shard's recomputed column-0 d_1 goes
+// through round_bf16 the same way, and its column bands are float32 too.
+// Without LOSSY the instantiations compile to the code they were.
 //
 // Layout: a block is 32 x 8 threads over a tile of the two trailing axes.
 // In each stage the active sub-stages' (row-op, axis-1 index, tile) work
@@ -204,8 +248,18 @@ struct PairArgs {
   const float* n_acc0_r1;  // +1 shard: b_0 row 1
   const float* n_d0_r1;    // +1 shard: d_0 row 1 (FISTA)
   float* stash;            // [2][row]: the +1 shard's row-0 b_0, d_0 at level 1
+                           // (HALO1: [2][column slab], its column-0 b_1, d_1)
   int first0;              // this shard holds the cube's first row
   int last0;               // this shard holds the cube's last row
+  // HALO1: the neighbour shards' pre-update column slabs (N0 x s[1]
+  // elements each); p_orig, p_acc, p_d hold the -1 shard's column -1 and
+  // n_orig, n_acc, n_d the +1 shard's column 0
+  const float* p_c[2];     // -1 shard: recon columns [-2, -1]
+  const float* n_c[2];     // +1 shard: recon columns [0, 1]
+  const float* n_acc1_c1;  // +1 shard: b_1 column 1
+  const float* n_d1_c1;    // +1 shard: d_1 column 1 (FISTA)
+  int first1;              // this shard holds the cube's first column
+  int last1;               // this shard holds the cube's last column
 };
 
 // One dual update of one element along one axis from the values it reads,
@@ -252,6 +306,45 @@ __device__ __forceinline__ float seam_recon1(
   return og - div;
 }
 
+// Iteration 1's recon of the element at offset `off` of a neighbour's
+// column band (N0 x 1 x the trailing axes, axis-0 stride s[1]), in
+// recon_elem's order of operations: `x` is that column's recon before the
+// pair, `acc`/`d` its b_k/d_k columns, `og` its orig; b1 is its b_1 at
+// level 1 at the element and b1f that of the column after it. Its b_0 and
+// the trailing axes' b_k at the element and at its forward neighbour are
+// recomputed from the band (Jia-Zhao: the wrap's b_k at index 0 is zero,
+// and the recompute gives that zero). The column band spans all of axis
+// 0: an axis-1 mesh does not split axis 0.
+template <int ND, bool FISTA>
+__device__ __forceinline__ float col_recon1(
+    const float* x, const float* const* acc, const float* const* d, float og,
+    float b1, float b1f, int64_t off, const int64_t* c, const int64_t* n,
+    const int64_t* s, const float* lam, const float* lm, float rho) {
+  float div = 0.0f;
+  const float xo = __ldg(x + off);
+#pragma unroll
+  for (int k = 0; k < ND; ++k) {
+    if (k == 1) {
+      div = div + lm[1] * (b1 - b1f);
+      continue;
+    }
+    const int64_t sk = k == 0 ? s[1] : s[k];
+    const bool wrap = c[k] == n[k] - 1;
+    const int64_t f = wrap ? off - (n[k] - 1) * sk : off + sk;
+    const int64_t b = c[k] > 0 ? off - sk : off;
+    const float xf = __ldg(x + f);
+    float dn;
+    const float bk = seam_dual<FISTA>(xo, __ldg(x + b), __ldg(acc[k] + off),
+                                      FISTA ? __ldg(d[k] + off) : 0.0f,
+                                      lam[k], rho, dn);
+    const float bf = seam_dual<FISTA>(xf, wrap ? xf : xo, __ldg(acc[k] + f),
+                                      FISTA ? __ldg(d[k] + f) : 0.0f, lam[k],
+                                      rho, dn);
+    div = div + lm[k] * (bk - bf);
+  }
+  return og - div;
+}
+
 // The momentum of level `lev` (0 or 1). Indexing rho[] at run time puts the
 // array in local memory (one 8-byte stack slot, an LDL per dual element);
 // the LOSSY instantiations pick it from registers instead. The exact ones
@@ -273,9 +366,15 @@ __device__ __forceinline__ void op_range(int op, int64_t j, int64_t strips,
   if (hi < lo) hi = lo;
 }
 
-template <int ND, bool FISTA, bool REF, bool HALO0, bool LOSSY>
+// The halo mode of an instantiation: no bands, axis-0 bands (a shard of an
+// axis-0 mesh) or axis-1 bands (a shard of an axis-1 mesh).
+constexpr int NO_HALO = 0, HALO_AXIS0 = 1, HALO_AXIS1 = 2;
+
+template <int ND, bool FISTA, bool REF, int HALO, bool LOSSY>
 __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {
   static_assert(!LOSSY || FISTA, "lossy duals: FISTA only");
+  constexpr bool HALO0 = HALO == HALO_AXIS0;
+  constexpr bool HALO1 = HALO == HALO_AXIS1;
   constexpr int SUMS = REF ? MAX_SUMS : 3 * LEVELS;
   cg::grid_group grid = cg::this_grid();
   __shared__ double red[NT];
@@ -380,10 +479,28 @@ __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {
                   a.p_r0 + R, a.p_acc, a.p_d, __ldg(a.p_orig + idx), b0p,
                   ld(a.b[0] + idx), idx, c, a.n, a.s, lam, lm, rho[0]);
             }
-            v = dual_elem<ND, FISTA, true, LOSSY>(
+            v = dual_elem<ND, FISTA, 0, LOSSY>(
                 a, idx, c, lam, level_rho<LOSSY>(rho, lev), xb0);
+          } else if (HALO1 && c[1] == 0 && !a.first1) {
+            // the -1 shard's last column of the recon this level reads
+            const int64_t co = idx - c[0] * (a.s[0] - a.s[1]) - c[1] * a.s[1];
+            float xb1;
+            if (lev == 0) {
+              xb1 = __ldg(a.p_c[1] + co);
+            } else {
+              float dn;
+              const float b1p = seam_dual<FISTA>(
+                  __ldg(a.p_c[1] + co), __ldg(a.p_c[0] + co),
+                  __ldg(a.p_acc[1] + co),
+                  FISTA ? __ldg(a.p_d[1] + co) : 0.0f, lam[1], rho[0], dn);
+              xb1 = col_recon1<ND, FISTA>(
+                  a.p_c[1], a.p_acc, a.p_d, __ldg(a.p_orig + co), b1p,
+                  ld(a.b[1] + idx), co, c, a.n, a.s, lam, lm, rho[0]);
+            }
+            v = dual_elem<ND, FISTA, 1, LOSSY>(
+                a, idx, c, lam, level_rho<LOSSY>(rho, lev), xb1);
           } else {
-            v = dual_elem<ND, FISTA, false, LOSSY>(
+            v = dual_elem<ND, FISTA, -1, LOSSY>(
                 a, idx, c, lam, level_rho<LOSSY>(rho, lev), 0.0f);
           }
           if (lev == 0) acc[0] += v; else acc[3] += v;
@@ -418,18 +535,56 @@ __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {
             }
           }
           if (lev == 0) {
-            recon_elem<ND, false, true>(a, idx, c, lm, acc[1], acc[2], acc[6],
-                                        acc[7], bf0);
+            recon_elem<ND, false, 0>(a, idx, c, lm, acc[1], acc[2], acc[6],
+                                     acc[7], bf0);
           } else {
-            recon_elem<ND, REF, true>(a, idx, c, lm, acc[4], acc[5], acc[6],
-                                      acc[7], bf0);
+            recon_elem<ND, REF, 0>(a, idx, c, lm, acc[4], acc[5], acc[6],
+                                   acc[7], bf0);
+          }
+        } else if (HALO1 && c[1] == N1 - 1) {
+          // the +1 shard's first column of b_1 at this level; Jia-Zhao's
+          // zero at the cube's last column
+          float bf1 = 0.0f;
+          if (!a.last1) {
+            const int64_t co = idx - c[0] * (a.s[0] - a.s[1]) - c[1] * a.s[1];
+            const int64_t CS = N0 * a.s[1];  // elements per column slab
+            const float ro = ld(a.recon + idx);
+            float dn;
+            if (lev == 0) {
+              bf1 = seam_dual<FISTA>(__ldg(a.n_c[0] + co), ro,
+                                     __ldg(a.n_acc[1] + co),
+                                     FISTA ? __ldg(a.n_d[1] + co) : 0.0f,
+                                     lam[1], rho[0], dn);
+              a.stash[co] = bf1;
+              // LOSSY: the +1 shard stores this d_1 as bfloat16, and its
+              // dual-2 reads it rounded (qd1)
+              if (FISTA) a.stash[CS + co] = LOSSY ? round_bf16(dn) : dn;
+            } else {
+              const float b1n = __ldcg(a.stash + co);
+              const float d1n = FISTA ? __ldcg(a.stash + CS + co) : 0.0f;
+              const float b1n_c1 = seam_dual<FISTA>(
+                  __ldg(a.n_c[1] + co), __ldg(a.n_c[0] + co),
+                  __ldg(a.n_acc1_c1 + co),
+                  FISTA ? __ldg(a.n_d1_c1 + co) : 0.0f, lam[1], rho[0], dn);
+              const float r1n = col_recon1<ND, FISTA>(
+                  a.n_c[0], a.n_acc, a.n_d, __ldg(a.n_orig + co), b1n,
+                  b1n_c1, co, c, a.n, a.s, lam, lm, rho[0]);
+              bf1 = seam_dual<FISTA>(r1n, ro, b1n, d1n, lam[1], rho[1], dn);
+            }
+          }
+          if (lev == 0) {
+            recon_elem<ND, false, 1>(a, idx, c, lm, acc[1], acc[2], acc[6],
+                                     acc[7], bf1);
+          } else {
+            recon_elem<ND, REF, 1>(a, idx, c, lm, acc[4], acc[5], acc[6],
+                                   acc[7], bf1);
           }
         } else if (lev == 0) {
-          recon_elem<ND, false, false>(a, idx, c, lm, acc[1], acc[2], acc[6],
-                                       acc[7], 0.0f);
+          recon_elem<ND, false, -1>(a, idx, c, lm, acc[1], acc[2], acc[6],
+                                    acc[7], 0.0f);
         } else {
-          recon_elem<ND, REF, false>(a, idx, c, lm, acc[4], acc[5], acc[6],
-                                     acc[7], 0.0f);
+          recon_elem<ND, REF, -1>(a, idx, c, lm, acc[4], acc[5], acc[6],
+                                  acc[7], 0.0f);
         }
       }
       grid.sync();
@@ -454,42 +609,47 @@ __global__ void __launch_bounds__(NT) pair_kernel(PairArgs a) {
   }
 }
 
-template <int ND, bool FISTA, bool HALO0, bool LOSSY>
+template <int ND, bool FISTA, int HALO, bool LOSSY>
 const void* kernel_for_ref(int ref) {
   return ref ? reinterpret_cast<const void*>(
-                   pair_kernel<ND, FISTA, true, HALO0, LOSSY>)
+                   pair_kernel<ND, FISTA, true, HALO, LOSSY>)
              : reinterpret_cast<const void*>(
-                   pair_kernel<ND, FISTA, false, HALO0, LOSSY>);
+                   pair_kernel<ND, FISTA, false, HALO, LOSSY>);
 }
 
 template <int ND, bool FISTA, bool LOSSY>
-const void* kernel_for_halo(int ref, int halo0) {
-  return halo0 ? kernel_for_ref<ND, FISTA, true, LOSSY>(ref)
-               : kernel_for_ref<ND, FISTA, false, LOSSY>(ref);
+const void* kernel_for_halo(int ref, int halo) {
+  if (halo == HALO_AXIS1)
+    return kernel_for_ref<ND, FISTA, HALO_AXIS1, LOSSY>(ref);
+  return halo == HALO_AXIS0 ? kernel_for_ref<ND, FISTA, HALO_AXIS0, LOSSY>(ref)
+                            : kernel_for_ref<ND, FISTA, NO_HALO, LOSSY>(ref);
 }
 
 template <int ND>
-const void* kernel_for_nd(int fista, int ref, int halo0, int lossy) {
-  if (lossy) return kernel_for_halo<ND, true, true>(ref, halo0);
-  return fista ? kernel_for_halo<ND, true, false>(ref, halo0)
-               : kernel_for_halo<ND, false, false>(ref, halo0);
+const void* kernel_for_nd(int fista, int ref, int halo, int lossy) {
+  if (lossy) return kernel_for_halo<ND, true, true>(ref, halo);
+  return fista ? kernel_for_halo<ND, true, false>(ref, halo)
+               : kernel_for_halo<ND, false, false>(ref, halo);
 }
 
-// The instantiation for (ndim, fista, ref, halo0, lossy); lossy needs fista
-// (the callers check).
-const void* kernel_for(int ndim, int fista, int ref, int halo0, int lossy) {
-  return ndim == 4 ? kernel_for_nd<4>(fista, ref, halo0, lossy)
-                   : kernel_for_nd<3>(fista, ref, halo0, lossy);
+// The instantiation for (ndim, fista, ref, halo, lossy); lossy needs fista
+// and halo is NO_HALO, HALO_AXIS0 or HALO_AXIS1 (the callers check).
+const void* kernel_for(int ndim, int fista, int ref, int halo, int lossy) {
+  return ndim == 4 ? kernel_for_nd<4>(fista, ref, halo, lossy)
+                   : kernel_for_nd<3>(fista, ref, halo, lossy);
 }
 
 }  // namespace
 
-// The largest grid a cooperative launch of the (ndim, fista, ref, halo0,
+// The largest grid a cooperative launch of the (ndim, fista, ref, halo,
 // lossy) kernel may have on the current device: resident blocks per SM
-// times SMs. lossy (bfloat16 d) takes fista.
-extern "C" int tv_pair_max_blocks(int ndim, int fista, int ref, int halo0,
+// times SMs. halo: 0 none, 1 axis-0 bands, 2 axis-1 bands; lossy (bfloat16
+// d) takes fista.
+extern "C" int tv_pair_max_blocks(int ndim, int fista, int ref, int halo,
                                   int lossy, int* blocks) {
   if (lossy && !fista) return static_cast<int>(cudaErrorInvalidValue);
+  if (halo < NO_HALO || halo > HALO_AXIS1)
+    return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -500,7 +660,7 @@ extern "C" int tv_pair_max_blocks(int ndim, int fista, int ref, int halo0,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel_for(ndim, fista, ref, halo0, lossy), NT, 0);
+      &per_sm, kernel_for(ndim, fista, ref, halo, lossy), NT, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   *blocks = per_sm * sms;
   return 0;
@@ -510,12 +670,18 @@ extern "C" int tv_pair_iteration_f32(
     const void* orig, void* recon, void* b0, void* b1, void* b2, void* b3,
     void* d0, void* d1, void* d2, void* d3, const void* lambda_inv,
     const void* lam_mu, const void* rho1, const void* rho2, const void* ref,
-    void* partials, void* out, const void* const* halo0, int first0,
-    int last0, int ndim, long long n0, long long n1,
+    void* partials, void* out, const void* const* bands, int halo,
+    int at_first, int at_last, int ndim, long long n0, long long n1,
     long long n2, long long n3, long long strip, int fista, int lossy,
     int nblocks, void* stream) {
   // lossy: the d arrays are bfloat16 (an unaccelerated launch has none)
   if (lossy && !fista) return static_cast<int>(cudaErrorInvalidValue);
+  // halo: 0 none, 1 axis-0 bands (HALO0), 2 axis-1 bands (HALO1, which
+  // needs two columns)
+  if (halo < NO_HALO || halo > HALO_AXIS1 ||
+      (halo != NO_HALO) != (bands != nullptr) ||
+      (halo == HALO_AXIS1 && n1 < 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   PairArgs a;
   a.orig = static_cast<const float*>(orig);
   a.recon = static_cast<float*>(recon);
@@ -545,32 +711,45 @@ extern "C" int tv_pair_iteration_f32(
   a.tiles_m = (a.n[ndim - 2] + TY - 1) / TY;
   a.tiles_l = (a.n[ndim - 1] + TX - 1) / TX;
   a.strip = strip < 1 ? 1 : (strip > a.n[1] ? a.n[1] : strip);
-  // HALO0 bands, in kernels/temporal.py's order: p_r0, p_orig, p_acc0..3,
-  // p_d0..3, n_r0, n_orig, n_acc0..3, n_d0..3, n_acc0_r1, n_d0_r1, stash
-  const void* const* h = halo0;
+  // the bands, in kernels/temporal.py's order (HALO0_KEYS or HALO1_KEYS),
+  // then the stash. HALO0: p_r0, p_orig, p_acc0..3, p_d0..3, n_r0, n_orig,
+  // n_acc0..3, n_d0..3, n_acc0_r1, n_d0_r1; HALO1: p_r0_m2, p_r0_m1,
+  // p_orig_m1, p_acc0..3_m1, p_d0..3_m1, n_r0_c0, n_r0_c1, n_orig_c0,
+  // n_acc0..3_c0, n_d0..3_c0, n_acc1_c1, n_d1_c1
+  const void* const* h = bands;
   auto hp = [h](int i) {
     return h != nullptr ? static_cast<const float*>(h[i]) : nullptr;
   };
-  a.p_r0 = hp(0);
-  a.p_orig = hp(1);
-  a.n_r0 = hp(10);
-  a.n_orig = hp(11);
+  const bool cols = halo == HALO_AXIS1;
+  const int o = cols ? 1 : 0;  // HALO1 has one more recon band per side
+  a.p_r0 = cols ? nullptr : hp(0);
+  a.n_r0 = cols ? nullptr : hp(10);
+  a.p_c[0] = cols ? hp(0) : nullptr;
+  a.p_c[1] = cols ? hp(1) : nullptr;
+  a.n_c[0] = cols ? hp(11) : nullptr;
+  a.n_c[1] = cols ? hp(12) : nullptr;
+  a.p_orig = hp(1 + o);
+  a.n_orig = hp(11 + 2 * o);
   for (int k = 0; k < 4; ++k) {
-    a.p_acc[k] = hp(2 + k);
-    a.p_d[k] = hp(6 + k);
-    a.n_acc[k] = hp(12 + k);
-    a.n_d[k] = hp(16 + k);
+    a.p_acc[k] = hp(2 + o + k);
+    a.p_d[k] = hp(6 + o + k);
+    a.n_acc[k] = hp(12 + 2 * o + k);
+    a.n_d[k] = hp(16 + 2 * o + k);
   }
-  a.n_acc0_r1 = hp(20);
-  a.n_d0_r1 = hp(21);
-  a.stash = const_cast<float*>(hp(22));
-  a.first0 = first0;
-  a.last0 = last0;
+  a.n_acc0_r1 = cols ? nullptr : hp(20);
+  a.n_d0_r1 = cols ? nullptr : hp(21);
+  a.n_acc1_c1 = cols ? hp(22) : nullptr;
+  a.n_d1_c1 = cols ? hp(23) : nullptr;
+  a.stash = const_cast<float*>(hp(22 + 2 * o));
+  a.first0 = halo == HALO_AXIS0 ? at_first : 1;
+  a.last0 = halo == HALO_AXIS0 ? at_last : 1;
+  a.first1 = cols ? at_first : 1;
+  a.last1 = cols ? at_last : 1;
 
   void* args[] = {&a};
   // a grid above the cooperative limit is refused here, not shrunk
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      kernel_for(ndim, fista, ref != nullptr, halo0 != nullptr, lossy),
+      kernel_for(ndim, fista, ref != nullptr, halo, lossy),
       dim3(nblocks), dim3(TX, TY),
       args, 0, static_cast<cudaStream_t>(stream));
   // reading the last error also clears it, so a refused launch does not

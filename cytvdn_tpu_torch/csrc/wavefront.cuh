@@ -77,20 +77,21 @@ __device__ __forceinline__ int64_t op_row(int64_t st, int op) {
 // order). Race-free: the element's own b, d are read and written by this
 // thread only, and recon, which a dual reads around the element, no dual
 // writes. The arithmetic and its order are dual_kernel's.
-// SEAM0 (the first row of a mesh shard, temporal_pair.cu's HALO0): the
-// axis-0 backward neighbour is xb0, the caller's value from the -1 shard's
-// bands, instead of a load. LOSSY (FISTA only): d is bfloat16, loaded
-// widened and stored rounded, still after b.
-template <int ND, bool FISTA, bool SEAM0, bool LOSSY = false, class Args>
+// SEAM (0 or 1; -1: none) is an axis at whose leading seam the element
+// lies (the first row or column of a mesh shard, temporal_pair.cu's HALO0
+// and HALO1): the backward neighbour along it is xbs, the caller's value
+// from the -1 shard's bands, instead of a load. LOSSY (FISTA only): d is
+// bfloat16, loaded widened and stored rounded, still after b.
+template <int ND, bool FISTA, int SEAM, bool LOSSY = false, class Args>
 __device__ __forceinline__ double dual_elem(const Args& a, int64_t idx,
                                             const int64_t* c, const float* lam,
-                                            float rho, float xb0) {
+                                            float rho, float xbs) {
   static_assert(!LOSSY || FISTA, "lossy duals: FISTA only");
   const float x = ld(a.recon + idx);
   float xb[ND], bo[ND], dold[ND];
 #pragma unroll
   for (int k = 0; k < ND; ++k) {
-    xb[k] = SEAM0 && k == 0 ? xb0 : ld(a.recon + bwd(idx, c[k], a.s[k]));
+    xb[k] = k == SEAM ? xbs : ld(a.recon + bwd(idx, c[k], a.s[k]));
     bo[k] = ld(a.b[k] + idx);
     if (FISTA) dold[k] = LOSSY ? ld_bf16(a.d[k], idx) : ld(a.d[k] + idx);
   }
@@ -122,21 +123,23 @@ __device__ __forceinline__ double dual_elem(const Args& a, int64_t idx,
 // of ref: the pair kernel's recon-2 element holds both iterations' recon
 // there (R_old is iteration 1's). ref, which nothing writes, takes the
 // read-only path, and its load is sent with orig's, before the store.
-// SEAM0 (the last row of a mesh shard, HALO0): the axis-0 forward
-// neighbour is bf0, the caller's value (the +1 shard's first b_0 row,
-// recomputed, or Jia-Zhao's zero at the global edge), instead of a load.
-template <int ND, bool REF, bool SEAM0, class Args>
+// SEAM (0 or 1; -1: none), the axis at whose trailing seam the element
+// lies (the last row or column of a mesh shard, HALO0 and HALO1): the
+// forward neighbour along it is bfs, the caller's value (the +1 shard's
+// first b_SEAM slab, recomputed, or Jia-Zhao's zero at the global edge),
+// instead of a load.
+template <int ND, bool REF, int SEAM, class Args>
 __device__ __forceinline__ void recon_elem(const Args& a, int64_t idx,
                                            const int64_t* c, const float* lm,
                                            double& dnum, double& dden,
                                            double& sse_old, double& sse_new,
-                                           float bf0) {
+                                           float bfs) {
   float div = 0.0f;
 #pragma unroll
   for (int k = 0; k < ND; ++k) {
     const float bk = ld(a.b[k] + idx);
-    const float bf = SEAM0 && k == 0
-                         ? bf0
+    const float bf = k == SEAM
+                         ? bfs
                          : ld(a.b[k] + fwd(idx, c[k], a.n[k], a.s[k]));
     div = div + lm[k] * (bk - bf);
   }

@@ -84,10 +84,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # and the grid
         fn.argtypes = [vp] * 16 + [i] * 2 + [ll] * 4 + [i] * 6 + [vp]
         fn.restype = i
-    # the state, scalars and sums, then the HALO0 band table (null: no
-    # halos) and the first0/last0 flags; fista, lossy, the grid
+    # the state, scalars and sums, then the band table (null: no halos),
+    # the halo mode and the first/last flags of its split axis, ndim; the
+    # extents and the strip; fista, lossy, the grid
     lib.tv_pair_iteration_f32.argtypes = \
-        [vp] * 18 + [i] * 3 + [ll] * 5 + [i] * 3 + [vp]
+        [vp] * 18 + [i] * 4 + [ll] * 5 + [i] * 3 + [vp]
     lib.tv_pair_iteration_f32.restype = i
     lib.tv_pair_max_blocks.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
     lib.tv_pair_max_blocks.restype = i

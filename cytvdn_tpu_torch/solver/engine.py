@@ -17,7 +17,8 @@ semantics:
 
 - lossy runs (``lossy_duals``: the shadow duals stored as bfloat16) take
   K-steps on one device, pairs where they pay on one device and on an
-  axis-0 mesh, and the one-iteration loop for the rest, as exact runs do:
+  axis-0 or axis-1 mesh, and the one-iteration loop for the rest, as exact
+  runs do:
   the K-step kernel rounds every level's duals at its store and the pair
   kernel iteration 1's in the middle of the pair (their ``LOSSY``
   instantiations), so the state is that of the lossy one-iteration loop.
@@ -59,7 +60,8 @@ neighbours (``_k1_halos``: ring halos under periodic boundaries, the
 mirror's edge flags, iso seams and corners, in-block halos of axes 2 and
 3; the plain backend takes ``prev_halo``/``next_halo``), an axis-0
 Jia-Zhao mesh runs its pairs with the pair kernel's 2-row bands
-(``halos0``) where they pay, every sum goes through ``comm.allsum``, and
+(``halos0``) and an axis-1 one with its 2-column bands (``halos1``) where
+they pay, every sum goes through ``comm.allsum``, and
 the stop, the guard and the block discards read only the summed traces,
 so all ranks take the same branches. Every buffer a step uses is reserved
 in ``comm``'s pool before the run's first collective (``prepare_run``).
@@ -420,18 +422,17 @@ def _pairs_pay(shape, dtype) -> bool:
     return row >= PAIR_MIN_ROW_BYTES
 
 
-def _orig_bands0(comm, orig: Tensor):
-    """The neighbours' orig rows of the pair's bands (``p_orig``, the -1
-    shard's row -1; ``n_orig``, the +1 shard's row 0) in one exchange: orig
-    never changes, so a phase exchanges them once."""
-    got_p, got_n = comm.exchange_pieces(0, [orig[-1:]], [orig[:1]],
-                                        name="pair_orig")
-    h = {}
-    if got_p is not None:
-        h["p_orig"] = got_p[0]
-    if got_n is not None:
-        h["n_orig"] = got_n[0]
-    return h
+def _orig_bands(comm, orig: Tensor, ax: int):
+    """The neighbours' orig slabs of the pair's bands of split axis ``ax``
+    (the -1 shard's slab -1, ``p_orig`` or ``p_orig_m1``; the +1 shard's
+    slab 0, ``n_orig`` or ``n_orig_c0``) in one exchange: orig never
+    changes, so a phase exchanges them once."""
+    got_p, got_n = comm.exchange_pieces(
+        ax, [orig.narrow(ax, orig.shape[ax] - 1, 1)], [orig.narrow(ax, 0, 1)],
+        name=f"pair_orig{ax}")
+    keys = ("p_orig", "n_orig") if ax == 0 else ("p_orig_m1", "n_orig_c0")
+    return {k: got[0] for k, got in zip(keys, (got_p, got_n))
+            if got is not None}
 
 
 def _pair_halos0(comm, orig_bands, recon: Tensor, accs: List[Tensor],
@@ -442,7 +443,7 @@ def _pair_halos0(comm, orig_bands, recon: Tensor, accs: List[Tensor],
     of recon and row -1 of every accumulator [and shadow dual]; to the -1
     neighbour rows [0, 1] of recon, rows 0 and 1 of the axis-0 accumulator
     [and shadow dual] and row 0 of the others; with ``orig_bands``
-    (:func:`_orig_bands0`). Returns ``(halos0, first0, last0)``; a missing
+    (:func:`_orig_bands`). Returns ``(halos0, first0, last0)``; a missing
     neighbour's bands are left out, as the kernel never reads them
     (``first0``/``last0``).
 
@@ -478,11 +479,79 @@ def _pair_halos0(comm, orig_bands, recon: Tensor, accs: List[Tensor],
     return h, comm.is_first(0), comm.is_last(0)
 
 
-def _pair_stash(comm, orig: Tensor) -> Tensor:
-    """The pair kernel's 2-row scratch of a mesh shard (the +1 shard's
-    recomputed row-0 b_0 and d_0), from ``comm``'s buffer pool."""
-    return comm.buffer("pair_stash", (2,) + tuple(orig.shape[1:]),
-                       orig.dtype, orig.device)
+def _pair_halos1(comm, orig_bands, recon: Tensor, accs: List[Tensor],
+                 ds: Optional[List[Tensor]]):
+    """The pair kernel's axis-1 bands on an axis-1 mesh
+    (``engine.py:995-1022``), from the neighbours' pre-update state in one
+    packed exchange per direction: to the +1 neighbour the own columns
+    [-2, -1] of recon and column -1 of every accumulator [and shadow dual];
+    to the -1 neighbour columns [0, 1] of recon, column 0 of every
+    accumulator and column 1 of the axis-1 one [and the same of the shadow
+    duals]; with ``orig_bands`` (:func:`_orig_bands`). Returns
+    ``(halos1, first1, last1)``; a missing neighbour's bands are left out.
+    Bfloat16 d columns widen exactly into the exchange's float32 buffer, as
+    in :func:`_pair_halos0`."""
+    nd = recon.dim()
+    to_next = [recon[:, -2:-1], recon[:, -1:], *(a[:, -1:] for a in accs)]
+    to_prev = [recon[:, :1], recon[:, 1:2], *(a[:, :1] for a in accs),
+               accs[1][:, 1:2]]
+    if ds is not None:
+        to_next += [d[:, -1:] for d in ds]
+        to_prev += [*(d[:, :1] for d in ds), ds[1][:, 1:2]]
+    got_p, got_n = comm.exchange_pieces(
+        1, to_next, to_prev, name="pair1" if ds is None else "pair1_d")
+    h = dict(orig_bands)
+    if got_p is not None:
+        h["p_r0_m2"], h["p_r0_m1"] = got_p[:2]
+        for k in range(nd):
+            h[f"p_acc{k}_m1"] = got_p[2 + k]
+            if ds is not None:
+                h[f"p_d{k}_m1"] = got_p[2 + nd + k]
+    if got_n is not None:
+        h["n_r0_c0"], h["n_r0_c1"] = got_n[:2]
+        for k in range(nd):
+            h[f"n_acc{k}_c0"] = got_n[2 + k]
+        h["n_acc1_c1"] = got_n[2 + nd]
+        if ds is not None:
+            for k in range(nd):
+                h[f"n_d{k}_c0"] = got_n[3 + nd + k]
+            h["n_d1_c1"] = got_n[3 + 2 * nd]
+    return h, comm.is_first(1), comm.is_last(1)
+
+
+def _pair_axis(comm) -> Optional[int]:
+    """The split axis whose bands a mesh shard's pairs take (0 or 1), or
+    None without a split axis."""
+    split = tuple(comm.split_axes) if comm is not None else ()
+    return split[0] if split else None
+
+
+def _pair_stash(comm, orig: Tensor, ax: int = 0) -> Tensor:
+    """The pair kernel's scratch of a mesh shard, from ``comm``'s buffer
+    pool: on an axis-0 mesh two rows (the +1 shard's recomputed row-0 b_0
+    and d_0), on an axis-1 mesh two column slabs (its column-0 b_1 and
+    d_1)."""
+    if ax == 0:
+        return comm.buffer("pair_stash", (2,) + tuple(orig.shape[1:]),
+                           orig.dtype, orig.device)
+    return comm.buffer("pair_stash1", (2, orig.shape[0], 1)
+                       + tuple(orig.shape[2:]), orig.dtype, orig.device)
+
+
+def _pair_bands(comm, orig: Tensor, ax: int):
+    """The per-phase part of a mesh shard's pair bands (the orig slabs) and
+    the function that assembles a launch's bands: axis-0 (``halos0``) or
+    axis-1 (``halos1``) keywords of :func:`fused_pair_iteration`, with the
+    stash."""
+    orig_bands = _orig_bands(comm, orig, ax)
+    halos = _pair_halos0 if ax == 0 else _pair_halos1
+
+    def kwargs(recon, accs, ds):
+        h, first, last = halos(comm, orig_bands, recon, accs, ds)
+        return {f"halos{ax}": h, f"first{ax}": first, f"last{ax}": last,
+                "stash": _pair_stash(comm, orig, ax)}
+
+    return kwargs
 
 
 def _run_phase_paired(
@@ -502,25 +571,22 @@ def _run_phase_paired(
     entries as the one-iteration loop would (``cytvdn_tpu``'s
     ``_run_phase_paired``, ``engine.py:897-1183``); with ``calculate_mse``
     the launch takes the reference cube and records both iterations' SSE.
-    On an axis-0 mesh (``comm``) each launch takes the neighbours' bands
-    (:func:`_pair_halos0`) and its sums are all-reduced.
+    On an axis-0 or axis-1 mesh (``comm``) each launch takes the
+    neighbours' bands (:func:`_pair_halos0`, :func:`_pair_halos1`) and its
+    sums are all-reduced.
     The caller's :func:`_run_phase` finishes an odd remainder. Without
     ``stopping_relative_change`` nothing here waits for the device (on one
     device); with it the pairs run behind a guard of horizon 4 in
     checkpointed blocks (:func:`_run_blocks`)."""
     ref = reference_data if opts.calculate_mse else None
-    mesh = comm is not None and bool(comm.split_axes)
-    orig_bands = _orig_bands0(comm, orig) if mesh else None
+    ax = _pair_axis(comm)
+    bands = _pair_bands(comm, orig, ax) if ax is not None else None
 
     def launch(i):
         rho1, rho2 = (tk_ratios[i], tk_ratios[i + 1]) if fista \
             else (None, None)
         ds = st.ds if fista else None
-        kw = {}
-        if mesh:
-            kw["halos0"], kw["first0"], kw["last0"] = _pair_halos0(
-                comm, orig_bands, st.recon, st.accs, ds)
-            kw["stash"] = _pair_stash(comm, orig)
+        kw = bands(st.recon, st.accs, ds) if bands is not None else {}
         out = fused_pair_iteration(
             orig, st.recon, st.accs, ds, rho1, rho2,
             lambda_inv, lam_mu, fista=fista, ref=ref, **kw)
@@ -844,16 +910,19 @@ def _plan(opts: SolverOptions, shape, dtype, comm=None):
     (:func:`_pairs_pay`); ``chunks``: whole-run launches on the state
     (:func:`_resolve_resident_chunks`). On a mesh shard (``comm``, ``shape``
     the shard's) there are no whole-run launches and no K-steps
-    (:func:`_run_phases`), and pairs only on an axis-0 mesh: axis-1 meshes
-    and 2D grids run the K=1 loop, whose state is the same (their pair
-    modes, ``halos1`` and the seam repair, are ROADMAP.md Queue 1 items 6
-    and 7). Shape, dtype, options and the mesh's split axes only, so every
-    rank of an evenly tiled mesh plans alike."""
+    (:func:`_run_phases`), and pairs on a mesh split along axis 0
+    (``halos0``) or along axis 1 alone with shards of 2 columns or more
+    (``halos1``; the JAX gate, ``engine.py:510-516``): 2D grids run the
+    K=1 loop, whose state is the same (their pair mode, the seam repair,
+    is ROADMAP.md Queue 1 item 7). Shape, dtype, options and the mesh's
+    split axes only, so every rank of an evenly tiled mesh plans alike."""
     temporal = _resolve_temporal(opts, shape, dtype) and (
         opts.stopping_relative_change is None
         or stop_ckpt_bytes(opts, shape, dtype) <= STOP_CKPT_MAX_BYTES)
     if comm is not None:
-        temporal = temporal and set(comm.split_axes) <= {0}
+        split = set(comm.split_axes)
+        temporal = temporal and (split <= {0}
+                                 or split == {1} and shape[1] >= 2)
         return temporal, temporal and _pairs_pay(shape, dtype), False
     paired = temporal and _pairs_pay(shape, dtype)
     chunks = _resolve_resident_chunks(opts, shape, dtype)
@@ -898,7 +967,8 @@ def _run_phases(
     unaccelerated phase waits for the next call. With ``keep_state`` the
     shadow duals stay in ``st``, frozen through the unaccelerated phase,
     as the JAX engine returns them. On a mesh shard (``comm``) the phases
-    are the prologue, the pairs of an axis-0 mesh and the K=1 loop."""
+    are the prologue, the pairs of an axis-0 or axis-1 mesh and the K=1
+    loop."""
     n_f, n_u = opts.iterations_fista, opts.iterations_unacc
     n_total = n_f + n_u
     shape, dtype = tuple(orig.shape), orig.dtype
@@ -969,6 +1039,7 @@ def _reserve_mesh(comm, run_opts: SolverOptions, orig: Tensor,
     variants = ([st.ds] if n_f and st.ds is not None else []) \
         + ([None] if n_u or not n_f else [])
     _, paired, _ = _plan(run_opts, tuple(orig.shape), orig.dtype, comm)
+    pair_ax = _pair_axis(comm) if paired else None
     with comm.reserving():
         for ds in variants:
             if run_opts.backend == Backend.TORCH:
@@ -977,11 +1048,8 @@ def _reserve_mesh(comm, run_opts: SolverOptions, orig: Tensor,
                     comm.next_halo(st.accs[ax], ax)
             else:
                 _k1_halos(comm, run_opts, st.recon, st.accs, ds)
-            if paired:
-                _pair_halos0(comm, _orig_bands0(comm, orig), st.recon,
-                             st.accs, ds)
-        if paired:
-            _pair_stash(comm, orig)
+            if pair_ax is not None:
+                _pair_bands(comm, orig, pair_ax)(st.recon, st.accs, ds)
     comm.sealed = True
 
 

@@ -1182,6 +1182,162 @@ def test_pair_halo0_slabs_reassemble_to_one_launch(shape, n_slabs, fista,
     torch.testing.assert_close(got_sums, want_sums, rtol=1e-5, atol=0)
 
 
+# -- the pair kernel's axis-1 bands (HALO1) ----------------------------------
+
+# 3D and 4D, ragged trailing axes; axis-1 extents that cut into column
+# shards of 2 (the least), 3 and wider
+HALO1_SHAPES = [(6, 12, 19, 23), (9, 9, 70), (5, 8, 10, 33), (7, 15, 9)]
+
+
+def _halo1_cols(shape, where, width):
+    """The column range of the first, an interior or the last shard of
+    ``width`` columns."""
+    n1 = shape[1]
+    return {"first": (0, width), "interior": (width, 2 * width),
+            "last": (n1 - width, n1)}[where]
+
+
+def _halo1_shard(step, orig, state, li, lm, fista, j0, j1, ref=None,
+                 drop=False, **kw):
+    """One pair of ``step`` on columns [j0, j1) with the bands cut from the
+    whole state (with ``drop``, a missing neighbour's bands left out);
+    returns the shard's state and its sums."""
+    ndim = orig.dim()
+    accs, ds = state[1:1 + ndim], state[1 + ndim:] if fista else None
+    h, f1, l1 = ttemporal.halo1_bands(orig, state[0], accs, ds, j0, j1)
+    if drop:
+        h = {k: v for k, v in h.items()
+             if not (f1 and k.startswith("p_") or l1 and k.startswith("n_"))}
+    s = [x[:, j0:j1].clone(memory_format=torch.contiguous_format)
+         for x in state]
+    rho1 = torch.tensor(0.37, device="cuda")
+    rho2 = torch.tensor(0.52, device="cuda")
+    out = step(orig[:, j0:j1].contiguous(), s[0], s[1:1 + ndim],
+               s[1 + ndim:] if fista else None, rho1, rho2, li, lm,
+               fista=fista, halos1=h, first1=f1, last1=l1,
+               ref=None if ref is None else ref[:, j0:j1].contiguous(), **kw)
+    return s, torch.stack(out[3:]).double().cpu()
+
+
+def _halo1_two_k1(orig, state, li, lm, fista, j0, j1):
+    """Two K=1 kernel launches with the axis-1 halos the shard's bands give
+    (``kernels/temporal.py::_pair_seams``): the pair's reference in K=1
+    HALO launches."""
+    ndim = orig.dim()
+    accs, ds = state[1:1 + ndim], state[1 + ndim:] if fista else None
+    h, f1, l1 = ttemporal.halo1_bands(orig, state[0], accs, ds, j0, j1)
+    s = [x[:, j0:j1].clone(memory_format=torch.contiguous_format)
+         for x in state]
+    o = orig[:, j0:j1].contiguous()
+    rhos = [torch.tensor(r, device="cuda") for r in (0.37, 0.52)]
+    seams = ttemporal._pair_seams(o, s[0], s[1:1 + ndim],
+                                  s[1 + ndim:] if fista else None, rhos[0],
+                                  li, lm, fista, 1, h, f1, l1)
+    for rho, seam in zip(rhos, seams):
+        tfused.fused_iteration(o, s[0], s[1:1 + ndim],
+                               s[1 + ndim:] if fista else None, rho, li, lm,
+                               fista=fista, bc=2, halos=seam(s[0]))
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,strip", [(None, None), (1, None), (7, 3),
+                                        (None, 1), (None, 2)])
+@pytest.mark.parametrize("with_ref", [False, True])
+@pytest.mark.parametrize("where,width", [("first", 2), ("interior", 3),
+                                         ("last", 2), ("last", 4)])
+@pytest.mark.parametrize("fista", [True, False])
+@pytest.mark.parametrize("shape", HALO1_SHAPES, ids=str)
+def test_pair_halo1_kernel_bitwise_equals_plain(shape, fista, where, width,
+                                                with_ref, grid, strip):
+    """The HALO1 pair on the first, an interior and the last column shard
+    (2, 3 and 4 columns) of a cube, at forced grids and strips: state
+    bitwise the plain pair with the same bands and (without a reference
+    cube) two K=1 HALO launches, sums within rtol 1e-5. The last shard's
+    own column 0 holds nonzero axis-1 accumulators (the wrap case)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    orig, state, li, lm = _halo0_state(shape, fista, seed=sum(shape) + 2)
+    j0, j1 = _halo1_cols(shape, where, width)
+    if j0 > 0:
+        assert state[2][:, j0].abs().max().item() > 0
+    ref = orig + 0.1 if with_ref else None
+    before = ttemporal.fused_pair_iteration.halo1_launches
+    ks, ksum = _halo1_shard(ttemporal.fused_pair_iteration, orig, state, li,
+                            lm, fista, j0, j1, ref=ref, grid=grid,
+                            strip=strip)
+    assert ttemporal.fused_pair_iteration.halo1_launches == before + 1
+    ps, psum = _halo1_shard(ttemporal.fused_pair_iteration_reference, orig,
+                            state, li, lm, fista, j0, j1, ref=ref)
+    for a, b in zip(ks, ps):
+        assert torch.equal(a, b), (a - b).abs().max().item()
+    torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+    if ref is None and grid is None and strip is None:
+        for a, b in zip(ks, _halo1_two_k1(orig, state, li, lm, fista, j0,
+                                          j1)):
+            assert torch.equal(a, b), (a - b).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["first", "last"])
+@pytest.mark.parametrize("fista", [True, False])
+@pytest.mark.parametrize("shape", HALO1_SHAPES, ids=str)
+def test_pair_halo1_missing_neighbour_bands_left_out(shape, fista, where):
+    """On the first and the last column shard the missing neighbour's bands
+    may be left out: state bitwise the launch with zero bands and the
+    plain pair without them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    orig, state, li, lm = _halo0_state(shape, fista, seed=sum(shape) + 3)
+    j0, j1 = _halo1_cols(shape, where, 3)
+    runs = [_halo1_shard(step, orig, state, li, lm, fista, j0, j1, drop=drop)
+            for step, drop in ((ttemporal.fused_pair_iteration, True),
+                               (ttemporal.fused_pair_iteration, False),
+                               (ttemporal.fused_pair_iteration_reference,
+                                True))]
+    (ks, ksum), (zs, zsum), (ps, psum) = runs
+    for a, b, c in zip(ks, zs, ps):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(ksum, zsum)
+    torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ref", [False, True])
+@pytest.mark.parametrize("fista", [True, False])
+@pytest.mark.parametrize("shape,n_shards", [
+    (shape, n) for shape in HALO1_SHAPES for n in (2, 3, 4)
+    if shape[1] // n >= 2], ids=str)
+def test_pair_halo1_shards_reassemble_to_one_launch(shape, n_shards, fista,
+                                                    with_ref):
+    """A cube cut into column shards of at least 2 columns, each paired by
+    the HALO1 kernel with bands from the pre-update state and put back:
+    bitwise one pair launch of the whole cube; the shards' sums add up to
+    its sums within rtol 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    n1 = shape[1]
+    orig, state, li, lm = _halo0_state(shape, fista, seed=8)
+    ndim = len(shape)
+    ref = orig + 0.1 if with_ref else None
+    whole = [x.clone() for x in state]
+    out = ttemporal.fused_pair_iteration(
+        orig, whole[0], whole[1:1 + ndim], whole[1 + ndim:] if fista else None,
+        torch.tensor(0.37, device="cuda"), torch.tensor(0.52, device="cuda"),
+        li, lm, fista=fista, ref=ref)
+    want_sums = torch.stack(out[3:]).double().cpu()
+    bounds = [n1 * i // n_shards for i in range(n_shards + 1)]
+    got_sums = 0
+    for j0, j1 in zip(bounds[:-1], bounds[1:]):
+        s, sums = _halo1_shard(ttemporal.fused_pair_iteration, orig, state,
+                               li, lm, fista, j0, j1, ref=ref)
+        got_sums = got_sums + sums
+        for a, b in zip(s, whole):
+            assert torch.equal(a, b[:, j0:j1]), \
+                (a - b[:, j0:j1]).abs().max().item()
+    torch.testing.assert_close(got_sums, want_sums, rtol=1e-5, atol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shard,kw", [
     ((2, 1, 1, 1), dict(iterations=9)),
@@ -1189,16 +1345,19 @@ def test_pair_halo0_slabs_reassemble_to_one_launch(shape, n_slabs, fista,
     ((2, 1, 1, 1), dict(iterations=9, with_ref=True)),
     ((2, 1, 1, 1), dict(iterations=40, stop=True)),
     ((1, 2, 1, 1), dict(iterations=6)),
+    ((1, 2, 1, 1), dict(iterations=9, with_ref=True)),
+    ((1, 2, 1, 1), dict(iterations=40, stop=True)),
     ((2, 2, 1, 1), dict(iterations=6)),
     ((2, 1, 1, 1), dict(iterations=9, lossy=True)),
     ((2, 1, 1, 1), dict(iterations=40, stop=True, lossy=True)),
+    ((1, 2, 1, 1), dict(iterations=9, lossy=True)),
 ])
 def test_mesh_run_on_the_card_bitwise_single_device(monkeypatch, shard, kw):
     """``denoise_sharded`` with ranks as threads sharing the card (gloo
     groups, slabs staged through page-locked memory) against ``denoise4D``
     on the card: recon bitwise, traces within rtol 1e-5, the HALO0 pairs
-    launched on axis-0 meshes (LOSSY ones under lossy duals) and K=1 halo
-    launches on the others."""
+    launched on axis-0 meshes, the HALO1 pairs on axis-1 meshes (LOSSY ones
+    under lossy duals) and K=1 halo launches on the 2D grid."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     import datetime
@@ -1229,7 +1388,8 @@ def test_mesh_run_on_the_card_bitwise_single_device(monkeypatch, shard, kw):
     store, res, errs = dist.HashStore(), [None] * n, [None] * n
     before = (ttemporal.fused_pair_iteration.halo0_launches,
               tfused.fused_iteration.halo_launches,
-              ttemporal.fused_pair_iteration.lossy_launches)
+              ttemporal.fused_pair_iteration.lossy_launches,
+              ttemporal.fused_pair_iteration.halo1_launches)
 
     def rank(r):
         try:
@@ -1258,10 +1418,12 @@ def test_mesh_run_on_the_card_bitwise_single_device(monkeypatch, shard, kw):
         np.testing.assert_allclose(res[0]["mse"], want[3], rtol=1e-5)
     halo0 = ttemporal.fused_pair_iteration.halo0_launches - before[0]
     k1 = tfused.fused_iteration.halo_launches - before[1]
-    assert (halo0 > 0) == (shard[1] == 1), (halo0, k1)
-    assert k1 > 0 or (halo0 > 0 and not kw.get("stop"))
+    halo1 = ttemporal.fused_pair_iteration.halo1_launches - before[3]
+    assert (halo0 > 0) == (shard[1] == 1), (halo0, halo1, k1)
+    assert (halo1 > 0) == (shard[0] == 1), (halo0, halo1, k1)
+    assert k1 > 0 or (halo0 + halo1 > 0 and not kw.get("stop"))
     lossy = ttemporal.fused_pair_iteration.lossy_launches - before[2]
-    assert lossy == (halo0 if kw.get("lossy") else 0)
+    assert lossy == (halo0 + halo1 if kw.get("lossy") else 0)
 
 
 # -- the K=1 kernel's mesh-only halo modes -----------------------------------
@@ -1745,6 +1907,70 @@ def test_lossy_pair_halo0_slabs_reassemble_to_one_launch(shape, n_slabs):
         s, _ = _halo0_slab(ttemporal.fused_pair_iteration, orig, state, li,
                            lm, True, a0, a1)
         _assert_states(s, [x[a0:a1] for x in whole], (a0, a1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,strip", LOSSY_PAIR_GRIDS)
+@pytest.mark.parametrize("with_ref", [False, True])
+@pytest.mark.parametrize("where", ["first", "interior", "last"])
+@pytest.mark.parametrize("shape", HALO1_SHAPES, ids=str)
+def test_lossy_pair_halo1_bitwise_plain_and_stash(shape, where, with_ref,
+                                                  grid, strip):
+    """The LOSSY HALO1 pair on the first, an interior and the last
+    3-column shard, at forced grids and strips: state bitwise the plain
+    pair with the same bands, d included, sums within rtol 1e-5. Its
+    stash (beside a shard with a +1 neighbour) holds that shard's column-0
+    b_1 and d_1 after iteration 1: bitwise one plain lossy K=1 step of the
+    whole cube there, d_1 on the bfloat16 grid (round_bf16 in CUDA)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    orig, state, li, lm = _lossy_pair_state(shape, seed=sum(shape) + 6)
+    j0, j1 = _halo1_cols(shape, where, 3)
+    ref = orig + 0.1 if with_ref else None
+    stash = torch.full((2, shape[0], 1) + tuple(shape[2:]), float("nan"),
+                       device="cuda")
+    before = ttemporal.fused_pair_iteration.lossy_launches
+    ks, ksum = _halo1_shard(ttemporal.fused_pair_iteration, orig, state, li,
+                            lm, True, j0, j1, ref=ref, grid=grid,
+                            strip=strip, stash=stash)
+    assert ttemporal.fused_pair_iteration.lossy_launches == before + 1
+    ps, psum = _halo1_shard(ttemporal.fused_pair_iteration_reference, orig,
+                            state, li, lm, True, j0, j1, ref=ref)
+    _assert_states(ks, ps, where)
+    torch.testing.assert_close(ksum, psum, rtol=1e-5, atol=0)
+    if j1 < shape[1]:
+        nd = len(shape)
+        s = [x.clone() for x in state]
+        tfused.fused_iteration_reference(
+            orig, s[0], s[1:1 + nd], s[1 + nd:],
+            torch.tensor(0.37, device="cuda"), li, lm, fista=True)
+        assert torch.equal(stash[0], s[2][:, j1:j1 + 1])
+        assert torch.equal(stash[1], s[2 + nd][:, j1:j1 + 1].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n_shards", [
+    (shape, n) for shape in HALO1_SHAPES for n in (2, 3)
+    if shape[1] // n >= 2], ids=str)
+def test_lossy_pair_halo1_shards_reassemble_to_one_launch(shape, n_shards):
+    """A lossy cube cut into column shards of at least 2 columns, each
+    paired by the LOSSY HALO1 kernel with bands from the pre-update state
+    and put back: bitwise one LOSSY pair launch of the whole cube, d
+    included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    n1, nd = shape[1], len(shape)
+    orig, state, li, lm = _lossy_pair_state(shape, seed=12)
+    whole = [x.clone() for x in state]
+    ttemporal.fused_pair_iteration(
+        orig, whole[0], whole[1:1 + nd], whole[1 + nd:],
+        torch.tensor(0.37, device="cuda"), torch.tensor(0.52, device="cuda"),
+        li, lm, fista=True)
+    bounds = [n1 * i // n_shards for i in range(n_shards + 1)]
+    for j0, j1 in zip(bounds[:-1], bounds[1:]):
+        s, _ = _halo1_shard(ttemporal.fused_pair_iteration, orig, state, li,
+                            lm, True, j0, j1)
+        _assert_states(s, [x[:, j0:j1] for x in whole], (j0, j1))
 
 
 @pytest.mark.cuda
