@@ -127,8 +127,9 @@ non-zero — nothing is caught):
    ``--preset eels3d`` through ``python -m cytvdn_tpu_torch.cli`` (the
    stop iteration and launches from its log); each recon bitwise the
    ``denoise4D``/``denoise3D`` run with the same arguments;
-   ``--out-of-core 2 --shard 2`` and ``--backend cpp`` exit 2 naming their
-   ROADMAP items (11, 13). Where h5py is missing, the command's
+   ``--out-of-core 2 --shard 2`` in one process exits 2 with the
+   ``torchrun`` to start, and ``--backend cpp`` exits 2 naming its
+   ROADMAP item (13). Where h5py is missing, the command's
    load-and-solve step stands in for it;
 8. out-of-core runs (``solver/outofcore.py``): (a) the K=1 kernel with
    operand halos against its plain version with the same halos, 3
@@ -166,6 +167,23 @@ non-zero — nothing is caught):
    a part every 4 iterations, every process stopped after the first
    generation and killed, then resumed from 4 on every rank (the FISTA
    sweep in LOSSY pairs and K=1 launches), bitwise the in-core lossy run;
+   slabs split over several cards: (iii) config 4 x16 ``--out-of-core 4
+   --temporal 8 --shard 2`` on 2 processes, each reading its 128 columns,
+   each rank's column block bitwise (b)'s temporal K=8 recon, 24 HALO1
+   pairs and 16 K=1 HALO launches per rank, per rank the seconds of load,
+   pin and solve, s per iteration, GB/s each way, the column exchange's
+   calls, seconds and bytes and the peak device memory, beside (b)'s
+   one-process run and (i)'s row split; then, in the same 2 processes,
+   ``denoise_outofcore(shard_w=2)`` of a small seeded cube
+   (``SPLIT_CALL``), rank 0's stitched recon (gathered through gloo)
+   bitwise the one-process ``denoise_outofcore`` at the same K, through
+   HALO1 pairs; (iv) config 3 hybrid (8, 4)
+   ``--lossy-duals --out-of-core 2 --temporal 4 --shard 2`` on 4
+   processes (a 2 x 2 grid: 64 rows x 64 columns each), a part every 4
+   iterations, every process stopped after the first generation and
+   killed, then resumed from 4 on every rank (the FISTA sweep in LOSSY
+   HALO1 pairs and LOSSY K=1 HALO launches), each block bitwise the
+   in-core lossy run;
 9. sharded runs (``cytvdn_tpu_torch.parallel``): (a) the pair kernel with
    axis-0 bands (``HALO0``) against the plain pair with the same bands
    (state bitwise, sums within rtol 1e-5) on the first, an interior and
@@ -2012,8 +2030,10 @@ def cli_phase(smi, cube):
     from a .npy file, ``--preset stem4d``, in this process; (b) config 1,
     a synthetic EELS cube, from a .dm4 file, ``--preset eels3d``, as a
     separate process; each recon bitwise the API's run with the same
-    arguments. (c) ``--out-of-core`` with ``--shard`` and ``--backend cpp``
-    exit 2, naming their ROADMAP items (phase 9 (g) runs ``--shard``)."""
+    arguments. (c) ``--out-of-core 2 --shard 2`` in one process exits 2
+    with the ``torchrun`` to start (phase 8 (f) runs it on processes),
+    ``--backend cpp`` exits 2 naming its ROADMAP item (phase 9 (g) runs
+    ``--shard``)."""
     from cytvdn_tpu_torch import cli
     from cytvdn_tpu_torch.io.dm import write_dm
 
@@ -2154,18 +2174,20 @@ def cli_phase(smi, cube):
         # yet, refused before the input is read
         for flags, rc_want, item in (
                 (["--help"], 0, None),
+                # slabs split over 2 cards need 2 processes
                 (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2",
                   "--out-of-core", "2", "--shard", "2"], 2,
-                 "Queue 1 item 11"),
+                 "this launch has 1 (WORLD_SIZE), not a multiple of 2; "
+                 "start 2 (or a multiple): torchrun --nproc-per-node 2"),
                 (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2",
-                  "--backend", "cpp"], 2, "Queue 1 item 13")):
+                  "--backend", "cpp"], 2, "(ROADMAP.md Queue 1 item 13)")):
             proc = subprocess.run(
                 [sys.executable, "-m", "cytvdn_tpu_torch.cli", *flags],
                 cwd=root, env=env, capture_output=True, text=True,
                 timeout=120)
             said = proc.stderr.strip() if item else proc.stdout.split("\n")[0]
             require(proc.returncode == rc_want and (
-                f"(ROADMAP.md {item})" in said if item
+                item in said if item
                 else said.startswith("usage: cytv-torch")),
                 f"{flags}: rc {proc.returncode}, {proc.stdout!r} "
                 f"{proc.stderr!r}")
@@ -2445,13 +2467,21 @@ def outofcore_phase(smi, name, cube, cube3):
         require(la == want_la, f"config 4 {mode}: launches (whole-run, "
                                f"K-step, pair, K=1, K=1 with halos) {la}, "
                                f"expected {want_la}")
+        secs = run["sweep_seconds"] / iters
         if k == 1:
             halo_launches = la[4]
         else:
-            # (f) holds each process's rows of a 2-process run to these
+            # (f) holds each process's rows of a 2-process run, and each
+            # column block of a 2-card split, to these
             rows16 = [digest(want[0][slice(*outofcore.process_row_range(
                 CFG4[0], 2, r))]) for r in range(2)]
-        secs = run["sweep_seconds"] / iters
+            half = CFG4[1] // 2
+            cols16 = [digest(want[0][:, c * half:(c + 1) * half])
+                      for c in range(2)]
+            one16 = {"s_per_it": secs, "peak": peak,
+                     "pin_seconds": run["pin_seconds"],
+                     "h2d": run["h2d_bytes"] / run["h2d_seconds"] / 1e9,
+                     "d2h": run["d2h_bytes"] / run["d2h_seconds"] / 1e9}
         link_s = (run["h2d_bytes"] / (rates["h2d"] * 1e9)
                   + run["d2h_bytes"] / (rates["d2h"] * 1e9))
         duplex_s = max(run["h2d_bytes"] / (rates["h2d"] * 1e9),
@@ -2576,7 +2606,7 @@ def outofcore_phase(smi, name, cube, cube3):
         f"{run_cli.seconds['solve']:.3f} s); "
         f"{time.perf_counter() - t0:.1f} s")
     del plain3, got, api, run_cli
-    outofcore_mesh_phase(smi, cube, rows16, cube3)
+    outofcore_mesh_phase(smi, cube, rows16, cube3, cols16, one16)
     log(f"phase 8 {time.perf_counter() - t_phase:.1f} s")
     return {"launches": halo_launches, "err": err, "ms": t_halo["halo"],
             "plain_ms": t_halo["plain"], "bound": (b_ms, b_by)}
@@ -2605,7 +2635,7 @@ def ooc_generations(path, n_ranks):
     return gens
 
 
-def outofcore_mesh_phase(smi, cube, rows16, cube3):
+def outofcore_mesh_phase(smi, cube, rows16, cube3, cols16, one16):
     """Phase 8 (f): multi-process out of core, processes of this script
     (``--cli-worker``) sharing the card (gloo). (i) config 4 through
     ``cli.load_and_solve --out-of-core 4 --temporal 8`` x16 FISTA on 2
@@ -2616,7 +2646,8 @@ def outofcore_mesh_phase(smi, cube, rows16, cube3):
     (uneven rows), a part every 4 iterations, every process stopped after
     the first generation and killed, then ``--resume 1``: every rank
     resumed from 4, the FISTA sweep in LOSSY pairs and K=1 launches, its
-    rows bitwise the in-core lossy run's."""
+    rows bitwise the in-core lossy run's; slabs split over several cards
+    (:func:`split_slabs_phase`)."""
     try:
         import h5py  # noqa: F401
         write = True
@@ -2638,7 +2669,6 @@ def outofcore_mesh_phase(smi, cube, rows16, cube3):
                           "-f", "1", "--out-of-core", "4", "--temporal",
                           "8"])
         s_i = time.perf_counter() - t0
-        os.remove(npy)
         for r in g1:
             rank = r["rank"]
             require(r["block"] == rows16[rank],
@@ -2730,10 +2760,184 @@ def outofcore_mesh_phase(smi, cube, rows16, cube3):
             f"{[tuple(r['launches']) for r in g2]}, band exchanges "
             f"{[r['exchange']['exchanges'] for r in g2]}; "
             f"{time.perf_counter() - t0:.1f} s [{smi}]")
+        # (iii) reads the config-4 .npy that (i) read
+        split_slabs_phase(smi, tmp, npy, cube3, want3, cols16, one16, g1,
+                          s_i, write, how)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 8 (f) {time.perf_counter() - t_f:.1f} s")
     return g1
+
+
+#: phase 8 (f) (iii)'s library call: ``denoise_outofcore(shard_w=2)`` of a
+#: seeded cube of ``shape``, FISTA, at ``temporal_k`` over ``n_slabs``
+SPLIT_CALL = {"shape": [32, 64, 24, 24], "seed": 23, "mu": 1.0,
+              "iterations": 8, "n_slabs": 2, "temporal_k": 4}
+
+
+def split_call(call, **kw):
+    """``denoise_outofcore`` of ``SPLIT_CALL``'s cube on the card with
+    ``kw`` (``shard_w=2`` on the ranks of a mesh); its recon (None off
+    rank 0)."""
+    cube = np.random.default_rng(call["seed"]).standard_normal(
+        call["shape"], dtype=np.float32)
+    return outofcore.denoise_outofcore(
+        cube, call["mu"], iterations=call["iterations"],
+        n_slabs=call["n_slabs"], temporal_k=call["temporal_k"],
+        device="cuda", **kw)[0]
+
+
+def split_slabs_phase(smi, tmp, npy, cube3, want3, cols16, one16, g1, s_i,
+                      write, how):
+    """Phase 8 (f) (iii) and (iv): out-of-core slabs split over several
+    cards, processes of this script (``--cli-worker``) sharing the card
+    (gloo). (iii) config 4 through ``cli.load_and_solve --out-of-core 4
+    --temporal 8 --shard 2`` x16 FISTA on 2 processes, each reading only
+    its 128 columns of the ``.npy`` ``npy`` (deleted here): each rank's
+    column block bitwise phase
+    8 (b)'s temporal K=8 x16 recon's (``cols16``), 24 ``HALO1`` pairs and
+    16 K=1 ``HALO`` launches per rank, with the per-rank numbers beside
+    (b)'s one-process run (``one16``) and (i)'s row split (``g1``,
+    ``s_i``), then ``denoise_outofcore(shard_w=2)`` of ``SPLIT_CALL`` in
+    the same processes, rank 0's recon bitwise the one-process call's;
+    (iv) config 3 hybrid (8, 4) ``--lossy-duals --out-of-core 2
+    --temporal 4 --shard 2`` on a 2 x 2 grid of 4 processes, a part every
+    4 iterations, every process stopped after the first generation and
+    killed, then ``--resume 1``: every rank resumed from 4, its block
+    bitwise the in-core lossy run's (``want3``)."""
+    avail = mem_available()
+    out4 = os.path.join(tmp, "config4-split.emd")
+    t0 = time.perf_counter()
+    g3 = run_mesh(tmp, 2, None, timeout=300, worker="--cli-worker",
+                  write=write, argv=[
+                      "-i", npy, "-o", out4, "-m", "1.0", "-n", "16", "-f",
+                      "1", "--out-of-core", "4", "--temporal", "8",
+                      "--shard", "2"], split_call=SPLIT_CALL)
+    s_iii = time.perf_counter() - t0
+    os.remove(npy)
+    t0 = time.perf_counter()
+    lib = digest(split_call(SPLIT_CALL))
+    require(g3[0]["split_call"]["recon"] == lib
+            and g3[1]["split_call"]["recon"] is None
+            and all(r["split_call"]["halo1"] > 0 for r in g3),
+            f"8 (f) (iii) denoise_outofcore(shard_w=2): rank 0's recon is "
+            f"not bitwise the one-process call's, or a rank returned one "
+            f"off rank 0, or ran no HALO1 pair "
+            f"({[r['split_call'] for r in g3]})")
+    log(f"phase 8 (f) (iii) denoise_outofcore(shard_w=2) of "
+        f"{tuple(SPLIT_CALL['shape'])} FISTA x{SPLIT_CALL['iterations']} "
+        f"at temporal_k={SPLIT_CALL['temporal_k']} over "
+        f"{SPLIT_CALL['n_slabs']} slabs on the same 2 processes: rank 0's "
+        f"stitched recon (gathered through gloo) bitwise the one-process "
+        f"call's, HALO1 pairs per rank "
+        f"{[r['split_call']['halo1'] for r in g3]}, "
+        f"{[r['split_call']['seconds'] for r in g3]} s per rank "
+        f"({time.perf_counter() - t0:.1f} s for the one-process call) "
+        f"[{smi}]")
+    for r in g3:
+        rank = r["rank"]
+        require(r["block"] == cols16[rank],
+                f"8 (f) (iii) rank {rank}: its columns are not bitwise phase "
+                f"8 (b)'s temporal K=8 recon")
+        require(tuple(r["launches"]) == (0, 0, 24, 16) and r["halo1"] == 24
+                and r["k1_halo"] == 16 and r["iterations_run"] == 2,
+                f"8 (f) (iii) rank {rank}: launches {r['launches']}, HALO1 "
+                f"pairs {r['halo1']}, K=1 HALO launches {r['k1_halo']}, "
+                f"{r['iterations_run']} sweep-final trace entries")
+    if write:
+        from cytvdn_tpu_torch.io.emd import read_emd
+
+        got = read_emd(out4)
+        half = CFG4[1] // 2
+        for c in range(2):
+            require(digest(got[:, c * half:(c + 1) * half]) == cols16[c],
+                    "8 (f) (iii) the EMD output is not bitwise")
+        del got
+    row_s = [r["ooc"]["sweep_seconds"] / 16 for r in g1]
+    log(f"phase 8 (f) (iii) {how} --out-of-core 4 --temporal 8 --shard 2 "
+        f"on config 4 {CFG4} FISTA x16 from a .npy, 2 processes sharing "
+        f"the card (gloo), each reading its {CFG4[1] // 2} columns: each "
+        f"rank's "
+        f"column block bitwise phase 8 (b)'s temporal K=8 recon (sha256), "
+        f"24 HALO1 pairs and 16 K=1 HALO launches per rank; s per "
+        f"iteration per rank {[r['ooc']['sweep_seconds'] / 16 for r in g3]}"
+        f", the same run in one process (8 (b)) {one16['s_per_it']} s, the "
+        f"row split on 2 processes (8 (f) (i)) {row_s} s; host memory "
+        f"available before {avail:.1f} GiB; {s_iii:.1f} s (the row split "
+        f"{s_i:.1f} s) [{smi}]")
+    for r in g3:
+        o, ex, sec = r["ooc"], r["column_exchange"], r["seconds"]
+        log(f"phase 8 (f) (iii) rank {r['rank']} (columns "
+            f"[{r['cols'][0]}, {r['cols'][1]}) of {r['cols'][2]}): "
+            f"load {sec['load']} s, pin {o['pinned_bytes'] / 2**30:.2f} GiB "
+            f"in {o['pin_seconds']} s, solve {sec['solve']} s, "
+            f"{o['sweep_seconds'] / 16} s per iteration "
+            f"({o['sweeps']:.0f} sweeps), "
+            f"{o['h2d_bytes'] / o['h2d_seconds'] / 1e9:.2f} GB/s in and "
+            f"{o['d2h_bytes'] / o['d2h_seconds'] / 1e9:.2f} GB/s out "
+            f"({o['h2d_bytes'] / 1e9:.2f} GB in, {o['d2h_bytes'] / 1e9:.2f} "
+            f"GB out); column exchanges {ex['exchanges']} "
+            f"({ex['exchange_seconds']} s, {ex['bytes_sent']} bytes sent, "
+            f"{ex['bytes_received']} received, "
+            f"{ex['bytes_sent'] / max(ex['exchange_seconds'], 1e-9) / 1e9:.3f}"
+            f" GB/s; {ex['buffers']} pool buffers, {ex['buffer_bytes']} "
+            f"device bytes); launches whole-run/K-step/pair/K=1 "
+            f"{tuple(r['launches'])}; peak device memory "
+            f"{r['peak'] / 2**30:.3f} GiB (one process, 8 (b): "
+            f"{one16['peak'] / 2**30:.3f} GiB; its pin {one16['pin_seconds']}"
+            f" s, {one16['h2d']:.2f} GB/s in and {one16['d2h']:.2f} GB/s "
+            f"out) [{smi}]")
+
+    # (iv) config 3 lossy on a 2 x 2 grid, killed after the first
+    # generation
+    t0 = time.perf_counter()
+    npy3 = os.path.join(tmp, "config3-split.npy")
+    np.save(npy3, cube3)
+    ck = os.path.join(tmp, "config3-split.ckpt.npz")
+    argv = ["-i", npy3, "-o", os.path.join(tmp, "config3-split.emd"), "-m",
+            "1.0", "-n", "8", "4", "-f", "1", "--lossy-duals",
+            "--out-of-core", "2", "--temporal", "4", "--shard", "2",
+            "--checkpoint", ck, "--checkpoint-every", "4"]
+    killed = run_mesh(tmp, 4, None, timeout=300, worker="--cli-worker",
+                      poll=lambda: min(ooc_generations(ck, 4)) >= 4,
+                      write=write, argv=argv, hang_after_save=True)
+    require(killed is None, "8 (f) (iv) the run ended before its first "
+                            "checkpoint generation")
+    gens = ooc_generations(ck, 4)
+    require(gens == [4] * 4, f"8 (f) (iv) parts after the kill: {gens}")
+    s_kill = time.perf_counter() - t0
+    g4 = run_mesh(tmp, 4, None, timeout=300, worker="--cli-worker",
+                  write=write, argv=argv + ["--resume", "1"])
+    half = CFG3[1] // 2
+    for r in g4:
+        rank = r["rank"]
+        rows = slice(*outofcore.process_row_range(CFG3[0], 2, rank // 2))
+        cols = slice(rank % 2 * half, (rank % 2 + 1) * half)
+        require(r["resumed_from"] == 4 and not r["warnings"],
+                f"8 (f) (iv) rank {rank}: resumed from {r['resumed_from']}, "
+                f"warnings {r['warnings']}")
+        require(r["block"] == digest(want3[rows, cols]),
+                f"8 (f) (iv) rank {rank}: its block is not bitwise the "
+                f"in-core lossy run's")
+        # resumed from 4: the FISTA sweep (2 slabs, 1 pair and 2 K=1
+        # launches each) in LOSSY launches, then the unaccelerated one
+        require(tuple(r["launches"]) == (0, 0, 4, 8) and r["halo1"] == 4
+                and r["k1_halo"] == 8 and r["lossy"] == [2, 4],
+                f"8 (f) (iv) rank {rank}: launches {r['launches']}, HALO1 "
+                f"{r['halo1']}, K=1 HALO {r['k1_halo']}, LOSSY pairs and "
+                f"K=1 launches {r['lossy']}")
+    log(f"phase 8 (f) (iv) {how} --lossy-duals --out-of-core 2 --temporal 4 "
+        f"--shard 2 on config 3 {CFG3} hybrid (8, 4), 4 processes on a 2 x "
+        f"2 grid (blocks of {CFG3[0] // 2} rows x {half} columns), a part "
+        f"every 4 "
+        f"iterations: every process stopped after the parts of iteration 4 "
+        f"were on disk and killed ({s_kill:.1f} s), then --resume 1: every "
+        f"rank resumed from 4, its block bitwise the in-core lossy run's, "
+        f"the FISTA sweep's 2 HALO1 pairs and 4 K=1 HALO launches LOSSY; "
+        f"launches per rank {[tuple(r['launches']) for r in g4]}, band "
+        f"exchanges {[r['exchange']['exchanges'] for r in g4]}, column "
+        f"exchanges {[r['column_exchange']['exchanges'] for r in g4]}; "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
 
 
 # phase 9: sharded runs on scan-axis meshes: the pair kernel's axis-0 bands
@@ -3336,7 +3540,9 @@ def cli_worker(spec_path: str) -> int:
     point, checkpoint warnings, the exchange's statistics, an out-of-core
     run's rows and ``outofcore.last_run`` record, and peak device memory
     to ``rank{R}.json`` beside the spec. ``hang_after_save`` in the spec
-    stops the rank after its first checkpoint save, to be killed there."""
+    stops the rank after its first checkpoint save, to be killed there;
+    ``split_call`` then runs :func:`split_call` with ``shard_w=2`` on the
+    same group and records its recon's digest and HALO1 pairs."""
     import torch.distributed as dist
 
     from cytvdn_tpu_torch import cli
@@ -3354,6 +3560,7 @@ def cli_worker(spec_path: str) -> int:
         torch.cuda.reset_peak_memory_stats()
     reset_counts()
     fused_pair_iteration.halo0_launches = 0
+    fused_pair_iteration.halo1_launches = 0
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
         run = cli.load_and_solve(spec["argv"])
@@ -3363,13 +3570,15 @@ def cli_worker(spec_path: str) -> int:
     res = {
         "rank": rank, "launches": launch_counts(),
         "halo0": fused_pair_iteration.halo0_launches,
+        "halo1": fused_pair_iteration.halo1_launches,
         "k1_halo": fused_iteration.halo_launches,
         "iterations_run": int(np.count_nonzero(run.delta)),
         "seconds": run.seconds, "saves": run.saves,
         "resumed_from": run.resumed_from,
         "warnings": [str(w.message) for w in rec
                      if "disagree" in str(w.message)],
-        "exchange": run.exchange, "rows": run.rows,
+        "exchange": run.exchange, "rows": run.rows, "cols": run.cols,
+        "column_exchange": run.column_exchange,
         "lossy": [fused_pair_iteration.lossy_launches,
                   fused_iteration.lossy_launches],
         "ooc": dict(outofcore.last_run) if run.rows else None,
@@ -3377,6 +3586,13 @@ def cli_worker(spec_path: str) -> int:
         "block": digest(run.block),
         "recon": digest(run.recon) if run.recon is not None else None,
     }
+    if spec.get("split_call"):
+        h1, t0 = fused_pair_iteration.halo1_launches, time.perf_counter()
+        recon = split_call(spec["split_call"], shard_w=2)
+        res["split_call"] = {
+            "recon": digest(recon) if recon is not None else None,
+            "halo1": fused_pair_iteration.halo1_launches - h1,
+            "seconds": time.perf_counter() - t0}
     with open(os.path.join(os.path.dirname(spec_path),
                            f"rank{rank}.json"), "w") as f:
         json.dump(res, f)

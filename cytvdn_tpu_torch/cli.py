@@ -50,13 +50,20 @@ written by ``io/emd.py::write_emd_rows_multihost``, every rank its own
 rows into the one file, or, where the ranks share no filesystem (or
 ``CYTV_NO_SHARED_FS=1``), ``write_emd_rows_gathered``, rank 0 writing the
 rows it receives in slab-sized chunks. ``--shard auto`` (the default there)
-and ``--shard 1`` are one card per process.
+and ``--shard 1`` are one card per process. ``--out-of-core N --shard W``
+splits every slab over W processes, one card each, in a launch of P·W
+processes (``solve_outofcore_multihost(shard_w=W)``): rank r·W + c reads
+only its rows × columns block (the rows of process-row r, column block c
+of N1/W columns), and the output goes through
+``io/emd.py::write_emd_sharded`` (rank 0 writes the gathered cube up to
+4 GiB, else every rank its part). A ``WORLD_SIZE`` that is not a multiple
+of W (one process among them) exits 2 before the input is read::
+
+    torchrun --nproc-per-node 2 -m cytvdn_tpu_torch.cli -i cube.npy \
+        -o out.emd -m 1.0 -n 16 -f 1 --out-of-core 4 --temporal 8 --shard 2
 
 What the port cannot run yet is refused with exit code 2 before the input
-is read, naming its ROADMAP.md item: out-of-core slabs split over several
-cards (``--out-of-core`` with ``--shard N`` > 1 in a launch of several
-processes, or with any ``--shard`` in one process; Queue 1 item 11(b)) and
-``--backend cpp`` (item 13).
+is read, naming its ROADMAP.md item: ``--backend cpp`` (Queue 1 item 13).
 
 ``--lossy-duals`` stores the FISTA shadow duals as bfloat16 (float32
 Jia-Zhao anisotropic FISTA runs; the other combinations exit 2 with
@@ -235,21 +242,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                        "that supplies it)")
     world = _world()
     if args.out_of_core and args.shard:
-        if world == 1:
-            raise _not_ported("--out-of-core with --shard (out-of-core "
-                              "slabs split over several cards, 11(b))", 11)
-        if args.shard != "auto":
-            try:
-                shard_w = int(args.shard)
-            except ValueError:
-                raise CliError(
-                    "--out-of-core does not support --shard (out-of-core "
-                    "takes a device COUNT or 'auto', not a per-axis "
-                    "tiling) (Jia-Zhao anisotropic float32)") from None
-            if shard_w > 1:
-                raise _not_ported(f"--out-of-core with --shard {shard_w} "
-                                  "(out-of-core slabs split over several "
-                                  "cards, 11(b))", 11)
+        w = _ooc_shard(args.shard)
+        if world % w:
+            raise CliError(
+                f"--out-of-core with --shard {w} splits every slab over {w} "
+                f"processes, one card each, but this launch has {world} "
+                f"(WORLD_SIZE), not a multiple of {w}; start {w} (or a "
+                f"multiple): torchrun --nproc-per-node {w} -m "
+                f"cytvdn_tpu_torch.cli ...")
     tiles = None if args.out_of_core else _tiles(args.shard)
     if tiles is not None and math.prod(tiles) != world:
         n = math.prod(tiles)
@@ -300,6 +300,20 @@ def _world() -> int:
     return int(os.environ.get("WORLD_SIZE") or 1)
 
 
+def _ooc_shard(shard: Optional[str]) -> int:
+    """``--shard`` of an out-of-core run: the processes, one card each,
+    that split every slab (``auto``, 0 and 1: one card per process)."""
+    if not shard or shard == "auto":
+        return 1
+    try:
+        return max(int(shard), 1)
+    except ValueError:
+        raise CliError(
+            "--out-of-core does not support --shard (out-of-core takes a "
+            "device COUNT or 'auto', not a per-axis tiling) (Jia-Zhao "
+            "anisotropic float32)") from None
+
+
 def _tiles(shard: Optional[str]) -> Optional[Tuple[int, ...]]:
     """``--shard``'s tile counts, or None for ``auto`` and no flag."""
     if not shard or shard == "auto":
@@ -344,7 +358,10 @@ class Solved:
     from (or None), ``exchange`` the rank's ``MeshComm`` statistics. A
     multi-process out-of-core run gives no ``recon`` and no ``grid``:
     ``block`` is the rank's rows and ``rows`` their range ``(g0, g1,
-    n0)``, which the write step takes as it is."""
+    n0)``, which the write step takes as it is; where its slabs are split
+    over several cards, ``block`` is the rank's rows × columns block,
+    ``slices`` its place, ``cols`` its columns ``(c0, c1, n1)`` and
+    ``column_exchange`` the slab mesh's statistics."""
 
     args: argparse.Namespace
     recon: Optional[np.ndarray]
@@ -359,6 +376,8 @@ class Solved:
     resumed_from: Optional[int] = None
     rows: Optional[Tuple[int, int, int]] = None
     exchange: Optional[Dict[str, float]] = None
+    cols: Optional[Tuple[int, int, int]] = None
+    column_exchange: Optional[Dict[str, float]] = None
 
 
 def _outofcore_mesh(args, shape, ndim, mu, lam, iterations, world, rank,
@@ -375,14 +394,21 @@ def _outofcore_mesh(args, shape, ndim, mu, lam, iterations, world, rank,
         solve_outofcore_multihost,
     )
 
-    g0, g1 = process_row_range(shape[0], world, rank)
+    # a (P, W) grid of the ranks: process-row r's rows, column block c
+    w = _ooc_shard(args.shard)
+    r, c = divmod(rank, w)
+    g0, g1 = process_row_range(shape[0], world // w, r)
+    c0, c1 = c * (shape[1] // w), (c + 1) * (shape[1] // w)
     t0 = time.perf_counter()
     with open_input(args.input) as h:
         local = np.ascontiguousarray(h.read_block(
-            (slice(g0, g1),) + (slice(None),) * (ndim - 1)), dtype=np.float32)
+            (slice(g0, g1), slice(c0, c1)) + (slice(None),) * (ndim - 2)),
+            dtype=np.float32)
     seconds["load"] += time.perf_counter() - t0
-    log(f"multi-process out-of-core: rows [{g0}, {g1}) of {shape[0]}, "
-        f"{world} processes")
+    log(f"multi-process out-of-core: rows [{g0}, {g1}) of {shape[0]}"
+        + (f", columns [{c0}, {c1}) of {shape[1]}" if w > 1 else "")
+        + f", {world} processes"
+        + (f" ({world // w} process-rows of {w})" if w > 1 else ""))
     local, _, _, lambda_inv, lam_mu = _validate_and_derive(
         local, mu, lam, ndim, 32.0 if ndim == 4 else 16.0)
     n_f, n_u = normalize_iterations(iterations, bool(args.fista))
@@ -392,11 +418,10 @@ def _outofcore_mesh(args, shape, ndim, mu, lam, iterations, world, rank,
                       stopping_relative_change=args.stop,
                       lossy_duals=bool(args.lossy_duals)),
         args.out_of_core, max(args.temporal, 1),
-        global_rows=(g0, g1, shape[0]),
-        shard_w=0 if args.shard == "auto" else int(args.shard),
+        global_rows=(g0, g1, shape[0]), shard_w=w,
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every, resume=bool(args.resume),
-        device=distributed_device())
+        device=distributed_device(), global_cols=(c0, c1, shape[1]))
 
 
 def load_and_solve(argv=None) -> Solved:
@@ -506,9 +531,13 @@ def load_and_solve(argv=None) -> Solved:
             rows = (g0, g1, n0)
             recon, b_norm, delta = (None, mesh_out["b_norm"],
                                     mesh_out["delta"])
-            mesh_out.update(
-                block=mesh_out["recon"], gathered=False,
-                slices=(slice(g0, g1),) + (slice(None),) * (ndim - 1))
+            mesh_out.update(block=mesh_out["recon"], gathered=False)
+            if "global_cols" in mesh_out:
+                mesh_out["cols"] = tuple(
+                    int(v) for v in mesh_out["global_cols"])
+            else:
+                mesh_out["slices"] = (slice(g0, g1),) \
+                    + (slice(None),) * (ndim - 1)
         elif args.out_of_core:
             recon, b_norm, delta = denoise_outofcore(
                 data, mu, lam=lam, iterations=iterations,
@@ -544,10 +573,17 @@ def load_and_solve(argv=None) -> Solved:
     seconds["solve"] = time.perf_counter() - t0
     if rows is not None:
         ex = mesh_out["exchange"]
-        log(f"rank {rank}'s rows [{rows[0]}, {rows[1]}): solve "
-            f"{seconds['solve']:.3f}s; band exchanges {ex['exchanges']}, "
+        cx = mesh_out.get("column_exchange")
+        log(f"rank {rank}'s rows [{rows[0]}, {rows[1]})"
+            + (f", columns [{mesh_out['cols'][0]}, {mesh_out['cols'][1]})"
+               if cx else "")
+            + f": solve {seconds['solve']:.3f}s; band exchanges "
+            f"{ex['exchanges']}, "
             f"{ex['exchange_seconds']:.3f}s, {ex['bytes_sent']} bytes sent, "
             f"{ex['bytes_received']} received"
+            + (f"; column exchanges {cx['exchanges']}, "
+               f"{cx['exchange_seconds']:.3f}s, {cx['bytes_sent']} bytes "
+               f"sent, {cx['bytes_received']} received" if cx else "")
             + (f"; resumed from iteration {mesh_out['resumed_from']}"
                if mesh_out["resumed_from"] is not None else ""))
     elif mesh_out:
@@ -574,7 +610,9 @@ def load_and_solve(argv=None) -> Solved:
                   gathered=mesh_out.get("gathered", False),
                   saves=mesh_out.get("saves", []),
                   resumed_from=mesh_out.get("resumed_from"), rows=rows,
-                  exchange=mesh_out.get("exchange"))
+                  exchange=mesh_out.get("exchange"),
+                  cols=mesh_out.get("cols"),
+                  column_exchange=mesh_out.get("column_exchange"))
 
 
 def write_output(run: Solved) -> str:
@@ -583,8 +621,10 @@ def write_output(run: Solved) -> str:
     ``write_emd_sharded``, or every rank's rows of a multi-process
     out-of-core run through ``write_emd_rows_multihost`` (every rank its
     rows into the one file) or, where that finds no filesystem every rank
-    shares, ``write_emd_rows_gathered`` (every rank calls it). Records the
-    seconds in ``run.seconds["write"]``; returns the output's path."""
+    shares, ``write_emd_rows_gathered`` (every rank calls it), or, where
+    its slabs were split over several cards, every rank's rows × columns
+    block through ``write_emd_sharded``. Records the seconds in
+    ``run.seconds["write"]``; returns the output's path."""
     from cytvdn_tpu_torch.io.emd import (
         emd_path,
         write_emd,
@@ -598,6 +638,18 @@ def write_output(run: Solved) -> str:
     how = ""
     if run.block is None:
         out = write_emd(run.args.output, run.recon)
+    elif run.cols is not None:
+        import torch.distributed as dist
+
+        from cytvdn_tpu_torch.parallel.halo import MeshComm
+
+        rank, world = dist.get_rank(), dist.get_world_size()
+        w = _ooc_shard(run.args.shard)
+        comm = MeshComm(dist.group.WORLD, (world // w, w), rank)
+        shape = (run.rows[2], run.cols[2]) + run.block.shape[2:]
+        out = write_emd_sharded(run.args.output, run.block, run.slices,
+                                shape, comm)
+        how = " (every rank its block)"
     elif run.rows is not None:
         import torch.distributed as dist
 

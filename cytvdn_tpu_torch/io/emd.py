@@ -162,7 +162,8 @@ def write_emd_sharded(path: str, block: np.ndarray,
     """Write a cube held as one block per rank of a mesh (``comm``, a
     ``parallel/halo.py::MeshComm``) as one EMD v0.7 output; every rank
     calls it with its ``block`` and the block's ``slices`` of the cube of
-    ``shape``. Returns the output's path on every rank.
+    ``shape`` (the blocks may differ in shape: balanced row ranges).
+    Returns the output's path on every rank.
 
     - ``gathered``: the run has gathered the cube already, into ``recon``
       on rank 0 (``denoise_sharded``'s result and its ``gathered`` flag,
@@ -188,7 +189,7 @@ def write_emd_sharded(path: str, block: np.ndarray,
             if comm.backend == "nccl":
                 # NCCL moves tensors on the card only
                 t = t.cuda()
-            recon = comm.gather_blocks(t, shape)
+            recon = comm.gather_blocks(t, shape, tuple(slices))
         comm.together(lambda: write_emd(path, recon)
                       if comm.rank == 0 else None, failure)
         return emd_path(path)

@@ -239,11 +239,13 @@ def denoise_sharded(
 
     b_norm, delta = to_numpy(out["b_norm"]), to_numpy(out["delta"])
     t2 = time.perf_counter()
+    slices = block_slices(shape, grid, rank_coords(grid, rank))
     result = {
-        "recon": comm.gather_blocks(out["recon"], shape) if gather else None,
+        "recon": (comm.gather_blocks(out["recon"], shape, slices)
+                  if gather else None),
         "gathered": bool(gather),
         "block": to_numpy(out["recon"]),
-        "slices": block_slices(shape, grid, rank_coords(grid, rank)),
+        "slices": slices,
         "grid": grid,
         "b_norm": b_norm,
         "delta": delta,

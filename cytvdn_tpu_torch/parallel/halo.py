@@ -135,10 +135,18 @@ class MeshComm:
     result: calls, bytes sent and received, and the host seconds spent in
     them (staging copies and waits for the other ranks included), and the
     buffers of the pool (``buffers``, ``buffer_bytes``: device bytes).
+
+    ``ranks`` lays the grid over some of the group's ranks: the group rank
+    of each grid position in row-major order, ``rank`` then being this
+    process's position. Such a mesh only exchanges slabs (its sums and
+    gathers would span the whole group, so they raise): it is how an
+    out-of-core run splits each slab over the ranks of one process-row
+    (``solver/outofcore.py::_Cols``).
     """
 
     def __init__(self, group, grid: Sequence[int], rank: int,
-                 bc: BCMode = BCMode.JIA_ZHAO):
+                 bc: BCMode = BCMode.JIA_ZHAO,
+                 ranks: Optional[Sequence[int]] = None):
         self.group = group
         self.grid = tuple(int(w) for w in grid)
         self.rank = int(rank)
@@ -147,6 +155,10 @@ class MeshComm:
         n = int(np.prod(self.grid))
         if not 0 <= self.rank < n:
             raise ValueError(f"rank {rank} outside a grid of {n} shards")
+        self.ranks = None if ranks is None else tuple(int(q) for q in ranks)
+        if self.ranks is not None and len(self.ranks) != n:
+            raise ValueError(f"{len(self.ranks)} ranks for a grid of {n} "
+                             f"shards")
         self.coords = tuple(int(c) for c in np.unravel_index(self.rank,
                                                              self.grid))
         self.world = n
@@ -188,7 +200,13 @@ class MeshComm:
             c[ax] %= self.grid[ax]
         if not 0 <= c[ax] < self.grid[ax]:
             return None
-        return int(np.ravel_multi_index(tuple(c), self.grid))
+        pos = int(np.ravel_multi_index(tuple(c), self.grid))
+        return pos if self.ranks is None else self.ranks[pos]
+
+    def _whole_group(self, what: str) -> None:
+        if self.ranks is not None:
+            raise RuntimeError(f"{what} on a mesh over part of its group: "
+                               f"it exchanges slabs only")
 
     # -- the buffer pool ---------------------------------------------------
 
@@ -321,6 +339,7 @@ class MeshComm:
     # -- sums --------------------------------------------------------------
 
     def _gather(self, x: Tensor) -> List[Tensor]:
+        self._whole_group("a collective")
         flat = x.detach().reshape(-1).to(torch.float64)
         if self.backend == "nccl":
             flat = flat.to(x.device)
@@ -379,11 +398,17 @@ class MeshComm:
             return torch.device("cuda", torch.cuda.current_device())
         return torch.device("cpu")
 
-    def gather_blocks(self, block: Tensor,
-                      shape: Sequence[int]) -> Optional[np.ndarray]:
-        """Every rank's ``block`` of an evenly tiled cube of ``shape``, put
-        together as one numpy array on rank 0; None on the other ranks."""
+    def gather_blocks(self, block: Tensor, shape: Sequence[int],
+                      slices: Sequence[slice]) -> Optional[np.ndarray]:
+        """Every rank's ``block`` of a cube of ``shape``, put together as
+        one numpy array on rank 0; None on the other ranks. Each rank gives
+        its block's ``slices`` in the cube (blocks may differ in shape:
+        balanced row ranges)."""
+        self._whole_group("a gather")
         t0 = time.perf_counter()
+        bounds = self.gather_values(
+            [v for s in slices for v in (s.start, s.stop)]).astype(
+                np.int64).reshape(self.world, -1, 2)
         nbytes = block.numel() * block.element_size()
         if self.rank != 0:
             self.group.send([self._wire(block)], 0, _TAG_GATHER).wait()
@@ -393,18 +418,19 @@ class MeshComm:
         out = np.empty(tuple(shape),
                        torch.empty(0, dtype=block.dtype).numpy().dtype)
         for r in range(self.world):
+            sl = tuple(slice(int(a), int(b)) for a, b in bounds[r])
             if r == 0:
                 got = block
             else:
-                got = torch.empty(block.shape, dtype=block.dtype,
+                like = tuple(s.stop - s.start for s in sl)
+                got = torch.empty(like, dtype=block.dtype,
                                   pin_memory=block.device.type == "cuda"
                                   and self.backend != "nccl")
                 if self.backend == "nccl":
-                    got = torch.empty_like(block)
+                    got = torch.empty(like, dtype=block.dtype,
+                                      device=block.device)
                 self.group.recv([got], r, _TAG_GATHER).wait()
-                self.stats["gather_bytes"] += nbytes
-            sl = tuple(slice(c * n, (c + 1) * n) for c, n in zip(
-                np.unravel_index(r, self.grid), block.shape))
+                self.stats["gather_bytes"] += got.numel() * got.element_size()
             out[sl] = got.cpu().numpy()
         self.stats["gather_seconds"] += time.perf_counter() - t0
         return out
@@ -415,6 +441,7 @@ class MeshComm:
         dtype; a rank not in it sends nothing), by rank in ``senders``'
         order, on rank 0; None on the other ranks. Every rank makes the
         call with the same ``senders``."""
+        self._whole_group("a gather")
         t0 = time.perf_counter()
         nbytes = piece.numel() * piece.element_size()
         if self.rank != 0:

@@ -65,12 +65,25 @@ the same stop decision; each process writes its own checkpoint part
 (``path.ooc<p>``) in the JAX package's format. The stitched recon is
 bitwise the in-core run.
 
-Not here (ROADMAP.md Queue 1 item 11(b)): slabs split over several cards
-(``shard_w`` > 1, ``devices``).
+Slabs split over several cards (:func:`solve_outofcore_sharded_temporal`,
+``solve_outofcore_multihost(shard_w=W)``, ``denoise_outofcore(shard_w=W)``):
+a group of P·W processes, one card each, forms a (P, W) grid in row-major
+order. Process-row r owns the axis-0 rows ``process_row_range(n0, P, r)``,
+and each of its W ranks one axis-1 column block of N1/W columns, of which
+alone it holds the host state. The ranks of a process-row sweep the same
+slabs, each its columns of every slab, and advance them together
+(:class:`_Cols`): the pairs take the pair kernel's axis-1 bands
+(``HALO1``) and the K=1 launches their operand halos (``HALO``) from the
+neighbouring columns, while the unsplit axis 0 keeps the slab's own edges.
+The K-row band exchange runs between the P ranks of each column; the sums
+are added over all P·W ranks. The stitched blocks are bitwise the in-core
+run.
 """
 
 from __future__ import annotations
 
+import gc
+import os
 import time
 import warnings
 from typing import Dict, List, Optional, Tuple
@@ -83,14 +96,18 @@ from cytvdn_tpu_torch.api import _validate_and_derive
 from cytvdn_tpu_torch.config import (
     BCMode,
     SolverOptions,
-    _not_ported,
     normalize_iterations,
 )
 from cytvdn_tpu_torch.kernels import build
 from cytvdn_tpu_torch.kernels.fused import fused_iteration, fused_supported
 from cytvdn_tpu_torch.kernels.temporal import fused_pair_iteration, pair_supported
 from cytvdn_tpu_torch.parallel.halo import MeshComm
-from cytvdn_tpu_torch.solver.engine import d_dtype, fista_tk_ratios
+from cytvdn_tpu_torch.solver.engine import (
+    _k1_halos,
+    _pair_bands,
+    d_dtype,
+    fista_tk_ratios,
+)
 
 Tensor = torch.Tensor
 
@@ -422,10 +439,14 @@ class _Run:
     :class:`_Procs`) makes it one process's part of a multi-process run:
     its host arrays carry ghost rows, each sweep starts with the band
     exchange, the sums are added across the processes, and the checkpoint
-    is this process's part."""
+    is this process's part. ``cols`` (a :class:`_Cols`) makes ``orig``
+    the process's column block: the part's meta records it, and a resume
+    that finds no part cuts the block from a one-file checkpoint of the
+    whole cube (:meth:`_Cols.one_file`)."""
 
     def __init__(self, orig, opts, reference, checkpoint_path,
-                 checkpoint_every, resume, mode: str, device, procs=None):
+                 checkpoint_every, resume, mode: str, device, procs=None,
+                 cols=None):
         n_total = opts.total_iterations
         self.opts, self.reference, self.procs = opts, reference, procs
         pad = (procs.tg, procs.bg) if procs else (0, 0)
@@ -447,17 +468,23 @@ class _Run:
         if with_mse:
             sse0 = _host_sse(orig, reference)
             self.mse[0] = procs.sums([sse0])[0] if procs else sse0
-        meta = None
+        meta, fallback = None, None
         if checkpoint_path:
             meta = _ckpt_meta(opts, orig.shape, mode)
+            if cols:
+                fallback = cols.one_file(checkpoint_path, resume, opts, mode,
+                                         procs, orig.shape)
             if procs:
                 checkpoint_path = f"{checkpoint_path}.ooc{procs.pid}"
                 meta.update(proc=procs.pid, nproc=procs.nproc,
                             grows=[procs.g0, procs.g1, procs.n0])
+            if cols:
+                meta["gcols"] = [cols.c0, cols.c1, cols.n1]
         self.start, self.resumed_stop, self.resumed = 0, False, False
         if checkpoint_path:
             try:
-                st = (procs.resume if procs else _ckpt_resume)(
+                st = procs.resume(checkpoint_path, resume, meta, orig.shape,
+                                  fallback) if procs else _ckpt_resume(
                     checkpoint_path, resume, meta, orig.shape)
             except BaseException:
                 host.close()
@@ -469,6 +496,7 @@ class _Run:
                     [a.numpy() for a in host.accs], host.ds, self.b_norm,
                     self.delta, self.mse)
         self.save = self._saver(checkpoint_path, checkpoint_every, meta)
+        self.cols = cols
         last_run["sweeps"] = 0.0
         last_run["sweep_seconds"] = 0.0
 
@@ -532,7 +560,7 @@ class _Run:
 
         def sweep(fista, t, count):
             t0 = time.perf_counter()
-            if procs:
+            if procs and procs.rows > 1:
                 # the bands are the pre-sweep state: every write-back of
                 # the last sweep has landed (drained), none of this one
                 # is queued yet, and the exchange returns only once both
@@ -543,12 +571,16 @@ class _Run:
             sums = []
             ready = load(0, fista)
             for si in range(n):
+                # slab si+1's copies are queued before slab si's kernels:
+                # on the copy stream this is the order of one copy after
+                # the other, and where queueing the kernels waits on the
+                # host (a column split's exchanges) the copies are
+                # already under way
+                nxt = load(si + 1, fista) if si + 1 < n else None
                 pipe.compute_after(ready)
                 sums.append(compute(si, fista, t, count))
-                done = pipe.computed()
-                if si + 1 < n:
-                    ready = load(si + 1, fista)
-                store(si, fista, done)
+                store(si, fista, pipe.computed())
+                ready = nxt
             pipe.drain()
             bn = dn = dd = 0.0
             for s in torch.stack(sums).cpu().tolist():
@@ -583,6 +615,12 @@ class _Run:
                                             np.int64)
             out["exchange"] = dict(procs.comm.stats)
             out["resumed_from"] = self.start if self.resumed else None
+        if self.cols:
+            c = self.cols
+            out["global_cols"] = np.asarray([c.c0, c.c1, c.n1], np.int64)
+            out["slices"] = (slice(procs.g0, procs.g1), slice(c.c0, c.c1)) \
+                + tuple(slice(0, e) for e in out["recon"].shape[2:])
+            out["column_exchange"] = dict(c.comm.stats)
         return out
 
 
@@ -764,14 +802,16 @@ def solve_outofcore_temporal(
 
 def _run_temporal(orig, lambda_inv, lam_mu, opts, ext, K, reference,
                   checkpoint_path, checkpoint_every, resume, mode, device,
-                  procs=None):
+                  procs=None, cols=None):
     """The temporal-mode pipeline over the slabs ``ext`` (``_extents``) of
     the host arrays, K iterations per residency; with ``procs``, one
-    process's part of a multi-process run."""
+    process's part of a multi-process run; with ``cols``, ``orig`` is its
+    column block, and each slab's launches take their axis-1 bands and
+    halos from the process-row's other ranks."""
     ndim, tail = opts.ndim, orig.shape[1:]
     fista_run = opts.iterations_fista > 0
 
-    def alloc():
+    def alloc(pairs=True):
         scalars = _scalars(lambda_inv, lam_mu, opts.iterations_fista, device)
         rows = max(hi - lo for lo, hi, _, _ in ext)
         slabs = _Slabs(rows, tail, ndim, fista_run, device, halos=False,
@@ -779,13 +819,24 @@ def _run_temporal(orig, lambda_inv, lam_mu, opts, ext, K, reference,
         # the K-1st recon of a chunk, for the last iteration's delta
         r_prev = torch.empty((rows,) + tail, dtype=torch.float32,
                              device=device)
+        if cols is not None:
+            # one slab of each extended-slab shape (first, interior, last
+            # slabs differ by their margins) for the pool's reservation
+            views = {hi - lo: slabs.arrays(0, hi - lo, fista_run, ndim)
+                     for lo, hi, _, _ in ext}
+            cols.reserve(opts, list(views.values()), pairs)
         return scalars, slabs, r_prev
 
-    (li, lm, rhos), slabs, r_prev = alloc() if procs is None else \
-        procs.comm.together(alloc, "could not allocate its slab buffers",
-                            RuntimeError)
+    if procs is None:
+        got = alloc()
+    elif cols is None:
+        got = procs.comm.together(alloc, "could not allocate its slab "
+                                  "buffers", RuntimeError)
+    else:
+        got = cols.prepare(alloc, procs.comm)
+    (li, lm, rhos), slabs, r_prev = got
     run = _Run(orig, opts, reference, checkpoint_path, checkpoint_every,
-               resume, mode, device, procs)
+               resume, mode, device, procs, cols)
     host = run.host
     # the global row of the host arrays' row 0
     row0 = procs.g0 - procs.tg if procs else 0
@@ -812,7 +863,10 @@ def _run_temporal(orig, lambda_inv, lam_mu, opts, ext, K, reference,
     def compute(si, fista, t, count):
         """``count`` iterations on the resident extended slab: pairs for
         the bulk, the last one or two as K=1 launches; returns the core's
-        (bnorm, delta numerator, delta denominator) after the last."""
+        (bnorm, delta numerator, delta denominator) after the last. On a
+        column split the pairs are ``HALO1`` launches with the slab's
+        axis-1 bands, the K=1 launches ``HALO`` launches with its operand
+        halos, both from the neighbouring columns' pre-update state."""
         lo, hi, a0, a1 = ext[si]
         o, r, accs, ds = slabs.arrays(si, hi - lo, fista, ndim)
 
@@ -820,16 +874,24 @@ def _run_temporal(orig, lambda_inv, lam_mu, opts, ext, K, reference,
             return rhos[t + j] if fista else None
 
         n_pairs = max((count - 1) // 2, 0)
-        if not pair_supported(tuple(o.shape), o.dtype, BCMode.JIA_ZHAO):
+        if not pair_supported(tuple(o.shape), o.dtype, BCMode.JIA_ZHAO) \
+                or (cols is not None and not cols.pairs):
             n_pairs = 0
+        bands = _pair_bands(cols.comm, o, 1) if cols and n_pairs else None
         for p in range(n_pairs):
             fused_pair_iteration(o, r, accs, ds, rho(2 * p), rho(2 * p + 1),
-                                 li, lm, fista=fista)
+                                 li, lm, fista=fista,
+                                 **(bands(r, accs, ds) if bands else {}))
         rp = r_prev[:hi - lo]
         for j in range(2 * n_pairs, count):
             if j == count - 1:
                 rp.copy_(r)
-            fused_iteration(o, r, accs, ds, rho(j), li, lm, fista=fista)
+            kw = {}
+            if cols is not None:
+                halos, _, scratch = _k1_halos(cols.comm, opts, r, accs, ds)
+                kw = dict(halos=halos, scratch=scratch)
+            fused_iteration(o, r, accs, ds, rho(j), li, lm, fista=fista,
+                            **kw)
         off, clen = a0 - lo, a1 - a0
         bn = torch.zeros((), dtype=torch.float32, device=device)
         for a in accs:
@@ -864,19 +926,24 @@ class _Procs:
     """One process's side of a multi-process out-of-core run: its rows
     ``[g0, g1)`` of ``n0``, its ghost rows (K before the own rows unless
     they start the cube, K after unless they end it), and the
-    ``MeshComm`` over the group, on a grid ``(nproc, 1, ...)``.
+    ``MeshComm`` over the group, on a grid ``(P, W, 1, ...)``: P
+    process-rows of W ranks (W = 1 without a column split).
 
     The band exchange goes through ``MeshComm.exchange_pieces`` on axis 0,
-    each array's head K rows to the -1 neighbour and its tail K rows to the
-    +1 neighbour, all arrays in one message each way (bfloat16 duals widened
-    to float32 in the message; narrowed back exactly, since they come off
-    the bfloat16 grid). Under gloo the host rows are the message's pieces;
-    under NCCL they are staged through a device buffer. Every buffer is
-    reserved (:meth:`reserve`) before the run's first collective."""
+    between the P ranks of this rank's column, each array's head K rows to
+    the -1 neighbour and its tail K rows to the +1 neighbour, all arrays in
+    one message each way (bfloat16 duals widened to float32 in the
+    message; narrowed back exactly, since they come off the bfloat16
+    grid). Under gloo the host rows are the message's pieces; under NCCL
+    they are staged through a device buffer. Every buffer is reserved
+    (:meth:`reserve`) before the run's first collective. The group's
+    collectives (the sums, the votes, ``together``) span all P·W ranks."""
 
     def __init__(self, comm: MeshComm, grows, k: int, device):
         self.comm = comm
         self.pid, self.nproc = comm.rank, comm.world
+        #: the process-rows, between which the bands go
+        self.rows = comm.size(0)
         self.g0, self.g1, self.n0 = (int(v) for v in grows)
         self.k = k
         self.tg = k if self.g0 > 0 else 0
@@ -913,7 +980,7 @@ class _Procs:
     def exchange(self, arrays, name) -> None:
         """Refresh the ghost rows of the host ``arrays`` from the
         neighbours' bands (their rows next to this process's)."""
-        if self.nproc == 1:
+        if self.rows == 1:
             return
         to_next, to_prev = self._pieces(arrays, name)
         from_prev, from_next = self.comm.exchange_pieces(
@@ -930,7 +997,7 @@ class _Procs:
         """Allocate the buffers of both exchanges (orig once; recon, the
         accumulators and the shadow duals, of ``dtypes``, each sweep),
         then seal the pool."""
-        if self.nproc == 1:
+        if self.rows == 1:
             return
         shape = (self.tg + self.m + self.bg,) + tuple(rest)
 
@@ -946,20 +1013,20 @@ class _Procs:
                                           name=name)
         self.comm.sealed = True
 
-    def resume(self, path, resume, meta, shape):
-        """This process's part, read and agreed on by every process: a
-        part that cannot be read fails every process; a meta mismatch on
-        any process is every process's ``ValueError``; parts of different
-        generations (or some missing) make every process warn and start
-        afresh. Returns the part's state, or None."""
-        def read():
+    def _agree(self, read, what):
+        """``read()`` (a state, None, or a ``ValueError`` raised) on every
+        process, then one vote: any refusal is every process's
+        ``ValueError``; where every process read a state of one
+        iteration, the state; where some read one and others none or
+        another iteration, every process warns and gets None."""
+        def step():
             try:
-                return _ckpt_resume(path, resume, meta, shape), None
+                return read(), None
             except ValueError as e:
                 return None, e
 
         st, err = self.comm.together(
-            read, "could not read its out-of-core checkpoint part",
+            step, f"could not read its out-of-core checkpoint {what}",
             ValueError)
         votes = self.comm.gather_values([
             2 if err is not None else (1 if st is not None else 0),
@@ -977,8 +1044,142 @@ class _Procs:
             warnings.warn(
                 "multihost out-of-core checkpoint parts disagree or are "
                 "incomplete — discarding and restarting fresh",
-                stacklevel=4)
+                stacklevel=5)
         return None
+
+    def resume(self, path, resume, meta, shape, fallback=None):
+        """This process's part, read and agreed on by every process: a
+        part that cannot be read fails every process; a meta mismatch on
+        any process is every process's ``ValueError``; parts of different
+        generations (or some missing) make every process warn and start
+        afresh. Where no process has a part, ``fallback()`` (each
+        process's cut of a one-file checkpoint, or None) is agreed on the
+        same way. Returns the state, or None."""
+        def part():
+            return _ckpt_resume(path, resume, meta, shape)
+
+        if fallback is None or self.comm.allmax(
+                int(resume and os.path.exists(path))):
+            return self._agree(part, "part")
+        return self._agree(fallback, "file")
+
+
+class _Cols:
+    """One rank's side of a slab split over several cards: its column
+    block ``[c0, c1)`` of the ``n1`` columns of every slab, and a
+    ``MeshComm`` over the W ranks of its process-row r on the grid
+    ``(1, W, 1, ...)`` (``ranks=``: the group's ranks r·W to r·W + W - 1).
+    Through it each resident slab's pairs take their axis-1 bands
+    (``engine._pair_bands``, the pair kernel's ``HALO1`` launch) and its
+    K=1 launches their operand halos (``engine._k1_halos``, the ``HALO``
+    launch, where the unsplit axis 0 gets the Jia-Zhao edge values: the
+    slab's own edges, as in one process). Its pool holds every buffer of
+    those exchanges, reserved for each extended-slab shape before the
+    run's first exchange and sealed; ``pairs`` goes off at the memory
+    ladder's rung (:meth:`prepare`)."""
+
+    def __init__(self, group, w: int, r: int, c: int, n1: int, ndim: int):
+        width = n1 // w
+        self.w, self.n1 = w, n1
+        self.c0, self.c1 = c * width, (c + 1) * width
+        self.comm = MeshComm(group, (1, w) + (1,) * (ndim - 2), c,
+                             ranks=[r * w + j for j in range(w)])
+        self.pairs = True
+
+    def reserve(self, opts: SolverOptions, views, pairs: bool) -> None:
+        """Allocate, without communicating, every pool buffer the launches
+        on the slabs ``views`` (one ``(orig, recon, accs, ds)`` of each
+        extended-slab shape) take, for each phase's shadow duals (those of
+        the FISTA phase, none in the unaccelerated one), then seal the
+        pool."""
+        n_f, n_u = opts.iterations_fista, opts.iterations_unacc
+        with self.comm.reserving():
+            for o, r, accs, ds in views:
+                for d in ([ds] if n_f else []) + ([None] if n_u else []):
+                    _k1_halos(self.comm, opts, r, accs, d)
+                    if pairs:
+                        _pair_bands(self.comm, o, 1)(r, accs, d)
+        self.comm.sealed = True
+
+    def prepare(self, alloc, comm: MeshComm):
+        """``alloc(pairs)`` on every rank, with the memory ladder's rung
+        of ``parallel/sharded.py::run_sharded``: one collective of the
+        whole group (``comm``) says whether any rank ran out of device
+        memory; then every rank frees what it holds and, once, warns and
+        retries with the pairs off (K=1 ``HALO`` launches only, which hold
+        no pair bands), or raises where they were off already. It comes
+        before the run's first exchange."""
+        pairs = True
+        while True:
+            def attempt():
+                try:
+                    return alloc(pairs), None
+                except torch.OutOfMemoryError as e:
+                    return None, f"{type(e).__name__}: {e}"
+
+            got, oom = comm.together(attempt, "could not allocate its "
+                                     "slab buffers", RuntimeError)
+            if not comm.allmax(int(oom is not None)):
+                self.pairs = pairs
+                return got
+            got = None  # this rank's attempt, freed before the retry
+            self.comm.release()
+            gc.collect()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+            if not pairs:
+                raise torch.OutOfMemoryError(
+                    oom or f"rank {comm.rank}: another rank ran out of "
+                           f"device memory allocating its slab buffers")
+            warnings.warn(
+                f"device memory exhausted on a rank of the out-of-core "
+                f"run while allocating its slab buffers "
+                f"({oom or 'on another rank'}); all ranks retry with "
+                f"temporal_pairs=False (K=1 launches only, which hold less "
+                f"device memory — results are identical, throughput "
+                f"lower)", stacklevel=4)
+            pairs = False
+
+    def one_file(self, path, resume, opts, mode, procs, shape):
+        """The resume that finds no part: this rank's block cut from a
+        one-file checkpoint of the whole cube at ``path`` (the JAX
+        package's ``solve_outofcore_sharded_temporal`` writes one, mode
+        ``sharded_temporal{K}``), or None. Each rank reads only its
+        block's bytes of the file."""
+        from cytvdn_tpu_torch.utils.checkpoint import (
+            _meta_check,
+            load_state_block,
+        )
+
+        whole = (procs.n0, self.n1) + tuple(shape[2:])
+        meta = _ckpt_meta(opts, whole,
+                          "sharded_temporal" + mode.rsplit("temporal", 1)[1])
+
+        def read():
+            if not (resume and os.path.exists(path)):
+                return None
+            return load_state_block(
+                path, (slice(procs.g0, procs.g1), slice(self.c0, self.c1)),
+                check=_meta_check(meta, whole))
+
+        return read
+
+
+def _default_group(group, name: str):
+    if group is not None:
+        return group
+    if not dist.is_initialized():
+        raise ValueError(f"{name} needs a process group: call "
+                         f"init_distributed() first, or pass group=")
+    return dist.group.WORLD
+
+
+def _column_block(a: Optional[np.ndarray], c0: int, c1: int, given: bool):
+    """A full-width array's column block (a contiguous copy), or ``a``
+    itself where the caller gave the block."""
+    if a is None or given:
+        return a
+    return np.ascontiguousarray(a[:, c0:c1])
 
 
 def solve_outofcore_multihost(
@@ -998,6 +1199,7 @@ def solve_outofcore_multihost(
     *,
     device=None,
     group=None,
+    global_cols: Optional[Tuple[int, int, int]] = None,
 ) -> Dict[str, np.ndarray]:
     """Multi-process out-of-core solve: each process of ``group`` (default:
     the group of ``init_distributed``) runs its own axis-0 row range of the
@@ -1021,51 +1223,104 @@ def solve_outofcore_multihost(
     (zeros between) and takes the same stop decision. ``opts.lossy_duals``:
     bfloat16 shadow duals on the host and in the slabs.
 
-    ``shard_w`` of 0 or 1 is one card per process: ``device``, or the one
-    device of ``devices``, else the rank's card. Checkpoints: each process
-    saves its own part, ``checkpoint_path.ooc<p>``, in the JAX package's
-    format, and the processes agree on a resume in one collective; parts
-    of different generations make every process warn and start afresh.
+    ``shard_w`` of 0 takes W = ``len(devices)`` as the JAX package does,
+    and W = 1 without ``devices``. W = 1 is one card per process:
+    ``device``, or the one device of ``devices``, else the rank's card.
+    ``shard_w`` = W > 1 splits
+    every slab over W processes, one card each (the JAX package's local
+    devices): the group's P·W ranks form a (P, W) grid in row-major order,
+    the W ranks of process-row r (ranks r·W to r·W + W - 1) all hold its
+    rows, ``orig_local`` at full width, and rank r·W + c keeps only
+    column block c of N1/W columns (N1/W ≥ 2), or, with the port-only
+    ``global_cols = (c0, c1, n1)``, ``orig_local`` (and
+    ``reference_local``) is that block alone; rank c of a row takes
+    ``devices[c]`` where ``devices`` holds W devices. The band exchange
+    then goes between the ranks of a column, and each slab's launches take
+    their axis-1 bands and halos from the row's other ranks (``HALO1``
+    pairs, ``HALO`` K=1 launches).
+
+    Checkpoints: each process saves its own part,
+    ``checkpoint_path.ooc<p>``, in the JAX package's format (with the
+    column split its meta's ``gcols`` gives the block, and the mode is
+    ``sharded_temporal{K}`` where P = 1), and the processes agree on a
+    resume in one collective; parts of different generations make every
+    process warn and start afresh. With the column split, where no process
+    finds a part, each cuts its block from a one-file ``sharded_temporal{K}``
+    checkpoint at ``checkpoint_path`` (the JAX package's
+    :func:`solve_outofcore_sharded_temporal` writes one).
 
     Every refusal and every failure of one process (a range that does not
-    tile, a wrong row count, a margin deeper than a slab, a part that
-    cannot be read or saved) raises on every process. Returns this
-    process's ``recon`` rows, the traces, ``iterations_run``,
-    ``early_stopped``, ``global_rows``, ``exchange`` (the ``MeshComm``
-    statistics), ``resumed_from`` (the iteration of the checkpoint it
-    resumed from, or None) [and ``mse``].
+    tile, a wrong row count, an axis 1 that does not split, a margin deeper
+    than a slab, a part that cannot be read or saved) raises on every
+    process. Returns this process's ``recon`` rows (its block), the traces,
+    ``iterations_run``, ``early_stopped``, ``global_rows``, ``exchange``
+    (the band exchange's ``MeshComm`` statistics), ``resumed_from`` (the
+    iteration of the checkpoint it resumed from, or None) [and ``mse``];
+    with the column split also ``global_cols``, ``slices`` (the block's
+    place in the cube) and ``column_exchange`` (the slab mesh's
+    statistics).
     """
-    from cytvdn_tpu_torch.parallel.api import _rank_device
-
     if opts.bc_mode != BCMode.JIA_ZHAO or opts.isotropic_R \
             or opts.isotropic_Q:
         raise ValueError("out-of-core mode covers Jia-Zhao anisotropic runs")
-    if shard_w not in (0, 1) or (devices is not None and len(devices) != 1):
-        raise _not_ported("out-of-core slabs sharded over several devices "
-                          "(shard_w, devices)", "Queue 1 item 11")
+    group = _default_group(group, "solve_outofcore_multihost")
+    w = int(shard_w)
+    if w <= 0:
+        # as the JAX package: one column block per device given
+        w = len(devices) if devices is not None else 1
+    w = max(w, 1)
+    return _solve_grid(orig_local, lambda_inv, lam_mu, opts, n_slabs,
+                       max(int(temporal_k), 1), global_rows, w, devices,
+                       reference_local, checkpoint_path, checkpoint_every,
+                       resume, device, group, global_cols, sharded=False)
+
+
+def _solve_grid(orig_local, lambda_inv, lam_mu, opts, n_slabs, K,
+                global_rows, w, devices, reference_local, checkpoint_path,
+                checkpoint_every, resume, device, group, global_cols,
+                sharded: bool):
+    """The run of :func:`solve_outofcore_multihost` and
+    :func:`solve_outofcore_sharded_temporal` on a (P, W) grid of the
+    group's ranks: validation in one collective, then the temporal
+    pipeline with the band exchange (P > 1) and the column split
+    (W > 1)."""
+    from cytvdn_tpu_torch.parallel.api import _rank_device
+
+    size, rank = group.size(), group.rank()
+    if size % w:
+        raise ValueError(f"a group of {size} processes does not form "
+                         f"process-rows of shard_w={w} (one card each)")
+    if devices is not None and len(devices) not in (1, w):
+        raise ValueError(f"devices holds {len(devices)} devices; a slab split "
+                         f"over shard_w={w} processes takes one per process "
+                         f"(rank c of a process-row takes devices[c]) or one")
+    p_rows = size // w
+    r, c = divmod(rank, w)
     if devices is not None and device is None:
-        device = devices[0]
-    if group is None:
-        if not dist.is_initialized():
-            raise ValueError("solve_outofcore_multihost needs a process "
-                             "group: call init_distributed() first, or pass "
-                             "group=")
-        group = dist.group.WORLD
+        device = devices[c if len(devices) == w else 0]
     device = _rank_device(device)
     ndim = opts.ndim
-    comm = MeshComm(group, (group.size(),) + (1,) * (ndim - 1), group.rank())
+    comm = MeshComm(group, (p_rows, w) + (1,) * (ndim - 2), rank)
     orig_local = np.ascontiguousarray(orig_local)
-    K = max(int(temporal_k), 1)
+    given = global_cols is not None
+    n1 = int(global_cols[2]) if given else int(orig_local.shape[1])
+    width = n1 // w
+    c0, c1 = c * width, (c + 1) * width
+    block_ok = not given or (
+        (int(global_cols[0]), int(global_cols[1])) == (c0, c1)
+        and orig_local.shape[1] == c1 - c0)
+    cols_ok = n1 % w == 0 and (w == 1 or width >= 2) and block_ok
     procs = _Procs(comm, global_rows, K, device)
-    m, rest = procs.m, orig_local.shape[1:]
+    m = procs.m
+    rest = (c1 - c0,) + tuple(orig_local.shape[2:])
     bounds = _slab_bounds(m, n_slabs)
     min_core = min(b - a for a, b in bounds)
     ok = (orig_local.dtype == np.float32 and orig_local.shape[0] == m
-          and K <= min_core and K <= m)
+          and K <= min_core and K <= m and cols_ok)
     # this process's refusal or failure that only it can see: it rides the
     # validation collective, so that every process raises
     local_err = None
-    ext = []
+    ext, cols = [], None
     if ok:
         try:
             ext = _extents(bounds, K, procs.tg, procs.tg + m + procs.bg)
@@ -1073,11 +1328,13 @@ def solve_outofcore_multihost(
             d_dt = d_dtype(opts, torch.float32)
             procs.reserve(rest, [torch.float32] * (1 + ndim)
                           + ([d_dt] * ndim if opts.iterations_fista else []))
+            if w > 1:
+                cols = _Cols(group, w, r, c, n1, ndim)
         except Exception as e:
             local_err = e
     votes = comm.gather_values([procs.g0, procs.g1, orig_local.shape[0],
                                 orig_local.dtype == np.float32,
-                                local_err is not None])
+                                local_err is not None, n1, block_ok])
     g = votes.astype(np.int64)
     if not g[:, 3].all():
         raise ValueError("out-of-core mode requires float32 data")
@@ -1085,9 +1342,17 @@ def solve_outofcore_multihost(
         if g[q, 2] != g[q, 1] - g[q, 0]:
             raise ValueError(f"orig_local has {g[q, 2]} rows; global_rows "
                              f"declares {g[q, 1] - g[q, 0]}")
-    ranges = g[:, :2].tolist()
-    expect = 0
+    # the process-rows' ranges, from the first rank of each; every rank of
+    # a row declares its range
+    ranges = g[::w, :2].tolist()
     for q in range(procs.nproc):
+        if g[q, :2].tolist() != ranges[q // w]:
+            raise ValueError(
+                f"process {q} declares rows {g[q, :2].tolist()}, the first "
+                f"process of its process-row {ranges[q // w]}: the "
+                f"shard_w={w} processes of a row hold the same rows")
+    expect = 0
+    for q in range(p_rows):
         if ranges[q][0] != expect:
             raise ValueError(f"process ranges {ranges} do not tile "
                              f"[0, {procs.n0}) in process order")
@@ -1096,6 +1361,19 @@ def solve_outofcore_multihost(
         raise ValueError(f"process ranges {ranges} do not cover "
                          f"[0, {procs.n0})")
     for q in range(procs.nproc):
+        nq = int(g[q, 5])
+        if nq % w:
+            raise ValueError(f"axis-1 extent {nq} not divisible by {w} "
+                             f"devices")
+        if w > 1 and nq // w < 2:
+            raise ValueError(f"axis-1 extent {nq} over {w} devices leaves "
+                             f"{nq // w} column per device; the pair "
+                             f"kernel's axis-1 bands need 2")
+        if not g[q, 6]:
+            raise ValueError(f"process {q}'s global_cols is not column "
+                             f"block {q % w} of {nq // w} columns of its "
+                             f"orig_local")
+    for q in range(p_rows):
         mq = ranges[q][1] - ranges[q][0]
         core_q = min(b - a for a, b in _slab_bounds(mq, n_slabs))
         if K > core_q or K > mq:
@@ -1109,9 +1387,106 @@ def solve_outofcore_multihost(
             raise local_err
         raise RuntimeError(f"processes {failed} could not prepare their "
                            f"out-of-core run (see their errors)")
-    return _run_temporal(orig_local, lambda_inv, lam_mu, opts, ext, K,
-                         reference_local, checkpoint_path, checkpoint_every,
-                         resume, f"multihost_temporal{K}", device, procs)
+    mode = "sharded" if p_rows == 1 and (w > 1 or sharded) else "multihost"
+    return _run_temporal(
+        _column_block(orig_local, c0, c1, given or w == 1), lambda_inv,
+        lam_mu, opts, ext, K,
+        _column_block(reference_local, c0, c1, given or w == 1),
+        checkpoint_path, checkpoint_every, resume, f"{mode}_temporal{K}",
+        device, procs, cols)
+
+
+def solve_outofcore_sharded_temporal(
+    orig: np.ndarray,
+    lambda_inv: np.ndarray,
+    lam_mu: np.ndarray,
+    opts: SolverOptions,
+    n_slabs: int,
+    temporal_k: int,
+    shard_w: int = 0,
+    devices=None,
+    reference: Optional[np.ndarray] = None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
+    *,
+    device=None,
+    group=None,
+) -> Dict[str, np.ndarray]:
+    """Out-of-core solve with each resident slab split over several cards
+    on axis 1: the BASELINE config-5 deployment shape (512²×256², ~640 GiB
+    of FISTA state, fits no set of cards, so the host streams slabs while
+    its cards split each slab), as ``cytvdn_tpu``'s
+    ``solve_outofcore_sharded_temporal``.
+
+    The JAX package drives the local devices of one process; here each
+    card is a process of ``group`` (default: the group of
+    ``init_distributed``), and every one calls this with the same
+    arguments and the same whole ``orig``. ``shard_w`` is the group's size
+    (0: take it). Rank c keeps only column block c of the host state
+    (N1/W columns, N1/W ≥ 2) on ``devices[c]`` where ``devices`` holds W
+    devices (one device: that one; none: ``device``, else the rank's
+    card), sweeps the axis-0 slabs with ``temporal_k``-row margins as
+    :func:`solve_outofcore_temporal` does, and advances its columns of
+    each slab in ``HALO1`` pairs and ``HALO`` K=1 launches with the other
+    ranks' axis-1 bands (the P = 1 case of
+    ``solve_outofcore_multihost(shard_w=W)``). Traces, the stop and the
+    MSE are those of the temporal mode, the same on every rank; where a
+    rank runs out of device memory allocating its slabs, every rank warns
+    and runs K=1 launches only. Checkpoints are parts, one per rank
+    (``checkpoint_path.ooc<rank>``, mode ``sharded_temporal{K}``); a
+    resume that finds none cuts every rank's block from a one-file
+    checkpoint of the JAX function at ``checkpoint_path``.
+
+    Returns on every rank the traces, ``iterations_run``,
+    ``early_stopped`` [, ``mse``], this rank's ``block`` and its
+    ``slices`` in the cube, and ``recon``: the stitched cube on rank 0,
+    None on the others, and None on every rank above
+    ``io/emd.py::gathers``' size (``gathered`` says which); the stitched
+    recon is bitwise the in-core run.
+    """
+    from cytvdn_tpu_torch.io.emd import gathers
+
+    if opts.bc_mode != BCMode.JIA_ZHAO or opts.isotropic_R \
+            or opts.isotropic_Q:
+        raise ValueError("out-of-core mode covers Jia-Zhao anisotropic runs")
+    orig = np.ascontiguousarray(orig)
+    if orig.dtype != np.float32:
+        raise ValueError("out-of-core mode requires float32 data")
+    group = _default_group(group, "solve_outofcore_sharded_temporal")
+    size = group.size()
+    w = size if shard_w <= 0 else int(shard_w)
+    if w != size:
+        raise ValueError(f"shard_w={w}: each process of the group holds one "
+                         f"column block of every slab, so shard_w is the "
+                         f"group's size, {size} (or 0)")
+    if orig.shape[1] % w:
+        raise ValueError(f"axis-1 extent {orig.shape[1]} not divisible by "
+                         f"{w} devices")
+    n0 = orig.shape[0]
+    K = max(int(temporal_k), 1)
+    min_core = min(b - a for a, b in _slab_bounds(n0, n_slabs))
+    if K > min_core:
+        raise ValueError(
+            f"temporal_k={K} exceeds the smallest slab core ({min_core} "
+            f"rows); use fewer slabs or a smaller temporal_k")
+    out = _solve_grid(orig, lambda_inv, lam_mu, opts, n_slabs, K,
+                      (0, n0, n0), w, devices, reference, checkpoint_path,
+                      checkpoint_every, resume, device, group, None,
+                      sharded=True)
+    block = out.pop("recon")
+    slices = out.get("slices") or tuple(slice(0, e) for e in orig.shape)
+    out.update(block=block, slices=slices,
+               gathered=gathers(orig.shape, np.float32))
+    out["recon"] = None
+    if out["gathered"]:
+        comm = MeshComm(group, (1, w) + (1,) * (orig.ndim - 2), group.rank())
+        t = torch.from_numpy(block)
+        if comm.backend == "nccl":
+            # NCCL moves tensors on the card only
+            t = t.cuda()
+        out["recon"] = comm.gather_blocks(t, orig.shape, slices)
+    return out
 
 
 def denoise_outofcore(
@@ -1133,6 +1508,7 @@ def denoise_outofcore(
     lossy_duals: bool = False,
     *,
     device="cuda",
+    group=None,
 ):
     """User-level out-of-core denoising (float32, Jia-Zhao, anisotropic)
     with ``cytvdn_tpu.solver.outofcore.denoise_outofcore``'s keywords, on
@@ -1142,9 +1518,13 @@ def denoise_outofcore(
     (:func:`solve_outofcore_temporal`), cutting host↔device traffic per
     iteration K-fold. ``lossy_duals`` stores the shadow duals as bfloat16
     on the host and the card, in either mode.
-    ``shard_w != 1``/``devices`` (slabs split over several cards, ROADMAP
-    Queue 1 item 11(b)) are not ported and raise ``NotImplementedError``;
-    several processes, one card each, run
+    ``shard_w != 1`` or ``devices`` splits every slab over the cards of
+    the processes of ``group`` (the port-only keyword; default: the group
+    of ``init_distributed``), one card each, every process calling this
+    with the same arguments: :func:`solve_outofcore_sharded_temporal`,
+    with K = ``max(temporal_k, 1)`` as in the JAX package; ``recon`` is
+    then the stitched cube on rank 0 and None on the others. Several
+    processes, each its own rows on one card, run
     :func:`solve_outofcore_multihost`, as in the JAX package.
 
     Returns ``(recon, b_norm, delta)`` like ``denoise3D/4D``, plus the
@@ -1152,9 +1532,6 @@ def denoise_outofcore(
     streaming mode; at sweep ends under temporal blocking, like the
     traces).
     """
-    if shard_w != 1 or devices is not None:
-        raise _not_ported("out-of-core slabs sharded over several devices "
-                          "(shard_w, devices)", "Queue 1 item 11")
     ndim = np.asarray(datacube).ndim
     datacube, mu, lam, lambda_inv, lam_mu = _validate_and_derive(
         datacube, mu, lam, ndim, 32.0 if ndim == 4 else 16.0
@@ -1185,7 +1562,14 @@ def denoise_outofcore(
     )
     ck = dict(checkpoint_path=checkpoint_path,
               checkpoint_every=checkpoint_every, resume=resume, device=device)
-    if temporal_k > 1:
+    if shard_w != 1 or devices is not None:
+        if devices is not None:
+            ck["device"] = None
+        out = solve_outofcore_sharded_temporal(
+            datacube, lambda_inv, lam_mu, opts, n_slabs,
+            max(temporal_k, 1), shard_w=shard_w, devices=devices,
+            reference=reference_data, group=group, **ck)
+    elif temporal_k > 1:
         out = solve_outofcore_temporal(datacube, lambda_inv, lam_mu, opts,
                                        n_slabs, temporal_k,
                                        reference=reference_data, **ck)

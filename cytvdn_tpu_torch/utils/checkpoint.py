@@ -34,10 +34,12 @@ from __future__ import annotations
 
 import json
 import os
+import struct
 import tempfile
 import time
 import warnings
-from typing import Any, Dict, Optional, Tuple
+import zipfile
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -274,6 +276,65 @@ def load_state(path: str, comm=None, check=None):
             f"scratch", stacklevel=2)
         return None, meta
     return state, meta
+
+
+def _npz_member(path: str, key: str) -> np.ndarray:
+    """The array ``key`` of the .npz at ``path`` as a read-only memmap of
+    its member (``np.savez`` stores members uncompressed, so a slice of it
+    reads only the slice's bytes), or read whole from a compressed file."""
+    with zipfile.ZipFile(path) as zf:
+        info = zf.getinfo(key + ".npy")
+    if info.compress_type != zipfile.ZIP_STORED:
+        with np.load(path) as z:
+            return z[key]
+    fmt = np.lib.format
+    with open(path, "rb") as f:
+        # the member's local header: 30 bytes, then its name and extra field
+        f.seek(info.header_offset + 26)
+        name_len, extra_len = struct.unpack("<HH", f.read(4))
+        f.seek(info.header_offset + 30 + name_len + extra_len)
+        version = fmt.read_magic(f)
+        read = (fmt.read_array_header_1_0 if version == (1, 0)
+                else fmt.read_array_header_2_0)
+        shape, fortran, dtype = read(f)
+        offset = f.tell()
+    return np.memmap(path, dtype=dtype, mode="r", offset=offset,
+                     shape=shape, order="F" if fortran else "C")
+
+
+def load_state_block(path: str, sl: Sequence[slice], check=None
+                     ) -> Dict[str, Any]:
+    """A single-process checkpoint's state, as :func:`load_state` gives
+    it, with ``recon``, the accumulators and the shadow duals cut to the
+    block ``sl`` of the cube (contiguous copies). Each is read through a
+    memmap of its member, so only the block's bytes are read: the ranks of
+    a host cut their blocks from one file without any of them holding the
+    whole state. ``check(meta)``, where given, may refuse the checkpoint
+    by raising ``ValueError``, as does a multi-process part."""
+    sl = tuple(sl)
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["meta"]).decode())
+        if meta.get("blocks") is not None:
+            raise ValueError(f"'{path}' is a multi-process checkpoint part, "
+                             f"not a single-process checkpoint")
+        if check is not None:
+            check(meta)
+        state = {k: z[k] for k in ("b_norm", "delta", "mse", "i")}
+        state["tk"] = z["tk"] if "tk" in z.files else np.float32(1.0)
+        if "early_stopped" in z.files:
+            state["early_stopped"] = bool(z["early_stopped"])
+        d_keys = [f"d{k}" for k in range(meta["ndim"])
+                  if f"d{k}" in z.files]
+    bf16_keys = set(meta.get("bf16_keys") or ())
+
+    def cut(k):
+        a = np.ascontiguousarray(_npz_member(path, k)[sl])
+        return from_bf16_bits(a) if k in bf16_keys else a
+
+    state["recon"] = cut("recon")
+    state["accs"] = tuple(cut(f"acc{k}") for k in range(meta["ndim"]))
+    state["ds"] = tuple(cut(k) for k in d_keys)
+    return state
 
 
 def progress_chunk_size(n_total: int) -> int:

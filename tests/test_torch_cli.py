@@ -366,8 +366,11 @@ def test_exit_2_as_jax(tmp_path, capsys, case):
 
 
 REFUSED = {
-    # out-of-core runs are ported; sharded out-of-core slabs are not
-    "out-of-core": (["--out-of-core", "2", "--shard", "2"], "Queue 1 item 11"),
+    # ported (Queue 1 item 11(b)): slabs split over 2 cards need 2
+    # processes (tests/test_torch_cli_shard.py runs them)
+    "out-of-core": (["--out-of-core", "2", "--shard", "2"],
+                    "splits every slab over 2 processes, one card each, but "
+                    "this launch has 1 (WORLD_SIZE), not a multiple of 2"),
     # ported (Queue 1 item 12(b)): lossy duals in temporal mode, whose
     # slabs' pairs round the bfloat16 duals in the middle of the pair
     "out-of-core-temporal": (["--out-of-core", "2", "--temporal", "2", "-f",
@@ -499,8 +502,9 @@ def test_multi_process_launch_refused(tmp_path, capsys, monkeypatch):
     torchrun's ``RANK`` cannot join its group and exits 2. With
     ``--out-of-core`` it runs (Queue 1 item 11(a)): two processes with
     torchrun's environment write the one-process command's recon, bitwise;
-    with ``--shard 2`` (slabs split over two cards, item 11(b)) it exits 2
-    before the input is read, naming item 11."""
+    with ``--shard 2`` (slabs split over two cards, item 11(b)) it runs
+    too, and the same launch without ``RANK`` exits 2 before the input is
+    read."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.delenv("RANK", raising=False)
     out = str(tmp_path / "t.emd")
@@ -511,7 +515,7 @@ def test_multi_process_launch_refused(tmp_path, capsys, monkeypatch):
     assert not os.path.exists(out)
     assert _port(str(tmp_path / "missing.npy"), out, "-m", "1.0", "-n", "2",
                  "--out-of-core", "2", "--shard", "2") == 2
-    assert "(ROADMAP.md Queue 1 item 11)" in capsys.readouterr().err
+    assert "WORLD_SIZE=2 without RANK" in capsys.readouterr().err
     monkeypatch.setenv("WORLD_SIZE", "1")
     assert _port(inp, out, "-m", "1.0", "-n", "2") == 0
     from test_torch_cli_shard import _launch, _ok
@@ -522,6 +526,10 @@ def test_multi_process_launch_refused(tmp_path, capsys, monkeypatch):
     one = str(tmp_path / "ooc-one.emd")
     assert _port(inp, one, "-m", "1.0", "-n", "2", "--out-of-core", "2") == 0
     np.testing.assert_array_equal(tread(mesh), tread(one))
+    split = str(tmp_path / "ooc-split.emd")
+    _ok(_launch(["-i", inp, "-o", split, "-v", "0", "--device", "cpu", "-m",
+                 "1.0", "-n", "2", "--out-of-core", "2", "--shard", "2"]))
+    np.testing.assert_array_equal(tread(split), tread(one))
 
 
 @pytest.mark.parametrize("backend", ["jax", "pallas"])

@@ -231,15 +231,63 @@ def test_outofcore_command_resumes_killed_parts(tmp_path, monkeypatch):
 
 def test_outofcore_command_refuses_split_slabs(tmp_path):
     """In two processes ``--out-of-core`` with ``--shard 2`` (slabs split
-    over two cards, Queue 1 item 11(b)) exits 2 naming item 11, and with a
-    per-axis tiling exits 2 with ``cytv``'s message, on both ranks, before
-    the input is read."""
+    over two cards, Queue 1 item 11(b)) runs: bitwise the one-process
+    command. A per-axis tiling exits 2 with ``cytv``'s message, and
+    ``--shard 3`` (not a divisor of the launch's 2 processes) with the
+    ``torchrun`` to start, on both ranks, before the input is read."""
+    inp = str(tmp_path / "in.npy")
+    np.save(inp, _cube())
     out = str(tmp_path / "mesh.emd")
+    _ok(_launch(["-i", inp, "-o", out, "--device", "cpu", *OOC,
+                 "--shard", "2"]))
+    np.testing.assert_array_equal(tread(out), _one_process(tmp_path, inp,
+                                                           *OOC))
     missing = str(tmp_path / "missing.npy")
-    for shard, said in (("2", "(ROADMAP.md Queue 1 item 11)"),
-                        ("2,1,1,1", "out-of-core takes a device COUNT or "
-                                    "'auto', not a per-axis tiling")):
+    for shard, said in (("2,1,1,1", "out-of-core takes a device COUNT or "
+                                    "'auto', not a per-axis tiling"),
+                        ("3", "this launch has 2 (WORLD_SIZE), not a "
+                              "multiple of 3; start 3 (or a multiple): "
+                              "torchrun --nproc-per-node 3")):
         runs = _launch(["-i", missing, "-o", out, "--device", "cpu", *OOC,
                         "--shard", shard])
         for rc, _, err in runs:
             assert rc == 2 and said in err, err
+
+
+def _incore_recon(cube, iterations=6):
+    from cytvdn_tpu_torch import denoise4D
+
+    return denoise4D(cube, np.full(4, 1.0, np.float32),
+                     iterations=iterations, quiet=True, device="cpu")[0]
+
+
+@pytest.mark.parametrize("n", [2, 4], ids=["1x2", "2x2"])
+def test_outofcore_split_slabs_command(tmp_path, n):
+    """``--out-of-core 2 --temporal 2 --shard 2`` on 2 processes (one
+    process-row) and on 4 (a 2 × 2 grid): each rank reads only its rows ×
+    columns block and logs it, and the EMD output's datacube, written
+    through ``write_emd_sharded`` (gathered to rank 0), is bitwise the
+    in-core recon and the one-process command's, and within tolerance of
+    the JAX ``cytv --out-of-core 2 --temporal 2 --shard 2``'s."""
+    cube = _cube()
+    inp = str(tmp_path / "in.npy")
+    np.save(inp, cube)
+    out = str(tmp_path / "mesh.emd")
+    runs = _ok(_launch(["-i", inp, "-o", out, "--device", "cpu", *OOC,
+                        "--shard", "2"], n=n,
+                       env={"CYTV_LOG_ALL_PROCS": "1"}))
+    for q, (_, log, _) in enumerate(runs):
+        r, c = divmod(q, 2)
+        g0, g1 = tooc.process_row_range(SHAPE[0], n // 2, r)
+        assert (f"[cytv-torch p{q}] multi-process out-of-core: rows "
+                f"[{g0}, {g1}) of {SHAPE[0]}, columns [{2 * c}, {2 * c + 2}) "
+                f"of {SHAPE[1]}, {n} processes ({n // 2} process-rows of "
+                f"2)") in log
+        assert f"[cytv-torch p{q}] wrote {out} (every rank its block)" in log
+    got = tread(out)
+    np.testing.assert_array_equal(got, _incore_recon(cube))
+    np.testing.assert_array_equal(got, _one_process(tmp_path, inp, *OOC))
+    jout = str(tmp_path / "j.emd")
+    assert jcli.main(["-i", inp, "-o", jout, "-v", "0", *OOC, "--shard",
+                      "2"]) == 0
+    np.testing.assert_allclose(got, jread(jout), **TOL[np.float32])

@@ -457,10 +457,12 @@ def test_traffic_counted():
 # -- refusals -----------------------------------------------------------------
 
 def test_refusals():
-    """What out-of-core runs refuse, each with its item or reason. Lossy
-    duals are ported in stream mode (Queue 1 item 12(a)) and in temporal
-    mode (item 12(b): its slabs' pairs round the bfloat16 duals in the
-    middle of the pair): each run is bitwise the in-core lossy run."""
+    """What out-of-core runs refuse, each with its reason. Lossy duals are
+    ported in stream mode (Queue 1 item 12(a)) and in temporal mode (item
+    12(b): its slabs' pairs round the bfloat16 duals in the middle of the
+    pair): each run is bitwise the in-core lossy run. ``shard_w`` and
+    ``devices`` are ported (item 11(b)): they run on a group of ranks,
+    bitwise the in-core run."""
     cube = _cube(C4, 15)
     mu = MU[4]
     want = denoise4D(cube, mu, iterations=4, lossy_duals=True, quiet=True,
@@ -470,10 +472,19 @@ def test_refusals():
                                      temporal_k=k, lossy_duals=True,
                                      device="cpu")
         np.testing.assert_array_equal(got[0], want[0])
+    # ported (Queue 1 item 11(b)): slabs split over the cards of a group's
+    # processes (ranks as threads, the CPU), recon on rank 0 bitwise
+    from test_torch_sharded import on_mesh
+
+    exact = denoise4D(cube, mu, iterations=4, quiet=True, device="cpu")[0]
+    for kw, n in ((dict(shard_w=2), 2), (dict(shard_w=0), 2),
+                  (dict(devices=["cpu"]), 1)):
+        res = on_mesh(n, lambda pg, r: tooc.denoise_outofcore(
+            cube, mu, iterations=4, n_slabs=2, temporal_k=2, group=pg,
+            device="cpu", **kw))
+        np.testing.assert_array_equal(res[0][0], exact)
+        assert all(out[0] is None for out in res[1:])
     for kw, exc, match in (
-            (dict(shard_w=2), NotImplementedError, "Queue 1 item 11"),
-            (dict(shard_w=0), NotImplementedError, "Queue 1 item 11"),
-            (dict(devices=["cuda:0"]), NotImplementedError, "Queue 1 item 11"),
             (dict(n_slabs=4, temporal_k=5), ValueError, "temporal_k"),
             (dict(n_slabs=8), ValueError, "at least 2 rows")):
         with pytest.raises(exc, match=match):

@@ -22,9 +22,11 @@ Tolerances:
   whole cube, and the file's groups and attributes the JAX ``write_emd``'s.
 
 Every refusal and every failure of one rank (a range that does not tile,
-a wrong row count, a margin deeper than a slab core, ``shard_w`` > 1, a
-meta mismatch, a truncated part, a failed write) raises on every rank, and
-no rank hangs (each group has a timeout, each join a limit).
+a wrong row count, a margin deeper than a slab core, a meta mismatch, a
+truncated part, a failed write) raises on every rank, and no rank hangs
+(each group has a timeout, each join a limit). ``shard_w`` > 1 (slabs
+split over several cards) runs; tests/test_torch_outofcore_sharded.py
+holds it.
 """
 
 import json
@@ -520,19 +522,22 @@ REFUSALS = {
                     else ((8, 17), (8, 17, 17)), {"k": 5}, ValueError,
                     "temporal_k=5 exceeds the smallest local slab core "
                     "\\(4 rows of 8\\)"),
-    "shard-w": (lambda r: ((0, 8), (0, 8, 17)) if r == 0
-                else ((8, 17), (8, 17, 17)), {"shard_w": 2},
-                NotImplementedError, "Queue 1 item 11"),
-    "devices": (lambda r: ((0, 8), (0, 8, 17)) if r == 0
-                else ((8, 17), (8, 17, 17)), {"devices": ["cpu", "cpu"]},
-                NotImplementedError, "Queue 1 item 11"),
+    # ported (Queue 1 item 11(b)): the two ranks split every slab on axis 1,
+    # each holding all 17 rows and its 3 of the 6 columns; they run
+    "shard-w": (lambda r: ((0, 17), (0, 17, 17)), {"shard_w": 2}, None,
+                None),
+    "devices": (lambda r: ((0, 17), (0, 17, 17)),
+                {"devices": ["cpu", "cpu"]}, None, None),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_refusals_on_every_rank(case):
-    """Each refusal raises the JAX message (or names item 11) on every
-    rank, though only one rank's arguments are at fault."""
+    """Each refusal raises the JAX message on every rank, though only one
+    rank's arguments are at fault. The cases since ported (slabs split
+    over two ranks' cards: ``shard_w=2``, or two ``devices`` with the
+    default ``shard_w=0``, one device each) run: each rank's column block
+    is bitwise the in-core run's."""
     rows, kw, exc, match = REFUSALS[case]
     cube = _cube(C3, 90)
     li, lm = _scalars(3)
@@ -541,10 +546,17 @@ def test_refusals_on_every_rank(case):
 
     def run(pg, r):
         (a, b), grows = rows(r)
-        tooc.solve_outofcore_multihost(
+        return tooc.solve_outofcore_multihost(
             cube[a:b], li, lm, SolverOptions(**_opts(3, 4)), 2, k, grows,
             device="cpu", group=pg, **kw)
 
+    if exc is None:
+        want = _incore(cube, 4)[0]
+        for r, out in enumerate(on_mesh(2, run)):
+            assert out["slices"][1] == slice(3 * r, 3 * r + 3)
+            np.testing.assert_array_equal(out["recon"],
+                                          want[out["slices"]])
+        return
     errs = _errors(2, run)
     for e in errs:
         assert isinstance(e, exc), repr(e)

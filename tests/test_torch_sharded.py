@@ -43,6 +43,10 @@ from cytvdn_tpu_torch.parallel import (  # noqa: E402
     state_block,
 )
 from cytvdn_tpu_torch.parallel import distributed as tdist  # noqa: E402
+from cytvdn_tpu_torch.parallel.multihost import (  # noqa: E402
+    block_slices,
+    rank_coords,
+)
 from cytvdn_tpu_torch.parallel import partition as tpartition  # noqa: E402
 from cytvdn_tpu_torch.parallel import sharded as tsharded  # noqa: E402
 from cytvdn_tpu_torch.solver import engine as tengine  # noqa: E402
@@ -313,7 +317,8 @@ def test_mesh_matches_jax_run_sharded(shape, shard, n_f, n_u, dtype):
         orig = torch.from_numpy(load_sharded_block(cube, shard, r, dtype))
         out = run_sharded(orig, torch.from_numpy(li), torch.from_numpy(lm),
                           opts, comm, state=blk)
-        return comm.gather_blocks(out["recon"], shape), out
+        return comm.gather_blocks(out["recon"], shape, block_slices(
+            shape, shard, rank_coords(shard, r))), out
 
     res = on_mesh(int(np.prod(shard)), rank)
     recon, out = res[0]

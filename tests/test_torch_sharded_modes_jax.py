@@ -42,7 +42,11 @@ from cytvdn_tpu.parallel import sharded as jsharded  # noqa: E402
 from cytvdn_tpu_torch.config import SolverOptions as TOptions  # noqa: E402
 from cytvdn_tpu_torch.kernels import fused as tfused  # noqa: E402
 from cytvdn_tpu_torch.parallel import MeshComm, run_sharded, state_block  # noqa: E402
-from cytvdn_tpu_torch.parallel.multihost import load_sharded_block  # noqa: E402
+from cytvdn_tpu_torch.parallel.multihost import (  # noqa: E402
+    block_slices,
+    load_sharded_block,
+    rank_coords,
+)
 from cytvdn_tpu_torch.utils.state import state_from_numpy  # noqa: E402
 
 RTOL, ATOL = 2e-5, 2e-6
@@ -174,7 +178,8 @@ def test_mode_mesh_matches_jax_run_sharded(case, dtype):
         orig = torch.from_numpy(load_sharded_block(cube, shard, r, dtype))
         out = run_sharded(orig, torch.from_numpy(li), torch.from_numpy(lm),
                           opts, comm, state=blk)
-        return comm.gather_blocks(out["recon"], shape), out
+        return comm.gather_blocks(out["recon"], shape, block_slices(
+            shape, shard, rank_coords(shard, r))), out
 
     recon, out = on_mesh(int(np.prod(shard)), rank)[0]
     if dtype == np.float64:
