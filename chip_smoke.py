@@ -106,7 +106,7 @@ non-zero — nothing is caught):
    bitwise; and a config-4 MSE run (the clean cube as reference), pairs
    with the reference cube against the K=1 loop with
    ``ops.sum_square_error``: recon bitwise, MSE trace within rtol 1e-5;
-6. chunked runs: config 4 FISTA x100 in chunks of 25 through the chunk
+6. chunked runs: config 4 FISTA x50 in chunks of 25 through the chunk
    loop on the card, ``run_chunked`` and ``denoise4D(progress=True)``
    against the unchunked ``run_solver`` (recon bitwise, launches,
    seconds, peak device memory);
@@ -128,8 +128,11 @@ non-zero — nothing is caught):
    stop iteration and launches from its log); each recon bitwise the
    ``denoise4D``/``denoise3D`` run with the same arguments;
    ``--out-of-core 2 --shard 2`` in one process exits 2 with the
-   ``torchrun`` to start, and ``--backend cpp`` exits 2 naming its
-   ROADMAP item (13). Where h5py is missing, the command's
+   ``torchrun`` to start; ``--backend cpp`` (the C++ host kernels, built
+   with g++ from ``csrc/tvdn_cpu.cpp`` into ``cytvdn_tpu_torch/_build/``)
+   on config 1 x200 in its own process, against ``--device cpu`` (the
+   plain PyTorch version on the host) within rtol 1e-5, its solve's
+   seconds and OpenMP threads. Where h5py is missing, the command's
    load-and-solve step stands in for it;
 8. out-of-core runs (``solver/outofcore.py``): (a) the K=1 kernel with
    operand halos against its plain version with the same halos, 3
@@ -218,7 +221,12 @@ non-zero — nothing is caught):
    stop run and an MSE x20 run, each stopping and ending as on one device,
    bitwise; (e) config 2 FISTA with stop 0.05 on (2,1,1), blocks read
    lazily, K=1 halo steps, bitwise; (c) config 4 x4 on a (2,2,1,1) mesh of
-   4 processes, K=1 halo launches along both axes, bitwise; (f) per rank
+   4 processes on the K=1 loop, the default for 2D grids (4 K=1 halo
+   launches per rank along both axes), bitwise, and the same with
+   ``pairfix.PAIR_2D_GRIDS`` set, in 2 HALO0 pairs per rank with the
+   axis-1 seam repair (``parallel/pairfix.py``), bitwise, each rank's
+   seconds per iteration both ways and the seam repair's exchanges, bytes
+   and seconds; (f) per rank
    the seconds per iteration, the exchange's seconds and bytes, the
    backend and the peak device memory; (g) the command line on meshes of 2
    processes of this script (``--cli-worker``: ``cli.load_and_solve``,
@@ -1779,10 +1787,10 @@ def chunk_phase(smi, cube, cube1, r1, cube3, stop5):
     li4, lm4 = scalars_np(4)
     to4 = [torch.from_numpy(x).cuda() for x in (li4, lm4)]
 
-    # (a) config 4 x100 in memory: progress chunks of 25 and run_chunked
+    # (a) config 4 x50 in memory: progress chunks of 25 and run_chunked
     # with checkpoint_every=25 against the unchunked run_solver
     t_a = time.perf_counter()
-    n_a, every_a = 100, 25
+    n_a, every_a = 50, 25
     require(progress_chunk_size(n_a) == every_a, "config 4 progress chunk")
     opts_a = SolverOptions(ndim=4, iterations_fista=n_a, iterations_unacc=0)
     orig4 = torch.from_numpy(cube).cuda()
@@ -2031,9 +2039,10 @@ def cli_phase(smi, cube):
     a synthetic EELS cube, from a .dm4 file, ``--preset eels3d``, as a
     separate process; each recon bitwise the API's run with the same
     arguments. (c) ``--out-of-core 2 --shard 2`` in one process exits 2
-    with the ``torchrun`` to start (phase 8 (f) runs it on processes),
-    ``--backend cpp`` exits 2 naming its ROADMAP item (phase 9 (g) runs
-    ``--shard``)."""
+    with the ``torchrun`` to start (phase 8 (f) runs it on processes);
+    ``--backend cpp`` on config 1 x200 in its own process against the
+    command's ``--device cpu`` run of the same file (the plain PyTorch
+    version on the host), within rtol 1e-5."""
     from cytvdn_tpu_torch import cli
     from cytvdn_tpu_torch.io.dm import write_dm
 
@@ -2170,17 +2179,15 @@ def cli_phase(smi, cube):
             f"{s_solve} s, write {s_write}; denoise3D in this process "
             f"{s_api:.3f} s [{smi}]")
 
-        # (c) the command itself: its help, and what the port cannot run
-        # yet, refused before the input is read
+        # (c) the command itself: its help, and a flag it refuses before
+        # the input is read
         for flags, rc_want, item in (
                 (["--help"], 0, None),
                 # slabs split over 2 cards need 2 processes
                 (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2",
                   "--out-of-core", "2", "--shard", "2"], 2,
                  "this launch has 1 (WORLD_SIZE), not a multiple of 2; "
-                 "start 2 (or a multiple): torchrun --nproc-per-node 2"),
-                (["-i", dm4, "-o", out1, "-m", "1.0", "-n", "2",
-                  "--backend", "cpp"], 2, "(ROADMAP.md Queue 1 item 13)")):
+                 "start 2 (or a multiple): torchrun --nproc-per-node 2")):
             proc = subprocess.run(
                 [sys.executable, "-m", "cytvdn_tpu_torch.cli", *flags],
                 cwd=root, env=env, capture_output=True, text=True,
@@ -2194,9 +2201,56 @@ def cli_phase(smi, cube):
             log(f"phase 7 (c) python -m cytvdn_tpu_torch.cli "
                 f"{' '.join(flags[8:]) if item else flags[0]}: rc "
                 f"{proc.returncode}, {said}")
+        cpp_phase(smi, cli, dm4, out1, tmp, root, env)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 7 {time.perf_counter() - t_phase:.1f} s")
+
+
+#: iterations of phase 7 (c)'s ``--backend cpp`` run at config 1 (the
+#: ``--device cpu`` run beside it took 108 ms per iteration on the host of
+#: an NVIDIA H100 80GB HBM3, 700 W machine)
+CPP_ITERS = 200
+
+
+def cpp_phase(smi, cli, dm4, out1, tmp, root, env):
+    """Phase 7 (c), ``--backend cpp``: the command on config 1's .dm4 x200
+    unaccelerated in its own process (it builds ``csrc/tvdn_cpu.cpp`` with
+    g++ where the build is stale), against the command's ``--device cpu``
+    run of the same file in this process, within rtol 1e-5; the solve's
+    seconds of both and the C++ kernels' OpenMP threads."""
+    from cytvdn_tpu_torch.cpp import native_num_threads
+
+    argv = ["-i", dm4, "-o", out1, "-m", "1.0", "-n", str(CPP_ITERS)]
+    out_c = os.path.join(tmp, "config1_cpp.npy")
+    cmd = [sys.executable, "-c",
+           "import sys, numpy as np; from cytvdn_tpu_torch import cli; "
+           "r = cli.load_and_solve(sys.argv[2:]); np.save(sys.argv[1], "
+           "r.recon)", out_c, *argv, "-v", "1", "--backend", "cpp"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                          text=True, timeout=300)
+    s_proc = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"cytv-torch --backend cpp rc {proc.returncode}: "
+            f"{proc.stderr[-3000:]}")
+    s_cpp, = cli_log_value(r"denoising took ([0-9.]+)s", proc.stdout,
+                           "solve time")
+    threads, = cli_log_value(r"the C\+\+ host kernels on (\d+) OpenMP",
+                             proc.stdout, "threads")
+    got = np.load(out_c)
+    plain = cli.load_and_solve(argv + ["-v", "0", "--device", "cpu"])
+    rel = float(np.max(np.abs(got - plain.recon)
+                       / np.maximum(np.abs(plain.recon), 1e-30)))
+    require(got.shape == plain.recon.shape and rel <= 1e-5,
+            f"--backend cpp recon against --device cpu: max rel {rel}")
+    n_threads = native_num_threads()
+    log(f"phase 7 (c) --backend cpp on {CFG1} x{CPP_ITERS} unaccelerated "
+        f"from .dm4, its own process (rc 0, {s_proc:.3f} s in all): solve "
+        f"{s_cpp} s on {threads} OpenMP threads (native_num_threads() "
+        f"{n_threads} here); --device cpu, the plain PyTorch version on the "
+        f"host, solve {plain.seconds['solve']:.3f} s; recon max rel "
+        f"{rel:.3e} (rtol 1e-5) [{smi}]")
 
 
 # phase 8: the K=1 kernel's halos on ragged slabs (3D and 4D), the
@@ -3359,9 +3413,22 @@ def time_halo1(shape, n_kernel, n_plain):
     return {k: sum(v) / len(v) for k, v in raw.items()}, raw
 
 
+#: bytes per piece of an array that :func:`digest` hashes on its own thread
+DIGEST_PIECE = 64 * 2**20
+
+
 def digest(a) -> str:
-    """sha256 of an array's bytes (C order): equal digests, equal bits."""
-    return hashlib.sha256(np.ascontiguousarray(a).view(np.uint8)).hexdigest()
+    """sha256 of the sha256 digests of an array's bytes (C order) in
+    pieces of :data:`DIGEST_PIECE`, hashed on up to 8 threads (hashlib lets
+    go of the GIL): equal digests, equal bits. One sha256 over a config-4
+    cube's 4.29 GB takes seconds on one core, and the mesh phases hash
+    dozens of them."""
+    b = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    pieces = [b[i:i + DIGEST_PIECE]
+              for i in range(0, max(b.size, 1), DIGEST_PIECE)]
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        parts = pool.map(lambda x: hashlib.sha256(x).digest(), pieces)
+        return hashlib.sha256(b"".join(parts)).hexdigest()
 
 
 def clean_handle(scan, det, rows):
@@ -3387,7 +3454,11 @@ def sharded_worker(spec_path: str) -> int:
     and peak device memory to ``rank{R}.json`` beside the spec."""
     import torch.distributed as dist
 
-    from cytvdn_tpu_torch.parallel import denoise_sharded, init_distributed
+    from cytvdn_tpu_torch.parallel import (
+        denoise_sharded,
+        init_distributed,
+        pairfix,
+    )
 
     with open(spec_path) as f:
         spec = json.load(f)
@@ -3420,9 +3491,11 @@ def sharded_worker(spec_path: str) -> int:
         fused_pair_iteration.halo0_launches = 0
         fused_pair_iteration.halo1_launches = 0
         # "any_row": pairs at any row size (a small cube's mesh pairs);
-        # "k1_loop": no pairs (the K=1 loop a mesh run pairs instead of)
+        # "k1_loop": no pairs (the K=1 loop a mesh run pairs instead of);
+        # "grid2d_pairs": 2D grids pair, with the seam repair
         rule = 0 if run.get("any_row") else \
             float("inf") if run.get("k1_loop") else None
+        pairfix.PAIR_2D_GRIDS = bool(run.get("grid2d_pairs"))
         with pairs_at_any_row(rule) if rule is not None \
                 else contextlib.nullcontext():
             out = denoise_sharded(
@@ -3746,10 +3819,12 @@ def cli_mesh_phase(smi, tmp, cube_npy, digests4, cube3, cfg3_digest):
     return g1, g2
 
 
-def check_mesh_run(name, results, want, blocks_want, full_want, mse=False):
+def check_mesh_run(name, results, want, blocks_want, full_want, mse=False,
+                   gather=True):
     """Each rank's result of run ``name`` against the single-device run:
-    the block and (rank 0) the gathered cube bitwise (their digests), the
-    stop iteration, traces within rtol 1e-5."""
+    the block and (rank 0) the gathered cube bitwise (their digests; a run
+    started with ``gather=False`` has the blocks alone, and no gathered
+    cube), the stop iteration, traces within rtol 1e-5."""
     runs = [next(x for x in res if x["name"] == name) for res in results]
     n_run = int(np.count_nonzero(want["delta"]))
     for run in runs:
@@ -3764,9 +3839,14 @@ def check_mesh_run(name, results, want, blocks_want, full_want, mse=False):
             np.testing.assert_allclose(np.asarray(run[key], np.float32),
                                        want[key], rtol=1e-5,
                                        err_msg=f"{name} rank {r} {key}")
-    require(runs[0]["recon"] == full_want,
-            f"{name}: the gathered recon on rank 0 is not bitwise the "
-            f"single-device recon")
+    if gather:
+        require(runs[0]["recon"] == full_want,
+                f"{name}: the gathered recon on rank 0 is missing or not "
+                f"bitwise the single-device recon")
+    else:
+        require(runs[0]["recon"] is None,
+                f"{name}: started with gather=False, yet rank 0 has a "
+                f"gathered recon")
     return runs
 
 
@@ -4017,8 +4097,10 @@ def sharded_phase(smi, name, cube, scan, det, cube3, cfg3_digest):
                  shard=shards["b"]),
             dict(name="b1", input=cube_npy, ndim=4, iterations=20,
                  shard=shards["b1"]),
+            # the blocks alone: the K=1 loop's runs skip the gather
             dict(name="b1k", input=cube_npy, ndim=4, iterations=4,
-                 shard=shards["b1k"], k1_loop=True),
+                 shard=shards["b1k"], k1_loop=True,
+                 options={"gather": False}),
             dict(name="d1", input=cube_npy, rows=HALF4[0], ndim=4,
                  iterations=64, stop=thr_d, shard=shards["d1"]),
             dict(name="d2", input=cube_npy, rows=HALF4[0], ndim=4,
@@ -4031,8 +4113,9 @@ def sharded_phase(smi, name, cube, scan, det, cube3, cfg3_digest):
         rows = {}
         for run in runs2:
             k = run["name"]
-            rows[k] = check_mesh_run(k, res2, want[k], *digests[k],
-                                     mse=k == "d2")
+            rows[k] = check_mesh_run(
+                k, res2, want[k], *digests[k], mse=k == "d2",
+                gather=run.get("options", {}).get("gather", True))
         b = rows["b"]
         require(all(tuple(r["launches"]) == (0, 0, 10, 0) and r["halo0"] == 10
                     for r in b),
@@ -4101,19 +4184,52 @@ def sharded_phase(smi, name, cube, scan, det, cube3, cfg3_digest):
             f"({[r['k1_halo'] for r in rows['e']]} halo launches) [{smi}]")
         rank_lines("phase 9 (f) (e)", rows["e"], smi)
 
-        # four ranks on the card: (c)
+        # four ranks on the card: (c), in pairs with the seam repair
+        # (2D-grid pairs set) and on the K=1 loop (the default there)
         t0 = time.perf_counter()
-        res4 = run_mesh(tmp, 4, [dict(name="c", input=cube_npy, ndim=4,
-                                      iterations=4, shard=shards["c"])],
-                        timeout=300)
+        res4 = run_mesh(tmp, 4, [
+            dict(name="c", input=cube_npy, ndim=4, iterations=4,
+                 shard=shards["c"], grid2d_pairs=True),
+            dict(name="ck", input=cube_npy, ndim=4, iterations=4,
+                 shard=shards["c"], options={"gather": False})],
+            timeout=300)
         c = check_mesh_run("c", res4, want["c"], *digests["c"])
-        require(all(r["k1_halo"] == 4 and r["halo0"] == 0 for r in c),
-                f"(c) K=1 halo launches {[r['k1_halo'] for r in c]}")
+        ck = check_mesh_run("ck", res4, want["c"], *digests["c"],
+                            gather=False)
+        require(all(tuple(r["launches"]) == (0, 0, 2, 0) and r["halo0"] == 2
+                    and r["k1_halo"] == 0 for r in c),
+                f"(c) launches per rank {[r['launches'] for r in c]}, HALO0 "
+                f"{[r['halo0'] for r in c]}: expected 2 HALO0 pairs")
+        require(all(r["k1_halo"] == 4 and r["halo0"] == 0
+                    and r["exchange"]["seam_exchanges"] == 0 for r in ck),
+                f"(c) K=1 loop (the 2D grid's default): K=1 halo launches "
+                f"{[r['k1_halo'] for r in ck]}, HALO0 pairs "
+                f"{[r['halo0'] for r in ck]}")
+
+        def per_it(runs):
+            return [round(r["seconds"]["solve"] / r["iterations_run"], 4)
+                    for r in runs]
+
+        def seam(r):
+            x = r["exchange"]
+            return (f"rank {r['rank']}: {x['seam_exchanges']} exchanges, "
+                    f"{x['seam_bytes_sent'] / 1e9:.4f} GB sent, "
+                    f"{x['seam_bytes_received'] / 1e9:.4f} GB received, "
+                    f"{x['seam_exchange_seconds']:.3f} s")
+
         log(f"phase 9 (c) config 4 FISTA x4 on a (2, 2, 1, 1) mesh, 4 "
-            f"processes sharing the card: 4 K=1 halo launches per rank with "
-            f"neighbours along axes 0 and 1, recon bitwise denoise4D's; "
-            f"{time.perf_counter() - t0:.1f} s [{smi}]")
+            f"processes sharing the card (gloo), shards {QUAD4}: in 2 HALO0 "
+            f"pairs per rank with the axis-1 seam repair (2D-grid pairs "
+            f"set), recon bitwise denoise4D's (each block and the gathered "
+            f"cube), traces within rtol 1e-5; on the K=1 loop (the 2D "
+            f"grid's default) 4 K=1 halo launches per rank, bitwise; s per "
+            f"iteration per rank in pairs {per_it(c)}, on the K=1 loop "
+            f"{per_it(ck)}; "
+            f"the seam repair's exchanges (columns and strip rows) "
+            f"{[seam(r) for r in c]}; {time.perf_counter() - t0:.1f} s "
+            f"[{smi}]")
         rank_lines("phase 9 (f) (c)", c, smi)
+        rank_lines("phase 9 (f) (c) K=1 loop", ck, smi)
 
         # (g) the command line on meshes of 2 processes
         t0 = time.perf_counter()
@@ -4526,8 +4642,9 @@ def modes_phase(smi, name, cube, cube3):
             wall = time.perf_counter() - t0
             for run in spec:
                 k = run["name"]
-                rows[k] = check_mesh_run(k, res, want[k], *digests[k],
-                                         mse=k == "mse")
+                rows[k] = check_mesh_run(
+                    k, res, want[k], *digests[k], mse=k == "mse",
+                    gather=run["options"].get("gather", True))
                 n_it = rows[k][0]["iterations_run"]
                 require(all(r["modes"] == n_it and r["launches"][3] == n_it
                             for r in rows[k]),

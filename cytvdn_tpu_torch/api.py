@@ -4,7 +4,9 @@ reference cyTVDN/cyTVDN.py:19-247, 250-435), on PyTorch.
 
 numpy in, numpy out. The one addition is the keyword ``device``
 (default ``"cuda"``): the run happens on that device, and the package never
-picks the CPU by itself. float64 needs no flag.
+picks the CPU by itself. float64 needs no flag. ``backend="cpp"`` runs
+the native C++ host kernels (``cpp/``) on the host arrays, whatever
+``device`` says.
 """
 
 from __future__ import annotations
@@ -53,7 +55,15 @@ def _run(datacube, lambda_inv, lam_mu, opts: SolverOptions, reference_data,
     where a chunk boundary changes which kernel sums an iteration. The
     plain run's inputs go to the device once; a retry starts from them
     untouched.
+
+    ``backend="cpp"`` runs the native host kernels on the host arrays
+    (``cpp/backend.py::solve_cpp``), before any copy to a device and
+    outside the ladder: it holds no device memory.
     """
+    if opts.backend == Backend.CPP:
+        from cytvdn_tpu_torch.cpp.backend import solve_cpp
+
+        return solve_cpp(datacube, lambda_inv, lam_mu, opts, reference_data)
     device = torch.device(device)
     if progress:
         from cytvdn_tpu_torch.utils.checkpoint import (
@@ -111,7 +121,11 @@ def _resolve_progress(progress: Optional[bool], quiet: bool,
     ``cytvdn_tpu.api._resolve_progress`` decides: off when quiet, below
     500 iterations, or where the whole-run kernel serves the run (one
     launch, or its chunks), since such a run ends in well under a second
-    and chunking would only add launches. An explicit ``progress`` wins."""
+    and chunking would only add launches. An explicit ``progress`` wins,
+    except under ``backend="cpp"``, whose host loop runs unchunked (as in
+    ``cytvdn_tpu``)."""
+    if opts.backend == Backend.CPP:
+        return False
     if progress is not None:
         return bool(progress)
     if quiet or opts.total_iterations < 500:
@@ -141,13 +155,15 @@ def _memory_note(datacube, opts: SolverOptions, quiet):
     """The device memory the run holds: orig, recon, the accumulators [,
     the shadow duals, at 2 bytes an element under lossy duals], and a stop
     run's block checkpoint of recon, the accumulators [and shadow duals]
-    where its phases keep one (``holds_block_checkpoint``)."""
+    where its phases keep one (``holds_block_checkpoint``). Under
+    ``backend="cpp"`` the state lives in host memory."""
     if quiet:
         return
     fista, ndim = opts.iterations_fista > 0, opts.ndim
     state = 1 + (2 * ndim if fista else ndim)  # recon+accs(+ds)
     dtype = torch.from_numpy(np.empty(0, datacube.dtype)).dtype
-    ckpt = holds_block_checkpoint(opts, datacube.shape, dtype)
+    ckpt = opts.backend != Backend.CPP and holds_block_checkpoint(
+        opts, datacube.shape, dtype)
     n_arrays = 1 + state + (state if ckpt else 0)
     n_ds = ndim * (1 + ckpt) if fista else 0
     d_size = d_dtype(opts, dtype).itemsize
@@ -157,9 +173,10 @@ def _memory_note(datacube, opts: SolverOptions, quiet):
     extra = " (a stop run's block checkpoint included)" if ckpt else ""
     if d_size != dtype.itemsize:
         extra += f" ({n_ds} of them bfloat16 shadow duals)"
+    where = "host" if opts.backend == Backend.CPP else "device"
     print(
         f"{label} TV denoising holds {n_arrays} cube-size arrays{extra} "
-        f"≈ {gib:.2f} GiB of device memory"
+        f"≈ {gib:.2f} GiB of {where} memory"
     )
 
 

@@ -10,9 +10,15 @@ The flags, their types, defaults and the preset rules are ``cytv``'s:
 ``--iso-q``, ``--dtype``, ``--checkpoint``/``--checkpoint-every``/
 ``--resume`` and ``--profile`` (a ``torch.profiler`` trace). Two
 differences: ``--backend`` takes the port's backends (``auto``, ``torch``,
-``cuda``), and ``--device`` (default ``cuda``) says where the run happens,
-as the API's ``device`` keyword does; the command never picks the CPU by
-itself.
+``cuda``, ``cpp``), and ``--device`` (default ``cuda``) says where the run
+happens, as the API's ``device`` keyword does; the command never picks the
+CPU by itself.
+
+``--backend cpp`` runs the native C++/OpenMP host kernels
+(``cpp/backend.py``, built from ``csrc/tvdn_cpu.cpp`` at first use with
+g++), on the host whatever ``--device`` says, in one process: as in
+``cytv``, ``--out-of-core`` with it exits 2, and so do ``--shard`` and
+``--checkpoint``, which ``cytv`` runs on other backends or fails on.
 
 ``--out-of-core N [--temporal K]`` runs ``denoise_outofcore``
 (``solver/outofcore.py``): the state stays in host memory and streams
@@ -62,9 +68,6 @@ of W (one process among them) exits 2 before the input is read::
     torchrun --nproc-per-node 2 -m cytvdn_tpu_torch.cli -i cube.npy \
         -o out.emd -m 1.0 -n 16 -f 1 --out-of-core 4 --temporal 8 --shard 2
 
-What the port cannot run yet is refused with exit code 2 before the input
-is read, naming its ROADMAP.md item: ``--backend cpp`` (Queue 1 item 13).
-
 ``--lossy-duals`` stores the FISTA shadow duals as bfloat16 (float32
 Jia-Zhao anisotropic FISTA runs; the other combinations exit 2 with
 ``cytv``'s message), in core, with ``--checkpoint`` and out of core, in
@@ -103,8 +106,8 @@ def _backend(v: str) -> str:
     if v in ("jax", "pallas"):
         raise argparse.ArgumentTypeError(
             f"{v!r} is a backend of the JAX package's cytv; cytv-torch runs "
-            "'torch' (the plain PyTorch version) or 'cuda' (the CUDA "
-            "kernels), or 'auto'")
+            "'torch' (the plain PyTorch version), 'cuda' (the CUDA "
+            "kernels), 'cpp' (the C++ host kernels) or 'auto'")
     return v
 
 
@@ -148,7 +151,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", default="auto", type=_backend,
                    choices=("auto", "torch", "cuda", "cpp"),
                    help="auto: the CUDA kernels on the card, the plain "
-                        "PyTorch version on the CPU; cpp is not ported yet")
+                        "PyTorch version on the CPU; cpp: the C++/OpenMP "
+                        "host kernels (built with g++ at first use)")
     p.add_argument("--shard", default=None,
                    help="'auto' or comma-separated per-axis tile counts "
                         "(e.g. 2,4,1,1) to run over a mesh of processes, "
@@ -220,14 +224,6 @@ class CliError(Exception):
     2, the convention of every argument failure."""
 
 
-def _not_ported(what: str, item) -> CliError:
-    """``item``: a Queue 1 item's number, or the words naming items."""
-    from cytvdn_tpu_torch.config import _not_ported as msg
-
-    where = f"item {item}" if isinstance(item, int) else item
-    return CliError(str(msg(what, f"Queue 1 {where}")))
-
-
 def parse_args(argv=None) -> argparse.Namespace:
     """Parse ``argv``, fill it from ``--preset`` and refuse what the port
     cannot run, all before the input is read. Raises :class:`CliError`."""
@@ -280,7 +276,14 @@ def parse_args(argv=None) -> argparse.Namespace:
             raise CliError(f"--out-of-core does not support {', '.join(bad)} "
                            "(Jia-Zhao anisotropic float32)")
     if args.backend == "cpp":
-        raise _not_ported("--backend cpp", 13)
+        bad = [flag for flag, on in (
+            ("--shard", args.shard or world > 1),
+            ("--checkpoint", args.checkpoint and args.checkpoint_every))
+            if on]
+        if bad:
+            raise CliError(f"--backend cpp runs the C++ host kernels in one "
+                           f"process; it does not support {', '.join(bad)}")
+        return args  # the host's kernels: no device to check
 
     import torch
 
@@ -602,6 +605,11 @@ def load_and_solve(argv=None) -> Solved:
     ran = delta[np.nonzero(delta)]
     log(f"denoising took {seconds['solve']:.3f}s; {ran.size} iterations; "
         f"final delta {ran[-1] if ran.size else 0:.5f}")
+    if args.backend == "cpp":
+        from cytvdn_tpu_torch.cpp import native_num_threads
+
+        log(f"backend cpp: the C++ host kernels on {native_num_threads()} "
+            f"OpenMP threads")
     log("kernel launches: " + ", ".join(
         f"{name} {k.launches - b}" for (name, k), b in zip(kernels, before)))
     return Solved(args, recon, b_norm, delta, seconds,

@@ -2,8 +2,7 @@
 
 Counterpart of ``cytvdn_tpu/config.py``: ``BCMode`` keeps the reference's
 integer convention, ``SolverOptions`` the same keyword surface and the same
-``__post_init__`` rejections. The options whose parts are not ported yet
-raise (ROADMAP.md, Queue 1).
+``__post_init__`` rejections.
 """
 
 from __future__ import annotations
@@ -40,16 +39,15 @@ class Backend(enum.Enum):
       tensor.
     - ``TORCH``: the plain PyTorch spec (``ops/stencil.py``) on any device.
     - ``CUDA``: the hand-written CUDA kernel; a CPU tensor raises.
+    - ``CPP``: the native C++/OpenMP host kernels (``cpp/``, through
+      ctypes) on host arrays; the API runs it before any copy to a device,
+      and never picks it by itself.
     """
 
     AUTO = "auto"
     TORCH = "torch"
     CUDA = "cuda"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to cytvdn_tpu_torch yet (ROADMAP.md {item})")
+    CPP = "cpp"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,8 +90,6 @@ class SolverOptions:
     lossy_duals: bool = False
 
     def __post_init__(self):
-        if isinstance(self.backend, str) and self.backend == "cpp":
-            raise _not_ported("backend='cpp'", "Queue 1 item 13")
         if not isinstance(self.backend, Backend):
             object.__setattr__(self, "backend", Backend(self.backend))
         if not isinstance(self.bc_mode, BCMode):

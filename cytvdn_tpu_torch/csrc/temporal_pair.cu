@@ -177,9 +177,10 @@
 // below does not arise. Stash entries are written once per launch by
 // recon-1 and read by recon-2 three stages later, through L2. The sums
 // cover the shard's own columns only. JAX never takes both halo modes in
-// one launch (temporal.py:995); 2D grids pair there with a seam repair,
-// which the port does not run (its 2D grids take the K=1 loop). Without
-// HALO1 the instantiations compile to the code they were.
+// one launch (temporal.py:995); 2D grids pair there, and in the port,
+// with HALO0 and a seam repair after the launch (parallel/pairfix.py),
+// which knows that this kernel's wrap reads the shard's own column 0.
+// Without HALO1 the instantiations compile to the code they were.
 //
 // LOSSY (lossy duals, FISTA only; the TPU kernel's bfloat16 d0 operands
 // and its mid-pair rounding qd1, temporal.py:414-424, :474-482, :621-625):

@@ -449,7 +449,13 @@ def _pair_seams(orig, recon, accs, ds, rho1, lambda_inv, lam_mu, fista, ax,
     :func:`fused_iteration_reference` on one-slab cubes (the -1 shard's
     slab -1 against this shard's slab 0, the +1 shard's slab 0 against
     this shard's last slab and its own slab 1), before this shard's state
-    changes. The other of axes 0 and 1 takes the Jia-Zhao edge values.
+    changes. The other of axes 0 and 1 takes the Jia-Zhao edge values,
+    its forward wrap the cube's own leading accumulator slab along it, as
+    the kernel reads it (``csrc/temporal_pair.cu``: recon-1 at the last
+    index reads b at index 0 after dual-1, recon-2 after dual-2): zero by
+    the Jia-Zhao invariant where the cube holds the whole other axis, and
+    not zero on a 2D grid's shard, whose wrong columns the seam repair
+    (``parallel/pairfix.py``) then knows.
 
     Lossy duals (bfloat16 ``ds``): the bands are float32, every ``d`` that
     enters a K=1 halo operand widens to float32, and the +1 shard's
@@ -468,18 +474,21 @@ def _pair_seams(orig, recon, accs, ds, rho1, lambda_inv, lam_mu, fista, ax,
         i = i % x.shape[axis]
         return x.narrow(axis, i, 1).to(orig.dtype, copy=True).contiguous()
 
-    def k1_halos(cube_recon, prev, nxt):
+    def k1_halos(cube, prev, nxt):
         """Axis ``ax`` from ``prev`` and ``nxt`` (recon, acc, d); the other
-        axis the Jia-Zhao edges of ``cube_recon``."""
-        zs = torch.zeros_like(slab(cube_recon, other, 0))
+        axis the Jia-Zhao edges of ``cube`` (recon, accs, ds): its own
+        first recon slab backward, and forward the recompute of its own
+        leading accumulator slab (a zero difference on the pre-update
+        b and d, the slab's own dual update)."""
+        r, a, d = cube
         out = {f"prev{ax}": prev, f"next{ax}_recon": nxt[0],
                f"next{ax}_acc": nxt[1],
-               f"prev{other}": slab(cube_recon, other, 0),
-               f"next{other}_recon": slab(cube_recon, other, -1),
-               f"next{other}_acc": zs}
+               f"prev{other}": slab(r, other, 0),
+               f"next{other}_recon": slab(r, other, -1),
+               f"next{other}_acc": slab(a[other], other, 0)}
         if fista:
             out[f"next{ax}_d"] = nxt[2]
-            out[f"next{other}_d"] = zs
+            out[f"next{other}_d"] = slab(d[other], other, 0)
         return out
 
     def edge_next(cube_recon):
@@ -490,7 +499,7 @@ def _pair_seams(orig, recon, accs, ds, rho1, lambda_inv, lam_mu, fista, ax,
         """One iteration of a one-slab cube in place."""
         fused_iteration_reference(
             o, r, a, d, rho1, lambda_inv, lam_mu, fista=fista,
-            bc=BCMode.JIA_ZHAO, halos=k1_halos(r, prev, nxt))
+            bc=BCMode.JIA_ZHAO, halos=k1_halos((r, a, d), prev, nxt))
 
     prev_r1 = nxt1 = None
     if not first:
@@ -515,12 +524,12 @@ def _pair_seams(orig, recon, accs, ds, rho1, lambda_inv, lam_mu, fista, ax,
         prev = slab(cube_recon, ax, 0) if first else b["p_near"]
         nxt = edge_next(cube_recon) if last else \
             (b["n_near"], b["n_acc"][ax], b["n_d"][ax] if fista else None)
-        return k1_halos(cube_recon, prev, nxt)
+        return k1_halos((cube_recon, accs, ds), prev, nxt)
 
     def seams2(cube_recon):
         prev = slab(cube_recon, ax, 0) if first else prev_r1
         nxt = edge_next(cube_recon) if last else nxt1
-        return k1_halos(cube_recon, prev, nxt)
+        return k1_halos((cube_recon, accs, ds), prev, nxt)
 
     return seams1, seams2
 

@@ -134,7 +134,9 @@ class MeshComm:
     ``stats`` counts the halo exchanges, the sums and the gathers of a
     result: calls, bytes sent and received, and the host seconds spent in
     them (staging copies and waits for the other ranks included), and the
-    buffers of the pool (``buffers``, ``buffer_bytes``: device bytes).
+    buffers of the pool (``buffers``, ``buffer_bytes``: device bytes);
+    ``seam_*`` the part of the exchanges that a 2D grid's pairs make for
+    their seam repair (``parallel/pairfix.py``).
 
     ``ranks`` lays the grid over some of the group's ranks: the group rank
     of each grid position in row-major order, ``rank`` then being this
@@ -173,7 +175,9 @@ class MeshComm:
                       "exchange_seconds": 0.0, "allsums": 0,
                       "allsum_seconds": 0.0, "gather_bytes": 0,
                       "gather_seconds": 0.0, "buffers": 0,
-                      "buffer_bytes": 0}
+                      "buffer_bytes": 0, "seam_exchanges": 0,
+                      "seam_bytes_sent": 0, "seam_bytes_received": 0,
+                      "seam_exchange_seconds": 0.0}
 
     # -- the grid ----------------------------------------------------------
 

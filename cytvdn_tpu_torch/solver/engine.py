@@ -61,7 +61,9 @@ mirror's edge flags, iso seams and corners, in-block halos of axes 2 and
 3; the plain backend takes ``prev_halo``/``next_halo``), an axis-0
 Jia-Zhao mesh runs its pairs with the pair kernel's 2-row bands
 (``halos0``) and an axis-1 one with its 2-column bands (``halos1``) where
-they pay, every sum goes through ``comm.allsum``, and
+they pay (a 2D grid, axes 0 and 1 split, with the 2-row bands and the
+seam repair of ``parallel/pairfix.py`` only where ``pairfix.can_pair``
+allows), every sum goes through ``comm.allsum``, and
 the stop, the guard and the block discards read only the summed traces,
 so all ranks take the same branches. Every buffer a step uses is reserved
 in ``comm``'s pool before the run's first collective (``prepare_run``).
@@ -520,10 +522,17 @@ def _pair_halos1(comm, orig_bands, recon: Tensor, accs: List[Tensor],
 
 
 def _pair_axis(comm) -> Optional[int]:
-    """The split axis whose bands a mesh shard's pairs take (0 or 1), or
-    None without a split axis."""
+    """The split axis whose bands a mesh shard's pairs take (0 or 1; 0 on
+    a 2D grid), or None without a split axis."""
     split = tuple(comm.split_axes) if comm is not None else ()
     return split[0] if split else None
+
+
+def _grid2d(comm) -> bool:
+    """Whether ``comm`` is a 2D grid, split on axes 0 and 1 alone: its
+    pairs take the axis-0 bands and the seam repair
+    (``parallel/pairfix.py``)."""
+    return comm is not None and set(comm.split_axes) == {0, 1}
 
 
 def _pair_stash(comm, orig: Tensor, ax: int = 0) -> Tensor:
@@ -573,7 +582,11 @@ def _run_phase_paired(
     the launch takes the reference cube and records both iterations' SSE.
     On an axis-0 or axis-1 mesh (``comm``) each launch takes the
     neighbours' bands (:func:`_pair_halos0`, :func:`_pair_halos1`) and its
-    sums are all-reduced.
+    sums are all-reduced. On a 2D grid (axes 0 and 1 split) each launch
+    takes the axis-0 bands, and ``parallel/pairfix.py`` repairs its axis-1
+    seams and corrects its sums before the all-reduce
+    (``engine.py:1085-1097``): the pre-pair edge columns are exchanged
+    before the launch, orig's once per phase.
     The caller's :func:`_run_phase` finishes an odd remainder. Without
     ``stopping_relative_change`` nothing here waits for the device (on one
     device); with it the pairs run behind a guard of horizon 4 in
@@ -581,18 +594,30 @@ def _run_phase_paired(
     ref = reference_data if opts.calculate_mse else None
     ax = _pair_axis(comm)
     bands = _pair_bands(comm, orig, ax) if ax is not None else None
+    oc = None
+    if _grid2d(comm):
+        from cytvdn_tpu_torch.parallel import pairfix
+
+        oc = pairfix.orig_columns(comm, orig)
 
     def launch(i):
         rho1, rho2 = (tk_ratios[i], tk_ratios[i + 1]) if fista \
             else (None, None)
         ds = st.ds if fista else None
         kw = bands(st.recon, st.accs, ds) if bands is not None else {}
+        pre = pairfix.edge_columns(comm, st.recon, st.accs, ds) \
+            if oc is not None else None
         out = fused_pair_iteration(
             orig, st.recon, st.accs, ds, rho1, rho2,
             lambda_inv, lam_mu, fista=fista, ref=ref, **kw)
         sums = out[3:]
         if comm is not None:
-            sums = comm.allsum(torch.stack(sums)).unbind()
+            sums = torch.stack(sums)
+            if pre is not None:
+                sums = pairfix.repair_axis1_seams(
+                    comm, oc, pre, st.recon, st.accs, ds, rho1, rho2,
+                    lambda_inv, lam_mu, sums, ref)
+            sums = comm.allsum(sums).unbind()
         st.b_norm[i] = sums[0]
         st.b_norm[i + 1] = sums[3]
         deltas = torch.stack((sums[1] / sums[2], sums[4] / sums[5]))
@@ -910,19 +935,27 @@ def _plan(opts: SolverOptions, shape, dtype, comm=None):
     (:func:`_pairs_pay`); ``chunks``: whole-run launches on the state
     (:func:`_resolve_resident_chunks`). On a mesh shard (``comm``, ``shape``
     the shard's) there are no whole-run launches and no K-steps
-    (:func:`_run_phases`), and pairs on a mesh split along axis 0
+    (:func:`_run_phases`), and pairs on a mesh split along axis 0 alone
     (``halos0``) or along axis 1 alone with shards of 2 columns or more
-    (``halos1``; the JAX gate, ``engine.py:510-516``): 2D grids run the
-    K=1 loop, whose state is the same (their pair mode, the seam repair,
-    is ROADMAP.md Queue 1 item 7). Shape, dtype, options and the mesh's
-    split axes only, so every rank of an evenly tiled mesh plans alike."""
+    (``halos1``), as the JAX gate decides (``engine.py:510-517``). A 2D
+    grid (axes 0 and 1 split) pairs, with ``halos0`` and the seam repair,
+    only where ``parallel/pairfix.py::can_pair`` allows, which by default
+    it does not: there the K=1 loop, whose state is the same, took less
+    time. Meshes that split axis 2 or 3 run the K=1 loop. Shape, dtype,
+    options and the mesh's split axes only, so every rank of an evenly
+    tiled mesh plans alike."""
     temporal = _resolve_temporal(opts, shape, dtype) and (
         opts.stopping_relative_change is None
         or stop_ckpt_bytes(opts, shape, dtype) <= STOP_CKPT_MAX_BYTES)
     if comm is not None:
         split = set(comm.split_axes)
-        temporal = temporal and (split <= {0}
-                                 or split == {1} and shape[1] >= 2)
+        if split == {0, 1}:
+            from cytvdn_tpu_torch.parallel import pairfix
+
+            temporal = temporal and pairfix.can_pair(shape)
+        else:
+            temporal = temporal and (split <= {0}
+                                     or split == {1} and shape[1] >= 2)
         return temporal, temporal and _pairs_pay(shape, dtype), False
     paired = temporal and _pairs_pay(shape, dtype)
     chunks = _resolve_resident_chunks(opts, shape, dtype)
@@ -1034,7 +1067,8 @@ def _reserve_mesh(comm, run_opts: SolverOptions, orig: Tensor,
     buffers both ways, the edge values, the K=1 kernel's scratch slabs, the
     pair's bands and 2-row stash — by running the steps' halo assembly
     under ``comm.reserving()`` (which allocates and does not communicate),
-    once per phase's state; then seal the pool."""
+    once per phase's state, and on a 2D grid the seam repair's column and
+    strip exchanges (``pairfix.reserve``); then seal the pool."""
     n_f, n_u = run_opts.iterations_fista, run_opts.iterations_unacc
     variants = ([st.ds] if n_f and st.ds is not None else []) \
         + ([None] if n_u or not n_f else [])
@@ -1050,6 +1084,10 @@ def _reserve_mesh(comm, run_opts: SolverOptions, orig: Tensor,
                 _k1_halos(comm, run_opts, st.recon, st.accs, ds)
             if pair_ax is not None:
                 _pair_bands(comm, orig, pair_ax)(st.recon, st.accs, ds)
+                if _grid2d(comm):
+                    from cytvdn_tpu_torch.parallel import pairfix
+
+                    pairfix.reserve(comm, orig, st.recon, st.accs, ds)
     comm.sealed = True
 
 
@@ -1088,6 +1126,10 @@ def prepare_run(
     (``parallel/sharded.py::run_sharded``)."""
     if opts.backend == Backend.CUDA and orig.device.type != "cuda":
         raise ValueError(f"backend='cuda' needs CUDA tensors, got {orig.device}")
+    if opts.backend == Backend.CPP:
+        raise ValueError("backend='cpp' runs on the host through "
+                         "cpp/backend.py::solve_cpp (denoise3D/4D); the "
+                         "engine takes 'auto', 'torch' or 'cuda'")
     if comm is not None:
         check_mesh(opts, comm, tuple(orig.shape))
     dtype, device = orig.dtype, orig.device

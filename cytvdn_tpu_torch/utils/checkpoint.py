@@ -44,7 +44,12 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from cytvdn_tpu_torch.config import BCMode, SolverOptions, normalize_iterations
+from cytvdn_tpu_torch.config import (
+    Backend,
+    BCMode,
+    SolverOptions,
+    normalize_iterations,
+)
 from cytvdn_tpu_torch.parallel.multihost import block_slices, state_block
 from cytvdn_tpu_torch.utils.state import (
     bf16_bits,
@@ -496,6 +501,9 @@ def run_chunked(
     from cytvdn_tpu_torch.api import _to_device
     from cytvdn_tpu_torch.solver.engine import run_solver
 
+    if opts.backend == Backend.CPP:
+        raise ValueError("checkpointing runs on the torch and CUDA backends; "
+                         "backend='cpp' is not supported here")
     n_total = opts.total_iterations
     meta = {
         "ndim": opts.ndim,

@@ -1348,6 +1348,8 @@ def test_pair_halo1_shards_reassemble_to_one_launch(shape, n_shards, fista,
     ((1, 2, 1, 1), dict(iterations=9, with_ref=True)),
     ((1, 2, 1, 1), dict(iterations=40, stop=True)),
     ((2, 2, 1, 1), dict(iterations=6)),
+    ((2, 2, 1, 1), dict(iterations=9, with_ref=True)),
+    ((2, 2, 1, 1), dict(iterations=9, lossy=True)),
     ((2, 1, 1, 1), dict(iterations=9, lossy=True)),
     ((2, 1, 1, 1), dict(iterations=40, stop=True, lossy=True)),
     ((1, 2, 1, 1), dict(iterations=9, lossy=True)),
@@ -1356,8 +1358,10 @@ def test_mesh_run_on_the_card_bitwise_single_device(monkeypatch, shard, kw):
     """``denoise_sharded`` with ranks as threads sharing the card (gloo
     groups, slabs staged through page-locked memory) against ``denoise4D``
     on the card: recon bitwise, traces within rtol 1e-5, the HALO0 pairs
-    launched on axis-0 meshes, the HALO1 pairs on axis-1 meshes (LOSSY ones
-    under lossy duals) and K=1 halo launches on the 2D grid."""
+    launched on axis-0 meshes and on the 2D grid (``pairfix.PAIR_2D_GRIDS``
+    set: its axis-1 seams repaired, ``parallel/pairfix.py``; K=1 launches
+    only for an odd remainder), the HALO1 pairs on axis-1 meshes (LOSSY
+    ones under lossy duals)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     import datetime
@@ -1367,10 +1371,11 @@ def test_mesh_run_on_the_card_bitwise_single_device(monkeypatch, shard, kw):
     import torch.distributed as dist
 
     from cytvdn_tpu_torch import denoise4D
-    from cytvdn_tpu_torch.parallel import denoise_sharded
+    from cytvdn_tpu_torch.parallel import denoise_sharded, pairfix
     from cytvdn_tpu_torch.solver import engine
 
     monkeypatch.setattr(engine, "PAIR_MIN_ROW_BYTES", 0)
+    monkeypatch.setattr(pairfix, "PAIR_2D_GRIDS", True)
     cube = (np.random.default_rng(5).standard_normal((16, 12, 10, 33))
             * 0.5 + 2.0).astype(np.float32)
     mu = np.full(4, 1.0, np.float32)
@@ -1419,9 +1424,13 @@ def test_mesh_run_on_the_card_bitwise_single_device(monkeypatch, shard, kw):
     halo0 = ttemporal.fused_pair_iteration.halo0_launches - before[0]
     k1 = tfused.fused_iteration.halo_launches - before[1]
     halo1 = ttemporal.fused_pair_iteration.halo1_launches - before[3]
-    assert (halo0 > 0) == (shard[1] == 1), (halo0, halo1, k1)
+    assert (halo0 > 0) == (shard[0] > 1), (halo0, halo1, k1)
     assert (halo1 > 0) == (shard[0] == 1), (halo0, halo1, k1)
     assert k1 > 0 or (halo0 + halo1 > 0 and not kw.get("stop"))
+    if shard[:2] == (2, 2):
+        # pairs, the odd remainder on the K=1 loop
+        n = kw["iterations"]
+        assert halo0 == 4 * (n // 2) and k1 == 4 * (n % 2), (halo0, k1)
     lossy = ttemporal.fused_pair_iteration.lossy_launches - before[2]
     assert lossy == (halo0 + halo1 if kw.get("lossy") else 0)
 

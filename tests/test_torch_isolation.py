@@ -29,7 +29,9 @@ import cytvdn_tpu_torch.parallel, cytvdn_tpu_torch.parallel.api
 import cytvdn_tpu_torch.parallel.distributed, cytvdn_tpu_torch.parallel.halo
 import cytvdn_tpu_torch.parallel.multihost
 import cytvdn_tpu_torch.parallel.partition
-import cytvdn_tpu_torch.parallel.sharded
+import cytvdn_tpu_torch.parallel.sharded, cytvdn_tpu_torch.parallel.pairfix
+import cytvdn_tpu_torch.cpp, cytvdn_tpu_torch.cpp.backend
+import cytvdn_tpu_torch.cpp.build
 leaked = {'jax', 'jaxlib', 'cytvdn_tpu'} & {m.split('.')[0] for m in sys.modules}
 assert not leaked, leaked
 """
@@ -56,10 +58,12 @@ assert not leaked, leaked
 """
 
 
-@pytest.mark.parametrize("run", ["help", "solve"])
+@pytest.mark.parametrize("run", ["help", "solve", "cpp"])
 def test_cli_imports_no_jax(tmp_path, run):
-    """The command, asked for its help or run end to end (on the CPU, a
-    .dm4 input, an EMD output), loads neither JAX nor the JAX package."""
+    """The command, asked for its help or run end to end (on the CPU, or
+    through the C++ host kernels, whose library the port builds under its
+    own ``_build/``; a .dm4 input, an EMD output), loads neither JAX nor
+    the JAX package."""
     import numpy as np
 
     from cytvdn_tpu_torch.io.dm import write_dm
@@ -70,7 +74,8 @@ def test_cli_imports_no_jax(tmp_path, run):
         inp = str(tmp_path / "in.dm4")
         write_dm(inp, np.ones((4, 5, 6), np.float32))
         args = ["-i", inp, "-o", str(tmp_path / "out.emd"), "-m", "1.0",
-                "-n", "3", "-f", "1", "--device", "cpu"]
+                "-n", "3", "-f", "1"]
+        args += ["--backend", "cpp"] if run == "cpp" else ["--device", "cpu"]
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", CLI_PROBE, *args],
@@ -81,3 +86,6 @@ def test_cli_imports_no_jax(tmp_path, run):
         assert proc.stdout.startswith("usage: cytv-torch")
     else:
         assert os.path.exists(str(tmp_path / "out.emd"))
+    if run == "cpp":
+        assert os.path.exists(os.path.join(
+            REPO, "cytvdn_tpu_torch", "_build", "libtvdn_cpu.so"))

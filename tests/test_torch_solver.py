@@ -147,16 +147,20 @@ def test_validation_errors_match_jax():
 
 @pytest.mark.parametrize("kw", [dict(lossy_duals=True), dict(backend="cpp")])
 def test_not_ported_options_raise(kw):
-    """``backend='cpp'`` is not ported and raises, naming its ROADMAP item.
-    ``lossy_duals`` is ported (Queue 1 item 12(a)): the run happens, equals
-    the JAX package's lossy run (the recon within atol 5e-7, its own
-    tolerance, tests/test_lossy.py) and is not the exact run."""
+    """Options once refused, each ported since and run here.
+    ``backend='cpp'`` (Queue 1 item 13): the C++ host kernels, the recon
+    and the traces within the file's float32 tolerance (rtol 2e-5 / atol
+    2e-6) of the port's ``backend="torch"`` run on the CPU. ``lossy_duals`` (Queue 1 item
+    12(a)): the run happens, equals the JAX package's lossy run (the recon
+    within atol 5e-7, its own tolerance, tests/test_lossy.py) and is not
+    the exact run."""
     cube = _cube((4, 5, 6, 7), 12)
     mu = np.full(4, 1.0, np.float32)
     if "backend" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttv.denoise4D(cube, mu, iterations=2, quiet=True, device="cpu",
-                          **kw)
+        got = ttv.denoise4D(cube, mu, iterations=6, quiet=True, **kw)
+        want = ttv.denoise4D(cube, mu, iterations=6, quiet=True,
+                             backend="torch", device="cpu")
+        _compare(got, want)
         return
     got, want = _both("denoise4D", cube, mu, "pallas", iterations=6, **kw)
     _compare(got[:1], want[:1], rtol=0, atol=5e-7)
