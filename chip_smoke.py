@@ -12,12 +12,19 @@ non-zero — nothing is caught):
    instantiation's registers and spills from ptxas, the pair kernel's with
    and without its reference-cube SSE (REF) and their cooperative grids;
    every instantiation listed in ``tools/sass_digests.json`` compiled to
-   the same code (the digests of ``tools/torch_sass_order.py``);
+   the same code (the digests of ``tools/torch_sass_order.py``); the K=1
+   kernel's vector walk (``dualwalk_kernel``, ``reconwalk_kernel``) sends
+   no store while its own load is in flight and uses no local memory;
 2. kernels vs plain: 3 iterations of the fused-iteration kernel against its
    plain PyTorch version on the same inputs — state bitwise equal, the
    three sums within rtol 1e-5 — for every boundary condition, FISTA and
    unaccelerated, half-isotropic pairs, float32 and float64, also at the
-   main path's shapes (256,256,2048); two pairs of the pair kernel against
+   main path's shapes (256,256,2048); its vector walk (float32 without
+   halos) at last extents 1, 30, 31, 33 (masked) and 32, 64 (128-bit),
+   3D and 4D, every mode and lossy duals, at a forced grid, each
+   repeated exactly, and on states one element off 16 bytes at forced
+   grids and bands; ms per K=1 launch by the walk's item order (bands)
+   and blocks per SM at (256,256,128,128) and (256,256,2048); two pairs of the pair kernel against
    its plain version, and four launches of the fused-iteration kernel
    against it too (state bitwise equal, sums within rtol 1e-5), at N0 =
    4..7 and on ragged shapes at axis-1 strip widths 1, 2, 3, N1 and the
@@ -45,7 +52,8 @@ non-zero — nothing is caught):
    (N0,64,2048) for N0 = 128, 192, 1024, at (128,128,64,64) unaccelerated
    and at N0 = 2K with large rows, (16,512,128,128) FISTA and
    (12,1024,2048) unaccelerated, along the engine's pick, K=8, pairs and
-   the K=1 loop (the whole-run kernel off); two launches
+   the K=1 loop (the whole-run kernel off), and a dispatch line of those
+   at configs 2-4; two launches
    of the K-step kernel (K = 3, 4, 6, 8) against its plain version, K
    fused-iteration launches and (K even) K/2 pair launches (state bitwise
    equal, sums within rtol 1e-5) at N0 = 2K and 2K+1 in 3D and 4D and on
@@ -130,7 +138,7 @@ non-zero — nothing is caught):
    ``--out-of-core 2 --shard 2`` in one process exits 2 with the
    ``torchrun`` to start; ``--backend cpp`` (the C++ host kernels, built
    with g++ from ``csrc/tvdn_cpu.cpp`` into ``cytvdn_tpu_torch/_build/``)
-   on config 1 x200 in its own process, against ``--device cpu`` (the
+   on config 1 x100 in its own process, against ``--device cpu`` (the
    plain PyTorch version on the host) within rtol 1e-5, its solve's
    seconds and OpenMP threads. Where h5py is missing, the command's
    load-and-solve step stands in for it;
@@ -474,6 +482,26 @@ def ragged_cases():
 
 
 RAGGED = ragged_cases()
+
+
+def walk_cases():
+    """The K=1 kernel's vector-walk cases as (shape, (fista, bc, iso_r,
+    iso_q, lossy)), also those of tests/test_torch_cuda.py: last extents 1,
+    30, 31 and 33 (the element-by-element walk, masked at the ragged edge)
+    and 32 and 64 (multiples of 4: 128-bit accesses), 3D and 4D; every
+    boundary condition (mirror where every extent is >= 2), FISTA and
+    unaccelerated, iso R, Q and both (4D), and lossy duals."""
+    shapes = [(7, 9, 5, 1), (5, 7, 9, 30), (9, 5, 7, 31), (5, 6, 7, 33),
+              (5, 6, 9, 32), (13, 7, 1), (9, 17, 30), (6, 13, 31),
+              (7, 11, 33), (6, 13, 64)]
+    modes = [(f, bc, False, False, False) for f in (True, False)
+             for bc in (0, 1, 2)] \
+        + [(f, 2, r, q, False) for f in (True, False)
+           for r, q in ((True, False), (False, True), (True, True))] \
+        + [(True, 2, False, False, True)]
+    return [(shape, mode) for shape in shapes for mode in modes
+            if (len(shape) == 4 or not (mode[2] or mode[3]))
+            and (mode[1] != 1 or min(shape) >= 2)]
 # the whole-run kernel's size sweep: unaccelerated 64x64xN from 10.5 to
 # 335 MB of state, config 1 FISTA (67.1 MB) and with a reference cube
 # (50.3 MB), and 4D FISTA at 10.5 and 168 MB
@@ -570,6 +598,108 @@ def compare_case(shape, bc, fista, dtype, iso_r=False, iso_q=False, iters=3):
     rel = ((ksum - psum).abs() / psum.abs().clamp_min(1e-300)).max().item()
     require(rel <= 1e-5, f"sums differ by rtol {rel} at {shape} bc {bc}")
     return err
+
+
+def walk_state(shape, fista, lossy, gen, offset=0):
+    """A random float32 state on the card (bfloat16 d where ``lossy``);
+    with ``offset``, every array a view ``offset`` elements into its own
+    buffer, so that none is 16-byte aligned (the walk's element-by-element
+    path)."""
+    n = int(np.prod(shape))
+
+    def rnd(scale, dtype=torch.float32):
+        x = torch.empty(n + offset, device="cuda", dtype=dtype)[offset:]
+        x = x.view(shape)
+        x.copy_(torch.randn(shape, generator=gen, device="cuda") * scale)
+        return x
+
+    orig = rnd(0.5)
+    orig += 2.0
+    recon = rnd(0.05)
+    recon += orig
+    state = [recon] + [rnd(0.2) for _ in shape]
+    if fista:
+        state += [rnd(0.2, torch.bfloat16 if lossy else torch.float32)
+                  for _ in shape]
+    return orig, state
+
+
+def compare_walk_case(shape, mode, offset=0, grids=(None,), bands=(None,),
+                      iters=3):
+    """``iters`` launches through the K=1 kernel's vector walk against its
+    plain version from the same state, at every forced grid (``"all"``:
+    one block per work item) and item order (axis-1 indices per band,
+    4D) given: state bitwise, d included, sums within rtol 1e-5, every
+    launch counted as a walk launch; the default launch repeated, state
+    and sums exactly. ``mode``: (fista, bc, iso_r, iso_q, lossy). Returns
+    max |Δstate|."""
+    fista, bc, iso_r, iso_q, lossy = mode
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    orig, state = walk_state(shape, fista, lossy, gen, offset)
+    ndim = len(shape)
+    li = torch.linspace(0.2, 0.35, ndim, device="cuda")
+    lm = torch.linspace(1 / 32, 1 / 48, ndim, device="cuda")
+    rho = torch.tensor(0.37, device="cuda")
+    kw = dict(bc=bc, iso_r=iso_r, iso_q=iso_q)
+
+    def run(step, **extra):
+        s = [x.clone() for x in state]
+        fn = step_fn(step, orig, s, li, lm, rho, fista, **kw, **extra)
+        sums = torch.stack([torch.stack(fn()[3:]).double()
+                            for _ in range(iters)]).cpu()
+        return s, sums
+
+    plain, psum = run(fused_iteration_reference)
+    err = 0.0
+    for grid in grids:
+        for band in bands:
+            g = fused_mod._walk_items(shape) if grid == "all" else grid
+            before = fused_iteration.walk_launches
+            ks, ksum = run(fused_iteration, grid=g, band=band)
+            require(fused_iteration.walk_launches - before == iters,
+                    f"walk {shape} {mode}: launches not through the walk")
+            err = max([err] + [(a.float() - b.float()).abs().max().item()
+                               for a, b in zip(ks, plain)])
+            require(all(a.dtype == b.dtype and torch.equal(a, b)
+                        for a, b in zip(ks, plain)),
+                    f"walk {shape} {mode} offset {offset} grid {grid} band "
+                    f"{band}: state differs from the plain version (max "
+                    f"|Δ| {err})")
+            rel = ((ksum - psum).abs() / psum.abs().clamp_min(1e-300)).max()
+            require(rel.item() <= 1e-5, f"walk {shape} {mode}: sums differ "
+                                        f"by rtol {rel.item()}")
+            if grid is None and band is None:
+                again, asum = run(fused_iteration)
+                require(torch.equal(asum, ksum) and all(
+                    torch.equal(a, b) for a, b in zip(again, ks)),
+                    f"walk {shape} {mode}: a repeat differs")
+    return err
+
+
+def time_walk_orders(shape, n):
+    """ms per FISTA float32 K=1 launch through the vector walk on one
+    Jia-Zhao state, in turns up and down: in 4D at bands of N1 (tile by
+    tile, axis 1 fastest), 16 and 1 (axis 0 fastest) axis-1 indices at the
+    default grids; then the default band with both passes on 1, 2 and 3
+    blocks per SM. Returns ({label: mean ms}, the raw runs)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    orig, state, li, lm, rho = random_state(shape, True, torch.float32, gen,
+                                            jz=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    default = fused_mod.walk_band(shape)
+    bands = (shape[1], 16, 1) if len(shape) == 4 else (1,)
+    opts = {f"band {b}{' (default)' if b == default else ''}": dict(band=b)
+            for b in bands}
+    for per_sm in (1, 2, 3):
+        opts[f"{per_sm} block(s) per SM"] = dict(grid=per_sm * sms)
+    fns = {k: step_fn(fused_iteration, orig, state, li, lm, rho, True, **kw)
+           for k, kw in opts.items()}
+    order = list(opts)
+    runs = [(k, time_ms(fns[k], n)) for k in order + order[::-1]]
+    del orig, state, fns
+    torch.cuda.empty_cache()
+    mean = {k: sum(t for name, t in runs if name == k) / 2 for k in opts}
+    return mean, [(k, round(t, 3)) for k, t in runs]
 
 
 def compare_pair_case(shape, fista, grids=(None,), strips=(None,)):
@@ -829,6 +959,8 @@ def kernel_args(mangled: str):
     """(kernel name, template arguments) of a kernel instantiation's
     mangled name, the arguments as strings ("f", "4", "1", ...)."""
     k = re.search(r"([a-z]+_kernel)I(.+?)EEv", mangled)
+    if k is None:  # a kernel that is no template
+        return re.search(r"\d([a-z]+_kernel)E", mangled).group(1), []
     return k.group(1), [a or b for a, b in re.findall(
         r"([fd])(?=L|E|$)|L[ib](\d+)", k.group(2))]
 
@@ -856,10 +988,12 @@ def ptxas_summary(log: str) -> str:
 
 
 def store_order():
-    """Each instantiation of the K=1 kernel's dual pass, of the pair kernel
-    and of the K-step kernel's two entry points in the built library's SASS
+    """Each instantiation of the K=1 kernel's passes (the scalar dual pass,
+    the vector walk's two), of the pair kernel and of the K-step kernel's
+    two entry points in the built library's SASS
     (``tools/torch_sass_order.py``), by kernel name: (template arguments,
-    <T,ND,FISTA,HALO,ISO,LOSSY> of dual_kernel, <ND,FISTA,REF,HALO,LOSSY>
+    <T,ND,FISTA,HALO,ISO,LOSSY> of dual_kernel, <ND,FISTA,ISO,LOSSY> of
+    dualwalk_kernel, <ND> of reconwalk_kernel, <ND,FISTA,REF,HALO,LOSSY>
     of pair_kernel (HALO 0 none, 1 axis-0 bands, 2 axis-1 bands),
     <ND,FISTA,K,LOSSY> of kstep_kernel or <K,LOSSY> of kstepcap_kernel;
     ISO; LOSSY; stores; stores sent while their own load is in flight; LDL;
@@ -869,8 +1003,8 @@ def store_order():
                                     "tools"))
     import torch_sass_order as so
 
-    rows = {"dual_kernel": [], "pair_kernel": [], "kstep_kernel": [],
-            "kstepcap_kernel": []}
+    rows = {"dual_kernel": [], "dualwalk_kernel": [], "reconwalk_kernel": [],
+            "pair_kernel": [], "kstep_kernel": [], "kstepcap_kernel": []}
     sass = so.library_sass()
     # every kernel's instantiations by their code (tools/sass_digests.json)
     rows["digests"] = so.digests(sass, ["_kernel"])
@@ -880,7 +1014,8 @@ def store_order():
             continue
         _, args = kernel_args(mangled)
         stores, _, in_flight = so.store_order(fn)
-        iso = name == "dual_kernel" and args[4] == "1"
+        iso = (name == "dual_kernel" and args[4] == "1") or (
+            name == "dualwalk_kernel" and args[2] == "1")
         rows[name].append((f"<{','.join(args)}>", iso, args[-1] == "1",
                            stores, len(in_flight), *so.local_memory(fn)))
     return rows
@@ -1075,6 +1210,7 @@ def reset_counts():
     fused_iteration.halo_launches = 0
     fused_iteration.mode_launches = 0
     fused_iteration.lossy_launches = 0
+    fused_iteration.walk_launches = 0
 
 
 def res_state(shape, schedule, with_ref, n_iters, gen):
@@ -1291,8 +1427,9 @@ def profile_kernels(shape, iters=6, kstep=None, lossy=False):
     ``torch.profiler``'s device events, over ``iters`` iterations run
     as fused-iteration launches, then as pair-kernel launches, then (with
     ``kstep`` = K) as K-step launches, and the bytes per second that the
-    traffic model's traversals imply: the dual pass 4n+1 (17 in 4D), the
-    reconstruction pass n+3, the pair and K-step kernels the two-pass 5n+4
+    traffic model's traversals imply: the fused-iteration launch's dual
+    pass (the vector walk's ``dualwalk_kernel``) 4n+1 (17 in 4D), its
+    reconstruction pass (``reconwalk_kernel``) n+3, the pair and K-step kernels the two-pass 5n+4
     per iteration (the top of their bands). With ``lossy``, ``iters``
     lossy fused-iteration launches follow in the same session on the same
     state, its d cast to bfloat16; each launch runs one dual, one recon
@@ -1338,11 +1475,11 @@ def profile_kernels(shape, iters=6, kstep=None, lossy=False):
     torch.cuda.empty_cache()
     nvox = int(np.prod(shape))
     # bytes per voxel each kernel moves per iteration
-    per_vox = {"dual_kernel": 4 * (4 * n + 1), "recon_kernel": 4 * (n + 3),
-               "finalize_kernel": 0, "pair_kernel": 4 * (5 * n + 4),
-               "kstep_kernel": 4 * (5 * n + 4)}
-    lossy_vox = {"dual_kernel": 12 * n + 4, "recon_kernel": 4 * (n + 3),
-                 "finalize_kernel": 0}
+    per_vox = {"dualwalk_kernel": 4 * (4 * n + 1),
+               "reconwalk_kernel": 4 * (n + 3), "finalize_kernel": 0,
+               "pair_kernel": 4 * (5 * n + 4), "kstep_kernel": 4 * (5 * n + 4)}
+    lossy_vox = {"dualwalk_kernel": 12 * n + 4,
+                 "reconwalk_kernel": 4 * (n + 3), "finalize_kernel": 0}
     events = sorted((e for e in prof.events()
                      if e.device_type != DeviceType.CPU),
                     key=lambda e: e.time_range.start)
@@ -2040,7 +2177,7 @@ def cli_phase(smi, cube):
     separate process; each recon bitwise the API's run with the same
     arguments. (c) ``--out-of-core 2 --shard 2`` in one process exits 2
     with the ``torchrun`` to start (phase 8 (f) runs it on processes);
-    ``--backend cpp`` on config 1 x200 in its own process against the
+    ``--backend cpp`` on config 1 x100 in its own process against the
     command's ``--device cpu`` run of the same file (the plain PyTorch
     version on the host), within rtol 1e-5."""
     from cytvdn_tpu_torch import cli
@@ -2208,13 +2345,13 @@ def cli_phase(smi, cube):
 
 
 #: iterations of phase 7 (c)'s ``--backend cpp`` run at config 1 (the
-#: ``--device cpu`` run beside it took 108 ms per iteration on the host of
-#: an NVIDIA H100 80GB HBM3, 700 W machine)
-CPP_ITERS = 200
+#: ``--device cpu`` run beside it took 75-178 ms per iteration on the hosts
+#: of NVIDIA H100 80GB HBM3, 700 W machines)
+CPP_ITERS = 100
 
 
 def cpp_phase(smi, cli, dm4, out1, tmp, root, env):
-    """Phase 7 (c), ``--backend cpp``: the command on config 1's .dm4 x200
+    """Phase 7 (c), ``--backend cpp``: the command on config 1's .dm4 x100
     unaccelerated in its own process (it builds ``csrc/tvdn_cpu.cpp`` with
     g++ where the build is stale), against the command's ``--device cpu``
     run of the same file in this process, within rtol 1e-5; the solve's
@@ -5520,6 +5657,30 @@ def main() -> int:
         n_cases += 1
     log(f"phase 2 kernel vs plain: {n_cases} cases, 3 iterations each, state "
         f"bitwise equal (max |Δ| {max_err}), sums within rtol 1e-5")
+    # the K=1 kernel's vector walk (float32 launches without halos): its
+    # ragged edges at a forced grid, and states off 16-byte boundaries at
+    # other item orders
+    t0 = time.perf_counter()
+    cases = walk_cases()
+    for shape, mode in cases:
+        max_err = max(max_err, compare_walk_case(shape, mode, grids=(None, 7)))
+    unaligned = [((9, 5, 7, 32), (True, 2, False, False, False)),
+                 ((9, 5, 7, 32), (True, 2, False, False, True)),
+                 ((5, 6, 7, 33), (True, 2, True, True, False)),
+                 ((6, 13, 64), (False, 0, False, False, False))]
+    for shape, mode in unaligned:
+        max_err = max(max_err, compare_walk_case(
+            shape, mode, offset=1, grids=(None, 1, "all"),
+            bands=(None, 1, 2) if len(shape) == 4 else (None,)))
+    log(f"phase 2 K=1 vector walk vs plain: {len(cases)} cases (last extents "
+        f"1, 30, 31, 33 masked, 32 and 64 in 128-bit accesses; 3D and 4D; "
+        f"every BC, FISTA and unaccelerated, iso R, Q, RQ, lossy) at the "
+        f"wrapper's grid and at 7 blocks, each repeated exactly; "
+        f"{len(unaligned)} states one element off 16 bytes (the "
+        f"element-by-element walk) at 1 block, all blocks and bands of 1, 2 "
+        f"and N1 (4D); 3 iterations each, state bitwise equal "
+        f"(max |Δ| {max_err}), sums within rtol 1e-5; "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     pair_err = 0.0
     n_pair = 0
@@ -5574,7 +5735,8 @@ def main() -> int:
     order = orders["dual_kernel"]
     dual_ptx = [row for row in ptxas.split("; ")
                 if row.startswith("dual_kernel")]
-    log(f"phase 1 K=1 dual pass dual_kernel<T,ND,FISTA,HALO,ISO,LOSSY> (ISO: "
+    log(f"phase 1 K=1 scalar dual pass dual_kernel<T,ND,FISTA,HALO,ISO,LOSSY> "
+        f"(launches with halos, and double ones; ISO: "
         f"the 4D half-isotropic launches, loads first, b before d; LOSSY: "
         f"bfloat16 d, b before d): ptxas "
         f"{'; '.join(dual_ptx)}; SASS (tools/torch_sass_order.py) stores / "
@@ -5582,16 +5744,34 @@ def main() -> int:
         + "; ".join(f"{a} {st}/{fl}/{ldl}/{stl}"
                     for a, _, _, st, fl, ldl, stl in order)
         + f"; checked beside phase 2, {time.perf_counter() - t_sass:.1f} s")
+    walk = orders["dualwalk_kernel"] + orders["reconwalk_kernel"]
+    walk_ptx = [row for row in ptxas.split("; ") if "walk_kernel<" in row]
+    log(f"phase 1 K=1 vector walk dualwalk_kernel<ND,FISTA,ISO,LOSSY> and "
+        f"reconwalk_kernel<ND> (float32 launches without halos): ptxas "
+        f"{'; '.join(walk_ptx)}; SASS stores / sent while their own load is "
+        f"in flight / LDL / STL: "
+        + "; ".join(f"{'dual' if i < len(orders['dualwalk_kernel']) else 'recon'}"
+                    f"{a} {st}/{fl}/{ldl}/{stl}"
+                    for i, (a, _, _, st, fl, ldl, stl) in enumerate(walk)))
+    require(len(orders["dualwalk_kernel"]) == 8
+            and len(orders["reconwalk_kernel"]) == 2,
+            f"expected 8 dualwalk_kernel and 2 reconwalk_kernel "
+            f"instantiations, found {walk}")
+    require(all(r[4:] == (0, 0, 0) for r in walk),
+            f"a vector-walk instantiation of the K=1 kernel sends a store "
+            f"while its own load is in flight, or uses local memory: {walk}")
+    # the scalar dual pass's ISO instantiations: float with halos, double
+    # with and without (float launches without halos take the walk)
     iso_rows = [r for r in order if r[1]]
-    require(len(iso_rows) == 8, f"expected 8 ISO instantiations of "
+    require(len(iso_rows) == 6, f"expected 6 ISO instantiations of "
                                 f"dual_kernel, found {iso_rows}")
     require(all(r[4] == 0 for r in iso_rows),
             f"an ISO instantiation of dual_kernel sends a store while its "
             f"own load is in flight: {iso_rows}")
-    # phase 11 (e): the LOSSY instantiations (float, FISTA, ND 3 and 4,
-    # with and without HALO)
+    # phase 11 (e): the scalar LOSSY instantiations (float, FISTA, ND 3 and
+    # 4, with halos)
     lossy_rows = [r for r in order if r[2]]
-    require(len(lossy_rows) == 4, f"expected 4 LOSSY instantiations of "
+    require(len(lossy_rows) == 2, f"expected 2 LOSSY instantiations of "
                                   f"dual_kernel, found {lossy_rows}")
     require(all(r[4:] == (0, 0, 0) for r in lossy_rows),
             f"a LOSSY instantiation of dual_kernel sends a store while its "
@@ -5701,6 +5881,14 @@ def main() -> int:
         f"kernel {k4:.3f} ms, plain {p4:.3f} ms; at {CFG3}: "
         f"{times[CFG3]['k1x2'] / 2:.3f} / {times[CFG3]['plain'] / 2:.3f} ms "
         f"[{smi}]")
+    for shape, n_k in ((CFG4, 3), (CFG2, 10)):
+        orders_ms, raw = time_walk_orders(shape, n_k)
+        log(f"phase 2 K=1 vector walk's item order at {shape} FISTA f32, ms "
+            f"per launch by axis-1 indices per band and by blocks per SM of "
+            f"both passes (the default grids: {fused_mod.WALK_PER_SM} per SM "
+            f"at most): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in orders_ms.items())
+            + f" (runs {raw}) [{smi}]")
     prof = profile_kernels(CFG4, lossy=True)
     log(f"phase 2 torch.profiler device time per FISTA f32 iteration at "
         f"{CFG4}, exact launches, then lossy (bfloat16 d) K=1 launches on "
@@ -5735,9 +5923,11 @@ def main() -> int:
         f"fastest width W={best} {t4[best]:.3f} ms; 2 fused-iteration "
         f"launches {t4['k1x2']:.3f} ms; sweep {time.perf_counter() - t0:.1f}"
         f" s [{smi}]")
+    dispatch = {}
     for shape, fista in STRIP_SWEEP + SOLVER_ONLY:
         n_it = 16 if shape == CFG4 else 24
         mean, launches, raw = time_solver_paths(shape, fista, n_it)
+        dispatch[shape] = mean
         mb = resident_state_bytes(shape, fista, False) / 1e6
         log(f"phase 2 run_solver {shape} {'FISTA' if fista else 'unaccelerated'}"
             f" ({mb:.1f} MB of state) x{n_it} on the card, whole-run off, ms per "
@@ -5747,6 +5937,16 @@ def main() -> int:
             f"({launches['pairs']}), K=1 loop {mean['k1']:.4f} "
             f"({launches['k1']}); recon bitwise equal on every path (runs "
             f"{raw}) [{smi}]")
+    ahead = [f"{s}" for s in (CFG4, CFG3, CFG2)
+             if dispatch[s]["k1"] < dispatch[s]["gate"]]
+    log(f"phase 2 dispatch, ms per FISTA f32 iteration of run_solver "
+        f"(whole-run off): "
+        + "; ".join(f"config {c} {s}: K=1 loop {dispatch[s]['k1']:.4f}, K=8 "
+                    f"{dispatch[s]['k8']:.4f}, pairs {dispatch[s]['pairs']:.4f}"
+                    f", the gate's pick {dispatch[s]['gate']:.4f}"
+                    for c, s in ((4, CFG4), (3, CFG3), (2, CFG2)))
+        + f"; the K=1 loop ahead of the gate's pick at: {ahead or 'none'} "
+        f"[{smi}]")
 
     # the K-step kernel: every depth against its plain version, K
     # fused-iteration launches and K/2 pair launches, then at forced grids
@@ -5939,6 +6139,10 @@ def main() -> int:
                 f"x{iters}: (whole-run, K-step, pair, fused-iteration) launches "
                 f"{counts[iters]}, expected {want}, iterations_run "
                 f"{iterations_run}")
+        # every float32 K=1 launch without halos takes the vector walk
+        require(fused_iteration.walk_launches == counts[iters][3],
+                f"x{iters}: {counts[iters][3]} fused-iteration launches, "
+                f"{fused_iteration.walk_launches} through the vector walk")
         require(recon.shape == CFG4 and recon.dtype == np.float32, "recon shape")
         require(bool(np.isfinite(recon).all()), "recon not finite")
         require(bool((b_norm > 0).all() and (delta > 0).all()),
@@ -5953,8 +6157,9 @@ def main() -> int:
         log(f"phase 3 main path: denoise4D {CFG4} FISTA x{iters} wall "
             f"{wall:.3f} s (host copies included); launches: whole-run "
             f"{counts[iters][0]}, K-step kernel {counts[iters][1]}, pair kernel "
-            f"{counts[iters][2]}, fused iteration {counts[iters][3]}; "
-            f"iterations_run {iterations_run}; peak device memory "
+            f"{counts[iters][2]}, fused iteration {counts[iters][3]} (all "
+            f"through its vector walk); iterations_run {iterations_run}; peak "
+            f"device memory "
             f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}; mean "
             f"|recon-clean| {err_out:.4f} < |noisy-clean| {err_in:.4f}")
     # iteration rate on the device alone (no host↔device copies), in turns:

@@ -366,6 +366,122 @@ __device__ __forceinline__ void dual_item(const Args<float>& a,
   }
 }
 
+// A store of four elements (st4) and of four packed bfloat16 values
+// (st4_bf16) marked evict-first (st.global.cs): the line goes to L2 as
+// any store does, but is the first to leave it.
+template <bool VEC>
+__device__ __forceinline__ void st4_cs(float* p, int64_t i, int n,
+                                       const float (&v)[VW]) {
+  if (VEC) {
+    if (n > 0) __stcs(reinterpret_cast<float4*>(p + i), pack(v));
+  } else {
+#pragma unroll
+    for (int j = 0; j < VW; ++j) {
+      if (j < n) __stcs(p + i + j, v[j]);
+    }
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void st4_bf16_cs(float* p, int64_t i, int n,
+                                            const uint32_t (&w)[2]) {
+  unsigned short* h = reinterpret_cast<unsigned short*>(p);
+  if (VEC) {
+    if (n > 0) __stcs(reinterpret_cast<uint2*>(h + i), make_uint2(w[0], w[1]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < VW; ++j) {
+      if (j < n) {
+        __stcs(h + i + j, static_cast<unsigned short>(
+                              j & 1 ? w[j >> 1] >> 16 : w[j >> 1]));
+      }
+    }
+  }
+}
+
+// dual_item of the one-iteration kernel's walk (fused_iteration.cu): the
+// same loads, arithmetic and order, with b and d stored evict-first. Its
+// neighbours' recon, which the next items read again (the axis-1
+// neighbour one item on, the axis-0 neighbour a band on), then stays in
+// L2 while the item's b and d, which no item of the pass reads, leave it
+// first: on an H100 (80GB HBM3, 700 W) the dual pass at 256^2 x 128^2
+// FISTA took 26.4 ms against 33.6 with dual_item's stores
+// (tools/torch_walk_variants.py, PERF.md section 6).
+template <int ND, bool FISTA, bool VEC, bool LOSSY>
+__device__ __forceinline__ void dual_item_cs(const Args<float>& a,
+                                             const Item<ND>& it, int lw,
+                                             int xl, int y, int tid,
+                                             const float* lam, float rho,
+                                             bool iso_r, bool iso_q,
+                                             float4 (*buf)[NT], int& parity,
+                                             double& acc) {
+  static_assert(!LOSSY || FISTA, "lossy duals: FISTA only");
+  const int64_t M = a.n[ND - 2];
+  const int64_t L = a.n[ND - 1];
+  const int n = it.n;
+  // every load first
+  float x[VW], xk[ND - 2][VW], xm[VW], bo[ND][VW], dol[ND][VW];
+  uint32_t dq[ND][2];  // LOSSY: the old d, packed bfloat16
+  ld4<VEC, true>(x, a.recon, it.idx, n);
+#pragma unroll
+  for (int k = 0; k < ND - 2; ++k) {
+    ld4<VEC, true>(xk[k], a.recon,
+                   bwd(it.idx, it.c[k], a.n[k], a.s[k], a.bc), n);
+  }
+#pragma unroll
+  for (int k = 0; k < ND; ++k) {
+    ld4<VEC, true>(bo[k], a.b[k], it.idx, n);
+    if (LOSSY) {
+      ld4_bf16<VEC>(dq[k], a.d[k], it.idx, n);
+    } else if (FISTA) {
+      ld4<VEC, true>(dol[k], a.d[k], it.idx, n);
+    }
+  }
+  ld4<VEC, true>(xm, a.recon,
+                 bwd(it.idx, it.c[ND - 2], M, a.s[ND - 2], a.bc),
+                 y == 0 ? n : 0);
+  const float edge = xl == 0 && n > 0
+      ? __ldcg(a.recon + bwd(it.idx, it.c[ND - 1], L, 1, a.bc)) : 0.0f;
+  const float up = __shfl_up_sync(FULL, x[VW - 1], 1, lw);
+  buf[parity][tid] = pack(x);
+  __syncthreads();
+  if (y > 0) unpack(xm, buf[parity][tid - lw]);
+  parity ^= 1;
+  float bn[ND][VW], dn[ND][VW];
+  uint32_t dqn[ND][2];  // LOSSY: the new d, rounded and packed
+#pragma unroll
+  for (int j = 0; j < VW; ++j) {
+    float xb[ND], b1[ND], d1[ND], nb[ND], nd[ND];
+#pragma unroll
+    for (int k = 0; k < ND - 2; ++k) xb[k] = xk[k][j];
+    xb[ND - 2] = xm[j];
+    xb[ND - 1] = j > 0 ? x[j - 1] : (xl > 0 ? up : edge);
+#pragma unroll
+    for (int k = 0; k < ND; ++k) {
+      b1[k] = bo[k][j];
+      d1[k] = LOSSY ? widen_bf16(dq[k], j) : FISTA ? dol[k][j] : 0.0f;
+    }
+    dual_math<ND, FISTA>(x[j], xb, b1, d1, lam, rho, iso_r, iso_q, nb, nd);
+#pragma unroll
+    for (int k = 0; k < ND; ++k) {
+      bn[k][j] = nb[k];
+      dn[k][j] = nd[k];
+      if (LOSSY) pack_bf16(dqn[k], j, nd[k]);
+      if (j < n) acc += static_cast<double>(abs_(nb[k]));
+    }
+  }
+  // b before d
+#pragma unroll
+  for (int k = 0; k < ND; ++k) {
+    st4_cs<VEC>(a.b[k], it.idx, n, bn[k]);
+    if (LOSSY) {
+      st4_bf16_cs<VEC>(a.d[k], it.idx, n, dqn[k]);
+    } else if (FISTA) {
+      st4_cs<VEC>(a.d[k], it.idx, n, dn[k]);
+    }
+  }
+}
+
 // One reconstruction work item: the thread's elements' recon, as
 // tv_elem.cuh recon_elem in its order; adds |R_new - R_old| and |R_old| to
 // s[1], s[2] and, with a reference cube `ref` (REF), (R_new - ref)^2 to

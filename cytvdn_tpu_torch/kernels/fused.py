@@ -32,6 +32,15 @@ instantiation computes each +1 neighbour's first updated accumulator slab
 in the dual pass and leaves it in a scratch slab for the reconstruction
 pass.
 
+Float32 launches without halos take the kernel's vector walk
+(``tv_fused_walk_f32``: four elements of the last axis per thread, 128-bit
+accesses, every load of a work item before its first store, b before d,
+b and d stored evict-first; work items ordered so that an element's
+axis-0 neighbour is still in L2 when it is read again; each pass on at
+most :data:`WALK_PER_SM` blocks per SM that fit on the card at once).
+Launches with halos and float64 launches take the scalar passes
+(``tv_fused_iteration_f32``/``_f64``).
+
 :func:`fused_iteration` launches the kernel for CUDA tensors and runs
 :func:`fused_iteration_reference` — built from ``ops/stencil.py`` in the
 order the JAX engine uses — for CPU tensors. There is no fallback: a CUDA
@@ -41,7 +50,7 @@ tensor reaches the kernel or an exception.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -53,9 +62,18 @@ Tensor = torch.Tensor
 
 #: grid size cap of both passes (blocks of 32×8 threads stride over the
 #: cube's (row, tile) work items); fixed, so the order of the per-block
-#: partial sums depends on the shape alone
+#: partial sums depends on the shape alone (and, for the walk, on the
+#: mode and the device: :func:`walk_grid`)
 MAX_BLOCKS = 2048
 _TX, _TY = 32, 8
+#: elements of a walk thread along the last axis
+_VW = 4
+#: blocks per SM of each walk pass at most: more blocks in flight than
+#: this ran slower at 256²×128² FISTA on an H100 (PERF.md §6)
+WALK_PER_SM = 2
+#: the walk's grids per (device, ndim, fista, iso, lossy), read once from
+#: the device's occupancy (each instantiation has its own registers)
+_WALK_GRID: Dict[Tuple[int, int, bool, bool, bool], Tuple[int, int]] = {}
 
 
 def fused_supported(shape, dtype, bc, isotropic_R=False, isotropic_Q=False,
@@ -78,13 +96,83 @@ def fused_supported(shape, dtype, bc, isotropic_R=False, isotropic_Q=False,
     return True
 
 
-def _work_items(shape: Tuple[int, ...]) -> int:
-    """(row, tile) work items: the leading axes flattened into rows, times
-    the 8×32 tiles of the two trailing axes."""
+def walk_rows(shape: Tuple[int, ...]) -> int:
+    """The rows of a cube: the product of its leading ndim-2 extents."""
     rows = 1
     for n in shape[:-2]:
         rows *= n
-    return rows * (-(-shape[-2] // _TY)) * (-(-shape[-1] // _TX))
+    return rows
+
+
+def _work_items(shape: Tuple[int, ...]) -> int:
+    """The scalar passes' (row, tile) work items: the leading axes
+    flattened into rows, times the 8×32 tiles of the two trailing axes."""
+    return walk_rows(shape) * (-(-shape[-2] // _TY)) * (-(-shape[-1] // _TX))
+
+
+def takes_walk(dtype, halos) -> bool:
+    """Whether a CUDA launch takes the vector walk (float32, no halos) and
+    not the scalar passes."""
+    return dtype == torch.float32 and halos is None
+
+
+def walk_tiles(shape: Tuple[int, ...]) -> Tuple[int, int, int]:
+    """The walk's tiling of the two trailing axes
+    (``csrc/vec_walk.cuh::set_tiles``): ``(lw, tiles_m, tiles_l)``, lw the
+    lanes of a row segment (the least power of two, at most 32, whose four
+    elements each cover the last extent), tiles of 256 / lw rows along
+    axis ndim-2 and of 4 lw elements along the last axis."""
+    m, last = shape[-2], shape[-1]
+    lw = 1
+    while lw < 32 and _VW * lw < last:
+        lw *= 2
+    return lw, -(-m // (_TX * _TY // lw)), -(-last // (_VW * lw))
+
+
+def _walk_items(shape: Tuple[int, ...]) -> int:
+    """The walk's (row, tile) work items: the leading axes flattened into
+    rows, times :func:`walk_tiles`' tiles of one row."""
+    _, tm, tl = walk_tiles(shape)
+    return walk_rows(shape) * tm * tl
+
+
+def walk_band(shape: Tuple[int, ...]) -> int:
+    """The default band of the walk's item order: the axis-1 indices per
+    band (4D), so that an element's axis-0 neighbour is that many work
+    items away; 1 in 3D, where rows are axis 0 alone."""
+    return shape[1] if len(shape) == 4 else 1
+
+
+def launch_items(shape: Tuple[int, ...], dtype, halos) -> Tuple[bool, int]:
+    """``(walk, work items)`` of a CUDA launch: whether it takes the vector
+    walk, and its work items in that entry's tiling. Raises at 2**31 work
+    items or more (the kernels' 32-bit index arithmetic)."""
+    walk = takes_walk(dtype, halos)
+    work = _walk_items(shape) if walk else _work_items(shape)
+    if work >= 2**31:
+        raise ValueError(f"shape {tuple(shape)}: {work} work items; the "
+                         "kernel's 32-bit index arithmetic takes < 2**31")
+    return walk, work
+
+
+def walk_grid(device: torch.device, ndim: int, fista: bool, iso: bool,
+              lossy: bool) -> Tuple[int, int]:
+    """Blocks of the walk's dual and recon passes on ``device``: per pass,
+    the blocks per SM that fit on the card at once (that instantiation's
+    registers), at most :data:`WALK_PER_SM`, times SMs."""
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(), ndim, fista, iso, lossy)
+    if key not in _WALK_GRID:
+        lib = build.load()
+        occ = [ctypes.c_int(0) for _ in range(3)]
+        with torch.cuda.device(key[0]):
+            build.check(lib.tv_walk_occupancy(
+                ndim, int(fista), int(iso), int(lossy),
+                *(ctypes.byref(c) for c in occ)))
+        dual, recon, sms = (c.value for c in occ)
+        _WALK_GRID[key] = (min(dual, WALK_PER_SM) * sms,
+                           min(recon, WALK_PER_SM) * sms)
+    return _WALK_GRID[key]
 
 
 # The seam operands of one halo axis A are ``prevA``, ``nextA_recon``,
@@ -410,6 +498,8 @@ def fused_iteration(
     halos=None,
     edge_next=None,
     scratch=None,
+    band: Optional[int] = None,
+    grid: Union[int, Tuple[int, int], None] = None,
 ):
     """One full TV iteration, updating ``recon``, ``accs`` and ``ds`` in
     place.
@@ -436,13 +526,21 @@ def fused_iteration(
     ``scratch``: ``{axis: slab}`` like ``nextA_recon`` for the kernel's
     recomputed slabs (default: allocated per call).
 
+    ``band`` and ``grid`` (float32 launches without halos on the card,
+    which take the vector walk): the item order's axis-1 indices per band,
+    1 to N1 in 4D and 1 in 3D (default :func:`walk_band`), and the blocks
+    of both passes, or a ``(dual, recon)`` pair (default
+    :func:`walk_grid`'s, capped by :data:`MAX_BLOCKS` and the work items).
+    The state does not depend on them; the sums' order does.
+
     Returns ``(recon, accs, ds, bnorm, delta_num, recon_norm)`` — the state
     objects passed in, and the three sums as 0-d tensors of the data type.
     ``fused_iteration.launches`` counts the kernel launches,
     ``fused_iteration.halo_launches`` those of them with halos,
     ``fused_iteration.mode_launches`` those with a mesh-only mode (a halo
     axis above 1, periodic or mirror boundaries, or iso pairs with halos),
-    ``fused_iteration.lossy_launches`` those with bfloat16 shadow duals;
+    ``fused_iteration.lossy_launches`` those with bfloat16 shadow duals,
+    ``fused_iteration.walk_launches`` those through the vector walk;
     ``fused_iteration.calls`` counts every call that passed the checks, on
     the CPU too.
 
@@ -465,6 +563,18 @@ def fused_iteration(
                          "anisotropic launches only")
     if halos is not None:
         _check_halos(halos, orig, fista, bc, iso_r, iso_q, edge_next)
+    walk = takes_walk(orig.dtype, halos)
+    if not walk and (band is not None or grid is not None):
+        raise ValueError("band and grid set the vector walk's launch: "
+                         "float32 without halos")
+    most = orig.shape[1] if ndim == 4 else 1
+    if band is not None and not 1 <= band <= most:
+        raise ValueError(f"band: 1 to {most} axis-1 indices, got {band}")
+    if grid is not None:
+        grid = (grid, grid) if isinstance(grid, int) else tuple(grid)
+        if len(grid) != 2 or min(grid) < 1:
+            raise ValueError(f"grid: at least one block per pass, got "
+                             f"{grid}")
     if orig.device.type == "cpu":
         fused_iteration.calls += 1
         return fused_iteration_reference(
@@ -480,12 +590,31 @@ def fused_iteration(
     bs, dd, dims, stream = _launch_args(orig, accs, ds if fista else None,
                                         scalars)
     lib = build.load()
+    walk, work = launch_items(tuple(orig.shape), orig.dtype, halos)
+    if walk:
+        iso = ndim == 4 and (iso_r or iso_q)
+        blocks = grid if grid is not None else tuple(
+            min(work, MAX_BLOCKS, g)
+            for g in walk_grid(orig.device, ndim, fista, iso, lossy))
+        partials = torch.empty(blocks[0] + 2 * blocks[1],
+                               dtype=torch.float64, device=orig.device)
+        out = torch.empty(3, dtype=orig.dtype, device=orig.device)
+        err = lib.tv_fused_walk_f32(
+            orig.data_ptr(), recon.data_ptr(), *bs, *dd,
+            lambda_inv.data_ptr(), lam_mu.data_ptr(),
+            rho.data_ptr() if fista else None,
+            partials.data_ptr(), out.data_ptr(), ndim, *dims,
+            int(fista), int(bc), int(iso_r), int(iso_q), int(lossy),
+            band if band is not None else walk_band(tuple(orig.shape)),
+            *blocks, stream)
+        build.check(err)
+        fused_iteration.calls += 1
+        fused_iteration.launches += 1
+        fused_iteration.walk_launches += 1
+        fused_iteration.lossy_launches += lossy
+        return recon, accs, ds, out[0], out[1], out[2]
     fn = (lib.tv_fused_iteration_f32 if orig.dtype == torch.float32
           else lib.tv_fused_iteration_f64)
-    work = _work_items(tuple(orig.shape))
-    if work >= 2**31:
-        raise ValueError(f"shape {tuple(orig.shape)}: {work} work items; the "
-                         "kernel's 32-bit index arithmetic takes < 2**31")
     nblocks = min(work, MAX_BLOCKS)
     partials = torch.empty(3 * nblocks, dtype=torch.float64, device=orig.device)
     out = torch.empty(3, dtype=orig.dtype, device=orig.device)
@@ -516,4 +645,5 @@ fused_iteration.launches = 0
 fused_iteration.halo_launches = 0
 fused_iteration.mode_launches = 0
 fused_iteration.lossy_launches = 0
+fused_iteration.walk_launches = 0
 fused_iteration.calls = 0

@@ -28,7 +28,11 @@ is the K-step kernel's LOSSY instantiations (bfloat16 shadow duals rounded
 at every level), at every depth, its tile edges, forced grids, rows per
 stage and bfloat16 views off 16-byte boundaries, against K LOSSY K=1
 launches and (K even) K/2 LOSSY pairs, and lossy runs that K-step on the
-card against the lossy K=1 loop.
+card against the lossy K=1 loop. The K=1 kernel's vector walk (its
+float32 launches without halos) is held against its plain version at
+ragged last extents, forced grids, item orders and states off 16-byte
+boundaries, d included, and repeats exactly; float64 launches and
+launches with halos take the scalar passes.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -41,8 +45,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-# the K-step kernel's tile-edge cases, shared with the card smoke run
-from chip_smoke import kstep_edge_cases  # noqa: E402
+# the K-step kernel's tile-edge cases and the K=1 kernel's vector-walk
+# cases, shared with the card smoke run
+from chip_smoke import kstep_edge_cases, walk_cases, walk_state  # noqa: E402
 from cytvdn_tpu_torch.kernels import fused as tfused  # noqa: E402
 from cytvdn_tpu_torch.kernels import kstep as tkstep  # noqa: E402
 from cytvdn_tpu_torch.kernels import resident as tres  # noqa: E402
@@ -2264,3 +2269,124 @@ def test_lossy_kstep_stop_run_on_the_card(monkeypatch, guard):
     _assert_states(got["ds"], want["ds"], shape)
     for key in ("b_norm", "delta"):
         torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=0)
+
+
+# -- the K=1 kernel's vector walk (float32 launches without halos) ------------
+
+# the card smoke run's cases: last extents 1, 30, 31, 33 (masked) and 32,
+# 64 (128-bit accesses), 3D and 4D, every BC, iso pairs, lossy duals
+WALK_CASES = walk_cases()
+
+
+def _walk_state(shape, fista, lossy, offset=0):
+    """The card smoke run's walk state (seed 0): bfloat16 d where
+    ``lossy``; with ``offset`` every array off its 16-byte boundary."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return walk_state(shape, fista, lossy, gen, offset)
+
+
+def _walk_runs(orig, state, fista, bc, iso_r, iso_q, iters=3, **kw):
+    """``iters`` launches of the kernel (``kw``: its ``grid`` and
+    ``band``) and of its plain version on copies of ``state``: each's
+    final state and stacked sums."""
+    ndim = orig.dim()
+    li = torch.linspace(0.2, 0.35, ndim, device="cuda")
+    lm = torch.linspace(1 / 32, 1 / 48, ndim, device="cuda")
+    rho = torch.tensor(0.37, device="cuda")
+    runs = []
+    for step, extra in ((tfused.fused_iteration, kw),
+                        (tfused.fused_iteration_reference, {})):
+        s = [x.clone() for x in state]
+        sums = []
+        for _ in range(iters):
+            out = step(orig, s[0], s[1:1 + ndim],
+                       s[1 + ndim:] if fista else None, rho, li, lm,
+                       fista=fista, bc=bc, iso_r=iso_r, iso_q=iso_q, **extra)
+            sums.append(torch.stack(out[3:]).double().cpu())
+        torch.cuda.synchronize()
+        runs.append((s, torch.stack(sums)))
+    return runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WALK_CASES, ids=str)
+def test_walk_bitwise_equals_plain_at_forced_grids(case):
+    """Three launches through the vector walk at the wrapper's grid and at
+    forced grids of 1, 7 and all blocks (one per work item) against the
+    plain version: state bitwise, d included, sums within rtol 1e-5; each
+    launch counted as a walk launch; the default launch repeats exactly,
+    state and sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    shape, (fista, bc, iso_r, iso_q, lossy) = case
+    orig, state = _walk_state(shape, fista, lossy)
+    for grid in (None, 1, 7, tfused._walk_items(shape)):
+        before = tfused.fused_iteration.walk_launches
+        runs = _walk_runs(orig, state, fista, bc, iso_r, iso_q, grid=grid)
+        assert tfused.fused_iteration.walk_launches - before == 3
+        _assert_same(runs, grid)
+        if grid is None:
+            again = _walk_runs(orig, state, fista, bc, iso_r, iso_q)
+            assert all(torch.equal(a, b) for a, b in zip(runs[0][0],
+                                                         again[0][0]))
+            assert torch.equal(runs[0][1], again[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [(True, 2, False, False, False),
+                                  (False, 0, False, False, False),
+                                  (True, 2, True, True, False),
+                                  (True, 2, False, False, True)], ids=str)
+@pytest.mark.parametrize("shape", [(9, 5, 7, 32), (6, 13, 64),
+                                   (5, 6, 7, 33)], ids=str)
+def test_walk_unaligned_state_and_item_orders(shape, mode):
+    """A state whose every array starts one element past a 16-byte
+    boundary takes the element-by-element walk; launches at item orders of
+    1, 2 and N1 axis-1 indices per band (4D), at 1 and 7 blocks too: each
+    state bitwise the plain version's, sums within rtol 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    fista, bc, iso_r, iso_q, lossy = mode
+    if (iso_r or iso_q) and len(shape) == 3:
+        pytest.skip("half-isotropic pairs are 4D")
+    orig, state = _walk_state(shape, fista, lossy, offset=1)
+    bands = (1, 2, shape[1]) if len(shape) == 4 else (1,)
+    for band in bands:
+        for grid in (None, 1, 7):
+            runs = _walk_runs(orig, state, fista, bc, iso_r, iso_q,
+                              band=band, grid=grid)
+            _assert_same(runs, (band, grid))
+
+
+@pytest.mark.cuda
+def test_halo_and_float64_launches_take_the_scalar_passes():
+    """Only float32 launches without halos take the vector walk: a float64
+    launch and a float32 launch with halos count as launches but not as
+    walk launches, and refuse ``band`` and ``grid``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    shape = (9, 10, 11, 12)
+    li = torch.linspace(0.2, 0.35, 4, device="cuda")
+    lm = torch.linspace(1 / 32, 1 / 48, 4, device="cuda")
+    orig, state = _walk_state(shape, True, False)
+    st64 = [x.double() for x in state]
+    before = (tfused.fused_iteration.launches,
+              tfused.fused_iteration.walk_launches)
+    tfused.fused_iteration(orig.double(), st64[0], st64[1:5], st64[5:],
+                           torch.tensor(0.37, device="cuda",
+                                        dtype=torch.float64),
+                           li.double(), lm.double(), fista=True)
+    orig, state = _halo_state(shape, True, torch.float32)
+    a0, a1 = 3, 6
+    slab = [x[a0:a1].clone() for x in state]
+    h = _seams(state, 4, a0, a1, True)
+    rho = torch.tensor(0.37, device="cuda")
+    tfused.fused_iteration(orig[a0:a1].contiguous(), slab[0], slab[1:5],
+                           slab[5:], rho, li, lm, fista=True, halos=h)
+    torch.cuda.synchronize()
+    assert tfused.fused_iteration.launches - before[0] == 2
+    assert tfused.fused_iteration.walk_launches == before[1]
+    with pytest.raises(ValueError, match="vector walk"):
+        tfused.fused_iteration(orig[a0:a1].contiguous(), slab[0], slab[1:5],
+                               slab[5:], rho, li, lm, fista=True, halos=h,
+                               grid=7)

@@ -263,3 +263,74 @@ def _inblock_half(orig, recon, accs, ds, li, lm, grid, coords, fista):
                            halos={k: torch.from_numpy(v)
                                   for k, v in h.items()})
     return r.numpy()
+
+
+def test_launch_route_tiling_and_item_guard():
+    """The wrapper's pure-Python launch plan: float32 launches without
+    halos take the vector walk, float64 launches and launches with halos
+    the scalar passes; the walk's tiling (``csrc/vec_walk.cuh::set_tiles``)
+    and default item order; each entry's 2**31 work-item guard in its own
+    tiling."""
+    halos = {"prev0": torch.zeros(1)}
+    assert tfused.takes_walk(torch.float32, None)
+    assert not tfused.takes_walk(torch.float64, None)
+    assert not tfused.takes_walk(torch.float32, halos)
+    # (lw, tiles of 256 / lw rows, tiles of 4 lw elements)
+    assert tfused.walk_tiles((256, 256, 128, 128)) == (32, 16, 1)
+    assert tfused.walk_tiles((256, 256, 2048)) == (32, 32, 16)
+    assert tfused.walk_tiles((7, 9, 5, 1)) == (1, 1, 1)
+    assert tfused.walk_tiles((5, 7, 9, 30)) == (8, 1, 1)
+    assert tfused.walk_tiles((9, 17, 33)) == (16, 2, 1)
+    assert tfused.walk_tiles((6, 300, 129)) == (32, 38, 2)
+    assert tfused.launch_items((256, 256, 128, 128), torch.float32,
+                               None) == (True, 65536 * 16)
+    assert tfused.launch_items((256, 256, 128, 128), torch.float64,
+                               None) == (False, 65536 * 64)
+    assert tfused.launch_items((256, 256, 128, 128), torch.float32,
+                               halos) == (False, 65536 * 64)
+    assert tfused.walk_rows((6, 13, 64)) == 6
+    assert tfused.walk_band((6, 13, 64)) == 1
+    assert tfused.walk_rows((5, 7, 9, 30)) == 35
+    # 2**29 rows of one walk tile and of four scalar tiles: the walk takes
+    # them, the scalar passes refuse them; 2**31 rows neither
+    big = (2**15, 2**14, 8, 128)
+    assert tfused.launch_items(big, torch.float32, None) == (True, 2**29)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        tfused.launch_items(big, torch.float64, None)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        tfused.launch_items((2**16, 2**15, 8, 128), torch.float32, None)
+
+
+def test_wrapper_checks_the_walk_launch_options():
+    """``band`` and ``grid`` belong to the vector walk: the CPU path runs
+    the plain version whatever valid values they take, and refuses a band
+    outside 1 .. N1 (1 in 3D), a grid below 1, and either on a float64
+    launch."""
+    orig, recon, accs, ds, li, lm = _state((3, 4, 5, 6), True, 2, seed=3)
+    t = torch.from_numpy
+    outs = []
+    for kw in ({}, dict(band=1, grid=7), dict(band=4, grid=1)):
+        r, a, d = t(recon.copy()), [t(x.copy()) for x in accs], \
+            [t(x.copy()) for x in ds]
+        tfused.fused_iteration(t(orig), r, a, d, torch.tensor(0.5), t(li),
+                               t(lm), fista=True, **kw)
+        outs.append([r] + a + d)
+    for other in outs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(outs[0], other))
+    args = (t(orig), t(recon), [t(a) for a in accs], [t(d) for d in ds],
+            torch.tensor(0.5), t(li), t(lm))
+    for kw, what in ((dict(band=0), "band"), (dict(band=5), "band"),
+                     (dict(grid=0), "grid")):
+        with pytest.raises(ValueError, match=what):
+            tfused.fused_iteration(*args, fista=True, **kw)
+    with pytest.raises(ValueError, match="vector walk"):
+        tfused.fused_iteration(*(x.double() for x in args[:2]),
+                               [x.double() for x in args[2]],
+                               [x.double() for x in args[3]],
+                               *(x.double() for x in args[4:]), fista=True,
+                               band=1)
+    o3, r3, a3, d3, li3, lm3 = _state((4, 5, 6), True, 2, seed=3)
+    with pytest.raises(ValueError, match="band"):
+        tfused.fused_iteration(t(o3), t(r3), [t(a) for a in a3],
+                               [t(d) for d in d3], torch.tensor(0.5),
+                               t(li3), t(lm3), fista=True, band=2)

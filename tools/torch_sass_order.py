@@ -11,7 +11,11 @@ register is that of an earlier global load (``LDG``): the store is sent
 while that load is in flight when no instruction between them reads the
 load's destination register. A store sent so, to the address its own
 thread is loading, made the pair kernel 2.6-6x slower and the K=1
-kernel's half-isotropic dual pass 7x slower (PERF.md section 6). Prints
+kernel's half-isotropic dual pass 7x slower (PERF.md section 6). The
+search for that load stops at an instruction that sets the store's
+address register, which then held another address before; a store
+whose address the compiler computed apart from its load's is paired
+with none. Prints
 one line per instantiation: its template arguments, its stores, the
 stores matched to an earlier same-address load, those sent with that load
 in flight (which should be 0) with their SASS offsets, and its
@@ -55,6 +59,27 @@ _STG = re.compile(r"(?:@!?U?P\d\s+)?STG\S*\s+(desc\[\w+\]\[[^\]]+\])")
 _LDG = re.compile(
     r"(?:@!?U?P\d\s+)?LDG\S*\s+(R\d+),\s+(desc\[\w+\]\[[^\]]+\])")
 _LOCAL = re.compile(r"(?:@!?U?P\d\s+)?(LDL|STL)\b")
+_DEST = re.compile(r"(?:@!?U?P\w+\s+)?(\S+)\s+R(\d+)\b")
+
+
+def _written(line: str):
+    """The registers an instruction writes: its destination, and the next
+    register too where it writes a 64-bit pair (``.64``, ``.WIDE``)."""
+    m = _DEST.match(line)
+    if not m or m.group(1).startswith(("ST", "RED", "ATOM")):
+        return set()
+    r = int(m.group(2))
+    return {r, r + 1} if ".64" in m.group(1) or "WIDE" in m.group(1) else {r}
+
+
+def _address_regs(address: str):
+    """The registers an address operand (``desc[UR..][R12.64+0x8]``)
+    reads."""
+    m = re.search(r"\]\[R(\d+)(\.64)?", address)
+    if not m:
+        return set()
+    r = int(m.group(1))
+    return {r, r + 1} if m.group(2) else {r}
 
 
 def _instructions(sass_function: str):
@@ -85,7 +110,11 @@ def functions(sass: str):
 
 def label(mangled: str) -> str:
     m = re.search(r"([a-z]+_kernel)I(.+?)EEv", mangled)
-    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+    if m:
+        return f"{m.group(1)}<{m.group(2)}>"
+    # a kernel that is no template: its name without the namespace
+    m = re.search(r"\d([a-z]+_kernel)E", mangled)
+    return m.group(1) if m else mangled
 
 
 def store_order(sass_function: str):
@@ -100,7 +129,12 @@ def store_order(sass_function: str):
         if not st:
             continue
         stores += 1
+        addr = _address_regs(st.group(1))
         for j in range(i - 1, -1, -1):
+            # an instruction that sets the store's address register: an
+            # earlier load through that register read another address
+            if addr & _written(ins[j][1]):
+                break
             ld = _LDG.match(ins[j][1])
             if ld and ld.group(2) == st.group(1):
                 matched += 1
