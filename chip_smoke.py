@@ -150,9 +150,20 @@ non-zero — nothing is caught):
    values, and the interior slabs the main path launches with halos
    (configs 4 and 2 in 4 slabs: (64,256,128,128) and (64,256,2048),
    float32); configs 2 and 3 cut into 1, 3 and 4 slabs with halos against
-   one in-core launch (bitwise); ms of the halo launch at config 4's slab
-   (64,256,128,128) FISTA, of the same launch without halos and of the
-   plain version; (b) config 4 through ``denoise_outofcore``, 4 slabs,
+   one in-core launch (bitwise); every float32 case through the vector
+   walk (the walk's ``HALO`` instantiations: Jia-Zhao anisotropic, halos
+   on axes 0 and 1), every float64 one through the scalar passes; the
+   walk with halos on small cubes in every layout of its seams (the
+   first, an interior and the last block along axis 0 and along axis 1,
+   the corners of a 2 x 2 grid, blocks of extent 1), 3D and 4D, ragged
+   and 128-bit last extents, exact, unaccelerated and lossy, at forced
+   grids and bands, seam slabs off 16-byte boundaries, and grids cut into
+   every block against one launch; ms of the halo launch at config 4's
+   slab (64,256,128,128) FISTA, of the same launch without halos and of
+   the plain version; ms of the float64 launch (the scalar passes) at
+   config 2 and at its stream slab with seams, and its launches on a
+   float64 ``run_solver`` at config 2 x4; (b) config 4 through
+   ``denoise_outofcore``, 4 slabs,
    stream mode x4 and temporal K=8 x16, against ``denoise4D`` on the same
    cube (recon bitwise, traces within rtol 1e-5, at the sweep ends in
    temporal mode), with seconds per iteration, bytes and rates each way,
@@ -203,8 +214,11 @@ non-zero — nothing is caught):
    in 1-3 slabs with bands against one pair launch (bitwise); at config 4's
    2-rank shard (128,256,128,128) FISTA as the second rank (nonzero own row
    0, the cube's last row), the first rank with a reference cube, and an
-   interior shard; ms per HALO0 pair there, of the pair without bands and
-   of the plain pair; the K=1 kernel with halos against its plain version
+   interior shard; ms per HALO0 pair there, of the pair without bands, of
+   two K=1 launches with halos (the walk) and of the plain pair, and the
+   mesh crossing: ms per iteration in HALO0 and HALO1 pairs against two
+   K=1 walk launches with halos at the (2,1,1,1) and (1,2,1,1) shards;
+   the K=1 kernel with halos against its plain version
    at the shards (c) and (e) launch it on, (128,128,128,128) with
    neighbours on axes 0 and 1 and (128,256,2048) with neighbours on axis 0
    (state bitwise); the pair kernel with axis-1 bands (``HALO1``) the same
@@ -326,6 +340,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import io
+import itertools
 import json
 import math
 import os
@@ -380,10 +395,12 @@ from cytvdn_tpu_torch.solver.engine import (
 from cytvdn_tpu_torch.utils import checkpoint
 from cytvdn_tpu_torch.utils.checkpoint import progress_chunk_size, run_chunked
 from cytvdn_tpu_torch.utils.perf import (
+    k1_halo_elements,
     launch_bound_seconds,
     model_seconds,
     peak_bandwidth,
     peak_f32,
+    peak_f64,
 )
 
 # phase 10 builds its blocks' halos with the tests' builder (numpy or torch)
@@ -702,6 +719,150 @@ def time_walk_orders(shape, n):
     return mean, [(k, round(t, 3)) for k, t in runs]
 
 
+# the K=1 kernel's walk with halos (Jia-Zhao, anisotropic, seams on axes 0
+# and 1: out-of-core slabs, axis-0, axis-1 and 2D-grid mesh shards): the
+# blocks' layouts as (the grid along axes 0 and 1, the (axis-0, axis-1)
+# coordinates of the blocks taken) — the first, an interior and the last
+# block along axis 0 and along axis 1, the four corners of a 2 x 2 grid,
+# and blocks of extent 1 on axis 0 and on both axes (the leading edge also
+# the trailing one)
+WALK_HALO_LAYOUTS = {
+    "axis0": ((3, 1), ((0, 0), (1, 0), (2, 0))),
+    "axis1": ((1, 3), ((0, 0), (0, 1), (0, 2))),
+    "grid": ((2, 2), ((0, 0), (0, 1), (1, 0), (1, 1))),
+    "extent1-axis0": ((6, 1), ((0, 0), (3, 0), (5, 0))),
+    "extent1": ((6, 6), ((0, 0), (2, 3), (5, 5))),
+}
+# ragged last extents (the element-by-element walk) and multiples of 4
+# (128-bit accesses), 4D and 3D (where axis 1 is the walk's tiled axis)
+WALK_HALO_SHAPES = [(6, 6, 7, 33), (6, 6, 5, 32), (6, 6, 70), (6, 12, 64)]
+# (fista, lossy): exact FISTA, unaccelerated, lossy duals
+WALK_HALO_MODES = [(True, False), (False, False), (True, True)]
+
+
+def offset_copy(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts ``offset`` elements into its
+    own buffer (0: an ordinary copy)."""
+    out = torch.empty(x.numel() + offset, dtype=x.dtype,
+                      device=x.device)[offset:].view(x.shape)
+    return out.copy_(x)
+
+
+def walk_halo_block(state, fista, grid, coords, offset=0):
+    """Block ``coords`` of ``grid`` of a cube's state ([orig, recon, accs...,
+    ds...]) and its halos from that state (``tests/torch_halo_blocks.py``,
+    Jia-Zhao; a bfloat16 ``next{A}_d`` widened exactly), each array a copy
+    ``offset`` elements into its own buffer."""
+    from torch_halo_blocks import block_halos, block_state
+
+    nd = state[0].dim()
+    recon, accs = state[1], state[2:2 + nd]
+    ds = state[2 + nd:] if fista else None
+    h, _ = block_halos(recon, accs, ds, grid, coords)
+    h = {k: offset_copy(v.float(), offset) for k, v in h.items()}
+    return [offset_copy(x, offset) for x in block_state(state, grid,
+                                                        coords)], h
+
+
+def compare_walk_halo_case(shape, layout, mode, offset=0, grids=(None,),
+                           bands=(None,), iters=3):
+    """``iters`` K=1 launches with halos through the vector walk on each
+    block of ``layout`` (:data:`WALK_HALO_LAYOUTS`) of a random state of
+    ``shape`` against the plain version with the same halos, at every
+    forced grid (``"all"``: one block per work item) and item order given
+    (axis-1 indices per band, 4D: those up to the block's N1; ``"N1"``:
+    N1);
+    ``mode`` (fista, lossy); ``offset``: every array and seam slab that many
+    elements off a 16-byte boundary. State bitwise, d included, sums
+    within rtol 1e-5, every launch counted as a walk launch with halos.
+    Returns the blocks compared and max |Δstate|."""
+    fista, lossy = mode
+    grid2, blocks = WALK_HALO_LAYOUTS[layout]
+    nd = len(shape)
+    grid = grid2 + (1,) * (nd - 2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    orig, state = walk_state(shape, fista, lossy, gen)
+    li = torch.linspace(0.2, 0.35, nd, device="cuda")
+    lm = torch.linspace(1 / 32, 1 / 48, nd, device="cuda")
+    rho = torch.tensor(0.37, device="cuda")
+    err = 0.0
+    for c in blocks:
+        (o, *bst), h = walk_halo_block([orig] + state, fista, grid,
+                                       c + (0,) * (nd - 2), offset)
+
+        def run(step, **extra):
+            s = [offset_copy(x, offset) for x in bst]
+            fn = step_fn(step, o, s, li, lm, rho, fista, halos=h, **extra)
+            sums = torch.stack([torch.stack(fn()[3:]).double()
+                                for _ in range(iters)]).cpu()
+            return s, sums
+
+        plain, psum = run(fused_iteration_reference)
+        # a band is at most the block's N1 ("N1": that many)
+        blk_bands = dict.fromkeys(o.shape[1] if b == "N1" else b
+                                  for b in bands)
+        for g in grids:
+            for band in [b for b in blk_bands
+                         if b is None or b <= o.shape[1]]:
+                what = (f"walk with halos {shape} {layout} block {c} mode "
+                        f"{mode} offset {offset} grid {g} band {band}")
+                before = (fused_iteration.walk_launches,
+                          fused_iteration.halo_launches)
+                ks, ksum = run(fused_iteration, band=band, grid=(
+                    fused_mod._walk_items(o.shape) if g == "all" else g))
+                require((fused_iteration.walk_launches - before[0],
+                         fused_iteration.halo_launches - before[1])
+                        == (iters, iters),
+                        f"{what}: launches not through the walk with halos")
+                err = max([err] + [(a.float() - b.float()).abs().max().item()
+                                   for a, b in zip(ks, plain)])
+                require(all(a.dtype == b.dtype and torch.equal(a, b)
+                            for a, b in zip(ks, plain)),
+                        f"{what}: state differs from the plain version (max "
+                        f"|Δ| {err})")
+                rel = ((ksum - psum).abs()
+                       / psum.abs().clamp_min(1e-300)).max().item()
+                require(rel <= 1e-5, f"{what}: sums differ by rtol {rel}")
+    return len(blocks), err
+
+
+def walk_halo_blocks_equal_one_launch(shape, layout, mode):
+    """A Jia-Zhao state cut into every block of ``layout``'s grid, each
+    launched through the walk with halos from the pre-update state and put
+    back: bitwise one launch of the whole cube through the walk without
+    halos, d included; the blocks' sums add up to its sums within rtol
+    1e-5."""
+    from torch_halo_blocks import block_bounds
+
+    fista, lossy = mode
+    nd = len(shape)
+    grid = WALK_HALO_LAYOUTS[layout][0] + (1,) * (nd - 2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    orig, state = walk_state(shape, fista, lossy, gen)
+    for j, x in enumerate(state[1:]):
+        x.select(j % nd, 0).zero_()
+    li = torch.linspace(0.2, 0.35, nd, device="cuda")
+    lm = torch.linspace(1 / 32, 1 / 48, nd, device="cuda")
+    rho = torch.tensor(0.37, device="cuda")
+    whole = [x.clone() for x in state]
+    want = torch.stack(step_fn(fused_iteration, orig, whole, li, lm, rho,
+                               fista)()[3:]).double()
+    cut = [x.clone() for x in state]
+    total = torch.zeros(3, dtype=torch.float64, device="cuda")
+    for c in itertools.product(*(range(w) for w in grid)):
+        (o, *bst), h = walk_halo_block([orig] + state, fista, grid, c)
+        total += torch.stack(step_fn(fused_iteration, o, bst, li, lm, rho,
+                                     fista, halos=h)()[3:]).double()
+        sl = tuple(slice(*b) for b in block_bounds(shape, grid, c))
+        for dst, src in zip(cut, bst):
+            dst[sl] = src
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(cut, whole)),
+            f"{shape} {layout} {mode}: blocks with halos through the walk != "
+            f"one launch")
+    torch.testing.assert_close(total, want, rtol=1e-5, atol=0)
+
+
 def compare_pair_case(shape, fista, grids=(None,), strips=(None,)):
     """Two pairs of the pair kernel at each forced grid of ``grids`` and
     each forced axis-1 strip width of ``strips`` (None: the full
@@ -992,8 +1153,8 @@ def store_order():
     the vector walk's two), of the pair kernel and of the K-step kernel's
     two entry points in the built library's SASS
     (``tools/torch_sass_order.py``), by kernel name: (template arguments,
-    <T,ND,FISTA,HALO,ISO,LOSSY> of dual_kernel, <ND,FISTA,ISO,LOSSY> of
-    dualwalk_kernel, <ND> of reconwalk_kernel, <ND,FISTA,REF,HALO,LOSSY>
+    <T,ND,FISTA,HALO,ISO,LOSSY> of dual_kernel, <ND,FISTA,ISO,LOSSY,HALO>
+    of dualwalk_kernel, <ND,HALO> of reconwalk_kernel, <ND,FISTA,REF,HALO,LOSSY>
     of pair_kernel (HALO 0 none, 1 axis-0 bands, 2 axis-1 bands),
     <ND,FISTA,K,LOSSY> of kstep_kernel or <K,LOSSY> of kstepcap_kernel;
     ISO; LOSSY; stores; stores sent while their own load is in flight; LDL;
@@ -1016,7 +1177,9 @@ def store_order():
         stores, _, in_flight = so.store_order(fn)
         iso = (name == "dual_kernel" and args[4] == "1") or (
             name == "dualwalk_kernel" and args[2] == "1")
-        rows[name].append((f"<{','.join(args)}>", iso, args[-1] == "1",
+        lossy = {"dualwalk_kernel": args[3:4] == ["1"],
+                 "reconwalk_kernel": False}.get(name, args[-1] == "1")
+        rows[name].append((f"<{','.join(args)}>", iso, lossy,
                            stores, len(in_flight), *so.local_memory(fn)))
     return rows
 
@@ -2471,12 +2634,18 @@ def compare_halo_case(shape, fista, dtype, where, iters=3):
         h = seams(state, ndim, a0, a1, fista)
     o = orig[cut].contiguous()
     runs = []
+    walked = fused_iteration.walk_launches
     for step in (fused_iteration, fused_iteration_reference):
         st = [x[cut].clone() for x in state]
         fn = step_fn(step, o, st, li, lm, rho, fista, halos=h)
         sums = [torch.stack(fn()[3:]).double().cpu() for _ in range(iters)]
         torch.cuda.synchronize()
         runs.append((st, torch.stack(sums)))
+    # float32 Jia-Zhao launches with halos on axes 0 and 1 take the walk
+    walked = fused_iteration.walk_launches - walked
+    require(walked == (iters if dtype == torch.float32 else 0),
+            f"halo kernel {shape} {where} {dtype}: {walked} of {iters} "
+            f"launches through the vector walk")
     (ks, ksum), (ps, psum) = runs
     err = max((a - b).abs().max().item() for a, b in zip(ks, ps))
     require(all(torch.equal(a, b) for a, b in zip(ks, ps)),
@@ -2513,6 +2682,17 @@ def slabs_equal_one_launch(shape, fista, n_slabs):
     torch.cuda.empty_cache()
 
 
+def interior_seams(state, ndim):
+    """Seams of a FISTA state's interior slab for timing: rows and columns
+    of nonzero values on axes 0 and 1."""
+    r, acc0, d0 = state[0], state[1], state[1 + ndim]
+    return {k: v.contiguous().clone() for k, v in (
+        ("prev0", r[-1:]), ("prev1", r[:, -1:]),
+        ("next0_recon", r[:1]), ("next0_acc", acc0[-1:]),
+        ("next0_d", d0[-1:]), ("next1_recon", r[:, :1]),
+        ("next1_acc", acc0[:, -1:]), ("next1_d", d0[:, -1:]))}
+
+
 def time_halo(shape, n_kernel, n_plain):
     """ms per launch at the slab ``shape`` FISTA f32 of the kernel with
     halos (an interior slab), without halos, and of the plain version with
@@ -2520,13 +2700,7 @@ def time_halo(shape, n_kernel, n_plain):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     orig, state, li, lm, rho = random_state(shape, True, torch.float32, gen)
     ndim = len(shape)
-    # an interior slab's seams: rows and columns of nonzero values
-    r, acc0, d0 = state[0], state[1], state[1 + ndim]
-    h = {k: v.contiguous().clone() for k, v in (
-        ("prev0", r[-1:]), ("prev1", r[:, -1:]),
-        ("next0_recon", r[:1]), ("next0_acc", acc0[-1:]),
-        ("next0_d", d0[-1:]), ("next1_recon", r[:, :1]),
-        ("next1_acc", acc0[:, -1:]), ("next1_d", d0[:, -1:]))}
+    h = interior_seams(state, ndim)
     fns = {"halo": step_fn(fused_iteration, orig, state, li, lm, rho, True,
                            halos=h),
            "k1": step_fn(fused_iteration, orig, state, li, lm, rho, True),
@@ -2539,6 +2713,32 @@ def time_halo(shape, n_kernel, n_plain):
     del state, orig, h, fns
     torch.cuda.empty_cache()
     return {k: sum(v) / len(v) for k, v in raw.items()}, raw
+
+
+def time_f64(shape, n_kernel, n_plain, halos=False):
+    """ms per float64 FISTA K=1 launch at ``shape`` (the scalar passes)
+    and of its plain version, in turns (plain, kernel, kernel, plain);
+    ``halos``: an interior slab's seams (:func:`interior_seams`). Returns
+    ({"k1", "plain"}: mean ms, the raw runs, the seam elements read)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    orig, state, li, lm, rho = random_state(shape, True, torch.float64, gen)
+    h = interior_seams(state, len(shape)) if halos else None
+    fns = {"k1": step_fn(fused_iteration, orig, state, li, lm, rho, True,
+                         halos=h),
+           "plain": step_fn(fused_iteration_reference, orig, state, li, lm,
+                            rho, True, halos=h)}
+    before = (fused_iteration.launches, fused_iteration.walk_launches)
+    raw = {k: [] for k in fns}
+    for name in ("plain", "k1", "k1", "plain"):
+        raw[name].append(time_ms(fns[name],
+                                 n_plain if name == "plain" else n_kernel))
+    require(fused_iteration.walk_launches == before[1]
+            and fused_iteration.launches > before[0],
+            f"float64 launches at {shape} not through the scalar passes")
+    elems = k1_halo_elements(shape, list(h)) if halos else 0
+    del state, orig, h, fns
+    torch.cuda.empty_cache()
+    return {k: sum(v) / len(v) for k, v in raw.items()}, raw, elems
 
 
 def link_rates(numel, n=6):
@@ -2611,11 +2811,77 @@ def outofcore_phase(smi, name, cube, cube3):
         for fista in (True, False):
             for n_slabs in (1, 3, 4):
                 slabs_equal_one_launch(shape, fista, n_slabs)
+    # the walk with halos: every layout of its seams on small cubes, exact,
+    # unaccelerated and lossy, at forced grids and bands; seam operands
+    # and state off 16-byte boundaries; blocks put back against one launch
+    t1 = time.perf_counter()
+    n_walk, walk_err = 0, 0.0
+    for shape in WALK_HALO_SHAPES:
+        bands = (None, 1) if len(shape) == 4 else (None,)
+        for layout in WALK_HALO_LAYOUTS:
+            for mode in WALK_HALO_MODES:
+                nb, e = compare_walk_halo_case(shape, layout, mode,
+                                               grids=(None, 7), bands=bands)
+                n_walk, walk_err = n_walk + nb, max(walk_err, e)
+        for layout in ("grid", "extent1"):
+            nb, e = compare_walk_halo_case(shape, layout, (True, True),
+                                           offset=1, grids=(None, 1))
+            n_walk, walk_err = n_walk + nb, max(walk_err, e)
+            for mode in WALK_HALO_MODES:
+                walk_halo_blocks_equal_one_launch(shape, layout, mode)
+    err = max(err, walk_err)
+    log(f"phase 8 (a) K=1 walk with halos vs plain: {n_walk} blocks of "
+        f"{WALK_HALO_SHAPES} in the layouts {sorted(WALK_HALO_LAYOUTS)}, "
+        f"exact FISTA, unaccelerated and lossy, at the wrapper's grid and 7 "
+        f"blocks, bands default and 1 (4D); lossy 2 x 2 grids and extent-1 "
+        f"blocks with every array and seam slab one element off 16 bytes at "
+        f"1 block; 3 launches each, all through the walk with halos, state "
+        f"bitwise (max |Δ| {walk_err}), sums within rtol 1e-5; those grids "
+        f"cut into every block, put back = one launch without halos, "
+        f"bitwise; {time.perf_counter() - t1:.1f} s")
     t_halo, raw = time_halo(SLAB4, 5, 1)
     bw, f32 = peak_bandwidth(name), peak_f32(name)
     b_ms, b_by = (launch_bound_seconds(SLAB4, True, 1, bw, f32)
                   if bw and f32 else (float("nan"), None))
     b_ms *= 1e3
+    # row 1f: the scalar float64 launch at config 2 and at its stream slab
+    # (with an interior slab's seams), and its launches on a float64
+    # run_solver at config 2 x4 (the K=1 loop: the other kernels are
+    # float32)
+    f64 = peak_f64(name)
+    t64 = {}
+    for shape in (CFG2, slab2):
+        t, raw64, elems = time_f64(shape, 3, 1, halos=shape != CFG2)
+        bnd, by = (launch_bound_seconds(shape, True, 1, bw, f64, itemsize=8,
+                                        halo_elems=elems)
+                   if bw and f64 else (float("nan"), None))
+        t64[shape] = (t, raw64, bnd * 1e3, by)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    orig64 = torch.randn(CFG2, generator=gen, device="cuda",
+                         dtype=torch.float64) * 0.5 + 2.0
+    li64 = torch.full((3,), 16.0, device="cuda", dtype=torch.float64)
+    lm64 = torch.full((3,), 1 / 16.0, device="cuda", dtype=torch.float64)
+    reset_counts()
+    run_solver(orig64, li64, lm64, SolverOptions(ndim=3, iterations_fista=4,
+                                                 iterations_unacc=0))
+    torch.cuda.synchronize()
+    f64_launches = launch_counts()
+    require(f64_launches == (0, 0, 0, 4)
+            and fused_iteration.walk_launches == 0,
+            f"float64 run_solver at {CFG2} x4: launches {f64_launches}, "
+            f"{fused_iteration.walk_launches} through the walk")
+    del orig64
+    torch.cuda.empty_cache()
+    t2, raw2, b2, by2 = t64[CFG2]
+    ts, raws, bs, bys = t64[slab2]
+    log(f"phase 8 (a) float64 K=1 launch (scalar passes) FISTA: at config "
+        f"2 {CFG2} {t2['k1']:.3f} ms ({b2 / t2['k1']:.3f} of its "
+        f"{b2:.3f} ms bound, {by2}), plain {t2['plain']:.3f} ms (runs "
+        f"{raw2}); at its stream slab {slab2} with an interior slab's seams "
+        f"{ts['k1']:.3f} ms ({bs / ts['k1']:.3f} of {bs:.3f} ms, {bys}), "
+        f"plain {ts['plain']:.3f} ms (runs {raws}); run_solver at config 2 "
+        f"float64 FISTA x4: launches whole-run/K-step/pair/fused "
+        f"{f64_launches} [{smi}]")
     log(f"phase 8 (a) K=1 kernel with halos vs plain: {n_cases} cases "
         f"({HALO_SHAPES}: FISTA and unaccelerated, first, interior and last "
         f"of three slabs, f32 and f64; the interior slabs {SLAB4} and "
@@ -2800,7 +3066,9 @@ def outofcore_phase(smi, name, cube, cube3):
     outofcore_mesh_phase(smi, cube, rows16, cube3, cols16, one16)
     log(f"phase 8 {time.perf_counter() - t_phase:.1f} s")
     return {"launches": halo_launches, "err": err, "ms": t_halo["halo"],
-            "plain_ms": t_halo["plain"], "bound": (b_ms, b_by)}
+            "plain_ms": t_halo["plain"], "bound": (b_ms, b_by),
+            "f64": {"launches": f64_launches[3], "ms": t2["k1"],
+                    "plain_ms": t2["plain"], "bound": (b2, by2)}}
 
 
 def mem_available() -> float:
@@ -3293,27 +3561,37 @@ def compare_halo0_shard(shape, fista, with_ref, first0, last0):
 
 def time_halo0(shape, n_kernel, n_plain):
     """ms per pair at the shard ``shape`` FISTA f32 of the HALO0 kernel (an
-    interior shard: bands on both sides), of the pair kernel without bands
-    and of the plain pair with bands, in turns (plain, halo0, pair, pair,
-    halo0, plain)."""
+    interior shard: bands on both sides), of the pair kernel without bands,
+    of two K=1 launches with an interior shard's halos on axes 0 and 1 (the
+    K=1 loop's step there, through the walk) and of the plain pair with
+    bands, in turns (plain, halo0, pair, k1, k1, pair, halo0, plain)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     orig, state, li, lm = halo0_state(shape, True, gen)
     ndim = len(shape)
     h = shard_bands(shape, True, gen, False, False)[0]
     rho1 = torch.tensor(0.37, device="cuda")
     rho2 = torch.tensor(RHO2, device="cuda")
-    args = (orig, state[0], state[1:1 + ndim], state[1 + ndim:], rho1, rho2,
-            li, lm)
+    accs, ds = state[1:1 + ndim], state[1 + ndim:]
+    args = (orig, state[0], accs, ds, rho1, rho2, li, lm)
+    k1_halos = interior_seams(state, ndim)
+
+    def two_k1():
+        for rho in (rho1, rho2):
+            fused_iteration(orig, state[0], accs, ds, rho, li, lm, fista=True,
+                            halos=k1_halos)
+
     fns = {"halo0": lambda: fused_pair_iteration(
                *args, fista=True, halos0=h, first0=False, last0=False),
            "pair": lambda: fused_pair_iteration(*args, fista=True),
+           "k1": two_k1,
            "plain": lambda: fused_pair_iteration_reference(
                *args, fista=True, halos0=h, first0=False, last0=False)}
     raw = {k: [] for k in fns}
-    for name in ("plain", "halo0", "pair", "pair", "halo0", "plain"):
+    for name in ("plain", "halo0", "pair", "k1", "k1", "pair", "halo0",
+                 "plain"):
         raw[name].append(time_ms(fns[name],
                                  n_plain if name == "plain" else n_kernel))
-    del state, orig, h, fns, args
+    del state, orig, h, fns, args, k1_halos, accs, ds
     torch.cuda.empty_cache()
     return {k: sum(v) / len(v) for k, v in raw.items()}, raw
 
@@ -4094,7 +4372,7 @@ def halo1_cases(smi, bw, f32):
         f"{t_h1['plain']:.3f} ms (runs {raw}); "
         f"{time.perf_counter() - t0:.1f} s [{smi}]")
     return {"err": err, "ms": t_h1["halo1"], "plain_ms": t_h1["plain"],
-            "bound": (b_ms, b_by)}
+            "bound": (b_ms, b_by), "k1_ms": t_h1["k1"]}
 
 
 def sharded_phase(smi, name, cube, scan, det, cube3, cfg3_digest):
@@ -4170,9 +4448,19 @@ def sharded_phase(smi, name, cube, scan, det, cube3, cfg3_digest):
         f"bands = one pair launch, bitwise; at {SHARD4} FISTA (interior): "
         f"HALO0 pair {t_h0['halo0']:.3f} ms ({b_ms / t_h0['halo0']:.3f} of "
         f"its {b_ms:.2f} ms bound, {b_by}, {band_rows} band rows), the pair "
-        f"without bands {t_h0['pair']:.3f} ms, plain pair with bands "
+        f"without bands {t_h0['pair']:.3f} ms, two K=1 launches with "
+        f"halos {t_h0['k1']:.3f} ms, plain pair with bands "
         f"{t_h0['plain']:.3f} ms (runs {raw}); "
         f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    # where the mesh gates would cross (S8): ms per iteration of a shard's
+    # step in pairs against the K=1 loop's two walk launches with halos
+    log(f"phase 9 (a) mesh crossing, ms per iteration at config 4's shards "
+        f"FISTA: (2, 1, 1, 1) {SHARD4} HALO0 pair {t_h0['halo0'] / 2:.3f} "
+        f"against two K=1 walk launches with halos {t_h0['k1'] / 2:.3f} "
+        f"(ratio {t_h0['k1'] / t_h0['halo0']:.3f}); (1, 2, 1, 1) {SHARD41} "
+        f"HALO1 pair {h1['ms'] / 2:.3f} against {h1['k1_ms'] / 2:.3f} "
+        f"(ratio {h1['k1_ms'] / h1['ms']:.3f}); the kernels alone, the "
+        f"exchanges not counted [{smi}]")
 
     # single-device references, then the meshes
     t0 = time.perf_counter()
@@ -4570,7 +4858,6 @@ def time_mode(shape, mode, grid, coords, n_kernel, n_plain, extra=None):
     k1, halo, plain); the elements of its halo operands; and the max |Δ|
     of one launch without halos against its plain version from the same
     state (bitwise required)."""
-    from cytvdn_tpu_torch.utils.perf import k1_halo_elements
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
     orig, state, li, lm, rho = random_state(shape, True, torch.float32, gen,
@@ -5746,22 +6033,24 @@ def main() -> int:
         + f"; checked beside phase 2, {time.perf_counter() - t_sass:.1f} s")
     walk = orders["dualwalk_kernel"] + orders["reconwalk_kernel"]
     walk_ptx = [row for row in ptxas.split("; ") if "walk_kernel<" in row]
-    log(f"phase 1 K=1 vector walk dualwalk_kernel<ND,FISTA,ISO,LOSSY> and "
-        f"reconwalk_kernel<ND> (float32 launches without halos): ptxas "
+    log(f"phase 1 K=1 vector walk dualwalk_kernel<ND,FISTA,ISO,LOSSY,HALO> "
+        f"and reconwalk_kernel<ND,HALO> (float32 launches; HALO: seams on "
+        f"axes 0 and 1, Jia-Zhao, anisotropic): ptxas "
         f"{'; '.join(walk_ptx)}; SASS stores / sent while their own load is "
         f"in flight / LDL / STL: "
         + "; ".join(f"{'dual' if i < len(orders['dualwalk_kernel']) else 'recon'}"
                     f"{a} {st}/{fl}/{ldl}/{stl}"
                     for i, (a, _, _, st, fl, ldl, stl) in enumerate(walk)))
-    require(len(orders["dualwalk_kernel"]) == 8
-            and len(orders["reconwalk_kernel"]) == 2,
-            f"expected 8 dualwalk_kernel and 2 reconwalk_kernel "
+    require(len(orders["dualwalk_kernel"]) == 14
+            and len(orders["reconwalk_kernel"]) == 4,
+            f"expected 14 dualwalk_kernel and 4 reconwalk_kernel "
             f"instantiations, found {walk}")
     require(all(r[4:] == (0, 0, 0) for r in walk),
             f"a vector-walk instantiation of the K=1 kernel sends a store "
             f"while its own load is in flight, or uses local memory: {walk}")
     # the scalar dual pass's ISO instantiations: float with halos, double
-    # with and without (float launches without halos take the walk)
+    # with and without (float launches without halos, and Jia-Zhao
+    # anisotropic ones with halos on axes 0 and 1, take the walk)
     iso_rows = [r for r in order if r[1]]
     require(len(iso_rows) == 6, f"expected 6 ISO instantiations of "
                                 f"dual_kernel, found {iso_rows}")
@@ -6516,11 +6805,18 @@ def main() -> int:
         ("resident_solve", "resident.cu", "resident.py:293", counts1[0],
          res_err, res_ms, ktimes[CFG1]["plain"][0] * 7500,
          bound(CFG1, False, 7500)),
-        # the K=1 kernel's HALO instantiation: its launches on the config-4
-        # stream-mode run of phase 8 (b), its time at that run's slab
+        # the K=1 kernel with halos on axes 0 and 1 (the walk's HALO
+        # instantiations): its launches on the config-4 stream-mode run of
+        # phase 8 (b), its time at that run's slab
         ("fused_iteration_halo", "fused_iteration.cu", "fused.py:872",
          halo8["launches"], halo8["err"], halo8["ms"], halo8["plain_ms"],
          halo8["bound"]),
+        # the K=1 kernel's float64 launch (the scalar passes): its launches
+        # on phase 8 (a)'s float64 run_solver at config 2 x4, its time at
+        # config 2, the bound at 8 bytes an element
+        ("fused_iteration_f64", "fused_iteration.cu", "fused.py:872",
+         halo8["f64"]["launches"], halo8["err"], halo8["f64"]["ms"],
+         halo8["f64"]["plain_ms"], halo8["f64"]["bound"]),
         # the pair kernel's HALO0 instantiation: its launches per rank on
         # the config-4 (2, 1, 1, 1) mesh run of phase 9 (b), its time at
         # that run's shard (bands on both sides)

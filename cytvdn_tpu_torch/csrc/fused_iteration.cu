@@ -29,8 +29,9 @@
 //   L2-sized strips, with a barrier per stage; the pair kernel's strip
 //   sweep showed that such a wavefront does not pay on this card
 //   (temporal_pair.cu, PERF.md section 6), so the passes stay two.
-// - The float32 launches without halos take the vector walk
-//   (dualwalk_kernel, reconwalk_kernel; the items of vec_walk.cuh): four
+// - The float32 launches take the vector walk (dualwalk_kernel,
+//   reconwalk_kernel; the items of vec_walk.cuh) without halos, and with
+//   Jia-Zhao anisotropic halos on axes 0 and 1 (below): four
 //   elements of the last axis per thread, moved with one 128-bit access
 //   per array (64-bit for a bfloat16 d) through L2, or one by one where
 //   the last extent or an array's alignment does not allow it; every load
@@ -40,7 +41,8 @@
 //   that the recon lines the next items read again stay in L2. The
 //   scalar passes below (one element per thread, each axis loaded,
 //   computed and stored before the next) measured 2.0-2.2 TB/s at
-//   256^2 x 128^2 on an H100 (80GB HBM3, 700 W; PERF.md section 6).
+//   256^2 x 128^2 on an H100 (80GB HBM3, 700 W; PERF.md section 6), the
+//   walk 2.77-2.82.
 // - The walk's item order keeps an element's axis-0 and axis-1
 //   neighbours in L2 between their two reads (recon at i-1 in the dual
 //   pass, b at i+1 in the recon pass): the cube is walked tile by tile,
@@ -73,7 +75,16 @@
 //   along axis 0, its last column, and on meshes that split axes 2 or 3
 //   the threads at that axis's last index, whatever tile they are in) also
 //   compute that slab and store it into a one-slab scratch buffer
-//   (tv_elem.cuh Halos::bhat); the recon pass reads it in place of the
+//   (tv_elem.cuh Halos::bhat). The walk's HALO items do the same for
+//   halos on axes 0 and 1 (Jia-Zhao, anisotropic: every out-of-core slab,
+//   axis-0, axis-1 and 2D-grid mesh shards): an item at a leading edge
+//   loads the -1 neighbour's slab in place of recon at i-1, one at a
+//   trailing edge also loads the +1 neighbour's first recon, accumulator
+//   and shadow-dual slabs with its other loads and stores the recomputed
+//   slab after its b and d (vec_walk.cuh dual_item_cs, ld4_prev,
+//   ld4_next). In 4D both axes are row axes, the same for every thread of
+//   an item; in 3D axis 1 is the tiled axis, whose seams are a tile row's.
+//   The recon pass reads the scratch slab in place of the
 //   Jia-Zhao b_0 wrap, which is only right while b_0 is zero, as it is not
 //   in an interior block, and in place of the periodic wrap, whose b_0 is
 //   another shard's. For a split half-isotropic axis the recompute is the
@@ -88,7 +99,8 @@
 //   no-halo instantiations are the code they were.
 //
 // The scalar passes (dual_kernel, recon_kernel: one element per thread)
-// run the launches with halos and the double ones:
+// run the double launches and the float ones with halos on axes 2 or 3,
+// periodic or mirror boundaries or iso pairs:
 //
 // - Half-isotropic launches (ISO, a template flag of the dual pass, 4D
 //   only, picked where iso_r or iso_q is set): each element issues every
@@ -120,8 +132,8 @@
 //
 // Layout, boundary offsets and the element arithmetic live in tv_elem.cuh,
 // shared with the whole-run kernel (resident.cu); the walk's items in
-// vec_walk.cuh, shared with the whole-run and K-step kernels. The HALO and
-// double launches keep the scalar passes.
+// vec_walk.cuh, shared with the whole-run and K-step kernels. The double
+// launches and the other HALO launches keep the scalar passes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -193,7 +205,7 @@ __global__ void __launch_bounds__(NT) finalize_kernel(const double* partials,
   }
 }
 
-// The vector walk's tiling and item order (float launches without halos).
+// The vector walk's tiling and item order (float launches).
 struct WalkArgs {
   VecTiles v;         // the walk's tiling (vec_walk.cuh)
   uint32_t rows;      // the leading axes flattened: N0 x r1
@@ -223,11 +235,12 @@ __device__ __forceinline__ void walk_item(const WalkArgs& r, uint32_t w,
   row = c0 * r.r1 + first + (k - c0 * width);
 }
 
-template <int ND, bool FISTA, bool LOSSY, bool VEC>
+template <int ND, bool FISTA, bool LOSSY, bool VEC, bool HALO>
 __device__ __forceinline__ void dual_walk(const Args<float>& a,
                                           const WalkArgs& r, const float* lam,
                                           float rho, bool iso_r, bool iso_q,
-                                          float4 (*buf)[NT], double& acc) {
+                                          float4 (*buf)[NT], double& acc,
+                                          const Halos<float>* h) {
   const int tid = threadIdx.y * TX + threadIdx.x;
   const int lw = r.v.lw;
   const int xl = tid & (lw - 1);
@@ -237,15 +250,17 @@ __device__ __forceinline__ void dual_walk(const Args<float>& a,
     uint32_t row, t;
     walk_item(r, w, row, t);
     const Item<ND> it = item_at<ND>(a, r.v, row, t, y, xl);
-    dual_item_cs<ND, FISTA, VEC, LOSSY>(a, it, lw, xl, y, tid, lam, rho,
-                                        iso_r, iso_q, buf, parity, acc);
+    dual_item_cs<ND, FISTA, VEC, LOSSY, HALO>(a, it, lw, xl, y, tid, lam,
+                                              rho, iso_r, iso_q, buf, parity,
+                                              acc, h);
   }
 }
 
-template <int ND, bool VEC>
+template <int ND, bool VEC, bool HALO>
 __device__ __forceinline__ void recon_walk(const Args<float>& a,
                                            const WalkArgs& r, const float* lm,
-                                           float4 (*buf)[NT], double* s) {
+                                           float4 (*buf)[NT], double* s,
+                                           const Halos<float>* h) {
   const int tid = threadIdx.y * TX + threadIdx.x;
   const int lw = r.v.lw;
   const int xl = tid & (lw - 1);
@@ -256,24 +271,27 @@ __device__ __forceinline__ void recon_walk(const Args<float>& a,
     uint32_t row, t;
     walk_item(r, w, row, t);
     const Item<ND> it = item_at<ND>(a, r.v, row, t, y, xl);
-    recon_item<ND, false, VEC>(a, it, lw, xl, y, last_y, tid, lm, nullptr,
-                               buf, parity, s);
+    recon_item<ND, false, VEC, HALO>(a, it, lw, xl, y, last_y, tid, lm,
+                                     nullptr, buf, parity, s, h);
   }
 }
 
-// The dual pass of a float launch without halos, as the vector walk: ISO
-// where a 4D launch has a half-isotropic pair, LOSSY where d is bfloat16.
-// vec: every array aligned for the 128-bit (bfloat16 d: 64-bit) accesses
-// and the last extent a multiple of 4. Told that one block per SM will
+// The dual pass of a float launch as the vector walk: ISO where a 4D
+// launch has a half-isotropic pair, LOSSY where d is bfloat16, HALO where
+// the launch has seams on axes 0 and 1 (Jia-Zhao, anisotropic; h, which
+// the other instantiations take and ignore, so that they are the code
+// they were). vec: every array and seam slab aligned for the 128-bit
+// (bfloat16 d: 64-bit) accesses and the last extent a multiple of 4. Told that one block per SM will
 // do, the compiler gives the 4D FISTA pass 168 registers (one block per
 // SM), and the launch at 256^2 x 128^2 took 37.3 ms on an H100 (80GB
 // HBM3, 700 W) against 38.4 with its own budget of 80 (two per SM;
 // tools/torch_walk_variants.py, PERF.md section 6).
-template <int ND, bool FISTA, bool ISO, bool LOSSY>
+template <int ND, bool FISTA, bool ISO, bool LOSSY, bool HALO = false>
 __global__ void __launch_bounds__(NT, 1)
-    dualwalk_kernel(Args<float> a, WalkArgs r, int vec) {
+    dualwalk_kernel(Args<float> a, WalkArgs r, int vec, Halos<float> h) {
   static_assert(!ISO || ND == 4, "half-isotropic pairs are 4D");
   static_assert(!LOSSY || (FISTA && !ISO), "lossy duals: FISTA, anisotropic");
+  static_assert(!HALO || !ISO, "walk seams: anisotropic");
   __shared__ double red[NT];
   __shared__ float4 buf[2][NT];
   float lam[ND];
@@ -284,19 +302,22 @@ __global__ void __launch_bounds__(NT, 1)
   const bool iso_q = ISO && a.iso_q;
   double acc = 0.0;
   if (vec) {
-    dual_walk<ND, FISTA, LOSSY, true>(a, r, lam, rho, iso_r, iso_q, buf, acc);
+    dual_walk<ND, FISTA, LOSSY, true, HALO>(a, r, lam, rho, iso_r, iso_q, buf,
+                                            acc, &h);
   } else {
-    dual_walk<ND, FISTA, LOSSY, false>(a, r, lam, rho, iso_r, iso_q, buf,
-                                       acc);
+    dual_walk<ND, FISTA, LOSSY, false, HALO>(a, r, lam, rho, iso_r, iso_q,
+                                             buf, acc, &h);
   }
   const double total = block_sum(acc, red);
   if (threadIdx.x == 0 && threadIdx.y == 0) a.partials[blockIdx.x] = total;
 }
 
-// The recon pass of a float launch without halos, as the vector walk.
-template <int ND>
+// The recon pass of a float launch as the vector walk (HALO: seams on
+// axes 0 and 1).
+template <int ND, bool HALO = false>
 __global__ void __launch_bounds__(NT) reconwalk_kernel(Args<float> a,
-                                                       WalkArgs r, int vec) {
+                                                       WalkArgs r, int vec,
+                                                       Halos<float> h) {
   __shared__ double red[NT];
   __shared__ float4 buf[2][NT];
   float lm[ND];
@@ -304,9 +325,9 @@ __global__ void __launch_bounds__(NT) reconwalk_kernel(Args<float> a,
   for (int k = 0; k < ND; ++k) lm[k] = a.lam_mu[k];
   double s[4] = {0.0, 0.0, 0.0, 0.0};
   if (vec) {
-    recon_walk<ND, true>(a, r, lm, buf, s);
+    recon_walk<ND, true, HALO>(a, r, lm, buf, s, &h);
   } else {
-    recon_walk<ND, false>(a, r, lm, buf, s);
+    recon_walk<ND, false, HALO>(a, r, lm, buf, s, &h);
   }
   const double t1 = block_sum(s[1], red);
   const double t2 = block_sum(s[2], red);
@@ -334,11 +355,15 @@ __global__ void __launch_bounds__(NT) walkfin_kernel(const double* partials,
 }
 
 template <int ND, bool FISTA>
-const void* dualwalk_for(int iso, int lossy) {
+const void* dualwalk_for(int iso, int lossy, int halo) {
   if constexpr (FISTA) {
+    if (lossy && halo) return reinterpret_cast<const void*>(
+        dualwalk_kernel<ND, true, false, true, true>);
     if (lossy) return reinterpret_cast<const void*>(
         dualwalk_kernel<ND, true, false, true>);
   }
+  if (halo) return reinterpret_cast<const void*>(
+      dualwalk_kernel<ND, FISTA, false, false, true>);
   if constexpr (ND == 4) {
     if (iso) return reinterpret_cast<const void*>(
         dualwalk_kernel<4, FISTA, true, false>);
@@ -347,22 +372,25 @@ const void* dualwalk_for(int iso, int lossy) {
       dualwalk_kernel<ND, FISTA, false, false>);
 }
 
-// The walk's dual pass for (ndim, fista, iso, lossy) and its recon pass;
-// null where there is none (iso in 3D, lossy without FISTA or with iso).
-void walk_kernels(int ndim, int fista, int iso, int lossy, const void** dual,
-                  const void** recon) {
+// The walk's dual pass for (ndim, fista, iso, lossy, halo) and its recon
+// pass; null where there is none (iso in 3D or with halos, lossy without
+// FISTA or with iso).
+void walk_kernels(int ndim, int fista, int iso, int lossy, int halo,
+                  const void** dual, const void** recon) {
   *dual = *recon = nullptr;
-  if ((ndim != 3 && ndim != 4) || (iso && ndim != 4) ||
+  if ((ndim != 3 && ndim != 4) || (iso && (ndim != 4 || halo)) ||
       (lossy && (!fista || iso)))
     return;
   if (ndim == 4) {
-    *dual = fista ? dualwalk_for<4, true>(iso, lossy)
-                  : dualwalk_for<4, false>(iso, lossy);
-    *recon = reinterpret_cast<const void*>(reconwalk_kernel<4>);
+    *dual = fista ? dualwalk_for<4, true>(iso, lossy, halo)
+                  : dualwalk_for<4, false>(iso, lossy, halo);
+    *recon = halo ? reinterpret_cast<const void*>(reconwalk_kernel<4, true>)
+                  : reinterpret_cast<const void*>(reconwalk_kernel<4>);
   } else {
-    *dual = fista ? dualwalk_for<3, true>(iso, lossy)
-                  : dualwalk_for<3, false>(iso, lossy);
-    *recon = reinterpret_cast<const void*>(reconwalk_kernel<3>);
+    *dual = fista ? dualwalk_for<3, true>(iso, lossy, halo)
+                  : dualwalk_for<3, false>(iso, lossy, halo);
+    *recon = halo ? reinterpret_cast<const void*>(reconwalk_kernel<3, true>)
+                  : reinterpret_cast<const void*>(reconwalk_kernel<3>);
   }
 }
 
@@ -412,7 +440,8 @@ cudaError_t launch_passes(const Args<T>& a, const Halos<T>& h, int ndim,
   return cudaGetLastError();
 }
 
-// The scalar passes: every launch with halos, and double launches without.
+// The scalar passes: double launches, and float launches with halos that
+// the walk does not take (axes 2 and 3, periodic, mirror, iso).
 // halo: null for a whole cube, else the 28 seam pointers of Halos in the
 // order prev, next_recon, next_acc, next_d, next_accp, corner, bhat, each
 // for axes 0 to 3 (null: no halos on that axis, or no such operand);
@@ -502,13 +531,13 @@ TV_ENTRY(tv_fused_iteration_f32, float)
 TV_ENTRY(tv_fused_iteration_f64, double)
 
 // The resident blocks per SM of the walk's two passes for (ndim, fista,
-// iso, lossy) on the current device (their registers and shared memory),
-// and its SMs.
+// iso, lossy, halo) on the current device (their registers and shared
+// memory), and its SMs.
 extern "C" int tv_walk_occupancy(int ndim, int fista, int iso, int lossy,
-                                 int* dual_per_sm, int* recon_per_sm,
-                                 int* sms) {
+                                 int halo, int* dual_per_sm,
+                                 int* recon_per_sm, int* sms) {
   const void* fns[2];
-  walk_kernels(ndim, fista, iso, lossy, &fns[0], &fns[1]);
+  walk_kernels(ndim, fista, iso, lossy, halo, &fns[0], &fns[1]);
   if (fns[0] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -522,24 +551,53 @@ extern "C" int tv_walk_occupancy(int ndim, int fista, int iso, int lossy,
       recon_per_sm, fns[1], NT, 0));
 }
 
-// One iteration of a float32 cube without halos through the vector walk:
-// the dual pass on dual_blocks blocks, the recon pass on recon_blocks and
+// The seams of a walk launch (halo: the scalar entry's table of 28
+// pointers) into h: axes 0 and 1 only, each with prev, next_recon,
+// next_acc, bhat and, exactly under FISTA, next_d; no iso operand. Returns
+// false where the table holds anything else; clears vec where a seam slab
+// is not 16-byte aligned.
+static bool walk_seams(void* const* halo, int fista, Halos<float>& h,
+                       int& vec) {
+  for (int A = 0; A < 4; ++A) {
+    if (halo[A] == nullptr) continue;
+    if (A > 1 || halo[4 + A] == nullptr || halo[8 + A] == nullptr ||
+        halo[24 + A] == nullptr || (halo[12 + A] != nullptr) != (fista != 0) ||
+        halo[16 + A] != nullptr || halo[20 + A] != nullptr)
+      return false;
+    h.prev[A] = static_cast<const float*>(halo[A]);
+    h.next_recon[A] = static_cast<const float*>(halo[4 + A]);
+    h.next_acc[A] = static_cast<const float*>(halo[8 + A]);
+    h.next_d[A] = static_cast<const float*>(halo[12 + A]);
+    h.bhat[A] = static_cast<float*>(halo[24 + A]);
+    for (const int f : {0, 1, 2, 3, 6}) {  // the fields above
+      const void* p = halo[f * 4 + A];
+      vec = vec && (p == nullptr || aligned16(p));
+    }
+  }
+  return true;
+}
+
+// One iteration of a float32 cube through the vector walk: the dual pass
+// on dual_blocks blocks, the recon pass on recon_blocks and
 // walkfin_kernel; partials: dual_blocks + 2 recon_blocks doubles;
+// halo: null for a whole cube, else the scalar entry's seam table, with
+// seams on axes 0 and 1 only (Jia-Zhao, anisotropic; walk_seams);
 // band: the item order's axis-1 indices per band (4D: 1 .. N1; 3D: 1);
 // lossy: the d arrays are bfloat16 (FISTA, Jia-Zhao, anisotropic).
 extern "C" int tv_fused_walk_f32(
     const void* orig, void* recon, void* b0, void* b1, void* b2, void* b3,
     void* d0, void* d1, void* d2, void* d3, const void* lambda_inv,
     const void* lam_mu, const void* rho, void* partials, void* out,
-    int ndim, long long n0, long long n1, long long n2, long long n3,
-    int fista, int bc, int iso_r, int iso_q, int lossy, long long band,
-    int dual_blocks, int recon_blocks, void* stream) {
+    void* const* halo, int ndim, long long n0, long long n1, long long n2,
+    long long n3, int fista, int bc, int iso_r, int iso_q, int lossy,
+    long long band, int dual_blocks, int recon_blocks, void* stream) {
   const int iso = ndim == 4 && (iso_r || iso_q);
+  const int with_halo = halo != nullptr;
   const void* dual = nullptr;
   const void* rec = nullptr;
-  walk_kernels(ndim, fista, iso, lossy, &dual, &rec);
-  if (dual == nullptr || (lossy && bc != 2) || dual_blocks < 1 ||
-      recon_blocks < 1)
+  walk_kernels(ndim, fista, iso, lossy, with_halo, &dual, &rec);
+  if (dual == nullptr || ((lossy || with_halo) && bc != 2) ||
+      dual_blocks < 1 || recon_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Args<float> a{};
   a.orig = static_cast<const float*>(orig);
@@ -555,6 +613,9 @@ extern "C" int tv_fused_walk_f32(
     vec = vec && aligned16(bs[k]) &&
           (lossy ? aligned8(dd[k]) : aligned16(dd[k]));
   }
+  Halos<float> h{};
+  if (with_halo && !walk_seams(halo, fista, h, vec))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long n[4] = {n0, n1, n2, n3};
   set_shape(a, ndim, n);
   a.lambda_inv = static_cast<const float*>(lambda_inv);
@@ -582,7 +643,7 @@ extern "C" int tv_fused_walk_f32(
 
   const dim3 block(TX, TY);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  void* args[] = {&a, &r, &vec};
+  void* args[] = {&a, &r, &vec, &h};
   cudaError_t err =
       cudaLaunchKernel(dual, dim3(dual_blocks), block, args, 0, s);
   if (err == cudaSuccess) {

@@ -399,6 +399,57 @@ __device__ __forceinline__ void st4_bf16_cs(float* p, int64_t i, int n,
   }
 }
 
+// Seams of a HALO walk (the one-iteration kernel's walk with halos,
+// fused_iteration.cu): halos on axes 0 and 1 only, Jia-Zhao, anisotropic.
+// In 4D both are row axes, the same for every thread of an item; in 3D
+// axis 1 is the tiled axis ND-2, whose edge is a row of the tile. An
+// element's image in a seam slab is its offset with the axis collapsed
+// (tv_elem.cuh slab_offset), contiguous along the last axis as the cube
+// is, so a thread's four elements of a slab are one 128-bit access where
+// VEC (the slab 16-byte aligned).
+
+// Whether the element at `it` lies on halo axis k's leading (lead) or
+// trailing edge: the axis has seam operands (h.prev non-null) and the
+// element's index along it is 0 (N_k - 1).
+template <int ND>
+__device__ __forceinline__ bool on_seam(const Halos<float>* h,
+                                        const Args<float>& a,
+                                        const Item<ND>& it, int k,
+                                        bool lead) {
+  return h->prev[k] != nullptr && it.c[k] == (lead ? 0 : a.n[k] - 1);
+}
+
+// Recon at the backward neighbour of axis k for `cnt` of the thread's
+// elements, with halos: the -1 neighbour's slab h.prev[k] at a halo
+// axis's leading edge (tv_elem.cuh prev_recon), else recon at bwd.
+template <int ND, bool VEC>
+__device__ __forceinline__ void ld4_prev(float (&v)[VW], const Args<float>& a,
+                                         const Halos<float>* h,
+                                         const Item<ND>& it, int k, int cnt) {
+  if (on_seam<ND>(h, a, it, k, true)) {
+    ld4<VEC, true>(v, h->prev[k], slab_offset<ND>(it.c, a.n, k), cnt);
+  } else {
+    ld4<VEC, true>(v, a.recon, bwd(it.idx, it.c[k], a.n[k], a.s[k], a.bc),
+                   cnt);
+  }
+}
+
+// b_k at the forward neighbour along axis k for `cnt` of the thread's
+// elements, with halos: the +1 neighbour's recomputed first slab
+// h.bhat[k] at a halo axis's trailing edge (tv_elem.cuh recon_elem), in
+// place of the Jia-Zhao wrap to b at index 0, which is the cube's zero
+// only in the first block; else b_k at fwd.
+template <int ND, bool VEC>
+__device__ __forceinline__ void ld4_next(float (&v)[VW], const Args<float>& a,
+                                         const Halos<float>* h,
+                                         const Item<ND>& it, int k, int cnt) {
+  if (on_seam<ND>(h, a, it, k, false)) {
+    ld4<VEC, true>(v, h->bhat[k], slab_offset<ND>(it.c, a.n, k), cnt);
+  } else {
+    ld4<VEC, true>(v, a.b[k], fwd(it.idx, it.c[k], a.n[k], a.s[k], a.bc), cnt);
+  }
+}
+
 // dual_item of the one-iteration kernel's walk (fused_iteration.cu): the
 // same loads, arithmetic and order, with b and d stored evict-first. Its
 // neighbours' recon, which the next items read again (the axis-1
@@ -407,14 +458,23 @@ __device__ __forceinline__ void st4_bf16_cs(float* p, int64_t i, int n,
 // first: on an H100 (80GB HBM3, 700 W) the dual pass at 256^2 x 128^2
 // FISTA took 26.4 ms against 33.6 with dual_item's stores
 // (tools/torch_walk_variants.py, PERF.md section 6).
-template <int ND, bool FISTA, bool VEC, bool LOSSY>
+//
+// HALO (seams on axes 0 and 1, h): at a halo axis's leading edge the
+// backward neighbour is the slab h.prev (ld4_prev); at its trailing edge
+// the item also loads the +1 neighbour's first recon, accumulator and
+// (FISTA) shadow-dual slabs with its other loads, and after its b and d
+// stores writes that neighbour's first updated b slab into h.bhat, the
+// anisotropic branch of tv_elem.cuh seam_b: clip((rn - x) + acc, lam),
+// then p + rho (p - d) (next_d stays float under LOSSY). Not summed.
+template <int ND, bool FISTA, bool VEC, bool LOSSY, bool HALO = false>
 __device__ __forceinline__ void dual_item_cs(const Args<float>& a,
                                              const Item<ND>& it, int lw,
                                              int xl, int y, int tid,
                                              const float* lam, float rho,
                                              bool iso_r, bool iso_q,
                                              float4 (*buf)[NT], int& parity,
-                                             double& acc) {
+                                             double& acc,
+                                             const Halos<float>* h = nullptr) {
   static_assert(!LOSSY || FISTA, "lossy duals: FISTA only");
   const int64_t M = a.n[ND - 2];
   const int64_t L = a.n[ND - 1];
@@ -422,11 +482,21 @@ __device__ __forceinline__ void dual_item_cs(const Args<float>& a,
   // every load first
   float x[VW], xk[ND - 2][VW], xm[VW], bo[ND][VW], dol[ND][VW];
   uint32_t dq[ND][2];  // LOSSY: the old d, packed bfloat16
+  // HALO: the +1 neighbours' slabs at axes 0 and 1's trailing edges
+  float nr[2][VW], na[2][VW], nd0[2][VW];
+  int64_t so[2];
+  bool trail[2] = {false, false};
   ld4<VEC, true>(x, a.recon, it.idx, n);
+  // (the walk without halos keeps its loads' expressions as they were, so
+  // that its instantiations keep their code)
 #pragma unroll
   for (int k = 0; k < ND - 2; ++k) {
-    ld4<VEC, true>(xk[k], a.recon,
-                   bwd(it.idx, it.c[k], a.n[k], a.s[k], a.bc), n);
+    if constexpr (HALO) {
+      ld4_prev<ND, VEC>(xk[k], a, h, it, k, n);
+    } else {
+      ld4<VEC, true>(xk[k], a.recon,
+                     bwd(it.idx, it.c[k], a.n[k], a.s[k], a.bc), n);
+    }
   }
 #pragma unroll
   for (int k = 0; k < ND; ++k) {
@@ -437,9 +507,26 @@ __device__ __forceinline__ void dual_item_cs(const Args<float>& a,
       ld4<VEC, true>(dol[k], a.d[k], it.idx, n);
     }
   }
-  ld4<VEC, true>(xm, a.recon,
-                 bwd(it.idx, it.c[ND - 2], M, a.s[ND - 2], a.bc),
-                 y == 0 ? n : 0);
+  if constexpr (HALO) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      trail[k] = on_seam<ND>(h, a, it, k, false);
+      if (trail[k]) {
+        so[k] = slab_offset<ND>(it.c, a.n, k);
+        ld4<VEC, true>(nr[k], h->next_recon[k], so[k], n);
+        ld4<VEC, true>(na[k], h->next_acc[k], so[k], n);
+        if (FISTA) ld4<VEC, true>(nd0[k], h->next_d[k], so[k], n);
+      }
+    }
+  }
+  if constexpr (HALO && ND == 3) {
+    // 3D: axis ND-2 is halo axis 1
+    ld4_prev<ND, VEC>(xm, a, h, it, ND - 2, y == 0 ? n : 0);
+  } else {
+    ld4<VEC, true>(xm, a.recon,
+                   bwd(it.idx, it.c[ND - 2], M, a.s[ND - 2], a.bc),
+                   y == 0 ? n : 0);
+  }
   const float edge = xl == 0 && n > 0
       ? __ldcg(a.recon + bwd(it.idx, it.c[ND - 1], L, 1, a.bc)) : 0.0f;
   const float up = __shfl_up_sync(FULL, x[VW - 1], 1, lw);
@@ -480,19 +567,34 @@ __device__ __forceinline__ void dual_item_cs(const Args<float>& a,
       st4_cs<VEC>(a.d[k], it.idx, n, dn[k]);
     }
   }
+  if constexpr (HALO) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (!trail[k]) continue;
+      float bh[VW];
+#pragma unroll
+      for (int j = 0; j < VW; ++j) {
+        const float p = clip_((nr[k][j] - x[j]) + na[k][j], lam[k]);
+        bh[j] = FISTA ? p + rho * (p - nd0[k][j]) : p;
+      }
+      st4<VEC>(h->bhat[k], so[k], n, bh);
+    }
+  }
 }
 
 // One reconstruction work item: the thread's elements' recon, as
 // tv_elem.cuh recon_elem in its order; adds |R_new - R_old| and |R_old| to
 // s[1], s[2] and, with a reference cube `ref` (REF), (R_new - ref)^2 to
-// s[3].
-template <int ND, bool REF, bool VEC>
+// s[3]. HALO (seams on axes 0 and 1, h; Jia-Zhao): at a halo axis's
+// trailing edge the forward b is the slab h.bhat (ld4_next).
+template <int ND, bool REF, bool VEC, bool HALO = false>
 __device__ __forceinline__ void recon_item(const Args<float>& a,
                                            const Item<ND>& it, int lw, int xl,
                                            int y, int last_y, int tid,
                                            const float* lm, const float* ref,
                                            float4 (*buf)[NT], int& parity,
-                                           double* s) {
+                                           double* s,
+                                           const Halos<float>* h = nullptr) {
   const int64_t M = a.n[ND - 2];
   const int64_t L = a.n[ND - 1];
   const int n = it.n;
@@ -502,15 +604,24 @@ __device__ __forceinline__ void recon_item(const Args<float>& a,
   for (int k = 0; k < ND; ++k) ld4<VEC, true>(bo[k], a.b[k], it.idx, n);
 #pragma unroll
   for (int k = 0; k < ND - 2; ++k) {
-    ld4<VEC, true>(bf[k], a.b[k],
-                   fwd(it.idx, it.c[k], a.n[k], a.s[k], a.bc), n);
+    if constexpr (HALO) {
+      ld4_next<ND, VEC>(bf[k], a, h, it, k, n);
+    } else {
+      ld4<VEC, true>(bf[k], a.b[k],
+                     fwd(it.idx, it.c[k], a.n[k], a.s[k], a.bc), n);
+    }
   }
   // the tile's last row and the cube's last row: the forward row along
   // axis ND-2 (or the wrap)
   const bool m_edge = y == last_y || it.c[ND - 2] >= M - 1;
-  ld4<VEC, true>(bm, a.b[ND - 2],
-                 fwd(it.idx, it.c[ND - 2], M, a.s[ND - 2], a.bc),
-                 m_edge ? n : 0);
+  if constexpr (HALO && ND == 3) {
+    // 3D: axis ND-2 is halo axis 1
+    ld4_next<ND, VEC>(bm, a, h, it, ND - 2, m_edge ? n : 0);
+  } else {
+    ld4<VEC, true>(bm, a.b[ND - 2],
+                   fwd(it.idx, it.c[ND - 2], M, a.s[ND - 2], a.bc),
+                   m_edge ? n : 0);
+  }
   ld4<VEC, false>(o, a.orig, it.idx, n);
   ld4<VEC, true>(ro, a.recon, it.idx, n);
   if (REF) ld4<VEC, false>(rf, ref, it.idx, n);

@@ -84,13 +84,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # and the grid
         fn.argtypes = [vp] * 16 + [i] * 2 + [ll] * 4 + [i] * 6 + [vp]
         fn.restype = i
-    # the vector walk (float32, no halos): the state, scalars and sums,
-    # ndim, the extents; fista, bc, iso_r, iso_q, lossy; the item order's
-    # band, the two passes' grids
+    # the vector walk (float32): the state, scalars and sums, the seam
+    # pointer table (null: no halos), ndim, the extents; fista, bc, iso_r,
+    # iso_q, lossy; the item order's band, the two passes' grids
     lib.tv_fused_walk_f32.argtypes = \
-        [vp] * 15 + [i] + [ll] * 4 + [i] * 5 + [ll, i, i, vp]
+        [vp] * 16 + [i] + [ll] * 4 + [i] * 5 + [ll, i, i, vp]
     lib.tv_fused_walk_f32.restype = i
-    lib.tv_walk_occupancy.argtypes = [i] * 4 + [ctypes.POINTER(i)] * 3
+    lib.tv_walk_occupancy.argtypes = [i] * 5 + [ctypes.POINTER(i)] * 3
     lib.tv_walk_occupancy.restype = i
     # the state, scalars and sums, then the band table (null: no halos),
     # the halo mode and the first/last flags of its split axis, ndim; the

@@ -32,14 +32,20 @@ instantiation computes each +1 neighbour's first updated accumulator slab
 in the dual pass and leaves it in a scratch slab for the reconstruction
 pass.
 
-Float32 launches without halos take the kernel's vector walk
-(``tv_fused_walk_f32``: four elements of the last axis per thread, 128-bit
-accesses, every load of a work item before its first store, b before d,
-b and d stored evict-first; work items ordered so that an element's
-axis-0 neighbour is still in L2 when it is read again; each pass on at
-most :data:`WALK_PER_SM` blocks per SM that fit on the card at once).
-Launches with halos and float64 launches take the scalar passes
-(``tv_fused_iteration_f32``/``_f64``).
+Float32 launches take the kernel's vector walk (``tv_fused_walk_f32``:
+four elements of the last axis per thread, 128-bit accesses, every load of
+a work item before its first store, b before d, b and d stored
+evict-first; work items ordered so that an element's axis-0 neighbour is
+still in L2 when it is read again; each pass on at most
+:data:`WALK_PER_SM` blocks per SM that fit on the card at once) without
+halos, and with halos where the launch is Jia-Zhao and anisotropic and
+every halo axis is 0 or 1 (:func:`takes_walk`): every out-of-core slab,
+and every step of an axis-0, axis-1 or 2D-grid mesh that does not pair.
+The walk's items then read the seam slabs at their edges and recompute
+the +1 neighbour's first b slab beside their stores. Float64 launches,
+and launches with halos on axes 2 and 3, periodic or mirror boundaries
+or iso pairs, take the scalar passes (``tv_fused_iteration_f32``/
+``_f64``).
 
 :func:`fused_iteration` launches the kernel for CUDA tensors and runs
 :func:`fused_iteration_reference` — built from ``ops/stencil.py`` in the
@@ -71,9 +77,10 @@ _VW = 4
 #: blocks per SM of each walk pass at most: more blocks in flight than
 #: this ran slower at 256²×128² FISTA on an H100 (PERF.md §6)
 WALK_PER_SM = 2
-#: the walk's grids per (device, ndim, fista, iso, lossy), read once from
-#: the device's occupancy (each instantiation has its own registers)
-_WALK_GRID: Dict[Tuple[int, int, bool, bool, bool], Tuple[int, int]] = {}
+#: the walk's grids per (device, ndim, fista, iso, lossy, halo), read once
+#: from the device's occupancy (each instantiation has its own registers)
+_WALK_GRID: Dict[Tuple[int, int, bool, bool, bool, bool],
+                 Tuple[int, int]] = {}
 
 
 def fused_supported(shape, dtype, bc, isotropic_R=False, isotropic_Q=False,
@@ -110,10 +117,21 @@ def _work_items(shape: Tuple[int, ...]) -> int:
     return walk_rows(shape) * (-(-shape[-2] // _TY)) * (-(-shape[-1] // _TX))
 
 
-def takes_walk(dtype, halos) -> bool:
-    """Whether a CUDA launch takes the vector walk (float32, no halos) and
-    not the scalar passes."""
-    return dtype == torch.float32 and halos is None
+#: the halo axes whose seams the walk takes: the row axes in 4D, axis 0
+#: and the tiled axis 1 in 3D
+WALK_HALO_AXES = (0, 1)
+
+
+def takes_walk(dtype, halos=None, bc=BCMode.JIA_ZHAO, iso=False) -> bool:
+    """Whether a CUDA launch takes the vector walk and not the scalar
+    passes: float32, and with ``halos`` only Jia-Zhao anisotropic launches
+    (``iso``: a half-isotropic pair) whose halo axes all lie in
+    :data:`WALK_HALO_AXES`."""
+    if dtype != torch.float32:
+        return False
+    return halos is None or (
+        BCMode(bc) == BCMode.JIA_ZHAO and not iso
+        and set(halo_axes(halos)) <= set(WALK_HALO_AXES))
 
 
 def walk_tiles(shape: Tuple[int, ...]) -> Tuple[int, int, int]:
@@ -143,11 +161,13 @@ def walk_band(shape: Tuple[int, ...]) -> int:
     return shape[1] if len(shape) == 4 else 1
 
 
-def launch_items(shape: Tuple[int, ...], dtype, halos) -> Tuple[bool, int]:
+def launch_items(shape: Tuple[int, ...], dtype, halos, bc=BCMode.JIA_ZHAO,
+                 iso=False) -> Tuple[bool, int]:
     """``(walk, work items)`` of a CUDA launch: whether it takes the vector
-    walk, and its work items in that entry's tiling. Raises at 2**31 work
-    items or more (the kernels' 32-bit index arithmetic)."""
-    walk = takes_walk(dtype, halos)
+    walk (:func:`takes_walk`), and its work items in that entry's tiling.
+    Raises at 2**31 work items or more (the kernels' 32-bit index
+    arithmetic)."""
+    walk = takes_walk(dtype, halos, bc, iso)
     work = _walk_items(shape) if walk else _work_items(shape)
     if work >= 2**31:
         raise ValueError(f"shape {tuple(shape)}: {work} work items; the "
@@ -156,18 +176,18 @@ def launch_items(shape: Tuple[int, ...], dtype, halos) -> Tuple[bool, int]:
 
 
 def walk_grid(device: torch.device, ndim: int, fista: bool, iso: bool,
-              lossy: bool) -> Tuple[int, int]:
+              lossy: bool, halo: bool = False) -> Tuple[int, int]:
     """Blocks of the walk's dual and recon passes on ``device``: per pass,
     the blocks per SM that fit on the card at once (that instantiation's
     registers), at most :data:`WALK_PER_SM`, times SMs."""
     key = (device.index if device.index is not None
-           else torch.cuda.current_device(), ndim, fista, iso, lossy)
+           else torch.cuda.current_device(), ndim, fista, iso, lossy, halo)
     if key not in _WALK_GRID:
         lib = build.load()
         occ = [ctypes.c_int(0) for _ in range(3)]
         with torch.cuda.device(key[0]):
             build.check(lib.tv_walk_occupancy(
-                ndim, int(fista), int(iso), int(lossy),
+                ndim, int(fista), int(iso), int(lossy), int(halo),
                 *(ctypes.byref(c) for c in occ)))
         dual, recon, sms = (c.value for c in occ)
         _WALK_GRID[key] = (min(dual, WALK_PER_SM) * sms,
@@ -526,8 +546,8 @@ def fused_iteration(
     ``scratch``: ``{axis: slab}`` like ``nextA_recon`` for the kernel's
     recomputed slabs (default: allocated per call).
 
-    ``band`` and ``grid`` (float32 launches without halos on the card,
-    which take the vector walk): the item order's axis-1 indices per band,
+    ``band`` and ``grid`` (launches on the card that take the vector walk,
+    :func:`takes_walk`): the item order's axis-1 indices per band,
     1 to N1 in 4D and 1 in 3D (default :func:`walk_band`), and the blocks
     of both passes, or a ``(dual, recon)`` pair (default
     :func:`walk_grid`'s, capped by :data:`MAX_BLOCKS` and the work items).
@@ -540,7 +560,8 @@ def fused_iteration(
     ``fused_iteration.mode_launches`` those with a mesh-only mode (a halo
     axis above 1, periodic or mirror boundaries, or iso pairs with halos),
     ``fused_iteration.lossy_launches`` those with bfloat16 shadow duals,
-    ``fused_iteration.walk_launches`` those through the vector walk;
+    ``fused_iteration.walk_launches`` those through the vector walk (with
+    halos or without);
     ``fused_iteration.calls`` counts every call that passed the checks, on
     the CPU too.
 
@@ -563,10 +584,12 @@ def fused_iteration(
                          "anisotropic launches only")
     if halos is not None:
         _check_halos(halos, orig, fista, bc, iso_r, iso_q, edge_next)
-    walk = takes_walk(orig.dtype, halos)
+    iso = ndim == 4 and (iso_r or iso_q)
+    walk = takes_walk(orig.dtype, halos, bc, iso)
     if not walk and (band is not None or grid is not None):
         raise ValueError("band and grid set the vector walk's launch: "
-                         "float32 without halos")
+                         "float32, with halos only Jia-Zhao anisotropic on "
+                         "axes 0 and 1")
     most = orig.shape[1] if ndim == 4 else 1
     if band is not None and not 1 <= band <= most:
         raise ValueError(f"band: 1 to {most} axis-1 indices, got {band}")
@@ -590,12 +613,17 @@ def fused_iteration(
     bs, dd, dims, stream = _launch_args(orig, accs, ds if fista else None,
                                         scalars)
     lib = build.load()
-    walk, work = launch_items(tuple(orig.shape), orig.dtype, halos)
+    walk, work = launch_items(tuple(orig.shape), orig.dtype, halos, bc, iso)
+    table = None
+    if halos is not None:
+        if scratch is None:
+            scratch = seam_scratch(halos)
+        table = _halo_table(halos, scratch, fista, ndim, iso_r, iso_q)
     if walk:
-        iso = ndim == 4 and (iso_r or iso_q)
         blocks = grid if grid is not None else tuple(
             min(work, MAX_BLOCKS, g)
-            for g in walk_grid(orig.device, ndim, fista, iso, lossy))
+            for g in walk_grid(orig.device, ndim, fista, iso, lossy,
+                               halos is not None))
         partials = torch.empty(blocks[0] + 2 * blocks[1],
                                dtype=torch.float64, device=orig.device)
         out = torch.empty(3, dtype=orig.dtype, device=orig.device)
@@ -603,7 +631,7 @@ def fused_iteration(
             orig.data_ptr(), recon.data_ptr(), *bs, *dd,
             lambda_inv.data_ptr(), lam_mu.data_ptr(),
             rho.data_ptr() if fista else None,
-            partials.data_ptr(), out.data_ptr(), ndim, *dims,
+            partials.data_ptr(), out.data_ptr(), table, ndim, *dims,
             int(fista), int(bc), int(iso_r), int(iso_q), int(lossy),
             band if band is not None else walk_band(tuple(orig.shape)),
             *blocks, stream)
@@ -611,6 +639,7 @@ def fused_iteration(
         fused_iteration.calls += 1
         fused_iteration.launches += 1
         fused_iteration.walk_launches += 1
+        fused_iteration.halo_launches += halos is not None
         fused_iteration.lossy_launches += lossy
         return recon, accs, ds, out[0], out[1], out[2]
     fn = (lib.tv_fused_iteration_f32 if orig.dtype == torch.float32
@@ -618,11 +647,6 @@ def fused_iteration(
     nblocks = min(work, MAX_BLOCKS)
     partials = torch.empty(3 * nblocks, dtype=torch.float64, device=orig.device)
     out = torch.empty(3, dtype=orig.dtype, device=orig.device)
-    table = None
-    if halos is not None:
-        if scratch is None:
-            scratch = seam_scratch(halos)
-        table = _halo_table(halos, scratch, fista, ndim, iso_r, iso_q)
     err = fn(orig.data_ptr(), recon.data_ptr(), *bs, *dd,
              lambda_inv.data_ptr(), lam_mu.data_ptr(),
              rho.data_ptr() if fista else None,

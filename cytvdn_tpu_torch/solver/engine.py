@@ -417,7 +417,16 @@ def _pairs_pay(shape, dtype) -> bool:
     """Whether pairs beat the one-iteration loop on this shape: one array's
     axis-0 slab is at least :data:`PAIR_MIN_ROW_BYTES`. A throughput rule of
     the H100 port, kept apart from :func:`_resolve_temporal`, which is the
-    JAX gate; the result is bitwise the same either way."""
+    JAX gate; the result is bitwise the same either way.
+
+    Meshes take the same rule, though their measured crossings now lie the
+    other way (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6, ROADMAP
+    S8): at config 4's (2, 1, 1, 1) shard a ``HALO0`` pair took 20.537 ms
+    per iteration against 18.540 for two K=1 launches with halos on the
+    vector walk, at its (1, 2, 1, 1) shard a ``HALO1`` pair 20.864 against
+    18.509, kernels alone and in turns; end to end on (1, 2, 1, 1), two
+    ranks sharing the card through gloo, 129.4-131.3 ms per iteration in
+    pairs (x20) against 76.5-81.4 on the K=1 loop (x4)."""
     row = dtype.itemsize
     for e in shape[1:]:
         row *= e

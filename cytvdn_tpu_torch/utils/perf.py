@@ -21,6 +21,11 @@ PEAK_F32 = {
     "H100 80GB HBM3": 67e12,
 }
 
+#: published peak float64 rate outside the tensor cores (operations/s)
+PEAK_F64 = {
+    "H100 80GB HBM3": 34e12,
+}
+
 
 def _lookup(table, device_name: str) -> Optional[float]:
     for key, value in table.items():
@@ -37,6 +42,11 @@ def peak_bandwidth(device_name: str) -> Optional[float]:
 def peak_f32(device_name: str) -> Optional[float]:
     """Published peak float32 operations/s of a card by name, or None."""
     return _lookup(PEAK_F32, device_name)
+
+
+def peak_f64(device_name: str) -> Optional[float]:
+    """Published peak float64 operations/s of a card by name, or None."""
+    return _lookup(PEAK_F64, device_name)
 
 
 def traversals_per_iteration(ndim: int, fista: bool, backend: str,
@@ -146,7 +156,8 @@ def launch_operations(shape, fista: bool, iterations: int,
 def launch_bound_seconds(shape, fista: bool, iterations: int,
                          bandwidth: float, flops: float, ref: bool = False,
                          band_rows: int = 0, halo_elems: int = 0,
-                         d_itemsize: Optional[int] = None):
+                         d_itemsize: Optional[int] = None,
+                         itemsize: int = 4):
     """The least time one launch could take on a card with ``bandwidth``
     bytes/s and ``flops`` operations/s: the larger of :func:`launch_bytes`
     over the bandwidth and :func:`launch_operations` over the rate, and
@@ -156,8 +167,11 @@ def launch_bound_seconds(shape, fista: bool, iterations: int,
     of seam bands it also moves (the pair kernel's ``HALO0`` launch);
     ``halo_elems``: elements of seam operands it also reads (the K=1
     kernel's ``HALO`` launch, :func:`k1_halo_elements`); ``d_itemsize``:
-    bytes per shadow-dual element (2: the K=1 kernel's lossy launch)."""
-    t_bytes = launch_bytes(shape, fista, ref=ref, band_rows=band_rows,
+    bytes per shadow-dual element (2: the K=1 kernel's lossy launch);
+    ``itemsize``: bytes per element of the data (8: float64, with
+    ``flops`` then the float64 rate)."""
+    t_bytes = launch_bytes(shape, fista, itemsize=itemsize, ref=ref,
+                           band_rows=band_rows,
                            halo_elems=halo_elems,
                            d_itemsize=d_itemsize) / bandwidth
     t_ops = launch_operations(shape, fista, iterations, ref=ref) / flops

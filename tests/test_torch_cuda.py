@@ -29,10 +29,14 @@ at every level), at every depth, its tile edges, forced grids, rows per
 stage and bfloat16 views off 16-byte boundaries, against K LOSSY K=1
 launches and (K even) K/2 LOSSY pairs, and lossy runs that K-step on the
 card against the lossy K=1 loop. The K=1 kernel's vector walk (its
-float32 launches without halos) is held against its plain version at
-ragged last extents, forced grids, item orders and states off 16-byte
-boundaries, d included, and repeats exactly; float64 launches and
-launches with halos take the scalar passes.
+float32 launches without halos, and with Jia-Zhao anisotropic halos on
+axes 0 and 1) is held against its plain version at ragged last extents,
+forced grids, item orders and states off 16-byte boundaries, d included,
+and repeats exactly; with halos on the first, interior and last blocks
+along axis 0 and axis 1, the corners of a 2 x 2 grid and blocks of extent
+1, seam slabs off 16-byte boundaries too, and blocks put back against one
+launch; float64 launches and the other launches with halos (axes 2 and 3,
+rings, mirror edges, iso pairs) take the scalar passes.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -46,8 +50,17 @@ import pytest
 torch = pytest.importorskip("torch")
 
 # the K-step kernel's tile-edge cases and the K=1 kernel's vector-walk
-# cases, shared with the card smoke run
-from chip_smoke import kstep_edge_cases, walk_cases, walk_state  # noqa: E402
+# cases (with halos too), shared with the card smoke run
+from chip_smoke import (  # noqa: E402
+    WALK_HALO_LAYOUTS,
+    WALK_HALO_MODES,
+    WALK_HALO_SHAPES,
+    compare_walk_halo_case,
+    kstep_edge_cases,
+    walk_cases,
+    walk_halo_blocks_equal_one_launch,
+    walk_state,
+)
 from cytvdn_tpu_torch.kernels import fused as tfused  # noqa: E402
 from cytvdn_tpu_torch.kernels import kstep as tkstep  # noqa: E402
 from cytvdn_tpu_torch.kernels import resident as tres  # noqa: E402
@@ -2358,35 +2371,138 @@ def test_walk_unaligned_state_and_item_orders(shape, mode):
             _assert_same(runs, (band, grid))
 
 
+# -- the walk with halos (Jia-Zhao, anisotropic, seams on axes 0 and 1) ------
+
+
 @pytest.mark.cuda
-def test_halo_and_float64_launches_take_the_scalar_passes():
-    """Only float32 launches without halos take the vector walk: a float64
-    launch and a float32 launch with halos count as launches but not as
-    walk launches, and refuse ``band`` and ``grid``."""
+@pytest.mark.parametrize("mode", WALK_HALO_MODES,
+                         ids=["fista", "unaccelerated", "lossy"])
+@pytest.mark.parametrize("layout", sorted(WALK_HALO_LAYOUTS))
+@pytest.mark.parametrize("shape", WALK_HALO_SHAPES, ids=str)
+def test_walk_halo_bitwise_equals_plain(shape, layout, mode):
+    """Three launches with halos through the walk on each block of the
+    layout (the first, an interior and the last block along axis 0 and
+    along axis 1, the four corners of a 2 x 2 grid, blocks of extent 1 on
+    axis 0 and on both axes) against the plain version with the same
+    halos, at the wrapper's grid and forced grids of 1, 7 and all blocks,
+    and (4D) bands of 1, 2 and N1 axis-1 indices: state bitwise, d
+    included, sums within rtol 1e-5, every launch a walk launch with
+    halos."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    shape = (9, 10, 11, 12)
-    li = torch.linspace(0.2, 0.35, 4, device="cuda")
-    lm = torch.linspace(1 / 32, 1 / 48, 4, device="cuda")
-    orig, state = _walk_state(shape, True, False)
-    st64 = [x.double() for x in state]
-    before = (tfused.fused_iteration.launches,
-              tfused.fused_iteration.walk_launches)
-    tfused.fused_iteration(orig.double(), st64[0], st64[1:5], st64[5:],
-                           torch.tensor(0.37, device="cuda",
-                                        dtype=torch.float64),
-                           li.double(), lm.double(), fista=True)
-    orig, state = _halo_state(shape, True, torch.float32)
-    a0, a1 = 3, 6
-    slab = [x[a0:a1].clone() for x in state]
-    h = _seams(state, 4, a0, a1, True)
-    rho = torch.tensor(0.37, device="cuda")
-    tfused.fused_iteration(orig[a0:a1].contiguous(), slab[0], slab[1:5],
-                           slab[5:], rho, li, lm, fista=True, halos=h)
+    nd = len(shape)
+    bands = (None, 1, 2, "N1") if nd == 4 else (None,)
+    compare_walk_halo_case(shape, layout, mode, grids=(None, 1, 7, "all"),
+                           bands=bands)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(WALK_HALO_LAYOUTS))
+@pytest.mark.parametrize("shape", WALK_HALO_SHAPES, ids=str)
+def test_walk_halo_unaligned_seams(shape, layout):
+    """Every array and seam slab one element past a 16-byte boundary: the
+    walk's element-by-element path with halos, exact, unaccelerated and
+    lossy, at the wrapper's grid and 1 and 7 blocks, bitwise the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    for mode in WALK_HALO_MODES:
+        compare_walk_halo_case(shape, layout, mode, offset=1,
+                               grids=(None, 1, 7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", WALK_HALO_MODES,
+                         ids=["fista", "unaccelerated", "lossy"])
+@pytest.mark.parametrize("layout", sorted(WALK_HALO_LAYOUTS))
+@pytest.mark.parametrize("shape", WALK_HALO_SHAPES, ids=str)
+def test_walk_halo_blocks_reassemble_to_one_launch(shape, layout, mode):
+    """A Jia-Zhao state cut into every block of the layout's grid, each
+    launched through the walk with halos and put back: bitwise one launch
+    of the whole cube without halos, d included; the sums add up."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    walk_halo_blocks_equal_one_launch(shape, layout, mode)
+
+
+def _route_launch(case):
+    """One K=1 launch on the card in route case ``case`` (a block of a small
+    cube with its halos, or a whole cube); returns (launches, walk launches,
+    halo launches) it made and a function that makes it again with
+    keyword arguments (``band``/``grid``)."""
+    from torch_halo_blocks import HALO_MODES, block_halos, block_state, \
+        mode_coords
+
+    dtype = torch.float64 if case.endswith("f64") else torch.float32
+    name = case.removesuffix("-f64")
+    if name == "whole":
+        mode, shape, grid, coords = {}, (9, 10, 11, 12), None, None
+    elif name in ("slab", "block", "block3d"):
+        shape = {"slab": (9, 10, 11, 12), "block": (6, 6, 11, 12),
+                 "block3d": (6, 6, 33)}[name]
+        grid = {"slab": (3, 1), "block": (2, 2), "block3d": (2, 2)}[name]
+        grid = grid + (1,) * (len(shape) - 2)
+        mode = {}
+        coords = (1, int(name != "slab")) + (0,) * (len(shape) - 2)
+    else:
+        mode, shape, grid, ax = HALO_MODES[name]
+        coords = mode_coords(grid, ax, 1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    orig, state = walk_state(shape, True, False, gen)
+    orig, state = orig.to(dtype), [x.to(dtype) for x in state]
+    nd = len(shape)
+    li = torch.linspace(0.2, 0.35, nd, device="cuda", dtype=dtype)
+    lm = torch.linspace(1 / 32, 1 / 48, nd, device="cuda", dtype=dtype)
+    rho = torch.tensor(0.37, device="cuda", dtype=dtype)
+    halos, edge = None, None
+    if grid is not None:
+        halos, edge = block_halos(state[0], state[1:1 + nd], state[1 + nd:],
+                                  grid, coords, **mode)
+        orig, *state = block_state([orig] + state, grid, coords)
+
+    def launch(**kw):
+        return tfused.fused_iteration(
+            orig, state[0], state[1:1 + nd], state[1 + nd:], rho, li, lm,
+            fista=True, halos=halos, edge_next=edge, **mode, **kw)
+
+    f = tfused.fused_iteration
+    before = (f.launches, f.walk_launches, f.halo_launches)
+    launch()
     torch.cuda.synchronize()
-    assert tfused.fused_iteration.launches - before[0] == 2
-    assert tfused.fused_iteration.walk_launches == before[1]
-    with pytest.raises(ValueError, match="vector walk"):
-        tfused.fused_iteration(orig[a0:a1].contiguous(), slab[0], slab[1:5],
-                               slab[5:], rho, li, lm, fista=True, halos=h,
-                               grid=7)
+    return (f.launches - before[0], f.walk_launches - before[1],
+            f.halo_launches - before[2]), launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["whole-f64", "slab-f64", "ring", "mirror",
+                                  "iso-seam0", "iso-seam1", "iso-corner",
+                                  "inblock2", "inblock3", "iso-q-corner",
+                                  "energy"])
+def test_halo_and_float64_launches_take_the_scalar_passes(case):
+    """Float64 launches, with halos or without, and float32 launches with
+    halos on axes 2 or 3, ring or mirror halos, or iso seams and corners
+    take the scalar passes: each counts as a launch but not as a walk
+    launch, and refuses ``band`` and ``grid``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    counts, launch = _route_launch(case)
+    assert counts[:2] == (1, 0), counts
+    assert counts[2] == (case != "whole-f64")
+    for kw in (dict(grid=7), dict(band=1)):
+        with pytest.raises(ValueError, match="vector walk"):
+            launch(**kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["whole", "slab", "block", "block3d"])
+def test_row_axis_halo_launches_take_the_walk(case):
+    """Float32 Jia-Zhao anisotropic launches without halos and with halos
+    on axes 0 and 1 only (an out-of-core slab, a 2D-grid block in 4D and
+    3D) take the walk: each counts as a walk launch (and, with halos, as a
+    halo launch) and takes ``band`` and ``grid``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    counts, launch = _route_launch(case)
+    assert counts == (1, 1, int(case != "whole")), counts
+    launch(grid=7, band=1)
+    torch.cuda.synchronize()

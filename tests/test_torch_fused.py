@@ -267,14 +267,12 @@ def _inblock_half(orig, recon, accs, ds, li, lm, grid, coords, fista):
 
 def test_launch_route_tiling_and_item_guard():
     """The wrapper's pure-Python launch plan: float32 launches without
-    halos take the vector walk, float64 launches and launches with halos
-    the scalar passes; the walk's tiling (``csrc/vec_walk.cuh::set_tiles``)
-    and default item order; each entry's 2**31 work-item guard in its own
-    tiling."""
-    halos = {"prev0": torch.zeros(1)}
+    halos take the vector walk, float64 launches the scalar passes (launches
+    with halos: test_launch_route_with_halos); the walk's tiling
+    (``csrc/vec_walk.cuh::set_tiles``) and default item order; each
+    entry's 2**31 work-item guard in its own tiling."""
     assert tfused.takes_walk(torch.float32, None)
     assert not tfused.takes_walk(torch.float64, None)
-    assert not tfused.takes_walk(torch.float32, halos)
     # (lw, tiles of 256 / lw rows, tiles of 4 lw elements)
     assert tfused.walk_tiles((256, 256, 128, 128)) == (32, 16, 1)
     assert tfused.walk_tiles((256, 256, 2048)) == (32, 32, 16)
@@ -286,8 +284,6 @@ def test_launch_route_tiling_and_item_guard():
                                None) == (True, 65536 * 16)
     assert tfused.launch_items((256, 256, 128, 128), torch.float64,
                                None) == (False, 65536 * 64)
-    assert tfused.launch_items((256, 256, 128, 128), torch.float32,
-                               halos) == (False, 65536 * 64)
     assert tfused.walk_rows((6, 13, 64)) == 6
     assert tfused.walk_band((6, 13, 64)) == 1
     assert tfused.walk_rows((5, 7, 9, 30)) == 35
@@ -299,6 +295,46 @@ def test_launch_route_tiling_and_item_guard():
         tfused.launch_items(big, torch.float64, None)
     with pytest.raises(ValueError, match="2\\*\\*31"):
         tfused.launch_items((2**16, 2**15, 8, 128), torch.float32, None)
+
+
+def _halo_dict(axes, fista=True, iso_keys=()):
+    """A halo dict's keys for ``axes`` (values are never read by the
+    route)."""
+    keys = [k for ax in axes for k in tfused.halo_keys(ax, fista)]
+    return {k: torch.zeros(1) for k in keys + list(iso_keys)}
+
+
+@pytest.mark.parametrize("case", [
+    # (shape, dtype, halo axes, bc, iso, takes the walk): Jia-Zhao
+    # anisotropic float32 launches with halos on axes 0 and 1 only take
+    # the walk (out-of-core slabs, axis-0, axis-1 and 2D-grid shards, 3D
+    # and 4D); float64, halos on axes 2 and 3, rings, mirror edges and iso
+    # pairs the scalar passes
+    ((64, 256, 128, 128), torch.float32, (0, 1), 2, False, True),
+    ((64, 256, 2048), torch.float32, (0, 1), 2, False, True),
+    ((64, 256, 128, 128), torch.float32, (0,), 2, False, True),
+    ((64, 256, 128, 128), torch.float64, (0, 1), 2, False, False),
+    ((64, 256, 2048), torch.float64, (0, 1), 2, False, False),
+    ((64, 256, 128, 128), torch.float32, (0, 1, 2), 2, False, False),
+    ((64, 256, 128, 128), torch.float32, (0, 1, 3), 2, False, False),
+    ((64, 256, 2048), torch.float32, (0, 1, 2), 2, False, False),
+    ((64, 256, 128, 128), torch.float32, (0, 1), 0, False, False),
+    ((64, 256, 128, 128), torch.float32, (0, 1), 1, False, False),
+    ((64, 256, 2048), torch.float32, (0, 1), 0, False, False),
+    ((64, 256, 128, 128), torch.float32, (0, 1), 2, True, False),
+], ids=str)
+def test_launch_route_with_halos(case):
+    """``takes_walk``/``launch_items`` with halos: the entry a CUDA launch
+    takes and its work items in that entry's tiling (the walk's tiles of
+    256 / lw rows by 4 lw elements, the scalar passes' 8 x 32 tiles)."""
+    shape, dtype, axes, bc, iso, walk = case
+    halos = _halo_dict(axes)
+    assert tfused.takes_walk(dtype, halos, bc, iso) is walk
+    lw, tm, tl = tfused.walk_tiles(shape)
+    rows = tfused.walk_rows(shape)
+    work = rows * tm * tl if walk else \
+        rows * -(-shape[-2] // 8) * -(-shape[-1] // 32)
+    assert tfused.launch_items(shape, dtype, halos, bc, iso) == (walk, work)
 
 
 def test_wrapper_checks_the_walk_launch_options():
